@@ -2,9 +2,11 @@
 
 Sequence-space Newton-Raphson for perfect-foresight transition paths of
 heterogeneous-agent models (Boehl 2024). Plain functions on torch tensors;
-the household sweeps of the path solver run in hand-written CUDA kernels
-(`ops/fused_sweep.py`, `ops/fused_residual.py`, `csrc/household_sweep.cu`)
-on CUDA tensors and in their plain PyTorch versions on CPU tensors.
+the household sweeps of the path solver and of the ensemble solver
+(`parallel/ensemble.py`) run in hand-written CUDA kernels
+(`ops/fused_sweep.py`, `ops/fused_sweep_batch.py`, `ops/fused_residual.py`,
+`csrc/household_sweep.cu`) on CUDA tensors and in their plain PyTorch
+versions on CPU tensors.
 
 This package imports torch and numpy, never jax or hank_tpu. Dtypes are
 passed explicitly (float64 by default); it never changes torch's default
@@ -21,6 +23,11 @@ from hank_tpu_torch.model.structures import (
     Variable,
 )
 from hank_tpu_torch.models import load_model
+from hank_tpu_torch.parallel.ensemble import (
+    residual_ensemble,
+    solve_ensemble,
+    solve_ensemble_host,
+)
 from hank_tpu_torch.solvers.newton import (
     make_full_residual_fn,
     make_path_solver,
@@ -47,4 +54,7 @@ __all__ = [
     "make_full_residual_fn",
     "make_path_solver",
     "newton_raphson_hank",
+    "residual_ensemble",
+    "solve_ensemble",
+    "solve_ensemble_host",
 ]

@@ -3,14 +3,28 @@
 // forward Young-lottery push-forward of the distribution, returning the
 // savings and consumption aggregate paths.
 //
-// One source, two instantiations:
-//   household_sweep_kernel<float, true>   replaces the TPU kernel
-//       hank_tpu/ops/fused_sweep.py:fused_sweep_jvp (_make_fused_sweep_kernel):
-//       f32 primal + tangent (dual numbers), every GMRES matvec.
-//   household_sweep_kernel<double, false> replaces the TPU kernel
-//       hank_tpu/ops/fused_ds.py:fused_ds_residual_sweep (_make_fused_ds_kernel):
-//       the full-precision residual sweep, here in native FP64 instead of
-//       double-single f32 pairs, with general pow (no integer-gamma gate).
+// One source, one kernel template with a grid axis over paths
+// (gridDim.x = B, one block per path), in two arithmetics, each built for
+// B = 1 (path offset compiled out) and for B > 1:
+//   household_sweep_kernel<float, true>   f32 primal + tangent (dual numbers).
+//       B = 1 replaces the TPU kernel hank_tpu/ops/fused_sweep.py:
+//       fused_sweep_jvp (_make_fused_sweep_kernel), every GMRES matvec of a
+//       single path. B > 1 replaces the TPU kernel pair of
+//       hank_tpu/ops/fused_sweep_batch.py (_make_bwd_kernel and
+//       _make_fwd_kernel), every lockstep matvec of an ensemble. The TPU
+//       split the batch into a backward and a forward kernel only because
+//       B x 137 MB of policies cannot stay in VMEM; here each block keeps
+//       its path's policies in its own slice of a global scratch buffer.
+//   household_sweep_kernel<double, false> values only, native FP64.
+//       B = 1 replaces the TPU kernel hank_tpu/ops/fused_ds.py:
+//       fused_ds_residual_sweep (_make_fused_ds_kernel), here in native FP64
+//       instead of double-single f32 pairs, with general pow (no
+//       integer-gamma gate); B > 1 is the batched residual of an ensemble.
+// A block reads only its own row of the price paths (and tangents), writes
+// only its own policy slice and output row, and shares V_T, D0, the grids
+// and Pi with every other block, so row b of a batched launch does the same
+// arithmetic in the same order on the same values as a B = 1 launch on row
+// b: the two are bit-identical (chip_smoke.py checks every row).
 //
 // Semantics follow hank_tpu/ops/fused_sweep.py:215-375 step for step: the
 // 1e-12 expectation floor (tangent zeroed where it binds), the Euler
@@ -21,13 +35,14 @@
 // the Markov mix, aggregates against the post-transition distribution.
 //
 // What bounds it on the H100: it is latency-bound. One block of 1024 threads
-// walks the 2*(T-1) periods one after another on a single SM (of 132); the
-// carries (V, D and their tangents) live in shared memory and the per-period
-// policies go to a global scratch buffer that stays in the 50 MB L2. Every
-// period is a few block-wide barriers around O(n_e*n_a*n_a) compares and
-// FMAs, so the card is almost idle. A later PR batches paths over SMs (one
-// block per path, the ensemble sweep of hank_tpu/ops/fused_sweep_batch.py
-// needs exactly that grid axis) and shortens the per-period critical path.
+// walks the 2*(T-1) periods of its path one after another on a single SM;
+// the carries (V, D and their tangents) live in shared memory and the
+// per-period policies go to a global scratch buffer. Every period is a few
+// block-wide barriers around O(n_e*n_a*n_a) compares and FMAs. One path
+// occupies one SM of 132; the path axis fills the others, and past 132
+// paths the launch runs in waves. The scratch traffic is small (at B = 64,
+// 214 MB written and read once per sweep, ~0.13 ms at HBM rate), so a wave
+// costs about what one path does.
 //
 // Determinism: no float atomics. Each destination is summed by one thread in
 // a fixed order and the aggregates by a fixed-order tree, so two runs are
@@ -43,16 +58,16 @@ template <typename S> __device__ __forceinline__ S spow(S a, S b);
 template <> __device__ __forceinline__ float spow<float>(float a, float b) { return powf(a, b); }
 template <> __device__ __forceinline__ double spow<double>(double a, double b) { return pow(a, b); }
 
-template <typename S, bool TANGENT>
+template <typename S, bool TANGENT, bool BATCHED>
 __global__ void __launch_bounds__(kThreads) household_sweep_kernel(
-    const S* __restrict__ r_path, const S* __restrict__ w_path,     // (Tm1,)
-    const S* __restrict__ dr_path, const S* __restrict__ dw_path,   // (Tm1,) or null
+    const S* __restrict__ r_path, const S* __restrict__ w_path,     // (B, Tm1)
+    const S* __restrict__ dr_path, const S* __restrict__ dw_path,   // (B, Tm1) or null
     const S* __restrict__ V_T, const S* __restrict__ D0,            // (n_e, n_a)
     const S* __restrict__ grid_g, const S* __restrict__ egrid_g,    // (n_a,), (n_e,)
     const S* __restrict__ Pi_g,                                     // (n_e, n_e) row-stochastic
-    S* __restrict__ pol_scr, S* __restrict__ dpol_scr,              // (Tm1, n_e, n_a)
-    S* __restrict__ agg, S* __restrict__ dagg,                      // (Tm1,)
-    S* __restrict__ aggc, S* __restrict__ daggc,                    // (Tm1,)
+    S* __restrict__ pol_scr, S* __restrict__ dpol_scr,              // (B, Tm1, n_e, n_a)
+    S* __restrict__ agg, S* __restrict__ dagg,                      // (B, Tm1)
+    S* __restrict__ aggc, S* __restrict__ daggc,                    // (B, Tm1)
     int Tm1, int n_a, int n_e, S beta, S gamma, S borrow_cons)
 {
     constexpr int kRed = TANGENT ? 4 : 2;
@@ -60,6 +75,24 @@ __global__ void __launch_bounds__(kThreads) household_sweep_kernel(
     S* smem = reinterpret_cast<S*>(smem_raw);
     const int n = n_a * n_e;
     const int tid = threadIdx.x;
+
+    // This block's path. Offsets in size_t: at B = 1024 one scratch buffer
+    // holds 1024*299*1400 f32 values, past 2^31 bytes. A single-path launch
+    // (BATCHED = false) compiles the offset out: with a runtime offset nvcc
+    // schedules the f32 body differently and it runs ~9% slower per path.
+    const size_t path = BATCHED ? blockIdx.x : 0;
+    r_path += path * Tm1;
+    w_path += path * Tm1;
+    pol_scr += path * Tm1 * n;
+    agg += path * Tm1;
+    aggc += path * Tm1;
+    if (TANGENT) {
+        dr_path += path * Tm1;
+        dw_path += path * Tm1;
+        dpol_scr += path * Tm1 * n;
+        dagg += path * Tm1;
+        daggc += path * Tm1;
+    }
 
     // Shared layout: three state buffers (and their tangents), the grid
     // with its hat-basis neighbours and slopes, labor, Pi, reduction slots.
@@ -281,14 +314,15 @@ template <typename S, bool TANGENT>
 int launch(const void* r, const void* w, const void* dr, const void* dw,
            const void* V_T, const void* D0, const void* grid, const void* egrid,
            const void* Pi, void* pol, void* dpol, void* agg, void* dagg,
-           void* aggc, void* daggc, int Tm1, int n_a, int n_e,
+           void* aggc, void* daggc, int B, int Tm1, int n_a, int n_e,
            double beta, double gamma, double borrow_cons, void* stream) {
     const size_t smem = smem_bytes<S, TANGENT>(n_a, n_e);
-    auto kern = household_sweep_kernel<S, TANGENT>;
+    auto kern = B > 1 ? household_sweep_kernel<S, TANGENT, true>
+                      : household_sweep_kernel<S, TANGENT, false>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    kern<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         (const S*)r, (const S*)w, (const S*)dr, (const S*)dw,
         (const S*)V_T, (const S*)D0, (const S*)grid, (const S*)egrid,
         (const S*)Pi, (S*)pol, (S*)dpol, (S*)agg, (S*)dagg, (S*)aggc,
@@ -300,8 +334,21 @@ int launch(const void* r, const void* w, const void* dr, const void* dw,
 
 // Plain C interface (loaded with ctypes). Each launcher returns the
 // cudaError_t of the attribute call or of cudaGetLastError() right after the
-// launch; 0 means the kernel was enqueued on `stream`.
+// launch; 0 means the kernel was enqueued on `stream`. The single-path entry
+// points are B = 1 launches of the batched ones.
 extern "C" {
+
+int hank_sweep_jvp_f32_batch(const void* r, const void* w, const void* dr,
+                             const void* dw, const void* V_T, const void* D0,
+                             const void* grid, const void* egrid, const void* Pi,
+                             void* pol, void* dpol, void* agg, void* dagg,
+                             void* aggc, void* daggc, int B, int Tm1, int n_a,
+                             int n_e, double beta, double gamma,
+                             double borrow_cons, void* stream) {
+    return launch<float, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
+                               agg, dagg, aggc, daggc, B, Tm1, n_a, n_e, beta,
+                               gamma, borrow_cons, stream);
+}
 
 int hank_sweep_jvp_f32(const void* r, const void* w, const void* dr, const void* dw,
                        const void* V_T, const void* D0, const void* grid,
@@ -309,9 +356,20 @@ int hank_sweep_jvp_f32(const void* r, const void* w, const void* dr, const void*
                        void* agg, void* dagg, void* aggc, void* daggc,
                        int Tm1, int n_a, int n_e, double beta, double gamma,
                        double borrow_cons, void* stream) {
-    return launch<float, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
-                               agg, dagg, aggc, daggc, Tm1, n_a, n_e, beta, gamma,
-                               borrow_cons, stream);
+    return hank_sweep_jvp_f32_batch(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol,
+                                    dpol, agg, dagg, aggc, daggc, 1, Tm1, n_a,
+                                    n_e, beta, gamma, borrow_cons, stream);
+}
+
+int hank_sweep_residual_f64_batch(const void* r, const void* w, const void* V_T,
+                                  const void* D0, const void* grid,
+                                  const void* egrid, const void* Pi, void* pol,
+                                  void* agg, void* aggc, int B, int Tm1, int n_a,
+                                  int n_e, double beta, double gamma,
+                                  double borrow_cons, void* stream) {
+    return launch<double, false>(r, w, nullptr, nullptr, V_T, D0, grid, egrid, Pi,
+                                 pol, nullptr, agg, nullptr, aggc, nullptr, B, Tm1,
+                                 n_a, n_e, beta, gamma, borrow_cons, stream);
 }
 
 int hank_sweep_residual_f64(const void* r, const void* w, const void* V_T,
@@ -319,9 +377,9 @@ int hank_sweep_residual_f64(const void* r, const void* w, const void* V_T,
                             const void* Pi, void* pol, void* agg, void* aggc,
                             int Tm1, int n_a, int n_e, double beta, double gamma,
                             double borrow_cons, void* stream) {
-    return launch<double, false>(r, w, nullptr, nullptr, V_T, D0, grid, egrid, Pi,
-                                 pol, nullptr, agg, nullptr, aggc, nullptr, Tm1,
-                                 n_a, n_e, beta, gamma, borrow_cons, stream);
+    return hank_sweep_residual_f64_batch(r, w, V_T, D0, grid, egrid, Pi, pol, agg,
+                                         aggc, 1, Tm1, n_a, n_e, beta, gamma,
+                                         borrow_cons, stream);
 }
 
 size_t hank_sweep_smem_bytes(int tangent, int n_a, int n_e) {

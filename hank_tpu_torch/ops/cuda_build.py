@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-`csrc/household_sweep.cu` is compiled by nvcc for Hopper (`sm_90a`) into a
+`csrc/household_sweep.cu` (single-path and path-batched entry points of
+one kernel template) is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `hank_tpu_torch/_build/`
 (git-ignored), keyed by the SHA-256 of the source so an edited source
 rebuilds. The library is loaded with ctypes. Nothing here runs at import:
@@ -75,6 +76,10 @@ def load_library() -> ctypes.CDLL:
     lib.hank_sweep_jvp_f32.restype = i
     lib.hank_sweep_residual_f64.argtypes = [p] * 10 + [i] * 3 + [d] * 3 + [p]
     lib.hank_sweep_residual_f64.restype = i
+    lib.hank_sweep_jvp_f32_batch.argtypes = [p] * 15 + [i] * 4 + [d] * 3 + [p]
+    lib.hank_sweep_jvp_f32_batch.restype = i
+    lib.hank_sweep_residual_f64_batch.argtypes = [p] * 10 + [i] * 4 + [d] * 3 + [p]
+    lib.hank_sweep_residual_f64_batch.restype = i
     lib.hank_sweep_smem_bytes.argtypes = [i, i, i]
     lib.hank_sweep_smem_bytes.restype = ctypes.c_size_t
     lib.hank_cuda_error_string.argtypes = [i]

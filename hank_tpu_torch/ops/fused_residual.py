@@ -13,6 +13,12 @@ plain PyTorch version `fused_residual_sweep_reference` (the f64 household
 blocks) only for CPU tensors. `make_sweep_residual_fn` is the reference's
 `make_ds_residual_fn` F (`hank_tpu/ops/fused_ds.py:497-507`): every
 full-precision F(x) of the path solver.
+
+`fused_residual_sweep_batch` is the same kernel over an ensemble, one block
+per path (plain version `fused_residual_sweep_batch_reference`), and
+`make_sweep_residual_fn_batch` the ensemble's F_b: every full-precision
+residual of `parallel/ensemble.py`. The reference computes that one as
+`jax.vmap` of the f64 pipeline (`hank_tpu/parallel/ensemble.py:76-95`).
 """
 
 from __future__ import annotations
@@ -20,10 +26,8 @@ from __future__ import annotations
 import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
-from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import (_check_inputs, _fused_price_hook,
-                                            aggregate_keys, household_aggregates,
-                                            supports_fused_sweep)
+from hank_tpu_torch.ops.fused_sweep import (_check_inputs, household_aggregates,
+                                            launch_sweep, sweep_setup)
 
 f64 = torch.float64
 
@@ -33,30 +37,16 @@ def fused_residual_sweep(r_path, w_path, V_T, D0, grid, e_grid, Pi,
     """(r, w) f64 price paths ↦ (agg, aggc): the (T-1,) f64 savings and
     consumption aggregate paths. Inputs float64, contiguous, on one device;
     state arrays (n_a, n_e)."""
-    Tm1, n_a, n_e = _check_inputs("fused_residual_sweep", f64, (r_path, w_path),
-                                  V_T, D0, grid, e_grid, Pi)
+    _check_inputs("fused_residual_sweep", f64, (r_path, w_path),
+                  V_T, D0, grid, e_grid, Pi)
+    kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
-        return fused_residual_sweep_reference(
-            r_path, w_path, V_T, D0, grid, e_grid, Pi,
-            beta=beta, gamma=gamma, borrow_cons=borrow_cons)
-
-    lib = cuda_build.load_library()
-    cuda_build.check_shared_memory(lib, False, n_a, n_e)
-    dev = V_T.device
-    with torch.cuda.device(dev):
-        V_eT = V_T.T.contiguous()          # kernel layout (n_e, n_a)
-        D_eT = D0.T.contiguous()
-        pol = torch.empty((Tm1, n_e, n_a), dtype=f64, device=dev)
-        out = torch.empty((2, Tm1), dtype=f64, device=dev)
-        err = lib.hank_sweep_residual_f64(
-            r_path.data_ptr(), w_path.data_ptr(), V_eT.data_ptr(), D_eT.data_ptr(),
-            grid.data_ptr(), e_grid.data_ptr(), Pi.data_ptr(), pol.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), Tm1, n_a, n_e,
-            float(beta), float(gamma), float(borrow_cons),
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, err, "fused_residual_sweep")
+        return fused_residual_sweep_reference(r_path, w_path, V_T, D0, grid,
+                                              e_grid, Pi, **kw)
+    out = launch_sweep("hank_sweep_residual_f64", (r_path, w_path), V_T, D0, grid,
+                       e_grid, Pi, n_out=2, **kw)
     fused_residual_sweep.launches += 1
-    return out[0], out[1]
+    return out
 
 
 fused_residual_sweep.launches = 0
@@ -74,35 +64,82 @@ def fused_residual_sweep_reference(r_path, w_path, V_T, D0, grid, e_grid, Pi,
 fused_residual_sweep_reference.calls = 0
 
 
+def fused_residual_sweep_batch(r_b, w_b, V_T, D0, grid, e_grid, Pi,
+                               *, beta: float, gamma: float, borrow_cons: float):
+    """Kernel 2 over an ensemble: (B, T-1) f64 price paths ↦ (agg, aggc),
+    each (B, T-1), in one launch of one block per path. Row b is
+    bit-identical to `fused_residual_sweep` on row b."""
+    _check_inputs("fused_residual_sweep_batch", f64, (r_b, w_b),
+                  V_T, D0, grid, e_grid, Pi, batched=True)
+    kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    if V_T.device.type == "cpu":
+        return fused_residual_sweep_batch_reference(r_b, w_b, V_T, D0, grid,
+                                                    e_grid, Pi, **kw)
+    out = launch_sweep("hank_sweep_residual_f64_batch", (r_b, w_b), V_T, D0, grid,
+                       e_grid, Pi, n_out=2, **kw)
+    fused_residual_sweep_batch.launches += 1
+    return out
+
+
+fused_residual_sweep_batch.launches = 0
+
+
+def fused_residual_sweep_batch_reference(r_b, w_b, V_T, D0, grid, e_grid, Pi,
+                                         *, beta: float, gamma: float,
+                                         borrow_cons: float):
+    """Plain PyTorch version of the batched kernel 2: a loop over rows of
+    `fused_residual_sweep_reference`."""
+    fused_residual_sweep_batch_reference.calls += 1
+    rows = [fused_residual_sweep_reference(r_b[b], w_b[b], V_T, D0, grid, e_grid, Pi,
+                                           beta=beta, gamma=gamma,
+                                           borrow_cons=borrow_cons)
+            for b in range(r_b.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*rows))
+
+
+fused_residual_sweep_batch_reference.calls = 0
+
+
 def make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths):
     """F(x) -> f64 residual with the household block in kernel 2; the price
     map and the residual tail (assembly + equations over the (n_v, T)
     matrix) run in f64 torch ops."""
-    if not supports_fused_sweep(model):
-        raise ValueError("model does not declare the canonical one-asset EGM "
-                         "price hook (fused_prices) the household sweep needs")
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64)
     cs = model.compspec
-    Tm1 = cs.T - 1
-    policy_var, c_key = aggregate_keys(model)
-    wealth = model.endog_dims()[0]
-    prod = model.exog_dims()[0]
-    p = model.params
-    hook = _fused_price_hook(model)
-    consts = [t.to(f64).contiguous() for t in
-              (ss_ending.value, ss_initial.D, wealth.grid, prod.grid, prod.transition)]
 
     def F(x):
         x64 = x.to(f64)
-        r, s = hook(x64.reshape(Tm1, cs.n_endog), exog_paths, model)
-        agg, aggc = fused_residual_sweep(
-            r.to(f64).contiguous(), s.to(f64).contiguous(), *consts,
-            beta=float(p["β"]), gamma=float(p["γ"]),
-            borrow_cons=float(p["borrow_cons"]))
-        aggs = {policy_var: agg}
-        if c_key is not None:
-            aggs[c_key] = aggc
-        x_mat = assemble_full_xmat(x64, aggs, exog_paths, model,
+        r, s = hook(x64.reshape(cs.T - 1, cs.n_endog), exog_paths, model)
+        agg, aggc = fused_residual_sweep(r.to(f64).contiguous(), s.to(f64).contiguous(),
+                                         *consts, **kw)
+        x_mat = assemble_full_xmat(x64, to_aggs(agg, aggc), exog_paths, model,
                                    ss_initial.vars, ss_ending.vars)
         return residuals(x_mat, model)
 
     return F
+
+
+def make_sweep_residual_fn_batch(model, ss_initial, ss_ending):
+    """F_b(x_b, exog_batch) -> the f64 (B, n) residual of an ensemble: row b
+    is F(x_b[b]) under the shock paths {k: exog_batch[k][b]}, (B, T-1) each.
+    The household block of every row runs in one batched kernel-2 launch;
+    the price map and the residual tail run per row under
+    `torch.func.vmap` in f64 torch ops."""
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64)
+    cs = model.compspec
+
+    def prices(xx, ex):
+        r, s = hook(xx.reshape(cs.T - 1, cs.n_endog), ex, model)
+        return r.to(f64), s.to(f64)
+
+    def tail(xx, aggs, ex):
+        x_mat = assemble_full_xmat(xx, aggs, ex, model, ss_initial.vars, ss_ending.vars)
+        return residuals(x_mat, model)
+
+    def F_b(x_b, exog_batch):
+        x64 = x_b.to(f64)
+        r, s = torch.func.vmap(prices)(x64, exog_batch)
+        agg, aggc = fused_residual_sweep_batch(r.contiguous(), s.contiguous(), *consts, **kw)
+        return torch.func.vmap(tail)(x64, to_aggs(agg, aggc), exog_batch)
+
+    return F_b

@@ -58,8 +58,9 @@ def household_aggregates(r_path, w_path, V_T, D0, grid, e_grid, Pi,
     return torch.stack(agg), torch.stack(aggc)
 
 
-def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi):
-    """Device, dtype, shape and contiguity checks shared by both kernels."""
+def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=False):
+    """Device, dtype, shape and contiguity checks shared by the kernels'
+    wrappers. Price paths are (T-1,) each, or (B, T-1) when `batched`."""
     tensors = [*paths, V_T, D0, grid, e_grid, Pi]
     device = V_T.device
     for x in tensors:
@@ -72,10 +73,13 @@ def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi):
             raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    Tm1 = paths[0].shape[0]
+    shape = tuple(paths[0].shape)
+    if (len(shape) != (2 if batched else 1) or min(shape) < 1
+            or any(p.shape != shape for p in paths)):
+        want = "(B, T-1) with B ≥ 1" if batched else "(T-1,)"
+        raise ValueError(f"{name}: price paths must all be {want} with T-1 ≥ 1; "
+                         f"got {[tuple(p.shape) for p in paths]}")
     n_a, n_e = V_T.shape
-    if any(p.shape != (Tm1,) for p in paths) or Tm1 < 1:
-        raise ValueError(f"{name}: price paths must all be ({Tm1},) with T-1 ≥ 1")
     if (D0.shape != (n_a, n_e) or grid.shape != (n_a,) or e_grid.shape != (n_e,)
             or Pi.shape != (n_e, n_e) or n_a < 2):
         raise ValueError(f"{name}: expected V_T, D0 (n_a, n_e), grid (n_a,), "
@@ -84,7 +88,34 @@ def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi):
                          f"{tuple(e_grid.shape)}, {tuple(Pi.shape)}")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {device}")
-    return Tm1, n_a, n_e
+
+
+def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
+                 borrow_cons):
+    """Launch one entry point of `csrc/household_sweep.cu` on checked CUDA
+    tensors and return its `n_out` output paths, each of the price paths'
+    shape. `paths` are (r, w) or (r, w, dr, dw), (T-1,) each for a
+    single-path entry point and (B, T-1) for a `_batch` one; the wrapper
+    allocates the policy scratch, one (*shape, n_e, n_a) buffer for the
+    policies and one for their tangents."""
+    lib = cuda_build.load_library()
+    n_a, n_e = V_T.shape
+    cuda_build.check_shared_memory(lib, len(paths) == 4, n_a, n_e)
+    shape = tuple(paths[0].shape)
+    dev = V_T.device
+    with torch.cuda.device(dev):
+        V_eT = V_T.T.contiguous()          # kernel layout (n_e, n_a)
+        D_eT = D0.T.contiguous()
+        scratch = [torch.empty((*shape, n_e, n_a), dtype=V_T.dtype, device=dev)
+                   for _ in range(len(paths) // 2)]
+        out = torch.empty((n_out, *shape), dtype=V_T.dtype, device=dev)
+        ptrs = [t.data_ptr() for t in (*paths, V_eT, D_eT, grid, e_grid, Pi,
+                                       *scratch, *out)]
+        err = getattr(lib, entry)(
+            *ptrs, *shape, n_a, n_e, float(beta), float(gamma), float(borrow_cons),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, entry)
+    return tuple(out)
 
 
 def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
@@ -98,33 +129,15 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     Returns (agg, dagg, aggc, daggc): the (T-1,) savings and consumption
     aggregates and their directional derivatives.
     """
-    Tm1, n_a, n_e = _check_inputs("fused_sweep_jvp", f32,
-                                  (r_path, w_path, dr_path, dw_path),
-                                  V_T, D0, grid, e_grid, Pi)
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp", f32, paths, V_T, D0, grid, e_grid, Pi)
+    kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
-        return fused_sweep_jvp_reference(
-            r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
-            beta=beta, gamma=gamma, borrow_cons=borrow_cons)
-
-    lib = cuda_build.load_library()
-    cuda_build.check_shared_memory(lib, True, n_a, n_e)
-    dev = V_T.device
-    with torch.cuda.device(dev):
-        V_eT = V_T.T.contiguous()          # kernel layout (n_e, n_a)
-        D_eT = D0.T.contiguous()
-        pol = torch.empty((Tm1, n_e, n_a), dtype=f32, device=dev)
-        dpol = torch.empty_like(pol)
-        out = torch.empty((4, Tm1), dtype=f32, device=dev)
-        err = lib.hank_sweep_jvp_f32(
-            r_path.data_ptr(), w_path.data_ptr(), dr_path.data_ptr(), dw_path.data_ptr(),
-            V_eT.data_ptr(), D_eT.data_ptr(), grid.data_ptr(), e_grid.data_ptr(),
-            Pi.data_ptr(), pol.data_ptr(), dpol.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(),
-            Tm1, n_a, n_e, float(beta), float(gamma), float(borrow_cons),
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, err, "fused_sweep_jvp")
+        return fused_sweep_jvp_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    out = launch_sweep("hank_sweep_jvp_f32", paths, V_T, D0, grid, e_grid, Pi,
+                       n_out=4, **kw)
     fused_sweep_jvp.launches += 1
-    return out[0], out[1], out[2], out[3]
+    return out
 
 
 fused_sweep_jvp.launches = 0
@@ -181,6 +194,32 @@ def aggregate_keys(model) -> tuple[str, str | None]:
     return policy_var, (extra[0] if extra else None)
 
 
+def sweep_setup(model, ss_initial, ss_ending, dtype):
+    """What `_build_fused` and the `make_*` functions over the household
+    sweep take from a supported model, with the steady-state arrays in
+    `dtype`.
+
+    Returns (hook, consts, kw, to_aggs): the model's `fused_prices` hook;
+    the shared kernel inputs (V_T, D0, grid, e_grid, Pi), contiguous; the
+    kernels' CRRA parameters; and to_aggs(agg, aggc), the {variable: path}
+    mapping of the sweep's aggregates that the assembly takes.
+    """
+    if not supports_fused_sweep(model):
+        raise ValueError("model does not declare the canonical one-asset EGM "
+                         "price hook (fused_prices) the household sweep needs")
+    policy_var, c_key = aggregate_keys(model)
+    wealth, prod = model.endog_dims()[0], model.exog_dims()[0]
+    p = model.params
+    consts = [t.to(dtype).contiguous() for t in
+              (ss_ending.value, ss_initial.D, wealth.grid, prod.grid, prod.transition)]
+    kw = dict(beta=float(p["β"]), gamma=float(p["γ"]), borrow_cons=float(p["borrow_cons"]))
+
+    def to_aggs(agg, aggc):
+        return {policy_var: agg} if c_key is None else {policy_var: agg, c_key: aggc}
+
+    return _fused_price_hook(model), consts, kw, to_aggs
+
+
 def _build_fused(model, ss_initial, ss_ending, exog_paths):
     """Kernel-1 entry points (`hank_tpu/ops/fused_sweep.py:505-592`).
 
@@ -190,22 +229,9 @@ def _build_fused(model, ss_initial, ss_ending, exog_paths):
         residual tail by `torch.func.jvp` in f32 (the reference's f32 tail).
       residual32(x) -> f32 F(x) through the same kernel with zero tangent.
     """
-    if not supports_fused_sweep(model):
-        raise ValueError("model does not declare the canonical one-asset EGM "
-                         "price hook (fused_prices) the household sweep needs")
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f32)
     cs = model.compspec
     Tm1 = cs.T - 1
-    policy_var, c_key = aggregate_keys(model)
-    wealth = model.endog_dims()[0]
-    prod = model.exog_dims()[0]
-    p = model.params
-    hook = _fused_price_hook(model)
-
-    grid32 = wealth.grid.to(f32).contiguous()
-    e32 = prod.grid.to(f32).contiguous()
-    Pi32 = prod.transition.to(f32).contiguous()
-    V32 = ss_ending.value.to(f32).contiguous()
-    D32 = ss_initial.D.to(f32).contiguous()
     exog32 = {k: v.to(f32) for k, v in exog_paths.items()}
     vars0 = {k: torch.as_tensor(v).to(f32) for k, v in ss_initial.vars.items()}
     varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
@@ -218,12 +244,8 @@ def _build_fused(model, ss_initial, ss_ending, exog_paths):
         (r, s), (dr, ds) = torch.func.jvp(price_map, (x32,), (v32,))
         agg, dagg, aggc, daggc = fused_sweep_jvp(
             r.contiguous(), s.contiguous(), dr.contiguous(), ds.contiguous(),
-            V32, D32, grid32, e32, Pi32, beta=float(p["β"]),
-            gamma=float(p["γ"]), borrow_cons=float(p["borrow_cons"]))
-        aggs, daggs = {policy_var: agg}, {policy_var: dagg}
-        if c_key is not None:
-            aggs[c_key], daggs[c_key] = aggc, daggc
-        return aggs, daggs
+            *consts, **kw)
+        return to_aggs(agg, aggc), to_aggs(dagg, daggc)
 
     def tail(xx, aggs):
         x_mat = assemble_full_xmat(xx, aggs, exog32, model, vars0, varsT)

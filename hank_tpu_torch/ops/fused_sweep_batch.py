@@ -1,0 +1,117 @@
+"""Kernels 3-4: the f32 primal + tangent household sweep over an ensemble.
+
+Replaces the TPU kernel pair of `hank_tpu/ops/fused_sweep_batch.py`:
+`_make_bwd_kernel` (backward dual EGM for B paths) and `_make_fwd_kernel`
+(forward dual lottery, Markov mix and aggregates for B paths), both reached
+through `fused_sweep_jvp_batch`. On the TPU they are two kernels only
+because the policies of B paths (B × 137 MB at KS size) cannot stay in
+VMEM; their contract is kernel 1's, per path. Here they are one launch of
+kernel 1's template (`csrc/household_sweep.cu <float, true>`) with a grid
+axis over paths: one block per path, its own row of prices and tangents,
+its own slice of the policy scratch and its own output row; V_T, D0, the
+grids and Pi are shared. Row b of a batched launch is bit-identical to a
+single `fused_sweep_jvp` launch on row b.
+
+`fused_sweep_jvp_batch` launches the kernel for CUDA tensors and runs the
+plain version `fused_sweep_jvp_batch_reference` (a loop over rows of
+kernel 1's plain version) only for CPU tensors. `.launches` counts kernel
+launches and `.calls` plain-version calls.
+
+`make_fused_jvp_batch` is the ensemble's direction map
+(`hank_tpu/ops/fused_sweep_batch.py:412-495`): per row, the price-map JVP,
+then the kernel for all rows at once, then the f32 assembly + residual tail
+JVP per row, both per-row parts under `torch.func.vmap`. The reference's
+VMEM chunking (`kernel_batch_width`), static Markov constants and
+horizon bucketing are TPU workarounds and are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
+from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fused_sweep_jvp_reference,
+                                            launch_sweep, supports_fused_sweep,
+                                            sweep_setup)
+
+f32 = torch.float32
+
+
+def fused_sweep_jvp_batch(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
+                          *, beta: float, gamma: float, borrow_cons: float):
+    """Batched JVP of the household map: (B, T-1) price paths and tangents
+    ↦ (agg, dagg, aggc, daggc), each (B, T-1) float32.
+
+    All inputs float32 and contiguous on one device; V_T, D0 (n_a, n_e),
+    grid (n_a,), e_grid (n_e,), Pi (n_e, n_e) are shared by every path.
+    """
+    paths = (r_b, w_b, dr_b, dw_b)
+    _check_inputs("fused_sweep_jvp_batch", f32, paths, V_T, D0, grid, e_grid, Pi,
+                  batched=True)
+    kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    if V_T.device.type == "cpu":
+        return fused_sweep_jvp_batch_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    out = launch_sweep("hank_sweep_jvp_f32_batch", paths, V_T, D0, grid, e_grid, Pi,
+                       n_out=4, **kw)
+    fused_sweep_jvp_batch.launches += 1
+    return out
+
+
+fused_sweep_jvp_batch.launches = 0
+
+
+def fused_sweep_jvp_batch_reference(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
+                                    *, beta: float, gamma: float,
+                                    borrow_cons: float):
+    """Plain PyTorch version of the batched kernel: a loop over rows of
+    `fused_sweep_jvp_reference`."""
+    fused_sweep_jvp_batch_reference.calls += 1
+    rows = [fused_sweep_jvp_reference(r_b[b], w_b[b], dr_b[b], dw_b[b], V_T, D0,
+                                      grid, e_grid, Pi, beta=beta, gamma=gamma,
+                                      borrow_cons=borrow_cons)
+            for b in range(r_b.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*rows))
+
+
+fused_sweep_jvp_batch_reference.calls = 0
+
+
+def supports_fused_batch(model) -> bool:
+    """Same structural contract as the single-path sweep."""
+    return supports_fused_sweep(model)
+
+
+def make_fused_jvp_batch(model, ss_initial, ss_ending):
+    """Batched direction map of an ensemble.
+
+    Returns jvp_batch(x_b, v_b, exog_batch) -> float32 (B, n): row b is the
+    directional derivative of F at x_b[b] along v_b[b] under the shock paths
+    {k: exog_batch[k][b]}, (B, T-1) each — the batched analogue of
+    `fused_sweep._build_fused`'s jvp_dir, with the same f32 tail.
+    """
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f32)
+    cs = model.compspec
+    Tm1 = cs.T - 1
+    vars0 = {k: torch.as_tensor(v).to(f32) for k, v in ss_initial.vars.items()}
+    varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
+
+    def price_jvp(xx, vv, ex):
+        def price_map(z):
+            r, s = hook(z.reshape(Tm1, cs.n_endog), ex, model)
+            return r.to(f32), s.to(f32)
+        return torch.func.jvp(price_map, (xx,), (vv,))
+
+    def tail_jvp(xx, vv, agg, dagg, aggc, daggc, ex):
+        def tail(z, a):
+            return residuals(assemble_full_xmat(z, a, ex, model, vars0, varsT), model)
+        return torch.func.jvp(tail, (xx, to_aggs(agg, aggc)), (vv, to_aggs(dagg, daggc)))[1]
+
+    def jvp_batch(x_b, v_b, exog_batch):
+        x32, v32 = x_b.to(f32), v_b.to(f32)
+        ex32 = {k: pth.to(f32) for k, pth in exog_batch.items()}
+        (r, s), (dr, ds) = torch.func.vmap(price_jvp)(x32, v32, ex32)
+        out = fused_sweep_jvp_batch(r.contiguous(), s.contiguous(), dr.contiguous(),
+                                    ds.contiguous(), *consts, **kw)
+        return torch.func.vmap(tail_jvp)(x32, v32, *out, ex32)
+
+    return jvp_batch

@@ -61,6 +61,16 @@ def _check_finite(fnorm: float, method: str, iteration: int, x: torch.Tensor) ->
             "shock or start closer to the steady state.")
 
 
+def _boehl_alpha(ray: torch.Tensor) -> torch.Tensor:
+    """Adaptive Richardson step size from the Rayleigh-quotient estimate
+    (`hank_tpu/solvers/newton.py:84-94`). The inner iteration is
+    y ← y + α(J̄⁻¹F − J̄⁻¹J y); with P = J̄⁻¹J it converges for
+    α < 2/λ_max(P), and ray = ⟨y, Py⟩/⟨y, y⟩ tracks the dominant curvature
+    along y, so α = 1/max(ray, 1) keeps the spectral radius of (I − αP)
+    below 1 while taking full steps when P ≈ I. Clipped to [0.05, 1]."""
+    return torch.clamp(1.0 / torch.clamp(ray, min=1.0), 0.05, 1.0)
+
+
 def newton_raphson_hank(x0, Jbar, exog_paths, model, ss_initial, ss_ending,
                         **kwargs):
     """Solve F(x) = 0 for the perfect-foresight path; one-shot form of
