@@ -8,8 +8,10 @@ exits non-zero and never prints the final `"ok": true` line:
 
   1. device  — nvidia-smi name and power limit, torch/CUDA versions; TF32
                off for matmuls and cuDNN.
-  2. build   — both household-sweep kernels from `hank_tpu_torch/csrc/` by
-               nvcc (sm_90a), with the build seconds and ptxas' report.
+  2. build   — both kernel sources under `hank_tpu_torch/csrc/` (the
+               one-asset and the two-asset household sweeps), one nvcc each
+               (sm_90a) started together, with the build seconds and ptxas'
+               report.
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
                (max|F_ss| ≤ 1e-9 each, `find_ss`'s own stopping target) and
                the steady-state Jacobian J̄.
@@ -45,6 +47,35 @@ exits non-zero and never prints the final `"ok": true` line:
                solve of its shock (reported), one boehl Richardson solve to
                the same bounds, and the batched kernel 1's ms per launch at
                B ∈ {1, 64, 132, 256, 1024} with the plain version's at B=4.
+  7. two-asset — `hank_two_asset` at its published width (40×20×5×2,
+               `hank_tpu/models/hank_two_asset.yaml`), T=300, fiscal shock G
+               from `generate_exog_paths`. Setup: the one steady state of the
+               transitory shock and J̄ by `get_or_solve` into a fresh
+               temporary cache (timed); max|F_ss| ≤ 1e-9, B = Bg and A = KS
+               to 1e-8, every steady-state variable within 1e-8 of the JAX
+               package's (`hank_tpu_torch/data/hank_two_asset_T300_jax_cpu.npz`).
+               The route is `bench.py:282-310`'s: when the linear step beats
+               the forcing (‖F(x_lin)‖ < ‖F(x_ss)‖), the linear impulse
+               response, then the GMRES-endgame-only boehl solve (host_inner,
+               richardson_max_outer=0); when it does not, or that solve misses
+               EPS, the two-phase boehl solve from x_ss (Richardson, then the
+               endgame); f32 directions through kernels 5-6, eps = EPS. One
+               warm-up run of it. Kernels 5 and 6 at x_ss, x_lin and the warm-up's
+               solution along smooth seeded directions, against their plain
+               versions run in float64 on the same inputs, within
+               5e-5·max(scale, 1): kernel 5's policies pointwise, its
+               tangents as kernel 6's plain version aggregates them, kernel
+               6's aggregates and tangents; a zero tangent exactly zero,
+               repeated launches bit-identical, an i.i.d. direction reported
+               only; ms per launch of each kernel and of the plain versions,
+               of the kernel pair's jvp_dir and the plain f32 one, and of the
+               f64 F. Then 3 timed runs of the route (counters zeroed right
+               before: both kernels launched, neither plain version called;
+               paths bit-identical to the warm-up's; the plain f64 ‖F‖ < EPS;
+               within 1e-6 of the JAX package's root), and the other route
+               once: the two-phase one (to ‖F‖ < EPS) after a certified
+               endgame-only route, else the endgame-only one cut at 5 outers,
+               reported only.
 
 The last three lines are the kernel summary JSON, the nvidia-smi line and
 `{"ok": true, "device": {...}}`. There is no CPU path: without a CUDA
@@ -54,10 +85,20 @@ device the script exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+
+# The two-asset route's target, and the bound its result is checked at.
+EPS = 1e-8
+
+# The JAX package's steady state and root of the same two-asset path, solved
+# on a CPU (`scripts/hank2_cpu_groundtruth.py`'s recipe).
+TWO_ASSET_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hank_tpu_torch",
+                                   "data", "hank_two_asset_T300_jax_cpu.npz")
 
 
 def emit(phase: str, **fields) -> None:
@@ -302,6 +343,248 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     ]
 
 
+def two_asset_phase(dev) -> list:
+    """Phase 7: the two-asset production route at full width (see the
+    module docstring). Emits its JSON lines and returns the `kernels`
+    entries of kernels 5 and 6."""
+    import numpy as np
+    import torch
+
+    from hank_tpu_torch.blocks.assemble import residuals as eval_residuals
+    from hank_tpu_torch.model.structures import generate_exog_paths
+    from hank_tpu_torch.models import load_model
+    from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.solvers.linear import linear_impulse_response
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
+    from hank_tpu_torch.utils.checkpoint import get_or_solve
+
+    f32, f64 = torch.float32, torch.float64
+    model = load_model("hank_two_asset", T=300, device=dev)
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    p = model.params
+
+    # Setup: the steady state (transitory shock: one) and J̄, solved afresh.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cache:
+        ss0, ssT, Jbar = get_or_solve(model, cache_dir=cache)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    col = torch.stack([torch.as_tensor(ssT.vars[k]) for k in model.var_names()])
+    F_ss = float(eval_residuals(col[:, None].expand(cs.n_v, 1 + cs.max_lag + cs.max_lead),
+                                model).abs().max())
+    require(F_ss <= 1e-9, f"two-asset steady state residual {F_ss:.3e} > 1e-9")
+    clearing = max(abs(float(ssT.vars["B"]) - p["Bg"]),
+                   abs(float(ssT.vars["A"]) - float(ssT.vars["KS"])))
+    require(clearing <= 1e-8, f"two-asset markets off by {clearing:.3e}")
+    with np.load(TWO_ASSET_REFERENCE) as z:
+        ref_vars = dict(zip([str(s) for s in z["var_names"]], z["var_values"]))
+        x_jax = torch.as_tensor(z["x"], dtype=f64, device=dev)
+    ss_gap = max(abs(float(ssT.vars[k]) - float(v)) for k, v in ref_vars.items())
+    require(ss_gap <= 1e-8, f"two-asset steady state {ss_gap:.3e} off the JAX reference")
+    emit("two_asset_setup", grid=list(model.state_shape()), T=cs.T, seconds=setup_s,
+         max_abs_F_ss=F_ss, market_clearing=clearing, max_abs_vs_jax_ss=ss_gap,
+         KS=float(ssT.vars["KS"]), r=float(ssT.vars["r"]), ra=float(ssT.vars["ra"]))
+
+    # The route of `bench.py:282-310`: the linear warm start, then the
+    # GMRES-endgame-only boehl solve, when the linear step beats the forcing
+    # (‖F(x_lin)‖ < ‖F(x_ss)‖) and the endgame reaches EPS; otherwise the
+    # two-phase boehl solve from x_ss (Richardson, then the endgame).
+    exog = generate_exog_paths(model, Tm1)
+    endog = model.vars_of_type("endogenous")
+    x_ss = torch.stack([torch.as_tensor(ssT.vars[k]) for k in endog]).repeat(Tm1)
+
+    def boehl(**kw):
+        return make_path_solver(Jbar, exog, model, ss0, ssT, method="boehl",
+                                direction_dtype=f32, eps=EPS, host_inner=True, **kw)
+
+    endgame_only, two_phase = boehl(richardson_max_outer=0), boehl()
+
+    def lin_route():
+        x_lin, _ = linear_impulse_response(Jbar, exog, model, ss0, ssT,
+                                           compute_residual=False)
+        x, info = endgame_only(x_lin)
+        torch.cuda.synchronize()
+        return x, info
+
+    def ss_route():
+        x, info = two_phase(x_ss)
+        torch.cuda.synchronize()
+        return x, info
+
+    x_lin, lin_info = linear_impulse_response(Jbar, exog, model, ss0, ssT)
+    lin_ok = lin_info["residual_norm"] < lin_info["f0_norm"]
+    route, route_name = lin_route, "linstart_endgame_only"
+    if lin_ok:
+        x_warm, info_warm = route()
+    if not lin_ok or info_warm["residual_norm"] > EPS:
+        route, route_name = ss_route, "ss_two_phase_fallback"
+        x_warm, info_warm = route()
+
+    # Kernels 5 and 6 at the route's own points, along smooth seeded
+    # directions (a random amplitude per variable, decaying as 0.9ᵗ), each
+    # against its plain version run in float64 on the same input values.
+    # Kernel 5's primal policies are held pointwise. Its tangents are held
+    # where the path consumes them, aggregated by kernel 6's plain version:
+    # pointwise, a state that f32 and f64 rounding put on different sides of
+    # a bracket or clip takes a different one-sided tangent (reported).
+    m32 = fs2.cast_model(model, f32)
+    VT32, D32 = ssT.value.to(f32).contiguous(), ss0.D.to(f32).contiguous()
+    VT64, D64 = VT32.double(), D32.double()
+    gen = torch.Generator().manual_seed(7)
+    decay = (0.9 ** torch.arange(Tm1, dtype=f64))[:, None]
+
+    def smooth():
+        return (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+
+    def k5_args(x, v):
+        return [q.to(f32).contiguous() for q in
+                (*fused2_prices(x.reshape(Tm1, nE), exog, model),
+                 *fused2_prices(v.reshape(Tm1, nE), exog, model))]
+
+    def as64(d):
+        return {k: t.double() for k, t in d.items()}
+
+    def bound(err, ref):
+        scale = max(float(t.abs().max()) for t in ref.values())
+        return err <= 5e-5 * max(scale, 1.0), scale
+
+    def dict_err(a, b):
+        return max(max_abs(a[k].double(), b[k]) for k in b)
+
+    checks, k5_err, k6_err = {}, 0.0, 0.0
+    for name, x in (("x_ss", x_ss), ("x_lin", x_lin), ("solution", x_warm)):
+        args = k5_args(x, smooth())
+        pol, dpol = fs2.fused2_policies_jvp(*args, VT32, m32)
+        ref, dref = fs2.fused2_policies_jvp_reference(*(a.double() for a in args), VT64, model)
+        agg, dagg = fs2.fused2_forward_jvp(pol, dpol, D32, m32)
+        ragg, rdagg = fs2.fused2_forward_jvp_reference(as64(pol), as64(dpol), D64, model)
+        _, pdagg = fs2.fused2_forward_jvp_reference(ref, dref, D64, model)
+        e5p, e5t, e6 = dict_err(pol, ref), dict_err(rdagg, pdagg), max(
+            dict_err(agg, ragg), dict_err(dagg, rdagg))
+        for what, err, refs in (("kernel 5 policies", e5p, ref),
+                                ("kernel 5 tangents (aggregated)", e5t, pdagg),
+                                ("kernel 6", e6, {**ragg, **{"d" + k: t for k, t in rdagg.items()}})):
+            ok, scale = bound(err, refs)
+            require(ok, f"{what} at {name} off its plain version by {err:.3e} (scale {scale:.3e})")
+        e5_point = dict_err(dpol, dref)
+        ok_share = min(float(((dpol[k].double() - dref[k]).abs()
+                              <= 5e-5 * max(float(dref[k].abs().max()), 1.0)).double().mean())
+                       for k in dref)
+        checks[name] = {"k5_policies": e5p, "k5_tangents_aggregated": e5t, "k6": e6,
+                        "k5_tangents_pointwise": e5_point,
+                        "k5_tangent_share_within_bound": ok_share}
+        k5_err, k6_err = max(k5_err, e5p, e5t), max(k6_err, e6)
+
+    # Zero tangent, bit-identical repeats, and an i.i.d. direction (reported).
+    zero = [torch.zeros_like(a) for a in args[4:]]
+    pol0, dpol0 = fs2.fused2_policies_jvp(*args[:4], *zero, VT32, m32)
+    _, dagg0 = fs2.fused2_forward_jvp(pol0, dpol0, D32, m32)
+    require(all(bool((t == 0).all()) for t in (*dpol0.values(), *dagg0.values())),
+            "kernels 5-6: a zero tangent did not give exactly zero")
+    pol_b, dpol_b = fs2.fused2_policies_jvp(*args, VT32, m32)
+    agg_b, dagg_b = fs2.fused2_forward_jvp(pol_b, dpol_b, D32, m32)
+    require(all(torch.equal(a[k], b[k]) for a, b in ((pol, pol_b), (dpol, dpol_b),
+                                                     (agg, agg_b), (dagg, dagg_b)) for k in a),
+            "kernels 5-6: repeated launches differ")
+    args_iid = k5_args(x_warm, torch.randn(x_ss.shape, generator=gen, dtype=f64).to(dev))
+    pol_i, dpol_i = fs2.fused2_policies_jvp(*args_iid, VT32, m32)
+    ref_i, dref_i = fs2.fused2_policies_jvp_reference(*(a.double() for a in args_iid),
+                                                      VT64, model)
+    iid = {"k5_tangents_aggregated": dict_err(
+        fs2.fused2_forward_jvp_reference(as64(pol_i), as64(dpol_i), D64, model)[1],
+        fs2.fused2_forward_jvp_reference(ref_i, dref_i, D64, model)[1]),
+        "k5_tangents_pointwise": dict_err(dpol_i, dref_i)}
+
+    # Timings at the solution: each kernel, the kernel pair's jvp_dir, and
+    # the same jvp_dir through both plain versions in f32.
+    v = smooth()
+    jvp_dir = fs2.make_fused2_jvp_dir(model, ss0, ssT, exog)
+    plain_dir = fs2.make_fused2_jvp_dir(model, ss0, ssT, exog, plain=True)
+    plain_runs = [cuda_once(lambda: plain_dir(x_warm, v)) for _ in range(3)]
+    dir_plain = plain_runs[0][0]
+    dir_kernel = jvp_dir(x_warm, v)
+    dir_err = max_abs(dir_kernel, dir_plain)
+    dir_scale = float(dir_plain.abs().max())
+    require(dir_err <= 5e-5 * max(dir_scale, 1.0),
+            f"kernel-pair jvp_dir off the plain f32 one by {dir_err:.3e} (scale {dir_scale:.3e})")
+    timing = {
+        "k5_ms": cuda_ms(lambda: fs2.fused2_policies_jvp(*args, VT32, m32), 10),
+        "k6_ms": cuda_ms(lambda: fs2.fused2_forward_jvp(pol, dpol, D32, m32), 10),
+        "jvp_dir_ms": cuda_ms(lambda: jvp_dir(x_warm, v), 10),
+        "k5_plain_f32_ms": cuda_once(lambda: fs2.fused2_policies_jvp_reference(
+            *args, VT32, m32))[1],
+        "k6_plain_f32_ms": cuda_once(lambda: fs2.fused2_forward_jvp_reference(
+            pol, dpol, D32, m32))[1],
+        "jvp_dir_plain_f32_ms": statistics.median(ms for _, ms in plain_runs),
+    }
+    F_plain = make_full_residual_fn(model, ss0, ssT, exog)
+    timing["F_f64_ms"] = cuda_once(lambda: F_plain(x_warm))[1]
+    emit("two_asset_kernels", checks=checks, iid_direction_at_solution=iid,
+         jvp_dir_vs_plain_f32=dir_err, jvp_dir_scale=dir_scale, **timing)
+
+    # Three timed runs of the route; counts zeroed right before them.
+    fs2.fused2_policies_jvp.launches = fs2.fused2_forward_jvp.launches = 0
+    fs2.fused2_policies_jvp_reference.calls = fs2.fused2_forward_jvp_reference.calls = 0
+    runs, xs, infos = [], [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x_sol, info = route()
+        runs.append(time.perf_counter() - t0)
+        xs.append(x_sol)
+        infos.append(info)
+    launches = {"k5": fs2.fused2_policies_jvp.launches, "k6": fs2.fused2_forward_jvp.launches}
+    plain_calls = {"k5": fs2.fused2_policies_jvp_reference.calls,
+                   "k6": fs2.fused2_forward_jvp_reference.calls}
+    require(launches["k5"] > 0 and launches["k6"] > 0,
+            f"a kernel of the two-asset route never launched: {launches}")
+    require(plain_calls["k5"] == 0 and plain_calls["k6"] == 0,
+            f"a plain version ran on the two-asset route: {plain_calls}")
+    require(all(torch.equal(x_warm, xi) for xi in xs),
+            "repeated two-asset solves returned different paths")
+    require(bool(torch.isfinite(x_warm).all()) and x_warm.shape == x_ss.shape,
+            "two-asset solution is not a finite path of the expected shape")
+    fnorm_plain = float(torch.linalg.norm(F_plain(x_warm)))
+    require(fnorm_plain < EPS, f"two-asset plain f64 ‖F‖ is {fnorm_plain:.3e}")
+    vs_jax = max_abs(x_warm, x_jax)
+    require(vs_jax <= 1e-6, f"two-asset path {vs_jax:.3e} off the JAX reference")
+    info = infos[0]
+    emit("two_asset_solve", route=route_name, median_s=statistics.median(runs), runs_s=runs,
+         linear_residual_norm=lin_info["residual_norm"], forcing_norm=lin_info["f0_norm"],
+         outer_iterations=info["iterations"], matvecs_and_sweeps=info["inner_iterations"],
+         prof=info["prof"], residual_norm=info["residual_norm"],
+         residual_norm_plain_f64=fnorm_plain, max_abs_vs_jax=vs_jax, launches=launches,
+         plain_calls=plain_calls, bit_identical=True)
+
+    # The other route once: the two-phase one (gated) when the endgame-only
+    # route certified; else the endgame-only one from x_lin, cut at 5 outers
+    # and reported only.
+    t0 = time.perf_counter()
+    if route_name == "linstart_endgame_only":
+        other_name, (x_o, info_o) = "ss_two_phase", ss_route()
+        fnorm_o = float(torch.linalg.norm(F_plain(x_o)))
+        require(fnorm_o < EPS, f"two-phase route: plain f64 ‖F‖ is {fnorm_o:.3e}")
+    else:
+        other_name = "linstart_endgame_only, max_outer=5"
+        x_o, info_o = boehl(richardson_max_outer=0, max_outer=5)(x_lin)
+        fnorm_o = float(torch.linalg.norm(F_plain(x_o)))
+    torch.cuda.synchronize()
+    emit("two_asset_other_route", route=other_name, seconds=time.perf_counter() - t0,
+         outer_iterations=info_o["iterations"], matvecs_and_sweeps=info_o["inner_iterations"],
+         residual_norm_plain_f64=fnorm_o, max_abs_vs_route=max_abs(x_o, x_warm))
+
+    source = "hank_tpu_torch/csrc/household_sweep2.cu"
+    return [
+        {"name": "fused2_policies_jvp", "route": "cuda", "source": source,
+         "replaces": "hank_tpu/ops/fused_sweep2.py:673", "launches": launches["k5"],
+         "max_abs_err": k5_err, "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_f32_ms"]},
+        {"name": "fused2_forward_jvp", "route": "cuda", "source": source,
+         "replaces": "hank_tpu/ops/fused_sweep2.py:984", "launches": launches["k6"],
+         "max_abs_err": k6_err, "ms": timing["k6_ms"], "plain_ms": timing["k6_plain_f32_ms"]},
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -337,10 +620,11 @@ def main() -> int:
 
     # ── 2. build ───────────────────────────────────────────────────────────
     info = cuda_build.build()
-    cuda_build.load_library()
+    for name in cuda_build.LIBRARIES:
+        cuda_build.load_library(name)
     ptxas = [ln.strip() for ln in info.log.splitlines()
              if "registers" in ln or "Compiling entry" in ln]
-    emit("build", seconds=info.seconds, library=info.path, ptxas=ptxas)
+    emit("build", seconds=info.seconds, libraries=info.paths, ptxas=ptxas)
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -472,6 +756,9 @@ def main() -> int:
     # ── 6. ensemble ────────────────────────────────────────────────────────
     ensemble_kernels = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
 
+    # ── 7. two-asset ───────────────────────────────────────────────────────
+    two_asset_kernels = two_asset_phase(dev)
+
     kernels = [
         {"name": "fused_sweep_jvp", "route": "cuda",
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
@@ -482,6 +769,7 @@ def main() -> int:
          "replaces": "hank_tpu/ops/fused_ds.py:338", "launches": launches["k2"],
          "max_abs_err": k2_err, "ms": timing["k2_ms"], "plain_ms": timing["k2_plain_ms"]},
         *ensemble_kernels,
+        *two_asset_kernels,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -5,7 +5,8 @@ heterogeneous-agent models (Boehl 2024). Plain functions on torch tensors;
 the household sweeps of the path solver and of the ensemble solver
 (`parallel/ensemble.py`) run in hand-written CUDA kernels
 (`ops/fused_sweep.py`, `ops/fused_sweep_batch.py`, `ops/fused_residual.py`,
-`csrc/household_sweep.cu`) on CUDA tensors and in their plain PyTorch
+`csrc/household_sweep.cu`; the two-asset pair `ops/fused_sweep2.py`,
+`csrc/household_sweep2.cu`) on CUDA tensors and in their plain PyTorch
 versions on CPU tensors.
 
 This package imports torch and numpy, never jax or hank_tpu. Dtypes are
@@ -28,6 +29,7 @@ from hank_tpu_torch.parallel.ensemble import (
     solve_ensemble,
     solve_ensemble_host,
 )
+from hank_tpu_torch.solvers.linear import irf_table, linear_impulse_response
 from hank_tpu_torch.solvers.newton import (
     make_full_residual_fn,
     make_path_solver,
@@ -50,6 +52,8 @@ __all__ = [
     "get_or_solve",
     "get_steady_state_jacobian",
     "get_steady_states",
+    "irf_table",
+    "linear_impulse_response",
     "load_model",
     "make_full_residual_fn",
     "make_path_solver",

@@ -35,8 +35,13 @@ class Config:
     path_newton_max_iter: int = 100
 
     # The dense invariant-distribution solve is used up to this many
-    # household states (the matrix-free branch is not ported yet).
+    # household states (one endogenous axis); the matrix-free solve beyond.
     invariant_dense_max_states: int = 4096
+
+    # Matrix-free invariant-distribution sup-norm tolerance: tighter than
+    # vfi_eps, because the forward push-forward carries D's error into every
+    # aggregate of the path.
+    invariant_eps: float = 1e-14
 
 
 config = Config()

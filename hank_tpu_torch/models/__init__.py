@@ -15,14 +15,14 @@ from hank_tpu_torch.model.parser import build_model_from_yaml
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _YAML_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "hank_tpu", "models")
 
-SHIPPED = {"krusell_smith": "krusell_smith.yaml"}
+SHIPPED = {"krusell_smith": "krusell_smith.yaml",
+           "hank_two_asset": "hank_two_asset.yaml"}
 
 # Families that `hank_tpu` ships and the port does not load yet, with the
 # ROADMAP.md item that ports them.
 NOT_YET_PORTED = {
     "ks_large_grid": "Queue 1 item 8 (other one-asset families)",
     "hank_one_asset": "Queue 1 item 8 (other one-asset families)",
-    "hank_two_asset": "Queue 1 item 9 (two-asset production route)",
 }
 
 

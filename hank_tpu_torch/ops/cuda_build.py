@@ -1,11 +1,15 @@
 """Build and load the hand-written CUDA kernels at first use.
 
-`csrc/household_sweep.cu` (single-path and path-batched entry points of
-one kernel template) is compiled by nvcc for Hopper (`sm_90a`) into a
+Each source under `csrc/` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `hank_tpu_torch/_build/`
-(git-ignored), keyed by the SHA-256 of the source so an edited source
-rebuilds. The library is loaded with ctypes. Nothing here runs at import:
-the CPU tests import every module, and the CPU has no nvcc.
+(git-ignored):
+  - `household_sweep.cu`: the one-asset sweep (kernels 1-4), single-path
+    and path-batched entry points of one kernel template;
+  - `household_sweep2.cu`: the two-asset sweep (kernels 5-6).
+The libraries are keyed by the SHA-256 of both sources, so an edited source
+rebuilds; a build runs one nvcc per source, all started together. The
+libraries are loaded with ctypes. Nothing here runs at import: the CPU
+tests import every module, and the CPU has no nvcc.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "household_sweep.cu")
+LIBRARIES = ("household_sweep", "household_sweep2")
+SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu") for name in LIBRARIES}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -28,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
-    path: str          # the shared library
+    paths: dict        # library name -> shared library
     seconds: float     # nvcc wall-clock of this call (0.0 when already built)
     log: str           # nvcc's output (ptxas register/shared-memory report)
 
@@ -47,41 +52,76 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in LIBRARIES:
+        with open(SOURCES[name], "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def build() -> BuildInfo:
-    """Compile the kernel library unless a build of this exact source exists."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"household_sweep_{digest}.so")
-    if os.path.exists(path):
-        return BuildInfo(path, 0.0, "")
+    """Compile every kernel library unless builds of these exact sources
+    exist; the missing ones compile in parallel."""
+    digest = _digest()
+    paths = {name: os.path.join(BUILD_DIR, f"{name}_{digest}.so") for name in LIBRARIES}
+    todo = [name for name in LIBRARIES if not os.path.exists(paths[name])]
+    if not todo:
+        return BuildInfo(paths, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)
-    return BuildInfo(path, seconds, log)
+    procs = {}
+    for name in todo:
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        procs[name] = (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for name, (cmd, tmp, proc) in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return BuildInfo(paths, time.perf_counter() - t0, "\n".join(logs))
+
+
+_SIGNATURES = {
+    # name: (number of pointers, of ints, of doubles) before the trailing stream
+    "household_sweep": {
+        "hank_sweep_jvp_f32": (15, 3, 3),
+        "hank_sweep_residual_f64": (10, 3, 3),
+        "hank_sweep_jvp_f32_batch": (15, 4, 3),
+        "hank_sweep_residual_f64_batch": (10, 4, 3),
+    },
+    "household_sweep2": {
+        "hank_sweep2_policies_jvp_f32": (15, 4, 4),
+        "hank_sweep2_forward_jvp_f32": (12, 4, 0),
+    },
+}
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
-    lib = ctypes.CDLL(build().path)
+def load_library(name: str = "household_sweep") -> ctypes.CDLL:
+    """The built kernel library `name` with its C signatures declared."""
+    lib = ctypes.CDLL(build().paths[name])
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.hank_sweep_jvp_f32.argtypes = [p] * 15 + [i] * 3 + [d] * 3 + [p]
-    lib.hank_sweep_jvp_f32.restype = i
-    lib.hank_sweep_residual_f64.argtypes = [p] * 10 + [i] * 3 + [d] * 3 + [p]
-    lib.hank_sweep_residual_f64.restype = i
-    lib.hank_sweep_jvp_f32_batch.argtypes = [p] * 15 + [i] * 4 + [d] * 3 + [p]
-    lib.hank_sweep_jvp_f32_batch.restype = i
-    lib.hank_sweep_residual_f64_batch.argtypes = [p] * 10 + [i] * 4 + [d] * 3 + [p]
-    lib.hank_sweep_residual_f64_batch.restype = i
-    lib.hank_sweep_smem_bytes.argtypes = [i, i, i]
-    lib.hank_sweep_smem_bytes.restype = ctypes.c_size_t
+    for fn, (n_p, n_i, n_d) in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = [p] * n_p + [i] * n_i + [d] * n_d + [p]
+        getattr(lib, fn).restype = i
+    if name == "household_sweep":
+        lib.hank_sweep_smem_bytes.argtypes = [i, i, i]
+        lib.hank_sweep_smem_bytes.restype = ctypes.c_size_t
+    else:
+        lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i]
+        lib.hank_sweep2_smem_bytes.restype = ctypes.c_size_t
     lib.hank_cuda_error_string.argtypes = [i]
     lib.hank_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -91,11 +131,20 @@ def load_library() -> ctypes.CDLL:
 MAX_SMEM_BYTES = 232_448
 
 
-def check_shared_memory(lib: ctypes.CDLL, tangent: bool, n_a: int, n_e: int) -> None:
-    need = lib.hank_sweep_smem_bytes(int(tangent), n_a, n_e)
+def _check_smem(need: int, what: str) -> None:
     if need > MAX_SMEM_BYTES:
-        raise ValueError(f"grid {n_a}x{n_e} needs {need} bytes of shared memory; "
+        raise ValueError(f"{what} needs {need} bytes of shared memory; "
                          f"one block has {MAX_SMEM_BYTES}")
+
+
+def check_shared_memory(lib: ctypes.CDLL, tangent: bool, n_a: int, n_e: int) -> None:
+    _check_smem(lib.hank_sweep_smem_bytes(int(tangent), n_a, n_e), f"grid {n_a}x{n_e}")
+
+
+def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int) -> None:
+    """Kernel 5 (which = 0) or kernel 6 (which = 1) at an n_b×n_a×n_e×2 grid."""
+    _check_smem(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e),
+                f"kernel {5 + which} at grid {n_b}x{n_a}x{n_e}x2")
 
 
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -58,11 +58,11 @@ def household_aggregates(r_path, w_path, V_T, D0, grid, e_grid, Pi,
     return torch.stack(agg), torch.stack(aggc)
 
 
-def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=False):
-    """Device, dtype, shape and contiguity checks shared by the kernels'
-    wrappers. Price paths are (T-1,) each, or (B, T-1) when `batched`."""
-    tensors = [*paths, V_T, D0, grid, e_grid, Pi]
-    device = V_T.device
+def check_tensors(name, tensors, dtype) -> None:
+    """Type, device, dtype and contiguity checks shared by every kernel
+    wrapper (`ops/fused_sweep2.py` too): contiguous `dtype` tensors on one
+    CPU or CUDA device."""
+    device = tensors[0].device
     for x in tensors:
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name}: expected tensors, got {type(x).__name__}")
@@ -73,6 +73,15 @@ def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=Fals
             raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+
+
+def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=False):
+    """Device, dtype, shape and contiguity checks shared by the one-asset
+    kernels' wrappers. Price paths are (T-1,) each, or (B, T-1) when
+    `batched`."""
+    check_tensors(name, [V_T, *paths, D0, grid, e_grid, Pi], dtype)
     shape = tuple(paths[0].shape)
     if (len(shape) != (2 if batched else 1) or min(shape) < 1
             or any(p.shape != shape for p in paths)):
@@ -86,8 +95,6 @@ def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=Fals
                          f"e_grid (n_e,), Pi (n_e, n_e) with n_a ≥ 2; got "
                          f"{tuple(V_T.shape)}, {tuple(D0.shape)}, {tuple(grid.shape)}, "
                          f"{tuple(e_grid.shape)}, {tuple(Pi.shape)}")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {device}")
 
 
 def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,

@@ -7,12 +7,14 @@ XLA:TPU has no f64 LU). Both are differentiable in forward and reverse mode.
 - `dense_solve` / `make_reusable_solver` ↔ `J \\ z`, `gmres!(·, J̄, ·)`
   (`SteadyState.jl:197`, `NewtonRaphson.jl:97-98`)
 - `invariant_dist_colstoch` ↔ `invariant_dist` (`ForwardIteration.jl:436-442`)
+- `make_invariant_solver` ↔ the same, matrix-free, for large state spaces
 - `gmres_matfree` ↔ `gmres!(R, J̄, ·)` with an opaque operator
 - `rayleigh_quotient` ↔ `GeneralStructures.jl:559-561`
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -50,6 +52,91 @@ def invariant_dist_colstoch(Lam: torch.Tensor) -> torch.Tensor:
     b[-1] = 1.0
     D = dense_solve(A, b)
     return D / torch.sum(D)
+
+
+def accelerated_fixed_point(step, v0, eps: float, max_iter: int):
+    """Iterate v ← step(v) until the sup-norm change is ≤ eps, with a
+    safeguarded Aitken extrapolation every 20 iterations after the 40th:
+    the extrapolation is kept only if one verification step shows a smaller
+    one-step residual than the plain iterate's (`hank_tpu/ops/linalg.py:
+    173-204`, `hank_tpu/solvers/steady_state.py:81-119`)."""
+    v = v0
+    diff_prev = math.inf
+    diff = math.inf
+    it = 0
+    while diff > eps and it < max_iter:
+        v_new = step(v)
+        diff = float(torch.max(torch.abs(v_new - v)))
+        if it % 20 == 19 and it > 40:
+            lam = min(max(diff / max(diff_prev, TINY), 0.0), 0.995)
+            v_ex = v_new + (v_new - v) * (lam / (1 - lam))
+            d_ex = float(torch.max(torch.abs(step(v_ex) - v_ex)))
+            if math.isfinite(d_ex) and d_ex < diff:
+                v_new = v_ex
+        v = v_new
+        diff_prev = diff
+        it += 1
+    return v
+
+
+def make_invariant_solver(apply_fn, *, eps: float = 1e-13, max_iter: int = 200_000):
+    """Matrix-free stationary distribution with implicit differentiation
+    (`hank_tpu/ops/linalg.py:156-251`).
+
+    `apply_fn(params, D) -> D'` is one period of the column-stochastic
+    transition as ops (the joint lottery and the Markov mixing), linear in
+    D; `params` is a list of tensors (the endogenous policies). Returns
+    `solve(params, D0) -> D*`, normalised to sum 1.
+
+    Primal: the safeguarded Aitken-accelerated power iteration. Forward-mode
+    rule: the implicit-function system (I − P) dD = ∂_p apply · dp on the
+    sum-zero subspace, solved by `gmres_matfree` on the deflated operator
+    v ↦ v − P v + mean(v) (nonsingular on the whole space for an ergodic
+    chain, with the same sum-zero solution).
+    """
+    # The last solve: a Jacobian's `torch.func.jvp` columns rerun the
+    # forward at the same policies, and get the same D* (bit for bit).
+    cache = {}
+
+    class _Invariant(torch.autograd.Function):
+        @staticmethod
+        def forward(D0, *params):
+            key = (D0, *params)
+            if "key" in cache and all(torch.equal(a, b) for a, b in zip(cache["key"], key)):
+                return cache["D"].clone()
+            D = accelerated_fixed_point(lambda d: apply_fn(list(params), d), D0,
+                                        eps, max_iter)
+            D = D / torch.sum(D)
+            cache.update(key=tuple(t.clone() for t in key), D=D.detach().clone())
+            return D
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_forward(*inputs[1:], output)
+
+        @staticmethod
+        def jvp(ctx, dD0, *dparams):
+            *params, D_star = ctx.saved_tensors
+            shape = D_star.shape
+            # P is linear in D, so its derivative along v is P applied to v.
+            b = torch.func.jvp(lambda *p: apply_fn(list(p), D_star),
+                               tuple(params), tuple(dparams))[1]
+            b = (b - torch.sum(b) / b.numel()).reshape(-1)
+
+            def matvec(v):
+                vD = v.reshape(shape)
+                return (vD - apply_fn(params, vD) + torch.sum(vD) / vD.numel()).reshape(-1)
+
+            dD, _ = gmres_matfree(matvec, b, torch.zeros_like(b), restart=40,
+                                  maxiter=8, tol=1e-12,
+                                  atol=eps * float(torch.linalg.norm(b)))
+            dD = dD.reshape(shape)
+            return dD - torch.sum(dD) / dD.numel()
+
+    def solve(params, D0):
+        return _Invariant.apply(D0, *params)
+
+    return solve
 
 
 def _hessenberg_ls(H: torch.Tensor, beta: torch.Tensor, m: int):

@@ -1,10 +1,11 @@
 """Distribution transition ops: Young (2010) lottery + exogenous mixing
-(port of `hank_tpu/ops/transition.py`, scatter form).
+(port of `hank_tpu/ops/transition.py`).
 
-The endogenous lottery is a comparison-sum bracket search + `scatter_add`
+The one-axis lottery is a comparison-sum bracket search + `scatter_add`
 (out of place, so both forward- and reverse-mode AD run through it); the
-exogenous transition is a dense matmul with the Markov matrix. State arrays
-are `(*endog_shape, *exog_shape)`.
+joint two-axis lottery is the dense soft-one-hot contraction; the exogenous
+transition is a dense matmul with the Markov matrix. State arrays are
+`(*endog_shape, *exog_shape)`.
 """
 
 from __future__ import annotations
@@ -67,12 +68,38 @@ def forward_step(policy: torch.Tensor, D: torch.Tensor, grid: torch.Tensor,
 
 def lottery_apply_multi(policies: Sequence[torch.Tensor], D: torch.Tensor,
                         grids: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Young lottery over the endogenous axes; only k = 1 is ported."""
-    if len(policies) != 1:
-        raise NotImplementedError(
-            "the joint lottery over several endogenous axes is not ported "
-            "yet: ROADMAP.md Queue 1 item 9 (two-asset production route)")
-    return lottery_apply(policies[0], D, grids[0])
+    """Joint Young lottery over the k = len(policies) endogenous axes
+    (`hank_tpu/ops/transition.py:209-252`); k = 1 and k = 2.
+
+    For k = 2 the mass of each state splits over the 4 bracketing corners
+    with product weights, written as the reference's dense soft-one-hot
+    contraction (`_lottery_apply_2d_dense`, `:273-310`) on every device: a
+    corner scatter-add would sum with float atomics on CUDA and its results
+    would change from run to run.
+    """
+    k = len(policies)
+    if k == 1:
+        return lottery_apply(policies[0], D, grids[0])
+    if k != 2:
+        raise ValueError(f"the joint lottery takes 1 or 2 endogenous axes, got {k}")
+    shape = D.shape
+    n_b, n_a = shape[:2]
+    d2 = D.reshape(n_b, n_a, -1)
+    (jb, wb), (ja, wa) = (lottery_weights(p.reshape(n_b, n_a, -1), g)
+                          for p, g in zip(policies, grids))
+    Sb = _soft_one_hot(jb, wb, n_b)                # (b, a, F, n_b)
+    Sa = _soft_one_hot(ja, wa, n_a)                # (b, a, F, n_a)
+    out = torch.einsum("bafj,bafm->jmf", Sb * d2[..., None], Sa)
+    return out.reshape(shape)
+
+
+def _soft_one_hot(jc: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-axis lottery row: mass 1 − w at jc − 1 and w at jc, on a new
+    trailing axis of length n."""
+    t = torch.arange(n, device=jc.device)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    return (torch.where(jc[..., None] - 1 == t, 1.0 - w[..., None], zero)
+            + torch.where(jc[..., None] == t, w[..., None], zero))
 
 
 def dense_endog_transition(policy: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:

@@ -1,28 +1,43 @@
-"""Path solver: matrix-free Newton-Krylov (port of the `newton_krylov`
-branch of `hank_tpu/solvers/newton.py`).
+"""Path solvers: Boehl (2024) quasi-Newton and matrix-free Newton-Krylov
+(port of `hank_tpu/solvers/newton.py`).
 
-Every outer iteration, as in the reference's traced `run` (`:1072-1090`)
-with the full-precision residual kernel active:
-  1. F(x) in full precision from kernel 2 (`ops/fused_residual.py`);
-  2. the Newton step from `gmres_matfree`, whose matvecs are f32 JVP sweeps
-     from kernel 1 (`ops/fused_sweep.py`), left-preconditioned by one f32
-     matvec with the precomputed J̄⁻¹ (`:910-914`);
-  3. backtracking with strict descent, halving the step at most 6 times
-     (`:918-970`).
-The loop stops at ‖F‖ ≤ eps, at `max_outer`, or when an outer finds no
-descent; a stall warns and returns the incumbent.
+Both methods take f32 search directions from hand-written kernels and keep
+the residuals in f64. The model picks the kernels:
+  - the one-asset CRRA EGM family (`supports_fused_sweep`): directions
+    from kernel 1 (`ops/fused_sweep.py`), residuals from the native-f64
+    kernel 2 (`ops/fused_residual.py`);
+  - the two-asset Calvo-access family (`supports_fused_sweep2`): directions
+    from kernels 5-6 (`ops/fused_sweep2.py`), residuals from the plain f64
+    pipeline (the reference has no kernel for that residual either);
+any other model raises ValueError, as the reference does for a forced
+kernel (`:419-426`).
 
-The f32 J̄⁻¹ matvec is a plain `torch.matmul`; TF32 must be off for it
-(`torch.backends.cuda.matmul.allow_tf32 = False`, the default), and the
-solver refuses to run otherwise.
+method="newton_krylov" (`:900-1092`): per outer, the Newton step from
+`gmres_matfree` over the f32 direction operator, left-preconditioned by one
+f32 matvec with the precomputed J̄⁻¹; backtracking with strict descent.
+When an outer finds no descent, `stall_rescue` hands the iterate to the
+host-inner boehl solver (`:1026-1055`).
+
+method="boehl" (`:499-898`): the y-iteration y ← y + α(J̄⁻¹F − J̄⁻¹J y)
+with the adaptive Rayleigh-quotient step α, per outer. With
+`host_inner=True` the Richardson phase stops at its f32 noise floor and a
+host-driven preconditioned GMRES endgame (`_host_pgmres`) takes over, with
+a Levenberg-Marquardt damping and an operator ladder f32 → f64-ad → fd
+(`endgame="auto"` is "jvp", as the reference resolves it off a TPU).
+
+The f32 J̄⁻¹ matvec of Newton-Krylov is a plain `torch.matmul`; TF32 must
+be off for it (`torch.backends.cuda.matmul.allow_tf32 = False`, the
+default), and the solver refuses to run otherwise.
 """
 
 from __future__ import annotations
 
 import math
+import time
 import warnings
 from typing import Callable, Mapping
 
+import numpy as np
 import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals as eval_residuals
@@ -30,8 +45,9 @@ from hank_tpu_torch.blocks.backward import backward_iteration
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn
-from hank_tpu_torch.ops.fused_sweep import make_fused_jvp_dir
-from hank_tpu_torch.ops.linalg import gmres_matfree, make_reusable_solver
+from hank_tpu_torch.ops.fused_sweep import make_fused_jvp_dir, supports_fused_sweep
+from hank_tpu_torch.ops.fused_sweep2 import make_fused2_jvp_dir, supports_fused_sweep2
+from hank_tpu_torch.ops.linalg import gmres_matfree, make_reusable_solver, rayleigh_quotient
 
 
 def make_full_residual_fn(model, ss_initial, ss_ending,
@@ -71,13 +87,124 @@ def _boehl_alpha(ray: torch.Tensor) -> torch.Tensor:
     return torch.clamp(1.0 / torch.clamp(ray, min=1.0), 0.05, 1.0)
 
 
+def _cgs2(Vm: torch.Tensor, w: torch.Tensor, k: int):
+    """One CGS2 projection of w against the first k rows of the (m+1, n)
+    basis Vm (`_cgs2_program`, `:97-121`): returns the new Hessenberg
+    column (m+1,), the orthogonalised w and its norm."""
+    Vk = Vm[:k]
+    h1 = Vk @ w
+    w1 = w - Vk.T @ h1
+    h2 = Vk @ w1
+    w2 = w1 - Vk.T @ h2
+    h = torch.zeros(Vm.shape[0], dtype=w.dtype, device=w.device)
+    h[:k] = h1 + h2
+    return h, w2, torch.linalg.norm(w2)
+
+
+def _host_pgmres_cycle(apply_A, b: torch.Tensor, m: int, tol: float):
+    """One Arnoldi/CGS2 cycle of host-driven GMRES with the (m+1, m)
+    Hessenberg least squares in numpy f64 (`:124-162`).
+
+    Returns (dx, rel_residual, matvecs); dx is None if a matvec came back
+    non-finite (the caller escalates to a more robust operator)."""
+    bn = float(torch.linalg.norm(b))
+    if bn == 0.0 or not math.isfinite(bn):
+        return None, float("inf"), 0
+    Vm = torch.zeros((m + 1, b.shape[0]), dtype=b.dtype, device=b.device)
+    Vm[0] = b / bn
+    H = np.zeros((m + 1, m))
+    y = np.zeros(0)
+    k = 0
+    rrel = float("inf")
+    for j in range(m):
+        w = apply_A(Vm[j])
+        hcol_d, w, hn_d = _cgs2(Vm, w, j + 1)
+        hcol = hcol_d[:j + 1].cpu().numpy()
+        hn = float(hn_d)
+        if not (math.isfinite(hn) and np.isfinite(hcol).all()):
+            return None, float("inf"), j + 1
+        H[:j + 1, j] = hcol
+        H[j + 1, j] = hn
+        k = j + 1
+        e1 = np.zeros(k + 1)
+        e1[0] = bn
+        y, *_ = np.linalg.lstsq(H[:k + 1, :k], e1, rcond=None)
+        rrel = float(np.linalg.norm(H[:k + 1, :k] @ y - e1)) / bn
+        if hn < 1e-14 * bn or rrel < tol:
+            break
+        Vm[j + 1] = w / hn
+    dx = Vm[:k].T @ torch.as_tensor(y[:k], dtype=b.dtype, device=b.device)
+    return dx, rrel, k
+
+
+def _host_pgmres(apply_A, b: torch.Tensor, m: int, tol: float, restarts: int = 1):
+    """Host-driven restarted GMRES (`:165-219`): solves A·dx = b to relative
+    tolerance `tol` with at most `m` matvecs per cycle and up to `restarts`
+    extra cycles. A cycle that made real progress without reaching `tol`
+    is followed by one exact residual (one matvec) and another cycle from
+    the deflated right-hand side; a stagnant one (< 10% drop) stops.
+
+    Unlike the Richardson y-iteration, GMRES contracts even where the
+    preconditioned operator is indefinite along the iterate, which is what
+    happens at a kinked residual's f32 noise floor.
+
+    Returns (dx, rel_residual, matvecs); dx is None if a matvec came back
+    non-finite on the first cycle; later non-finite cycles return the best
+    accumulated iterate."""
+    bn = float(torch.linalg.norm(b))
+    if bn == 0.0 or not math.isfinite(bn):
+        return None, float("inf"), 0
+    dx_total = None
+    r = b
+    rrel_prev = 1.0
+    total_mv = 0
+    rrel = float("inf")
+    for cycle in range(restarts + 1):
+        dx, rrel_c, mv = _host_pgmres_cycle(apply_A, r, m, tol / rrel_prev)
+        total_mv += mv
+        if dx is None:
+            if dx_total is None:
+                return None, float("inf"), total_mv
+            return dx_total, rrel, total_mv
+        dx_total = dx if dx_total is None else dx_total + dx
+        rrel = rrel_c * rrel_prev            # vs the ORIGINAL b
+        if rrel < tol or cycle == restarts:
+            break
+        # True deflated residual (Arnoldi's estimate drifts across cycles).
+        r = b - apply_A(dx_total)
+        total_mv += 1
+        rn = float(torch.linalg.norm(r))
+        if not math.isfinite(rn):
+            break
+        rrel = rn / bn
+        if rrel < tol or rrel > 0.9 * rrel_prev:
+            break
+        rrel_prev = rrel
+    return dx_total, rrel, total_mv
+
+
 def newton_raphson_hank(x0, Jbar, exog_paths, model, ss_initial, ss_ending,
                         **kwargs):
     """Solve F(x) = 0 for the perfect-foresight path; one-shot form of
     `make_path_solver(...)(x0)`. Returns (x, info) with info =
-    {"iterations", "residual_norm"}."""
+    {"iterations", "residual_norm", ...}."""
     return make_path_solver(Jbar, exog_paths, model, ss_initial, ss_ending,
                             **kwargs)(x0)
+
+
+def direction_route(model, ss_initial, ss_ending, exog_paths):
+    """(jvp_dir32, F, route): the model's f32 direction kernels, its
+    full-precision residual and the route's name (module docstring)."""
+    if supports_fused_sweep(model):
+        return (make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths),
+                make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths),
+                "kernels 1-2")
+    if supports_fused_sweep2(model):
+        return (make_fused2_jvp_dir(model, ss_initial, ss_ending, exog_paths),
+                make_full_residual_fn(model, ss_initial, ss_ending, exog_paths),
+                "kernels 5-6, plain f64 residual")
+    raise ValueError("the model supports neither household-sweep kernel pair "
+                     "(supports_fused_sweep / supports_fused_sweep2 both False)")
 
 
 def make_path_solver(
@@ -90,36 +217,298 @@ def make_path_solver(
     eps: float = 1e-9,
     method: str = "newton_krylov",
     max_outer: int | None = None,
+    richardson_max_outer: int | None = None,
+    max_inner: int = 500,
     gmres_restart: int = 20,
     gmres_maxiter: int = 2,
     direction_dtype=torch.float32,
+    host_inner: bool = False,
+    verbose: bool = False,
     records: list | None = None,
+    stall_rescue: bool = True,
+    endgame: str = "auto",
+    endgame_gmres_tol: float | None = None,
 ):
-    """Build a reusable path solver `run(x0) -> (x, info)`.
+    """Build a reusable path solver `run(x0) -> (x, info)` (module docstring).
 
-    method: only "newton_krylov" is ported; "boehl" (and the reference's
-      stall rescue into it) raises NotImplementedError.
-    direction_dtype: only torch.float32 (kernel-1 directions) is ported.
+    direction_dtype: only torch.float32 (kernel directions) is ported.
+    host_inner: (boehl) Richardson phase + host-PGMRES endgame.
+    richardson_max_outer: (boehl, host_inner) cap on the Richardson outers;
+      0 skips that phase (the endgame-only route from a linear warm start).
+    endgame_gmres_tol: (boehl, host_inner) relative tolerance of the
+      endgame's GMRES solve, 1e-3 when not given.
+    endgame: "auto" (= "jvp" here), "jvp" (the f64 AD rung before fd) or
+      "fd" (f32 then fd).
+    stall_rescue: (newton_krylov) hand a no-descent iterate to boehl.
     records: optional list, appended one dict per outer iteration.
+
+    info holds "iterations" and "residual_norm" (floats); boehl adds
+    "inner_iterations" and "y_norm", and with host_inner "prof": program →
+    {"calls", "secs"} for "sweep" (Richardson steps), "solve_j", "F" and
+    "pgmres_mv" (endgame matvecs).
     """
-    if method == "boehl":
-        raise NotImplementedError(
-            "method='boehl' is not ported yet: ROADMAP.md, next items "
-            "(the boehl branch and its stall rescue)")
-    if method != "newton_krylov":
-        raise ValueError(f"unknown method '{method}' (expected 'newton_krylov')")
+    if method not in ("boehl", "newton_krylov"):
+        raise ValueError(f"unknown method '{method}' (expected 'boehl' or 'newton_krylov')")
+    if host_inner and method != "boehl":
+        raise ValueError("host_inner requires method='boehl'")
+    if ((richardson_max_outer is not None or endgame_gmres_tol is not None)
+            and not (method == "boehl" and host_inner)):
+        raise ValueError("richardson_max_outer and endgame_gmres_tol apply only to "
+                         "method='boehl' with host_inner=True")
+    if endgame not in ("auto", "jvp", "fd"):
+        raise ValueError(f"unknown endgame {endgame!r}")
     if direction_dtype != torch.float32:
         raise NotImplementedError(
-            "only direction_dtype=torch.float32 (kernel-1 directions) is ported")
+            "only direction_dtype=torch.float32 (kernel directions) is ported")
     if Jbar.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False: "
                            "the f32 J̄⁻¹ preconditioner needs full f32 products")
 
-    F = make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths)
-    jvp_dir32 = make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths)
+    jvp_dir32, F, _ = direction_route(model, ss_initial, ss_ending, exog_paths)
     solve_jbar = make_reusable_solver(Jbar)
-    Jinv32 = solve_jbar.A_inv.to(torch.float32)
     max_outer = config.path_newton_max_iter if max_outer is None else max_outer
+
+    def jvp_dir(x, v):
+        return jvp_dir32(x, v).to(x.dtype)
+
+    if method == "newton_krylov":
+        return _make_newton_krylov(
+            F, jvp_dir, solve_jbar, eps=eps, max_outer=max_outer,
+            gmres_restart=gmres_restart, gmres_maxiter=gmres_maxiter, records=records,
+            verbose=verbose,
+            rescue=(lambda outers_left: make_path_solver(
+                Jbar, exog_paths, model, ss_initial, ss_ending, method="boehl",
+                eps=eps, max_outer=outers_left, max_inner=max_inner,
+                direction_dtype=direction_dtype, host_inner=True, verbose=verbose,
+                records=records)) if stall_rescue else None)
+
+    # Inexact-Newton inner stop of the y-iteration: the preconditioned
+    # residual R = J̄⁻¹(F(x) − J(x)y) has dropped by `inner_eta` from
+    # J̄⁻¹F(x) (the f32-direction forcing of the reference).
+    inner_eta = 1e-5
+
+    def rich_step(x, y, Fx):
+        """One Richardson step: (y + α·R, ‖R‖)."""
+        Lxy = jvp_dir(x, y)
+        R = solve_jbar(Fx - Lxy)
+        alpha = _boehl_alpha(rayleigh_quotient(solve_jbar(Lxy), y))
+        return y + alpha * R, torch.linalg.norm(R)
+
+    if not host_inner:
+        def run(x0):
+            x, y = x0, x0
+            Fx = F(x0)
+            fnorm = float(torch.linalg.norm(Fx))
+            iters = total_inner = 0
+            while fnorm > eps and iters < max_outer:
+                tol = max(inner_eta * float(torch.linalg.norm(solve_jbar(Fx))), TINY)
+                rnorm, inner_its = math.inf, 0
+                while rnorm > tol and inner_its < max_inner:
+                    y, rn = rich_step(x, y, Fx)
+                    rnorm = float(rn)
+                    inner_its += 1
+                x = x - y
+                Fx = F(x)
+                fnorm = float(torch.linalg.norm(Fx))
+                _check_finite(fnorm, "boehl", iters + 1, x)
+                iters += 1
+                total_inner += inner_its
+                if verbose:
+                    print(f"[boehl] outer {iters}: |F| = {fnorm:.3e} (+{inner_its} sweeps)")
+                if records is not None:
+                    records.append({"iteration": iters, "residual_norm": fnorm,
+                                    "inner_sweeps": inner_its})
+            return x, {"iterations": iters, "inner_iterations": total_inner,
+                       "residual_norm": fnorm, "y_norm": float(torch.linalg.norm(y))}
+
+        return run
+
+    rich_max_outer = (max_outer if richardson_max_outer is None
+                      else min(richardson_max_outer, max_outer))
+    gmres_tol = 1e-3 if endgame_gmres_tol is None else endgame_gmres_tol
+    F_exact = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
+    endgame_mode = "jvp" if endgame == "auto" else endgame
+
+    def jvp_full(x, v):
+        return torch.func.jvp(F_exact, (x,), (v,))[1]
+
+    # FD step: the model's CompSpec.dx clamped into the window where the
+    # central-difference error h²·‖F‴‖/6 + ε₆₄‖F‖/h stays ≲ 1e-10 per unit
+    # tangent (`:609-615`). FD differences the plain f64 pipeline.
+    fd_h = float(min(max(model.compspec.dx, 1e-6), 1e-5))
+
+    def jvp_fd(x, v):
+        vn = float(torch.linalg.norm(v))
+        if vn == 0.0 or not math.isfinite(vn):
+            return torch.zeros_like(x)
+        u = v * (1.0 / vn)
+        return (F_exact(x + fd_h * u) - F_exact(x - fd_h * u)) * (vn / (2.0 * fd_h))
+
+    # The endgame's operator ladder, cheapest first; each rung is the
+    # preconditioned matvec v ↦ J̄⁻¹·J·v.
+    ladder = [("f32", lambda x, v: solve_jbar(jvp_dir(x, v)))]
+    if endgame_mode == "jvp":
+        ladder.append(("f64-ad", lambda x, v: solve_jbar(jvp_full(x, v))))
+    ladder.append(("fd", lambda x, v: solve_jbar(jvp_fd(x, v))))
+
+    def run(x0):
+        # Per-program wall-clock accumulators: program -> [calls, secs].
+        prof = {"sweep": [0, 0.0], "solve_j": [0, 0.0], "F": [0, 0.0],
+                "pgmres_mv": [0, 0.0]}
+
+        def _timed(key, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            if x0.is_cuda:
+                torch.cuda.synchronize(x0.device)
+            prof[key][0] += 1
+            prof[key][1] += time.perf_counter() - t0
+            return out
+
+        x, y = x0, x0
+        Fx = _timed("F", F, x)
+        fnorm = float(torch.linalg.norm(Fx))
+        iters = total_inner = 0
+        best = fnorm
+        since_improve = 0
+        x_best, F_best = x, Fx
+        # Phase 1: Richardson y-iteration with the f32 direction operator,
+        # down to its noise floor.
+        while fnorm > eps and iters < rich_max_outer:
+            tol = max(inner_eta * float(torch.linalg.norm(
+                _timed("solve_j", solve_jbar, Fx))), 1e-300)
+            rnorm, inner_its = math.inf, 0
+            best_r, y_best_in = math.inf, y
+            while rnorm > tol and inner_its < max_inner:
+                y_new, rn = _timed("sweep", rich_step, x, y, Fx)
+                rnew = float(rn)
+                if rnew < best_r:
+                    best_r, y_best_in = rnew, y
+                elif not math.isfinite(rnew) or rnew > 10.0 * max(best_r, tol):
+                    # Inner divergence: keep the best inner iterate; the
+                    # GMRES endgame handles the indefinite region.
+                    y = y_best_in
+                    rnorm = rnew
+                    break
+                y = y_new
+                rnorm = rnew
+                inner_its += 1
+            if not bool(torch.isfinite(y).all()):
+                break                                # endgame from the best
+            x = x - y
+            Fx = _timed("F", F, x)
+            fnorm = float(torch.linalg.norm(Fx))
+            _check_finite(fnorm, "boehl", iters + 1, x)
+            iters += 1
+            total_inner += inner_its
+            since_improve = 0 if fnorm < 0.5 * best else since_improve + 1
+            if fnorm < best:
+                best, x_best, F_best = fnorm, x, Fx
+            if verbose:
+                print(f"[boehl/host] outer {iters}: |F| = {fnorm:.3e} "
+                      f"(+{inner_its} sweeps)", flush=True)
+            if records is not None:
+                records.append({"iteration": iters, "residual_norm": fnorm,
+                                "inner_sweeps": inner_its})
+            # One non-halving outer marks the f32-direction floor; climbing
+            # far above the best iterate too (`:704-725`).
+            if since_improve >= 1 or fnorm > 3.0 * best:
+                break
+        # Phase 2: host-PGMRES Newton endgame from the best iterate. Each
+        # outer solves (J̄⁻¹J + λI)·dx = J̄⁻¹F and backtracks on the true
+        # residual norm; λ (Levenberg-Marquardt) shrinks on success and
+        # grows on failure, and the operator escalates once damping is
+        # exhausted or a matvec is non-finite (`:726-843`).
+        if fnorm > eps:
+            x, Fx, fnorm = x_best, F_best, best
+            level = 0
+            m_kry = min(40, x.shape[0])
+            lam = 0.0
+            eg_stall = 0
+            if verbose and iters:
+                print(f"[boehl/host] Richardson floor at |F| = {best:.3e}; GMRES "
+                      f"endgame ({ladder[level][0]} operator)", flush=True)
+            while fnorm > eps and iters < max_outer:
+                # Three outers in a row improving the best by < 2% each: the
+                # residual's own evaluation-noise floor.
+                if eg_stall >= 3:
+                    break
+                name, op = ladder[level]
+                xc, lam_c = x, lam
+                dx, rrel, mv = _host_pgmres(
+                    lambda v: _timed("pgmres_mv", op, xc, v) + lam_c * v,
+                    solve_jbar(Fx), m=m_kry, tol=gmres_tol)
+                total_inner += mv
+                iters += 1
+                if dx is None:
+                    # A NaN operator stays NaN whatever λ·v adds: escalate now.
+                    if level + 1 < len(ladder):
+                        level += 1
+                        lam = 0.0
+                        x, Fx, fnorm = x_best, F_best, best
+                        if verbose:
+                            print(f"[boehl/host] non-finite {name} matvec; escalating "
+                                  f"to {ladder[level][0]}", flush=True)
+                        continue
+                    break                            # no operator left
+                accepted = False
+                if bool(torch.isfinite(dx).all()):
+                    # The full backtracking ladder while outers accept; once
+                    # one failed at this damping, probe the two ends only.
+                    steps = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01) if eg_stall == 0 else (1.0, 0.1)
+                    for s in steps:
+                        xt = x - s * dx
+                        Ft = _timed("F", F, xt)
+                        fn = float(torch.linalg.norm(Ft))
+                        if math.isfinite(fn) and fn < fnorm:
+                            x, Fx, fnorm = xt, Ft, fn
+                            accepted = True
+                            break
+                if accepted:
+                    lam *= 0.3
+                    if lam < 1e-6:
+                        lam = 0.0
+                    eg_stall = eg_stall + 1 if fnorm > 0.98 * best else 0
+                    if fnorm < best:
+                        best, x_best, F_best = fnorm, x, Fx
+                    if verbose:
+                        print(f"[boehl/host] endgame outer {iters}: |F| = {fnorm:.3e} "
+                              f"({name}, +{mv} matvecs, step {s}, lam {lam:.1e})",
+                              flush=True)
+                    if records is not None:
+                        records.append({"iteration": iters, "residual_norm": fnorm,
+                                        "inner_sweeps": mv, "operator": name})
+                elif lam < 1e1:
+                    lam = max(30.0 * lam, 1e-2)
+                    eg_stall += 1
+                    x, Fx, fnorm = x_best, F_best, best
+                    if verbose:
+                        print(f"[boehl/host] no descent ({name}); raising LM damping "
+                              f"to {lam:.1e}", flush=True)
+                elif level + 1 < len(ladder):
+                    level += 1
+                    lam = 0.0
+                    x, Fx, fnorm = x_best, F_best, best
+                    if verbose:
+                        print(f"[boehl/host] damping exhausted with {name} operator; "
+                              f"escalating to {ladder[level][0]}", flush=True)
+                else:
+                    break                            # genuine stall
+        if best < fnorm:
+            x, fnorm = x_best, best
+        return x, {"iterations": iters, "inner_iterations": total_inner,
+                   "residual_norm": fnorm, "y_norm": float(torch.linalg.norm(y)),
+                   "prof": {k: {"calls": v[0], "secs": round(v[1], 3)}
+                            for k, v in prof.items()}}
+
+    return run
+
+
+def _make_newton_krylov(F, jvp_dir, solve_jbar, *, eps, max_outer, gmres_restart,
+                        gmres_maxiter, records, verbose, rescue):
+    """The Newton-Krylov `run` (`:900-1069`); `rescue(outers_left)` builds
+    the boehl solver a stalled iterate is handed to, or is None."""
+    Jinv32 = solve_jbar.A_inv.to(torch.float32)
     gmres_tol = 3e-7      # f32 operator floor: no more than the JVP noise
 
     def precond(v):
@@ -130,9 +519,9 @@ def make_path_solver(
         # noise and at what the final target still requires.
         eta = min(max(0.9 * (fnorm / fnorm_prev) ** 2, gmres_tol), 0.5)
         eta = max(eta, 0.1 * eps / max(fnorm, TINY))
-        d, _ = gmres_matfree(lambda v: jvp_dir32(x, v).to(x.dtype), Fx,
-                             x0=solve_jbar(Fx), M=precond, tol=eta, atol=0.0,
-                             restart=gmres_restart, maxiter=gmres_maxiter)
+        d, _ = gmres_matfree(lambda v: jvp_dir(x, v), Fx, x0=solve_jbar(Fx), M=precond,
+                             tol=eta, atol=0.0, restart=gmres_restart,
+                             maxiter=gmres_maxiter)
         # Backtracking: halve the step until the residual decreases (≤ 6
         # halvings); a full step that descends costs no extra residual.
         alpha = 1.0
@@ -157,15 +546,29 @@ def make_path_solver(
         fnorm = fprev = float(torch.linalg.norm(Fx))
         _check_finite(fnorm, "newton_krylov", 0, x)
         iters = 0
-        while fnorm > eps and iters < max_outer and (iters == 0 or fnorm < fprev):
+        while fnorm > eps and iters < max_outer:
             x, Fx, fn = nk_step(x, Fx, fnorm, fprev)
             fprev, fnorm = fnorm, fn
             iters += 1
+            if fnorm >= fprev:
+                # No descent along the Newton direction: a curved valley the
+                # step cannot traverse (the two-asset fiscal path). Hand the
+                # iterate to the adaptively damped boehl y-iteration.
+                if rescue is not None:
+                    warnings.warn(f"[newton_krylov] no descent at |F| = {fnorm:.3e} "
+                                  f"after {iters} outers — switching to the boehl "
+                                  "y-iteration")
+                    x, rinfo = rescue(max(max_outer - iters, 4))(x)
+                    fnorm = rinfo["residual_norm"]
+                    iters += rinfo["iterations"]
+                    break
+                warnings.warn(f"[newton_krylov] stalled at |F| = {fnorm:.3e} after "
+                              f"{iters} outer iterations (no descent direction found)")
+                break
+            if verbose:
+                print(f"[newton_krylov] outer {iters}: |F| = {fnorm:.3e}")
             if records is not None:
                 records.append({"iteration": iters, "residual_norm": fnorm})
-        if fnorm > eps and iters and fnorm >= fprev:
-            warnings.warn(f"[newton_krylov] stalled at |F| = {fnorm:.3e} after "
-                          f"{iters} outer iterations (no descent direction found)")
         return x, {"iterations": iters, "residual_norm": fnorm}
 
     return run

@@ -5,8 +5,9 @@ F is decomposed by the chain rule into the direct blocks (JDI), the
 backward policy responses (JBI) and the forward residual responses (JFI);
 by block-Toeplitz invariance at the steady state one block column of each
 suffices, and the full Jacobian follows from a diagonal cumulative sum.
-JDI and JBI are one `torch.func.jvp` per seed in a loop; JFI is one
-`torch.func.vjp` whose pullback is called once per seed.
+JDI and JBI are `torch.func.vmap` over the seeds of one `torch.func.jvp`
+(as the reference vmaps `jax.jvp`: one pass carries every seed's tangent);
+JFI is one `torch.func.vjp` whose pullback is vmapped over the seeds.
 """
 
 from __future__ import annotations
@@ -43,6 +44,14 @@ def _unit(n: int, i: int, like: torch.Tensor) -> torch.Tensor:
     return e
 
 
+def _seed_sweep(fn, x: torch.Tensor, first: int, n: int):
+    """The JVPs of `fn` at x along the n unit seeds e_first … e_{first+n-1},
+    as one `torch.func.vmap`ped `torch.func.jvp`: each output gains a leading
+    seed axis."""
+    seeds = torch.stack([_unit(x.shape[0], first + i, x) for i in range(n)])
+    return torch.func.vmap(lambda t: torch.func.jvp(fn, (x,), (t,))[1])(seeds)
+
+
 def direct_jacobian_blocks(ss, model) -> tuple[torch.Tensor, int]:
     """Direct blocks B_δ = ∂z_{p+δ}/∂x_p with policies frozen at SS, from
     n_endog JVPs at the interior period p = T-1-k-1
@@ -61,8 +70,7 @@ def direct_jacobian_blocks(ss, model) -> tuple[torch.Tensor, int]:
     p0 = Tm1 - 1 - k
     if p0 < 0:
         raise ValueError(f"perturbed period p={p0} out of range for T={cs.T}, k={k}")
-    raw = torch.stack([torch.func.jvp(g, (x_ss,), (_unit(Tm1 * nE, p0 * nE + i, x_ss),))[1]
-                       for i in range(nE)])                          # (nE, Tm1*nE)
+    raw = _seed_sweep(g, x_ss, p0 * nE, nE)                          # (nE, Tm1*nE)
     blocks = torch.stack([raw[:, (p0 + d) * nE:(p0 + d + 1) * nE].T
                           for d in range(-k, k + 1)])
     return blocks, k
@@ -81,9 +89,7 @@ def intermediate_jacobians(ss, model) -> tuple[dict, dict]:
     def back(x):
         return backward_iteration(x, exog_ss, model, ss.vars, ss.value)
 
-    cols = [torch.func.jvp(back, (x_ss,), (_unit(Tm1 * nE, last + i, x_ss),))[1]
-            for i in range(nE)]
-    JBI = {v: torch.stack([c[v] for c in cols]) for v in het_keys}
+    JBI = _seed_sweep(back, x_ss, last, nE)
 
     pol_ss = {v: ss.policies[v].to(x_ss.dtype).expand(Tm1, *ss.policies[v].shape).clone()
               for v in het_keys}
@@ -94,8 +100,8 @@ def intermediate_jacobians(ss, model) -> tuple[dict, dict]:
         return eval_residuals(x_mat, model)
 
     _, pullback = torch.func.vjp(fwd, pol_ss)
-    cots = [pullback(_unit(Tm1 * nE, last + i, x_ss))[0] for i in range(nE)]
-    JFI = {v: torch.stack([c[v] for c in cots]) for v in het_keys}
+    seeds = torch.stack([_unit(Tm1 * nE, last + i, x_ss) for i in range(nE)])
+    JFI = torch.func.vmap(lambda s: pullback(s)[0])(seeds)
     return JBI, JFI
 
 

@@ -7,7 +7,9 @@ converged value (implicit differentiation, the reference's `custom_jvp`),
 with the same Aitken-accelerated iteration as the primal. The Newton
 Jacobian is a loop of `torch.func.jvp` over the free variables' unit
 vectors (the reference's `jax.jacfwd`; vmap cannot run a loop that stops on
-`.item()`).
+`.item()`). Before that loop, `F.prepare_jacobian(p)` solves the tangent
+fixed points of all columns at once, batched as `jax.jacfwd` batches them,
+and each column's `jvp` rule then reads its own.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ from typing import Callable, Mapping
 import torch
 
 from hank_tpu_torch.blocks.assemble import residuals as eval_residuals
-from hank_tpu_torch.config import TINY, config
-from hank_tpu_torch.ops.linalg import dense_solve, invariant_dist_colstoch
-from hank_tpu_torch.ops.transition import dense_full_transition
+from hank_tpu_torch.config import config
+from hank_tpu_torch.ops.linalg import (accelerated_fixed_point, dense_solve,
+                                      invariant_dist_colstoch, make_invariant_solver)
+from hank_tpu_torch.ops.transition import (dense_full_transition, exog_apply,
+                                          lottery_apply_multi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,35 +49,15 @@ def _free_keys(model, ss_spec) -> tuple[str, ...]:
     return tuple(k for k in model.vars_of_type("endogenous") if k not in pinned)
 
 
-def _accelerated_fixed_point(step, v0, eps: float, max_iter: int):
-    """Iterate v ← step(v) until the sup-norm change is ≤ eps, with a
-    safeguarded Aitken extrapolation every 20 iterations after the 40th:
-    the extrapolation is kept only if one verification step shows a smaller
-    one-step residual than the plain iterate's (`steady_state.py:81-119`)."""
-    v = v0
-    diff_prev = math.inf
-    diff = math.inf
-    it = 0
-    while diff > eps and it < max_iter:
-        v_new = step(v)
-        diff = float(torch.max(torch.abs(v_new - v)))
-        if it % 20 == 19 and it > 40:
-            lam = min(max(diff / max(diff_prev, TINY), 0.0), 0.995)
-            v_ex = v_new + (v_new - v) * (lam / (1 - lam))
-            d_ex = float(torch.max(torch.abs(step(v_ex) - v_ex)))
-            if math.isfinite(d_ex) and d_ex < diff:
-                v_new = v_ex
-        v = v_new
-        diff_prev = diff
-        it += 1
-    return v
-
-
 def make_vfi_solver(model) -> Callable[[torch.Tensor], torch.Tensor]:
     """`vfi(xvec) -> value*` for the (n_v,) aggregate vector, differentiable
     in forward mode by implicit differentiation (`SteadyState.jl:134-141`)."""
     names = model.var_names()
     state_shape = model.state_shape()
+    # A model carrying several marginal values (the two-asset (V_b, V_a)
+    # pair) declares `ValueFunction.n_values`; the value gets that leading axis.
+    n_values = getattr(model.value_fn, "n_values", 1)
+    value_shape = state_shape if n_values == 1 else (n_values, *state_shape)
     eps = min(model.compspec.eps, config.vfi_eps)
     max_iter = config.vfi_max_iter
 
@@ -81,14 +65,48 @@ def make_vfi_solver(model) -> Callable[[torch.Tensor], torch.Tensor]:
         xvals = {name: xvec[i] for i, name in enumerate(names)}
         return model.value_fn(value, xvals, model)["Value"]
 
+    # The last fixed point, the Bellman step linearised there, and the
+    # tangent fixed points of the Newton Jacobian's columns. The Jacobian
+    # takes one `torch.func.jvp` per free variable and each reruns the
+    # forward at the same x: the cache serves it the same v* (bit for bit).
+    cache = {}
+
+    def linearize(dxs: torch.Tensor) -> None:
+        """At the last fixed point (v*, x), called outside any transform
+        (forward-mode AD does not nest): trace the tangent map once, then
+        solve dv = ∂_v f · dv + ∂_x f · dx for every row of dxs (n, n_v) in
+        one batched iteration, so a tangent step costs one primal-sized pass
+        for all n columns. The `jvp` rule serves a tangent dx equal to a row
+        of dxs from these solutions."""
+        if "x" not in cache:
+            return
+        if "lin" not in cache:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)   # fx const-fold notes
+                lin = torch.func.linearize(bellman, cache["v"], cache["x"])[1]
+                # The first call folds the graph's constants; it too must
+                # run outside the transforms.
+                lin(torch.zeros_like(cache["v"]), torch.zeros_like(cache["x"]))
+            cache["lin"] = lin
+        step = torch.func.vmap(cache["lin"])
+        dvs = accelerated_fixed_point(
+            lambda dv: step(dv, dxs),
+            torch.zeros((dxs.shape[0], *value_shape), dtype=dxs.dtype, device=dxs.device),
+            eps, max_iter)
+        cache["tangents"] = (dxs.clone(), dvs)
+
     class _VFI(torch.autograd.Function):
         @staticmethod
         def forward(xvec):
+            if "x" in cache and torch.equal(cache["x"], xvec):
+                return cache["v"].clone()
             # Constant initial marginal value: the first EGM implied-wealth
             # grid is then strictly increasing (`SteadyState.jl:129-132`).
-            v0 = torch.ones(state_shape, dtype=xvec.dtype, device=xvec.device)
-            return _accelerated_fixed_point(lambda v: bellman(v, xvec), v0,
-                                            eps, max_iter)
+            v0 = torch.ones(value_shape, dtype=xvec.dtype, device=xvec.device)
+            v = accelerated_fixed_point(lambda v: bellman(v, xvec), v0, eps, max_iter)
+            cache.clear()
+            cache.update(x=xvec.clone(), v=v.detach().clone())
+            return v
 
         @staticmethod
         def setup_context(ctx, inputs, output):
@@ -97,14 +115,28 @@ def make_vfi_solver(model) -> Callable[[torch.Tensor], torch.Tensor]:
         @staticmethod
         def jvp(ctx, dx):
             xvec, v_star = ctx.saved_tensors
+            if "tangents" in cache and torch.equal(cache["x"], xvec):
+                dxs, dvs = cache["tangents"]
+                for i in range(dxs.shape[0]):
+                    if torch.equal(dxs[i], dx):
+                        return dvs[i].clone()
+            if "lin" in cache and torch.equal(cache["x"], xvec):
+                lin = cache["lin"]
 
-            def tan_step(dv):
-                return torch.func.jvp(bellman, (v_star, xvec), (dv, dx))[1]
+                def tan_step(dv):
+                    return lin(dv, dx)
+            else:
+                def tan_step(dv):
+                    return torch.func.jvp(bellman, (v_star, xvec), (dv, dx))[1]
 
-            return _accelerated_fixed_point(tan_step, torch.zeros_like(v_star),
-                                            eps, max_iter)
+            return accelerated_fixed_point(tan_step, torch.zeros_like(v_star),
+                                           eps, max_iter)
 
-    return _VFI.apply
+    def vfi(xvec):
+        return _VFI.apply(xvec)
+
+    vfi.linearize = linearize
+    return vfi
 
 
 def make_ss_pipeline(model, ss_spec):
@@ -119,13 +151,20 @@ def make_ss_pipeline(model, ss_spec):
     transitions = [d.transition for d in model.exog_dims()]
     state_shape = model.state_shape()
 
-    if len(endog_dims) != 1 or model.n_total() > config.invariant_dense_max_states:
-        raise NotImplementedError(
-            "the matrix-free invariant-distribution solver is not ported yet "
-            "(ROADMAP.md, next items); the dense branch needs one endogenous "
-            f"dimension and at most {config.invariant_dense_max_states} states")
-    grid = endog_dims[0].grid
-    policy_var = endog_dims[0].policy_var
+    grids = [d.grid for d in endog_dims]
+    policy_vars = [d.policy_var for d in endog_dims]
+    # The invariant distribution: a dense direct solve for small
+    # one-endogenous-axis state spaces, the matrix-free power iteration with
+    # implicit differentiation otherwise (several endogenous axes, large grids).
+    use_dense = (len(endog_dims) == 1
+                 and model.n_total() <= config.invariant_dense_max_states)
+    if not use_dense:
+        def apply(endog_policies, D):
+            return exog_apply(lottery_apply_multi(endog_policies, D, grids),
+                              transitions, len(endog_dims))
+
+        invariant_solve = make_invariant_solver(
+            apply, eps=min(model.compspec.eps, config.invariant_eps))
     vfi = make_vfi_solver(model)
 
     def assemble(p, fill):
@@ -148,8 +187,12 @@ def make_ss_pipeline(model, ss_spec):
         xvals = {name: xvec[i] for i, name in enumerate(names)}
         result = model.value_fn(v_star, xvals, model)
         policies = {k: result[k] for k in het_keys}
-        lam = dense_full_transition(policies[policy_var], grid, transitions)
-        D = invariant_dist_colstoch(lam).reshape(state_shape)
+        if use_dense:
+            lam = dense_full_transition(policies[policy_vars[0]], grids[0], transitions)
+            D = invariant_dist_colstoch(lam).reshape(state_shape)
+        else:
+            D0 = torch.full(state_shape, 1.0 / model.n_total(), dtype=p.dtype, device=device)
+            D = invariant_solve([policies[v] for v in policy_vars], D0)
         xvec = assemble(p, {k: torch.sum(policies[k] * D) for k in het_keys})
         return xvec, result["Value"], policies, D
 
@@ -158,6 +201,13 @@ def make_ss_pipeline(model, ss_spec):
         cs = model.compspec
         x_mat = xvec[:, None].expand(len(names), 1 + cs.max_lag + cs.max_lead)
         return eval_residuals(x_mat, model)
+
+    def prepare_jacobian(p):
+        """Solve the VFI tangent fixed points of the Newton Jacobian's
+        columns at p, whose F was the last one evaluated."""
+        vfi.linearize(torch.func.jacfwd(lambda q: assemble(q, {}))(p).T.contiguous())
+
+    F.prepare_jacobian = prepare_jacobian
 
     return F, household, free
 
@@ -201,6 +251,7 @@ def find_ss(model, ss_spec, label: str = "", verbose: bool = False) -> SteadySta
         z_norm = safe_norm(z)
         if verbose:
             print(f"  [{label}] iteration {it}: residual norm = {z_norm:.3e}")
+        F.prepare_jacobian(p)           # at p, whose F was the last evaluated
         step = dense_solve(_jacobian(F, p), z)
         eta = 1.0
         p_new = project(p - eta * step)

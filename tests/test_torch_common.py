@@ -43,6 +43,29 @@ def build_small_ks_torch(T: int, n_a: int = 40, n_e: int = 5, device="cpu"):
                                                      "productivity": prod})
 
 
+def build_small_two_asset_torch(T: int = 12, n_b: int = 24, n_a: int = 12, n_e: int = 4,
+                                lam: float = 0.10, device="cpu"):
+    """The port's twin of `tests/test_hank_two_asset.py::build_small_two_asset`."""
+    from hank_tpu_torch.models.hank_two_asset import access_process
+
+    def t(a):
+        return torch.tensor(a, dtype=f64, device=device)
+
+    model = load_model_torch("hank_two_asset", T=T, device=device)
+    liq = HeterogeneityDimension(
+        "liquid", "endogenous", n_b, t(tgrids.make_double_exponential_grid(0.0, 120.0, n_b)),
+        None, "B")
+    ill = HeterogeneityDimension(
+        "illiquid", "endogenous", n_a, t(tgrids.make_double_exponential_grid(0.0, 200.0, n_a)),
+        None, "A")
+    Pi, _, z = tgrids.rouwenhorst(n_e, 0.966, 0.283)
+    inc = HeterogeneityDimension("income", "exogenous", n_e, t(z), t(Pi), None)
+    g, P = access_process(2, lam)
+    acc = HeterogeneityDimension("access", "exogenous", 2, t(g), t(P), None)
+    return dataclasses.replace(model, heterogeneity={"liquid": liq, "illiquid": ill,
+                                                     "income": inc, "access": acc})
+
+
 def ss_to_numpy(ss) -> dict:
     """A hank_tpu SteadyState as the numpy mapping `steady_state_from_numpy` takes."""
     return {"vars": {k: np.asarray(v) for k, v in ss.vars.items()},
@@ -143,7 +166,7 @@ def test_structures_compare_tensors_with_torch_equal():
         HeterogeneityDimension("e", "exogenous", 5, g, None, None)
 
 
-@pytest.mark.parametrize("name", ["ks_large_grid", "hank_one_asset", "hank_two_asset"])
+@pytest.mark.parametrize("name", ["ks_large_grid", "hank_one_asset"])
 def test_unported_models_raise_not_implemented(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         load_model_torch(name, T=10)
@@ -177,8 +200,11 @@ def test_package_imports_neither_jax_nor_hank_tpu():
     code = ("import sys\n"
             "before = set(sys.modules)\n"
             "import hank_tpu_torch, hank_tpu_torch.ops.fused_residual, "
-            "hank_tpu_torch.utils.checkpoint, hank_tpu_torch.models.krusell_smith\n"
+            "hank_tpu_torch.utils.checkpoint, hank_tpu_torch.models.krusell_smith, "
+            "hank_tpu_torch.models.hank_two_asset, hank_tpu_torch.ops.fused_sweep2, "
+            "hank_tpu_torch.solvers.linear\n"
             "hank_tpu_torch.load_model('krusell_smith', T=5)\n"
+            "hank_tpu_torch.load_model('hank_two_asset', T=5)\n"
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'hank_tpu' or m.startswith('hank_tpu.')]\n"
             "assert not bad, bad\n")
@@ -196,3 +222,19 @@ def test_chip_smoke_fails_without_a_card():
                           cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_two_asset_route_has_one_eps():
+    """Phase 7 builds every solver with `eps=EPS` and holds every path
+    residual to the same constant: the target and the check cannot drift."""
+    import inspect
+    import re
+
+    import chip_smoke
+
+    src = inspect.getsource(chip_smoke.two_asset_phase)
+    assert chip_smoke.EPS == 1e-8
+    targets = re.findall(r"\beps=([\w.+-]+)", src)
+    checks = re.findall(r"(?:fnorm\w*|\[\"residual_norm\"\])\s*[<>]=?\s*(EPS|[\d.]+e-?\d+)", src)
+    assert targets and set(targets) == {"EPS"}
+    assert len(checks) >= 3 and set(checks) == {"EPS"}

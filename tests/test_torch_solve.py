@@ -63,8 +63,8 @@ def test_path_solver_rejects_what_is_not_ported(ks_small_ss):
     tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
     J = torch.eye(44, dtype=torch.float64)
     exog = {"Z": to_torch(transitory_exog(12))}
-    with pytest.raises(NotImplementedError, match="boehl"):
-        make_path_solver(J, exog, tm, tss, tss, method="boehl")
+    with pytest.raises(ValueError, match="host_inner"):
+        make_path_solver(J, exog, tm, tss, tss, method="newton_krylov", host_inner=True)
     with pytest.raises(NotImplementedError):
         make_path_solver(J, exog, tm, tss, tss, direction_dtype=torch.float64)
     with pytest.raises(ValueError):
