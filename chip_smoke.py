@@ -76,10 +76,42 @@ exits non-zero and never prints the final `"ok": true` line:
                once: the two-phase one (to ‖F‖ < EPS) after a certified
                endgame-only route, else the endgame-only one cut at 5 outers,
                reported only.
+  8. driver  — `hank_tpu_torch.run` on the two other one-asset families at
+               their published widths (DRIVER_CASES: one-asset HANK 50×7,
+               T=300, monetary shock; large-grid KS 500×7, T=150, kinked ZLB
+               shock; both from `generate_exog_paths`), with a fresh artifact
+               cache (HANK_TPU_TORCH_CACHE). Per model: setup by
+               `get_or_solve` (timed; max|F_ss| ≤ 1e-9, the steady state
+               within 1e-8 of the JAX package's CPU one), the CLI once
+               (`main([... "--mixed", "--method", "newton_krylov", "--eps",
+               "1e-8"])`, the warm-up), kernels 1 and 2 at x_ss and at its
+               solution against their plain versions at phase 4's bounds
+               (smooth seeded directions; kernel 1's plain version in float64
+               on the same f32 inputs) with their ms at these shapes and
+               the shared memory they take, then 3 timed `solve_model` calls
+               (counters zeroed right before: both kernels launched, no plain
+               call; paths bit-identical to the CLI's; plain-f64 ‖F‖ < 1e-8;
+               within 1e-7 of the JAX package's CPU root in
+               `hank_tpu_torch/data/`; the economics of the JAX package's
+               tests). Then the driver's default once on the one-asset HANK:
+               the CLI without --mixed (f64 directions by AD through the plain
+               pipeline, kernel-2 residuals) to ‖F‖ < 1e-8, timed.
+  9. forward scan — kernel 7 on the f32 savings policies of the plain
+               backward block at phase 4's warm-up solution (KS 200×7, 299
+               periods, from ss0.D) and at phase 8's large-grid solution
+               (500×7, 149 periods): counters zeroed, one launch each and no
+               plain call; each against its plain version run in float64 on
+               the same f32 inputs (aggregates within 5e-5·max(scale, 1), D_T
+               within 1e-6, |ΣD_T − 1| ≤ 1e-5), repeats bit-identical, ms per
+               launch (20 launches) and of the plain version.
 
-The last three lines are the kernel summary JSON, the nvidia-smi line and
-`{"ok": true, "device": {...}}`. There is no CPU path: without a CUDA
-device the script exits non-zero at once.
+Every entry of the `kernels` line carries the least time the card could
+take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
+against operations over 67 TFLOP/s f32 or 34 TFLOP/s FP64, whichever is
+larger) and `library_ms` null: no single PyTorch call computes a household
+sweep or the forward scan. The last three lines are the kernel summary JSON, the
+nvidia-smi line and `{"ok": true, "device": {...}}`. There is no CPU path:
+without a CUDA device the script exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -95,10 +127,20 @@ import time
 # The two-asset route's target, and the bound its result is checked at.
 EPS = 1e-8
 
+# Phase 8's models and horizons: BASELINE.json configs 2 and 4, solved as
+# `scripts/measure_configs.py:36-63` solves them.
+DRIVER_CASES = (("hank_one_asset", 300), ("ks_large_grid", 150))
+
 # The JAX package's steady state and root of the same two-asset path, solved
 # on a CPU (`scripts/hank2_cpu_groundtruth.py`'s recipe).
 TWO_ASSET_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hank_tpu_torch",
                                    "data", "hank_two_asset_T300_jax_cpu.npz")
+
+
+def jax_root_file(name: str, T: int) -> str:
+    """The JAX package's steady state and root of a phase-8 path, solved on
+    a CPU (the recipe: `tests/test_torch_one_asset_families.py::jax_cpu_root`)."""
+    return os.path.join(os.path.dirname(TWO_ASSET_REFERENCE), f"{name}_T{T}_jax_cpu.npz")
 
 
 def emit(phase: str, **fields) -> None:
@@ -143,6 +185,70 @@ def cuda_once(fn):
 
 def max_abs(a, b) -> float:
     return float((a - b).abs().max())
+
+
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# HBM bytes per second, and operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def least_time(bytes_moved: float, ops: float, kind: str) -> dict:
+    """The least time the card could take for a call: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its operations over the peak rate of their type."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def log2_ceil(n: int) -> int:
+    return max(1, (n - 1).bit_length())
+
+
+# Operations the household sweeps need, per state and period, counted from
+# the algorithm: a bracket search is ⌈log2 n⌉ compares, a Markov mix 2·n_e,
+# a pow one operation; a dual-number (primal + tangent) operation counts 3.
+def one_asset_sweep_ops(Tm1: int, n_a: int, n_e: int, tangent: bool, paths: int = 1) -> float:
+    """Kernels 1-4: the backward EGM step (expectation 2·n_e, Euler,
+    implied wealth, bracket, lerp, clip, budget, envelope: ~20) and the
+    forward step (bracket, hat weights and lottery, mix, two aggregates:
+    ~14)."""
+    per = 4 * n_e + 2 * log2_ceil(n_a) + 34
+    return paths * Tm1 * n_a * n_e * per * (3 if tangent else 1)
+
+
+def forward_scan_ops(T: int, n_a: int, n_e: int) -> float:
+    """Kernel 7: bracket, weights (5), lottery (4), mix (2·n_e), aggregate (2)."""
+    return T * n_a * n_e * (log2_ceil(n_a) + 2 * n_e + 11)
+
+
+def two_asset_ops(Tm1: int, n_b: int, n_a: int, n_e: int, which: int) -> float:
+    """Kernel 5 (which = 0): per state and access branch the expectations of
+    both marginal values (4·n_e), the EGM brackets on both axes and ~40
+    arithmetic operations. Kernel 6 (which = 1): both brackets, the joint
+    lottery's weights and 4 corners (~18), the income and access mixes
+    (2·n_e + 4) and three aggregates (6). Dual numbers throughout."""
+    brackets = 2 * (log2_ceil(n_b) + log2_ceil(n_a))
+    per = (4 * n_e + brackets + 40) * 2 if which == 0 else brackets + 2 * n_e + 28
+    return Tm1 * n_b * n_a * n_e * 2 * per * 3
+
+
+def steady_residual(model, ss) -> float:
+    """max |F| of the model's equations at the steady state `ss`."""
+    import torch
+
+    from hank_tpu_torch.blocks.assemble import residuals as eval_residuals
+
+    cs = model.compspec
+    col = torch.stack([torch.as_tensor(ss.vars[k]) for k in model.var_names()])
+    x_mat = col[:, None].expand(cs.n_v, 1 + cs.max_lag + cs.max_lead)
+    return float(eval_residuals(x_mat, model).abs().max())
 
 
 def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
@@ -327,9 +433,18 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     emit("ensemble_throughput", ms_per_launch=width_ms,
          sweeps_per_s={Bw: Bw / (ms / 1e3) for Bw, ms in width_ms.items()})
 
+    # Bounds of the timed calls: the batched kernel 1 on the 4 check rows,
+    # the batched kernel 2 on rows {0, B-1}.
+    n_a, n_e = wealth.n, prod.n
+    k3_bound = least_time(nbytes(*small, *c32) + 4 * nbytes(small[0]),
+                          one_asset_sweep_ops(Tm1, n_a, n_e, True, len(check_rows)), "f32")
+    rows2 = rows_of((r64, w64), [0, B - 1])
+    k2b_bound = least_time(nbytes(*rows2, *c64) + 2 * nbytes(rows2[0]),
+                           one_asset_sweep_ops(Tm1, n_a, n_e, False, 2), "f64")
     entry = {"route": "cuda", "source": "hank_tpu_torch/csrc/household_sweep.cu",
              "launches": launches["k3_4"], "max_abs_err": k3_err, "ms": k3_ms,
-             "plain_ms": plain_ms, f"ms_B{B}": width_ms.get(B)}
+             "plain_ms": plain_ms, **k3_bound, "library_ms": None,
+             f"ms_B{B}": width_ms.get(B)}
     return [
         {"name": "fused_sweep_jvp_batch (backward EGM)",
          "replaces": "hank_tpu/ops/fused_sweep_batch.py:87", **entry},
@@ -338,8 +453,8 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
         {"name": "fused_residual_sweep_batch", "route": "cuda",
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_ds.py:338", "launches": launches["k2_batch"],
-         "max_abs_err": k2b_err, "ms": k2b_ms, "plain_ms": plain2_ms,
-         f"ms_B{B}": k2b_ms_full},
+         "max_abs_err": k2b_err, "ms": k2b_ms, "plain_ms": plain2_ms, **k2b_bound,
+         "library_ms": None, f"ms_B{B}": k2b_ms_full},
     ]
 
 
@@ -575,14 +690,283 @@ def two_asset_phase(dev) -> list:
          residual_norm_plain_f64=fnorm_o, max_abs_vs_route=max_abs(x_o, x_warm))
 
     source = "hank_tpu_torch/csrc/household_sweep2.cu"
+    n_b, n_a, n_e = model.state_shape()[:3]
+    pol_bytes = nbytes(*pol.values(), *dpol.values())
+    k5_bound = least_time(nbytes(*args, VT32) + pol_bytes,
+                          two_asset_ops(Tm1, n_b, n_a, n_e, 0), "f32")
+    k6_bound = least_time(pol_bytes + nbytes(D32, *agg.values(), *dagg.values()),
+                          two_asset_ops(Tm1, n_b, n_a, n_e, 1), "f32")
     return [
         {"name": "fused2_policies_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:673", "launches": launches["k5"],
-         "max_abs_err": k5_err, "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_f32_ms"]},
+         "max_abs_err": k5_err, "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_f32_ms"],
+         **k5_bound, "library_ms": None},
         {"name": "fused2_forward_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:984", "launches": launches["k6"],
-         "max_abs_err": k6_err, "ms": timing["k6_ms"], "plain_ms": timing["k6_plain_f32_ms"]},
+         "max_abs_err": k6_err, "ms": timing["k6_ms"], "plain_ms": timing["k6_plain_f32_ms"],
+         **k6_bound, "library_ms": None},
     ]
+
+
+def driver_case(name: str, T: int, dev, cache: str) -> dict:
+    """Phase 8 for one model family (see the module docstring). Emits its
+    JSON lines and returns what phase 9 and the summary need."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hank_tpu_torch import run
+    from hank_tpu_torch.model.structures import generate_exog_paths
+    from hank_tpu_torch.models import load_model
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_reference)
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_reference,
+                                                sweep_setup)
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+    from hank_tpu_torch.utils.checkpoint import get_or_solve
+
+    f32, f64 = torch.float32, torch.float64
+    model = load_model(name, T=T, device=dev)
+    cs = model.compspec
+    Tm1, nE = T - 1, cs.n_endog
+    n_a, n_e = model.state_shape()
+    endog = model.vars_of_type("endogenous")
+
+    # Setup into the fresh cache the driver then reads.
+    t0 = time.perf_counter()
+    ss0, ssT, Jbar = get_or_solve(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    F_ss = steady_residual(model, ssT)
+    require(F_ss <= 1e-9, f"{name}: steady state residual {F_ss:.3e} > 1e-9")
+    with np.load(jax_root_file(name, T)) as z:
+        ref_vars = dict(zip([str(s) for s in z["var_names"]], z["var_values"]))
+        x_jax = torch.as_tensor(z["x"], dtype=f64, device=dev)
+    ss_gap = max(abs(float(ssT.vars[k]) - float(v)) for k, v in ref_vars.items())
+    require(ss_gap <= 1e-8, f"{name}: steady state {ss_gap:.3e} off the JAX reference")
+    lib = cuda_build.load_library()
+    smem = {"k1": lib.hank_sweep_smem_bytes(1, n_a, n_e),
+            "k2": lib.hank_sweep_smem_bytes(0, n_a, n_e)}
+    emit("driver_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
+         max_abs_F_ss=F_ss, max_abs_vs_jax_ss=ss_gap, smem_bytes=smem,
+         **{k: float(ssT.vars[k]) for k in endog})
+
+    # The user's entry point once: `python -m hank_tpu_torch.run` in-process,
+    # its path read back from the CSV it writes (%.18e: exact in f64).
+    def cli(extra):
+        out = os.path.join(cache, f"{name}{''.join(extra)}.csv")
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run.main(["--model", name, "--T", str(T), "--device", str(dev),
+                                "--out", out, *extra])
+        path = np.loadtxt(out, delimiter=",", skiprows=1)[:, 1:]
+        return summary, torch.as_tensor(path.reshape(-1), dtype=f64, device=dev)
+
+    summary, x_cli = cli(["--mixed", "--method", "newton_krylov", "--eps", "1e-8"])
+
+    # Kernels 1 and 2 against their plain versions at x_ss and the solution,
+    # along smooth seeded directions, at the bounds of phase 4.
+    exog = generate_exog_paths(model, Tm1)
+    x_ss = torch.stack([torch.as_tensor(ssT.vars[k]) for k in endog]).repeat(Tm1)
+    hook, c32, kw, _ = sweep_setup(model, ss0, ssT, f32)
+    c64 = [c.double() for c in sweep_setup(model, ss0, ssT, f64)[1]]
+    gen = torch.Generator().manual_seed(8)
+    decay = (0.9 ** torch.arange(Tm1, dtype=f64))[:, None]
+
+    def sweep_args(x, v, dtype):
+        (r, s), (dr, ds) = torch.func.jvp(
+            lambda xx: hook(xx.reshape(Tm1, nE), exog, model), (x,), (v,))
+        return [t.to(dtype).contiguous() for t in (r, s, dr, ds)]
+
+    # Kernel 1's plain version runs in float64 on the same f32 input values,
+    # as in phases 6-7: an f32 rounding of the EGM knots can put a query
+    # exactly on a knot in one f32 computation and not in another.
+    c32_as64 = [c.double() for c in c32]
+    k1_err = k2_err = 0.0
+    for x in (x_ss, x_cli):
+        v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+        args = sweep_args(x, v, f32)
+        for o, r_ in zip(fused_sweep_jvp(*args, *c32, **kw),
+                         fused_sweep_jvp_reference(*(a.double() for a in args), *c32_as64,
+                                                   **kw)):
+            err, scale = max_abs(o.double(), r_), float(r_.abs().max())
+            require(err <= 3e-5 * max(scale, 1.0),
+                    f"{name}: kernel 1 off its plain version by {err:.3e} (scale {scale:.3e})")
+            k1_err = max(k1_err, err)
+        args64 = sweep_args(x, v, f64)[:2]
+        k2_err = max(k2_err, *(max_abs(o, r_) for o, r_ in zip(
+            fused_residual_sweep(*args64, *c64, **kw),
+            fused_residual_sweep_reference(*args64, *c64, **kw))))
+    require(k2_err <= 1e-11, f"{name}: kernel 2 off its plain version by {k2_err:.3e}")
+    timing = {"k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args, *c32, **kw), 20),
+              "k2_ms": cuda_ms(lambda: fused_residual_sweep(*args64, *c64, **kw), 20),
+              "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args, *c32, **kw))[1],
+              "k2_plain_ms": cuda_once(
+                  lambda: fused_residual_sweep_reference(*args64, *c64, **kw))[1]}
+    emit("driver_kernels", model=name, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, **timing)
+
+    # Three timed `solve_model` calls, counts zeroed right before them.
+    fused_sweep_jvp.launches = fused_residual_sweep.launches = 0
+    fused_sweep_jvp_reference.calls = fused_residual_sweep_reference.calls = 0
+    runs, solve_s, xs = [], [], []
+    for _ in range(3):
+        recs = []
+        t0 = time.perf_counter()
+        x_path, info, _, _ = run.solve_model(model, method="newton_krylov",
+                                             direction_dtype=f32, eps=1e-8,
+                                             verbose=False, records=recs)
+        runs.append(time.perf_counter() - t0)
+        solve_s.append(next(r["seconds"] for r in recs if r.get("phase") == "path solve"))
+        xs.append(x_path)
+    launches = {"k1": fused_sweep_jvp.launches, "k2": fused_residual_sweep.launches}
+    plain_calls = {"k1": fused_sweep_jvp_reference.calls,
+                   "k2": fused_residual_sweep_reference.calls}
+    require(launches["k1"] > 0 and launches["k2"] > 0,
+            f"{name}: a kernel of the driver's path never launched: {launches}")
+    require(plain_calls["k1"] == 0 and plain_calls["k2"] == 0,
+            f"{name}: a plain version ran on the driver's path: {plain_calls}")
+    x_sol = torch.as_tensor(xs[0].reshape(-1), dtype=f64, device=dev)
+    require(all(np.array_equal(xs[0], xi) for xi in xs[1:]) and torch.equal(x_sol, x_cli),
+            f"{name}: repeated solves returned different paths")
+    require(bool(torch.isfinite(x_sol).all()) and x_sol.shape == x_ss.shape,
+            f"{name}: the solution is not a finite path of the expected shape")
+    F_plain = make_full_residual_fn(model, ss0, ssT, exog)
+    fnorm_plain = float(torch.linalg.norm(F_plain(x_sol)))
+    require(fnorm_plain < 1e-8, f"{name}: plain f64 ‖F‖ is {fnorm_plain:.3e}")
+    vs_jax = max_abs(x_sol, x_jax)
+    require(vs_jax <= 1e-7, f"{name}: path {vs_jax:.3e} off the JAX reference")
+
+    # The economics the JAX package's tests hold its solution to.
+    path = xs[0]
+    if name == "hank_one_asset":
+        pi_dev = path[:, endog.index("pi")] - float(ssT.vars["pi"])
+        r_gap = float(np.max(np.abs(path[:, endog.index("r")] - float(ssT.vars["r"]))))
+        predicted = -0.002 * 0.6 / ((1 + float(ssT.vars["r"])) - model.params["phi_pi"])
+        econ = {"r_path_vs_ss": r_gap, "pi_dev_impact": float(pi_dev[0]),
+                "pi_dev_2": float(pi_dev[1]), "pi_dev_2_predicted": predicted}
+        require(r_gap < 1e-6 and abs(pi_dev[0]) < 1e-6
+                and abs(pi_dev[1] - predicted) < 0.2 * abs(predicted)
+                and abs(pi_dev[-1]) < 0.05 * np.max(np.abs(pi_dev)),
+                f"{name}: the monetary-shock path fails the reference's economics: {econ}")
+    else:
+        y0, r_max = float(path[0, endog.index("Y")]), float(path[:, endog.index("r")].max())
+        econ = {"Y_impact": y0, "Y_ss": float(ssT.vars["Y"]), "r_max": r_max,
+                "r_ss": float(ssT.vars["r"])}
+        require(y0 < 0.95 * float(ssT.vars["Y"]) and r_max > float(ssT.vars["r"]),
+                f"{name}: the ZLB path fails the reference's economics: {econ}")
+    emit("driver_solve", model=name, cli_summary=summary, median_s=statistics.median(runs),
+         runs_s=runs, path_solve_s=solve_s, outer_iterations=info["iterations"],
+         residual_norm=info["residual_norm"], residual_norm_plain_f64=fnorm_plain,
+         max_abs_vs_jax=vs_jax, launches=launches, plain_calls=plain_calls,
+         k1_launches_per_solve=launches["k1"] / 3, k2_launches_per_solve=launches["k2"] / 3,
+         bit_identical=True, economics=econ)
+    return {"model": model, "ss0": ss0, "ssT": ssT, "exog": exog, "x": x_sol, "cli": cli,
+            "k1_ms": timing["k1_ms"], "k2_ms": timing["k2_ms"]}
+
+
+def driver_phase(dev) -> dict:
+    """Phase 8: `hank_tpu_torch.run` on the two families (module
+    docstring), then the f64-direction default once. Returns the
+    large-grid case for phase 9."""
+    import torch
+
+    from hank_tpu_torch.ops.fused_residual import fused_residual_sweep
+    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+
+    cases = {}
+    previous = os.environ.get("HANK_TPU_TORCH_CACHE")
+    with tempfile.TemporaryDirectory() as cache:
+        os.environ["HANK_TPU_TORCH_CACHE"] = cache
+        try:
+            for name, T in DRIVER_CASES:
+                cases[name] = driver_case(name, T, dev, cache)
+
+            # The driver's default: f64 directions (AD through the plain
+            # pipeline), kernel-2 residuals, through the CLI without --mixed.
+            hank = cases["hank_one_asset"]
+            fused_sweep_jvp.launches = fused_residual_sweep.launches = 0
+            t0 = time.perf_counter()
+            summary, x64 = hank["cli"]([])
+            seconds = time.perf_counter() - t0
+            F_plain = make_full_residual_fn(hank["model"], hank["ss0"], hank["ssT"],
+                                            hank["exog"])
+            fnorm = float(torch.linalg.norm(F_plain(x64)))
+            require(summary["residual_norm"] < 1e-8 and fnorm < 1e-8,
+                    f"f64-direction solve: ‖F‖ {summary['residual_norm']:.3e}, "
+                    f"plain f64 {fnorm:.3e}")
+            emit("driver_f64_directions", model="hank_one_asset", T=hank["model"].compspec.T,
+                 seconds=seconds, cli_summary=summary, residual_norm_plain_f64=fnorm,
+                 max_abs_vs_mixed=max_abs(x64, hank["x"]),
+                 launches={"k1": fused_sweep_jvp.launches, "k2": fused_residual_sweep.launches})
+        finally:
+            if previous is None:
+                os.environ.pop("HANK_TPU_TORCH_CACHE", None)
+            else:
+                os.environ["HANK_TPU_TORCH_CACHE"] = previous
+    return cases
+
+
+def forward_scan_phase(inputs: dict) -> dict:
+    """Phase 9: kernel 7 on `inputs` {label: (policies, D0, grid, Pi)} (f32
+    on the card); returns its `kernels` entry, timed at the first label."""
+    import torch
+
+    from hank_tpu_torch.ops.forward_scan import forward_scan, forward_scan_reference
+
+    # Its path is its own entry point: one call per input, counts zeroed
+    # right before.
+    forward_scan.launches = forward_scan_reference.calls = 0
+    outs = {label: forward_scan(*args) for label, args in inputs.items()}
+    launches, plain_calls = forward_scan.launches, forward_scan_reference.calls
+    require(launches == len(inputs) and plain_calls == 0,
+            f"forward scan: {launches} launches, {plain_calls} plain calls")
+
+    checks, err_max = {}, 0.0
+    for label, args in inputs.items():
+        agg, D_T = outs[label]
+        again = forward_scan(*args)
+        require(torch.equal(agg, again[0]) and torch.equal(D_T, again[1]),
+                f"forward scan at {label}: repeated launches differ")
+        ref_agg, ref_D = forward_scan_reference(*(a.double() for a in args))
+        e_agg, e_D = max_abs(agg.double(), ref_agg), max_abs(D_T.double(), ref_D)
+        scale, mass = float(ref_agg.abs().max()), float(D_T.double().sum())
+        require(e_agg <= 5e-5 * max(scale, 1.0) and e_D <= 1e-6 and abs(mass - 1.0) <= 1e-5,
+                f"forward scan at {label}: agg off by {e_agg:.3e} (scale {scale:.3e}), "
+                f"D_T by {e_D:.3e}, mass {mass:.9f}")
+        T, n_a, n_e = args[0].shape
+        checks[label] = {"shape": [T, n_a, n_e], "agg_max_abs_err": e_agg, "agg_scale": scale,
+                         "D_T_max_abs_err": e_D, "mass_minus_1": mass - 1.0,
+                         "ms": cuda_ms(lambda: forward_scan(*args), 20),
+                         "plain_ms": cuda_once(lambda: forward_scan_reference(*args))[1],
+                         **least_time(nbytes(*args, agg, D_T),
+                                      forward_scan_ops(T, n_a, n_e), "f32")}
+        err_max = max(err_max, e_agg, e_D)
+    emit("forward_scan", launches=launches, plain_calls=plain_calls, checks=checks,
+         bit_identical=True)
+    first = checks[next(iter(inputs))]
+    return {"name": "forward_scan", "route": "cuda",
+            "source": "hank_tpu_torch/csrc/household_sweep.cu",
+            "replaces": "hank_tpu/ops/pallas_kernels.py:62", "launches": launches,
+            "max_abs_err": err_max, "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
+            **{f"ms_{label}": c["ms"] for label, c in checks.items()}}
+
+
+def scan_inputs(model, ss0, ssT, exog, x) -> tuple:
+    """Kernel 7's inputs at path x: the f32 savings policies of the plain
+    backward block, the initial distribution, the grid and Pi."""
+    import torch
+
+    from hank_tpu_torch.blocks.backward import backward_iteration
+
+    policy_var = model.endog_dims()[0].policy_var
+    pols = backward_iteration(x, exog, model, ssT.vars, ssT.value)[policy_var]
+    wealth, prod = model.endog_dims()[0], model.exog_dims()[0]
+    return tuple(t.to(torch.float32).contiguous()
+                 for t in (pols, ss0.D, wealth.grid, prod.transition))
 
 
 def main() -> int:
@@ -759,17 +1143,37 @@ def main() -> int:
     # ── 7. two-asset ───────────────────────────────────────────────────────
     two_asset_kernels = two_asset_phase(dev)
 
+    # ── 8. driver ──────────────────────────────────────────────────────────
+    driver = driver_phase(dev)
+
+    # ── 9. forward scan ────────────────────────────────────────────────────
+    lg = driver["ks_large_grid"]
+    scan_kernel = forward_scan_phase({
+        "ks_200x7_T300": scan_inputs(model, ss0, ssT, exog, x_warm),
+        "ks_large_grid_500x7_T150": scan_inputs(lg["model"], lg["ss0"], lg["ssT"],
+                                                lg["exog"], lg["x"])})
+
+    n_a, n_e = wealth.n, prod.n
+    k1_bound = least_time(nbytes(*args32) + 4 * nbytes(args32[0]),
+                          one_asset_sweep_ops(Tm1, n_a, n_e, True), "f32")
+    k2_bound = least_time(nbytes(*args64) + 2 * nbytes(args64[0]),
+                          one_asset_sweep_ops(Tm1, n_a, n_e, False), "f64")
     kernels = [
         {"name": "fused_sweep_jvp", "route": "cuda",
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_sweep.py:385", "launches": launches["k1"],
-         "max_abs_err": k1_err, "ms": timing["k1_ms"], "plain_ms": timing["k1_plain_ms"]},
+         "max_abs_err": k1_err, "ms": timing["k1_ms"], "plain_ms": timing["k1_plain_ms"],
+         **k1_bound, "library_ms": None,
+         **{f"ms_{k}": c["k1_ms"] for k, c in driver.items()}},
         {"name": "fused_residual_sweep", "route": "cuda",
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_ds.py:338", "launches": launches["k2"],
-         "max_abs_err": k2_err, "ms": timing["k2_ms"], "plain_ms": timing["k2_plain_ms"]},
+         "max_abs_err": k2_err, "ms": timing["k2_ms"], "plain_ms": timing["k2_plain_ms"],
+         **k2_bound, "library_ms": None,
+         **{f"ms_{k}": c["k2_ms"] for k, c in driver.items()}},
         *ensemble_kernels,
         *two_asset_kernels,
+        scan_kernel,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

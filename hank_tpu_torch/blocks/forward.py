@@ -39,3 +39,24 @@ def forward_iteration(
         for v in het_keys:
             aggs[v].append(torch.sum(policy_seqs[v][t] * D))
     return {v: torch.stack(a) for v, a in aggs.items()}
+
+
+def distribution_path(
+    policy_seqs: Mapping[str, torch.Tensor],
+    model,
+    D_initial: torch.Tensor,
+) -> torch.Tensor:
+    """The full (T, *state_shape) distribution path (diagnostics and
+    `utils/plotting.plot_distribution`): D[0] = D_initial, D[t] the
+    distribution after transition step t (`hank_tpu/blocks/forward.py:63-88`)."""
+    endog_dims = model.endog_dims()
+    grids = [d.grid for d in endog_dims]
+    transitions = [d.transition for d in model.exog_dims()]
+    policy_vars = [d.policy_var for d in endog_dims]
+    k = len(endog_dims)
+
+    Ds = [D_initial]
+    for t in range(policy_seqs[policy_vars[0]].shape[0]):
+        D_half = lottery_apply_multi([policy_seqs[v][t] for v in policy_vars], Ds[-1], grids)
+        Ds.append(exog_apply(D_half, transitions, k))
+    return torch.stack(Ds)

@@ -20,6 +20,9 @@
 //       fused_ds_residual_sweep (_make_fused_ds_kernel), here in native FP64
 //       instead of double-single f32 pairs, with general pow (no
 //       integer-gamma gate); B > 1 is the batched residual of an ensemble.
+// and, beside the template, forward_scan_kernel: the forward half alone in
+// primal f32 over given policies (replaces forward_scan_pallas; its own
+// note below).
 // A block reads only its own row of the price paths (and tangents), writes
 // only its own policy slice and output row, and shares V_T, D0, the grids
 // and Pi with every other block, so row b of a batched launch does the same
@@ -33,6 +36,10 @@
 // interior-masked lerp tangent, the borrowing clip that kills the tangent,
 // the consumption floor and the envelope; forward: the hat-basis lottery,
 // the Markov mix, aggregates against the post-transition distribution.
+// One departure: where the query equals a knot exactly, the TPU kernel's mask
+// gives the policy a zero tangent; here it takes the bracket's one-sided
+// tangent, and the lottery takes left-sided hat slopes at the knots, so
+// both agree with the f64 plain version, which sees no tie there.
 //
 // What bounds it on the H100: it is latency-bound. One block of 1024 threads
 // walks the 2*(T-1) periods of its path one after another on a single SM;
@@ -179,7 +186,12 @@ __global__ void __launch_bounds__(kThreads) household_sweep_kernel(
             S pol = vlo + tw * (vhi - vlo);
             S dpol = S(0);
             if (TANGENT) {
-                const bool interior = tw_raw > S(0) && tw_raw < S(1) && den > S(0);
+                // Interior: lo < x <= hi, on the operands and not on the
+                // rounded quotient. At x == hi (which f32 rounding of the
+                // knots produces, e.g. on the 500-point grid) the tangent is
+                // the bracket's, one-sided from below, as it is for any x
+                // just below hi; the f64 plain version sees no tie there.
+                const bool interior = x > lo && x <= hi && den > S(0);
                 const S dlo = dY[e * n_a + j - 1], dhi = dY[e * n_a + j];
                 const S dtw = interior ? -(dlo + tw * (dhi - dlo)) / safe : S(0);
                 dpol = dtw * (vhi - vlo);
@@ -231,19 +243,22 @@ __global__ void __launch_bounds__(kThreads) household_sweep_kernel(
             const S* Pe = P + e * n_a;
             const S* Xe = X + e * n_a;
             S acc = S(0), dacc = S(0);
+            const S gb = g[b];
             for (int a = 0; a < n_a; ++a) {
                 const S p = Pe[a];
-                // Outside (g_{b-1}, g_{b+1}) both the hat and its slope are
-                // exactly 0: skipping the source changes no bit of the sums.
-                if (!(p > gl && p < gh)) continue;
+                // Outside (g_{b-1}, g_{b+1}] both the hat and its left-sided
+                // slope are exactly 0: skipping the source changes no bit of
+                // the sums. At p == g_{b+1} the hat is 0 and its slope from
+                // the left is -id, the counterpart of destination b+1's +iu,
+                // so a policy on a knot moves tangent mass without creating
+                // it.
+                if (!(p > gl && p <= gh)) continue;
                 const S up = (p - gl) * iu;
                 const S down = (gh - p) * id;
-                const bool falling = down < up;
-                const S hat_raw = falling ? down : up;
-                const S hat = fmax(hat_raw, S(0));
+                const S hat = down < up ? down : up;
                 acc += hat * Xe[a];
                 if (TANGENT) {
-                    const S slope = hat_raw > S(0) ? (falling ? -id : iu) : S(0);
+                    const S slope = p > gb ? -id : iu;
                     dacc += hat * dX[e * n_a + a] + slope * dQ[e * n_a + a];
                 }
             }
@@ -330,6 +345,131 @@ int launch(const void* r, const void* w, const void* dr, const void* dw,
     return (int)cudaGetLastError();
 }
 
+// Forward distribution scan, f32 primal: replaces the TPU kernel
+// hank_tpu/ops/pallas_kernels.py:forward_scan_pallas
+// (_make_forward_scan_kernel). Given T per-period savings policies, it runs
+// the Young lottery, the Markov mix and the aggregation T times from D0 and
+// returns agg[t] = sum(policy_t * D_{t+1}) (the policy unclipped) and D_T.
+// It is household_sweep_kernel's forward loop in primal f32, with three
+// differences: the policies come from an input (laid out (T, n_a, n_e), as
+// the JAX function takes them) in place of the scratch, it runs T periods,
+// it writes the final D, and it has no consumption aggregate. It is a body
+// of its own: nvcc's schedule of household_sweep_kernel is fragile (a
+// runtime offset alone cost it 9%), so that kernel's code is left as it is.
+//
+// The hat form here (policy clamped to [g_0, g_last], then the hat weight)
+// is the same operator as the reference's bracket form (count of grid
+// points below the policy, clipped to [1, n_a-1], then the clipped weight),
+// but it rounds differently, by a few f32 ulps per period.
+//
+// What bounds it on the H100: latency. T dependent periods run one after
+// another on one SM, each a handful of block-wide barriers (the clamp, the
+// lottery, the mix and a 10-level reduction tree) around a few thousand
+// compares and FMAs per thread; the 1.7 MB of policies it reads at
+// 200x7, T=300 would take ~0.5 us at HBM rate. One block, 1024 threads, D in
+// shared memory, no float atomics (one owner thread per destination and a
+// fixed reduction tree), so two runs are bit-identical.
+__global__ void __launch_bounds__(kThreads) forward_scan_kernel(
+    const float* __restrict__ pol_g,     // (T, n_a, n_e)
+    const float* __restrict__ D0,        // (n_a, n_e)
+    const float* __restrict__ grid_g,    // (n_a,)
+    const float* __restrict__ Pi_g,      // (n_e, n_e) row-stochastic
+    float* __restrict__ agg,             // (T,)
+    float* __restrict__ D_T,             // (n_a, n_e)
+    int T, int n_a, int n_e)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* X = reinterpret_cast<float*>(smem_raw);   // D, laid out (n_e, n_a)
+    const int n = n_a * n_e;
+    const int tid = threadIdx.x;
+    float* Y = X + n;             // D_half
+    float* P = Y + n;             // clamped policy
+    float* g = P + n;
+    float* glo = g + n_a;
+    float* ghi = glo + n_a;
+    float* iup = ghi + n_a;
+    float* idn = iup + n_a;
+    float* Pi = idn + n_a;
+    float* red = Pi + n_e * n_e;  // (kThreads,)
+
+    for (int i = tid; i < n_a; i += kThreads) g[i] = grid_g[i];
+    for (int i = tid; i < n_e * n_e; i += kThreads) Pi[i] = Pi_g[i];
+    for (int idx = tid; idx < n; idx += kThreads) {
+        const int e = idx / n_a;
+        const int a = idx - e * n_a;
+        X[idx] = D0[a * n_e + e];
+    }
+    __syncthreads();
+    for (int i = tid; i < n_a; i += kThreads) {
+        const float lo = i == 0 ? g[0] - (g[1] - g[0]) : g[i - 1];
+        const float hi = i == n_a - 1 ? g[n_a - 1] + (g[n_a - 1] - g[n_a - 2]) : g[i + 1];
+        glo[i] = lo;
+        ghi[i] = hi;
+        iup[i] = 1.0f / (g[i] - lo);
+        idn[i] = 1.0f / (hi - g[i]);
+    }
+    __syncthreads();
+    const float g_bot = g[0], g_top = g[n_a - 1];
+
+    for (int t = 0; t < T; ++t) {
+        const float* pol_t = pol_g + (size_t)t * n;
+        for (int idx = tid; idx < n; idx += kThreads) {
+            const int e = idx / n_a;
+            const int a = idx - e * n_a;
+            P[idx] = fminf(fmaxf(pol_t[a * n_e + e], g_bot), g_top);
+        }
+        __syncthreads();
+
+        // Hat-basis Young lottery: D_half[e, b] = sum_a hat_b(p[e, a]) D[e, a].
+        for (int idx = tid; idx < n; idx += kThreads) {
+            const int e = idx / n_a;
+            const int b = idx - e * n_a;
+            const float gl = glo[b], gh = ghi[b], iu = iup[b], id = idn[b];
+            const float* Pe = P + e * n_a;
+            const float* Xe = X + e * n_a;
+            float acc = 0.0f;
+            for (int a = 0; a < n_a; ++a) {
+                const float p = Pe[a];
+                if (!(p > gl && p < gh)) continue;   // the hat is exactly 0 there
+                const float up = (p - gl) * iu;
+                const float down = (gh - p) * id;
+                acc += fmaxf(down < up ? down : up, 0.0f) * Xe[a];
+            }
+            Y[idx] = acc;
+        }
+        __syncthreads();
+
+        // Markov mix D'[e', b] = sum_e Pi[e, e'] D_half[e, b], then this
+        // thread's share of the aggregate.
+        float s = 0.0f;
+        for (int idx = tid; idx < n; idx += kThreads) {
+            const int e2 = idx / n_a;
+            const int b = idx - e2 * n_a;
+            float Dn = 0.0f;
+            for (int e = 0; e < n_e; ++e) Dn += Pi[e * n_e + e2] * Y[e * n_a + b];
+            X[idx] = Dn;
+            s += pol_t[b * n_e + e2] * Dn;
+        }
+        red[tid] = s;
+        __syncthreads();
+        for (int k = kThreads / 2; k > 0; k >>= 1) {
+            if (tid < k) red[tid] += red[tid + k];
+            __syncthreads();
+        }
+        if (tid == 0) agg[t] = red[0];
+    }
+    for (int idx = tid; idx < n; idx += kThreads) {
+        const int e = idx / n_a;
+        const int a = idx - e * n_a;
+        D_T[a * n_e + e] = X[idx];
+    }
+}
+
+size_t forward_scan_smem_bytes(int n_a, int n_e) {
+    return sizeof(float) * (3 * (size_t)n_a * n_e + 5 * (size_t)n_a
+                            + (size_t)n_e * n_e + kThreads);
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each launcher returns the
@@ -380,6 +520,23 @@ int hank_sweep_residual_f64(const void* r, const void* w, const void* V_T,
     return hank_sweep_residual_f64_batch(r, w, V_T, D0, grid, egrid, Pi, pol, agg,
                                          aggc, 1, Tm1, n_a, n_e, beta, gamma,
                                          borrow_cons, stream);
+}
+
+int hank_forward_scan_f32(const void* pol, const void* D0, const void* grid,
+                          const void* Pi, void* agg, void* D_T, int T, int n_a,
+                          int n_e, void* stream) {
+    const size_t smem = forward_scan_smem_bytes(n_a, n_e);
+    cudaError_t err = cudaFuncSetAttribute(
+        forward_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    forward_scan_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        (const float*)pol, (const float*)D0, (const float*)grid, (const float*)Pi,
+        (float*)agg, (float*)D_T, T, n_a, n_e);
+    return (int)cudaGetLastError();
+}
+
+size_t hank_forward_scan_smem_bytes(int n_a, int n_e) {
+    return forward_scan_smem_bytes(n_a, n_e);
 }
 
 size_t hank_sweep_smem_bytes(int tangent, int n_a, int n_e) {

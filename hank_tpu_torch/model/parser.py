@@ -5,10 +5,9 @@ expressions over the padded `(n_v, T_pad)` variable matrix
 (`ModelParser.jl:54-119`), and compiled once into a plain Python function
 of torch tensors (`ModelParser.jl:217-259`).
 
-The YAML files are kept once, in `hank_tpu/models/`, and read here as data.
-The `function_file` a YAML names is resolved against the port's own
-`hank_tpu_torch/models/` directory (the JAX package's function files import
-jax).
+The shipped YAML specs live in `hank_tpu_torch/models/`, copies of the JAX
+package's; the `function_file` a YAML names is resolved against the YAML's
+own directory unless `function_dir` says otherwise.
 """
 
 from __future__ import annotations
@@ -263,12 +262,12 @@ def _parse_ss_spec(spec_dict: Mapping) -> SteadyStateSpec:
 
 
 def build_model_from_yaml(file_path: str, function_dir: str | None = None,
-                          device="cpu") -> SequenceModel:
+                          device="cuda") -> SequenceModel:
     """YAML specification file -> SequenceModel (`ModelParser.jl:296-379`).
 
     `function_dir` is where the YAML's `function_file` is looked up
     (default: the YAML's own directory). Grids and transitions are built
-    on `device`.
+    on `device`: the card unless the caller asks for the CPU.
     """
     with open(file_path) as f:
         spec = yaml.safe_load(f)

@@ -4,7 +4,8 @@ Each source under `csrc/` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `hank_tpu_torch/_build/`
 (git-ignored):
   - `household_sweep.cu`: the one-asset sweep (kernels 1-4), single-path
-    and path-batched entry points of one kernel template;
+    and path-batched entry points of one kernel template, and the forward
+    distribution scan (kernel 7);
   - `household_sweep2.cu`: the two-asset sweep (kernels 5-6).
 The libraries are keyed by the SHA-256 of both sources, so an edited source
 rebuilds; a build runs one nvcc per source, all started together. The
@@ -100,6 +101,7 @@ _SIGNATURES = {
         "hank_sweep_residual_f64": (10, 3, 3),
         "hank_sweep_jvp_f32_batch": (15, 4, 3),
         "hank_sweep_residual_f64_batch": (10, 4, 3),
+        "hank_forward_scan_f32": (6, 3, 0),
     },
     "household_sweep2": {
         "hank_sweep2_policies_jvp_f32": (15, 4, 4),
@@ -119,6 +121,8 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
     if name == "household_sweep":
         lib.hank_sweep_smem_bytes.argtypes = [i, i, i]
         lib.hank_sweep_smem_bytes.restype = ctypes.c_size_t
+        lib.hank_forward_scan_smem_bytes.argtypes = [i, i]
+        lib.hank_forward_scan_smem_bytes.restype = ctypes.c_size_t
     else:
         lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i]
         lib.hank_sweep2_smem_bytes.restype = ctypes.c_size_t
@@ -139,6 +143,11 @@ def _check_smem(need: int, what: str) -> None:
 
 def check_shared_memory(lib: ctypes.CDLL, tangent: bool, n_a: int, n_e: int) -> None:
     _check_smem(lib.hank_sweep_smem_bytes(int(tangent), n_a, n_e), f"grid {n_a}x{n_e}")
+
+
+def check_shared_memory_scan(lib: ctypes.CDLL, n_a: int, n_e: int) -> None:
+    """Kernel 7 (the forward scan) at an n_a×n_e grid."""
+    _check_smem(lib.hank_forward_scan_smem_bytes(n_a, n_e), f"forward scan at grid {n_a}x{n_e}")
 
 
 def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int) -> None:

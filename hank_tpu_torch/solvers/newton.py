@@ -1,29 +1,35 @@
 """Path solvers: Boehl (2024) quasi-Newton and matrix-free Newton-Krylov
 (port of `hank_tpu/solvers/newton.py`).
 
-Both methods take f32 search directions from hand-written kernels and keep
-the residuals in f64. The model picks the kernels:
+Both methods keep the residuals in f64 and take their search directions
+in f64 by default (`direction_dtype=None`: `torch.func.jvp` through the
+plain pipeline) or in f32 from hand-written kernels
+(`direction_dtype=torch.float32`). The model picks the kernels:
   - the one-asset CRRA EGM family (`supports_fused_sweep`): directions
     from kernel 1 (`ops/fused_sweep.py`), residuals from the native-f64
-    kernel 2 (`ops/fused_residual.py`);
+    kernel 2 (`ops/fused_residual.py`) unless `residual_mode="f64"`;
   - the two-asset Calvo-access family (`supports_fused_sweep2`): directions
     from kernels 5-6 (`ops/fused_sweep2.py`), residuals from the plain f64
     pipeline (the reference has no kernel for that residual either);
-any other model raises ValueError, as the reference does for a forced
-kernel (`:419-426`).
+f32 directions for any other model raise ValueError, as the reference does
+for a forced kernel (`:419-426`).
 
 method="newton_krylov" (`:900-1092`): per outer, the Newton step from
-`gmres_matfree` over the f32 direction operator, left-preconditioned by one
-f32 matvec with the precomputed J̄⁻¹; backtracking with strict descent.
+`gmres_matfree` over the direction operator, left-preconditioned by one
+matvec with the precomputed J̄⁻¹; backtracking with strict descent.
 When an outer finds no descent, `stall_rescue` hands the iterate to the
 host-inner boehl solver (`:1026-1055`).
 
 method="boehl" (`:499-898`): the y-iteration y ← y + α(J̄⁻¹F − J̄⁻¹J y)
 with the adaptive Rayleigh-quotient step α, per outer. With
-`host_inner=True` the Richardson phase stops at its f32 noise floor and a
+`host_inner=True` the Richardson phase stops at its noise floor and a
 host-driven preconditioned GMRES endgame (`_host_pgmres`) takes over, with
 a Levenberg-Marquardt damping and an operator ladder f32 → f64-ad → fd
-(`endgame="auto"` is "jvp", as the reference resolves it off a TPU).
+(ad → fd with f64 directions; `endgame="auto"` is "jvp", as the reference
+resolves it off a TPU).
+
+`solve_path_dense` (`:1097-1129`) is dense Newton with the Jacobian by
+`torch.func.jacfwd`: the small-T ground truth of the tests.
 
 The f32 J̄⁻¹ matvec of Newton-Krylov is a plain `torch.matmul`; TF32 must
 be off for it (`torch.backends.cuda.matmul.allow_tf32 = False`, the
@@ -47,7 +53,8 @@ from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn
 from hank_tpu_torch.ops.fused_sweep import make_fused_jvp_dir, supports_fused_sweep
 from hank_tpu_torch.ops.fused_sweep2 import make_fused2_jvp_dir, supports_fused_sweep2
-from hank_tpu_torch.ops.linalg import gmres_matfree, make_reusable_solver, rayleigh_quotient
+from hank_tpu_torch.ops.linalg import (dense_solve, gmres_matfree, make_reusable_solver,
+                                       rayleigh_quotient)
 
 
 def make_full_residual_fn(model, ss_initial, ss_ending,
@@ -192,19 +199,40 @@ def newton_raphson_hank(x0, Jbar, exog_paths, model, ss_initial, ss_ending,
                             **kwargs)(x0)
 
 
-def direction_route(model, ss_initial, ss_ending, exog_paths):
-    """(jvp_dir32, F, route): the model's f32 direction kernels, its
-    full-precision residual and the route's name (module docstring)."""
+def direction_kernels(model, ss_initial, ss_ending, exog_paths):
+    """jvp_dir32(x, v): the model's f32 direction kernels (module docstring)."""
     if supports_fused_sweep(model):
-        return (make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths),
-                make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths),
-                "kernels 1-2")
+        return make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths)
     if supports_fused_sweep2(model):
-        return (make_fused2_jvp_dir(model, ss_initial, ss_ending, exog_paths),
-                make_full_residual_fn(model, ss_initial, ss_ending, exog_paths),
-                "kernels 5-6, plain f64 residual")
+        return make_fused2_jvp_dir(model, ss_initial, ss_ending, exog_paths)
     raise ValueError("the model supports neither household-sweep kernel pair "
                      "(supports_fused_sweep / supports_fused_sweep2 both False)")
+
+
+def residual_route(model, ss_initial, ss_ending, exog_paths, residual_mode: str = "auto"):
+    """The full-precision F(x) that `residual_mode` picks (`:330-331`):
+    "auto" kernel 2 wherever `supports_fused_sweep` holds, else the plain
+    f64 pipeline; "ds" kernel 2 or ValueError; "f64" the plain pipeline."""
+    if residual_mode not in ("auto", "ds", "f64"):
+        raise ValueError(f"unknown residual_mode {residual_mode!r}")
+    sweep = supports_fused_sweep(model)
+    if residual_mode == "ds" and not sweep:
+        raise ValueError("residual_mode='ds' needs the one-asset residual kernel "
+                         "(supports_fused_sweep is False for this model)")
+    if residual_mode != "f64" and sweep:
+        return make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths)
+    return make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
+
+
+def _is_mixed(direction_dtype) -> bool:
+    """True for f32 (kernel) directions, False for f64 ones (None or
+    torch.float64, the working dtype, as in the reference)."""
+    if direction_dtype is None or direction_dtype == torch.float64:
+        return False
+    if direction_dtype == torch.float32:
+        return True
+    raise ValueError(f"direction_dtype must be None, torch.float64 or torch.float32, "
+                     f"got {direction_dtype!r}")
 
 
 def make_path_solver(
@@ -215,13 +243,14 @@ def make_path_solver(
     ss_ending,
     *,
     eps: float = 1e-9,
-    method: str = "newton_krylov",
+    method: str = "boehl",
     max_outer: int | None = None,
     richardson_max_outer: int | None = None,
     max_inner: int = 500,
     gmres_restart: int = 20,
     gmres_maxiter: int = 2,
-    direction_dtype=torch.float32,
+    direction_dtype=None,
+    residual_mode: str = "auto",
     host_inner: bool = False,
     verbose: bool = False,
     records: list | None = None,
@@ -231,14 +260,16 @@ def make_path_solver(
 ):
     """Build a reusable path solver `run(x0) -> (x, info)` (module docstring).
 
-    direction_dtype: only torch.float32 (kernel directions) is ported.
+    direction_dtype: None (or torch.float64) for f64 directions, AD
+      through the plain pipeline; torch.float32 for the kernels' directions.
+    residual_mode: "auto" | "ds" | "f64" (`residual_route`).
     host_inner: (boehl) Richardson phase + host-PGMRES endgame.
     richardson_max_outer: (boehl, host_inner) cap on the Richardson outers;
       0 skips that phase (the endgame-only route from a linear warm start).
     endgame_gmres_tol: (boehl, host_inner) relative tolerance of the
       endgame's GMRES solve, 1e-3 when not given.
-    endgame: "auto" (= "jvp" here), "jvp" (the f64 AD rung before fd) or
-      "fd" (f32 then fd).
+    endgame: "auto" (= "jvp" here), "jvp" (with f32 directions, the f64 AD
+      rung before fd) or "fd" (f32 then fd).
     stall_rescue: (newton_krylov) hand a no-descent iterate to boehl.
     records: optional list, appended one dict per outer iteration.
 
@@ -257,30 +288,38 @@ def make_path_solver(
                          "method='boehl' with host_inner=True")
     if endgame not in ("auto", "jvp", "fd"):
         raise ValueError(f"unknown endgame {endgame!r}")
-    if direction_dtype != torch.float32:
-        raise NotImplementedError(
-            "only direction_dtype=torch.float32 (kernel directions) is ported")
-    if Jbar.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+    mixed = _is_mixed(direction_dtype)
+    if mixed and Jbar.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False: "
                            "the f32 J̄⁻¹ preconditioner needs full f32 products")
 
-    jvp_dir32, F, _ = direction_route(model, ss_initial, ss_ending, exog_paths)
+    F = residual_route(model, ss_initial, ss_ending, exog_paths, residual_mode)
+    F_exact = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
     solve_jbar = make_reusable_solver(Jbar)
     max_outer = config.path_newton_max_iter if max_outer is None else max_outer
 
-    def jvp_dir(x, v):
-        return jvp_dir32(x, v).to(x.dtype)
+    def jvp_full(x, v):
+        return torch.func.jvp(F_exact, (x,), (v,))[1]
+
+    if mixed:
+        jvp_dir32 = direction_kernels(model, ss_initial, ss_ending, exog_paths)
+
+        def jvp_dir(x, v):
+            return jvp_dir32(x, v).to(x.dtype)
+    else:
+        jvp_dir = jvp_full
 
     if method == "newton_krylov":
         return _make_newton_krylov(
-            F, jvp_dir, solve_jbar, eps=eps, max_outer=max_outer,
+            F, jvp_dir, solve_jbar, mixed=mixed, eps=eps, max_outer=max_outer,
             gmres_restart=gmres_restart, gmres_maxiter=gmres_maxiter, records=records,
             verbose=verbose,
             rescue=(lambda outers_left: make_path_solver(
                 Jbar, exog_paths, model, ss_initial, ss_ending, method="boehl",
                 eps=eps, max_outer=outers_left, max_inner=max_inner,
-                direction_dtype=direction_dtype, host_inner=True, verbose=verbose,
-                records=records)) if stall_rescue else None)
+                direction_dtype=direction_dtype, residual_mode=residual_mode,
+                host_inner=True, verbose=verbose, records=records))
+            if stall_rescue else None)
 
     # Inexact-Newton inner stop of the y-iteration: the preconditioned
     # residual R = J̄⁻¹(F(x) − J(x)y) has dropped by `inner_eta` from
@@ -326,11 +365,7 @@ def make_path_solver(
     rich_max_outer = (max_outer if richardson_max_outer is None
                       else min(richardson_max_outer, max_outer))
     gmres_tol = 1e-3 if endgame_gmres_tol is None else endgame_gmres_tol
-    F_exact = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
     endgame_mode = "jvp" if endgame == "auto" else endgame
-
-    def jvp_full(x, v):
-        return torch.func.jvp(F_exact, (x,), (v,))[1]
 
     # FD step: the model's CompSpec.dx clamped into the window where the
     # central-difference error h²·‖F‴‖/6 + ε₆₄‖F‖/h stays ≲ 1e-10 per unit
@@ -345,9 +380,10 @@ def make_path_solver(
         return (F_exact(x + fd_h * u) - F_exact(x - fd_h * u)) * (vn / (2.0 * fd_h))
 
     # The endgame's operator ladder, cheapest first; each rung is the
-    # preconditioned matvec v ↦ J̄⁻¹·J·v.
-    ladder = [("f32", lambda x, v: solve_jbar(jvp_dir(x, v)))]
-    if endgame_mode == "jvp":
+    # preconditioned matvec v ↦ J̄⁻¹·J·v. With f64 directions the first
+    # rung is already the f64 AD one (`:632-636`).
+    ladder = [("f32" if mixed else "ad", lambda x, v: solve_jbar(jvp_dir(x, v)))]
+    if mixed and endgame_mode == "jvp":
         ladder.append(("f64-ad", lambda x, v: solve_jbar(jvp_full(x, v))))
     ladder.append(("fd", lambda x, v: solve_jbar(jvp_fd(x, v))))
 
@@ -504,15 +540,22 @@ def make_path_solver(
     return run
 
 
-def _make_newton_krylov(F, jvp_dir, solve_jbar, *, eps, max_outer, gmres_restart,
+def _make_newton_krylov(F, jvp_dir, solve_jbar, *, mixed, eps, max_outer, gmres_restart,
                         gmres_maxiter, records, verbose, rescue):
     """The Newton-Krylov `run` (`:900-1069`); `rescue(outers_left)` builds
-    the boehl solver a stalled iterate is handed to, or is None."""
-    Jinv32 = solve_jbar.A_inv.to(torch.float32)
-    gmres_tol = 3e-7      # f32 operator floor: no more than the JVP noise
+    the boehl solver a stalled iterate is handed to, or is None. With f32
+    directions (`mixed`) GMRES stops at the f32 operator floor and is
+    preconditioned by an f32 J̄⁻¹ matvec; with f64 ones at 1e-12, by the f64
+    J̄⁻¹ (`:902-916`)."""
+    if mixed:
+        Jinv32 = solve_jbar.A_inv.to(torch.float32)
+        gmres_tol = 3e-7      # f32 operator floor: no more than the JVP noise
 
-    def precond(v):
-        return (Jinv32 @ v.to(torch.float32)).to(v.dtype)
+        def precond(v):
+            return (Jinv32 @ v.to(torch.float32)).to(v.dtype)
+    else:
+        gmres_tol = 1e-12
+        precond = solve_jbar
 
     def nk_step(x, Fx, fnorm, fnorm_prev):
         # Eisenstat-Walker (choice 2) forcing, floored at the direction
@@ -572,3 +615,22 @@ def _make_newton_krylov(F, jvp_dir, solve_jbar, *, eps, max_outer, gmres_restart
         return x, {"iterations": iters, "residual_norm": fnorm}
 
     return run
+
+
+def solve_path_dense(x0, exog_paths, model, ss_initial, ss_ending, *,
+                     eps: float = 1e-9, max_iter: int = 50):
+    """Naive dense-Jacobian Newton on the full path (small T only;
+    `:1097-1129`): J(x) by `torch.func.jacfwd` through the plain pipeline
+    each iteration, O(n_endog·(T-1)) JVP sweeps per step. The ground-truth
+    cross-check of the fast solvers. Returns (x, info) with info =
+    {"iterations", "residual_norm"} (the final ‖F‖, a Python float)."""
+    F = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
+    J = torch.func.jacfwd(F)
+    x = x0
+    for it in range(max_iter):
+        Fx = F(x)
+        x = x - dense_solve(J(x), Fx)
+        if float(torch.linalg.norm(Fx)) < eps:
+            break
+    return x, {"iterations": it + 1,
+               "residual_norm": float(torch.linalg.norm(F(x)))}

@@ -132,26 +132,31 @@ def load_jacobian(model, cache_dir: str | None = None):
     return load_jacobian_npz(path, model.device) if os.path.exists(path) else None
 
 
-def get_or_solve(model, verbose: bool = False, cache_dir: str | None = None):
-    """Steady states + J̄ with disk caching; the standard model-setup call."""
+def get_or_solve(model, verbose: bool = False, cache_dir: str | None = None,
+                 cache: bool = True):
+    """Steady states + J̄ with disk caching; the standard model-setup call.
+    `cache=False` solves afresh and writes nothing."""
     from hank_tpu_torch.solvers.ss_jacobian import get_steady_state_jacobian
     from hank_tpu_torch.solvers.steady_state import find_ss
 
-    ss0 = load_steady_state(model, "initial", cache_dir)
+    ss0 = load_steady_state(model, "initial", cache_dir) if cache else None
     if ss0 is None:
         ss0 = find_ss(model, model.ss_initial, "initial", verbose)
-        save_steady_state(ss0, model, "initial", cache_dir)
+        if cache:
+            save_steady_state(ss0, model, "initial", cache_dir)
 
     if model.ss_initial == model.ss_ending:
         ssT = ss0
     else:
-        ssT = load_steady_state(model, "ending", cache_dir)
+        ssT = load_steady_state(model, "ending", cache_dir) if cache else None
         if ssT is None:
             ssT = find_ss(model, model.ss_ending, "ending", verbose)
-            save_steady_state(ssT, model, "ending", cache_dir)
+            if cache:
+                save_steady_state(ssT, model, "ending", cache_dir)
 
-    J = load_jacobian(model, cache_dir)
+    J = load_jacobian(model, cache_dir) if cache else None
     if J is None:
         J = get_steady_state_jacobian(ssT, model)
-        save_jacobian(J, model, cache_dir)
+        if cache:
+            save_jacobian(J, model, cache_dir)
     return ss0, ssT, J

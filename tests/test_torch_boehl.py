@@ -217,14 +217,15 @@ def test_newton_krylov_stall_rescue_hands_off_to_boehl(ks, monkeypatch):
     monkeypatch.setattr(newton_mod, "gmres_matfree", zero_gmres)
     with pytest.warns(UserWarning, match="switching to the boehl"):
         x, info = make_path_solver(ks.J, ks.exog, ks.model, ks.ss, ks.ss,
-                                   method="newton_krylov", eps=1e-10)(ks.x_ss)
+                                   method="newton_krylov", direction_dtype=f32,
+                                   eps=1e-10)(ks.x_ss)
     assert calls["n"] == 1
     check_root(ks, x, info, 1e-10)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         with pytest.raises(UserWarning, match="stalled"):
             make_path_solver(ks.J, ks.exog, ks.model, ks.ss, ks.ss, method="newton_krylov",
-                             eps=1e-10, stall_rescue=False)(ks.x_ss)
+                             direction_dtype=f32, eps=1e-10, stall_rescue=False)(ks.x_ss)
 
 
 @pytest.mark.parametrize("kw", [dict(richardson_max_outer=0),
@@ -241,4 +242,5 @@ def test_solver_rejects_unknown_options_and_models(ks):
         ks.solver(host_inner=True, endgame="bogus")
     other = dataclasses.replace(build_small_ks_torch(T=12), value_fn=lambda v, x, m: None)
     with pytest.raises(ValueError, match="neither household-sweep kernel pair"):
-        make_path_solver(ks.J, ks.exog, other, ks.ss, ks.ss, method="boehl")
+        make_path_solver(ks.J, ks.exog, other, ks.ss, ks.ss, method="boehl",
+                         direction_dtype=f32)

@@ -103,7 +103,7 @@ def test_ks_model_matches_jax_package():
     from hank_tpu.models import load_model
 
     jm = load_model("krusell_smith", T=300)
-    tm = load_model_torch("krusell_smith", T=300)
+    tm = load_model_torch("krusell_smith", T=300, device="cpu")
     assert tm.var_names() == jm.var_names()
     assert dataclasses.asdict(tm.compspec) == dataclasses.asdict(jm.compspec)
     assert dict(tm.params) == dict(jm.params)
@@ -127,7 +127,7 @@ def test_parser_residuals_match_jax_on_random_padded_matrices(seed):
     from hank_tpu_torch.model.parser import compile_residuals as tcompile
 
     rng = np.random.default_rng(seed)
-    tm = load_model_torch("krusell_smith", T=10)
+    tm = load_model_torch("krusell_smith", T=10, device="cpu")
     cs = tm.compspec
     x = rng.uniform(0.5, 2.0, size=(cs.n_v, cs.T_pad))
     jm_fn = jcompile(tm.equations, tm.var_names(), set(tm.params))
@@ -166,10 +166,52 @@ def test_structures_compare_tensors_with_torch_equal():
         HeterogeneityDimension("e", "exogenous", 5, g, None, None)
 
 
-@pytest.mark.parametrize("name", ["ks_large_grid", "hank_one_asset"])
-def test_unported_models_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_model_torch(name, T=10)
+@pytest.mark.parametrize("name", ["krusell_smith", "hank_two_asset", "hank_one_asset",
+                                  "ks_large_grid"])
+def test_yaml_specs_are_byte_identical_copies(name):
+    """The port reads its own copies of the shipped specs; they may not
+    drift from the JAX package's."""
+    from hank_tpu_torch.models import SHIPPED, model_path
+
+    with open(model_path(name), "rb") as a, \
+            open(os.path.join(REPO, "hank_tpu", "models", f"{name}.yaml"), "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.dirname(model_path(name)) == os.path.join(REPO, "hank_tpu_torch", "models")
+    assert set(SHIPPED) == {"krusell_smith", "hank_two_asset", "hank_one_asset",
+                            "ks_large_grid"}
+
+
+@pytest.mark.parametrize("name", ["hank_one_asset", "ks_large_grid"])
+def test_one_asset_families_match_jax_package(name):
+    from hank_tpu.models import load_model
+
+    jm = load_model(name, T=300)
+    tm = load_model_torch(name, T=300, device="cpu")
+    assert tm.var_names() == jm.var_names() and tm.name == jm.name
+    assert dataclasses.asdict(tm.compspec) == dataclasses.asdict(jm.compspec)
+    assert dict(tm.params) == dict(jm.params)
+    for name_, jd in jm.heterogeneity.items():
+        td = tm.heterogeneity[name_]
+        assert (td.n, td.dim_type, td.policy_var) == (jd.n, jd.dim_type, jd.policy_var)
+        assert np.max(np.abs(td.grid.numpy() - np.asarray(jd.grid))) <= 1e-12
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device the model loader and the YAML builder target CUDA;
+    on a machine without a card that is torch's own error, never a quiet
+    CPU model."""
+    import inspect
+
+    from hank_tpu_torch.model.parser import build_model_from_yaml
+    from hank_tpu_torch.models import load_model
+
+    for fn in (load_model, build_model_from_yaml):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert load_model_torch("krusell_smith", T=5).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            load_model_torch("krusell_smith", T=5)
 
 
 def test_exogenousZ_matches_jax_and_is_seeded():
@@ -189,7 +231,7 @@ def test_generate_exog_paths_uses_each_seq_function():
     from hank_tpu.models import load_model
     from hank_tpu_torch.model.structures import generate_exog_paths as tgen
 
-    tm = load_model_torch("krusell_smith", T=40)
+    tm = load_model_torch("krusell_smith", T=40, device="cpu")
     paths = tgen(tm, 39, z_end=1.5)
     assert set(paths) == {"Z"} and paths["Z"].dtype == f64 and paths["Z"].shape == (39,)
     ref = np.asarray(jgen(load_model("krusell_smith", T=40), 39, z_end=1.5)["Z"])
@@ -202,9 +244,13 @@ def test_package_imports_neither_jax_nor_hank_tpu():
             "import hank_tpu_torch, hank_tpu_torch.ops.fused_residual, "
             "hank_tpu_torch.utils.checkpoint, hank_tpu_torch.models.krusell_smith, "
             "hank_tpu_torch.models.hank_two_asset, hank_tpu_torch.ops.fused_sweep2, "
-            "hank_tpu_torch.solvers.linear\n"
-            "hank_tpu_torch.load_model('krusell_smith', T=5)\n"
-            "hank_tpu_torch.load_model('hank_two_asset', T=5)\n"
+            "hank_tpu_torch.solvers.linear, hank_tpu_torch.run, "
+            "hank_tpu_torch.ops.forward_scan, hank_tpu_torch.utils.timing, "
+            "hank_tpu_torch.utils.profiling, hank_tpu_torch.utils.plotting, "
+            "hank_tpu_torch.models.hank_one_asset, hank_tpu_torch.models.ks_large_grid\n"
+            "for name in ('krusell_smith', 'hank_two_asset', 'hank_one_asset', "
+            "'ks_large_grid'):\n"
+            "    hank_tpu_torch.load_model(name, T=5, device='cpu')\n"
             "bad = [m for m in set(sys.modules) - before if m == 'jax' "
             "or m.startswith('jax.') or m == 'hank_tpu' or m.startswith('hank_tpu.')]\n"
             "assert not bad, bad\n")

@@ -82,7 +82,9 @@ def test_newton_krylov_needs_a_third_of_the_richardson_sweeps(port_solves):
 def test_ensemble_row_matches_the_single_path_solver(setup, port_solves):
     _, _, tm, tss, x0, J, Z = setup
     x_one, info = newton_raphson_hank(to_torch(x0), to_torch(J), {"Z": to_torch(Z[2])},
-                                      tm, tss, tss, eps=1e-10, gmres_restart=10)
+                                      tm, tss, tss, method="newton_krylov",
+                                      direction_dtype=torch.float32, eps=1e-10,
+                                      gmres_restart=10)
     assert info["residual_norm"] < 1e-10
     x_nk = port_solves["newton_krylov"][0]
     assert float((x_nk[2] - x_one).abs().max()) <= 1e-7

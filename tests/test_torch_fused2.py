@@ -164,10 +164,10 @@ def test_wrappers_check_their_inputs(setup):
 def test_supports_fused_sweep2(setup):
     _, _, tm, *_ = setup
     assert fs2.supports_fused_sweep2(tm)
-    assert fs2.supports_fused_sweep2(load_model_torch("hank_two_asset", T=8))
-    assert not fs2.supports_fused_sweep2(load_model_torch("krusell_smith", T=8))
+    assert fs2.supports_fused_sweep2(load_model_torch("hank_two_asset", T=8, device="cpu"))
+    assert not fs2.supports_fused_sweep2(load_model_torch("krusell_smith", T=8, device="cpu"))
     with pytest.raises(ValueError, match="fused2_prices"):
-        fs2.make_fused2_jvp_dir(load_model_torch("krusell_smith", T=8), None, None, {})
+        fs2.make_fused2_jvp_dir(load_model_torch("krusell_smith", T=8, device="cpu"), None, None, {})
 
 
 # ── On the card ────────────────────────────────────────────────────────────

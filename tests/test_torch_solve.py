@@ -50,7 +50,7 @@ def test_slice_from_carried_across_steady_state(ks_small, ks_small_ss):
     tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
     records = []
     x, info = newton_raphson_hank(to_torch(x0), to_torch(np.asarray(Jj)),
-                                  {"Z": to_torch(z)}, tm, tss, tss,
+                                  {"Z": to_torch(z)}, tm, tss, tss, method="newton_krylov",
                                   direction_dtype=torch.float32, eps=1e-10,
                                   gmres_restart=10, records=records)
     assert info["residual_norm"] < 1e-10
@@ -65,10 +65,95 @@ def test_path_solver_rejects_what_is_not_ported(ks_small_ss):
     exog = {"Z": to_torch(transitory_exog(12))}
     with pytest.raises(ValueError, match="host_inner"):
         make_path_solver(J, exog, tm, tss, tss, method="newton_krylov", host_inner=True)
-    with pytest.raises(NotImplementedError):
-        make_path_solver(J, exog, tm, tss, tss, direction_dtype=torch.float64)
+    with pytest.raises(ValueError, match="direction_dtype"):
+        make_path_solver(J, exog, tm, tss, tss, direction_dtype=torch.float16)
     with pytest.raises(ValueError):
         make_path_solver(J, exog, tm, tss, tss, method="dense")
+    with pytest.raises(ValueError, match="residual_mode"):
+        make_path_solver(J, exog, tm, tss, tss, residual_mode="bf16")
+
+
+@pytest.mark.parametrize("direction_dtype", [None, torch.float64])
+def test_slice_with_f64_directions(ks_small, ks_small_ss, direction_dtype):
+    """f64 directions (`torch.func.jvp` of the plain pipeline, GMRES to
+    1e-12, the f64 J̄⁻¹ preconditioner): the same root as the JAX package's
+    to 1e-9, and the same outer count as its f64-direction solve."""
+    from hank_tpu.solvers.newton import make_path_solver as jmake
+    from hank_tpu.solvers.ss_jacobian import get_steady_state_jacobian as jjac
+
+    T = ks_small.compspec.T
+    z = transitory_exog(T)
+    Jj = jjac(ks_small_ss, ks_small)
+    x0 = x_ss_of(ks_small, ks_small_ss)
+    xj, ij = jmake(Jj, {"Z": jnp.asarray(z)}, ks_small, ks_small_ss, ks_small_ss,
+                   method="newton_krylov", eps=1e-10)(jnp.asarray(x0))
+    tm = build_small_ks_torch(T=T)
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    x, info = make_path_solver(to_torch(np.asarray(Jj)), {"Z": to_torch(z)}, tm, tss, tss,
+                               method="newton_krylov", direction_dtype=direction_dtype,
+                               eps=1e-10)(to_torch(x0))
+    assert info["residual_norm"] < 1e-10 and x.dtype == torch.float64
+    assert info["iterations"] == int(ij["iterations"])
+    assert float(np.max(np.abs(x.numpy() - np.asarray(xj)))) <= 1e-9
+
+
+@pytest.mark.parametrize("mode", ["auto", "ds", "f64"])
+def test_residual_mode_picks_the_residual(ks_small_ss, mode):
+    """"auto" and "ds" take kernel 2 (its plain version on the CPU), "f64"
+    the plain pipeline; all three agree to 1e-12."""
+    from hank_tpu_torch.ops.fused_residual import fused_residual_sweep_reference
+    from hank_tpu_torch.solvers.newton import residual_route
+
+    tm = build_small_ks_torch(T=12)
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    exog = {"Z": to_torch(transitory_exog(12))}
+    x = to_torch(x_ss_of(tm, tss)) * 1.001
+    calls = fused_residual_sweep_reference.calls
+    F = residual_route(tm, tss, tss, exog, mode)(x)
+    assert fused_residual_sweep_reference.calls == calls + (mode != "f64")
+    assert float((F - make_full_residual_fn(tm, tss, tss, exog)(x)).abs().max()) <= 1e-12
+
+
+def test_residual_mode_ds_needs_the_kernel_family(ks_small_ss):
+    import dataclasses
+
+    from hank_tpu_torch.solvers.newton import residual_route
+
+    tm = build_small_ks_torch(T=12)
+    other = dataclasses.replace(tm, value_fn=lambda v, x, m: None)
+    with pytest.raises(ValueError, match="residual_mode='ds'"):
+        residual_route(other, None, None, {}, "ds")
+
+
+def test_path_solver_defaults_follow_the_jax_package():
+    """Every parameter the two `make_path_solver`s share has the same
+    default (None and torch.float64 both mean f64 directions), and so do the
+    drivers' `solve_model`s (`hank_tpu/run.py:41-45`)."""
+    import inspect
+
+    from hank_tpu.run import solve_model as jsolve_model
+    from hank_tpu.solvers.newton import make_path_solver as jmake
+    from hank_tpu_torch.run import solve_model
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+
+    port, ref = defaults(make_path_solver), defaults(jmake)
+    for k in ("method", "eps", "max_inner", "gmres_restart", "gmres_maxiter",
+              "direction_dtype", "stall_rescue", "endgame", "max_outer",
+              "richardson_max_outer", "residual_mode", "host_inner"):
+        assert port[k] == ref[k], k
+    assert port["method"] == "boehl" and port["direction_dtype"] is None
+    # Left out on purpose: `host_outer` (every loop of the port is a host
+    # loop: torch runs eagerly, there is no traced twin to switch to) and
+    # `direction_mode` (one direction route per model family; the reference's
+    # "xla" route is the f64 AD directions of direction_dtype=None).
+    assert set(ref) - set(port) == {"host_outer", "direction_mode"}
+    # `endgame_gmres_tol`: None here means the reference's 1e-3 and lets the
+    # port refuse the option where it would be ignored (ADVICE.md).
+    assert ref["endgame_gmres_tol"] == 1e-3 and port["endgame_gmres_tol"] is None
+    assert defaults(solve_model) == defaults(jsolve_model)
 
 
 @pytest.mark.slow
@@ -85,7 +170,7 @@ def test_full_size_residual_matches_jax():
 
     jm = load_model("krusell_smith", T=300)
     jss0, jssT, _ = jget_or_solve(jm)
-    tm = tload("krusell_smith", T=300)
+    tm = tload("krusell_smith", T=300, device="cpu")
     ss0 = steady_state_from_numpy(ss_to_numpy(jss0))
     ssT = steady_state_from_numpy(ss_to_numpy(jssT))
     z = transitory_exog(300)

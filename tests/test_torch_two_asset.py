@@ -154,7 +154,7 @@ def test_checkpoint_round_trip(port_side, tmp_path):
     assert path.endswith(".npz") and back.value.shape == (2, 24, 12, 4, 2)
     assert torch.equal(back.value, tss.value) and torch.equal(back.D, tss.D)
     assert all(torch.equal(back.policies[k], tss.policies[k]) for k in ("B", "A", "C"))
-    ks = load_model_torch("krusell_smith", T=12)
+    ks = load_model_torch("krusell_smith", T=12, device="cpu")
     assert checkpoint.model_hash(tm) != checkpoint.model_hash(ks)
     assert checkpoint.model_hash(tm) != checkpoint.model_hash(build_small_two_asset_torch(lam=0.2))
 
