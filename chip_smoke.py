@@ -11,7 +11,7 @@ exits non-zero and never prints the final `"ok": true` line:
   2. build   — both kernel sources under `hank_tpu_torch/csrc/` (the
                one-asset and the two-asset household sweeps), one nvcc each
                (sm_90a) started together, with the build seconds and ptxas'
-               report.
+               registers and spill bytes per kernel.
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
                (max|F_ss| ≤ 1e-9 each, `find_ss`'s own stopping target) and
                the steady-state Jacobian J̄.
@@ -22,7 +22,15 @@ exits non-zero and never prints the final `"ok": true` line:
                kernel 1 within 3e-5·max(scale, 1) at x_ss, at the warm-up's
                solution and at a smooth seeded point near x_ss (seeded v),
                and exactly zero tangents for a zero direction; kernel 2
-               within 1e-11. Median ms per sweep of kernel and plain version.
+               within 1e-11. Then kernel 1 against the previous kernel 1
+               (the kernel template's B = 1 launch, `fused_sweep_jvp_batch`
+               on one row), bit for bit on all four outputs, at those three
+               points and at three inputs that take its fallback branches:
+               V_T with seeded positive noise, V_T with one NaN, the grid
+               with two adjacent knots swapped; the counts of rows that took
+               each branch are reported. Median ms per
+               sweep of kernel 1, the previous kernel 1, kernel 2 and kernel
+               2's plain version, and one timed run of kernel 1's.
   5. solve   — 3 timed runs of the same solve. The launch counters are zeroed right
                before the timed runs; both kernels must have launched and
                neither plain version been called. The timed runs must return
@@ -60,7 +68,7 @@ exits non-zero and never prints the final `"ok": true` line:
                richardson_max_outer=0); when it does not, or that solve misses
                EPS, the two-phase boehl solve from x_ss (Richardson, then the
                endgame); f32 directions through kernels 5-6, eps = EPS. One
-               warm-up run of it. Kernels 5 and 6 at x_ss, x_lin and the warm-up's
+               warm-up run of it. Kernels 5 and 6 at x_ss and the warm-up's
                solution along smooth seeded directions, against their plain
                versions run in float64 on the same inputs, within
                5e-5·max(scale, 1): kernel 5's policies pointwise, its
@@ -68,14 +76,16 @@ exits non-zero and never prints the final `"ok": true` line:
                6's aggregates and tangents; a zero tangent exactly zero,
                repeated launches bit-identical, an i.i.d. direction reported
                only; ms per launch of each kernel and of the plain versions,
-               of the kernel pair's jvp_dir and the plain f32 one, and of the
-               f64 F. Then 3 timed runs of the route (counters zeroed right
+               of the kernel pair's jvp_dir and the plain f32 one (one run),
+               and of the f64 F. Then 3 timed runs of the route (counters zeroed right
                before: both kernels launched, neither plain version called;
                paths bit-identical to the warm-up's; the plain f64 ‖F‖ < EPS;
                within 1e-6 of the JAX package's root), and the other route
                once: the two-phase one (to ‖F‖ < EPS) after a certified
-               endgame-only route, else the endgame-only one cut at 5 outers,
-               reported only.
+               endgame-only route, else the endgame-only one cut at 2 outers,
+               reported only. (The script's time limit: the plain f32
+               direction is timed once, and the checks of kernels 5-6 and
+               the cut route are kept to these depths.)
   8. driver  — `hank_tpu_torch.run` on the two other one-asset families at
                their published widths (DRIVER_CASES: one-asset HANK 50×7,
                T=300, monetary shock; large-grid KS 500×7, T=150, kinked ZLB
@@ -87,8 +97,10 @@ exits non-zero and never prints the final `"ok": true` line:
                "1e-8"])`, the warm-up), kernels 1 and 2 at x_ss and at its
                solution against their plain versions at phase 4's bounds
                (smooth seeded directions; kernel 1's plain version in float64
-               on the same f32 inputs) with their ms at these shapes and
-               the shared memory they take, then 3 timed `solve_model` calls
+               on the same f32 inputs), kernel 1 bit for bit against the
+               previous kernel 1 at x_ss, the solution and a smooth seeded
+               point, with the ms of kernels 1-2 and the previous kernel 1 at
+               these shapes and the shared memory they take, then 3 timed `solve_model` calls
                (counters zeroed right before: both kernels launched, no plain
                call; paths bit-identical to the CLI's; plain-f64 ‖F‖ < 1e-8;
                within 1e-7 of the JAX package's CPU root in
@@ -237,6 +249,40 @@ def two_asset_ops(Tm1: int, n_b: int, n_a: int, n_e: int, which: int) -> float:
     brackets = 2 * (log2_ceil(n_b) + log2_ceil(n_a))
     per = (4 * n_e + brackets + 40) * 2 if which == 0 else brackets + 2 * n_e + 28
     return Tm1 * n_b * n_a * n_e * 2 * per * 3
+
+
+def previous_kernel1(args, kw):
+    """The previous kernel 1, which kernel 1 is held to bit for bit: the
+    kernel template's B = 1 launch (`fused_sweep_jvp_batch` on one row).
+    `args` are kernel 1's nine inputs."""
+    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch
+
+    rows = [a[None].contiguous() for a in args[:4]]
+    return tuple(o[0] for o in fused_sweep_jvp_batch(*rows, *args[4:], **kw))
+
+
+def kernel1_vs_previous(inputs: dict, kw) -> dict:
+    """Kernel 1 against the previous kernel 1 on every input {label: args},
+    bit for bit on all four outputs (NaNs included), with the count of
+    (period, income row) pairs that took each fallback branch."""
+    import torch
+
+    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
+
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    report = {}
+    for label, args in inputs.items():
+        fallback = torch.zeros(2, dtype=torch.int32, device=args[0].device)
+        new = fused_sweep_jvp(*args, **kw, fallback_rows=fallback)
+        old = previous_kernel1(args, kw)
+        require(all(same_bits(a, b) for a, b in zip(new, old)),
+                f"kernel 1 at {label} differs from the previous kernel 1")
+        report[label] = {"fallback_rows_implied_wealth": int(fallback[0]),
+                         "fallback_rows_policy": int(fallback[1]),
+                         "finite": all(bool(torch.isfinite(o).all()) for o in new)}
+    return report
 
 
 def steady_residual(model, ss) -> float:
@@ -569,7 +615,7 @@ def two_asset_phase(dev) -> list:
         return max(max_abs(a[k].double(), b[k]) for k in b)
 
     checks, k5_err, k6_err = {}, 0.0, 0.0
-    for name, x in (("x_ss", x_ss), ("x_lin", x_lin), ("solution", x_warm)):
+    for name, x in (("x_ss", x_ss), ("solution", x_warm)):
         args = k5_args(x, smooth())
         pol, dpol = fs2.fused2_policies_jvp(*args, VT32, m32)
         ref, dref = fs2.fused2_policies_jvp_reference(*(a.double() for a in args), VT64, model)
@@ -617,8 +663,9 @@ def two_asset_phase(dev) -> list:
     v = smooth()
     jvp_dir = fs2.make_fused2_jvp_dir(model, ss0, ssT, exog)
     plain_dir = fs2.make_fused2_jvp_dir(model, ss0, ssT, exog, plain=True)
-    plain_runs = [cuda_once(lambda: plain_dir(x_warm, v)) for _ in range(3)]
-    dir_plain = plain_runs[0][0]
+    # One run of the plain f32 map (15-27 s each, host-bound): the script's
+    # time limit is better spent on the route's timed runs.
+    dir_plain, dir_plain_ms = cuda_once(lambda: plain_dir(x_warm, v))
     dir_kernel = jvp_dir(x_warm, v)
     dir_err = max_abs(dir_kernel, dir_plain)
     dir_scale = float(dir_plain.abs().max())
@@ -632,7 +679,7 @@ def two_asset_phase(dev) -> list:
             *args, VT32, m32))[1],
         "k6_plain_f32_ms": cuda_once(lambda: fs2.fused2_forward_jvp_reference(
             pol, dpol, D32, m32))[1],
-        "jvp_dir_plain_f32_ms": statistics.median(ms for _, ms in plain_runs),
+        "jvp_dir_plain_f32_ms": dir_plain_ms,
     }
     F_plain = make_full_residual_fn(model, ss0, ssT, exog)
     timing["F_f64_ms"] = cuda_once(lambda: F_plain(x_warm))[1]
@@ -673,7 +720,7 @@ def two_asset_phase(dev) -> list:
          plain_calls=plain_calls, bit_identical=True)
 
     # The other route once: the two-phase one (gated) when the endgame-only
-    # route certified; else the endgame-only one from x_lin, cut at 5 outers
+    # route certified; else the endgame-only one from x_lin, cut at 2 outers
     # and reported only.
     t0 = time.perf_counter()
     if route_name == "linstart_endgame_only":
@@ -681,8 +728,8 @@ def two_asset_phase(dev) -> list:
         fnorm_o = float(torch.linalg.norm(F_plain(x_o)))
         require(fnorm_o < EPS, f"two-phase route: plain f64 ‖F‖ is {fnorm_o:.3e}")
     else:
-        other_name = "linstart_endgame_only, max_outer=5"
-        x_o, info_o = boehl(richardson_max_outer=0, max_outer=5)(x_lin)
+        other_name = "linstart_endgame_only, max_outer=2"
+        x_o, info_o = boehl(richardson_max_outer=0, max_outer=2)(x_lin)
         fnorm_o = float(torch.linalg.norm(F_plain(x_o)))
     torch.cuda.synchronize()
     emit("two_asset_other_route", route=other_name, seconds=time.perf_counter() - t0,
@@ -748,7 +795,8 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     ss_gap = max(abs(float(ssT.vars[k]) - float(v)) for k, v in ref_vars.items())
     require(ss_gap <= 1e-8, f"{name}: steady state {ss_gap:.3e} off the JAX reference")
     lib = cuda_build.load_library()
-    smem = {"k1": lib.hank_sweep_smem_bytes(1, n_a, n_e),
+    smem = {"k1": lib.hank_sweep_smem_bytes(2, n_a, n_e),
+            "k1_previous": lib.hank_sweep_smem_bytes(1, n_a, n_e),
             "k2": lib.hank_sweep_smem_bytes(0, n_a, n_e)}
     emit("driver_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
          max_abs_F_ss=F_ss, max_abs_vs_jax_ss=ss_gap, smem_bytes=smem,
@@ -785,9 +833,11 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     # exactly on a knot in one f32 computation and not in another.
     c32_as64 = [c.double() for c in c32]
     k1_err = k2_err = 0.0
-    for x in (x_ss, x_cli):
+    bit_inputs = {}
+    for label, x in (("x_ss", x_ss), ("solution", x_cli)):
         v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
         args = sweep_args(x, v, f32)
+        bit_inputs[label] = (*args, *c32)
         for o, r_ in zip(fused_sweep_jvp(*args, *c32, **kw),
                          fused_sweep_jvp_reference(*(a.double() for a in args), *c32_as64,
                                                    **kw)):
@@ -800,12 +850,19 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
             fused_residual_sweep(*args64, *c64, **kw),
             fused_residual_sweep_reference(*args64, *c64, **kw))))
     require(k2_err <= 1e-11, f"{name}: kernel 2 off its plain version by {k2_err:.3e}")
+    smooth = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
+                     * decay).reshape(-1).to(dev)
+    v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+    bit_inputs["smooth"] = (*sweep_args(smooth, v, f32), *c32)
+    bits = kernel1_vs_previous(bit_inputs, kw)
     timing = {"k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args, *c32, **kw), 20),
+              "k1_previous_ms": cuda_ms(lambda: previous_kernel1((*args, *c32), kw), 20),
               "k2_ms": cuda_ms(lambda: fused_residual_sweep(*args64, *c64, **kw), 20),
               "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args, *c32, **kw))[1],
               "k2_plain_ms": cuda_once(
                   lambda: fused_residual_sweep_reference(*args64, *c64, **kw))[1]}
-    emit("driver_kernels", model=name, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, **timing)
+    emit("driver_kernels", model=name, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
+         k1_vs_previous_bit_identical=bits, **timing)
 
     # Three timed `solve_model` calls, counts zeroed right before them.
     fused_sweep_jvp.launches = fused_residual_sweep.launches = 0
@@ -863,7 +920,8 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
          k1_launches_per_solve=launches["k1"] / 3, k2_launches_per_solve=launches["k2"] / 3,
          bit_identical=True, economics=econ)
     return {"model": model, "ss0": ss0, "ssT": ssT, "exog": exog, "x": x_sol, "cli": cli,
-            "k1_ms": timing["k1_ms"], "k2_ms": timing["k2_ms"]}
+            "k1_ms": timing["k1_ms"], "k1_previous_ms": timing["k1_previous_ms"],
+            "k2_ms": timing["k2_ms"]}
 
 
 def driver_phase(dev) -> dict:
@@ -1006,9 +1064,8 @@ def main() -> int:
     info = cuda_build.build()
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
-    ptxas = [ln.strip() for ln in info.log.splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    emit("build", seconds=info.seconds, libraries=info.paths, ptxas=ptxas)
+    emit("build", seconds=info.seconds, libraries=info.paths,
+         ptxas=cuda_build.ptxas_report(info.log))
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -1074,7 +1131,8 @@ def main() -> int:
                      * decay).reshape(-1).to(dev)
     c32, c64 = consts(f32), consts(f64)
     k1_err = 0.0
-    for x in (x_ss, x_warm, smooth):
+    bit_inputs = {}
+    for label, x in (("x_ss", x_ss), ("solution", x_warm), ("smooth", smooth)):
         v = torch.randn(x_ss.shape, generator=gen, dtype=f64).to(dev)
         args = (*prices(x, f32), *prices(v, f32), *c32)
         out = fused_sweep_jvp(*args, **kw)
@@ -1085,10 +1143,36 @@ def main() -> int:
             require(err <= 3e-5 * max(scale, 1.0),
                     f"kernel 1 off its plain version by {err:.3e} (scale {scale:.3e})")
             k1_err = max(k1_err, err)
+        bit_inputs[label] = args
     zero = torch.zeros(Tm1, dtype=f32, device=dev)
     out0 = fused_sweep_jvp(*prices(x_ss, f32), zero, zero, *c32, **kw)
     require(bool((out0[1] == 0).all() and (out0[3] == 0).all()),
             "kernel 1: a zero tangent did not give exactly zero")
+
+    # Kernel 1 against the previous kernel 1, bit for bit, at those points
+    # and at three inputs that put rows out of order: V_T with seeded
+    # positive noise and V_T with one NaN (implied-wealth rows out of order
+    # or holding a NaN), and the grid with two adjacent knots swapped. The
+    # count bracket makes the policy non-decreasing in the query whatever
+    # the knots' order, so a policy row goes out of order only on a grid
+    # out of order (or by one ulp of rounding at a bracket's end).
+    gen_fb = torch.Generator().manual_seed(4)
+    V_noisy = c32[0] * (1.0 + 0.5 * torch.rand(c32[0].shape, generator=gen_fb).to(dev))
+    V_nan = c32[0].clone()
+    V_nan[int(torch.randint(1, wealth.n - 1, (1,), generator=gen_fb)),
+          int(torch.randint(0, prod.n, (1,), generator=gen_fb))] = float("nan")
+    k = int(torch.randint(2, wealth.n - 3, (1,), generator=gen_fb))
+    swapped = c32[2].clone()
+    swapped[[k, k + 1]] = swapped[[k + 1, k]]
+    base = bit_inputs["x_ss"]
+    bit_inputs["V_T_noise"] = (*base[:4], V_noisy.contiguous(), *base[5:])
+    bit_inputs["V_T_nan"] = (*base[:4], V_nan, *base[5:])
+    bit_inputs["grid_swapped"] = (*base[:6], swapped, *base[7:])
+    bits = kernel1_vs_previous(bit_inputs, kw)
+    require(bits["V_T_noise"]["fallback_rows_implied_wealth"] > 0
+            and bits["V_T_nan"]["fallback_rows_implied_wealth"] > 0
+            and bits["grid_swapped"]["fallback_rows_policy"] > 0,
+            f"kernel 1: an input meant to take a fallback branch did not: {bits}")
 
     x = x_ss + 0.01 * torch.randn(x_ss.shape, generator=gen, dtype=f64).to(dev)
     args64 = (*prices(x, f64), *c64)       # no tangent: i.i.d. noise is fine
@@ -1100,11 +1184,13 @@ def main() -> int:
     args32 = (*prices(x, f32), *prices(v, f32), *c32)
     timing = {
         "k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args32, **kw), 20),
-        "k1_plain_ms": cuda_ms(lambda: fused_sweep_jvp_reference(*args32, **kw), 3),
+        "k1_previous_ms": cuda_ms(lambda: previous_kernel1(args32, kw), 20),
+        "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args32, **kw))[1],
         "k2_ms": cuda_ms(lambda: fused_residual_sweep(*args64, **kw), 20),
         "k2_plain_ms": cuda_ms(lambda: fused_residual_sweep_reference(*args64, **kw), 3),
     }
-    emit("kernels", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, **timing)
+    emit("kernels", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
+         k1_vs_previous_bit_identical=bits, **timing)
 
     # ── 5. solve ───────────────────────────────────────────────────────────
     fused_sweep_jvp.launches = 0
@@ -1163,8 +1249,9 @@ def main() -> int:
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_sweep.py:385", "launches": launches["k1"],
          "max_abs_err": k1_err, "ms": timing["k1_ms"], "plain_ms": timing["k1_plain_ms"],
-         **k1_bound, "library_ms": None,
-         **{f"ms_{k}": c["k1_ms"] for k, c in driver.items()}},
+         **k1_bound, "library_ms": None, "ms_previous": timing["k1_previous_ms"],
+         **{f"ms_{k}": c["k1_ms"] for k, c in driver.items()},
+         **{f"ms_previous_{k}": c["k1_previous_ms"] for k, c in driver.items()}},
         {"name": "fused_residual_sweep", "route": "cuda",
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_ds.py:338", "launches": launches["k2"],

@@ -3,14 +3,18 @@
 Each source under `csrc/` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `hank_tpu_torch/_build/`
 (git-ignored):
-  - `household_sweep.cu`: the one-asset sweep (kernels 1-4), single-path
-    and path-batched entry points of one kernel template, and the forward
-    distribution scan (kernel 7);
+  - `household_sweep.cu`: the one-asset sweep (kernels 1-4): kernel 1 and,
+    beside it, single-path and path-batched entry points of one kernel
+    template; and the forward distribution scan (kernel 7);
   - `household_sweep2.cu`: the two-asset sweep (kernels 5-6).
 The libraries are keyed by the SHA-256 of both sources, so an edited source
 rebuilds; a build runs one nvcc per source, all started together. The
 libraries are loaded with ctypes. Nothing here runs at import: the CPU
 tests import every module, and the CPU has no nvcc.
+
+`python -m hank_tpu_torch.ops.cuda_build SOURCE.cu ...` compiles each
+source with the same flags into a temporary directory and prints, per
+kernel, the registers and spill bytes ptxas reports, as JSON lines.
 """
 
 from __future__ import annotations
@@ -19,9 +23,13 @@ import ctypes
 import dataclasses
 import functools
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
+import sys
+import tempfile
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,7 +105,7 @@ def build() -> BuildInfo:
 _SIGNATURES = {
     # name: (number of pointers, of ints, of doubles) before the trailing stream
     "household_sweep": {
-        "hank_sweep_jvp_f32": (15, 3, 3),
+        "hank_sweep_jvp_f32": (16, 3, 3),
         "hank_sweep_residual_f64": (10, 3, 3),
         "hank_sweep_jvp_f32_batch": (15, 4, 3),
         "hank_sweep_residual_f64_batch": (10, 4, 3),
@@ -141,8 +149,10 @@ def _check_smem(need: int, what: str) -> None:
                          f"one block has {MAX_SMEM_BYTES}")
 
 
-def check_shared_memory(lib: ctypes.CDLL, tangent: bool, n_a: int, n_e: int) -> None:
-    _check_smem(lib.hank_sweep_smem_bytes(int(tangent), n_a, n_e), f"grid {n_a}x{n_e}")
+def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:
+    """The one-asset sweep at an n_a×n_e grid: which = 0 the template's
+    f64 residual build, 1 its f32 dual build, 2 kernel 1."""
+    _check_smem(lib.hank_sweep_smem_bytes(which, n_a, n_e), f"grid {n_a}x{n_e}")
 
 
 def check_shared_memory_scan(lib: ctypes.CDLL, n_a: int, n_e: int) -> None:
@@ -163,3 +173,40 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
     if err != 0:
         msg = lib.hank_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel of an `nvcc -Xptxas -v` log: its mangled name, registers
+    and spill-store and spill-load bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def main(argv: list[str]) -> int:
+    for src in argv:
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "k.so"), src]
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return proc.returncode
+        print(json.dumps({"source": src, "kernels": ptxas_report(proc.stdout + proc.stderr)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

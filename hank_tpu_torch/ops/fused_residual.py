@@ -44,7 +44,7 @@ def fused_residual_sweep(r_path, w_path, V_T, D0, grid, e_grid, Pi,
         return fused_residual_sweep_reference(r_path, w_path, V_T, D0, grid,
                                               e_grid, Pi, **kw)
     out = launch_sweep("hank_sweep_residual_f64", (r_path, w_path), V_T, D0, grid,
-                       e_grid, Pi, n_out=2, **kw)
+                       e_grid, Pi, n_out=2, smem_kind=0, **kw)
     fused_residual_sweep.launches += 1
     return out
 
@@ -76,7 +76,7 @@ def fused_residual_sweep_batch(r_b, w_b, V_T, D0, grid, e_grid, Pi,
         return fused_residual_sweep_batch_reference(r_b, w_b, V_T, D0, grid,
                                                     e_grid, Pi, **kw)
     out = launch_sweep("hank_sweep_residual_f64_batch", (r_b, w_b), V_T, D0, grid,
-                       e_grid, Pi, n_out=2, **kw)
+                       e_grid, Pi, n_out=2, smem_kind=0, **kw)
     fused_residual_sweep_batch.launches += 1
     return out
 

@@ -2,12 +2,15 @@
 
 Replaces the TPU kernel `hank_tpu/ops/fused_sweep.py::fused_sweep_jvp`
 (`_make_fused_sweep_kernel`). The CUDA source is
-`hank_tpu_torch/csrc/household_sweep.cu`, instantiated as `<float, true>`;
+`hank_tpu_torch/csrc/household_sweep.cu`, `household_sweep_jvp_kernel`;
 it runs the backward EGM recursion and the forward lottery push-forward of
 the canonical one-asset CRRA EGM (`ops/egm.crra_egm_step`) with
 dual-number arithmetic in one launch, and returns the savings and
 consumption aggregate paths and their directional derivatives. Every f32
-GMRES matvec of the Newton-Krylov path solver is one launch.
+GMRES matvec of the Newton-Krylov path solver is one launch. It brackets
+by binary search and sums the lottery over source ranges where the rows
+are monotone, and is bit for bit the kernel template's `<float, true>`
+B = 1 launch (`fused_sweep_batch.fused_sweep_jvp_batch` on one row).
 
 `fused_sweep_jvp` launches the kernel for CUDA tensors and runs the plain
 PyTorch version `fused_sweep_jvp_reference` (`torch.func.jvp` through the
@@ -98,16 +101,18 @@ def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=Fals
 
 
 def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
-                 borrow_cons):
+                 borrow_cons, smem_kind, extra_ptrs=()):
     """Launch one entry point of `csrc/household_sweep.cu` on checked CUDA
     tensors and return its `n_out` output paths, each of the price paths'
     shape. `paths` are (r, w) or (r, w, dr, dw), (T-1,) each for a
     single-path entry point and (B, T-1) for a `_batch` one; the wrapper
     allocates the policy scratch, one (*shape, n_e, n_a) buffer for the
-    policies and one for their tangents."""
+    policies and one for their tangents. `smem_kind` names the kernel for
+    the shared-memory check (`cuda_build.check_shared_memory`);
+    `extra_ptrs` follow the outputs."""
     lib = cuda_build.load_library()
     n_a, n_e = V_T.shape
-    cuda_build.check_shared_memory(lib, len(paths) == 4, n_a, n_e)
+    cuda_build.check_shared_memory(lib, smem_kind, n_a, n_e)
     shape = tuple(paths[0].shape)
     dev = V_T.device
     with torch.cuda.device(dev):
@@ -117,7 +122,7 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
                    for _ in range(len(paths) // 2)]
         out = torch.empty((n_out, *shape), dtype=V_T.dtype, device=dev)
         ptrs = [t.data_ptr() for t in (*paths, V_eT, D_eT, grid, e_grid, Pi,
-                                       *scratch, *out)]
+                                       *scratch, *out)] + list(extra_ptrs)
         err = getattr(lib, entry)(
             *ptrs, *shape, n_a, n_e, float(beta), float(gamma), float(borrow_cons),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -126,12 +131,19 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
 
 
 def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
-                    *, beta: float, gamma: float, borrow_cons: float):
+                    *, beta: float, gamma: float, borrow_cons: float,
+                    fallback_rows: torch.Tensor | None = None):
     """JVP of the household map (r, w paths) ↦ aggregate paths, fused.
 
     All inputs float32 and contiguous on one device; state arrays in the
     (n_a, n_e) convention. V_T and D0 carry zero tangent (the terminal value
     and the initial distribution are fixed steady-state arrays).
+
+    fallback_rows: optional (2,) int32 CUDA tensor; the kernel writes into
+    it how many (period, income row) pairs had implied-wealth knots [0] and
+    clamped policies [1] that were not non-decreasing, and so took the
+    count loop and the full source scan. The plain version has no such
+    branches and refuses it.
 
     Returns (agg, dagg, aggc, daggc): the (T-1,) savings and consumption
     aggregates and their directional derivatives.
@@ -140,9 +152,19 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     _check_inputs("fused_sweep_jvp", f32, paths, V_T, D0, grid, e_grid, Pi)
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
+        if fallback_rows is not None:
+            raise ValueError("fused_sweep_jvp: fallback_rows counts branches of the "
+                             "CUDA kernel; the plain version has none")
         return fused_sweep_jvp_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    if fallback_rows is not None and (fallback_rows.dtype != torch.int32
+                                      or fallback_rows.shape != (2,)
+                                      or fallback_rows.device != V_T.device):
+        raise ValueError("fused_sweep_jvp: fallback_rows must be a (2,) int32 tensor "
+                         "on the inputs' device")
     out = launch_sweep("hank_sweep_jvp_f32", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, **kw)
+                       n_out=4, smem_kind=2,
+                       extra_ptrs=[0 if fallback_rows is None else fallback_rows.data_ptr()],
+                       **kw)
     fused_sweep_jvp.launches += 1
     return out
 

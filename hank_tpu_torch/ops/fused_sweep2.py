@@ -26,7 +26,6 @@ A model opts in by defining `fused2_prices(xp, exog_paths, model) ->
 
 from __future__ import annotations
 
-import dataclasses
 import sys
 
 import torch
@@ -35,19 +34,10 @@ from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import check_tensors
+from hank_tpu_torch.ops.precision import cast_model
 
 f32 = torch.float32
 KEYS = ("B", "A", "C")
-
-
-def cast_model(model, dtype):
-    """The model with its household grids and transitions in `dtype` (the
-    reference's `ops/precision.cast_model`)."""
-    het = {k: dataclasses.replace(
-        d, grid=d.grid.to(dtype),
-        transition=None if d.transition is None else d.transition.to(dtype))
-        for k, d in model.heterogeneity.items()}
-    return dataclasses.replace(model, heterogeneity=het)
 
 
 def _dims(model):

@@ -52,7 +52,7 @@ def fused_sweep_jvp_batch(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
     if V_T.device.type == "cpu":
         return fused_sweep_jvp_batch_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
     out = launch_sweep("hank_sweep_jvp_f32_batch", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, **kw)
+                       n_out=4, smem_kind=1, **kw)
     fused_sweep_jvp_batch.launches += 1
     return out
 

@@ -4,18 +4,25 @@ An ensemble is B perfect-foresight problems that share the model, both
 steady states and J̄, and differ in their shock paths: x is (B, n) and each
 exogenous path (B, T-1). The batch is a leading dimension, not a vmap of the
 single-path solver. A host loop drives every path in lockstep through three
-batched operations:
-  - F_b: the f64 residual of every row, its household block in one launch
-    of the batched kernel 2 (`ops/fused_residual.make_sweep_residual_fn_batch`);
-  - the direction map: every row's f32 JVP in one launch of the batched
-    kernel 1 (`ops/fused_sweep_batch.make_fused_jvp_batch`, kernels 3-4);
-  - J̄⁻¹ applied to every row: one (B, n) × (n, n) f64 `torch.matmul`.
-On CPU tensors the two kernels run their plain versions.
+batched operations, by one of two routes:
+  - the kernel route, for the one-asset CRRA EGM family
+    (`supports_fused_sweep`) with f32 directions: F_b, the f64 residual of
+    every row, has its household block in one launch of the batched kernel
+    2 (`ops/fused_residual.make_sweep_residual_fn_batch`), and the direction
+    map every row's f32 JVP in one launch of the batched kernel 1
+    (`ops/fused_sweep_batch.make_fused_jvp_batch`, kernels 3-4); on CPU
+    tensors the two kernels run their plain versions;
+  - the plain route, for every other model or f64 directions
+    (`hank_tpu/parallel/ensemble.py:76-95, 242-279`): F_b is
+    `torch.func.vmap` of the plain f64 F, the direction map that of
+    `torch.func.jvp` of F (f64) or of the single path's mixed-tail map
+    (`solvers/newton.mixed_tail_map`, f32);
+and J̄⁻¹ is applied to every row by one (B, n) × (n, n) f64 `torch.matmul`.
 
 The reference's v5e width guard (`chunk`, `_probe_width_consistency` and the
 row padding helpers), its `fused` switch and its `mesh` sharding are not
-ported: the first two are TPU workarounds, the last is ROADMAP Queue 1
-item 10 (`parallel/mesh.py`, `parallel/state_sharding.py`).
+ported: the first two are TPU workarounds, the last waits on ROADMAP Queue
+1's `parallel/mesh.py` and `parallel/state_sharding.py`.
 """
 
 from __future__ import annotations
@@ -30,11 +37,13 @@ from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn_batch
 from hank_tpu_torch.ops.fused_sweep_batch import make_fused_jvp_batch
 from hank_tpu_torch.ops.linalg import make_reusable_solver, rayleigh_quotient
-from hank_tpu_torch.solvers.newton import _boehl_alpha
+from hank_tpu_torch.ops.fused_sweep import supports_fused_sweep
+from hank_tpu_torch.solvers.newton import (_boehl_alpha, _is_mixed, make_full_residual_fn,
+                                           mixed_tail_map)
 
 _NO_MESH = ("mesh= is not ported yet: sharding an ensemble over several cards "
-            "is ROADMAP.md Queue 1 item 10 (parallel/mesh.py, "
-            "parallel/state_sharding.py)")
+            "waits on parallel/mesh.py and parallel/state_sharding.py (ROADMAP.md "
+            "Queue 1)")
 
 # solve_ensemble keyword arguments that solve_ensemble_host takes as they are
 # (`hank_tpu/parallel/ensemble.py:121-124`).
@@ -45,16 +54,28 @@ def _rownorm(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(a, dim=-1)
 
 
+def _plain_residual_batch(model, ss_initial, ss_ending):
+    """F_b(x_b, exog_batch) of the plain route: `torch.func.vmap` of the
+    plain f64 F of one row under that row's shock paths."""
+    def F_one(x, ex):
+        return make_full_residual_fn(model, ss_initial, ss_ending, ex)(x)
+
+    return torch.func.vmap(F_one)
+
+
 def residual_ensemble(x_batch: torch.Tensor,
                       exog_batch: Mapping[str, torch.Tensor],
                       model, ss_initial, ss_ending, mesh=None) -> torch.Tensor:
-    """Batched f64 F(x) over an ensemble of (x, shock-path) pairs.
+    """Batched f64 F(x) over an ensemble of (x, shock-path) pairs: batched
+    kernel 2 for the one-asset family, the vmapped plain F otherwise.
 
     x_batch: (B, n_endog*(T-1)); exog_batch leaves: (B, T-1). Returns (B, n).
     """
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
-    return make_sweep_residual_fn_batch(model, ss_initial, ss_ending)(x_batch, exog_batch)
+    if supports_fused_sweep(model):
+        return make_sweep_residual_fn_batch(model, ss_initial, ss_ending)(x_batch, exog_batch)
+    return _plain_residual_batch(model, ss_initial, ss_ending)(x_batch, exog_batch)
 
 
 def solve_ensemble(x0, Jbar, exog_batch, model, ss_initial, ss_ending, mesh=None,
@@ -100,7 +121,9 @@ def solve_ensemble_host(x0: torch.Tensor,
     non-finite rows, freeze rows that stalled. "newton_krylov" runs the
     lockstep inexact Newton with a host-driven batched GMRES
     (`_run_ensemble_nk`, `:522-702`); gmres_m is its Arnoldi length.
-    direction_dtype: only torch.float32 (the batched kernel's directions).
+    direction_dtype: torch.float32 (default) or None / torch.float64; the
+    kernel route with f32 directions for the one-asset family, the plain
+    route otherwise (module docstring).
 
     Returns (x (B, n), info) with a (B,) "residual_norm", the lockstep counts
     "iterations" (outers) and "inner_iterations" (direction sweeps), and
@@ -111,29 +134,43 @@ def solve_ensemble_host(x0: torch.Tensor,
         raise NotImplementedError(_NO_MESH)
     if method not in ("boehl", "newton_krylov"):
         raise ValueError(f"method={method!r}: expected 'boehl'|'newton_krylov'")
-    if direction_dtype != torch.float32:
-        raise NotImplementedError(
-            "only direction_dtype=torch.float32 (batched kernel directions) is ported")
+    mixed = _is_mixed(direction_dtype)
     x_dtype = config.dtype
     B = next(iter(exog_batch.values())).shape[0]
     n = x0.shape[-1]
     x = x0.to(x_dtype).expand(B, n).clone() if x0.dim() == 1 else x0.to(x_dtype)
     max_outer = max_outer or config.path_newton_max_iter
 
-    F_b = make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
-    jvp_kernel = make_fused_jvp_batch(model, ss_initial, ss_ending)
+    if mixed and supports_fused_sweep(model):
+        F_b = make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
+        jvp_kernel = make_fused_jvp_batch(model, ss_initial, ss_ending)
+
+        def jvp_b(x, v):
+            return jvp_kernel(x, v, exog_batch).to(x_dtype)
+    else:
+        F_b = _plain_residual_batch(model, ss_initial, ss_ending)
+        jvp_mixed = mixed_tail_map(model, ss_initial, ss_ending)[0] if mixed else None
+
+        def jvp_one(x, v, ex):
+            if mixed:
+                return jvp_mixed(x, v, ex)
+            F = make_full_residual_fn(model, ss_initial, ss_ending, ex)
+            return torch.func.jvp(F, (x,), (v,))[1]
+
+        jvp_vmapped = torch.func.vmap(jvp_one)
+
+        def jvp_b(x, v):
+            return jvp_vmapped(x, v, exog_batch)
     A_inv_T = make_reusable_solver(Jbar).A_inv.to(x_dtype).T
 
     def solve_b(Y):
         return Y @ A_inv_T
 
-    def jvp_b(x, v):
-        return jvp_kernel(x, v, exog_batch).to(x_dtype)
-
     if method == "newton_krylov":
         return _run_ensemble_nk(x, exog_batch, F_b, lambda x, v: solve_b(jvp_b(x, v)),
                                 solve_b, eps=eps, max_outer=max_outer, gmres_m=gmres_m,
-                                gmres_tol=3e-7, verbose=verbose, records=records)
+                                gmres_tol=3e-7 if mixed else 1e-12, verbose=verbose,
+                                records=records)
 
     ray_b = torch.func.vmap(rayleigh_quotient)
 

@@ -123,7 +123,8 @@ def main(argv=None) -> dict:
                         help="'linear' = first-order IRF (one preconditioned "
                              "Newton step, solvers/linear.py)")
     parser.add_argument("--mixed", action="store_true",
-                        help="f32 direction sweeps through the CUDA kernels (inexact Newton)")
+                        help="f32 directions (inexact Newton): the CUDA kernels where the "
+                             "model has a kernel pair, else the mixed-tail map")
     parser.add_argument("--eps", type=float, default=1e-8)
     parser.add_argument("--warm-start", default="ss", choices=list(WARM_STARTS),
                         help="nonlinear-solver initial guess: steady-state "

@@ -3,22 +3,28 @@
 
 Both methods keep the residuals in f64 and take their search directions
 in f64 by default (`direction_dtype=None`: `torch.func.jvp` through the
-plain pipeline) or in f32 from hand-written kernels
-(`direction_dtype=torch.float32`). The model picks the kernels:
-  - the one-asset CRRA EGM family (`supports_fused_sweep`): directions
-    from kernel 1 (`ops/fused_sweep.py`), residuals from the native-f64
-    kernel 2 (`ops/fused_residual.py`) unless `residual_mode="f64"`;
-  - the two-asset Calvo-access family (`supports_fused_sweep2`): directions
-    from kernels 5-6 (`ops/fused_sweep2.py`), residuals from the plain f64
-    pipeline (the reference has no kernel for that residual either);
-f32 directions for any other model raise ValueError, as the reference does
-for a forced kernel (`:419-426`).
+plain pipeline) or in f32 (`direction_dtype=torch.float32`), by the route
+`direction_mode` picks (`:394-494`):
+  - "pallas", the kernel route: the model's f32 kernel pair, kernel 1
+    (`ops/fused_sweep.py`) for the one-asset CRRA EGM family
+    (`supports_fused_sweep`), kernels 5-6 (`ops/fused_sweep2.py`) for the
+    two-asset Calvo-access family (`supports_fused_sweep2`), their plain
+    versions on CPU tensors; ValueError for any other model (`:419-426`);
+  - "xla", the mixed-tail map (`mixed_tail_map`): the household blocks in
+    f32, the assembly and residual tail in f64, AD by `torch.func.jvp`;
+  - "auto": the kernel route where a kernel pair supports the model and
+    the model's arrays are on the card, else the mixed-tail map.
+Residuals come from the native-f64 kernel 2 (`ops/fused_residual.py`) for
+the one-asset family unless `residual_mode="f64"`, else from the plain f64
+pipeline (the reference has no kernel for the two-asset residual either).
 
-method="newton_krylov" (`:900-1092`): per outer, the Newton step from
+method="newton_krylov" (`:900-1069`): per outer, the Newton step from
 `gmres_matfree` over the direction operator, left-preconditioned by one
-matvec with the precomputed J̄⁻¹; backtracking with strict descent.
-When an outer finds no descent, `stall_rescue` hands the iterate to the
-host-inner boehl solver (`:1026-1055`).
+matvec with the precomputed J̄⁻¹; backtracking with strict descent. With
+f32 directions and a residual that is not kernel 2, the early outers run
+on the f32 residual of the same route until ‖F‖ ≤ max(1e-3, 100·eps)
+(`:975-1025`). When an outer finds no descent, `stall_rescue` hands the
+iterate to the host-inner boehl solver (`:1026-1055`).
 
 method="boehl" (`:499-898`): the y-iteration y ← y + α(J̄⁻¹F − J̄⁻¹J y)
 with the adaptive Rayleigh-quotient step α, per outer. With
@@ -51,8 +57,11 @@ from hank_tpu_torch.blocks.backward import backward_iteration
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn
-from hank_tpu_torch.ops.fused_sweep import make_fused_jvp_dir, supports_fused_sweep
-from hank_tpu_torch.ops.fused_sweep2 import make_fused2_jvp_dir, supports_fused_sweep2
+from hank_tpu_torch.ops.fused_sweep import (make_fused_jvp_dir, make_fused_residual_fn,
+                                            supports_fused_sweep)
+from hank_tpu_torch.ops.fused_sweep2 import (make_fused2_jvp_dir, make_fused2_residual_fn,
+                                             supports_fused_sweep2)
+from hank_tpu_torch.ops.precision import cast_model, cast_paths, cast_ss
 from hank_tpu_torch.ops.linalg import (dense_solve, gmres_matfree, make_reusable_solver,
                                        rayleigh_quotient)
 
@@ -199,27 +208,87 @@ def newton_raphson_hank(x0, Jbar, exog_paths, model, ss_initial, ss_ending,
                             **kwargs)(x0)
 
 
-def direction_kernels(model, ss_initial, ss_ending, exog_paths):
-    """jvp_dir32(x, v): the model's f32 direction kernels (module docstring)."""
+DIRECTION_MODES = ("auto", "xla", "pallas")
+
+
+def kernel_pair(model, ss_initial, ss_ending, exog_paths):
+    """(jvp_dir32, residual32) of the model's f32 kernel pair (module
+    docstring): the direction map and the f32 F(x) through the same
+    kernels with a zero tangent."""
     if supports_fused_sweep(model):
-        return make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths)
+        return (make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths),
+                make_fused_residual_fn(model, ss_initial, ss_ending, exog_paths))
     if supports_fused_sweep2(model):
-        return make_fused2_jvp_dir(model, ss_initial, ss_ending, exog_paths)
-    raise ValueError("the model supports neither household-sweep kernel pair "
-                     "(supports_fused_sweep / supports_fused_sweep2 both False)")
+        return (make_fused2_jvp_dir(model, ss_initial, ss_ending, exog_paths),
+                make_fused2_residual_fn(model, ss_initial, ss_ending, exog_paths))
+    raise ValueError("direction_mode='pallas' requested but the model supports neither "
+                     "household-sweep kernel pair (supports_fused_sweep / "
+                     "supports_fused_sweep2 both False); use 'auto' or 'xla'")
 
 
-def residual_route(model, ss_initial, ss_ending, exog_paths, residual_mode: str = "auto"):
-    """The full-precision F(x) that `residual_mode` picks (`:330-331`):
-    "auto" kernel 2 wherever `supports_fused_sweep` holds, else the plain
-    f64 pipeline; "ds" kernel 2 or ValueError; "f64" the plain pipeline."""
+def mixed_tail_map(model, ss_initial, ss_ending):
+    """(jvp_dir, F_lo) of the mixed-tail direction map (`:462-494`): the
+    household blocks (all the work) run on an f32 copy of the model, the
+    steady states and the shock paths; the assembly and residual tail run
+    in the working f64 on the f64 shock paths; AD by `torch.func.jvp`.
+    jvp_dir(x, v, exog_paths) and F_lo(x, exog_paths) take and return the
+    working dtype."""
+    x_dtype, lo = config.dtype, torch.float32
+    m_lo = cast_model(model, lo)
+    s0_lo, sT_lo = cast_ss(ss_initial, lo), cast_ss(ss_ending, lo)
+
+    def F_dir(x_lo, exog_paths):
+        pols = backward_iteration(x_lo, cast_paths(exog_paths, lo), m_lo, sT_lo.vars,
+                                  sT_lo.value)
+        aggs = forward_iteration(pols, m_lo, s0_lo.D)
+        aggs_hi = {k: v.to(x_dtype) for k, v in aggs.items()}
+        x_mat = assemble_full_xmat(x_lo.to(x_dtype), aggs_hi, exog_paths, model,
+                                   ss_initial.vars, ss_ending.vars)
+        return eval_residuals(x_mat, model)
+
+    def jvp_dir(x, v, exog_paths):
+        return torch.func.jvp(lambda z: F_dir(z, exog_paths), (x.to(lo),),
+                              (v.to(lo),))[1].to(x.dtype)
+
+    def F_lo(x, exog_paths):
+        return F_dir(x.to(lo), exog_paths).to(x.dtype)
+
+    return jvp_dir, F_lo
+
+
+def direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode: str = "auto"):
+    """(jvp_dir32, F32) of the f32 direction route `direction_mode` picks
+    (module docstring).
+
+    One departure from the reference, whose "auto" takes a kernel only for
+    the one-asset family on its TPU (`:402-418`): on the card "auto" takes
+    kernels 5-6 for the two-asset family too, because their `jvp_dir` is
+    132-133 ms per direction against 15-27 s for the plain f32 one on an
+    H100 80GB HBM3 at 700 W (PERF.md §6)."""
+    kernels = supports_fused_sweep(model) or supports_fused_sweep2(model)
+    if direction_mode == "pallas" or (direction_mode == "auto" and kernels
+                                      and ss_ending.value.is_cuda):
+        return kernel_pair(model, ss_initial, ss_ending, exog_paths)
+    jvp_dir, F_lo = mixed_tail_map(model, ss_initial, ss_ending)
+    return (lambda x, v: jvp_dir(x, v, exog_paths)), (lambda x: F_lo(x, exog_paths))
+
+
+def _kernel_residual(model, residual_mode: str) -> bool:
+    """Whether `residual_mode` picks kernel 2 as the full-precision F(x)."""
     if residual_mode not in ("auto", "ds", "f64"):
         raise ValueError(f"unknown residual_mode {residual_mode!r}")
     sweep = supports_fused_sweep(model)
     if residual_mode == "ds" and not sweep:
         raise ValueError("residual_mode='ds' needs the one-asset residual kernel "
                          "(supports_fused_sweep is False for this model)")
-    if residual_mode != "f64" and sweep:
+    return residual_mode != "f64" and sweep
+
+
+def residual_route(model, ss_initial, ss_ending, exog_paths, residual_mode: str = "auto"):
+    """The full-precision F(x) that `residual_mode` picks (`:330-331`):
+    "auto" kernel 2 wherever `supports_fused_sweep` holds, else the plain
+    f64 pipeline; "ds" kernel 2 or ValueError; "f64" the plain pipeline."""
+    if _kernel_residual(model, residual_mode):
         return make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths)
     return make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
 
@@ -250,6 +319,7 @@ def make_path_solver(
     gmres_restart: int = 20,
     gmres_maxiter: int = 2,
     direction_dtype=None,
+    direction_mode: str = "auto",
     residual_mode: str = "auto",
     host_inner: bool = False,
     verbose: bool = False,
@@ -261,7 +331,9 @@ def make_path_solver(
     """Build a reusable path solver `run(x0) -> (x, info)` (module docstring).
 
     direction_dtype: None (or torch.float64) for f64 directions, AD
-      through the plain pipeline; torch.float32 for the kernels' directions.
+      through the plain pipeline; torch.float32 for f32 directions.
+    direction_mode: the f32 directions' route, "auto" | "xla" | "pallas"
+      (`direction_route`); f64 directions ignore it, as in the reference.
     residual_mode: "auto" | "ds" | "f64" (`residual_route`).
     host_inner: (boehl) Richardson phase + host-PGMRES endgame.
     richardson_max_outer: (boehl, host_inner) cap on the Richardson outers;
@@ -288,6 +360,9 @@ def make_path_solver(
                          "method='boehl' with host_inner=True")
     if endgame not in ("auto", "jvp", "fd"):
         raise ValueError(f"unknown endgame {endgame!r}")
+    if direction_mode not in DIRECTION_MODES:
+        raise ValueError(f"unknown direction_mode {direction_mode!r} "
+                         f"(expected one of {DIRECTION_MODES})")
     mixed = _is_mixed(direction_dtype)
     if mixed and Jbar.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 must be False: "
@@ -301,24 +376,33 @@ def make_path_solver(
     def jvp_full(x, v):
         return torch.func.jvp(F_exact, (x,), (v,))[1]
 
+    F32 = None
     if mixed:
-        jvp_dir32 = direction_kernels(model, ss_initial, ss_ending, exog_paths)
+        jvp_dir32, F32_lo = direction_route(model, ss_initial, ss_ending, exog_paths,
+                                            direction_mode)
 
         def jvp_dir(x, v):
             return jvp_dir32(x, v).to(x.dtype)
+
+        def F32(x):
+            return F32_lo(x).to(x.dtype)
     else:
         jvp_dir = jvp_full
 
     if method == "newton_krylov":
+        # The f32 residual phase: off where kernel 2 is F, which already
+        # costs about an f32 sweep and carries f64 accuracy (`:985-992`).
+        fast = F32 if not _kernel_residual(model, residual_mode) else None
         return _make_newton_krylov(
-            F, jvp_dir, solve_jbar, mixed=mixed, eps=eps, max_outer=max_outer,
+            F, jvp_dir, solve_jbar, F32=fast, mixed=mixed, eps=eps, max_outer=max_outer,
             gmres_restart=gmres_restart, gmres_maxiter=gmres_maxiter, records=records,
             verbose=verbose,
             rescue=(lambda outers_left: make_path_solver(
                 Jbar, exog_paths, model, ss_initial, ss_ending, method="boehl",
                 eps=eps, max_outer=outers_left, max_inner=max_inner,
-                direction_dtype=direction_dtype, residual_mode=residual_mode,
-                host_inner=True, verbose=verbose, records=records))
+                direction_dtype=direction_dtype, direction_mode=direction_mode,
+                residual_mode=residual_mode, host_inner=True, verbose=verbose,
+                records=records))
             if stall_rescue else None)
 
     # Inexact-Newton inner stop of the y-iteration: the preconditioned
@@ -540,13 +624,16 @@ def make_path_solver(
     return run
 
 
-def _make_newton_krylov(F, jvp_dir, solve_jbar, *, mixed, eps, max_outer, gmres_restart,
-                        gmres_maxiter, records, verbose, rescue):
+def _make_newton_krylov(F, jvp_dir, solve_jbar, *, F32, mixed, eps, max_outer,
+                        gmres_restart, gmres_maxiter, records, verbose, rescue):
     """The Newton-Krylov `run` (`:900-1069`); `rescue(outers_left)` builds
     the boehl solver a stalled iterate is handed to, or is None. With f32
     directions (`mixed`) GMRES stops at the f32 operator floor and is
     preconditioned by an f32 J̄⁻¹ matvec; with f64 ones at 1e-12, by the f64
-    J̄⁻¹ (`:902-916`)."""
+    J̄⁻¹ (`:902-916`). F32, when given, is the f32 residual of the early
+    outers (`:975-1025`): GMRES right-hand side, backtracking and progress
+    norm until ‖F‖ ≤ max(1e-3, 100·eps), then a re-anchor on F; an f32
+    outer without descent hands over to F at once."""
     if mixed:
         Jinv32 = solve_jbar.A_inv.to(torch.float32)
         gmres_tol = 3e-7      # f32 operator floor: no more than the JVP noise
@@ -557,7 +644,7 @@ def _make_newton_krylov(F, jvp_dir, solve_jbar, *, mixed, eps, max_outer, gmres_
         gmres_tol = 1e-12
         precond = solve_jbar
 
-    def nk_step(x, Fx, fnorm, fnorm_prev):
+    def nk_step(Fres, x, Fx, fnorm, fnorm_prev):
         # Eisenstat-Walker (choice 2) forcing, floored at the direction
         # noise and at what the final target still requires.
         eta = min(max(0.9 * (fnorm / fnorm_prev) ** 2, gmres_tol), 0.5)
@@ -569,13 +656,13 @@ def _make_newton_krylov(F, jvp_dir, solve_jbar, *, mixed, eps, max_outer, gmres_
         # halvings); a full step that descends costs no extra residual.
         alpha = 1.0
         x_t = x - d
-        Fx_t = F(x_t)
+        Fx_t = Fres(x_t)
         fn_t = float(torch.linalg.norm(Fx_t))
         tries = 0
         while not (math.isfinite(fn_t) and fn_t < fnorm) and tries < 6:
             alpha *= 0.5
             x_t = x - alpha * d
-            Fx_t = F(x_t)
+            Fx_t = Fres(x_t)
             fn_t = float(torch.linalg.norm(Fx_t))
             tries += 1
         # Strict descent: keep the incumbent if every halving failed.
@@ -583,17 +670,37 @@ def _make_newton_krylov(F, jvp_dir, solve_jbar, *, mixed, eps, max_outer, gmres_
             return x_t, Fx_t, fn_t
         return x, Fx, fnorm
 
+    residual_switch = max(1e-3, 100.0 * eps)
+
     def run(x0):
         x = x0
-        Fx = F(x0)
+        in_fast_phase = F32 is not None
+        Fx = (F32 if in_fast_phase else F)(x0)
         fnorm = fprev = float(torch.linalg.norm(Fx))
         _check_finite(fnorm, "newton_krylov", 0, x)
         iters = 0
         while fnorm > eps and iters < max_outer:
-            x, Fx, fn = nk_step(x, Fx, fnorm, fprev)
+            if in_fast_phase and fnorm <= residual_switch:
+                # Re-anchor in full precision at the phase switch (the f32
+                # Fx carries ~1e-6-scale noise).
+                in_fast_phase = False
+                Fx = F(x)
+                fprev = fnorm
+                fnorm = float(torch.linalg.norm(Fx))
+                if fnorm <= eps:
+                    break
+            x, Fx, fn = nk_step(F32 if in_fast_phase else F, x, Fx, fnorm, fprev)
             fprev, fnorm = fnorm, fn
+            _check_finite(fnorm, "newton_krylov", iters + 1, x)
             iters += 1
             if fnorm >= fprev:
+                if in_fast_phase:
+                    # The f32 noise floor can stall the fast phase before
+                    # the switch: hand over to full precision.
+                    in_fast_phase = False
+                    Fx = F(x)
+                    fnorm = float(torch.linalg.norm(Fx))
+                    continue
                 # No descent along the Newton direction: a curved valley the
                 # step cannot traverse (the two-asset fiscal path). Hand the
                 # iterate to the adaptively damped boehl y-iteration.
@@ -609,7 +716,8 @@ def _make_newton_krylov(F, jvp_dir, solve_jbar, *, mixed, eps, max_outer, gmres_
                               f"{iters} outer iterations (no descent direction found)")
                 break
             if verbose:
-                print(f"[newton_krylov] outer {iters}: |F| = {fnorm:.3e}")
+                print(f"[newton_krylov] outer {iters}: |F| = {fnorm:.3e}"
+                      + (" (f32 phase)" if in_fast_phase else ""))
             if records is not None:
                 records.append({"iteration": iters, "residual_norm": fnorm})
         return x, {"iterations": iters, "residual_norm": fnorm}

@@ -60,10 +60,11 @@ def model_hash(model, include_horizon: bool = False) -> str:
     return h.hexdigest()[:16]
 
 
-def steady_state_from_numpy(arrays: Mapping, device="cpu"):
+def steady_state_from_numpy(arrays: Mapping, device="cuda"):
     """SteadyState from numpy arrays: `arrays` maps "vars" ({name: scalar}),
     "policies" ({name: array}), "D" and "value" to the JAX package's
-    steady-state arrays. Everything becomes float64 on `device`."""
+    steady-state arrays. Everything becomes float64 on `device`: the card
+    unless the caller asks for the CPU, as with the port's other loaders."""
     from hank_tpu_torch.solvers.steady_state import SteadyState
 
     def t(a):
@@ -74,7 +75,7 @@ def steady_state_from_numpy(arrays: Mapping, device="cpu"):
                        D=t(arrays["D"]), value=t(arrays["value"]))
 
 
-def load_steady_state_npz(path: str, device="cpu"):
+def load_steady_state_npz(path: str, device="cuda"):
     """SteadyState from a steady-state npz (the JAX package's or the port's)."""
     with np.load(path, allow_pickle=False) as z:
         names = [str(s) for s in z["var_names"]]
@@ -85,7 +86,7 @@ def load_steady_state_npz(path: str, device="cpu"):
              "D": z["D"], "value": z["value"]}, device)
 
 
-def load_jacobian_npz(path: str, device="cpu") -> torch.Tensor:
+def load_jacobian_npz(path: str, device="cuda") -> torch.Tensor:
     """J̄ from a Jacobian npz (the JAX package's or the port's)."""
     with np.load(path, allow_pickle=False) as z:
         return torch.as_tensor(np.array(z["J"], dtype=np.float64), device=device)

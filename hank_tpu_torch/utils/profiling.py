@@ -48,7 +48,7 @@ def solve_breakdown(model, ss_initial, ss_ending, Jbar, exog_paths,
     from hank_tpu_torch.blocks.backward import backward_iteration
     from hank_tpu_torch.blocks.forward import forward_iteration
     from hank_tpu_torch.ops.linalg import make_reusable_solver
-    from hank_tpu_torch.solvers.newton import direction_kernels, make_full_residual_fn
+    from hank_tpu_torch.solvers.newton import kernel_pair, make_full_residual_fn
 
     Tm1 = model.compspec.T - 1
     endog = model.vars_of_type("endogenous")
@@ -57,7 +57,7 @@ def solve_breakdown(model, ss_initial, ss_ending, Jbar, exog_paths,
 
     F = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
     if direction_dtype == torch.float32:
-        jvp_fn = direction_kernels(model, ss_initial, ss_ending, exog_paths)
+        jvp_fn = kernel_pair(model, ss_initial, ss_ending, exog_paths)[0]
     else:
         def jvp_fn(x, v):
             return torch.func.jvp(F, (x,), (v,))[1]

@@ -33,7 +33,7 @@ f32, f64 = torch.float32, torch.float64
 def both(ks_small, ks_small_ss):
     T = ks_small.compspec.T
     tm = build_small_ks_torch(T=T)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     endog = ks_small.vars_of_type("endogenous")
     x_ss = np.tile(np.array([float(ks_small_ss.vars[k]) for k in endog]), T - 1)
     return ks_small, ks_small_ss, tm, tss, x_ss
@@ -116,7 +116,7 @@ def test_residual_ensemble_matches_jax(both):
     assert fused_residual_sweep_batch_reference.calls == calls + 1
     assert out.dtype == f64 and out.shape == ref.shape == (B, x_ss.shape[0])
     assert float(np.max(np.abs(out.numpy() - ref))) <= 1e-12
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="mesh= is not ported"):
         residual_ensemble(to_torch(x_b), {"Z": to_torch(Z)}, tm, tss, tss, mesh=object())
 
 

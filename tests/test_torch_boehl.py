@@ -46,14 +46,15 @@ class Case:
         assert float(info["residual_norm"]) < 1e-11
         self.x_ref = np.asarray(x_ref)
         self.model = tm
-        self.ss = steady_state_from_numpy(ss_to_numpy(jss))
+        self.ss = steady_state_from_numpy(ss_to_numpy(jss), device="cpu")
         self.J = to_torch(np.asarray(Jj))
         self.exog = {k: to_torch(v) for k, v in exog_np.items()}
         self.x_ss = to_torch(x_ss_of(jm, jss))
 
     def solver(self, **kw):
         return make_path_solver(self.J, self.exog, self.model, self.ss, self.ss,
-                                method="boehl", direction_dtype=f32, **kw)
+                                method="boehl", direction_dtype=f32, direction_mode="pallas",
+                                **kw)
 
     def x_lin(self):
         return linear_impulse_response(self.J, self.exog, self.model, self.ss, self.ss,
@@ -218,14 +219,15 @@ def test_newton_krylov_stall_rescue_hands_off_to_boehl(ks, monkeypatch):
     with pytest.warns(UserWarning, match="switching to the boehl"):
         x, info = make_path_solver(ks.J, ks.exog, ks.model, ks.ss, ks.ss,
                                    method="newton_krylov", direction_dtype=f32,
-                                   eps=1e-10)(ks.x_ss)
+                                   direction_mode="pallas", eps=1e-10)(ks.x_ss)
     assert calls["n"] == 1
     check_root(ks, x, info, 1e-10)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         with pytest.raises(UserWarning, match="stalled"):
             make_path_solver(ks.J, ks.exog, ks.model, ks.ss, ks.ss, method="newton_krylov",
-                             direction_dtype=f32, eps=1e-10, stall_rescue=False)(ks.x_ss)
+                             direction_dtype=f32, direction_mode="pallas", eps=1e-10,
+                             stall_rescue=False)(ks.x_ss)
 
 
 @pytest.mark.parametrize("kw", [dict(richardson_max_outer=0),
@@ -243,4 +245,4 @@ def test_solver_rejects_unknown_options_and_models(ks):
     other = dataclasses.replace(build_small_ks_torch(T=12), value_fn=lambda v, x, m: None)
     with pytest.raises(ValueError, match="neither household-sweep kernel pair"):
         make_path_solver(ks.J, ks.exog, other, ks.ss, ks.ss, method="boehl",
-                         direction_dtype=f32)
+                         direction_dtype=f32, direction_mode="pallas")

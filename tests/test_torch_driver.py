@@ -40,7 +40,7 @@ def cache_dir(tmp_path_factory):
                     tload("hank_one_asset", T=12, device="cpu"))):
         ss0, ssT, J = jget_or_solve(jm)
         for label, ss in (("initial", ss0), ("ending", ssT)):
-            checkpoint.save_steady_state(steady_state_from_numpy(ss_to_numpy(ss)), tm,
+            checkpoint.save_steady_state(steady_state_from_numpy(ss_to_numpy(ss), device="cpu"), tm,
                                          label, d)
         checkpoint.save_jacobian(to_torch(np.asarray(J)), tm, d)
     return d
@@ -136,8 +136,8 @@ def test_solve_path_dense_matches_jax(ks, ks_small):
     from hank_tpu_torch.solvers.newton import solve_path_dense
 
     jss0, jssT, _ = jget_or_solve(ks_small)
-    ss0 = steady_state_from_numpy(ss_to_numpy(jss0))
-    ssT = steady_state_from_numpy(ss_to_numpy(jssT))
+    ss0 = steady_state_from_numpy(ss_to_numpy(jss0), device="cpu")
+    ssT = steady_state_from_numpy(ss_to_numpy(jssT), device="cpu")
     endog = ks.vars_of_type("endogenous")
     x0 = np.tile([float(jssT.vars[k]) for k in endog], 11)
     z = exogenousZ(11)
@@ -198,7 +198,7 @@ def test_solve_breakdown_has_the_jax_keys(ks_small, ks_small_ss):
     from hank_tpu_torch.utils.profiling import solve_breakdown
 
     tm = build_small_ks_torch(T=12)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     exog = {"Z": torch.ones(11, dtype=f64)}
     J = torch.eye(44, dtype=f64)
     out = solve_breakdown(tm, tss, tss, J, exog, iters=1)
@@ -239,7 +239,7 @@ def test_plots_are_written(ks_small_ss, tmp_path):
     pytest.importorskip("matplotlib")
     from hank_tpu_torch.utils.plotting import plot_distribution, plot_transition
 
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     x = torch.ones((11, 4), dtype=f64)
     p1 = plot_transition(x, ("Y", "KS", "r", "w"), str(tmp_path / "t.png"),
                          ss_initial=tss, ss_ending=tss, title="KS")

@@ -43,7 +43,7 @@ def setup():
     jm = build_small_two_asset()
     jss = solve_ss_cached(jm)
     tm = build_small_two_asset_torch()
-    tss = steady_state_from_numpy(ss_to_numpy(jss))
+    tss = steady_state_from_numpy(ss_to_numpy(jss), device="cpu")
     Tm1 = jm.compspec.T - 1
     G = 0.005 * 0.8 ** np.arange(1, Tm1 + 1)
     endog = jm.vars_of_type("endogenous")

@@ -31,7 +31,7 @@ def both(ks_small, ks_small_ss):
     T = ks_small.compspec.T
     z = transitory_exog(T)
     tm = build_small_ks_torch(T=T)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     endog = ks_small.vars_of_type("endogenous")
     x_ss = np.tile(np.array([float(ks_small_ss.vars[k]) for k in endog]), T - 1)
     return (ks_small, ks_small_ss, {"Z": jnp.asarray(z)}, tm, tss,
@@ -154,6 +154,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(both):
         fused_residual_sweep(*args64[:2], args64[2].float(), *args64[3:], **kw)
     with pytest.raises(ValueError):
         fused_residual_sweep(*args64[:6], args64[6][:2, :2].contiguous(), **kw)
+    with pytest.raises(ValueError, match="fallback_rows"):
+        fused_sweep_jvp(*args, **kw, fallback_rows=torch.zeros(2, dtype=torch.int32))
     launches = (fused_sweep_jvp.launches, fused_residual_sweep.launches)
     fused_residual_sweep(*args64, **kw)
     fused_sweep_jvp(*args, **kw)
@@ -192,6 +194,30 @@ def test_kernel1_on_card_matches_its_plain_version(both, cuda, seed):
     zero = torch.zeros_like(args[2])
     out0 = fused_sweep_jvp(args[0], args[1], zero, zero, *args[4:], **kw)
     assert bool((out0[1] == 0).all()) and bool((out0[3] == 0).all())
+
+
+@pytest.mark.gpu
+def test_kernel1_on_card_is_bit_for_bit_the_template(both, cuda):
+    """Kernel 1 against the kernel template's B = 1 launch on all four
+    outputs, at a smooth point and with the grid's knots 5 and 6 swapped
+    (policy rows out of order: the fallback branches)."""
+    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch
+
+    _, _, _, tm, tss, _, x_ss = both
+    rng = np.random.default_rng(3)
+    kw = kernel_kwargs(tm)
+    args = [a.to(cuda) for a in sweep_args(tm, tss, x_ss * 1.001, rng.normal(size=x_ss.shape),
+                                           f32)]
+    grid = args[6].clone()
+    grid[[5, 6]] = grid[[6, 5]]
+    for inputs in (args, [*args[:6], grid, *args[7:]]):
+        fallback = torch.zeros(2, dtype=torch.int32, device=cuda)
+        out = fused_sweep_jvp(*inputs, **kw, fallback_rows=fallback)
+        rows = fused_sweep_jvp_batch(*(a[None].contiguous() for a in inputs[:4]), *inputs[4:],
+                                     **kw)
+        for o, r in zip(out, rows):
+            assert torch.equal(o.view(torch.int32), r[0].view(torch.int32))
+    assert int(fallback[1]) > 0
 
 
 @pytest.mark.gpu

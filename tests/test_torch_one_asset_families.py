@@ -111,7 +111,7 @@ class Pair:
         self.jm, self.jss, self.tm = jm, jss, tm
         self.jex = {k: jnp.asarray(v) for k, v in exog.items()}
         self.tex = {k: torch.tensor(v, dtype=f64) for k, v in exog.items()}
-        self.tss = steady_state_from_numpy(_np_ss(jss))
+        self.tss = steady_state_from_numpy(_np_ss(jss), device="cpu")
         self.x_ss = _x_ss(jm, jss)
         self.J = np.asarray(get_steady_state_jacobian(jss, jm))
 
@@ -211,7 +211,7 @@ def test_hank_path_solve_matches_jax(hank, direction_dtype):
     x_ref = hank.jax_root()
     x, info = make_path_solver(torch.tensor(hank.J), hank.tex, hank.tm, hank.tss, hank.tss,
                                method="newton_krylov", direction_dtype=direction_dtype,
-                               eps=1e-10)(torch.tensor(hank.x_ss))
+                               direction_mode="pallas", eps=1e-10)(torch.tensor(hank.x_ss))
     assert info["residual_norm"] < 1e-10
     assert float(np.max(np.abs(x.numpy() - x_ref))) <= 1e-9
     path = x.numpy().reshape(11, 3)
@@ -243,7 +243,7 @@ def test_large_grid_path_solve_matches_jax(large):
     x_ref = large.jax_root()
     x, info = make_path_solver(torch.tensor(large.J), large.tex, large.tm, large.tss,
                                large.tss, method="newton_krylov", direction_dtype=f32,
-                               eps=1e-10)(torch.tensor(large.x_ss))
+                               direction_mode="pallas", eps=1e-10)(torch.tensor(large.x_ss))
     assert info["residual_norm"] < 1e-10
     assert float(np.max(np.abs(x.numpy() - x_ref))) <= 1e-9
     path = x.numpy().reshape(11, 4)

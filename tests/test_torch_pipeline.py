@@ -24,7 +24,7 @@ def both(ks_small, ks_small_ss):
     T = ks_small.compspec.T
     z = transitory_exog(T)
     tm = build_small_ks_torch(T=T)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     endog = ks_small.vars_of_type("endogenous")
     x_ss = np.tile(np.array([float(ks_small_ss.vars[k]) for k in endog]), T - 1)
     return (ks_small, ks_small_ss, {"Z": jnp.asarray(z)}, tm, tss,

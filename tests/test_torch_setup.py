@@ -49,7 +49,7 @@ def test_steady_state_jacobian_matches_jax(ks_small, ks_small_ss):
     from hank_tpu.solvers.ss_jacobian import get_steady_state_jacobian as jjac
 
     tm = build_small_ks_torch(T=12)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     J_t = get_steady_state_jacobian(tss, tm).numpy()
     J_j = np.asarray(jjac(ks_small_ss, ks_small))
     assert J_t.shape == J_j.shape == (44, 44)
@@ -60,14 +60,14 @@ def test_jax_npz_artifacts_load_into_the_port(ks_small, ks_small_ss, tmp_path):
     from hank_tpu.utils.checkpoint import save_jacobian, save_steady_state
 
     path = save_steady_state(ks_small_ss, ks_small, "initial", cache_dir=str(tmp_path))
-    tss = load_steady_state_npz(path)
+    tss = load_steady_state_npz(path, device="cpu")
     for k, v in ks_small_ss.vars.items():
         assert float(tss.vars[k]) == float(v)
     assert np.array_equal(tss.value.numpy(), np.asarray(ks_small_ss.value))
     assert np.array_equal(tss.D.numpy(), np.asarray(ks_small_ss.D))
     J = jnp.asarray(np.random.default_rng(0).normal(size=(8, 8)))
     jpath = save_jacobian(J, ks_small, cache_dir=str(tmp_path))
-    assert np.array_equal(load_jacobian_npz(jpath).numpy(), np.asarray(J))
+    assert np.array_equal(load_jacobian_npz(jpath, device="cpu").numpy(), np.asarray(J))
 
 
 def test_port_cache_round_trip(ks_small_ss, tmp_path):
@@ -75,7 +75,7 @@ def test_port_cache_round_trip(ks_small_ss, tmp_path):
                                                  save_jacobian, save_steady_state)
 
     tm = build_small_ks_torch(T=12)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     assert load_steady_state(tm, "initial", str(tmp_path)) is None
     save_steady_state(tss, tm, "initial", str(tmp_path))
     back = load_steady_state(tm, "initial", str(tmp_path))

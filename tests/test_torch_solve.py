@@ -47,12 +47,12 @@ def test_slice_from_carried_across_steady_state(ks_small, ks_small_ss):
                                    ks_small_ss, jnp.asarray(x0))
 
     tm = build_small_ks_torch(T=T)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     records = []
     x, info = newton_raphson_hank(to_torch(x0), to_torch(np.asarray(Jj)),
                                   {"Z": to_torch(z)}, tm, tss, tss, method="newton_krylov",
-                                  direction_dtype=torch.float32, eps=1e-10,
-                                  gmres_restart=10, records=records)
+                                  direction_dtype=torch.float32, direction_mode="pallas",
+                                  eps=1e-10, gmres_restart=10, records=records)
     assert info["residual_norm"] < 1e-10
     assert len(records) == info["iterations"] >= 1
     assert float(np.max(np.abs(x.numpy() - x_ref))) <= 1e-9
@@ -60,7 +60,7 @@ def test_slice_from_carried_across_steady_state(ks_small, ks_small_ss):
 
 def test_path_solver_rejects_what_is_not_ported(ks_small_ss):
     tm = build_small_ks_torch(T=12)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     J = torch.eye(44, dtype=torch.float64)
     exog = {"Z": to_torch(transitory_exog(12))}
     with pytest.raises(ValueError, match="host_inner"):
@@ -88,7 +88,7 @@ def test_slice_with_f64_directions(ks_small, ks_small_ss, direction_dtype):
     xj, ij = jmake(Jj, {"Z": jnp.asarray(z)}, ks_small, ks_small_ss, ks_small_ss,
                    method="newton_krylov", eps=1e-10)(jnp.asarray(x0))
     tm = build_small_ks_torch(T=T)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     x, info = make_path_solver(to_torch(np.asarray(Jj)), {"Z": to_torch(z)}, tm, tss, tss,
                                method="newton_krylov", direction_dtype=direction_dtype,
                                eps=1e-10)(to_torch(x0))
@@ -105,7 +105,7 @@ def test_residual_mode_picks_the_residual(ks_small_ss, mode):
     from hank_tpu_torch.solvers.newton import residual_route
 
     tm = build_small_ks_torch(T=12)
-    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss))
+    tss = steady_state_from_numpy(ss_to_numpy(ks_small_ss), device="cpu")
     exog = {"Z": to_torch(transitory_exog(12))}
     x = to_torch(x_ss_of(tm, tss)) * 1.001
     calls = fused_residual_sweep_reference.calls
@@ -141,15 +141,14 @@ def test_path_solver_defaults_follow_the_jax_package():
 
     port, ref = defaults(make_path_solver), defaults(jmake)
     for k in ("method", "eps", "max_inner", "gmres_restart", "gmres_maxiter",
-              "direction_dtype", "stall_rescue", "endgame", "max_outer",
+              "direction_dtype", "direction_mode", "stall_rescue", "endgame", "max_outer",
               "richardson_max_outer", "residual_mode", "host_inner"):
         assert port[k] == ref[k], k
     assert port["method"] == "boehl" and port["direction_dtype"] is None
+    assert port["direction_mode"] == "auto"
     # Left out on purpose: `host_outer` (every loop of the port is a host
-    # loop: torch runs eagerly, there is no traced twin to switch to) and
-    # `direction_mode` (one direction route per model family; the reference's
-    # "xla" route is the f64 AD directions of direction_dtype=None).
-    assert set(ref) - set(port) == {"host_outer", "direction_mode"}
+    # loop: torch runs eagerly, there is no traced twin to switch to).
+    assert set(ref) - set(port) == {"host_outer"}
     # `endgame_gmres_tol`: None here means the reference's 1e-3 and lets the
     # port refuse the option where it would be ignored (ADVICE.md).
     assert ref["endgame_gmres_tol"] == 1e-3 and port["endgame_gmres_tol"] is None
@@ -171,8 +170,8 @@ def test_full_size_residual_matches_jax():
     jm = load_model("krusell_smith", T=300)
     jss0, jssT, _ = jget_or_solve(jm)
     tm = tload("krusell_smith", T=300, device="cpu")
-    ss0 = steady_state_from_numpy(ss_to_numpy(jss0))
-    ssT = steady_state_from_numpy(ss_to_numpy(jssT))
+    ss0 = steady_state_from_numpy(ss_to_numpy(jss0), device="cpu")
+    ssT = steady_state_from_numpy(ss_to_numpy(jssT), device="cpu")
     z = transitory_exog(300)
     x = x_ss_of(jm, jssT) + 0.01 * np.random.default_rng(0).normal(size=4 * 299)
     ref = np.asarray(jax.jit(jmake(jm, jss0, jssT, {"Z": jnp.asarray(z)}))(jnp.asarray(x)))

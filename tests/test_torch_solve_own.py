@@ -39,7 +39,8 @@ def test_slice_from_its_own_setup(ks_small, tmp_path):
                                    jnp.asarray(x0))
     exog = {"Z": exogenousZ(T - 1)}
     solver = make_path_solver(J, exog, tm, ss0, ssT, method="newton_krylov",
-                              direction_dtype=torch.float32, eps=1e-10, gmres_restart=10)
+                              direction_dtype=torch.float32, direction_mode="pallas", eps=1e-10,
+                              gmres_restart=10)
     x, info = solver(to_torch(x0))
     assert info["residual_norm"] < 1e-10
     assert float(torch.linalg.norm(make_full_residual_fn(tm, ss0, ssT, exog)(x))) < 1e-10

@@ -43,7 +43,7 @@ def jax_side():
 @pytest.fixture(scope="module")
 def port_side(jax_side):
     _, jss = jax_side
-    return build_small_two_asset_torch(), checkpoint.steady_state_from_numpy(ss_to_numpy(jss))
+    return build_small_two_asset_torch(), checkpoint.steady_state_from_numpy(ss_to_numpy(jss), device="cpu")
 
 
 @pytest.fixture(scope="module")
