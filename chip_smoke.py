@@ -75,9 +75,22 @@ exits non-zero and never prints the final `"ok": true` line:
                tangents as kernel 6's plain version aggregates them, kernel
                6's aggregates and tangents; a zero tangent exactly zero,
                repeated launches bit-identical, an i.i.d. direction reported
-               only; ms per launch of each kernel and of the plain versions,
-               of the kernel pair's jvp_dir and the plain f32 one (one run),
-               and of the f64 F. Then 3 timed runs of the route (counters zeroed right
+               only. Kernel 6 (the thread-block cluster) against the previous
+               kernel 6 (one block), bit for bit on all six outputs (NaNs
+               included), on kernel 5's policies at x_ss, the solution and a
+               smooth seeded point, and at three stress inputs: every liquid
+               policy on the first knot, 1% i.i.d. noise on the policies, one
+               NaN policy (which must give NaN). ms per launch of each kernel
+               (kernel 6 and the previous one in turns: previous, new, new,
+               previous), of the plain versions, of the kernel pair's jvp_dir
+               and the plain f32 one (one run), and of the f64 F; kernel 6's
+               cluster size and both kernel 6's ptxas registers and spills;
+               kernel 6's shared memory (the library's own count) within
+               one block at every grid the previous kernel 6 takes with at
+               least 6 knots on each asset axis; and kernel 6 bit for bit
+               against the previous one at 38×38×2×2 (a grid that keeps
+               fewer counts for room) on seeded policies.
+               Then 3 timed runs of the route (counters zeroed right
                before: both kernels launched, neither plain version called;
                paths bit-identical to the warm-up's; the plain f64 ‖F‖ < EPS;
                within 1e-6 of the JAX package's root), and the other route
@@ -283,6 +296,99 @@ def kernel1_vs_previous(inputs: dict, kw) -> dict:
                          "fallback_rows_policy": int(fallback[1]),
                          "finite": all(bool(torch.isfinite(o).all()) for o in new)}
     return report
+
+
+def kernel6_vs_previous(inputs: dict, D0, model) -> dict:
+    """Kernel 6 (the cluster kernel) against the previous kernel 6 on every
+    input {label: (policies, dpolicies)}, bit for bit on all six outputs
+    (NaNs included); reports whether each output is finite."""
+    import torch
+
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    report = {}
+    for label, (pol, dpol) in inputs.items():
+        new = fs2.fused2_forward_jvp(pol, dpol, D0, model)
+        old = fs2.fused2_forward_jvp_previous(pol, dpol, D0, model)
+        require(all(torch.equal(bits(a[k]), bits(b[k])) for a, b in zip(new, old) for k in a),
+                f"kernel 6 at {label} differs from the previous kernel 6")
+        report[label] = {"finite": all(bool(torch.isfinite(o[k]).all()) for o in new for k in o)}
+    return report
+
+
+def kernel6_grids() -> dict:
+    """Every two-asset grid (n_b, n_a ≥ 6, n_b·n_a ≤ 2048, n_e ≤ 8) whose
+    previous kernel 6 fits in one block: kernel 6 on its default cluster
+    fits too, by the library's own shared-memory count. Fails otherwise."""
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    lib = cuda_build.load_library("household_sweep2")
+    taken, refused = 0, []
+    for n_e in range(1, 9):
+        c = fs2.default_cluster(n_e)
+        for n_b in range(6, 2048 // 6 + 1):
+            for n_a in range(6, 2048 // n_b + 1):
+                if lib.hank_sweep2_smem_bytes(1, n_b, n_a, n_e, 1) <= cuda_build.MAX_SMEM_BYTES:
+                    taken += 1
+                    if lib.hank_sweep2_smem_bytes(2, n_b, n_a, n_e, c) > cuda_build.MAX_SMEM_BYTES:
+                        refused.append((n_b, n_a, n_e))
+    require(taken > 10_000 and not refused,
+            f"kernel 6 refuses {len(refused)} grids the previous kernel 6 takes: {refused[:5]}")
+    return {"grids_of_the_previous_kernel": taken, "refused": 0,
+            "smem_bytes_40x20x5x2": lib.hank_sweep2_smem_bytes(2, 40, 20, 5, 10)}
+
+
+def kernel6_large_grid(model) -> dict:
+    """Kernel 6 against the previous kernel 6, bit for bit, at 38×38×2×2 and
+    40 periods (a grid whose destinations keep a count before every few
+    bitmap words only, for room), on seeded policies and tangents with a
+    third of the liquid policies at the borrowing limit."""
+    import dataclasses
+
+    import torch
+
+    from hank_tpu_torch.model.grids import make_double_exponential_grid, rouwenhorst
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    f32, dev = torch.float32, model.heterogeneity["liquid"].grid.device
+    n_b, n_a, n_e, Tm1 = 38, 38, 2, 40
+    gen = torch.Generator().manual_seed(11)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f32).to(dev)
+
+    het = model.heterogeneity
+    Pi, _, z = rouwenhorst(n_e, 0.966, 0.283)
+    big = dataclasses.replace(model, heterogeneity={
+        "liquid": dataclasses.replace(het["liquid"], n=n_b,
+                                      grid=t(make_double_exponential_grid(0.0, 120.0, n_b))),
+        "illiquid": dataclasses.replace(het["illiquid"], n=n_a,
+                                        grid=t(make_double_exponential_grid(0.0, 200.0, n_a))),
+        "income": dataclasses.replace(het["income"], n=n_e, grid=t(z), transition=t(Pi)),
+        "access": het["access"]})
+    shape = (Tm1, n_b, n_a, n_e, 2)
+    pol = {"B": torch.rand(shape, generator=gen) * 130.0 - 5.0,
+           "A": torch.rand(shape, generator=gen) * 210.0 - 5.0,
+           "C": torch.rand(shape, generator=gen) + 0.1}
+    pol["B"][torch.rand(shape, generator=gen) < 1 / 3] = 0.0
+    pol = {k: v.to(dev) for k, v in pol.items()}
+    dpol = {k: torch.randn(shape, generator=gen).to(dev) for k in pol}
+    D0 = torch.rand((n_b, n_a, n_e, 2), generator=gen)
+    D0 = (D0 / D0.sum()).to(dev)
+    new = fs2.fused2_forward_jvp(pol, dpol, D0, big)
+    old = fs2.fused2_forward_jvp_previous(pol, dpol, D0, big)
+    require(all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+                for a, b in zip(new, old) for k in a),
+            "kernel 6 at 38x38x2x2 differs from the previous kernel 6")
+    lib = cuda_build.load_library("household_sweep2")
+    return {"grid": [n_b, n_a, n_e, 2], "periods": Tm1, "bit_identical": True,
+            "smem_bytes": lib.hank_sweep2_smem_bytes(2, n_b, n_a, n_e, fs2.default_cluster(n_e)),
+            "finite": all(bool(torch.isfinite(o[k]).all()) for o in new for k in o)}
 
 
 def steady_residual(model, ss) -> float:
@@ -504,10 +610,10 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     ]
 
 
-def two_asset_phase(dev) -> list:
+def two_asset_phase(dev, ptxas) -> list:
     """Phase 7: the two-asset production route at full width (see the
     module docstring). Emits its JSON lines and returns the `kernels`
-    entries of kernels 5 and 6."""
+    entries of kernels 5 and 6. `ptxas` is phase 2's per-kernel report."""
     import numpy as np
     import torch
 
@@ -649,6 +755,29 @@ def two_asset_phase(dev) -> list:
     require(all(torch.equal(a[k], b[k]) for a, b in ((pol, pol_b), (dpol, dpol_b),
                                                      (agg, agg_b), (dagg, dagg_b)) for k in a),
             "kernels 5-6: repeated launches differ")
+    # Kernel 6 against the previous kernel 6, bit for bit, at x_ss, at the
+    # solution, at a smooth seeded point, and at three stress inputs: every
+    # liquid policy on the first knot (all sources at the borrowing limit),
+    # 1% i.i.d. noise on the policies, and one NaN policy.
+    k6_inputs = {}
+    smooth_x = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
+                       * decay).reshape(-1).to(dev)
+    for name, x in (("x_ss", x_ss), ("solution", x_warm), ("smooth", smooth_x)):
+        k6_inputs[name] = fs2.fused2_policies_jvp(*k5_args(x, smooth()), VT32, m32)
+    pol_s, dpol_s = k6_inputs["solution"]
+    liquid = model.heterogeneity["liquid"]
+    knot = {**pol_s, "B": torch.full_like(pol_s["B"], float(liquid.grid[0]))}
+    noisy = {k: t * (1.0 + 0.01 * torch.randn(t.shape, generator=gen).to(dev))
+             for k, t in pol_s.items()}
+    nan_pol = {k: t.clone() for k, t in pol_s.items()}
+    nan_pol["B"].view(-1)[int(torch.randint(0, nan_pol["B"].numel(), (1,), generator=gen))] = \
+        float("nan")
+    k6_inputs.update(first_knot=(knot, dpol_s), noise_1pct=(noisy, dpol_s),
+                     one_nan=(nan_pol, dpol_s))
+    k6_bits = kernel6_vs_previous(k6_inputs, D32, m32)
+    require(not k6_bits["one_nan"]["finite"] and k6_bits["solution"]["finite"],
+            f"kernel 6: the NaN input gave finite outputs or the solution did not: {k6_bits}")
+
     args_iid = k5_args(x_warm, torch.randn(x_ss.shape, generator=gen, dtype=f64).to(dev))
     pol_i, dpol_i = fs2.fused2_policies_jvp(*args_iid, VT32, m32)
     ref_i, dref_i = fs2.fused2_policies_jvp_reference(*(a.double() for a in args_iid),
@@ -671,9 +800,16 @@ def two_asset_phase(dev) -> list:
     dir_scale = float(dir_plain.abs().max())
     require(dir_err <= 5e-5 * max(dir_scale, 1.0),
             f"kernel-pair jvp_dir off the plain f32 one by {dir_err:.3e} (scale {dir_scale:.3e})")
+    # Kernel 6 and the previous kernel 6 in turns (previous, new, new,
+    # previous), medians of their two turns.
+    k6_turns = {"k6": [], "k6_previous": []}
+    for name in ("k6_previous", "k6", "k6", "k6_previous"):
+        fn = fs2.fused2_forward_jvp if name == "k6" else fs2.fused2_forward_jvp_previous
+        k6_turns[name].append(cuda_ms(lambda: fn(pol, dpol, D32, m32), 5))
     timing = {
         "k5_ms": cuda_ms(lambda: fs2.fused2_policies_jvp(*args, VT32, m32), 10),
-        "k6_ms": cuda_ms(lambda: fs2.fused2_forward_jvp(pol, dpol, D32, m32), 10),
+        "k6_ms": statistics.median(k6_turns["k6"]),
+        "k6_previous_ms": statistics.median(k6_turns["k6_previous"]),
         "jvp_dir_ms": cuda_ms(lambda: jvp_dir(x_warm, v), 10),
         "k5_plain_f32_ms": cuda_once(lambda: fs2.fused2_policies_jvp_reference(
             *args, VT32, m32))[1],
@@ -683,8 +819,14 @@ def two_asset_phase(dev) -> list:
     }
     F_plain = make_full_residual_fn(model, ss0, ssT, exog)
     timing["F_f64_ms"] = cuda_once(lambda: F_plain(x_warm))[1]
+    k6_ptxas = [k for k in ptxas if "two_asset_fwd" in k["kernel"]]
+    k6_grids = kernel6_grids()
+    k6_large = kernel6_large_grid(m32)
     emit("two_asset_kernels", checks=checks, iid_direction_at_solution=iid,
-         jvp_dir_vs_plain_f32=dir_err, jvp_dir_scale=dir_scale, **timing)
+         jvp_dir_vs_plain_f32=dir_err, jvp_dir_scale=dir_scale,
+         k6_vs_previous_bit_identical=k6_bits, k6_turns_ms=k6_turns,
+         k6_cluster=fs2.default_cluster(model.heterogeneity["income"].n),
+         k6_ptxas=k6_ptxas, k6_grids=k6_grids, k6_large_grid_vs_previous=k6_large, **timing)
 
     # Three timed runs of the route; counts zeroed right before them.
     fs2.fused2_policies_jvp.launches = fs2.fused2_forward_jvp.launches = 0
@@ -751,7 +893,8 @@ def two_asset_phase(dev) -> list:
         {"name": "fused2_forward_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:984", "launches": launches["k6"],
          "max_abs_err": k6_err, "ms": timing["k6_ms"], "plain_ms": timing["k6_plain_f32_ms"],
-         **k6_bound, "library_ms": None},
+         **k6_bound, "library_ms": None, "ms_previous": timing["k6_previous_ms"],
+         "cluster": fs2.default_cluster(model.heterogeneity["income"].n)},
     ]
 
 
@@ -1061,11 +1204,11 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     # ── 2. build ───────────────────────────────────────────────────────────
-    info = cuda_build.build()
+    built = cuda_build.build()
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
-    emit("build", seconds=info.seconds, libraries=info.paths,
-         ptxas=cuda_build.ptxas_report(info.log))
+    ptxas = cuda_build.ptxas_report(built.log)
+    emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas)
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -1227,7 +1370,7 @@ def main() -> int:
     ensemble_kernels = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
 
     # ── 7. two-asset ───────────────────────────────────────────────────────
-    two_asset_kernels = two_asset_phase(dev)
+    two_asset_kernels = two_asset_phase(dev, ptxas)
 
     # ── 8. driver ──────────────────────────────────────────────────────────
     driver = driver_phase(dev)

@@ -5,12 +5,14 @@
 //       hank_tpu/ops/fused_sweep2.py: fused2_policies_jvp (_make_bwd2_kernel):
 //       the backward dual Bellman recursion over T-1 periods, writing the
 //       B/A/C policies of both access branches and their tangents.
-//   two_asset_fwd_kernel  (kernel 6) replaces the TPU kernel
+//   two_asset_fwd_cluster_kernel  (kernel 6) replaces the TPU kernel
 //       hank_tpu/ops/fused_sweep2.py: fused2_forward_jvp (_make_fwd2_kernel):
 //       the forward dual push of the distribution (joint two-axis Young
-//       lottery, income and access mixing) and the B/A/C aggregates.
-// Each is one block walking the periods in order; the two launch back to
-// back, the same split as on the TPU.
+//       lottery, income and access mixing) and the B/A/C aggregates, on one
+//       thread-block cluster (its note is below). two_asset_fwd_kernel is the
+//       previous kernel 6, one block, which it is held to bit for bit.
+// Kernel 5 is one block walking the periods in order; kernels 5 and 6
+// launch back to back, the same split as on the TPU.
 //
 // Semantics are those of the plain PyTorch version (torch.func.jvp of
 // ValueFunction and of forward_iteration), stage by stage: the gather-form
@@ -29,17 +31,21 @@
 // f32, 125 KB at 40x20x5x2) and the continuation surfaces W (64 KB) in
 // shared memory; the V region doubles as the period's scratch between
 // barriers. Policies go to the output (57 MB per sweep at T=300, which
-// kernel 6 reads once). Kernel 6 keeps D, the post-lottery D and their
-// tangents (125 KB) in shared memory and works one (income, access) group
-// at a time.
+// kernel 6 reads once). The previous kernel 6 keeps D, the post-lottery D
+// and their tangents (125 KB) in shared memory and works one (income,
+// access) group at a time.
 //
 // Determinism: no float atomics. Every sum has one owner thread and a fixed
-// order; the lottery's destinations sum their sources in source order from
-// per-row lists built with warp ballots; aggregates go through a fixed
-// tree. Two runs are bit-identical.
+// order; the lottery's destinations sum their sources in source order (from
+// per-row lists built with warp ballots in the previous kernel 6, from lists
+// ranked by bitmaps in kernel 6); aggregates go through a fixed tree. Two
+// runs are bit-identical.
 
 #include <cfloat>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -565,14 +571,56 @@ constexpr int kFwdWarps = kFwdThreads / 32;
 // Young lottery weights of a dual policy on a static sorted grid
 // (ops/transition.lottery_weights): bracket jc in [1, n-1], mass 1 - w to
 // jc - 1 and w to jc, w clipped to [0, 1] with torch's tie rule.
-__device__ __forceinline__ void lottery(const float* g, int n, float p, float dp,
-                                        int& jc, float& w, float& dw) {
-    jc = min(max(count_below_sorted(g, n, p), 1), n - 1);
+__device__ __forceinline__ int lottery_bracket(const float* g, int n, float p) {
+    return min(max(count_below_sorted(g, n, p), 1), n - 1);
+}
+__device__ __forceinline__ void lottery_weights(const float* g, int jc, float p, float dp,
+                                                float& w, float& dw) {
     const float h = g[jc] - g[jc - 1];
     const float raw = (p - g[jc - 1]) / h;
     w = clip_f(raw, 0.f, 1.f);
     dw = clip_d(raw, 0.f, 1.f) * (dp / h);
 }
+__device__ __forceinline__ void lottery(const float* g, int n, float p, float dp,
+                                        int& jc, float& w, float& dw) {
+    jc = lottery_bracket(g, n, p);
+    lottery_weights(g, jc, p, dp, w, dw);
+}
+
+// Cycle stamps of each block's thread 0, compiled only into the measurement
+// build of hank_tpu_torch/tools/kernel6_split.py (nvcc -DHANK_K6_STAMPS):
+// from(i) notes the clock, to(i) adds the cycles since from(i) to slot i,
+// save() writes the slots to out[0, kStampSlots). Without the macro they are
+// empty and the kernels take no stamps argument.
+#ifdef HANK_K6_STAMPS
+constexpr int kStampSlots = 32;
+struct Stamps {
+    long long* out;
+    long long at[kStampSlots], sum[kStampSlots];
+    __device__ explicit Stamps(long long* o) : out(o) {
+        for (int i = 0; i < kStampSlots; ++i) sum[i] = 0;
+    }
+    __device__ void from(int i) { if (threadIdx.x == 0) at[i] = clock64(); }
+    __device__ void to(int i) { if (threadIdx.x == 0) sum[i] += clock64() - at[i]; }
+    __device__ void save() const {
+        if (threadIdx.x == 0) for (int i = 0; i < kStampSlots; ++i) out[i] = sum[i];
+    }
+};
+#define K6_STAMPS_PARAM , long long* stamps_out
+#define K6_STAMPS(offset) Stamps st(stamps_out + (offset))
+#define K6_ENTRY_PARAM , void* stamps
+#define K6_ENTRY_ARG , static_cast<long long*>(stamps)
+#else
+struct Stamps {
+    __device__ void from(int) {}
+    __device__ void to(int) {}
+    __device__ void save() const {}
+};
+#define K6_STAMPS_PARAM
+#define K6_STAMPS(offset) Stamps st
+#define K6_ENTRY_PARAM
+#define K6_ENTRY_ARG
+#endif
 
 size_t fwd_smem_bytes(int NB, int NA, int NE) {
     const size_t NS = (size_t)NB * NA, N4 = NS * NE * 2;
@@ -585,7 +633,9 @@ size_t fwd_smem_bytes(int NB, int NA, int NE) {
 // lottery D_half[j, m] = sum_s wb_j(s) D[s] wa_m(s) over the group's sources
 // s = (b, a); then income and access mixing, as ops/transition.exog_apply
 // applies them (income axis first), and the aggregates against the mixed D.
-// Output out[q * Tm1 + t], q = B, A, C, dB, dA, dC.
+// Output out[q * Tm1 + t], q = B, A, C, dB, dA, dC. Stamp slots: [0] L,
+// [1] R, [2] M, [3] the warp-0 tree, [4] warp 0 building its lists, [5]
+// warp 0 walking them, [6] the whole sweep, [7 + g] R of group g < 16.
 __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
     const float* __restrict__ pB, const float* __restrict__ pA,
     const float* __restrict__ pC, const float* __restrict__ dB,
@@ -593,9 +643,11 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
     const float* __restrict__ D0,
     const float* __restrict__ bgrid_g, const float* __restrict__ agrid_g,
     const float* __restrict__ Pi_g, const float* __restrict__ Pacc_g,
-    float* __restrict__ out, int Tm1, int NB, int NA, int NE)
+    float* __restrict__ out, int Tm1, int NB, int NA, int NE K6_STAMPS_PARAM)
 {
     extern __shared__ __align__(16) float sm[];
+    K6_STAMPS(0);
+    st.from(6);
     const int NS = NB * NA, N4 = NS * NE * 2;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -633,6 +685,7 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
         const size_t off = (size_t)t * N4;
         for (int grp = 0; grp < 2 * NE; ++grp) {
             const int e = grp >> 1, acc = grp & 1;
+            st.from(0);
             // L. Lottery brackets and weights of the group's sources.
             for (int s = tid; s < NS; s += kFwdThreads) {
                 const int k = (s * NE + e) * 2 + acc;
@@ -642,10 +695,14 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
                 dsrc[s] = dD[k];
             }
             __syncthreads();
+            st.to(0);
+            st.from(1);
+            if (grp < 16) st.from(7 + grp);
             // R. One warp per destination row j: the sources touching row j,
             //    in source order (warp ballots), then one lane per column m
             //    sums them in that order.
             for (int j = warp; j < NB; j += kFwdWarps) {
+                st.from(4);
                 int n = 0;
                 for (int c = 0; c < NS; c += 32) {
                     const int s = c + lane;
@@ -655,6 +712,8 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
                     n += __popc(mask);
                 }
                 __syncwarp();
+                st.to(4);
+                st.from(5);
                 for (int m = lane; m < NA; m += 32) {
                     float v = 0.f, dv = 0.f;
                     for (int q = 0; q < n; ++q) {
@@ -676,11 +735,15 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
                     dH[k] = dv;
                 }
                 __syncwarp();
+                st.to(5);
             }
             __syncthreads();
+            st.to(1);
+            if (grp < 16) st.to(7 + grp);
         }
 
         // M. Income then access mixing, and this thread's aggregate shares.
+        st.from(2);
         float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
         for (int k = tid; k < N4; k += kFwdThreads) {
             const int acc2 = k & 1;
@@ -713,6 +776,8 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
             if (lane == 0) red[q * kFwdWarps + warp] = v[q];
         }
         __syncthreads();
+        st.to(2);
+        st.from(3);
         if (warp == 0) {
             for (int q = 0; q < 6; ++q) {
                 float x = red[q * kFwdWarps + lane];
@@ -721,14 +786,409 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
             }
         }
         __syncthreads();
+        st.to(3);
     }
+    st.to(6);
+    st.save();
 }
+
+// ── Kernel 6 on a thread-block cluster ────────────────────────────────────
+// two_asset_fwd_cluster_kernel replaces, like two_asset_fwd_kernel above,
+// the TPU kernel hank_tpu/ops/fused_sweep2.py: fused2_forward_jvp
+// (_make_fwd2_kernel), and gives two_asset_fwd_kernel's bits.
+//
+// Why a new design (PERF.md §6; H100 80GB HBM3, 700 W; measured with
+// hank_tpu_torch/tools/kernel6_split.py): at 40x20x5x2, T=300 the previous
+// kernel takes 362 us a period, 82% of it in the scatter (R), where one
+// warp per destination row walks the row's source list and skips the ~90%
+// of entries off its lane's column. The row at the liquid borrowing limit
+// of the (income 4, access 1) group holds ~400 sources every period, so one
+// warp walks ~400 entries at ~270 cycles each while the other SMs idle, and
+// the ten (income, access) groups run one after another.
+//
+// The design:
+//   - one cluster of C blocks (C = 2*n_e: one group per SM); block r owns
+//     the groups g = 2*e + acc with g = r (mod C), keeps their D and dD, and
+//     runs their lotteries (L) and scatters (R); the groups run side by side;
+//   - L: each source's brackets (the same lottery_bracket()) and bitmaps of
+//     each row's and column's sources (one word per 32 sources; OR commutes,
+//     so they do not depend on the threads' order);
+//   - R: the sources of destination (j, m) are the set bits of row j AND
+//     column m. Each destination counts them per word, keeping its count
+//     before every 2^shift-th word (shift > 0 only where a grid needs the
+//     room); each source computes its weights (lottery_weights()) and its
+//     terms at its four corners with the previous kernel's roundings spelled
+//     out (mass = wj * D, A = fma(dwj, D, wj * dD), T = fma(mass, dwm,
+//     A * wm)) and writes them into their destinations' lists at its rank
+//     (that count, the words after it, and the set bits below it in its
+//     word), so every list is in ascending source order; one thread per
+//     destination then sums its list, v = fma(mass, wm, v) and dv = dv + T:
+//     the previous kernel's terms in its order, at most 118 of them at the
+//     solution against ~400 entries walked before;
+//   - M by cells: block r mixes cells [r * cells, (r + 1) * cells) of every
+//     group (each H goes to that one block through distributed shared
+//     memory; access outer, income inner, as before) and sends each D back
+//     to its group's owner; a cluster barrier before and after;
+//   - the aggregates after the recursion, from each period's D in a global
+//     scratch, block r taking the periods t = r (mod C), each in the
+//     previous kernel's order (thread tid sums k = tid + 1024 i, the same
+//     butterflies and warp-0 tree).
+// Every sum keeps its terms, their roundings and their order, so the outputs
+// are bit for bit two_asset_fwd_kernel's at any cluster size. Shared memory
+// grows as ~84*NS bytes, the bitmaps' (n_b + n_a) * NS / 8 and the counts'
+// NS * NS / (16 << shift): it takes every grid the previous kernel takes
+// with at least 6 knots on each asset axis. What bounds it now: latency on
+// the (income 4, access 1) block, ~25k cycles a period (stamped) at
+// 40x20x5x2: L 2.9k, counting and placing the lists 4.4k, terms and ranks
+// 3.3k, summing the longest list 5.9k, M 2.7k, the two cluster barriers
+// 3.6k (PERF.md §6).
+constexpr int kCluThreads = 1024;   // power of two: the tree reduction needs it
+constexpr int kCluWarps = kCluThreads / 32;
+constexpr int kCluSources = 2;      // sources (and destinations) per thread: n_b * n_a <= 2048
+constexpr size_t kSmemOptin = 227 * 1024;   // dynamic shared memory a block may use
+
+// Per block: the lists' entries (mass, wm, T, 0; 4 per source), every
+// group's H and dH on the block's cells (Hc), the own groups' D and dD, the
+// constants and warp partials, the row and column bitmaps, each
+// destination's list offset, and its count before every 2^shift-th bitmap
+// word (16 bit).
+size_t fwd_cluster_smem_bytes(int NB, int NA, int NE, int C, int shift) {
+    const size_t NS = (size_t)NB * NA, NG = 2 * (size_t)NE, G = (NG + C - 1) / C;
+    const size_t nw = (NS + 31) / 32, cells = (NS + C - 1) / C;
+    const size_t counts = ((nw - 1) >> shift) + 1;
+    return sizeof(float4) * 4 * NS
+           + sizeof(float) * (2 * NG * cells + 2 * G * NS + NB + NA + (size_t)NE * NE + 4
+                              + 6 * kCluWarps)
+           + sizeof(unsigned) * ((NB + NA) * nw + NS + 4) + sizeof(unsigned short) * NS * counts;
+}
+
+// The least shift whose layout fits in a block (or the one keeping a single
+// count per destination, which the launch then refuses).
+int fwd_cluster_shift(int NB, int NA, int NE, int C) {
+    const int nw = (NB * NA + 31) / 32;
+    int shift = 0;
+    while ((1 << shift) < nw && fwd_cluster_smem_bytes(NB, NA, NE, C, shift) > kSmemOptin)
+        ++shift;
+    return shift;
+}
+
+// Stamp slots (per block, 32 apart): [0] L, [1] counting and placing the
+// lists, [2] the sources' weights, terms and ranks, [3] summing and sending
+// the lists, [4] the wait at the first cluster barrier, [5] M (thread 0's
+// share), [6] the wait at the second, [7] the aggregates, [8] the sweep.
+__global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
+    const float* __restrict__ pB, const float* __restrict__ pA,
+    const float* __restrict__ pC, const float* __restrict__ dB,
+    const float* __restrict__ dA, const float* __restrict__ dC,
+    const float* __restrict__ D0,
+    const float* __restrict__ bgrid_g, const float* __restrict__ agrid_g,
+    const float* __restrict__ Pi_g, const float* __restrict__ Pacc_g,
+    float* __restrict__ Dpath, float* __restrict__ out, int Tm1, int NB, int NA, int NE,
+    int shift K6_STAMPS_PARAM)
+{
+    extern __shared__ __align__(16) float sm[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+    K6_STAMPS(kStampSlots * rank);
+    st.from(8);
+    const int NS = NB * NA, NG = 2 * NE, N4 = NS * NG;
+    const int G = (NG + C - 1) / C;               // room for this many groups
+    const int own = (NG - rank + C - 1) / C;      // groups rank, rank + C, ...
+    const int nw = (NS + 31) >> 5;
+    const int counts = ((nw - 1) >> shift) + 1;   // counts kept per destination
+    const int cells = (NS + C - 1) / C;           // block r mixes cells [r * cells, ...)
+    const int my_cells = max(0, min(NS - rank * cells, cells));
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    float4* lists = reinterpret_cast<float4*>(sm);  // entries (mass, wm, T, 0), 4 * NS
+    float* Hc = reinterpret_cast<float*>(lists + 4 * NS);  // [value, tangent][NG][cells]
+    float* D = Hc + 2 * NG * cells;               // own groups: [value, tangent][G][NS]
+    float* bg = D + 2 * G * NS;
+    float* ag = bg + NB;
+    float* Pi = ag + NA;
+    float* Pacc = Pi + NE * NE;
+    float* red = Pacc + 4;                        // (6, kCluWarps) warp partial sums
+    unsigned* rowbits = reinterpret_cast<unsigned*>(red + 6 * kCluWarps);  // (NB, nw)
+    unsigned* colbits = rowbits + NB * nw;                                 // (NA, nw)
+    int* offs = reinterpret_cast<int*>(colbits + NA * nw);  // list offset of destination d
+    int* alloc = offs + NS;
+    unsigned short* before = reinterpret_cast<unsigned short*>(alloc + 4);  // (NS, counts)
+
+    for (int i = tid; i < NB; i += kCluThreads) bg[i] = bgrid_g[i];
+    for (int i = tid; i < NA; i += kCluThreads) ag[i] = agrid_g[i];
+    for (int i = tid; i < NE * NE; i += kCluThreads) Pi[i] = Pi_g[i];
+    if (tid < 4) Pacc[tid] = Pacc_g[tid];
+    for (int gi = 0; gi < own; ++gi) {
+        for (int s = tid; s < NS; s += kCluThreads) {
+            D[gi * NS + s] = D0[s * NG + rank + gi * C];
+            D[(G + gi) * NS + s] = 0.f;
+        }
+    }
+
+    // This thread's sources' policies for the next (period, group), in registers.
+    float npb[kCluSources], ndb[kCluSources], npa[kCluSources], nda[kCluSources];
+    auto prefetch = [&](int t, int gi) {
+        const size_t off = (size_t)t * N4 + rank + gi * C;
+#pragma unroll
+        for (int i = 0; i < kCluSources; ++i) {
+            const int s = tid + i * kCluThreads;
+            if (s < NS) {
+                const size_t k = off + (size_t)s * NG;
+                npb[i] = pB[k];
+                ndb[i] = dB[k];
+                npa[i] = pA[k];
+                nda[i] = dA[k];
+            }
+        }
+    };
+    prefetch(0, 0);
+
+    for (int t = 0; t < Tm1; ++t) {
+        for (int gi = 0; gi < own; ++gi) {
+            const int g = rank + gi * C;
+            st.from(0);
+            for (int i = tid; i < (NB + NA) * nw; i += kCluThreads) rowbits[i] = 0u;
+            if (tid == 0) *alloc = 0;
+            __syncthreads();
+            // L. Lottery brackets of the group's sources, and the bitmaps of
+            //    the two rows and two columns each source reaches (one shared
+            //    atomicOr per warp and distinct bracket).
+            int kjb[kCluSources], kja[kCluSources];
+#pragma unroll
+            for (int i = 0; i < kCluSources; ++i) {
+                const int s = tid + i * kCluThreads;
+                if (s < NS) {
+                    const int jbs = lottery_bracket(bg, NB, npb[i]);
+                    const int jas = lottery_bracket(ag, NA, npa[i]);
+                    kjb[i] = jbs;
+                    kja[i] = jas;
+                    const unsigned act = __activemask();
+                    const int w = s >> 5;
+                    const unsigned mb = __match_any_sync(act, jbs);
+                    if (lane == __ffs(mb) - 1) {
+                        atomicOr(&rowbits[(jbs - 1) * nw + w], mb);
+                        atomicOr(&rowbits[jbs * nw + w], mb);
+                    }
+                    const unsigned ma = __match_any_sync(act, jas);
+                    if (lane == __ffs(ma) - 1) {
+                        atomicOr(&colbits[(jas - 1) * nw + w], ma);
+                        atomicOr(&colbits[jas * nw + w], ma);
+                    }
+                }
+            }
+            __syncthreads();
+            st.to(0);
+            st.from(1);
+            // R. The sources of destination (j, m) are the set bits of row j
+            //    AND column m, and it sums them in ascending order. Per
+            //    destination: its count before every 2^shift-th bitmap word,
+            //    its total and a place for its list (a warp scan, one
+            //    atomicAdd per warp: where a list lies does not change its
+            //    sum).
+            int cnt[kCluSources];
+#pragma unroll
+            for (int i = 0; i < kCluSources; ++i) {
+                cnt[i] = 0;
+                const int d = tid + i * kCluThreads;
+                if (d < NS) {
+                    const int j = d / NA, m = d - j * NA;
+                    unsigned short* bd = before + d * counts;
+#pragma unroll 4
+                    for (int w = 0; w < nw; ++w) {
+                        if ((w & ((1 << shift) - 1)) == 0) bd[w >> shift] = (unsigned short)cnt[i];
+                        cnt[i] += __popc(rowbits[j * nw + w] & colbits[m * nw + w]);
+                    }
+                }
+            }
+            int mine = 0;
+#pragma unroll
+            for (int i = 0; i < kCluSources; ++i) mine += cnt[i];
+            int incl = mine;
+            for (int o = 1; o < 32; o <<= 1) {
+                const int y = __shfl_up_sync(0xffffffffu, incl, o);
+                if (lane >= o) incl += y;
+            }
+            int base = 0;
+            if (lane == 31) base = atomicAdd(alloc, incl);
+            base = __shfl_sync(0xffffffffu, base, 31) + incl - mine;
+#pragma unroll
+            for (int i = 0; i < kCluSources; ++i) {
+                const int d = tid + i * kCluThreads;
+                if (d < NS) offs[d] = base;
+                base += cnt[i];
+            }
+            __syncthreads();
+            st.to(1);
+            st.from(2);
+            //    Each source's lottery weights, and its terms at its four
+            //    corners (row jb - 1 or jb, column ja - 1 or ja) with
+            //    two_asset_fwd_kernel's roundings spelled out: mass = wj * D,
+            //    A = fma(dwj, D, wj * dD), T = fma(mass, dwm, A * wm). Each
+            //    goes into its list at its rank: the destination's count
+            //    before the source's word plus the set bits below it.
+#pragma unroll
+            for (int i = 0; i < kCluSources; ++i) {
+                const int s = tid + i * kCluThreads;
+                if (s < NS) {
+                    float wbs, dwbs, was, dwas;
+                    lottery_weights(bg, kjb[i], npb[i], ndb[i], wbs, dwbs);
+                    lottery_weights(ag, kja[i], npa[i], nda[i], was, dwas);
+                    const float src = D[gi * NS + s], dsrc = D[(G + gi) * NS + s];
+                    const int w = s >> 5;
+                    const unsigned below = (1u << (s & 31)) - 1u;
+#pragma unroll
+                    for (int rc = 0; rc < 2; ++rc) {
+                        const float wj = rc == 0 ? 1.f - wbs : wbs;
+                        const float dwj = rc == 0 ? -dwbs : dwbs;
+                        const float mass = __fmul_rn(wj, src);
+                        const float A = __fmaf_rn(dwj, src, __fmul_rn(wj, dsrc));
+                        const int j = kjb[i] - 1 + rc;
+                        const unsigned* rj = rowbits + j * nw;
+#pragma unroll
+                        for (int cc = 0; cc < 2; ++cc) {
+                            const float wm = cc == 0 ? 1.f - was : was;
+                            const float dwm = cc == 0 ? -dwas : dwas;
+                            const int m = kja[i] - 1 + cc, d = j * NA + m;
+                            const unsigned* cm = colbits + m * nw;
+                            int pos = before[d * counts + (w >> shift)]
+                                      + __popc(rj[w] & cm[w] & below);
+                            for (int u = w & ~((1 << shift) - 1); u < w; ++u)
+                                pos += __popc(rj[u] & cm[u]);
+                            lists[offs[d] + pos] = make_float4(
+                                mass, wm, __fmaf_rn(mass, dwm, __fmul_rn(A, wm)), 0.f);
+                        }
+                    }
+                }
+            }
+            if (gi + 1 < own) prefetch(t, gi + 1);
+            else if (t + 1 < Tm1) prefetch(t + 1, 0);
+            __syncthreads();
+            st.to(2);
+            st.from(3);
+            //    One thread per destination sums its list: v = fma(mass, wm, v)
+            //    and dv = dv + T, the previous kernel's sum in its order.
+#pragma unroll
+            for (int i = 0; i < kCluSources; ++i) {
+                const int d = tid + i * kCluThreads;
+                if (d < NS) {
+                    const float4* L = lists + offs[d];
+                    float v = 0.f, dv = 0.f;
+#pragma unroll 4
+                    for (int q = 0; q < cnt[i]; ++q) {
+                        const float4 x = L[q];
+                        v = __fmaf_rn(x.x, x.y, v);
+                        dv = __fadd_rn(dv, x.z);
+                    }
+                    // To the block that mixes cell d.
+                    const int r = d / cells, hv = g * cells + d - r * cells;
+                    float* Hr = cluster.map_shared_rank(Hc, r);
+                    Hr[hv] = v;
+                    Hr[NG * cells + hv] = dv;
+                }
+            }
+            __syncthreads();
+            st.to(3);
+        }
+        // Every group's H of period t on this block's cells is here.
+        st.from(4);
+        cluster.sync();
+        st.to(4);
+        st.from(5);
+        // M. Income then access mixing on this block's cells, every group, in
+        //    two_asset_fwd_kernel's loop order (access outer, income inner);
+        //    D goes to the block that owns its group, and to Dpath[t] for the
+        //    aggregates.
+        float* Dt = Dpath + (size_t)t * 2 * N4;
+        for (int i = tid; i < my_cells * NG; i += kCluThreads) {
+            const int g2 = i % NG, c = i / NG, e2 = g2 >> 1, acc2 = g2 & 1;
+            float Dn = 0.f, dDn = 0.f;
+            for (int acc = 0; acc < 2; ++acc) {
+                float x = 0.f, dx = 0.f;
+                for (int e = 0; e < NE; ++e) {
+                    x += Hc[(2 * e + acc) * cells + c] * Pi[e * NE + e2];
+                    dx += Hc[(NG + 2 * e + acc) * cells + c] * Pi[e * NE + e2];
+                }
+                Dn += x * Pacc[acc * 2 + acc2];
+                dDn += dx * Pacc[acc * 2 + acc2];
+            }
+            const int s = rank * cells + c, gi = g2 / C;
+            float* Dr = cluster.map_shared_rank(D, g2 % C);
+            Dr[gi * NS + s] = Dn;
+            Dr[(G + gi) * NS + s] = dDn;
+            const int k = s * NG + g2;
+            Dt[k] = Dn;
+            Dt[N4 + k] = dDn;
+        }
+        st.to(5);
+        // Every group's D of period t is with its owner; nobody reads Hc now.
+        st.from(6);
+        cluster.sync();
+        st.to(6);
+    }
+
+    // Aggregates, after the recursion (the last barrier made every period's
+    // Dpath visible), block r taking the periods t = r (mod C), each in
+    // two_asset_fwd_kernel's order: thread tid sums k = tid + kCluThreads * i,
+    // then the same butterflies and warp-0 tree.
+    st.from(7);
+    for (int t = rank; t < Tm1; t += C) {
+        const size_t off = (size_t)t * N4;
+        const float* Dt = Dpath + (size_t)t * 2 * N4;
+        float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
+        for (int k = tid; k < N4; k += kCluThreads) {
+            const float Dn = Dt[k], dDn = Dt[N4 + k];
+            const float b = pB[off + k], a = pA[off + k], c = pC[off + k];
+            s0 += b * Dn;
+            s1 += a * Dn;
+            s2 += c * Dn;
+            s3 += dB[off + k] * Dn + b * dDn;
+            s4 += dA[off + k] * Dn + a * dDn;
+            s5 += dC[off + k] * Dn + c * dDn;
+        }
+        float v[6] = {s0, s1, s2, s3, s4, s5};
+        for (int q = 0; q < 6; ++q) {
+            for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_xor_sync(0xffffffffu, v[q], o);
+            if (lane == 0) red[q * kCluWarps + warp] = v[q];
+        }
+        __syncthreads();
+        if (warp == 0) {
+            for (int q = 0; q < 6; ++q) {
+                float x = red[q * kCluWarps + lane];
+                for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+                if (lane == 0) out[(size_t)q * Tm1 + t] = x;
+            }
+        }
+        __syncthreads();
+    }
+    st.to(7);
+    st.to(8);
+    st.save();
+}
+
+#ifdef HANK_K6_STAMPS
+// Probes of the measurement build: `iters` cluster.sync() or __syncthreads()
+// in a loop, the cycles of block (rank) 0's thread 0 out.
+__global__ void __launch_bounds__(1024) cluster_sync_loop(int iters, long long* cycles) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const long long t0 = clock64();
+    for (int i = 0; i < iters; ++i) cluster.sync();
+    if (threadIdx.x == 0 && cluster.block_rank() == 0) cycles[0] = clock64() - t0;
+}
+
+__global__ void __launch_bounds__(1024) block_sync_loop(int iters, long long* cycles) {
+    const long long t0 = clock64();
+    for (int i = 0; i < iters; ++i) __syncthreads();
+    if (threadIdx.x == 0) cycles[0] = clock64() - t0;
+}
+#endif
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each launcher returns the
 // cudaError_t of the attribute call or of cudaGetLastError() right after the
-// launch; 0 means the kernel was enqueued on `stream`.
+// launch; 0 means the kernel was enqueued on `stream`. The kernel-6 entry
+// points take a stamps pointer before `stream` in the measurement build only
+// (HANK_K6_STAMPS; 32 slots of long long per block).
 extern "C" {
 
 int hank_sweep2_policies_jvp_f32(const void* r, const void* ra, const void* w,
@@ -756,7 +1216,8 @@ int hank_sweep2_forward_jvp_f32(const void* pB, const void* pA, const void* pC,
                                 const void* dB, const void* dA, const void* dC,
                                 const void* D0, const void* bgrid, const void* agrid,
                                 const void* Pi, const void* Pacc, void* out,
-                                int Tm1, int n_b, int n_a, int n_e, void* stream) {
+                                int Tm1, int n_b, int n_a, int n_e K6_ENTRY_PARAM,
+                                void* stream) {
     const size_t smem = fwd_smem_bytes(n_b, n_a, n_e);
     cudaError_t err = cudaFuncSetAttribute(
         two_asset_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -765,17 +1226,125 @@ int hank_sweep2_forward_jvp_f32(const void* pB, const void* pA, const void* pC,
         (const float*)pB, (const float*)pA, (const float*)pC, (const float*)dB,
         (const float*)dA, (const float*)dC, (const float*)D0, (const float*)bgrid,
         (const float*)agrid, (const float*)Pi, (const float*)Pacc, (float*)out,
-        Tm1, n_b, n_a, n_e);
+        Tm1, n_b, n_a, n_e K6_ENTRY_ARG);
     return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of kernel 5 (which = 0) or kernel 6 (which = 1).
-size_t hank_sweep2_smem_bytes(int which, int n_b, int n_a, int n_e) {
-    return which == 0 ? bwd_smem_bytes(n_b, n_a, n_e) : fwd_smem_bytes(n_b, n_a, n_e);
+// Kernel 6 on one cluster of `cluster` blocks (1 to min(2 * n_e, 16)); Dpath
+// is (Tm1, 2, N4) f32 of global scratch (each period's D and dD). Returns
+// cudaErrorInvalidValue for a cluster size or a grid it does not take, and
+// cudaErrorLaunchOutOfResources when the card cannot hold one such cluster
+// (cudaOccupancyMaxActiveClusters gives 0).
+int hank_sweep2_forward_jvp_cluster_f32(const void* pB, const void* pA, const void* pC,
+                                        const void* dB, const void* dA, const void* dC,
+                                        const void* D0, const void* bgrid,
+                                        const void* agrid, const void* Pi,
+                                        const void* Pacc, void* Dpath, void* out, int Tm1,
+                                        int n_b, int n_a, int n_e,
+                                        int cluster K6_ENTRY_PARAM, void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2
+        || n_b * n_a > kCluSources * kCluThreads)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_cluster_shift(n_b, n_a, n_e, cluster);
+    const size_t smem = fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift);
+    cudaError_t err = cudaFuncSetAttribute(
+        two_asset_fwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(two_asset_fwd_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(kCluThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, two_asset_fwd_cluster_kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    err = cudaLaunchKernelEx(&cfg, two_asset_fwd_cluster_kernel,
+                             (const float*)pB, (const float*)pA, (const float*)pC,
+                             (const float*)dB, (const float*)dA, (const float*)dC,
+                             (const float*)D0, (const float*)bgrid, (const float*)agrid,
+                             (const float*)Pi, (const float*)Pacc, (float*)Dpath,
+                             (float*)out, Tm1, n_b, n_a, n_e, shift K6_ENTRY_ARG);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of kernel 5 (which = 0), of the previous kernel 6
+// (which = 1) or of kernel 6 on a cluster of `cluster` blocks (which = 2;
+// per block, at the least shift that fits, or at its largest).
+size_t hank_sweep2_smem_bytes(int which, int n_b, int n_a, int n_e, int cluster) {
+    return which == 0 ? bwd_smem_bytes(n_b, n_a, n_e)
+                      : (which == 1 ? fwd_smem_bytes(n_b, n_a, n_e)
+                                    : fwd_cluster_smem_bytes(
+                                          n_b, n_a, n_e, cluster,
+                                          fwd_cluster_shift(n_b, n_a, n_e, cluster)));
 }
 
 const char* hank_cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef HANK_K6_STAMPS
+// How many clusters of `cluster` blocks of 1024 threads with `smem` bytes
+// each the card holds at once, or -err.
+int hank_k6_max_clusters(int cluster, int smem) {
+    cudaError_t err = cudaFuncSetAttribute(cluster_sync_loop,
+                                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(cluster_sync_loop,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return -(int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(1024, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, cluster_sync_loop, &cfg);
+    return err != cudaSuccess ? -(int)err : n;
+}
+
+// `iters` cluster barriers on one cluster of `cluster` blocks; cycles out.
+int hank_k6_cluster_sync(int cluster, int smem, int iters, void* cycles, void* stream) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(1024, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, cluster_sync_loop, iters,
+                                               static_cast<long long*>(cycles));
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// `iters` block barriers on one block of 1024 threads; cycles out.
+int hank_k6_block_sync(int iters, void* cycles, void* stream) {
+    block_sync_loop<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+        iters, static_cast<long long*>(cycles));
+    return (int)cudaGetLastError();
+}
+#endif
 
 }  // extern "C"

@@ -6,7 +6,8 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
   - `household_sweep.cu`: the one-asset sweep (kernels 1-4): kernel 1 and,
     beside it, single-path and path-batched entry points of one kernel
     template; and the forward distribution scan (kernel 7);
-  - `household_sweep2.cu`: the two-asset sweep (kernels 5-6).
+  - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, and the
+    previous kernel 6 that kernel 6 is held to).
 The libraries are keyed by the SHA-256 of both sources, so an edited source
 rebuilds; a build runs one nvcc per source, all started together. The
 libraries are loaded with ctypes. Nothing here runs at import: the CPU
@@ -114,6 +115,7 @@ _SIGNATURES = {
     "household_sweep2": {
         "hank_sweep2_policies_jvp_f32": (15, 4, 4),
         "hank_sweep2_forward_jvp_f32": (12, 4, 0),
+        "hank_sweep2_forward_jvp_cluster_f32": (13, 5, 0),
     },
 }
 
@@ -132,7 +134,7 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
         lib.hank_forward_scan_smem_bytes.argtypes = [i, i]
         lib.hank_forward_scan_smem_bytes.restype = ctypes.c_size_t
     else:
-        lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i]
+        lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_smem_bytes.restype = ctypes.c_size_t
     lib.hank_cuda_error_string.argtypes = [i]
     lib.hank_cuda_error_string.restype = ctypes.c_char_p
@@ -160,10 +162,14 @@ def check_shared_memory_scan(lib: ctypes.CDLL, n_a: int, n_e: int) -> None:
     _check_smem(lib.hank_forward_scan_smem_bytes(n_a, n_e), f"forward scan at grid {n_a}x{n_e}")
 
 
-def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int) -> None:
-    """Kernel 5 (which = 0) or kernel 6 (which = 1) at an n_b×n_a×n_e×2 grid."""
-    _check_smem(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e),
-                f"kernel {5 + which} at grid {n_b}x{n_a}x{n_e}x2")
+def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int,
+                         cluster: int = 1) -> None:
+    """At an n_b×n_a×n_e×2 grid: kernel 5 (which = 0), the previous kernel 6
+    (which = 1) or kernel 6 on a cluster of `cluster` blocks (which = 2, the
+    shared memory of each block)."""
+    what = ("kernel 5", "previous kernel 6", f"kernel 6 on a cluster of {cluster}")[which]
+    _check_smem(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e, cluster),
+                f"{what} at grid {n_b}x{n_a}x{n_e}x2")
 
 
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -7,10 +7,12 @@ Replace the TPU kernel pair of `hank_tpu/ops/fused_sweep2.py`:
     their tangents;
   - `fused2_forward_jvp` (kernel 6, `_make_fwd2_kernel`): the forward dual
     push of the distribution (joint two-axis Young lottery, income and
-    access mixing) and the B/A/C aggregates with their tangents.
+    access mixing) and the B/A/C aggregates with their tangents, on one
+    thread-block cluster; `fused2_forward_jvp_previous` launches the
+    previous kernel 6 (one block), which it is held to bit for bit.
 The CUDA source is `hank_tpu_torch/csrc/household_sweep2.cu`. Every f32
 direction (GMRES or Richardson matvec) of the two-asset path solver is one
-launch of each, back to back.
+launch of kernels 5 and 6, back to back.
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (`fused2_policies_jvp_reference`: `torch.func.jvp` of the backward scan
@@ -111,41 +113,97 @@ def fused2_policies_jvp_reference(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau
 fused2_policies_jvp_reference.calls = 0
 
 
-def fused2_forward_jvp(policies, dpolicies, D0, model):
-    """Forward dual push (kernel 6): {B, A, C} (T-1, n_b, n_a, n_e, 2) f32
-    policy paths and tangents, and the initial distribution D0 (n_b, n_a,
-    n_e, 2) f32 ↦ (aggs, daggs), {B, A, C} dicts of (T-1,) f32 aggregate
-    paths: `forward_iteration` under jvp (joint lottery, then income and
-    access mixing, aggregates against the updated distribution)."""
+def default_cluster(n_e: int) -> int:
+    """Kernel 6's cluster size: one (income, access) group per block, at
+    most 16 blocks (the card's largest cluster)."""
+    return min(2 * n_e, 16)
+
+
+def _forward_inputs(name, policies, dpolicies, D0, model):
     tensors = [*(policies[k] for k in KEYS), *(dpolicies[k] for k in KEYS), D0]
-    check_tensors("fused2_forward_jvp", tensors, f32)
-    liquid, illiq, income, access = _dims(model)
+    check_tensors(name, tensors, f32)
+    liquid, illiq, income, _ = _dims(model)
     state = (liquid.n, illiq.n, income.n, 2)
     Tm1 = policies["B"].shape[0]
     if any(t.shape != (Tm1, *state) for t in tensors[:6]) or D0.shape != state or Tm1 < 1:
-        raise ValueError(f"fused2_forward_jvp: expected (T-1, *{state}) policies and D0 "
+        raise ValueError(f"{name}: expected (T-1, *{state}) policies and D0 "
                          f"{state}; got {[tuple(t.shape) for t in tensors]}")
-    if D0.device.type == "cpu":
-        return fused2_forward_jvp_reference(policies, dpolicies, D0, model)
-    dev = D0.device
+    return tensors, Tm1
+
+
+def _launch_forward(entry, tensors, Tm1, model, scratch=(), extra=()):
+    """Launch a kernel-6 entry point of the two-asset library on the inputs'
+    card, with `scratch` (shapes of f32 device scratch) before the output:
+    (aggs, daggs) as `fused2_forward_jvp` returns them."""
+    liquid, illiq, income, access = _dims(model)
+    dev = tensors[-1].device
     lib = cuda_build.load_library("household_sweep2")
-    cuda_build.check_shared_memory2(lib, 1, liquid.n, illiq.n, income.n)
     with torch.cuda.device(dev):
         out = torch.empty((6, Tm1), dtype=f32, device=dev)
         args = [*tensors,
                 *(t.to(device=dev, dtype=f32).contiguous() for t in
                   (liquid.grid, illiq.grid, income.transition, access.transition)),
+                *(torch.empty(shape, dtype=f32, device=dev) for shape in scratch),
                 out]
-        ptrs = [t.data_ptr() for t in args]
-        err = lib.hank_sweep2_forward_jvp_f32(
-            *ptrs, Tm1, liquid.n, illiq.n, income.n,
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, err, "hank_sweep2_forward_jvp_f32")
-    fused2_forward_jvp.launches += 1
+        err = getattr(lib, entry)(*(t.data_ptr() for t in args), Tm1, liquid.n, illiq.n,
+                                  income.n, *extra, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, entry)
     return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
 
 
+def fused2_forward_jvp(policies, dpolicies, D0, model):
+    """Forward dual push (kernel 6): {B, A, C} (T-1, n_b, n_a, n_e, 2) f32
+    policy paths and tangents, and the initial distribution D0 (n_b, n_a,
+    n_e, 2) f32 ↦ (aggs, daggs), {B, A, C} dicts of (T-1,) f32 aggregate
+    paths: `forward_iteration` under jvp (joint lottery, then income and
+    access mixing, aggregates against the updated distribution).
+
+    On the card: `two_asset_fwd_cluster_kernel` on one thread-block cluster
+    of `default_cluster(n_e)` blocks (one (income, access) group per block),
+    bit for bit `fused2_forward_jvp_previous`. A cluster the card cannot
+    schedule raises."""
+    tensors, Tm1 = _forward_inputs("fused2_forward_jvp", policies, dpolicies, D0, model)
+    if D0.device.type == "cpu":
+        return fused2_forward_jvp_reference(policies, dpolicies, D0, model)
+    out = _launch_cluster(tensors, Tm1, model, default_cluster(_dims(model)[2].n))
+    fused2_forward_jvp.launches += 1
+    return out
+
+
 fused2_forward_jvp.launches = 0
+
+
+def _launch_cluster(tensors, Tm1, model, cluster: int):
+    """Kernel 6 on one cluster of `cluster` blocks (1 to default_cluster(n_e)),
+    on `_forward_inputs`' CUDA tensors. `fused2_forward_jvp` passes the
+    default; the split tool and the card test also try other sizes."""
+    liquid, illiq, income, _ = _dims(model)
+    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 2,
+                                    liquid.n, illiq.n, income.n, cluster)
+    # Scratch: each period's D and dD, which the aggregates read after the
+    # recursion.
+    return _launch_forward("hank_sweep2_forward_jvp_cluster_f32", tensors, Tm1, model,
+                           scratch=[(Tm1, 2, tensors[-1].numel())], extra=(cluster,))
+
+
+def fused2_forward_jvp_previous(policies, dpolicies, D0, model):
+    """The previous kernel 6 (`two_asset_fwd_kernel`: one block walking the
+    (income, access) groups of each period in turn), which kernel 6 is held
+    to bit for bit on the card. No solver calls it. CUDA tensors only."""
+    tensors, Tm1 = _forward_inputs("fused2_forward_jvp_previous", policies, dpolicies, D0,
+                                   model)
+    if D0.device.type != "cuda":
+        raise ValueError("fused2_forward_jvp_previous: the previous kernel runs on the "
+                         "card only; fused2_forward_jvp_reference is the plain version")
+    liquid, illiq, income, _ = _dims(model)
+    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 1,
+                                    liquid.n, illiq.n, income.n)
+    out = _launch_forward("hank_sweep2_forward_jvp_f32", tensors, Tm1, model)
+    fused2_forward_jvp_previous.launches += 1
+    return out
+
+
+fused2_forward_jvp_previous.launches = 0
 
 
 def fused2_forward_jvp_reference(policies, dpolicies, D0, model):

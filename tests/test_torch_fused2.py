@@ -9,7 +9,9 @@ run in interpret mode, and the direction operator built on them to
 `jax.jvp` of the JAX package's f32 pipeline, at the JAX test's bound
 5e-5·max(scale, 1) (`tests/test_fused_sweep2.py`). The JAX side is pinned
 to the hat lowerings its kernels mirror, as that test pins it. The CUDA
-kernels themselves run only on a card (`gpu` marker).
+kernels themselves run only on a card (`gpu` marker): there kernels 5-6 are
+held to their plain versions, and kernel 6 (a thread-block cluster) to the
+previous kernel 6 (one block) bit for bit.
 """
 
 import jax
@@ -203,3 +205,13 @@ def test_kernels5_6_on_card_match_their_plain_versions(setup, cuda):
     for k in KEYS:
         assert bounded(aggs[k].cpu(), raggs[k].cpu()), k
         assert bounded(daggs[k].cpu(), rdaggs[k].cpu()), k
+    # Kernel 6 (a thread-block cluster) is the previous kernel 6 bit for bit,
+    # at every cluster size.
+    previous = fs2.fused2_forward_jvp_previous(pol, dpol, D, m32)
+    inputs = fs2._forward_inputs("test", pol, dpol, D, m32)
+    runs = {"default": (aggs, daggs),
+            **{c: fs2._launch_cluster(*inputs, m32, c) for c in (tm.heterogeneity["income"].n, 3)}}
+    for cluster, new in runs.items():
+        for a, b in zip(new, previous):
+            for k in KEYS:
+                assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), (cluster, k)
