@@ -75,23 +75,34 @@ exits non-zero and never prints the final `"ok": true` line:
                tangents as kernel 6's plain version aggregates them, kernel
                6's aggregates and tangents; a zero tangent exactly zero,
                repeated launches bit-identical, an i.i.d. direction reported
-               only. Kernel 6 (the thread-block cluster) against the previous
-               kernel 6 (one block), bit for bit on all six outputs (NaNs
-               included), on kernel 5's policies at x_ss, the solution and a
-               smooth seeded point, and at three stress inputs: every liquid
-               policy on the first knot, 1% i.i.d. noise on the policies, one
-               NaN policy (which must give NaN). ms per launch of each kernel
-               (kernel 6 and the previous one in turns: previous, new, new,
-               previous), of the plain versions, of the kernel pair's jvp_dir
-               and the plain f32 one (one run), and of the f64 F; kernel 6's
-               cluster size and both kernel 6's ptxas registers and spills;
-               kernel 6's shared memory (the library's own count) within
-               one block at every grid the previous kernel 6 takes with at
-               least 6 knots on each asset axis; and kernel 6 bit for bit
-               against the previous one at 38×38×2×2 (a grid that keeps
-               fewer counts for room) on seeded policies.
+               only. Kernel 5 (the thread-block cluster) against the previous
+               kernel 5 (one block), bit for bit on all six outputs (NaNs
+               included), at x_ss, the solution and a smooth seeded point
+               along smooth seeded directions, and at three stress inputs:
+               V_T with seeded positive noise, V_T with one NaN (which must
+               give NaN), an illiquid return that caps every a' of a > 0;
+               and on seeded inputs at 24×12×3×2, 12×8×17×2 (16 blocks, one
+               holding two incomes), 48×24×2×2 and 60×60×1×2 (the kernel's
+               other layouts). Kernel 6 (the thread-block cluster)
+               against the previous kernel 6 (one block), bit for bit on all
+               six outputs (NaNs included), on kernel 5's policies at x_ss,
+               the solution and a smooth seeded point, and at three stress
+               inputs: every liquid policy on the first knot, 1% i.i.d.
+               noise on the policies, one NaN policy (which must give NaN).
+               ms per launch of each kernel (kernels 5 and 6 each with its
+               previous one in turns: previous, new, new, previous), of the
+               plain versions, of the kernel pair's jvp_dir and the plain
+               f32 one (one run), and of the f64 F; both kernels' cluster
+               sizes and all four kernels' ptxas registers and spills; the
+               shared memory of kernel 5 (kernel 6), by the library's own
+               count, within one block at every grid the previous kernel 5
+               takes (the previous kernel 6 takes with at least 6 knots on
+               each asset axis); and kernel 6 bit for bit against the
+               previous one at 38×38×2×2 (a grid that keeps fewer counts for
+               room) on seeded policies.
                Then 3 timed runs of the route (counters zeroed right
-               before: both kernels launched, neither plain version called;
+               before: both kernels launched, neither plain version nor a
+               previous kernel called;
                paths bit-identical to the warm-up's; the plain f64 ‖F‖ < EPS;
                within 1e-6 of the JAX package's root), and the other route
                once: the two-phase one (to ‖F‖ < EPS) after a certified
@@ -389,6 +400,99 @@ def kernel6_large_grid(model) -> dict:
     return {"grid": [n_b, n_a, n_e, 2], "periods": Tm1, "bit_identical": True,
             "smem_bytes": lib.hank_sweep2_smem_bytes(2, n_b, n_a, n_e, fs2.default_cluster(n_e)),
             "finite": all(bool(torch.isfinite(o[k]).all()) for o in new for k in o)}
+
+
+def kernel5_vs_previous(inputs: dict, model) -> dict:
+    """Kernel 5 (the cluster kernel) against the previous kernel 5 on every
+    input {label: (eight price and tangent paths, V_T)}, bit for bit on all
+    six outputs (NaNs included); reports whether each output is finite."""
+    import torch
+
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    report = {}
+    for label, (args, VT) in inputs.items():
+        new = fs2.fused2_policies_jvp(*args, VT, model)
+        old = fs2.fused2_policies_jvp_previous(*args, VT, model)
+        require(all(torch.equal(bits(a[k]), bits(b[k])) for a, b in zip(new, old) for k in a),
+                f"kernel 5 at {label} differs from the previous kernel 5")
+        report[label] = {"finite": all(bool(torch.isfinite(o[k]).all()) for o in new for k in o)}
+    return report
+
+
+def kernel5_grids() -> dict:
+    """Every two-asset grid (n_b, n_a ≥ 2, n_e ≤ 20) whose previous kernel 5
+    fits in one block: kernel 5 on its default cluster fits too, by the
+    library's own shared-memory count. Fails otherwise."""
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    lib = cuda_build.load_library("household_sweep2")
+    limit = cuda_build.MAX_SMEM_BYTES
+    taken, refused = 0, []
+    for n_e in range(1, 21):
+        c = fs2.default_bwd_cluster(n_e)
+        for n_b in range(2, 5000):
+            if lib.hank_sweep2_smem_bytes(0, n_b, 2, n_e, 1) > limit:
+                break
+            for n_a in range(2, 5000):
+                if lib.hank_sweep2_smem_bytes(0, n_b, n_a, n_e, 1) > limit:
+                    break
+                taken += 1
+                if lib.hank_sweep2_smem_bytes(3, n_b, n_a, n_e, c) > limit:
+                    refused.append((n_b, n_a, n_e))
+    require(taken > 50_000 and not refused,
+            f"kernel 5 refuses {len(refused)} grids the previous kernel 5 takes: {refused[:5]}")
+    return {"grids_of_the_previous_kernel": taken, "refused": 0,
+            "smem_bytes_40x20x5x2": lib.hank_sweep2_smem_bytes(3, 40, 20, 5, 5)}
+
+
+def kernel5_other_grids(model) -> dict:
+    """Kernel 5 against the previous kernel 5, bit for bit, at four more
+    grids on seeded prices, tangents and V_T, 40 periods, across its
+    branches: 24×12×3×2 (a cluster of 3), 12×8×17×2 (the card's largest
+    cluster, 16 blocks: block 0 holds incomes 0 and 16), 48×24×2×2 (B2 in
+    two passes: the policies written where they are computed) and 60×60×1×2
+    (one block, no room for the candidates' bracket table)."""
+    import dataclasses
+
+    import torch
+
+    from hank_tpu_torch.model.grids import make_double_exponential_grid, rouwenhorst
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    f32, dev = torch.float32, model.heterogeneity["liquid"].grid.device
+    lib = cuda_build.load_library("household_sweep2")
+    gen = torch.Generator().manual_seed(13)
+    Tm1, het, report = 40, model.heterogeneity, {}
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f32).to(dev)
+
+    for n_b, n_a, n_e in ((24, 12, 3), (12, 8, 17), (48, 24, 2), (60, 60, 1)):
+        Pi, _, z = rouwenhorst(n_e, 0.966, 0.283) if n_e > 1 else ([[1.0]], None, [1.0])
+        grid = dataclasses.replace(model, heterogeneity={
+            "liquid": dataclasses.replace(het["liquid"], n=n_b,
+                                          grid=t(make_double_exponential_grid(0.0, 120.0, n_b))),
+            "illiquid": dataclasses.replace(het["illiquid"], n=n_a,
+                                            grid=t(make_double_exponential_grid(0.0, 200.0, n_a))),
+            "income": dataclasses.replace(het["income"], n=n_e, grid=t(z), transition=t(Pi)),
+            "access": het["access"]})
+        level = torch.tensor([0.01, 0.015, 0.8, 0.3])[:, None]
+        prices = level * (1.0 + 0.05 * torch.rand((4, Tm1), generator=gen))
+        tangents = 1e-3 * torch.randn((4, Tm1), generator=gen)
+        args = [q.contiguous().to(dev) for q in (*prices, *tangents)]
+        VT = (0.05 + 2.0 * torch.rand((2, n_b, n_a, n_e, 2), generator=gen)).to(dev)
+        label = f"{n_b}x{n_a}x{n_e}x2"
+        bits = kernel5_vs_previous({label: (args, VT)}, grid)[label]
+        report[label] = {**bits, "cluster": fs2.default_bwd_cluster(n_e),
+                         "smem_bytes": lib.hank_sweep2_smem_bytes(
+                             3, n_b, n_a, n_e, fs2.default_bwd_cluster(n_e))}
+    return report
 
 
 def steady_residual(model, ss) -> float:
@@ -759,11 +863,12 @@ def two_asset_phase(dev, ptxas) -> list:
     # solution, at a smooth seeded point, and at three stress inputs: every
     # liquid policy on the first knot (all sources at the borrowing limit),
     # 1% i.i.d. noise on the policies, and one NaN policy.
-    k6_inputs = {}
+    k5_inputs, k6_inputs = {}, {}
     smooth_x = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
                        * decay).reshape(-1).to(dev)
     for name, x in (("x_ss", x_ss), ("solution", x_warm), ("smooth", smooth_x)):
-        k6_inputs[name] = fs2.fused2_policies_jvp(*k5_args(x, smooth()), VT32, m32)
+        k5_inputs[name] = (k5_args(x, smooth()), VT32)
+        k6_inputs[name] = fs2.fused2_policies_jvp(*k5_inputs[name][0], VT32, m32)
     pol_s, dpol_s = k6_inputs["solution"]
     liquid = model.heterogeneity["liquid"]
     knot = {**pol_s, "B": torch.full_like(pol_s["B"], float(liquid.grid[0]))}
@@ -777,6 +882,22 @@ def two_asset_phase(dev, ptxas) -> list:
     k6_bits = kernel6_vs_previous(k6_inputs, D32, m32)
     require(not k6_bits["one_nan"]["finite"] and k6_bits["solution"]["finite"],
             f"kernel 6: the NaN input gave finite outputs or the solution did not: {k6_bits}")
+    # Kernel 5 against the previous kernel 5, bit for bit, at the same three
+    # points and at three stress inputs: V_T with seeded positive noise, V_T
+    # with one NaN, and an illiquid return so large that every a' = (1 + ra) a
+    # of a > 0 is capped at the top knot.
+    gen5 = torch.Generator().manual_seed(9)
+    base = k5_inputs["solution"][0]
+    V_nan = VT32.clone()
+    V_nan.view(-1)[int(torch.randint(0, V_nan.numel(), (1,), generator=gen5))] = float("nan")
+    illiquid = model.heterogeneity["illiquid"].grid
+    ra_cap = torch.full_like(base[1], float(illiquid[-1] / illiquid[1]))
+    k5_inputs.update(
+        V_T_noise=(base, VT32 * (1.0 + 0.5 * torch.rand(VT32.shape, generator=gen5).to(dev))),
+        V_T_nan=(base, V_nan), ra_capped=([base[0], ra_cap, *base[2:]], VT32))
+    k5_bits = kernel5_vs_previous(k5_inputs, m32)
+    require(not k5_bits["V_T_nan"]["finite"] and k5_bits["solution"]["finite"],
+            f"kernel 5: the NaN input gave finite outputs or the solution did not: {k5_bits}")
 
     args_iid = k5_args(x_warm, torch.randn(x_ss.shape, generator=gen, dtype=f64).to(dev))
     pol_i, dpol_i = fs2.fused2_policies_jvp(*args_iid, VT32, m32)
@@ -800,14 +921,19 @@ def two_asset_phase(dev, ptxas) -> list:
     dir_scale = float(dir_plain.abs().max())
     require(dir_err <= 5e-5 * max(dir_scale, 1.0),
             f"kernel-pair jvp_dir off the plain f32 one by {dir_err:.3e} (scale {dir_scale:.3e})")
-    # Kernel 6 and the previous kernel 6 in turns (previous, new, new,
-    # previous), medians of their two turns.
+    # Kernels 5 and 6 each against its previous kernel in turns (previous,
+    # new, new, previous), medians of their two turns.
+    k5_turns = {"k5": [], "k5_previous": []}
+    for name in ("k5_previous", "k5", "k5", "k5_previous"):
+        fn = fs2.fused2_policies_jvp if name == "k5" else fs2.fused2_policies_jvp_previous
+        k5_turns[name].append(cuda_ms(lambda: fn(*args, VT32, m32), 5))
     k6_turns = {"k6": [], "k6_previous": []}
     for name in ("k6_previous", "k6", "k6", "k6_previous"):
         fn = fs2.fused2_forward_jvp if name == "k6" else fs2.fused2_forward_jvp_previous
         k6_turns[name].append(cuda_ms(lambda: fn(pol, dpol, D32, m32), 5))
     timing = {
-        "k5_ms": cuda_ms(lambda: fs2.fused2_policies_jvp(*args, VT32, m32), 10),
+        "k5_ms": statistics.median(k5_turns["k5"]),
+        "k5_previous_ms": statistics.median(k5_turns["k5_previous"]),
         "k6_ms": statistics.median(k6_turns["k6"]),
         "k6_previous_ms": statistics.median(k6_turns["k6_previous"]),
         "jvp_dir_ms": cuda_ms(lambda: jvp_dir(x_warm, v), 10),
@@ -822,14 +948,20 @@ def two_asset_phase(dev, ptxas) -> list:
     k6_ptxas = [k for k in ptxas if "two_asset_fwd" in k["kernel"]]
     k6_grids = kernel6_grids()
     k6_large = kernel6_large_grid(m32)
+    n_e = model.heterogeneity["income"].n
     emit("two_asset_kernels", checks=checks, iid_direction_at_solution=iid,
          jvp_dir_vs_plain_f32=dir_err, jvp_dir_scale=dir_scale,
+         k5_vs_previous_bit_identical=k5_bits, k5_turns_ms=k5_turns,
+         k5_cluster=fs2.default_bwd_cluster(n_e),
+         k5_ptxas=[k for k in ptxas if "two_asset_bwd" in k["kernel"]],
+         k5_grids=kernel5_grids(), k5_other_grids_vs_previous=kernel5_other_grids(m32),
          k6_vs_previous_bit_identical=k6_bits, k6_turns_ms=k6_turns,
          k6_cluster=fs2.default_cluster(model.heterogeneity["income"].n),
          k6_ptxas=k6_ptxas, k6_grids=k6_grids, k6_large_grid_vs_previous=k6_large, **timing)
 
     # Three timed runs of the route; counts zeroed right before them.
     fs2.fused2_policies_jvp.launches = fs2.fused2_forward_jvp.launches = 0
+    fs2.fused2_policies_jvp_previous.launches = fs2.fused2_forward_jvp_previous.launches = 0
     fs2.fused2_policies_jvp_reference.calls = fs2.fused2_forward_jvp_reference.calls = 0
     runs, xs, infos = [], [], []
     for _ in range(3):
@@ -845,6 +977,10 @@ def two_asset_phase(dev, ptxas) -> list:
             f"a kernel of the two-asset route never launched: {launches}")
     require(plain_calls["k5"] == 0 and plain_calls["k6"] == 0,
             f"a plain version ran on the two-asset route: {plain_calls}")
+    previous = {"k5": fs2.fused2_policies_jvp_previous.launches,
+                "k6": fs2.fused2_forward_jvp_previous.launches}
+    require(previous["k5"] == 0 and previous["k6"] == 0,
+            f"a previous kernel ran on the two-asset route: {previous}")
     require(all(torch.equal(x_warm, xi) for xi in xs),
             "repeated two-asset solves returned different paths")
     require(bool(torch.isfinite(x_warm).all()) and x_warm.shape == x_ss.shape,
@@ -859,7 +995,7 @@ def two_asset_phase(dev, ptxas) -> list:
          outer_iterations=info["iterations"], matvecs_and_sweeps=info["inner_iterations"],
          prof=info["prof"], residual_norm=info["residual_norm"],
          residual_norm_plain_f64=fnorm_plain, max_abs_vs_jax=vs_jax, launches=launches,
-         plain_calls=plain_calls, bit_identical=True)
+         plain_calls=plain_calls, previous_kernel_launches=previous, bit_identical=True)
 
     # The other route once: the two-phase one (gated) when the endgame-only
     # route certified; else the endgame-only one from x_lin, cut at 2 outers
@@ -889,12 +1025,13 @@ def two_asset_phase(dev, ptxas) -> list:
         {"name": "fused2_policies_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:673", "launches": launches["k5"],
          "max_abs_err": k5_err, "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_f32_ms"],
-         **k5_bound, "library_ms": None},
+         **k5_bound, "library_ms": None, "ms_previous": timing["k5_previous_ms"],
+         "cluster": fs2.default_bwd_cluster(n_e)},
         {"name": "fused2_forward_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:984", "launches": launches["k6"],
          "max_abs_err": k6_err, "ms": timing["k6_ms"], "plain_ms": timing["k6_plain_f32_ms"],
          **k6_bound, "library_ms": None, "ms_previous": timing["k6_previous_ms"],
-         "cluster": fs2.default_cluster(model.heterogeneity["income"].n)},
+         "cluster": fs2.default_cluster(n_e)},
     ]
 
 

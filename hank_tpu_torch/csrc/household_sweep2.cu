@@ -1,7 +1,7 @@
 // Two-asset household sweep (Calvo-access portfolio model,
 // hank_tpu_torch/models/hank_two_asset.py), f32 primal + tangent.
 //
-//   two_asset_bwd_kernel  (kernel 5) replaces the TPU kernel
+//   two_asset_bwd_cluster_kernel  (kernel 5) replaces the TPU kernel
 //       hank_tpu/ops/fused_sweep2.py: fused2_policies_jvp (_make_bwd2_kernel):
 //       the backward dual Bellman recursion over T-1 periods, writing the
 //       B/A/C policies of both access branches and their tangents.
@@ -11,8 +11,10 @@
 //       lottery, income and access mixing) and the B/A/C aggregates, on one
 //       thread-block cluster (its note is below). two_asset_fwd_kernel is the
 //       previous kernel 6, one block, which it is held to bit for bit.
-// Kernel 5 is one block walking the periods in order; kernels 5 and 6
-// launch back to back, the same split as on the TPU.
+// two_asset_bwd_cluster_kernel (kernel 5 on a thread-block cluster, its note
+// is below) is held bit for bit to two_asset_bwd_kernel, the previous
+// kernel 5: one block walking the periods in order. Kernels 5 and 6 launch
+// back to back, the same split as on the TPU.
 //
 // Semantics are those of the plain PyTorch version (torch.func.jvp of
 // ValueFunction and of forward_iteration), stage by stage: the gather-form
@@ -25,15 +27,15 @@
 // count; the EGM's traced knots by the count of knots below the query,
 // which stays right for non-monotone knots.
 //
-// What bounds it on the H100: latency. One block walks its periods on one
-// SM, every period a chain of block-wide barriers around O(states x knots)
-// compares and FMAs. Kernel 5 keeps (V_b, V_a) and their tangents (4*N4
-// f32, 125 KB at 40x20x5x2) and the continuation surfaces W (64 KB) in
-// shared memory; the V region doubles as the period's scratch between
-// barriers. Policies go to the output (57 MB per sweep at T=300, which
-// kernel 6 reads once). The previous kernel 6 keeps D, the post-lottery D
-// and their tangents (125 KB) in shared memory and works one (income,
-// access) group at a time.
+// What bounds the previous kernels on the H100: latency. One block walks
+// its periods on one SM, every period a chain of block-wide barriers around
+// O(states x knots) compares and FMAs. The previous kernel 5 keeps (V_b,
+// V_a) and their tangents (4*N4 f32, 125 KB at 40x20x5x2) and the
+// continuation surfaces W (64 KB) in shared memory; the V region doubles as
+// the period's scratch between barriers. Policies go to the output (57 MB
+// per sweep at T=300, which kernel 6 reads once). The previous kernel 6
+// keeps D, the post-lottery D and their tangents (125 KB) in shared memory
+// and works one (income, access) group at a time.
 //
 // Determinism: no float atomics. Every sum has one owner thread and a fixed
 // order; the lottery's destinations sum their sources in source order (from
@@ -51,6 +53,7 @@ namespace {
 
 constexpr int kBwdThreads = 512;
 constexpr int kFwdThreads = 1024;   // power of two: the tree reduction needs it
+constexpr size_t kSmemOptin = 227 * 1024;   // dynamic shared memory a block may use
 
 // ── torch's derivative rules at ties ───────────────────────────────────────
 // max(x, lo) / min(x, hi) pass the tangent on the strict side and half of it
@@ -174,6 +177,56 @@ __device__ Bi bilinear(const float* W, int N3, int NA, int NE, int e, int mode,
     return o;
 }
 
+// Cycle stamps of each block's thread 0, compiled only into the measurement
+// builds of hank_tpu_torch/tools/kernel5_split.py (nvcc -DHANK_K5_STAMPS:
+// both kernel 5s) and hank_tpu_torch/tools/kernel6_split.py
+// (-DHANK_K6_STAMPS: both kernel 6s): from(i) notes the clock, to(i) adds
+// the cycles since from(i) to slot i, save() writes the slots to
+// out[0, kStampSlots). Without its macro a kernel's stamps are empty and
+// its entry point takes no stamps argument.
+#if defined(HANK_K5_STAMPS) || defined(HANK_K6_STAMPS)
+constexpr int kStampSlots = 32;
+struct Stamps {
+    long long* out;
+    long long at[kStampSlots], sum[kStampSlots];
+    __device__ explicit Stamps(long long* o) : out(o) {
+        for (int i = 0; i < kStampSlots; ++i) sum[i] = 0;
+    }
+    __device__ void from(int i) { if (threadIdx.x == 0) at[i] = clock64(); }
+    __device__ void to(int i) { if (threadIdx.x == 0) sum[i] += clock64() - at[i]; }
+    __device__ void save() const {
+        if (threadIdx.x == 0) for (int i = 0; i < kStampSlots; ++i) out[i] = sum[i];
+    }
+};
+#endif
+struct NoStamps {
+    __device__ void from(int) {}
+    __device__ void to(int) {}
+    __device__ void save() const {}
+};
+#ifdef HANK_K5_STAMPS
+#define K5_STAMPS_PARAM , long long* stamps_out
+#define K5_STAMPS(offset) Stamps st(stamps_out + (offset))
+#define K5_ENTRY_PARAM , void* stamps
+#define K5_ENTRY_ARG , static_cast<long long*>(stamps)
+#else
+#define K5_STAMPS_PARAM
+#define K5_STAMPS(offset) NoStamps st
+#define K5_ENTRY_PARAM
+#define K5_ENTRY_ARG
+#endif
+#ifdef HANK_K6_STAMPS
+#define K6_STAMPS_PARAM , long long* stamps_out
+#define K6_STAMPS(offset) Stamps st(stamps_out + (offset))
+#define K6_ENTRY_PARAM , void* stamps
+#define K6_ENTRY_ARG , static_cast<long long*>(stamps)
+#else
+#define K6_STAMPS_PARAM
+#define K6_STAMPS(offset) NoStamps st
+#define K6_ENTRY_PARAM
+#define K6_ENTRY_ARG
+#endif
+
 struct BwdLayout {
     int N3, N4, NS, K, R;
 };
@@ -195,10 +248,11 @@ size_t bwd_smem_bytes(int NB, int NA, int NE) {
                             + NE + (size_t)NE * NE);
 }
 
-// ── Kernel 5: the backward dual Bellman recursion ─────────────────────────
+// ── The previous kernel 5: the backward dual Bellman recursion, one block ─
 // Outputs out[q][t][i4], q = B, A, C, dB, dA, dC, each (Tm1, N4) with
 // i4 = ((b*NA + a)*NE + e)*2 + access. margin_g: 2*N3 floats of global
-// scratch (the no-access illiquid margin and its tangent).
+// scratch (the no-access illiquid margin and its tangent). Stamp slots: [0]
+// A, [1] B1, [2] B2, [3] C1, [4] C2, [5] C3, [6] C4, [7] D, [8] the sweep.
 __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
     const float* __restrict__ r_p, const float* __restrict__ ra_p,
     const float* __restrict__ w_p, const float* __restrict__ tau_p,
@@ -208,9 +262,12 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
     const float* __restrict__ bgrid_g, const float* __restrict__ agrid_g,
     const float* __restrict__ egrid_g, const float* __restrict__ Pi_g,
     float* __restrict__ margin_g, float* __restrict__ out,
-    int Tm1, int NB, int NA, int NE, float beta, float lam, float chi, float borrow)
+    int Tm1, int NB, int NA, int NE, float beta, float lam, float chi, float borrow
+    K5_STAMPS_PARAM)
 {
     extern __shared__ __align__(16) float sm[];
+    K5_STAMPS(0);
+    st.from(8);
     const BwdLayout L = bwd_layout(NB, NA, NE);
     const int N3 = L.N3, N4 = L.N4, NS = L.NS, K = L.K;
     const int tid = threadIdx.x;
@@ -249,6 +306,7 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
         const float dymax = floor_d(pre, 1e-9f) * dpre;
         float* Bo = out + (size_t)t * N4;          // B, A, C, dB, dA, dC rows of t
 
+        st.from(0);
         // A. Continuations: access mix, income expectation, floor.
         for (int i = tid; i < N3; i += kBwdThreads) {
             const int e = i % NE;
@@ -270,7 +328,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             }
         }
         __syncthreads();
+        st.to(0);
 
+        st.from(1);
         // B1. No access: both surfaces at the capped accrual point a_next(a),
         //     then the implied liquid wealth of the EGM.
         for (int i = tid; i < N3; i += kBwdThreads) {
@@ -302,7 +362,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             R[5 * N3 + i] = ((dc - dinc) - imp * dr) / one_r;
         }
         __syncthreads();
+        st.to(1);
 
+        st.from(2);
         // B2. Liquid policy on the grid (traced knots: count bracket), clips,
         //     consumption, and the illiquid margin at (b', a_next).
         for (int i = tid; i < N3; i += kBwdThreads) {
@@ -359,7 +421,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             margin_g[N3 + i] = capped ? 0.f : dwlo + Q.dt * (whi - wlo) + Q.t * (dwhi - dwlo);
         }
         __syncthreads();
+        st.to(2);
 
+        st.from(3);
         // C1. Penalty scale of the portfolio split, per (s, e).
         const int SE = NS * NE;
         float* gc = R;                           // (K, NS, NE) FOC gaps
@@ -385,7 +449,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             }
         }
         __syncthreads();
+        st.to(3);
 
+        st.from(4);
         // C2. FOC gap at every breakpoint candidate (primal only: the root is
         //     detached).
         for (int q = tid; q < K * SE; q += kBwdThreads) {
@@ -401,7 +467,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             gc[q] = chi > 0.f ? g.v + pen[se] * (c - 0.5f * s2) : g.v;
         }
         __syncthreads();
+        st.to(4);
 
+        st.from(5);
         // C3. Bracket, quadratic root, implicit-function step, envelope
         //     surfaces at the split, endogenous cash-on-hand knots; per (s, e).
         for (int se = tid; se < SE; se += kBwdThreads) {
@@ -490,7 +558,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             dwkn[se] = dc;
         }
         __syncthreads();
+        st.to(5);
 
+        st.from(6);
         // C4. Access branch on the grid: savings through the endogenous
         //     cash-on-hand knots, split at s*, clips, consumption.
         for (int i = tid; i < N3; i += kBwdThreads) {
@@ -539,7 +609,9 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             Bo[5 * TN + 2 * i + 1] = floor_d(craw, 1e-12f) * dcraw;
         }
         __syncthreads();
+        st.to(6);
 
+        st.from(7);
         // D. Envelopes: the next period's (V_b, V_a) and tangents.
         for (int i = tid; i < N3; i += kBwdThreads) {
             for (int acc = 0; acc < 2; ++acc) {
@@ -562,7 +634,660 @@ __global__ void __launch_bounds__(kBwdThreads) two_asset_bwd_kernel(
             }
         }
         __syncthreads();
+        st.to(7);
     }
+    st.to(8);
+    st.save();
+}
+
+// ── Kernel 5 on a thread-block cluster ────────────────────────────────────
+// two_asset_bwd_cluster_kernel replaces, like two_asset_bwd_kernel above,
+// the TPU kernel hank_tpu/ops/fused_sweep2.py: fused2_policies_jvp
+// (_make_bwd2_kernel), and gives two_asset_bwd_kernel's bits.
+//
+// Why a new design (PERF.md §6; H100 80GB HBM3, 700 W; measured with
+// hank_tpu_torch/tools/kernel5_split.py): at 40x20x5x2, T=300 the previous
+// kernel takes 83 us (163k cycles) a period on one SM of 132: the FOC gaps
+// at 62 x 200 candidates (C2) 35% of it, the two 40-knot count loops (B2,
+// C4) 31%, the serial candidate scan and root chain (C3) 10%.
+//
+// The design:
+//   - one cluster of C blocks (C = min(n_e, 16)); block r owns the incomes
+//     e = r (mod C) and runs every stage for them: after stage A the income
+//     states are independent until the next period's A;
+//   - each block keeps the access-mixed continuations of its incomes, vm =
+//     fma(1 - lam, V_0, lam * V_1) and its tangent, one float4 a state
+//     (computed by the owner in D with the previous kernel's rounding, read
+//     from its SASS); stage A reads every income's through distributed
+//     shared memory and sums them in income order, as before;
+//   - split cluster barriers: arrive (relaxed: A's remote reads are done)
+//     after A and wait before B2 (nobody reads the vm region after that, so
+//     B2 keeps the no-access consumption and illiquid margin there for D);
+//     arrive after D and wait before the next A. Only the policies go to
+//     global memory: as (access 0, access 1) float2 pairs after the arrive
+//     where B2 takes one pass, else where they are computed;
+//   - the candidates' brackets of C2 depend on the static grids alone: they
+//     are tabled once a launch (where the room is), and the brackets of
+//     a_next(a) once a period; C2's bilinear value then has the previous
+//     kernel's roundings spelled out (gap_value), which nvcc otherwise
+//     chose differently beside the table;
+//   - the two branches overlap: C1 runs on the threads B1 leaves idle, and
+//     the root chain of C3 (one thread a row, latency-bound) on two warps
+//     while the others run B2. B2 recomputes the no-access W_a at a_next(a)
+//     (B1's expression) where it needs it instead of keeping it;
+//   - C2 and C3's scan fused: one warp per (s, e) row, each lane a
+//     contiguous run of candidates; fmaxf/fminf in a butterfly that keeps
+//     lane order and ballots for has_neg / has_pos give the serial scan's
+//     values (fmaxf/fminf order -0 below +0 and drop a NaN operand, so any
+//     order would);
+//   - C4 and D fused per state; every other state's arithmetic is the
+//     previous kernel's, expression for expression.
+// What bounds it now (stamped, 40x20x5x2, ~41k cycles a period on each
+// block): the root chain's latency on its two warps (~10k), the strided
+// policy stores (each block writes 8 bytes of every 40, ~8k), C2 (~6k),
+// C4 and D (~6k). Shared memory per block (floats, n = G * NB * NA states
+// and R = G * NB rows of the G incomes a block holds room for): vm 4n, W
+// 4n, the EGM's knots 2n, the rows' 12R, the period's brackets 3 NA, the
+// grids, two periods' prices (16), and the table (4 K NB) where it fits:
+// every grid the previous kernel takes fits.
+constexpr int kB5Threads = 1024;
+constexpr int kB5Warps = kB5Threads / 32;
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+// For an arrive whose block has nothing to publish.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Shared memory of a block, with or without the table of the breakpoint
+// candidates' brackets (K * NB entries of 16 bytes).
+size_t bwd_cluster_smem(int NB, int NA, int NE, int C, bool tabled) {
+    const size_t G = (NE + C - 1) / C, n = G * NB * NA, R = G * NB, K = NA + NB + 2;
+    return sizeof(float) * (10 * n + 12 * R + 3 * (size_t)NA + 2 * (size_t)NB + NA + NE
+                            + (size_t)NE * NE + 16 + (tabled ? 4 * K * NB : 0));
+}
+
+// Whether the candidates' brackets are tabled (where the room is), and the
+// bytes a block uses.
+bool bwd_cluster_tabled(int NB, int NA, int NE, int C) {
+    return bwd_cluster_smem(NB, NA, NE, C, true) <= kSmemOptin;
+}
+
+size_t bwd_cluster_smem_bytes(int NB, int NA, int NE, int C) {
+    return bwd_cluster_smem(NB, NA, NE, C, bwd_cluster_tabled(NB, NA, NE, C));
+}
+
+// The FOC gap's bilinear value (bilinear()'s v of the surface Wb - Wa, one
+// income: NE = 1) at the brackets (ib, tb), (ia, ta), with the previous
+// kernel's roundings in C2 spelled out (read from its SASS): the corner
+// weights as products, the first term a product, the others FMAs in order.
+__device__ __forceinline__ float gap_value(const float* W, int N3, int NA, int ib, int ia,
+                                           float tb, float ta) {
+    const int k00 = (ib - 1) * NA + ia - 1, k01 = k00 + 1, k10 = k00 + NA, k11 = k10 + 1;
+    const float ub = 1.f - tb, ua = 1.f - ta;
+    float v = __fmul_rn(__fmul_rn(ub, ua), W[k00] - W[N3 + k00]);
+    v = __fmaf_rn(__fmul_rn(ub, ta), W[k01] - W[N3 + k01], v);
+    v = __fmaf_rn(__fmul_rn(tb, ua), W[k10] - W[N3 + k10], v);
+    return __fmaf_rn(__fmul_rn(tb, ta), W[k11] - W[N3 + k11], v);
+}
+
+// bracket() from a count already taken (bracket2), the same arithmetic.
+__device__ __forceinline__ Bracket bracket_at(const float* g, int n, int cnt, float q, float dq) {
+    Bracket B;
+    B.i = min(max(cnt, 1), n - 1);
+    B.lo = g[B.i - 1];
+    B.hi = g[B.i];
+    const float raw = (q - B.lo) / (B.hi - B.lo);
+    B.t = clip_f(raw, 0.f, 1.f);
+    B.dt = clip_d(raw, 0.f, 1.f) * (dq / (B.hi - B.lo));
+    B.in = q > g[0] && q < g[n - 1];
+    return B;
+}
+
+// The brackets of a query pair on the liquid and illiquid grids: both
+// count_below_sorted() bisections, step for step, interleaved (the same
+// counts on any grid, in max rather than sum of their steps).
+__device__ __forceinline__ void bracket2(const float* gb, int nb, float qb, float dqb,
+                                         const float* ga, int na, float qa, float dqa,
+                                         Bracket& B, Bracket& A) {
+    int lb = 0, hb = nb, la = 0, ha = na;
+    while (lb < hb || la < ha) {
+        if (lb < hb) {
+            const int m = (lb + hb) >> 1;
+            if (gb[m] < qb) lb = m + 1; else hb = m;
+        }
+        if (la < ha) {
+            const int m = (la + ha) >> 1;
+            if (ga[m] < qa) la = m + 1; else ha = m;
+        }
+    }
+    B = bracket_at(gb, nb, lb, qb, dqb);
+    A = bracket_at(ga, na, la, qa, dqa);
+}
+
+// The access mix of the previous kernel's stage A, with its rounding:
+// (1 - lam) * x0 + lam * x1 as fma(1 - lam, x0, x1 * lam).
+__device__ __forceinline__ float access_mix(float one_lam, float lam, float x0, float x1) {
+    return __fmaf_rn(one_lam, x0, __fmul_rn(x1, lam));
+}
+
+// Outputs as two_asset_bwd_kernel's; `tabled` as bwd_cluster_tabled(). Stamp
+// slots (per block, 32 apart): [0] the wait before A, [1] A, [2] B1 and C1,
+// [3] C2 and the scan, [4] the wait before B2, [5] B2 and the root chain,
+// [6] thread 0's share of B2, [7] C4 and D, [8] from D to the next wait,
+// [9] the sweep.
+__global__ void __launch_bounds__(kB5Threads, 1) two_asset_bwd_cluster_kernel(
+    const float* __restrict__ r_p, const float* __restrict__ ra_p,
+    const float* __restrict__ w_p, const float* __restrict__ tau_p,
+    const float* __restrict__ dr_p, const float* __restrict__ dra_p,
+    const float* __restrict__ dw_p, const float* __restrict__ dtau_p,
+    const float* __restrict__ V_T,
+    const float* __restrict__ bgrid_g, const float* __restrict__ agrid_g,
+    const float* __restrict__ egrid_g, const float* __restrict__ Pi_g,
+    float* __restrict__ out,
+    int Tm1, int NB, int NA, int NE, float beta, float lam, float chi, float borrow,
+    int tabled K5_STAMPS_PARAM)
+{
+    extern __shared__ __align__(16) float sm[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+    K5_STAMPS(kStampSlots * rank);
+    st.from(9);
+    const int NBA = NB * NA, NS = NB, K = NA + NB + 2;
+    const int G = (NE + C - 1) / C;               // room for this many incomes
+    const int own = (NE - rank + C - 1) / C;      // incomes rank, rank + C, ...
+    const int n = G * NBA, R = G * NS, my_n = own * NBA, my_rows = own * NS;
+    const int N4 = 2 * NBA * NE;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t TN = (size_t)Tm1 * N4;
+    const float one_lam = 1.f - lam;
+    // The root chain's threads (whole warps) beside B2's. Where B2 takes one
+    // pass, thread j keeps state j's no-access policies in registers and
+    // puts them beside the access branch's, a float2 a pair.
+    const int Tc = min(32 * ((my_rows + 31) / 32), kB5Threads / 2), Tb = kB5Threads - Tc;
+    const bool pair = my_n <= Tb;
+
+    float4* vm = reinterpret_cast<float4*>(sm);   // (vm_b, vm_a, dvm_b, dvm_a) a state;
+                                                  // (c, dc, margin, dmargin) in B2..D
+    // The brackets of the breakpoint candidates (period-free: the static
+    // grids alone place them), row s's K in a run: (t_b, t_a, i_b | i_a << 16, c).
+    float4* tab = reinterpret_cast<float4*>(sm + 4 * n);
+    float* W = sm + 4 * n + (tabled ? 4 * K * NS : 0);   // [Wb, Wa, dWb, dWa][n]
+    float* imp = W + 4 * n;           // implied liquid wealth (the EGM's knots), B1 -> B2
+    float* dimp = imp + n;
+    float* pen = dimp + n;            // per row q = gi * NS + s
+    float* dpen = pen + R;
+    float* ast = dpen + R;
+    float* dast = ast + R;
+    float* wkn = dast + R;
+    float* dwkn = wkn + R;
+    float* scan = dwkn + R;           // [lo, hi, g0, g1, g_lo, g_hi][R]
+    int* aq_i = reinterpret_cast<int*>(scan + 6 * R);   // the period's bracket of
+    float* aq_t = reinterpret_cast<float*>(aq_i + NA);  // a_next(a) on the
+    float* aq_dt = aq_t + NA;                           // illiquid grid
+    float* bg = aq_dt + NA;
+    float* ag = bg + NB;
+    float* sg = ag + NA;              // s grid of the access EGM
+    float* eg = sg + NB;
+    float* Pi = eg + NE;
+    float* pc = Pi + NE * NE;         // the prices and tangents of a period, two periods
+    // Threads 0-7 load period t's (r, ra, w, tau, dr, dra, dw, dtau) into
+    // pc[8 * (t & 1)], a period ahead.
+    const float* const prices[8] = {r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p};
+
+    for (int i = tid; i < NB; i += kB5Threads) bg[i] = bgrid_g[i];
+    for (int i = tid; i < NA; i += kB5Threads) ag[i] = agrid_g[i];
+    for (int i = tid; i < NE; i += kB5Threads) eg[i] = egrid_g[i];
+    for (int i = tid; i < NE * NE; i += kB5Threads) Pi[i] = Pi_g[i];
+    if (tid < 8) pc[8 * ((Tm1 - 1) & 1) + tid] = prices[tid][Tm1 - 1];
+    // The access mix of V_T (no tangent) for the own incomes.
+    for (int j = tid; j < my_n; j += kB5Threads) {
+        const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
+        const int k = (ba * NE + e) * 2;
+        vm[j] = make_float4(access_mix(one_lam, lam, V_T[k], V_T[k + 1]),
+                            access_mix(one_lam, lam, V_T[N4 + k], V_T[N4 + k + 1]),
+                            access_mix(one_lam, lam, 0.f, 0.f),
+                            access_mix(one_lam, lam, 0.f, 0.f));
+    }
+    __syncthreads();
+    const float btop = bg[NB - 1], atop = ag[NA - 1];
+    const float ratio = (btop + atop) / btop;
+    for (int i = tid; i < NB; i += kB5Threads) sg[i] = bg[i] * ratio;
+    if (tabled) {
+        __syncthreads();
+        for (int u = tid; u < NS * K; u += kB5Threads) {
+            const int s = u / K, k = u - s * K;
+            const float s2 = sg[s];
+            float c = k == 0 ? 0.f : (k <= NA ? ag[k - 1] : (k <= NA + NB ? s2 - bg[k - NA - 1] : s2));
+            c = clip_f(c, 0.f, s2);
+            Bracket Bq, Aq;
+            bracket2(bg, NB, s2 - c, 0.f, ag, NA, c, 0.f, Bq, Aq);
+            tab[u] = make_float4(Bq.t, Aq.t, __int_as_float(Bq.i | (Aq.i << 16)), c);
+        }
+    }
+    cluster_arrive();
+
+    st.from(8);
+    for (int t = Tm1 - 1; t >= 0; --t) {
+        const float* pt = pc + 8 * (t & 1);
+        const float r = pt[0], ra = pt[1], w = pt[2], tau = pt[3];
+        const float dr = pt[4], dra = pt[5], dw = pt[6], dtau = pt[7];
+        if (t > 0 && tid < 8) pc[8 * ((t - 1) & 1) + tid] = prices[tid][t - 1];
+        const float one_r = 1.f + r, one_ra = 1.f + ra;
+        const float pre = (1.f - tau) * w;
+        const float dpre = -dtau * w + (1.f - tau) * dw;
+        const float ymax = floor_f(pre, 1e-9f);
+        const float dymax = floor_d(pre, 1e-9f) * dpre;
+        float* Bo = out + (size_t)t * N4;          // B, A, C, dB, dA, dC rows of t
+
+        // Every income's vm of period t + 1 is with its owner.
+        st.to(8);
+        st.from(0);
+        cluster_wait();
+        st.to(0);
+        st.from(1);
+        // A. Continuations: income expectation of the access mixes, floor.
+        for (int j = tid; j < my_n; j += kB5Threads) {
+            const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
+            float E[2] = {0.f, 0.f}, dE[2] = {0.f, 0.f};
+            for (int f = 0; f < NE; ++f) {
+                const float4 v = cluster.map_shared_rank(vm, f % C)[(f / C) * NBA + ba];
+                const float p = Pi[e * NE + f];
+                E[0] += v.x * p;
+                dE[0] += v.z * p;
+                E[1] += v.y * p;
+                dE[1] += v.w * p;
+            }
+            for (int s = 0; s < 2; ++s) {
+                const float x = beta * E[s];
+                W[s * n + j] = floor_f(x, 1e-12f);
+                W[(2 + s) * n + j] = floor_d(x, 1e-12f) * (beta * dE[s]);
+            }
+        }
+        // The period's brackets of a_next(a), on threads past the states.
+        for (int a = tid - my_n; a < NA; a += kB5Threads) {
+            if (a < 0) continue;
+            const float a_raw = one_ra * ag[a];
+            const float da_raw = dra * ag[a];
+            float a_next, da_next;
+            min2(a_raw, da_raw, atop, 0.f, a_next, da_next);
+            const Bracket Q = bracket(ag, NA, a_next, da_next);
+            aq_i[a] = Q.i;
+            aq_t[a] = Q.t;
+            aq_dt[a] = Q.dt;
+        }
+        // A's remote reads are done (their values are in W): nothing to order.
+        cluster_arrive_relaxed();
+        __syncthreads();
+        st.to(1);
+        st.from(2);
+
+        // B1. No access: W_b at the capped accrual point a_next(a), the
+        //     implied liquid wealth of the EGM. C1, on the threads past the
+        //     states: the penalty scale of the portfolio split per row.
+        const float s1 = sg[1];
+        for (int j = tid; j < my_n + my_rows; j += kB5Threads) {
+            if (j < my_n) {
+                const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
+                const int b = ba / NA, a = ba - b * NA;
+                const float a_raw = one_ra * ag[a];
+                const float da_raw = dra * ag[a];
+                float a_next, da_next;
+                min2(a_raw, da_raw, atop, 0.f, a_next, da_next);
+                const float Qt = aq_t[a], Qdt = aq_dt[a];
+                const int klo = gi * NBA + b * NA + aq_i[a] - 1, khi = klo + 1;
+                const float lo = W[klo], hi = W[khi];
+                const float dlo = W[2 * n + klo], dhi = W[2 * n + khi];
+                const float wn0 = lo + Qt * (hi - lo);
+                const float dwn0 = dlo + Qdt * (hi - lo) + Qt * (dhi - dlo);
+                float c, dc;
+                inv_marg2(wn0, dwn0, c, dc);
+                const float inc = (a_raw - a_next) + ymax * eg[e];
+                const float dinc = (da_raw - da_next) + dymax * eg[e];
+                const float num = c + bg[b] - inc;
+                const float imp_ = num / one_r;
+                imp[j] = imp_;
+                dimp[j] = ((dc - dinc) - imp_ * dr) / one_r;
+            } else {
+                const int q = j - my_n;
+                if (chi > 0.f) {
+                    const int gi = q / NS, s = q - gi * NS;
+                    const float mid = 0.5f * sg[s];
+                    Bracket Bq, Aq;
+                    bracket2(bg, NB, mid, 0.f, ag, NA, mid, 0.f, Bq, Aq);
+                    const Bi m = bilinear(W + gi * NBA, n, NA, 1, 0, 3, Bq, Aq);
+                    const float den = sg[s] > s1 ? sg[s] : s1;
+                    pen[q] = chi * m.v / den;
+                    dpen[q] = chi * m.dv / den;
+                } else {
+                    pen[q] = 0.f;
+                    dpen[q] = 0.f;
+                }
+            }
+        }
+        __syncthreads();
+        st.to(2);
+        st.from(3);
+
+        // C2 and the scan of C3, one warp per row: the FOC gap at each
+        //     breakpoint candidate (primal only: the root is detached), lane
+        //     l taking candidates [l * per, (l + 1) * per); then the bracket
+        //     of sign changes, combined in lane order.
+        const int per = (K + 31) / 32;
+        for (int q = warp; q < my_rows; q += kB5Warps) {
+            const int gi = q / NS, s = q - gi * NS;
+            const float* Wg = W + gi * NBA;
+            const float s2 = sg[s];
+            const float p = pen[q];
+            float lo = -FLT_MAX, hi = FLT_MAX, g0 = -FLT_MAX, g1 = FLT_MAX;
+            bool has_neg = false, has_pos = false;
+            float g_first = 0.f, g_last = 0.f;
+            for (int k = lane * per; k < min(K, (lane + 1) * per); ++k) {
+                float c = k == 0 ? 0.f : (k <= NA ? ag[k - 1] : (k <= NA + NB ? s2 - bg[k - NA - 1] : s2));
+                c = clip_f(c, 0.f, s2);
+                float v;
+                if (tabled) {
+                    const float4 e = tab[s * K + k];
+                    const int ii = __float_as_int(e.z);
+                    v = gap_value(Wg, n, NA, ii & 0xffff, ii >> 16, e.x, e.y);
+                } else {
+                    Bracket Bq, Aq;
+                    bracket2(bg, NB, s2 - c, 0.f, ag, NA, c, 0.f, Bq, Aq);
+                    v = gap_value(Wg, n, NA, Bq.i, Aq.i, Bq.t, Aq.t);
+                }
+                const float g = chi > 0.f ? __fmaf_rn(p, __fmaf_rn(s2, -0.5f, c), v) : v;
+                if (k == 0) g_first = g;
+                if (k == K - 1) g_last = g;
+                if (g < 0.f) {
+                    has_neg = true;
+                    lo = fmaxf(lo, c);
+                    g0 = fmaxf(g0, g);
+                } else {
+                    has_pos = true;
+                    hi = fminf(hi, c);
+                    g1 = fminf(g1, g);
+                }
+            }
+            for (int o = 1; o < 32; o <<= 1) {
+                const bool upper = (lane & o) != 0;     // this lane's run follows the other's
+                const float olo = __shfl_xor_sync(0xffffffffu, lo, o);
+                const float ohi = __shfl_xor_sync(0xffffffffu, hi, o);
+                const float og0 = __shfl_xor_sync(0xffffffffu, g0, o);
+                const float og1 = __shfl_xor_sync(0xffffffffu, g1, o);
+                lo = upper ? fmaxf(olo, lo) : fmaxf(lo, olo);
+                hi = upper ? fminf(ohi, hi) : fminf(hi, ohi);
+                g0 = upper ? fmaxf(og0, g0) : fmaxf(g0, og0);
+                g1 = upper ? fminf(og1, g1) : fminf(g1, og1);
+            }
+            has_neg = __any_sync(0xffffffffu, has_neg);
+            has_pos = __any_sync(0xffffffffu, has_pos);
+            g_first = __shfl_sync(0xffffffffu, g_first, 0);
+            g_last = __shfl_sync(0xffffffffu, g_last, (K - 1) / per);
+            if (lane == 0) {
+                if (!has_neg) { lo = 0.f; g0 = -1.f; }
+                if (!has_pos) { hi = s2; g1 = 1.f; }
+                scan[q] = lo;
+                scan[R + q] = hi;
+                scan[2 * R + q] = g0;
+                scan[3 * R + q] = g1;
+                scan[4 * R + q] = g_first;
+                scan[5 * R + q] = g_last;
+            }
+        }
+        __syncthreads();
+        st.to(3);
+        // Every block has read the vm regions: this block's is scratch till D.
+        st.from(4);
+        cluster_wait();
+        st.to(4);
+        st.from(5);
+
+        float pol0[6];                    // B2's policies where they are paired
+        if (tid < Tb) {
+            st.from(6);
+            // B2. Liquid policy on the grid (traced knots: count bracket),
+            //     clips, consumption, and the illiquid margin at (b', a_next).
+            for (int j = tid; j < my_n; j += Tb) {
+                const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
+                const int b = ba / NA, a = ba - b * NA;
+                const int i = ba * NE + e;
+                const int col = gi * NBA + a;               // knots imp[col + k*NA]
+                const float x = bg[b];
+                int cnt = 0;
+                for (int k = 0; k < NB; ++k) cnt += imp[col + k * NA] < x ? 1 : 0;
+                const int jj = min(max(cnt, 1), NB - 1);
+                const float lo = imp[col + (jj - 1) * NA];
+                const float hi = imp[col + jj * NA];
+                const float dlo = dimp[col + (jj - 1) * NA];
+                const float dhi = dimp[col + jj * NA];
+                const float den = hi - lo;
+                const float safe = den > 0.f ? den : 1.f;
+                const float dsafe = den > 0.f ? dhi - dlo : 0.f;
+                const float raw = (x - lo) / safe;
+                const float draw = (-dlo - raw * dsafe) / safe;
+                const float tt = clip_f(raw, 0.f, 1.f);
+                const float dtt = clip_d(raw, 0.f, 1.f) * draw;
+                const float vlo = bg[jj - 1], vhi = bg[jj];
+                float pol = vlo + tt * (vhi - vlo);
+                float dpol = dtt * (vhi - vlo);
+                const float f1 = floor_f(pol, borrow);
+                const float df1 = floor_d(pol, borrow) * dpol;
+                min2(f1, df1, btop, 0.f, pol, dpol);
+
+                const float a_raw = one_ra * ag[a];
+                const float da_raw = dra * ag[a];
+                float a_next, da_next;
+                min2(a_raw, da_raw, atop, 0.f, a_next, da_next);
+                const float inc = (a_raw - a_next) + ymax * eg[e];
+                const float dinc = (da_raw - da_next) + dymax * eg[e];
+                const float craw = one_r * x + inc - pol;
+                const float dcraw = dr * x + dinc - dpol;
+                const float c = floor_f(craw, 1e-12f);
+                const float dc = floor_d(craw, 1e-12f) * dcraw;
+                const float o[6] = {pol, a_next, c, dpol, da_next, dc};
+                for (int q = 0; q < 6; ++q) {
+                    if (pair) pol0[q] = o[q];
+                    else Bo[q * TN + 2 * i] = o[q];
+                }
+
+                // W_a(b', a_next) along b (static grid, traced query), from W_a
+                // at a_next on the two knots b' and b' + 1 (B1's expression).
+                const Bracket Q = bracket(bg, NB, pol, dpol);
+                const float Qat = aq_t[a], Qadt = aq_dt[a];
+                float wn[2], dwn[2];
+                for (int h = 0; h < 2; ++h) {
+                    const int klo = gi * NBA + (Q.i - 1 + h) * NA + aq_i[a] - 1, khi = klo + 1;
+                    const float lo1 = W[n + klo], hi1 = W[n + khi];
+                    const float dlo1 = W[3 * n + klo], dhi1 = W[3 * n + khi];
+                    wn[h] = lo1 + Qat * (hi1 - lo1);
+                    dwn[h] = dlo1 + Qadt * (hi1 - lo1) + Qat * (dhi1 - dlo1);
+                }
+                const float wlo = wn[0], whi = wn[1];
+                const float dwlo = dwn[0], dwhi = dwn[1];
+                const bool capped = a_raw >= atop;
+                vm[j] = make_float4(
+                    c, dc, capped ? 0.f : wlo + Q.t * (whi - wlo),
+                    capped ? 0.f : dwlo + Q.dt * (whi - wlo) + Q.t * (dwhi - dwlo));
+            }
+            st.to(6);
+        } else {
+            // C3. Quadratic root, implicit-function step, envelope surfaces
+            //     at the split, endogenous cash-on-hand knots; per row.
+            for (int q = tid - Tb; q < my_rows; q += Tc) {
+                const int gi = q / NS, s = q - gi * NS;
+                const float* Wg = W + gi * NBA;
+                const float s2 = sg[s];
+                const float lo = scan[q], hi = scan[R + q];
+                const float g0 = scan[2 * R + q], g1 = scan[3 * R + q];
+                const float g_lo = scan[4 * R + q], g_hi = scan[5 * R + q];
+                const float h = hi - lo;
+                const float p = pen[q], dp = dpen[q];
+                float gm;
+                {
+                    const float am = 0.5f * (lo + hi);
+                    Bracket Bm, Am;
+                    bracket2(bg, NB, s2 - am, 0.f, ag, NA, am, 0.f, Bm, Am);
+                    const Bi g = bilinear(Wg, n, NA, 1, 0, 2, Bm, Am);
+                    gm = chi > 0.f ? g.v + p * (am - 0.5f * s2) : g.v;
+                }
+                const float a1c = -3.f * g0 + 4.f * gm - g1;
+                const float a2c = 2.f * g0 - 4.f * gm + 2.f * g1;
+                const float disc = floor_f(a1c * a1c - 4.f * a2c * g0, 0.f);
+                const float sgn = a1c >= 0.f ? 1.f : -1.f;
+                const float qq = -0.5f * (a1c + sgn * sqrtf(disc));
+                const float u_a = g0 / (fabsf(qq) > 0.f ? qq : 1.f);
+                const float u_b = qq / (fabsf(a2c) > 0.f ? a2c : 1.f);
+                const bool in01 = u_a >= 0.f && u_a <= 1.f && fabsf(qq) > 0.f;
+                const float u = clip_f(in01 ? u_a : u_b, 0.f, 1.f);
+                const float a_it = h > 0.f ? lo + u * h : lo;
+
+                // One Newton step at the detached root, slope held constant.
+                Bracket Bn, An;
+                bracket2(bg, NB, s2 - a_it, 0.f, ag, NA, a_it, 0.f, Bn, An);
+                const Bi g = bilinear(Wg, n, NA, 1, 0, 2, Bn, An);
+                float g_at = g.v, dg_at = g.dv, gp = g.sa - g.sb;
+                if (chi > 0.f) {
+                    g_at = g_at + p * (a_it - 0.5f * s2);
+                    dg_at = dg_at + dp * (a_it - 0.5f * s2);
+                    gp = gp + p;
+                }
+                const float g_a = floor_f(gp, 1e-10f);
+                const float araw = a_it - g_at / g_a;
+                const float daraw = -(dg_at / g_a);
+                float a_star = clip_f(araw, 0.f, s2);
+                float da_star = clip_d(araw, 0.f, s2) * daraw;
+                if (g_lo >= 0.f) { a_star = 0.f; da_star = 0.f; }
+                else if (g_hi <= 0.f) { a_star = s2; da_star = 0.f; }
+                const float b_star = s2 - a_star, db_star = -da_star;
+
+                Bracket Bq, Aq;
+                bracket2(bg, NB, b_star, db_star, ag, NA, a_star, da_star, Bq, Aq);
+                const Bi vb = bilinear(Wg, n, NA, 1, 0, 0, Bq, Aq);
+                const Bi va = bilinear(Wg, n, NA, 1, 0, 1, Bq, Aq);
+                const float wbp = vb.sa - vb.sb, dwbp = vb.dsa - vb.dsb;
+                const float wap = va.sa - va.sb, dwap = va.dsa - va.dsb;
+                const float gps = wbp - wap, dgps = dwbp - dwap;
+                const bool ok = a_star > 0.f && a_star < s2 && wbp >= 0.f && wap <= 0.f
+                                && gps > 1e-10f;
+                float Ws, dWs;
+                if (ok) {
+                    const float num = wbp * va.v - wap * vb.v;
+                    const float dnum = dwbp * va.v + wbp * va.dv - (dwap * vb.v + wap * vb.dv);
+                    Ws = num / gps;
+                    dWs = (dnum - Ws * dgps) / gps;
+                } else {
+                    max2(vb.v, vb.dv, va.v, va.dv, Ws, dWs);
+                }
+                float c, dc;
+                inv_marg2(Ws, dWs, c, dc);
+                ast[q] = a_star;
+                dast[q] = da_star;
+                wkn[q] = c + s2;
+                dwkn[q] = dc;
+            }
+        }
+        __syncthreads();
+        st.to(5);
+        st.from(7);
+
+        // C4. Access branch on the grid: savings through the endogenous
+        //     cash-on-hand knots, split at s*, clips, consumption. D. The
+        //     envelopes of both branches, and their access mix for A.
+        float pol1[6];
+        for (int j = tid; j < my_n; j += kB5Threads) {
+            const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
+            const int b = ba / NA, a = ba - b * NA;
+            const int i = ba * NE + e;
+            const float* wk = wkn + gi * NS;
+            const float* dwk = dwkn + gi * NS;
+            const float ye = ymax * eg[e], dye = dymax * eg[e];
+            const float coh = one_r * bg[b] + one_ra * ag[a] + ye;
+            const float dcoh = dr * bg[b] + dra * ag[a] + dye;
+            int cnt = 0;
+            for (int k = 0; k < NS; ++k) cnt += wk[k] < coh ? 1 : 0;
+            const int jj = min(max(cnt, 1), NS - 1);
+            const float lo = wk[jj - 1], hi = wk[jj];
+            const float dlo = dwk[jj - 1], dhi = dwk[jj];
+            const float den = hi - lo;
+            const float safe = den > 0.f ? den : 1.f;
+            const float dsafe = den > 0.f ? dhi - dlo : 0.f;
+            const float raw = (coh - lo) / safe;
+            const float draw = (dcoh - dlo - raw * dsafe) / safe;
+            const float tt = clip_f(raw, 0.f, 1.f);
+            const float dtt = clip_d(raw, 0.f, 1.f) * draw;
+            const float ps0 = sg[jj - 1] + tt * (sg[jj] - sg[jj - 1]);
+            const float dps0 = dtt * (sg[jj] - sg[jj - 1]);
+            const float ps = floor_f(ps0, 0.f);
+            const float dps = floor_d(ps0, 0.f) * dps0;
+
+            // a' = interp(s-knots ↦ a*) at the savings policy.
+            const Bracket Q = bracket(sg, NS, ps, dps);
+            const float* as = ast + gi * NS;
+            const float* das = dast + gi * NS;
+            const float alo = as[Q.i - 1], ahi = as[Q.i];
+            const float dalo = das[Q.i - 1], dahi = das[Q.i];
+            const float pa0 = alo + Q.t * (ahi - alo);
+            const float dpa0 = dalo + Q.dt * (ahi - alo) + Q.t * (dahi - dalo);
+            float cap, dcap, pa, dpa;
+            min2(ps, dps, atop, 0.f, cap, dcap);
+            min2(floor_f(pa0, 0.f), floor_d(pa0, 0.f) * dpa0, cap, dcap, pa, dpa);
+            const float pb0 = ps - pa, dpb0 = dps - dpa;
+            float pb, dpb;
+            min2(floor_f(pb0, borrow), floor_d(pb0, borrow) * dpb0, btop, 0.f, pb, dpb);
+            const float craw = coh - pb - pa;
+            const float dcraw = dcoh - dpb - dpa;
+            const float c1 = floor_f(craw, 1e-12f);
+            const float dc1 = floor_d(craw, 1e-12f) * dcraw;
+            const float o[6] = {pb, pa, c1, dpb, dpa, dc1};
+            for (int q = 0; q < 6; ++q) {
+                if (pair) pol1[q] = o[q];
+                else Bo[q * TN + 2 * i + 1] = o[q];
+            }
+
+            // D. (V_b, V_a) and tangents of both branches, then their mix.
+            const float4 b2 = vm[j];                  // (c, dc, margin, dmargin) of access 0
+            float Vb[2], Va[2], dVb[2], dVa[2];
+            for (int acc = 0; acc < 2; ++acc) {
+                const float c = acc == 0 ? b2.x : c1;
+                const float dc = acc == 0 ? b2.y : dc1;
+                const float cc = c * c;
+                const float up = 1.f / cc;
+                const float dup = -(dc * c + c * dc) * up * up;
+                Vb[acc] = one_r * up;
+                dVb[acc] = dr * up + one_r * dup;
+                if (acc == 0) {
+                    Va[acc] = one_ra * b2.z;
+                    dVa[acc] = dra * b2.z + one_ra * b2.w;
+                } else {
+                    Va[acc] = one_ra * up;
+                    dVa[acc] = dra * up + one_ra * dup;
+                }
+            }
+            vm[j] = make_float4(access_mix(one_lam, lam, Vb[0], Vb[1]),
+                                access_mix(one_lam, lam, Va[0], Va[1]),
+                                access_mix(one_lam, lam, dVb[0], dVb[1]),
+                                access_mix(one_lam, lam, dVa[0], dVa[1]));
+        }
+        st.to(7);
+        st.from(8);
+        cluster_arrive();
+        // The paired policies go out after the arrive, so that its fence does
+        // not wait for them.
+        if (pair && tid < my_n) {
+            const int gi = tid / NBA, ba = tid - gi * NBA, i = ba * NE + rank + gi * C;
+            for (int q = 0; q < 6; ++q)
+                reinterpret_cast<float2*>(Bo + q * TN)[i] = make_float2(pol0[q], pol1[q]);
+        }
+    }
+    // No block leaves while another may still read its shared memory.
+    cluster_wait();
+    st.to(9);
+    st.save();
 }
 
 // ── Kernel 6: the forward dual push ───────────────────────────────────────
@@ -586,41 +1311,6 @@ __device__ __forceinline__ void lottery(const float* g, int n, float p, float dp
     jc = lottery_bracket(g, n, p);
     lottery_weights(g, jc, p, dp, w, dw);
 }
-
-// Cycle stamps of each block's thread 0, compiled only into the measurement
-// build of hank_tpu_torch/tools/kernel6_split.py (nvcc -DHANK_K6_STAMPS):
-// from(i) notes the clock, to(i) adds the cycles since from(i) to slot i,
-// save() writes the slots to out[0, kStampSlots). Without the macro they are
-// empty and the kernels take no stamps argument.
-#ifdef HANK_K6_STAMPS
-constexpr int kStampSlots = 32;
-struct Stamps {
-    long long* out;
-    long long at[kStampSlots], sum[kStampSlots];
-    __device__ explicit Stamps(long long* o) : out(o) {
-        for (int i = 0; i < kStampSlots; ++i) sum[i] = 0;
-    }
-    __device__ void from(int i) { if (threadIdx.x == 0) at[i] = clock64(); }
-    __device__ void to(int i) { if (threadIdx.x == 0) sum[i] += clock64() - at[i]; }
-    __device__ void save() const {
-        if (threadIdx.x == 0) for (int i = 0; i < kStampSlots; ++i) out[i] = sum[i];
-    }
-};
-#define K6_STAMPS_PARAM , long long* stamps_out
-#define K6_STAMPS(offset) Stamps st(stamps_out + (offset))
-#define K6_ENTRY_PARAM , void* stamps
-#define K6_ENTRY_ARG , static_cast<long long*>(stamps)
-#else
-struct Stamps {
-    __device__ void from(int) {}
-    __device__ void to(int) {}
-    __device__ void save() const {}
-};
-#define K6_STAMPS_PARAM
-#define K6_STAMPS(offset) Stamps st
-#define K6_ENTRY_PARAM
-#define K6_ENTRY_ARG
-#endif
 
 size_t fwd_smem_bytes(int NB, int NA, int NE) {
     const size_t NS = (size_t)NB * NA, N4 = NS * NE * 2;
@@ -845,7 +1535,6 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
 constexpr int kCluThreads = 1024;   // power of two: the tree reduction needs it
 constexpr int kCluWarps = kCluThreads / 32;
 constexpr int kCluSources = 2;      // sources (and destinations) per thread: n_b * n_a <= 2048
-constexpr size_t kSmemOptin = 227 * 1024;   // dynamic shared memory a block may use
 
 // Per block: the lists' entries (mass, wm, T, 0; 4 per source), every
 // group's H and dH on the block's cells (Hc), the own groups' D and dD, the
@@ -1186,9 +1875,10 @@ __global__ void __launch_bounds__(1024) block_sync_loop(int iters, long long* cy
 
 // Plain C interface (loaded with ctypes). Each launcher returns the
 // cudaError_t of the attribute call or of cudaGetLastError() right after the
-// launch; 0 means the kernel was enqueued on `stream`. The kernel-6 entry
-// points take a stamps pointer before `stream` in the measurement build only
-// (HANK_K6_STAMPS; 32 slots of long long per block).
+// launch; 0 means the kernel was enqueued on `stream`. The kernel-5 and
+// kernel-6 entry points take a stamps pointer before `stream` in their
+// measurement builds only (HANK_K5_STAMPS, HANK_K6_STAMPS; 32 slots of long
+// long per block).
 extern "C" {
 
 int hank_sweep2_policies_jvp_f32(const void* r, const void* ra, const void* w,
@@ -1198,7 +1888,7 @@ int hank_sweep2_policies_jvp_f32(const void* r, const void* ra, const void* w,
                                  const void* egrid, const void* Pi, void* margin,
                                  void* out, int Tm1, int n_b, int n_a, int n_e,
                                  double beta, double lam, double chi,
-                                 double borrow_cons, void* stream) {
+                                 double borrow_cons K5_ENTRY_PARAM, void* stream) {
     const size_t smem = bwd_smem_bytes(n_b, n_a, n_e);
     cudaError_t err = cudaFuncSetAttribute(
         two_asset_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1208,7 +1898,57 @@ int hank_sweep2_policies_jvp_f32(const void* r, const void* ra, const void* w,
         (const float*)dr, (const float*)dra, (const float*)dw, (const float*)dtau,
         (const float*)V_T, (const float*)bgrid, (const float*)agrid,
         (const float*)egrid, (const float*)Pi, (float*)margin, (float*)out,
-        Tm1, n_b, n_a, n_e, (float)beta, (float)lam, (float)chi, (float)borrow_cons);
+        Tm1, n_b, n_a, n_e, (float)beta, (float)lam, (float)chi, (float)borrow_cons
+        K5_ENTRY_ARG);
+    return (int)cudaGetLastError();
+}
+
+// Kernel 5 on one cluster of `cluster` blocks (1 to min(n_e, 16)). Returns
+// cudaErrorInvalidValue for a cluster size or a grid it does not take, and
+// cudaErrorLaunchOutOfResources when the card cannot hold one such cluster
+// (cudaOccupancyMaxActiveClusters gives 0).
+int hank_sweep2_policies_jvp_cluster_f32(const void* r, const void* ra, const void* w,
+                                         const void* tau, const void* dr, const void* dra,
+                                         const void* dw, const void* dtau, const void* V_T,
+                                         const void* bgrid, const void* agrid,
+                                         const void* egrid, const void* Pi, void* out,
+                                         int Tm1, int n_b, int n_a, int n_e, int cluster,
+                                         double beta, double lam, double chi,
+                                         double borrow_cons K5_ENTRY_PARAM, void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster);
+    const int tabled = bwd_cluster_tabled(n_b, n_a, n_e, cluster) ? 1 : 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        two_asset_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaFuncSetAttribute(two_asset_bwd_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg.blockDim = dim3(kB5Threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, two_asset_bwd_cluster_kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    err = cudaLaunchKernelEx(&cfg, two_asset_bwd_cluster_kernel,
+                             (const float*)r, (const float*)ra, (const float*)w,
+                             (const float*)tau, (const float*)dr, (const float*)dra,
+                             (const float*)dw, (const float*)dtau, (const float*)V_T,
+                             (const float*)bgrid, (const float*)agrid, (const float*)egrid,
+                             (const float*)Pi, (float*)out, Tm1, n_b, n_a, n_e, (float)beta,
+                             (float)lam, (float)chi, (float)borrow_cons, tabled K5_ENTRY_ARG);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 
@@ -1279,15 +2019,19 @@ int hank_sweep2_forward_jvp_cluster_f32(const void* pB, const void* pA, const vo
     return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of kernel 5 (which = 0), of the previous kernel 6
-// (which = 1) or of kernel 6 on a cluster of `cluster` blocks (which = 2;
-// per block, at the least shift that fits, or at its largest).
+// Dynamic shared memory of the previous kernel 5 (which = 0), of the
+// previous kernel 6 (which = 1), of kernel 6 on a cluster of `cluster`
+// blocks (which = 2; per block, at the least shift that fits, or at its
+// largest) or of kernel 5 on a cluster of `cluster` blocks (which = 3; per
+// block).
 size_t hank_sweep2_smem_bytes(int which, int n_b, int n_a, int n_e, int cluster) {
-    return which == 0 ? bwd_smem_bytes(n_b, n_a, n_e)
-                      : (which == 1 ? fwd_smem_bytes(n_b, n_a, n_e)
-                                    : fwd_cluster_smem_bytes(
-                                          n_b, n_a, n_e, cluster,
-                                          fwd_cluster_shift(n_b, n_a, n_e, cluster)));
+    switch (which) {
+    case 0: return bwd_smem_bytes(n_b, n_a, n_e);
+    case 1: return fwd_smem_bytes(n_b, n_a, n_e);
+    case 2: return fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster,
+                                          fwd_cluster_shift(n_b, n_a, n_e, cluster));
+    default: return bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster);
+    }
 }
 
 const char* hank_cuda_error_string(int err) {

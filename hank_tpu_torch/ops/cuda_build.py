@@ -7,7 +7,7 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
     beside it, single-path and path-batched entry points of one kernel
     template; and the forward distribution scan (kernel 7);
   - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, and the
-    previous kernel 6 that kernel 6 is held to).
+    previous kernels 5 and 6 that they are held to).
 The libraries are keyed by the SHA-256 of both sources, so an edited source
 rebuilds; a build runs one nvcc per source, all started together. The
 libraries are loaded with ctypes. Nothing here runs at import: the CPU
@@ -114,6 +114,7 @@ _SIGNATURES = {
     },
     "household_sweep2": {
         "hank_sweep2_policies_jvp_f32": (15, 4, 4),
+        "hank_sweep2_policies_jvp_cluster_f32": (14, 5, 4),
         "hank_sweep2_forward_jvp_f32": (12, 4, 0),
         "hank_sweep2_forward_jvp_cluster_f32": (13, 5, 0),
     },
@@ -164,10 +165,12 @@ def check_shared_memory_scan(lib: ctypes.CDLL, n_a: int, n_e: int) -> None:
 
 def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int,
                          cluster: int = 1) -> None:
-    """At an n_b×n_a×n_e×2 grid: kernel 5 (which = 0), the previous kernel 6
-    (which = 1) or kernel 6 on a cluster of `cluster` blocks (which = 2, the
-    shared memory of each block)."""
-    what = ("kernel 5", "previous kernel 6", f"kernel 6 on a cluster of {cluster}")[which]
+    """At an n_b×n_a×n_e×2 grid: the previous kernel 5 (which = 0), the
+    previous kernel 6 (which = 1), or kernel 6 (which = 2) or kernel 5
+    (which = 3) on a cluster of `cluster` blocks (the shared memory of each
+    block)."""
+    what = ("previous kernel 5", "previous kernel 6", f"kernel 6 on a cluster of {cluster}",
+            f"kernel 5 on a cluster of {cluster}")[which]
     _check_smem(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e, cluster),
                 f"{what} at grid {n_b}x{n_a}x{n_e}x2")
 

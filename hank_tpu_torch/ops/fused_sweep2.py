@@ -4,7 +4,9 @@ Replace the TPU kernel pair of `hank_tpu/ops/fused_sweep2.py`:
   - `fused2_policies_jvp` (kernel 5, `_make_bwd2_kernel`): the backward dual
     Bellman recursion of `models/hank_two_asset.ValueFunction` over T-1
     periods, returning the B/A/C policies of both access branches and
-    their tangents;
+    their tangents, on one thread-block cluster;
+    `fused2_policies_jvp_previous` launches the previous kernel 5 (one
+    block), which it is held to bit for bit;
   - `fused2_forward_jvp` (kernel 6, `_make_fwd2_kernel`): the forward dual
     push of the distribution (joint two-axis Young lottery, income and
     access mixing) and the B/A/C aggregates with their tangents, on one
@@ -47,44 +49,100 @@ def _dims(model):
     return het["liquid"], het["illiquid"], het["income"], het["access"]
 
 
+def _policies_inputs(name, paths, value_T, model):
+    check_tensors(name, [value_T, *paths], f32)
+    Tm1 = paths[0].shape[0]
+    liquid, illiq, income, _ = _dims(model)
+    state = (liquid.n, illiq.n, income.n, 2)
+    if any(p.shape != (Tm1,) for p in paths) or Tm1 < 1 or value_T.shape != (2, *state):
+        raise ValueError(f"{name}: expected (T-1,) paths and value_T "
+                         f"{(2, *state)}; got {[tuple(p.shape) for p in paths]}, "
+                         f"{tuple(value_T.shape)}")
+    return Tm1, state
+
+
+def _launch_backward(entry, paths, value_T, model, Tm1, state, scratch=(), extra=()):
+    """Launch a kernel-5 entry point of the two-asset library on the inputs'
+    card, with `scratch` (numbers of f32 of device scratch) before the
+    output and `extra` ints after the grid: (policies, dpolicies) as
+    `fused2_policies_jvp` returns them."""
+    liquid, illiq, income, access = _dims(model)
+    dev = value_T.device
+    p = model.params
+    lib = cuda_build.load_library("household_sweep2")
+    with torch.cuda.device(dev):
+        out = torch.empty((6, Tm1, *state), dtype=f32, device=dev)
+        args = [*paths, value_T,
+                *(t.to(device=dev, dtype=f32).contiguous() for t in
+                  (liquid.grid, illiq.grid, income.grid, income.transition)),
+                *(torch.empty(k, dtype=f32, device=dev) for k in scratch), out]
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in args), Tm1, liquid.n, illiq.n, income.n, *extra,
+            float(p["β"]), float(access.transition[0, 1]), float(p.get("portfolio_reg", 0.0)),
+            float(p["borrow_cons"]), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, entry)
+    return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
+
+
+def default_bwd_cluster(n_e: int) -> int:
+    """Kernel 5's cluster size: one income state per block, at most 16
+    blocks (the card's largest cluster; past it a block takes several)."""
+    return min(n_e, 16)
+
+
 def fused2_policies_jvp(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, value_T, model):
     """Backward dual sweep (kernel 5): (T-1,) f32 price paths (r, ra, w,
     tau) and their tangents ↦ (policies, dpolicies), {B, A, C} dicts of
     (T-1, n_b, n_a, n_e, 2) f32 paths. value_T is the ending steady state's
-    packed (2, n_b, n_a, n_e, 2) value in f32; it carries no tangent."""
+    packed (2, n_b, n_a, n_e, 2) value in f32; it carries no tangent.
+
+    On the card: `two_asset_bwd_cluster_kernel` on one thread-block cluster
+    of `default_bwd_cluster(n_e)` blocks (one income state per block), bit
+    for bit `fused2_policies_jvp_previous`. A cluster the card cannot
+    schedule raises."""
     paths = (r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p)
-    check_tensors("fused2_policies_jvp", [value_T, *paths], f32)
-    Tm1 = r_p.shape[0]
-    liquid, illiq, income, access = _dims(model)
-    state = (liquid.n, illiq.n, income.n, 2)
-    if any(p.shape != (Tm1,) for p in paths) or Tm1 < 1 or value_T.shape != (2, *state):
-        raise ValueError(f"fused2_policies_jvp: expected (T-1,) paths and value_T "
-                         f"{(2, *state)}; got {[tuple(p.shape) for p in paths]}, "
-                         f"{tuple(value_T.shape)}")
+    Tm1, state = _policies_inputs("fused2_policies_jvp", paths, value_T, model)
     if value_T.device.type == "cpu":
         return fused2_policies_jvp_reference(*paths, value_T, model)
-    dev = value_T.device
-    p = model.params
-    lib = cuda_build.load_library("household_sweep2")
-    cuda_build.check_shared_memory2(lib, 0, liquid.n, illiq.n, income.n)
-    with torch.cuda.device(dev):
-        out = torch.empty((6, Tm1, *state), dtype=f32, device=dev)
-        scratch = torch.empty(2 * liquid.n * illiq.n * income.n, dtype=f32, device=dev)
-        args = [*paths, value_T,
-                *(t.to(device=dev, dtype=f32).contiguous() for t in
-                  (liquid.grid, illiq.grid, income.grid, income.transition)),
-                scratch, out]
-        ptrs = [t.data_ptr() for t in args]
-        err = lib.hank_sweep2_policies_jvp_f32(
-            *ptrs, Tm1, liquid.n, illiq.n, income.n, float(p["β"]),
-            float(access.transition[0, 1]), float(p.get("portfolio_reg", 0.0)),
-            float(p["borrow_cons"]), torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, err, "hank_sweep2_policies_jvp_f32")
+    out = _launch_bwd_cluster(paths, value_T, model, default_bwd_cluster(state[2]))
     fused2_policies_jvp.launches += 1
-    return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
+    return out
 
 
 fused2_policies_jvp.launches = 0
+
+
+def _launch_bwd_cluster(paths, value_T, model, cluster: int):
+    """Kernel 5 on one cluster of `cluster` blocks (1 to
+    default_bwd_cluster(n_e)), on CUDA tensors. `fused2_policies_jvp` passes
+    the default; the split tool and `chip_smoke.py` also try other sizes."""
+    Tm1, state = _policies_inputs("fused2_policies_jvp", paths, value_T, model)
+    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 3,
+                                    *state[:3], cluster)
+    return _launch_backward("hank_sweep2_policies_jvp_cluster_f32", paths, value_T, model,
+                            Tm1, state, extra=(cluster,))
+
+
+def fused2_policies_jvp_previous(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, value_T,
+                                 model):
+    """The previous kernel 5 (`two_asset_bwd_kernel`: one block walking
+    every income state of each period), which kernel 5 is held to bit for
+    bit on the card. No solver calls it. CUDA tensors only."""
+    paths = (r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p)
+    Tm1, state = _policies_inputs("fused2_policies_jvp_previous", paths, value_T, model)
+    if value_T.device.type != "cuda":
+        raise ValueError("fused2_policies_jvp_previous: the previous kernel runs on the "
+                         "card only; fused2_policies_jvp_reference is the plain version")
+    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 0,
+                                    *state[:3])
+    # Scratch: the no-access illiquid margin and its tangent (2 * N3).
+    out = _launch_backward("hank_sweep2_policies_jvp_f32", paths, value_T, model, Tm1, state,
+                           scratch=[2 * state[0] * state[1] * state[2]])
+    fused2_policies_jvp_previous.launches += 1
+    return out
+
+
+fused2_policies_jvp_previous.launches = 0
 
 
 def backward_policies(r, ra, w, tau, value_T, model):
