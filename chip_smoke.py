@@ -11,7 +11,9 @@ exits non-zero and never prints the final `"ok": true` line:
   2. build   — both kernel sources under `hank_tpu_torch/csrc/` (the
                one-asset and the two-asset household sweeps), one nvcc each
                (sm_90a) started together, with the build seconds and ptxas'
-               registers and spill bytes per kernel.
+               registers and spill bytes per kernel; every one-asset grid
+               (n_e ≤ 20) the counting template takes in one block fits
+               kernels 2-4 too, in both arithmetics (the library's count).
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
                (max|F_ss| ≤ 1e-9 each, `find_ss`'s own stopping target) and
                the steady-state Jacobian J̄.
@@ -23,17 +25,22 @@ exits non-zero and never prints the final `"ok": true` line:
                solution and at a smooth seeded point near x_ss (seeded v),
                and exactly zero tangents for a zero direction; kernel 2
                within 1e-11. Then kernel 1 against the previous kernel 1
-               (the kernel template's B = 1 launch, `fused_sweep_jvp_batch`
-               on one row), bit for bit on all four outputs, at those three
-               points and at three inputs that take its fallback branches:
-               V_T with seeded positive noise, V_T with one NaN, the grid
-               with two adjacent knots swapped; the counts of rows that took
-               each branch are reported. Median ms per
-               sweep of kernel 1, the previous kernel 1, kernel 2 and kernel
-               2's plain version, and one timed run of kernel 1's.
+               (the counting template's B = 1 launch,
+               `fused_sweep_jvp_batch_previous` on one row), bit for bit on
+               all four outputs, at those three points and at three inputs
+               that take its fallback branches: V_T with seeded positive
+               noise, V_T with one NaN, the grid with two adjacent knots
+               swapped; and kernel 2 against the previous kernel 2
+               (`fused_residual_sweep_previous`) bit for bit at the same six
+               inputs in f64; the counts of rows that took each branch are
+               reported. Median ms per sweep of kernel 1, the previous
+               kernel 1, kernel 2 and the previous kernel 2 (in turns:
+               previous, new, new, previous) and kernel 2's plain version,
+               and one timed run of kernel 1's.
   5. solve   — 3 timed runs of the same solve. The launch counters are zeroed right
                before the timed runs; both kernels must have launched and
-               neither plain version been called. The timed runs must return
+               neither plain version nor a previous kernel been called. The
+               timed runs must return
                bit-identical paths, and ‖F‖ re-evaluated by the plain f64
                pipeline must be < 1e-8.
   6. ensemble — B=64 shock paths Z_b,t = 2 − ρ_bᵗ, ρ_b = 0.5 + 0.4·b/B, from
@@ -47,14 +54,20 @@ exits non-zero and never prints the final `"ok": true` line:
                zero tangent exactly zero; the batched kernel 2 at
                the warm-up's rows, every row bit-identical to a single
                kernel-2 launch, rows {0, 63} within 1e-11 of the plain
-               version. Then 3 timed Newton-Krylov solves (counters zeroed
-               right before: both batched kernels launched, neither plain
-               version called; bit-identical paths; ‖F‖ ≤ 1e-8 on every row,
-               no stalled path; the plain f64 pipeline's ‖F‖ < 1e-8 on rows
-               0, 63 and the worst row), the gap of row 63 to the single-path
-               solve of its shock (reported), one boehl Richardson solve to
-               the same bounds, and the batched kernel 1's ms per launch at
-               B ∈ {1, 64, 132, 256, 1024} with the plain version's at B=4.
+               version. Both batched kernels against their previous kernels
+               (the counting template), bit for bit on every row at x_ss, at
+               the warm-up's rows and on the grid with two knots swapped
+               (fallback rows required there), each timed in turns with its
+               previous kernel on a few rows and on all B. Then 3 timed
+               Newton-Krylov solves (counters zeroed right before: both
+               batched kernels launched, neither plain version nor a
+               previous kernel called; bit-identical paths; ‖F‖ ≤ 1e-8 on
+               every row, no stalled path; the plain f64 pipeline's ‖F‖ <
+               1e-8 on rows 0, 63 and the worst row), the gap of row 63 to
+               the single-path solve of its shock (reported), one boehl
+               Richardson solve to the same bounds, and the ms per launch of
+               kernels 3-4 and of the previous kernels, in turns, at
+               B ∈ {1, 64, 132, 256, 1024}, with the plain version's at B=4.
   7. two-asset — `hank_two_asset` at its published width (40×20×5×2,
                `hank_tpu/models/hank_two_asset.yaml`), T=300, fiscal shock G
                from `generate_exog_paths`. Setup: the one steady state of the
@@ -123,10 +136,13 @@ exits non-zero and never prints the final `"ok": true` line:
                (smooth seeded directions; kernel 1's plain version in float64
                on the same f32 inputs), kernel 1 bit for bit against the
                previous kernel 1 at x_ss, the solution and a smooth seeded
-               point, with the ms of kernels 1-2 and the previous kernel 1 at
-               these shapes and the shared memory they take, then 3 timed `solve_model` calls
-               (counters zeroed right before: both kernels launched, no plain
-               call; paths bit-identical to the CLI's; plain-f64 ‖F‖ < 1e-8;
+               point, kernel 2 bit for bit against the previous kernel 2 at
+               the same points in f64 and on the grid with two knots
+               swapped, with the ms of kernels 1-2 and of their previous
+               kernels at these shapes and the shared memory they take, then
+               3 timed `solve_model` calls (counters zeroed right before:
+               both kernels launched, no plain call and no previous kernel;
+               paths bit-identical to the CLI's; plain-f64 ‖F‖ < 1e-8;
                within 1e-7 of the JAX package's CPU root in
                `hank_tpu_torch/data/`; the economics of the JAX package's
                tests). Then the driver's default once on the one-asset HANK:
@@ -277,35 +293,133 @@ def two_asset_ops(Tm1: int, n_b: int, n_a: int, n_e: int, which: int) -> float:
 
 def previous_kernel1(args, kw):
     """The previous kernel 1, which kernel 1 is held to bit for bit: the
-    kernel template's B = 1 launch (`fused_sweep_jvp_batch` on one row).
-    `args` are kernel 1's nine inputs."""
-    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch
+    counting template's B = 1 launch (`fused_sweep_jvp_batch_previous` on
+    one row). `args` are kernel 1's nine inputs."""
+    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
 
     rows = [a[None].contiguous() for a in args[:4]]
-    return tuple(o[0] for o in fused_sweep_jvp_batch(*rows, *args[4:], **kw))
+    return tuple(o[0] for o in fused_sweep_jvp_batch_previous(*rows, *args[4:], **kw))
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and bit patterns (NaNs included), f32 or f64."""
+    import torch
+
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    return a.shape == b.shape and torch.equal(a.contiguous().view(view),
+                                              b.contiguous().view(view))
+
+
+def vs_previous(name: str, new_fn, old_fn, inputs: dict, kw, batch: int | None = None) -> dict:
+    """A kernel with fallback counters (`new_fn`, which takes `fallback_rows`)
+    against its previous kernel (`old_fn`) on every input {label: args}, bit
+    for bit on all outputs (NaNs included). Per input: the (period, income
+    row) pairs that took each fallback branch, summed over the paths of a
+    batched launch (`batch` paths), and whether the outputs are finite."""
+    import torch
+
+    report = {}
+    for label, args in inputs.items():
+        shape = (2,) if batch is None else (batch, 2)
+        fallback = torch.zeros(shape, dtype=torch.int32, device=args[0].device)
+        new = new_fn(*args, **kw, fallback_rows=fallback)
+        old = old_fn(*args, **kw)
+        require(all(same_bits(a, b) for a, b in zip(new, old)),
+                f"{name} at {label} differs from the previous {name}")
+        counts = fallback.reshape(-1, 2).sum(0)
+        report[label] = {"fallback_rows_implied_wealth": int(counts[0]),
+                         "fallback_rows_policy": int(counts[1]),
+                         "finite": all(bool(torch.isfinite(o).all()) for o in new)}
+    return report
 
 
 def kernel1_vs_previous(inputs: dict, kw) -> dict:
     """Kernel 1 against the previous kernel 1 on every input {label: args},
     bit for bit on all four outputs (NaNs included), with the count of
     (period, income row) pairs that took each fallback branch."""
-    import torch
-
     from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
 
-    def same_bits(a, b):
-        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return vs_previous("kernel 1", fused_sweep_jvp, lambda *a, **k: previous_kernel1(a, k),
+                       inputs, kw)
 
+
+def kernel2_vs_previous(inputs: dict, kw) -> dict:
+    """Kernel 2 against the previous kernel 2 (the counting template's
+    `<double, false, false>`) on every input {label: its seven f64 args},
+    as `vs_previous` holds them."""
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_previous)
+
+    return vs_previous("kernel 2", fused_residual_sweep, fused_residual_sweep_previous,
+                       inputs, kw)
+
+
+def fallback_sum(report: dict, labels) -> list:
+    """[implied wealth, policy] fallback rows summed over `labels` of a
+    `vs_previous` report."""
+    return [sum(report[k][f"fallback_rows_{what}"] for k in labels)
+            for what in ("implied_wealth", "policy")]
+
+
+def in_turns(fns: dict, reps: int) -> dict:
+    """Median ms of each of two callables {name: fn}, timed in turns
+    (first, second, second, first), `reps` launches a turn."""
+    a, b = fns
+    turns = {a: [], b: []}
+    for name in (a, b, b, a):
+        turns[name].append(cuda_ms(fns[name], reps))
+    return {name: statistics.median(t) for name, t in turns.items()}
+
+
+def previous_launches() -> dict:
+    """The launch counts of the three `_previous` wrappers of the one-asset
+    sweep (the counting template); no solver may launch them."""
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch_previous,
+                                                   fused_residual_sweep_previous)
+    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
+
+    return {"k2_previous": fused_residual_sweep_previous.launches,
+            "k2_batch_previous": fused_residual_sweep_batch_previous.launches,
+            "k3_4_previous": fused_sweep_jvp_batch_previous.launches}
+
+
+def zero_previous_launches() -> None:
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch_previous,
+                                                   fused_residual_sweep_previous)
+    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
+
+    fused_residual_sweep_previous.launches = 0
+    fused_residual_sweep_batch_previous.launches = 0
+    fused_sweep_jvp_batch_previous.launches = 0
+
+
+def one_asset_grids() -> dict:
+    """Every one-asset grid (n_a ≥ 2, n_e ≤ 20) that the counting template
+    takes in one block, per arithmetic (which 0: f64 values, 1: f32 dual):
+    kernels 2 and 3-4 (which 4, 3) fit it too, by the library's own
+    shared-memory count. Fails otherwise. Reports the grids kernel 1 (which
+    2, whose row flags take 8·n_e bytes more) refuses."""
+    from hank_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load_library()
+    limit = cuda_build.MAX_SMEM_BYTES
     report = {}
-    for label, args in inputs.items():
-        fallback = torch.zeros(2, dtype=torch.int32, device=args[0].device)
-        new = fused_sweep_jvp(*args, **kw, fallback_rows=fallback)
-        old = previous_kernel1(args, kw)
-        require(all(same_bits(a, b) for a, b in zip(new, old)),
-                f"kernel 1 at {label} differs from the previous kernel 1")
-        report[label] = {"fallback_rows_implied_wealth": int(fallback[0]),
-                         "fallback_rows_policy": int(fallback[1]),
-                         "finite": all(bool(torch.isfinite(o).all()) for o in new)}
+    for old, new, label in ((0, 4, "f64_values"), (1, 3, "f32_dual")):
+        taken, refused, k1_refused = 0, [], []
+        for n_e in range(1, 21):
+            n_a = 2
+            while lib.hank_sweep_smem_bytes(old, n_a, n_e) <= limit:
+                taken += 1
+                if lib.hank_sweep_smem_bytes(new, n_a, n_e) > limit:
+                    refused.append((n_a, n_e))
+                if old == 1 and lib.hank_sweep_smem_bytes(2, n_a, n_e) > limit:
+                    k1_refused.append((n_a, n_e))
+                n_a += 1
+        require(taken > 10_000 and not refused,
+                f"{label}: the new kernel refuses {len(refused)} grids the template "
+                f"takes: {refused[:5]}")
+        report[label] = {"grids_of_the_template": taken, "refused": 0,
+                         **({"kernel1_refuses": k1_refused} if old == 1 else {})}
     return report
 
 
@@ -516,9 +630,11 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
 
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_previous,
                                                    fused_residual_sweep_batch_reference)
     from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_previous,
                                                       fused_sweep_jvp_batch_reference)
     from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
     from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
@@ -566,9 +682,12 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     decay = (0.9 ** torch.arange(Tm1, dtype=f64))[None, :, None]
     c32_as64 = [c.double() for c in c32]
     k3_err = 0.0
-    for x_b in (x_ss.expand(B, -1), x_warm):
+    k34_inputs, k2b_inputs = {}, {}
+    for label, x_b in (("x_ss", x_ss.expand(B, -1)), ("solution", x_warm)):
         v_b = (torch.randn((B, 1, nE), generator=gen, dtype=f64) * decay).reshape(B, -1).to(dev)
         paths = (*prices(x_b, f32), *prices(v_b, f32))
+        k34_inputs[label] = (*paths, *c32)
+        k2b_inputs[label] = (*prices(x_b, f64), *c64)
         out = fused_sweep_jvp_batch(*paths, *c32, **kw)
         for b in range(B):
             single = fused_sweep_jvp(*(q[b].contiguous() for q in paths), *c32, **kw)
@@ -589,7 +708,6 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     small = rows_of(paths, check_rows)
     ref32, plain_ms = cuda_once(lambda: fused_sweep_jvp_batch_reference(*small, *c32, **kw))
     k3_err_f32 = max(max_abs(o[check_rows], r_) for o, r_ in zip(out, ref32))
-    k3_ms = cuda_ms(lambda: fused_sweep_jvp_batch(*small, *c32, **kw), 10)
 
     # Batched kernel 2 at the rows of the warm-up solution.
     r64, w64 = prices(x_warm, f64)
@@ -602,22 +720,63 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
         *rows_of((r64, w64), [0, B - 1]), *c64, **kw))
     k2b_err = max(max_abs(o[[0, B - 1]], r_) for o, r_ in zip(out2, ref2))
     require(k2b_err <= 1e-11, f"batched kernel 2 off its plain version by {k2b_err:.3e}")
-    k2b_ms = cuda_ms(lambda: fused_residual_sweep_batch(
-        *rows_of((r64, w64), [0, B - 1]), *c64, **kw), 10)
-    k2b_ms_full = cuda_ms(lambda: fused_residual_sweep_batch(r64, w64, *c64, **kw), 10)
+
+    # Kernels 3-4 and the batched kernel 2 against their previous kernels,
+    # bit for bit on every row, at x_ss, at the warm-up's rows and on the
+    # grid with two knots swapped (the fallback branches).
+    k = int(wealth.n) // 2
+    swap32, swap64 = c32[2].clone(), c64[2].clone()
+    swap32[[k, k + 1]] = swap32[[k + 1, k]]
+    swap64[[k, k + 1]] = swap64[[k + 1, k]]
+    sol32, sol64 = k34_inputs["solution"], k2b_inputs["solution"]
+    k34_inputs["grid_swapped"] = (*sol32[:6], swap32, *sol32[7:])
+    k2b_inputs["grid_swapped"] = (*sol64[:4], swap64, *sol64[5:])
+    k34_bits = vs_previous("batched kernel 1 (kernels 3-4)", fused_sweep_jvp_batch,
+                           fused_sweep_jvp_batch_previous, k34_inputs, kw, batch=B)
+    k2b_bits = vs_previous("batched kernel 2", fused_residual_sweep_batch,
+                           fused_residual_sweep_batch_previous, k2b_inputs, kw, batch=B)
+    require(sum(fallback_sum(k34_bits, ["grid_swapped"])) > 0
+            and sum(fallback_sum(k2b_bits, ["grid_swapped"])) > 0,
+            f"the swapped grid took no fallback branch: {k34_bits}, {k2b_bits}")
+
+    # ms of each against its previous kernel in turns: kernels 3-4 on the 4
+    # check rows and on all B, the batched kernel 2 on rows {0, B-1} and on
+    # all B.
+    full = k34_inputs["solution"]
+    rows2 = rows_of((r64, w64), [0, B - 1])
+    k34_turns = {
+        "B4": in_turns({"previous": lambda: fused_sweep_jvp_batch_previous(*small, *c32, **kw),
+                        "new": lambda: fused_sweep_jvp_batch(*small, *c32, **kw)}, 10),
+        f"B{B}": in_turns({"previous": lambda: fused_sweep_jvp_batch_previous(*full, **kw),
+                           "new": lambda: fused_sweep_jvp_batch(*full, **kw)}, 10)}
+    k2b_turns = {
+        "B2": in_turns({"previous": lambda: fused_residual_sweep_batch_previous(*rows2, *c64,
+                                                                               **kw),
+                        "new": lambda: fused_residual_sweep_batch(*rows2, *c64, **kw)}, 10),
+        f"B{B}": in_turns({"previous": lambda: fused_residual_sweep_batch_previous(
+                               r64, w64, *c64, **kw),
+                           "new": lambda: fused_residual_sweep_batch(r64, w64, *c64, **kw)}, 10)}
+    k3_ms, k2b_ms, k2b_ms_full = (k34_turns["B4"]["new"], k2b_turns["B2"]["new"],
+                                  k2b_turns[f"B{B}"]["new"])
     emit("ensemble_kernels", B=B, k3_max_abs_err=k3_err,
          k3_max_abs_err_vs_plain_f32=k3_err_f32, k3_ms_B4=k3_ms,
          k3_plain_ms_B4=plain_ms, k2_batch_max_abs_err=k2b_err, k2_batch_ms_B2=k2b_ms,
          k2_batch_plain_ms_B2=plain2_ms, k2_batch_ms_full_B=k2b_ms_full,
-         rows_bit_identical=True)
+         rows_bit_identical=True, k3_4_vs_previous_bit_identical=k34_bits,
+         k2_batch_vs_previous_bit_identical=k2b_bits, k3_4_turns_ms=k34_turns,
+         k2_batch_turns_ms=k2b_turns)
 
     # Newton-Krylov: 3 timed runs after the warm-up.
     def zero_counts():
         fused_sweep_jvp_batch.launches = fused_residual_sweep_batch.launches = 0
         fused_sweep_jvp_batch_reference.calls = 0
         fused_residual_sweep_batch_reference.calls = 0
+        zero_previous_launches()
 
     def read_counts():
+        previous = previous_launches()
+        require(not any(previous.values()),
+                f"a previous kernel ran on the ensemble path: {previous}")
         return ({"k3_4": fused_sweep_jvp_batch.launches,
                  "k2_batch": fused_residual_sweep_batch.launches},
                 {"k3_4": fused_sweep_jvp_batch_reference.calls,
@@ -678,16 +837,20 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          sweeps=info_r["inner_iterations"], residual_norm_max=float(fr.max()),
          launches=rich_launches, max_abs_vs_nk=max_abs(x_rich, xs[0]))
 
-    # Throughput of the batched kernel 1 by width (rows of the solution).
+    # Throughput of kernels 3-4 and of the previous kernels by width (rows of
+    # the solution), in turns at each width.
     gen = torch.Generator().manual_seed(2)
-    width_ms = {}
+    width_ms, width_ms_previous = {}, {}
     for Bw in widths:
         idx = torch.arange(Bw, device=dev) % B
         v_w = torch.randn((Bw, x_ss.numel()), generator=gen, dtype=f64).to(dev)
         args_w = (*prices(xs[0][idx], f32), *prices(v_w, f32))
-        width_ms[Bw] = cuda_ms(lambda: fused_sweep_jvp_batch(*args_w, *c32, **kw), 10)
+        turns = in_turns({"previous": lambda: fused_sweep_jvp_batch_previous(*args_w, *c32, **kw),
+                          "new": lambda: fused_sweep_jvp_batch(*args_w, *c32, **kw)}, 5)
+        width_ms[Bw], width_ms_previous[Bw] = turns["new"], turns["previous"]
     emit("ensemble_throughput", ms_per_launch=width_ms,
-         sweeps_per_s={Bw: Bw / (ms / 1e3) for Bw, ms in width_ms.items()})
+         sweeps_per_s={Bw: Bw / (ms / 1e3) for Bw, ms in width_ms.items()},
+         ms_per_launch_previous=width_ms_previous)
 
     # Bounds of the timed calls: the batched kernel 1 on the 4 check rows,
     # the batched kernel 2 on rows {0, B-1}.
@@ -697,10 +860,14 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     rows2 = rows_of((r64, w64), [0, B - 1])
     k2b_bound = least_time(nbytes(*rows2, *c64) + 2 * nbytes(rows2[0]),
                            one_asset_sweep_ops(Tm1, n_a, n_e, False, 2), "f64")
+    solver_points = ("x_ss", "solution")
     entry = {"route": "cuda", "source": "hank_tpu_torch/csrc/household_sweep.cu",
              "launches": launches["k3_4"], "max_abs_err": k3_err, "ms": k3_ms,
              "plain_ms": plain_ms, **k3_bound, "library_ms": None,
-             f"ms_B{B}": width_ms.get(B)}
+             "ms_previous": k34_turns["B4"]["previous"],
+             "fallback_rows": fallback_sum(k34_bits, solver_points),
+             f"ms_B{B}": k34_turns[f"B{B}"]["new"],
+             f"ms_previous_B{B}": k34_turns[f"B{B}"]["previous"]}
     return [
         {"name": "fused_sweep_jvp_batch (backward EGM)",
          "replaces": "hank_tpu/ops/fused_sweep_batch.py:87", **entry},
@@ -710,7 +877,9 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_ds.py:338", "launches": launches["k2_batch"],
          "max_abs_err": k2b_err, "ms": k2b_ms, "plain_ms": plain2_ms, **k2b_bound,
-         "library_ms": None, f"ms_B{B}": k2b_ms_full},
+         "library_ms": None, "ms_previous": k2b_turns["B2"]["previous"],
+         "fallback_rows": fallback_sum(k2b_bits, solver_points),
+         f"ms_B{B}": k2b_ms_full, f"ms_previous_B{B}": k2b_turns[f"B{B}"]["previous"]},
     ]
 
 
@@ -1049,6 +1218,7 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     from hank_tpu_torch.models import load_model
     from hank_tpu_torch.ops import cuda_build
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
     from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_reference,
                                                 sweep_setup)
@@ -1077,7 +1247,8 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     lib = cuda_build.load_library()
     smem = {"k1": lib.hank_sweep_smem_bytes(2, n_a, n_e),
             "k1_previous": lib.hank_sweep_smem_bytes(1, n_a, n_e),
-            "k2": lib.hank_sweep_smem_bytes(0, n_a, n_e)}
+            "k2": lib.hank_sweep_smem_bytes(4, n_a, n_e),
+            "k2_previous": lib.hank_sweep_smem_bytes(0, n_a, n_e)}
     emit("driver_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
          max_abs_F_ss=F_ss, max_abs_vs_jax_ss=ss_gap, smem_bytes=smem,
          **{k: float(ssT.vars[k]) for k in endog})
@@ -1135,18 +1306,34 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
     bit_inputs["smooth"] = (*sweep_args(smooth, v, f32), *c32)
     bits = kernel1_vs_previous(bit_inputs, kw)
+    # Kernel 2 against the previous kernel 2 at the same points in f64, and
+    # with two knots of the grid swapped (its fallback branches).
+    bit_inputs64 = {label: (*sweep_args(x, v, f64)[:2], *c64) for label, x in
+                    (("x_ss", x_ss), ("solution", x_cli), ("smooth", smooth))}
+    k = n_a // 2
+    swapped = c64[2].clone()
+    swapped[[k, k + 1]] = swapped[[k + 1, k]]
+    bit_inputs64["grid_swapped"] = (*bit_inputs64["x_ss"][:4], swapped,
+                                    *bit_inputs64["x_ss"][5:])
+    bits2 = kernel2_vs_previous(bit_inputs64, kw)
+    require(sum(fallback_sum(bits2, ["grid_swapped"])) > 0,
+            f"{name}: kernel 2 on the swapped grid took no fallback branch: {bits2}")
+    k2_turns = in_turns({
+        "k2_previous": lambda: fused_residual_sweep_previous(*args64, *c64, **kw),
+        "k2": lambda: fused_residual_sweep(*args64, *c64, **kw)}, 10)
     timing = {"k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args, *c32, **kw), 20),
               "k1_previous_ms": cuda_ms(lambda: previous_kernel1((*args, *c32), kw), 20),
-              "k2_ms": cuda_ms(lambda: fused_residual_sweep(*args64, *c64, **kw), 20),
+              "k2_ms": k2_turns["k2"], "k2_previous_ms": k2_turns["k2_previous"],
               "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args, *c32, **kw))[1],
               "k2_plain_ms": cuda_once(
                   lambda: fused_residual_sweep_reference(*args64, *c64, **kw))[1]}
     emit("driver_kernels", model=name, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
-         k1_vs_previous_bit_identical=bits, **timing)
+         k1_vs_previous_bit_identical=bits, k2_vs_previous_bit_identical=bits2, **timing)
 
     # Three timed `solve_model` calls, counts zeroed right before them.
     fused_sweep_jvp.launches = fused_residual_sweep.launches = 0
     fused_sweep_jvp_reference.calls = fused_residual_sweep_reference.calls = 0
+    zero_previous_launches()
     runs, solve_s, xs = [], [], []
     for _ in range(3):
         recs = []
@@ -1164,6 +1351,9 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
             f"{name}: a kernel of the driver's path never launched: {launches}")
     require(plain_calls["k1"] == 0 and plain_calls["k2"] == 0,
             f"{name}: a plain version ran on the driver's path: {plain_calls}")
+    previous = previous_launches()
+    require(not any(previous.values()),
+            f"{name}: a previous kernel ran on the driver's path: {previous}")
     x_sol = torch.as_tensor(xs[0].reshape(-1), dtype=f64, device=dev)
     require(all(np.array_equal(xs[0], xi) for xi in xs[1:]) and torch.equal(x_sol, x_cli),
             f"{name}: repeated solves returned different paths")
@@ -1197,11 +1387,11 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
          runs_s=runs, path_solve_s=solve_s, outer_iterations=info["iterations"],
          residual_norm=info["residual_norm"], residual_norm_plain_f64=fnorm_plain,
          max_abs_vs_jax=vs_jax, launches=launches, plain_calls=plain_calls,
-         k1_launches_per_solve=launches["k1"] / 3, k2_launches_per_solve=launches["k2"] / 3,
+         previous_kernel_launches=previous, k1_launches_per_solve=launches["k1"] / 3, k2_launches_per_solve=launches["k2"] / 3,
          bit_identical=True, economics=econ)
     return {"model": model, "ss0": ss0, "ssT": ssT, "exog": exog, "x": x_sol, "cli": cli,
             "k1_ms": timing["k1_ms"], "k1_previous_ms": timing["k1_previous_ms"],
-            "k2_ms": timing["k2_ms"]}
+            "k2_ms": timing["k2_ms"], "k2_previous_ms": timing["k2_previous_ms"]}
 
 
 def driver_phase(dev) -> dict:
@@ -1320,6 +1510,7 @@ def main() -> int:
     from hank_tpu_torch.models.krusell_smith import exogenousZ
     from hank_tpu_torch.ops import cuda_build
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
     from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp,
                                                 fused_sweep_jvp_reference)
@@ -1345,7 +1536,8 @@ def main() -> int:
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
-    emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas)
+    emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
+         one_asset_grids=one_asset_grids())
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -1461,22 +1653,39 @@ def main() -> int:
     k2_err = max(max_abs(o, r_) for o, r_ in zip(out2, ref2))
     require(k2_err <= 1e-11, f"kernel 2 off its plain version by {k2_err:.3e}")
 
+    # Kernel 2 against the previous kernel 2, bit for bit, at kernel 1's
+    # points and stress inputs in f64 (the same seeded noise, NaN and swap).
+    bit_inputs64 = {label: (*prices(x, f64), *c64) for label, x in
+                    (("x_ss", x_ss), ("solution", x_warm), ("smooth", smooth))}
+    base64 = bit_inputs64["x_ss"]
+    bit_inputs64["V_T_noise"] = (*base64[:2], V_noisy.double().contiguous(), *base64[3:])
+    bit_inputs64["V_T_nan"] = (*base64[:2], V_nan.double(), *base64[3:])
+    bit_inputs64["grid_swapped"] = (*base64[:4], swapped.double(), *base64[5:])
+    bits2 = kernel2_vs_previous(bit_inputs64, kw)
+    require(bits2["V_T_noise"]["fallback_rows_implied_wealth"] > 0
+            and bits2["V_T_nan"]["fallback_rows_implied_wealth"] > 0
+            and bits2["grid_swapped"]["fallback_rows_policy"] > 0,
+            f"kernel 2: an input meant to take a fallback branch did not: {bits2}")
+
     args32 = (*prices(x, f32), *prices(v, f32), *c32)
+    k2_turns = in_turns({"k2_previous": lambda: fused_residual_sweep_previous(*args64, **kw),
+                         "k2": lambda: fused_residual_sweep(*args64, **kw)}, 10)
     timing = {
         "k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args32, **kw), 20),
         "k1_previous_ms": cuda_ms(lambda: previous_kernel1(args32, kw), 20),
         "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args32, **kw))[1],
-        "k2_ms": cuda_ms(lambda: fused_residual_sweep(*args64, **kw), 20),
+        "k2_ms": k2_turns["k2"], "k2_previous_ms": k2_turns["k2_previous"],
         "k2_plain_ms": cuda_ms(lambda: fused_residual_sweep_reference(*args64, **kw), 3),
     }
     emit("kernels", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
-         k1_vs_previous_bit_identical=bits, **timing)
+         k1_vs_previous_bit_identical=bits, k2_vs_previous_bit_identical=bits2, **timing)
 
     # ── 5. solve ───────────────────────────────────────────────────────────
     fused_sweep_jvp.launches = 0
     fused_residual_sweep.launches = 0
     fused_sweep_jvp_reference.calls = 0
     fused_residual_sweep_reference.calls = 0
+    zero_previous_launches()
     runs, xs = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1491,6 +1700,8 @@ def main() -> int:
             f"a kernel of the main path never launched: {launches}")
     require(plain_calls["k1"] == 0 and plain_calls["k2"] == 0,
             f"a plain version ran on the main path: {plain_calls}")
+    previous = previous_launches()
+    require(not any(previous.values()), f"a previous kernel ran on the main path: {previous}")
     require(all(torch.equal(xs[0], xi) for xi in xs[1:]) and torch.equal(xs[0], x_warm),
             "repeated solves returned different paths")
     F_plain = make_full_residual_fn(model, ss0, ssT, exog)
@@ -1501,7 +1712,7 @@ def main() -> int:
     emit("solve", median_s=statistics.median(runs), runs_s=runs,
          outer_iterations=info["iterations"], residual_norm=info["residual_norm"],
          residual_norm_plain_f64=fnorm_plain, launches=launches,
-         plain_calls=plain_calls, bit_identical=True)
+         plain_calls=plain_calls, previous_kernel_launches=previous, bit_identical=True)
 
     # ── 6. ensemble ────────────────────────────────────────────────────────
     ensemble_kernels = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
@@ -1536,8 +1747,10 @@ def main() -> int:
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
          "replaces": "hank_tpu/ops/fused_ds.py:338", "launches": launches["k2"],
          "max_abs_err": k2_err, "ms": timing["k2_ms"], "plain_ms": timing["k2_plain_ms"],
-         **k2_bound, "library_ms": None,
-         **{f"ms_{k}": c["k2_ms"] for k, c in driver.items()}},
+         **k2_bound, "library_ms": None, "ms_previous": timing["k2_previous_ms"],
+         "fallback_rows": fallback_sum(bits2, ("x_ss", "solution", "smooth")),
+         **{f"ms_{k}": c["k2_ms"] for k, c in driver.items()},
+         **{f"ms_previous_{k}": c["k2_previous_ms"] for k, c in driver.items()}},
         *ensemble_kernels,
         *two_asset_kernels,
         scan_kernel,

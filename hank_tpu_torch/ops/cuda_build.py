@@ -3,9 +3,11 @@
 Each source under `csrc/` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `hank_tpu_torch/_build/`
 (git-ignored):
-  - `household_sweep.cu`: the one-asset sweep (kernels 1-4): kernel 1 and,
-    beside it, single-path and path-batched entry points of one kernel
-    template; and the forward distribution scan (kernel 7);
+  - `household_sweep.cu`: the one-asset sweep (kernels 1-4): kernel 1,
+    kernels 2-4 (single-path and path-batched entry points of one kernel
+    template with kernel 1's design), the previous kernels 2-4 they are
+    held to (`_previous` entry points); and the forward distribution scan
+    (kernel 7);
   - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, and the
     previous kernels 5 and 6 that they are held to).
 The libraries are keyed by the SHA-256 of both sources, so an edited source
@@ -107,9 +109,12 @@ _SIGNATURES = {
     # name: (number of pointers, of ints, of doubles) before the trailing stream
     "household_sweep": {
         "hank_sweep_jvp_f32": (16, 3, 3),
-        "hank_sweep_residual_f64": (10, 3, 3),
-        "hank_sweep_jvp_f32_batch": (15, 4, 3),
-        "hank_sweep_residual_f64_batch": (10, 4, 3),
+        "hank_sweep_residual_f64": (11, 3, 3),
+        "hank_sweep_jvp_f32_batch": (16, 4, 3),
+        "hank_sweep_residual_f64_batch": (11, 4, 3),
+        "hank_sweep_residual_f64_previous": (10, 3, 3),
+        "hank_sweep_jvp_f32_batch_previous": (15, 4, 3),
+        "hank_sweep_residual_f64_batch_previous": (10, 4, 3),
         "hank_forward_scan_f32": (6, 3, 0),
     },
     "household_sweep2": {
@@ -153,8 +158,10 @@ def _check_smem(need: int, what: str) -> None:
 
 
 def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:
-    """The one-asset sweep at an n_a×n_e grid: which = 0 the template's
-    f64 residual build, 1 its f32 dual build, 2 kernel 1."""
+    """The one-asset sweep at an n_a×n_e grid: which = 0 the previous
+    kernel 2 (the counting template's f64 residual build), 1 the previous
+    kernels 3-4 (its f32 dual build), 2 kernel 1, 3 kernels 3-4, 4 kernel 2
+    (the template with kernel 1's design, f32 dual and f64 builds)."""
     _check_smem(lib.hank_sweep_smem_bytes(which, n_a, n_e), f"grid {n_a}x{n_e}")
 
 

@@ -3,10 +3,12 @@
 Replaces the TPU kernel `hank_tpu/ops/fused_ds.py::fused_ds_residual_sweep`
 (`_make_fused_ds_kernel`), which carried double-single f32 pairs because the
 TPU has no f64 hardware. The H100 has native FP64, so this is the same
-recursion as kernel 1 (`csrc/household_sweep.cu`, instantiated as
-`<double, false>`): values only, no tangent, general `pow` — the integer-γ
-gate, `ops/ds.py` and the interpret-mode `pure_callback` fence of the
-reference are gone.
+recursion as kernel 1 (`csrc/household_sweep.cu`,
+`household_sweep_ranged_kernel<double, false, false>`): values only, no
+tangent, general `pow`, with kernel 1's binary-search brackets and lottery
+source ranges on rows checked non-decreasing — the integer-γ gate,
+`ops/ds.py` and the interpret-mode `pure_callback` fence of the reference
+are gone.
 
 `fused_residual_sweep` launches the kernel for CUDA tensors and runs the
 plain PyTorch version `fused_residual_sweep_reference` (the f64 household
@@ -14,11 +16,18 @@ blocks) only for CPU tensors. `make_sweep_residual_fn` is the reference's
 `make_ds_residual_fn` F (`hank_tpu/ops/fused_ds.py:497-507`): every
 full-precision F(x) of the path solver.
 
-`fused_residual_sweep_batch` is the same kernel over an ensemble, one block
-per path (plain version `fused_residual_sweep_batch_reference`), and
-`make_sweep_residual_fn_batch` the ensemble's F_b: every full-precision
-residual of `parallel/ensemble.py`. The reference computes that one as
-`jax.vmap` of the f64 pipeline (`hank_tpu/parallel/ensemble.py:76-95`).
+`fused_residual_sweep_batch` is the same kernel over an ensemble
+(`<double, false, true>`, one block per path; plain version
+`fused_residual_sweep_batch_reference`), and `make_sweep_residual_fn_batch`
+the ensemble's F_b: every full-precision residual of `parallel/ensemble.py`.
+The reference computes that one as `jax.vmap` of the f64 pipeline
+(`hank_tpu/parallel/ensemble.py:76-95`).
+
+`fused_residual_sweep_previous` and `fused_residual_sweep_batch_previous`
+launch the previous kernel 2 (the counting template
+`household_sweep_kernel<double, false, *>`), which both are held to bit for
+bit on the card; no solver calls them. `.launches` counts kernel launches
+and `.calls` plain-version calls.
 """
 
 from __future__ import annotations
@@ -26,30 +35,52 @@ from __future__ import annotations
 import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
-from hank_tpu_torch.ops.fused_sweep import (_check_inputs, household_aggregates,
-                                            launch_sweep, sweep_setup)
+from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fallback_pointer,
+                                            household_aggregates, launch_sweep,
+                                            require_card, sweep_setup)
 
 f64 = torch.float64
 
 
 def fused_residual_sweep(r_path, w_path, V_T, D0, grid, e_grid, Pi,
-                         *, beta: float, gamma: float, borrow_cons: float):
+                         *, beta: float, gamma: float, borrow_cons: float,
+                         fallback_rows: torch.Tensor | None = None):
     """(r, w) f64 price paths ↦ (agg, aggc): the (T-1,) f64 savings and
     consumption aggregate paths. Inputs float64, contiguous, on one device;
-    state arrays (n_a, n_e)."""
+    state arrays (n_a, n_e). fallback_rows: optional (2,) int32 CUDA
+    tensor, as in `fused_sweep_jvp`; refused on CPU tensors."""
     _check_inputs("fused_residual_sweep", f64, (r_path, w_path),
                   V_T, D0, grid, e_grid, Pi)
+    fallback = fallback_pointer("fused_residual_sweep", fallback_rows, V_T, (2,))
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
         return fused_residual_sweep_reference(r_path, w_path, V_T, D0, grid,
                                               e_grid, Pi, **kw)
     out = launch_sweep("hank_sweep_residual_f64", (r_path, w_path), V_T, D0, grid,
-                       e_grid, Pi, n_out=2, smem_kind=0, **kw)
+                       e_grid, Pi, n_out=2, smem_kind=4, extra_ptrs=fallback, **kw)
     fused_residual_sweep.launches += 1
     return out
 
 
 fused_residual_sweep.launches = 0
+
+
+def fused_residual_sweep_previous(r_path, w_path, V_T, D0, grid, e_grid, Pi,
+                                  *, beta: float, gamma: float, borrow_cons: float):
+    """The previous kernel 2 (`household_sweep_kernel<double, false, false>`,
+    which counts brackets and scans every source), with
+    `fused_residual_sweep`'s arguments and outputs. CUDA tensors only."""
+    _check_inputs("fused_residual_sweep_previous", f64, (r_path, w_path),
+                  V_T, D0, grid, e_grid, Pi)
+    require_card("fused_residual_sweep_previous", V_T, "fused_residual_sweep_reference")
+    out = launch_sweep("hank_sweep_residual_f64_previous", (r_path, w_path), V_T, D0,
+                       grid, e_grid, Pi, n_out=2, smem_kind=0, beta=beta, gamma=gamma,
+                       borrow_cons=borrow_cons)
+    fused_residual_sweep_previous.launches += 1
+    return out
+
+
+fused_residual_sweep_previous.launches = 0
 
 
 def fused_residual_sweep_reference(r_path, w_path, V_T, D0, grid, e_grid, Pi,
@@ -65,23 +96,48 @@ fused_residual_sweep_reference.calls = 0
 
 
 def fused_residual_sweep_batch(r_b, w_b, V_T, D0, grid, e_grid, Pi,
-                               *, beta: float, gamma: float, borrow_cons: float):
+                               *, beta: float, gamma: float, borrow_cons: float,
+                               fallback_rows: torch.Tensor | None = None):
     """Kernel 2 over an ensemble: (B, T-1) f64 price paths ↦ (agg, aggc),
     each (B, T-1), in one launch of one block per path. Row b is
-    bit-identical to `fused_residual_sweep` on row b."""
+    bit-identical to `fused_residual_sweep` on row b. fallback_rows:
+    optional (B, 2) int32 CUDA tensor, row b path b's counts; refused on
+    CPU tensors."""
     _check_inputs("fused_residual_sweep_batch", f64, (r_b, w_b),
                   V_T, D0, grid, e_grid, Pi, batched=True)
+    fallback = fallback_pointer("fused_residual_sweep_batch", fallback_rows, V_T,
+                                (r_b.shape[0], 2))
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
         return fused_residual_sweep_batch_reference(r_b, w_b, V_T, D0, grid,
                                                     e_grid, Pi, **kw)
     out = launch_sweep("hank_sweep_residual_f64_batch", (r_b, w_b), V_T, D0, grid,
-                       e_grid, Pi, n_out=2, smem_kind=0, **kw)
+                       e_grid, Pi, n_out=2, smem_kind=4, extra_ptrs=fallback, **kw)
     fused_residual_sweep_batch.launches += 1
     return out
 
 
 fused_residual_sweep_batch.launches = 0
+
+
+def fused_residual_sweep_batch_previous(r_b, w_b, V_T, D0, grid, e_grid, Pi,
+                                        *, beta: float, gamma: float,
+                                        borrow_cons: float):
+    """The previous batched kernel 2 (`household_sweep_kernel<double, false,
+    *>`), with `fused_residual_sweep_batch`'s arguments and outputs. CUDA
+    tensors only."""
+    _check_inputs("fused_residual_sweep_batch_previous", f64, (r_b, w_b),
+                  V_T, D0, grid, e_grid, Pi, batched=True)
+    require_card("fused_residual_sweep_batch_previous", V_T,
+                 "fused_residual_sweep_batch_reference")
+    out = launch_sweep("hank_sweep_residual_f64_batch_previous", (r_b, w_b), V_T, D0,
+                       grid, e_grid, Pi, n_out=2, smem_kind=0, beta=beta, gamma=gamma,
+                       borrow_cons=borrow_cons)
+    fused_residual_sweep_batch_previous.launches += 1
+    return out
+
+
+fused_residual_sweep_batch_previous.launches = 0
 
 
 def fused_residual_sweep_batch_reference(r_b, w_b, V_T, D0, grid, e_grid, Pi,

@@ -9,8 +9,9 @@ dual-number arithmetic in one launch, and returns the savings and
 consumption aggregate paths and their directional derivatives. Every f32
 GMRES matvec of the Newton-Krylov path solver is one launch. It brackets
 by binary search and sums the lottery over source ranges where the rows
-are monotone, and is bit for bit the kernel template's `<float, true>`
-B = 1 launch (`fused_sweep_batch.fused_sweep_jvp_batch` on one row).
+are monotone, and is bit for bit the counting kernel template's
+`<float, true>` B = 1 launch (`fused_sweep_batch.fused_sweep_jvp_batch_previous`
+on one row).
 
 `fused_sweep_jvp` launches the kernel for CUDA tensors and runs the plain
 PyTorch version `fused_sweep_jvp_reference` (`torch.func.jvp` through the
@@ -130,6 +131,33 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
     return tuple(out)
 
 
+def fallback_pointer(name, fallback_rows, V_T, shape) -> list:
+    """`launch_sweep`'s extra pointer for a kernel that counts the rows
+    taking its fallback branches: null, or `fallback_rows` checked to be a
+    contiguous int32 tensor of `shape` on the inputs' CUDA device. The
+    plain versions have no such branches, so on CPU tensors it must be
+    None."""
+    if fallback_rows is None:
+        return [0]
+    if V_T.device.type == "cpu":
+        raise ValueError(f"{name}: fallback_rows counts branches of the CUDA kernel; "
+                         "the plain version has none")
+    if (not isinstance(fallback_rows, torch.Tensor) or fallback_rows.dtype != torch.int32
+            or tuple(fallback_rows.shape) != shape or fallback_rows.device != V_T.device
+            or not fallback_rows.is_contiguous()):
+        raise ValueError(f"{name}: fallback_rows must be a contiguous {shape} int32 "
+                         "tensor on the inputs' device")
+    return [fallback_rows.data_ptr()]
+
+
+def require_card(name, V_T, plain) -> None:
+    """The previous kernels run on the card only: their plain version is
+    `plain`, the new kernel's."""
+    if V_T.device.type != "cuda":
+        raise ValueError(f"{name}: the previous kernel runs on the card only; "
+                         f"{plain} is the plain version")
+
+
 def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
                     *, beta: float, gamma: float, borrow_cons: float,
                     fallback_rows: torch.Tensor | None = None):
@@ -150,21 +178,12 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     """
     paths = (r_path, w_path, dr_path, dw_path)
     _check_inputs("fused_sweep_jvp", f32, paths, V_T, D0, grid, e_grid, Pi)
+    fallback = fallback_pointer("fused_sweep_jvp", fallback_rows, V_T, (2,))
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
-        if fallback_rows is not None:
-            raise ValueError("fused_sweep_jvp: fallback_rows counts branches of the "
-                             "CUDA kernel; the plain version has none")
         return fused_sweep_jvp_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
-    if fallback_rows is not None and (fallback_rows.dtype != torch.int32
-                                      or fallback_rows.shape != (2,)
-                                      or fallback_rows.device != V_T.device):
-        raise ValueError("fused_sweep_jvp: fallback_rows must be a (2,) int32 tensor "
-                         "on the inputs' device")
     out = launch_sweep("hank_sweep_jvp_f32", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, smem_kind=2,
-                       extra_ptrs=[0 if fallback_rows is None else fallback_rows.data_ptr()],
-                       **kw)
+                       n_out=4, smem_kind=2, extra_ptrs=fallback, **kw)
     fused_sweep_jvp.launches += 1
     return out
 

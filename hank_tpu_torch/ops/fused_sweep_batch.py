@@ -6,16 +6,21 @@ Replaces the TPU kernel pair of `hank_tpu/ops/fused_sweep_batch.py`:
 through `fused_sweep_jvp_batch`. On the TPU they are two kernels only
 because the policies of B paths (B × 137 MB at KS size) cannot stay in
 VMEM; their contract is kernel 1's, per path. Here they are one launch of
-kernel 1's template (`csrc/household_sweep.cu <float, true>`) with a grid
-axis over paths: one block per path, its own row of prices and tangents,
-its own slice of the policy scratch and its own output row; V_T, D0, the
-grids and Pi are shared. Row b of a batched launch is bit-identical to a
-single `fused_sweep_jvp` launch on row b.
+`household_sweep_ranged_kernel<float, true, true>`
+(`csrc/household_sweep.cu`), the kernel template with kernel 1's
+binary-search brackets and lottery source ranges, with a grid axis over
+paths: one block per path, its own row of prices and tangents, its own
+slice of the policy scratch and its own output row; V_T, D0, the grids and
+Pi are shared. Row b of a batched launch is bit-identical to a single
+`fused_sweep_jvp` launch (kernel 1) on row b.
 
 `fused_sweep_jvp_batch` launches the kernel for CUDA tensors and runs the
 plain version `fused_sweep_jvp_batch_reference` (a loop over rows of
 kernel 1's plain version) only for CPU tensors. `.launches` counts kernel
-launches and `.calls` plain-version calls.
+launches and `.calls` plain-version calls. `fused_sweep_jvp_batch_previous`
+launches the previous kernels 3-4 (the counting template
+`household_sweep_kernel<float, true, *>`), which kernels 1 and 3-4 are held
+to bit for bit on the card; no solver calls it.
 
 `make_fused_jvp_batch` is the ensemble's direction map
 (`hank_tpu/ops/fused_sweep_batch.py:412-495`): per row, the price-map JVP,
@@ -30,34 +35,63 @@ from __future__ import annotations
 import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
-from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fused_sweep_jvp_reference,
-                                            launch_sweep, supports_fused_sweep,
+from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fallback_pointer,
+                                            fused_sweep_jvp_reference, launch_sweep,
+                                            require_card, supports_fused_sweep,
                                             sweep_setup)
 
 f32 = torch.float32
 
 
 def fused_sweep_jvp_batch(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
-                          *, beta: float, gamma: float, borrow_cons: float):
+                          *, beta: float, gamma: float, borrow_cons: float,
+                          fallback_rows: torch.Tensor | None = None):
     """Batched JVP of the household map: (B, T-1) price paths and tangents
     ↦ (agg, dagg, aggc, daggc), each (B, T-1) float32.
 
     All inputs float32 and contiguous on one device; V_T, D0 (n_a, n_e),
     grid (n_a,), e_grid (n_e,), Pi (n_e, n_e) are shared by every path.
+    fallback_rows: optional (B, 2) int32 CUDA tensor; row b receives path
+    b's counts of (period, income row) pairs whose implied-wealth knots [0]
+    and clamped policies [1] were not non-decreasing (as in
+    `fused_sweep_jvp`). Refused on CPU tensors.
     """
     paths = (r_b, w_b, dr_b, dw_b)
     _check_inputs("fused_sweep_jvp_batch", f32, paths, V_T, D0, grid, e_grid, Pi,
                   batched=True)
+    B = r_b.shape[0]
+    fallback = fallback_pointer("fused_sweep_jvp_batch", fallback_rows, V_T, (B, 2))
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
         return fused_sweep_jvp_batch_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
     out = launch_sweep("hank_sweep_jvp_f32_batch", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, smem_kind=1, **kw)
+                       n_out=4, smem_kind=3, extra_ptrs=fallback, **kw)
     fused_sweep_jvp_batch.launches += 1
     return out
 
 
 fused_sweep_jvp_batch.launches = 0
+
+
+def fused_sweep_jvp_batch_previous(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
+                                   *, beta: float, gamma: float, borrow_cons: float):
+    """The previous kernels 3-4 (`household_sweep_kernel<float, true, *>`,
+    which counts brackets and scans every source), with
+    `fused_sweep_jvp_batch`'s arguments and outputs. Kernels 1 and 3-4 are
+    held to it bit for bit on the card; no solver calls it. CUDA tensors
+    only."""
+    paths = (r_b, w_b, dr_b, dw_b)
+    _check_inputs("fused_sweep_jvp_batch_previous", f32, paths, V_T, D0, grid, e_grid, Pi,
+                  batched=True)
+    require_card("fused_sweep_jvp_batch_previous", V_T, "fused_sweep_jvp_batch_reference")
+    out = launch_sweep("hank_sweep_jvp_f32_batch_previous", paths, V_T, D0, grid, e_grid,
+                       Pi, n_out=4, smem_kind=1, beta=beta, gamma=gamma,
+                       borrow_cons=borrow_cons)
+    fused_sweep_jvp_batch_previous.launches += 1
+    return out
+
+
+fused_sweep_jvp_batch_previous.launches = 0
 
 
 def fused_sweep_jvp_batch_reference(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,

@@ -14,10 +14,12 @@ import torch
 
 from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_batch,
+                                               fused_residual_sweep_batch_previous,
                                                fused_residual_sweep_batch_reference,
                                                fused_residual_sweep_reference)
 from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp, fused_sweep_jvp_reference
 from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                  fused_sweep_jvp_batch_previous,
                                                   fused_sweep_jvp_batch_reference,
                                                   make_fused_jvp_batch)
 from hank_tpu_torch.parallel.ensemble import residual_ensemble
@@ -164,6 +166,39 @@ def test_batched_wrappers_reject_what_the_kernel_does_not_take(both):
     assert (fused_sweep_jvp_batch.launches, fused_residual_sweep_batch.launches) == launches
 
 
+def test_batched_wrappers_refuse_fallback_rows_on_cpu_tensors(both):
+    """The plain versions have no fallback branches to count."""
+    _, jss, tm, tss, _ = both
+    Tm1 = tm.compspec.T - 1
+    kw = kernel_kwargs(tm)
+    paths = [to_torch(a, f32) for a in price_batch(jss, Tm1, 2, seed=2)]
+    fallback = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fallback_rows"):
+        fused_sweep_jvp_batch(*paths, *consts(tm, tss, f32), **kw, fallback_rows=fallback)
+    with pytest.raises(ValueError, match="fallback_rows"):
+        fused_residual_sweep_batch(paths[0].double(), paths[1].double(),
+                                   *consts(tm, tss, f64), **kw, fallback_rows=fallback)
+
+
+@pytest.mark.parametrize("which", ["kernels 3-4", "batched kernel 2"])
+def test_previous_batched_kernels_refuse_cpu_tensors(both, which):
+    """The previous kernels run on the card only (their plain versions are
+    the new kernels'), and count no launch when they refuse."""
+    _, jss, tm, tss, _ = both
+    Tm1 = tm.compspec.T - 1
+    kw = kernel_kwargs(tm)
+    paths = [to_torch(a, f32) for a in price_batch(jss, Tm1, 2, seed=2)]
+    if which == "kernels 3-4":
+        fn, args = fused_sweep_jvp_batch_previous, (*paths, *consts(tm, tss, f32))
+    else:
+        fn, args = fused_residual_sweep_batch_previous, (
+            paths[0].double(), paths[1].double(), *consts(tm, tss, f64))
+    launches = fn.launches
+    with pytest.raises(ValueError, match="card only"):
+        fn(*args, **kw)
+    assert fn.launches == launches
+
+
 # ── On the card ────────────────────────────────────────────────────────────
 
 @pytest.fixture
@@ -212,3 +247,4 @@ def test_batched_kernel2_on_card_rows_equal_single_launches(both, cuda):
         single = fused_residual_sweep(r_b[b].contiguous(), w_b[b].contiguous(), *c64, **kw)
         for o, s in zip(out, single):
             assert torch.equal(o[b], s)
+

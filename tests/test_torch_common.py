@@ -248,7 +248,8 @@ def test_package_imports_neither_jax_nor_hank_tpu():
             "hank_tpu_torch.ops.forward_scan, hank_tpu_torch.utils.timing, "
             "hank_tpu_torch.utils.profiling, hank_tpu_torch.utils.plotting, "
             "hank_tpu_torch.models.hank_one_asset, hank_tpu_torch.models.ks_large_grid, "
-            "hank_tpu_torch.tools.kernel6_split, hank_tpu_torch.tools.kernel5_split\n"
+            "hank_tpu_torch.tools.kernel6_split, hank_tpu_torch.tools.kernel5_split, "
+            "hank_tpu_torch.tools.sweep_ab, hank_tpu_torch.tools.sass_compare\n"
             "for name in ('krusell_smith', 'hank_two_asset', 'hank_one_asset', "
             "'ks_large_grid'):\n"
             "    hank_tpu_torch.load_model(name, T=5, device='cpu')\n"

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                               fused_residual_sweep_previous,
                                                fused_residual_sweep_reference,
                                                make_sweep_residual_fn)
 from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_reference,
@@ -162,6 +163,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(both):
     assert (fused_sweep_jvp.launches, fused_residual_sweep.launches) == launches
 
 
+def test_kernel2_refuses_fallback_rows_on_cpu_tensors(both):
+    """The plain version has no fallback branches to count."""
+    _, _, _, tm, tss, _, x_ss = both
+    args64 = sweep_args(tm, tss, x_ss, None, f64)
+    with pytest.raises(ValueError, match="fallback_rows"):
+        fused_residual_sweep(*args64, **kernel_kwargs(tm),
+                             fallback_rows=torch.zeros(2, dtype=torch.int32))
+
+
+def test_previous_kernel2_refuses_cpu_tensors(both):
+    """The previous kernel runs on the card only (its plain version is
+    kernel 2's), and counts no launch when it refuses."""
+    _, _, _, tm, tss, _, x_ss = both
+    args64 = sweep_args(tm, tss, x_ss, None, f64)
+    launches = fused_residual_sweep_previous.launches
+    with pytest.raises(ValueError, match="card only"):
+        fused_residual_sweep_previous(*args64, **kernel_kwargs(tm))
+    with pytest.raises(TypeError):
+        fused_residual_sweep_previous(*(a.float() for a in args64), **kernel_kwargs(tm))
+    assert fused_residual_sweep_previous.launches == launches
+
+
 # ── On the card ────────────────────────────────────────────────────────────
 
 @pytest.fixture
@@ -198,10 +221,11 @@ def test_kernel1_on_card_matches_its_plain_version(both, cuda, seed):
 
 @pytest.mark.gpu
 def test_kernel1_on_card_is_bit_for_bit_the_template(both, cuda):
-    """Kernel 1 against the kernel template's B = 1 launch on all four
-    outputs, at a smooth point and with the grid's knots 5 and 6 swapped
-    (policy rows out of order: the fallback branches)."""
-    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch
+    """Kernel 1 against the counting template's B = 1 launch (the previous
+    kernels 3-4 on one row) on all four outputs, at a smooth point and with
+    the grid's knots 5 and 6 swapped (policy rows out of order: the fallback
+    branches)."""
+    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
 
     _, _, _, tm, tss, _, x_ss = both
     rng = np.random.default_rng(3)
@@ -213,8 +237,8 @@ def test_kernel1_on_card_is_bit_for_bit_the_template(both, cuda):
     for inputs in (args, [*args[:6], grid, *args[7:]]):
         fallback = torch.zeros(2, dtype=torch.int32, device=cuda)
         out = fused_sweep_jvp(*inputs, **kw, fallback_rows=fallback)
-        rows = fused_sweep_jvp_batch(*(a[None].contiguous() for a in inputs[:4]), *inputs[4:],
-                                     **kw)
+        rows = fused_sweep_jvp_batch_previous(*(a[None].contiguous() for a in inputs[:4]),
+                                              *inputs[4:], **kw)
         for o, r in zip(out, rows):
             assert torch.equal(o.view(torch.int32), r[0].view(torch.int32))
     assert int(fallback[1]) > 0
