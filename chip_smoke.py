@@ -11,9 +11,19 @@ exits non-zero and never prints the final `"ok": true` line:
   2. build   — both kernel sources under `hank_tpu_torch/csrc/` (the
                one-asset and the two-asset household sweeps), one nvcc each
                (sm_90a) started together, with the build seconds and ptxas'
-               registers and spill bytes per kernel; every one-asset grid
-               (n_e ≤ 20) the counting template takes in one block fits
-               kernels 2-4 too, in both arithmetics (the library's count).
+               registers and spill bytes per kernel (the f64 tangent sweep,
+               its yardstick and kernel 7's three kernels singled out);
+               every one-asset grid (n_e ≤ 20) the counting template takes
+               in one block fits kernels 2-4 and the f64 tangent sweep too,
+               in all three arithmetics, and every grid the previous kernel
+               7 takes fits kernel 7 (the library's counts); the kernel
+               maps' fit check at n_e = 7 on both sides of each
+               kernel's limit (kernel 2 n_a 1036/1037, kernel 1 1147/1148,
+               kernels 3-4 1148/1149, the f64 tangent sweep 529/530); the
+               SASS of kernel 1, of the previous kernel 7 and of the
+               template's and the ranged kernel's earlier instantiations
+               against the previous build's (`hank_tpu_torch/tools/
+               sass_reference.json`, compared where nvcc is the same).
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
                (max|F_ss| ≤ 1e-9 each, `find_ss`'s own stopping target) and
                the steady-state Jacobian J̄.
@@ -33,10 +43,18 @@ exits non-zero and never prints the final `"ok": true` line:
                swapped; and kernel 2 against the previous kernel 2
                (`fused_residual_sweep_previous`) bit for bit at the same six
                inputs in f64; the counts of rows that took each branch are
-               reported. Median ms per sweep of kernel 1, the previous
-               kernel 1, kernel 2 and the previous kernel 2 (in turns:
-               previous, new, new, previous) and kernel 2's plain version,
-               and one timed run of kernel 1's.
+               reported. The f64 tangent sweep (`fused_sweep_jvp_f64`,
+               `<double, true, false>`) against its yardstick, the counting
+               template's `<double, true, false>`
+               (`fused_sweep_jvp_f64_previous`), bit for bit on all four
+               outputs at the same six inputs in f64, within
+               1e-10·max(scale, 1) of its plain version in f64 at the three
+               points, and a zero tangent exactly zero. Median ms per
+               sweep of kernel 1, the previous kernel 1, kernel 2 and the
+               previous kernel 2, the f64 tangent sweep and its yardstick
+               (in turns: previous, new, new, previous) and kernel 2's
+               plain version, and one timed run each of kernel 1's and the
+               f64 tangent sweep's.
   5. solve   — 3 timed runs of the same solve. The launch counters are zeroed right
                before the timed runs; both kernels must have launched and
                neither plain version nor a previous kernel been called. The
@@ -145,9 +163,16 @@ exits non-zero and never prints the final `"ok": true` line:
                paths bit-identical to the CLI's; plain-f64 ‖F‖ < 1e-8;
                within 1e-7 of the JAX package's CPU root in
                `hank_tpu_torch/data/`; the economics of the JAX package's
-               tests). Then the driver's default once on the one-asset HANK:
-               the CLI without --mixed (f64 directions by AD through the plain
-               pipeline, kernel-2 residuals) to ‖F‖ < 1e-8, timed.
+               tests). Then the CLI without --mixed once per model (its
+               default: f64 directions through the f64 tangent sweep,
+               kernel-2 residuals), counters zeroed right before: the
+               f64 tangent sweep launched, no AD direction and no plain or
+               previous kernel; plain-f64 ‖F‖ < 1e-8 and within 1e-7 of the
+               JAX CPU root; seconds, outers and directions. Then large-grid
+               KS at 560×7, T=30, past the f64 tangent sweep's shared
+               memory: `solve_model` with the default f64 directions
+               raises ValueError when it builds the path solver, after the
+               steady states and before any sweep launch or AD direction.
   9. forward scan — kernel 7 on the f32 savings policies of the plain
                backward block at phase 4's warm-up solution (KS 200×7, 299
                periods, from ss0.D) and at phase 8's large-grid solution
@@ -155,7 +180,16 @@ exits non-zero and never prints the final `"ok": true` line:
                plain call; each against its plain version run in float64 on
                the same f32 inputs (aggregates within 5e-5·max(scale, 1), D_T
                within 1e-6, |ΣD_T − 1| ≤ 1e-5), repeats bit-identical, ms per
-               launch (20 launches) and of the plain version.
+               launch of kernel 7 and of the previous kernel 7 in turns
+               (previous, new, new, previous) and of the plain version.
+               Kernel 7 against the previous kernel 7 bit for bit on both
+               outputs at both inputs and at four more on the KS policies:
+               1% i.i.d. noise (fallback rows required), one NaN policy (a
+               NaN aggregate in its period only), every policy below g_0 and
+               every policy above g_top (no fallback row); and at the
+               large-grid input on its grid with every interval halved
+               (999×7, 6993 cells, past the 4096 destinations whose ranges
+               kernel 7 keeps in registers); the fallback counts reported.
 
 Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
@@ -371,40 +405,58 @@ def in_turns(fns: dict, reps: int) -> dict:
     return {name: statistics.median(t) for name, t in turns.items()}
 
 
-def previous_launches() -> dict:
-    """The launch counts of the three `_previous` wrappers of the one-asset
-    sweep (the counting template); no solver may launch them."""
+def previous_wrappers() -> dict:
+    """The `_previous` wrappers of the one-asset kernels (the counting
+    template's builds and the previous kernel 7); no solver may launch
+    them."""
+    from hank_tpu_torch.ops.forward_scan import forward_scan_previous
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch_previous,
                                                    fused_residual_sweep_previous)
+    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp_f64_previous
     from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
 
-    return {"k2_previous": fused_residual_sweep_previous.launches,
-            "k2_batch_previous": fused_residual_sweep_batch_previous.launches,
-            "k3_4_previous": fused_sweep_jvp_batch_previous.launches}
+    return {"k2_previous": fused_residual_sweep_previous,
+            "k2_batch_previous": fused_residual_sweep_batch_previous,
+            "k3_4_previous": fused_sweep_jvp_batch_previous,
+            "jvp_f64_previous": fused_sweep_jvp_f64_previous,
+            "k7_previous": forward_scan_previous}
+
+
+def previous_launches() -> dict:
+    """The launch counts of `previous_wrappers`."""
+    return {name: fn.launches for name, fn in previous_wrappers().items()}
 
 
 def zero_previous_launches() -> None:
-    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch_previous,
-                                                   fused_residual_sweep_previous)
-    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
-
-    fused_residual_sweep_previous.launches = 0
-    fused_residual_sweep_batch_previous.launches = 0
-    fused_sweep_jvp_batch_previous.launches = 0
+    for fn in previous_wrappers().values():
+        fn.launches = 0
 
 
 def one_asset_grids() -> dict:
     """Every one-asset grid (n_a ≥ 2, n_e ≤ 20) that the counting template
-    takes in one block, per arithmetic (which 0: f64 values, 1: f32 dual):
-    kernels 2 and 3-4 (which 4, 3) fit it too, by the library's own
-    shared-memory count. Fails otherwise. Reports the grids kernel 1 (which
-    2, whose row flags take 8·n_e bytes more) refuses."""
+    takes in one block, per arithmetic (which 0: f64 values, 1: f32 dual,
+    6: f64 dual): kernels 2 and 3-4 and the f64 tangent sweep (which 4, 3,
+    5) fit it too, by the library's own shared-memory count; and every grid
+    the previous kernel 7 takes fits kernel 7. Fails otherwise. Reports the
+    grids kernel 1 (which 2, whose row flags take 8·n_e bytes more)
+    refuses."""
     from hank_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load_library()
     limit = cuda_build.MAX_SMEM_BYTES
     report = {}
-    for old, new, label in ((0, 4, "f64_values"), (1, 3, "f32_dual")):
+    taken, refused = 0, []
+    for n_e in range(1, 21):
+        n_a = 2
+        while lib.hank_forward_scan_smem_bytes(0, n_a, n_e) <= limit:
+            taken += 1
+            if lib.hank_forward_scan_smem_bytes(1, n_a, n_e) > limit:
+                refused.append((n_a, n_e))
+            n_a += 1
+    require(taken > 10_000 and not refused,
+            f"kernel 7 refuses {len(refused)} grids the previous kernel 7 takes: {refused[:5]}")
+    report["forward_scan"] = {"grids_of_the_previous_kernel": taken, "refused": 0}
+    for old, new, label in ((0, 4, "f64_values"), (1, 3, "f32_dual"), (6, 5, "f64_dual")):
         taken, refused, k1_refused = 0, [], []
         for n_e in range(1, 21):
             n_a = 2
@@ -421,6 +473,58 @@ def one_asset_grids() -> dict:
         report[label] = {"grids_of_the_template": taken, "refused": 0,
                          **({"kernel1_refuses": k1_refused} if old == 1 else {})}
     return report
+
+
+def fit_decisions() -> dict:
+    """The kernel maps' fit check (`cuda_build.check_fit` of the library's
+    count) at n_e = 7 on both sides of each one-asset kernel's limit: the
+    last n_a it takes and the first it refuses. Fails if the library's
+    count disagrees with those limits."""
+    from hank_tpu_torch.ops import cuda_build as cb
+
+    def fits(need):
+        try:
+            cb.check_fit(need, "")
+        except ValueError:
+            return False
+        return True
+
+    limits = {"kernel2": (cb.KERNEL2, 1036), "kernel1": (cb.KERNEL1, 1147),
+              "kernels3_4": (cb.KERNELS3_4, 1148), "jvp_f64": (cb.JVP_F64, 529)}
+    report = {}
+    for name, (which, last) in limits.items():
+        taken = {n_a: fits(cb.sweep_smem_bytes(which, n_a, 7)) for n_a in (last, last + 1)}
+        require(taken == {last: True, last + 1: False},
+                f"{name}: the fit decision at n_e = 7 is {taken}, not a limit at {last}")
+        report[name] = {"last_n_a_taken": last, "bytes": [cb.sweep_smem_bytes(which, n_a, 7)
+                                                           for n_a in (last, last + 1)]}
+    return report
+
+
+# The previous build's SASS of the kernels a PR leaves alone (their names as
+# `tools/sass_compare.parse_sass` gives them), recorded on the card with
+# `python -m hank_tpu_torch.tools.sass_compare --digest`.
+SASS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hank_tpu_torch",
+                              "tools", "sass_reference.json")
+
+
+def sass_vs_reference(library: str) -> dict:
+    """The built library's SASS of every kernel in `SASS_REFERENCE`, digest
+    against digest. Compared, and required identical, where nvcc is the
+    reference's; reported as not compared otherwise."""
+    from hank_tpu_torch.tools import sass_compare
+
+    with open(SASS_REFERENCE) as f:
+        ref = json.load(f)
+    got = sass_compare.digests(sass_compare.sass(library))
+    nvcc = sass_compare.nvcc_version()
+    same = {name: got.get(name) == rec for name, rec in ref["kernels"].items()}
+    compared = nvcc == ref["nvcc"]
+    if compared:
+        require(all(same.values()), f"SASS differs from the previous build: "
+                                    f"{[k for k, v in same.items() if not v]}")
+    return {"nvcc": nvcc, "reference": ref["source"], "compared": compared,
+            "identical": same}
 
 
 def kernel6_vs_previous(inputs: dict, D0, model) -> dict:
@@ -1220,8 +1324,8 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
-    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_reference,
-                                                sweep_setup)
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_reference, sweep_setup)
     from hank_tpu_torch.solvers.newton import make_full_residual_fn
     from hank_tpu_torch.utils.checkpoint import get_or_solve
 
@@ -1321,12 +1425,14 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     k2_turns = in_turns({
         "k2_previous": lambda: fused_residual_sweep_previous(*args64, *c64, **kw),
         "k2": lambda: fused_residual_sweep(*args64, *c64, **kw)}, 10)
+    jvp64_args = sweep_args(x_cli, v, f64)
     timing = {"k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args, *c32, **kw), 20),
               "k1_previous_ms": cuda_ms(lambda: previous_kernel1((*args, *c32), kw), 20),
               "k2_ms": k2_turns["k2"], "k2_previous_ms": k2_turns["k2_previous"],
               "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args, *c32, **kw))[1],
               "k2_plain_ms": cuda_once(
-                  lambda: fused_residual_sweep_reference(*args64, *c64, **kw))[1]}
+                  lambda: fused_residual_sweep_reference(*args64, *c64, **kw))[1],
+              "jvp_f64_ms": cuda_ms(lambda: fused_sweep_jvp_f64(*jvp64_args, *c64, **kw), 10)}
     emit("driver_kernels", model=name, k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
          k1_vs_previous_bit_identical=bits, k2_vs_previous_bit_identical=bits2, **timing)
 
@@ -1390,20 +1496,127 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
          previous_kernel_launches=previous, k1_launches_per_solve=launches["k1"] / 3, k2_launches_per_solve=launches["k2"] / 3,
          bit_identical=True, economics=econ)
     return {"model": model, "ss0": ss0, "ssT": ssT, "exog": exog, "x": x_sol, "cli": cli,
-            "k1_ms": timing["k1_ms"], "k1_previous_ms": timing["k1_previous_ms"],
-            "k2_ms": timing["k2_ms"], "k2_previous_ms": timing["k2_previous_ms"]}
+            "x_jax": x_jax, "k1_ms": timing["k1_ms"], "k1_previous_ms": timing["k1_previous_ms"],
+            "k2_ms": timing["k2_ms"], "k2_previous_ms": timing["k2_previous_ms"],
+            "jvp_f64_ms": timing["jvp_f64_ms"]}
+
+
+# Past the f64 tangent sweep's shared memory at n_e = 7 (it takes n_a ≤
+# 529): large-grid KS with 560 asset knots, at a short horizon.
+PAST_FIT_CASE = ("ks_large_grid", 560, 30)
+
+
+def zero_one_asset_counts() -> None:
+    """Every counter of the one-asset single-path route: kernel launches,
+    plain-version calls, AD directions and the previous kernels."""
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_reference)
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_reference)
+    from hank_tpu_torch.solvers.newton import ad_direction
+
+    fused_sweep_jvp.launches = fused_sweep_jvp_f64.launches = 0
+    fused_residual_sweep.launches = 0
+    fused_sweep_jvp_reference.calls = fused_residual_sweep_reference.calls = 0
+    ad_direction.calls = 0
+    zero_previous_launches()
+
+
+def one_asset_counts() -> dict:
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_reference)
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_reference)
+    from hank_tpu_torch.solvers.newton import ad_direction
+
+    return {"k1": fused_sweep_jvp.launches, "jvp_f64": fused_sweep_jvp_f64.launches,
+            "k2": fused_residual_sweep.launches, "ad_directions": ad_direction.calls,
+            "plain_calls": fused_sweep_jvp_reference.calls + fused_residual_sweep_reference.calls,
+            "previous": sum(previous_launches().values())}
+
+
+def cli_default(name: str, case: dict) -> dict:
+    """The CLI's default on one model (without --mixed: f64
+    directions through the f64 tangent sweep, kernel-2 residuals), counters
+    zeroed right before. Returns the counts of that run."""
+    import torch
+
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+
+    zero_one_asset_counts()
+    t0 = time.perf_counter()
+    summary, x64 = case["cli"]([])
+    seconds = time.perf_counter() - t0
+    counts = one_asset_counts()
+    require(counts["jvp_f64"] > 0 and counts["k2"] > 0 and counts["ad_directions"] == 0
+            and counts["k1"] == 0 and counts["plain_calls"] == 0 and counts["previous"] == 0,
+            f"{name}: the CLI's default did not run through the f64 tangent sweep "
+            f"and kernel 2 alone: {counts}")
+    F_plain = make_full_residual_fn(case["model"], case["ss0"], case["ssT"], case["exog"])
+    fnorm = float(torch.linalg.norm(F_plain(x64)))
+    vs_jax = max_abs(x64, case["x_jax"])
+    require(summary["residual_norm"] < 1e-8 and fnorm < 1e-8 and vs_jax <= 1e-7,
+            f"{name}: f64-direction solve: ‖F‖ {summary['residual_norm']:.3e}, plain f64 "
+            f"{fnorm:.3e}, {vs_jax:.3e} off the JAX reference")
+    emit("driver_f64_directions", model=name, T=case["model"].compspec.T, seconds=seconds,
+         cli_summary=summary, outer_iterations=summary["iterations"],
+         directions=counts["jvp_f64"], residual_norm_plain_f64=fnorm, max_abs_vs_jax=vs_jax,
+         max_abs_vs_mixed=max_abs(x64, case["x"]), launches=counts)
+    return counts
+
+
+def past_fit_case(dev) -> dict:
+    """Large-grid KS at `PAST_FIT_CASE`'s grid: `solve_model` with the
+    default f64 directions on the card raises ValueError when it builds the
+    path solver, naming the f64 tangent sweep and the plain routes, after
+    the steady states and before any sweep launch or AD direction."""
+    import dataclasses
+
+    import torch
+
+    from hank_tpu_torch import run
+    from hank_tpu_torch.model.grids import make_double_exponential_grid
+    from hank_tpu_torch.models import load_model
+    from hank_tpu_torch.ops import cuda_build
+
+    name, n_a, T = PAST_FIT_CASE
+    model = load_model(name, T=T, device=dev)
+    wealth = model.endog_dims()[0]
+    grid = torch.tensor(make_double_exponential_grid(0.0, 200.0, n_a), dtype=torch.float64,
+                        device=dev)
+    model = dataclasses.replace(model, heterogeneity={
+        **model.heterogeneity, wealth.name: dataclasses.replace(wealth, n=n_a, grid=grid)})
+    n_e = model.exog_dims()[0].n
+    need = cuda_build.sweep_smem_bytes(cuda_build.JVP_F64, n_a, n_e)
+    require(need > cuda_build.MAX_SMEM_BYTES,
+            f"{n_a}x{n_e} fits the f64 tangent sweep ({need} bytes)")
+    zero_one_asset_counts()
+    recs = []
+    error = None
+    try:
+        run.solve_model(model, method="newton_krylov", eps=1e-8, verbose=False, records=recs)
+    except ValueError as exc:
+        error = str(exc)
+    counts = one_asset_counts()
+    expected = f"the f64 tangent sweep at grid {n_a}x{n_e} needs {need} bytes of shared memory"
+    require(error is not None and error.startswith(expected)
+            and "direction_mode='xla'" in error,
+            f"{n_a}x{n_e}: the default did not stop at the solver's build: {error!r}")
+    require(not any(counts.values()) and not any(r.get("phase") == "path solve" for r in recs),
+            f"{n_a}x{n_e}: work ran past the fit check: {counts}, {recs}")
+    emit("past_fit", model=name, grid=[n_a, n_e], T=T, smem_bytes_f64_tangent=need,
+         error=error, setup_s=next(r["seconds"] for r in recs
+                                   if r.get("phase", "").startswith("steady")),
+         launches=counts)
+    return counts
 
 
 def driver_phase(dev) -> dict:
     """Phase 8: `hank_tpu_torch.run` on the two families (module
-    docstring), then the f64-direction default once. Returns the
-    large-grid case for phase 9."""
-    import torch
-
-    from hank_tpu_torch.ops.fused_residual import fused_residual_sweep
-    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
-    from hank_tpu_torch.solvers.newton import make_full_residual_fn
-
+    docstring), then the CLI's default on each and the grid past the
+    f64 tangent sweep's fit. Returns the cases for phase 9 and the summary
+    (`"f64_default_launches"`: the f64 tangent sweep's launches in the
+    default runs)."""
     cases = {}
     previous = os.environ.get("HANK_TPU_TORCH_CACHE")
     with tempfile.TemporaryDirectory() as cache:
@@ -1411,46 +1624,36 @@ def driver_phase(dev) -> dict:
         try:
             for name, T in DRIVER_CASES:
                 cases[name] = driver_case(name, T, dev, cache)
-
-            # The driver's default: f64 directions (AD through the plain
-            # pipeline), kernel-2 residuals, through the CLI without --mixed.
-            hank = cases["hank_one_asset"]
-            fused_sweep_jvp.launches = fused_residual_sweep.launches = 0
-            t0 = time.perf_counter()
-            summary, x64 = hank["cli"]([])
-            seconds = time.perf_counter() - t0
-            F_plain = make_full_residual_fn(hank["model"], hank["ss0"], hank["ssT"],
-                                            hank["exog"])
-            fnorm = float(torch.linalg.norm(F_plain(x64)))
-            require(summary["residual_norm"] < 1e-8 and fnorm < 1e-8,
-                    f"f64-direction solve: ‖F‖ {summary['residual_norm']:.3e}, "
-                    f"plain f64 {fnorm:.3e}")
-            emit("driver_f64_directions", model="hank_one_asset", T=hank["model"].compspec.T,
-                 seconds=seconds, cli_summary=summary, residual_norm_plain_f64=fnorm,
-                 max_abs_vs_mixed=max_abs(x64, hank["x"]),
-                 launches={"k1": fused_sweep_jvp.launches, "k2": fused_residual_sweep.launches})
+            launches = sum(cli_default(name, case)["jvp_f64"]
+                           for name, case in cases.items())
+            past_fit_case(dev)
         finally:
             if previous is None:
                 os.environ.pop("HANK_TPU_TORCH_CACHE", None)
             else:
                 os.environ["HANK_TPU_TORCH_CACHE"] = previous
-    return cases
+    return {"cases": cases, "f64_default_launches": launches}
 
 
 def forward_scan_phase(inputs: dict) -> dict:
     """Phase 9: kernel 7 on `inputs` {label: (policies, D0, grid, Pi)} (f32
-    on the card); returns its `kernels` entry, timed at the first label."""
+    on the card), then against the previous kernel 7 on those and on stress
+    inputs made from the first; returns its `kernels` entry, timed at the
+    first label."""
     import torch
 
-    from hank_tpu_torch.ops.forward_scan import forward_scan, forward_scan_reference
+    from hank_tpu_torch.ops.forward_scan import (forward_scan, forward_scan_previous,
+                                                 forward_scan_reference)
 
     # Its path is its own entry point: one call per input, counts zeroed
     # right before.
     forward_scan.launches = forward_scan_reference.calls = 0
+    zero_previous_launches()
     outs = {label: forward_scan(*args) for label, args in inputs.items()}
     launches, plain_calls = forward_scan.launches, forward_scan_reference.calls
-    require(launches == len(inputs) and plain_calls == 0,
-            f"forward scan: {launches} launches, {plain_calls} plain calls")
+    require(launches == len(inputs) and plain_calls == 0 and forward_scan_previous.launches == 0,
+            f"forward scan: {launches} launches, {plain_calls} plain calls, "
+            f"{forward_scan_previous.launches} of the previous kernel")
 
     checks, err_max = {}, 0.0
     for label, args in inputs.items():
@@ -1465,22 +1668,78 @@ def forward_scan_phase(inputs: dict) -> dict:
                 f"forward scan at {label}: agg off by {e_agg:.3e} (scale {scale:.3e}), "
                 f"D_T by {e_D:.3e}, mass {mass:.9f}")
         T, n_a, n_e = args[0].shape
+        turns = in_turns({"previous": lambda: forward_scan_previous(*args),
+                          "new": lambda: forward_scan(*args)}, 20)
         checks[label] = {"shape": [T, n_a, n_e], "agg_max_abs_err": e_agg, "agg_scale": scale,
                          "D_T_max_abs_err": e_D, "mass_minus_1": mass - 1.0,
-                         "ms": cuda_ms(lambda: forward_scan(*args), 20),
+                         "ms": turns["new"], "ms_previous": turns["previous"],
                          "plain_ms": cuda_once(lambda: forward_scan_reference(*args))[1],
                          **least_time(nbytes(*args, agg, D_T),
                                       forward_scan_ops(T, n_a, n_e), "f32")}
         err_max = max(err_max, e_agg, e_D)
+
+    # Kernel 7 against the previous kernel 7, bit for bit, at the main
+    # path's inputs and at stress inputs on the first one's policies: 1%
+    # i.i.d. noise (rows out of order), one NaN policy, and every policy
+    # clamped (the lower half of each row below g_0, the upper above g_top).
+    first = next(iter(inputs))
+    pols, D0, grid, Pi = inputs[first]
+    gen = torch.Generator().manual_seed(9)
+    noisy = pols * (1.0 + 0.01 * torch.randn(pols.shape, generator=gen)).to(pols.device)
+    nan = pols.clone()
+    t_nan = int(torch.randint(0, pols.shape[0], (1,), generator=gen))
+    nan[t_nan, int(torch.randint(0, pols.shape[1], (1,), generator=gen)),
+        int(torch.randint(0, pols.shape[2], (1,), generator=gen))] = float("nan")
+    low = torch.arange(pols.shape[1], device=pols.device)[None, :, None] < pols.shape[1] // 2
+    clamped = torch.where(low, grid[0] - 1.0, grid[-1] + 1.0).expand(pols.shape).contiguous()
+    # And the last input on its grid with every interval halved, past the
+    # 4 × 1024 destinations whose ranges kernel 7 keeps in registers.
+    halved = halve_grid(*inputs[list(inputs)[-1]])
+    require(halved[1].numel() > 4 * 1024, f"halved grid: {tuple(halved[1].shape)}")
+    cases = {**inputs, "noise_1pct": (noisy.contiguous(), D0, grid, Pi),
+             "one_nan": (nan, D0, grid, Pi), "clamped": (clamped, D0, grid, Pi),
+             f"halved_{halved[2].numel()}x{halved[3].shape[0]}": halved}
+    bits = {}
+    for label, args in cases.items():
+        fallback = torch.zeros(1, dtype=torch.int32, device=pols.device)
+        new = forward_scan(*args, fallback_rows=fallback)
+        old = forward_scan_previous(*args)
+        require(all(same_bits(a, b) for a, b in zip(new, old)),
+                f"forward scan at {label} differs from the previous kernel 7")
+        bits[label] = {"fallback_rows": int(fallback[0]),
+                       "nan_periods": torch.nonzero(torch.isnan(new[0])).flatten().tolist()}
+    require(bits["noise_1pct"]["fallback_rows"] > 0 and bits["clamped"]["fallback_rows"] == 0
+            and bits["one_nan"]["nan_periods"] == [t_nan]
+            and all(not bits[k]["nan_periods"] for k in cases if k != "one_nan"),
+            f"forward scan: the stress inputs did not take their branches: {bits}")
     emit("forward_scan", launches=launches, plain_calls=plain_calls, checks=checks,
-         bit_identical=True)
-    first = checks[next(iter(inputs))]
+         bit_identical=True, vs_previous_bit_identical=bits)
+    c = checks[first]
     return {"name": "forward_scan", "route": "cuda",
             "source": "hank_tpu_torch/csrc/household_sweep.cu",
             "replaces": "hank_tpu/ops/pallas_kernels.py:62", "launches": launches,
-            "max_abs_err": err_max, "ms": first["ms"], "plain_ms": first["plain_ms"],
-            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
-            **{f"ms_{label}": c["ms"] for label, c in checks.items()}}
+            "max_abs_err": err_max, "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+            "ms_previous": c["ms_previous"],
+            "fallback_rows": sum(bits[k]["fallback_rows"] for k in inputs),
+            **{f"ms_{label}": c["ms"] for label, c in checks.items()},
+            **{f"ms_previous_{label}": c["ms_previous"] for label, c in checks.items()}}
+
+
+def halve_grid(pols, D0, grid, Pi) -> tuple:
+    """Kernel 7's input on the grid with every interval halved (2 n_a - 1
+    knots): policies, D0 and knots at each midpoint are the means of their
+    two neighbours, so rows stay non-decreasing; D0 renormalised."""
+    import torch
+
+    def halve(x, dim):
+        n = x.shape[dim]
+        left, right = x.narrow(dim, 0, n - 1), x.narrow(dim, 1, n - 1)
+        pairs = torch.stack((left, 0.5 * (left + right)), dim + 1).flatten(dim, dim + 1)
+        return torch.cat((pairs, x.narrow(dim, n - 1, 1)), dim).contiguous()
+
+    D0h = halve(D0, 0)
+    return halve(pols, 1), (D0h / D0h.sum()).contiguous(), halve(grid, 0), Pi
 
 
 def scan_inputs(model, ss0, ssT, exog, x) -> tuple:
@@ -1512,7 +1771,8 @@ def main() -> int:
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
-    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp,
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_f64_previous,
                                                 fused_sweep_jvp_reference)
     from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
     from hank_tpu_torch.solvers.ss_jacobian import get_steady_state_jacobian
@@ -1536,8 +1796,13 @@ def main() -> int:
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
+    new_kernels = [k for k in ptxas if any(
+        part in k["kernel"] for part in ("household_sweep_ranged_kernelIdLb1ELb0E",
+                                         "household_sweep_kernelIdLb1ELb0E", "forward_scan"))]
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
-         one_asset_grids=one_asset_grids())
+         ptxas_of_this_pr=new_kernels, one_asset_grids=one_asset_grids(),
+         fit_decisions=fit_decisions(),
+         sass_vs_previous_build=sass_vs_reference(built.paths["household_sweep"]))
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -1667,18 +1932,55 @@ def main() -> int:
             and bits2["grid_swapped"]["fallback_rows_policy"] > 0,
             f"kernel 2: an input meant to take a fallback branch did not: {bits2}")
 
+    # The f64 tangent sweep at kernel 1's three points (the f64 prices, kernel
+    # 1's directions) against its plain version in f64, then against its
+    # yardstick bit for bit there and at kernel 1's stress inputs in f64.
+    jvp64_inputs = {label: (*prices(x, f64), *(a.double() for a in bit_inputs[label][2:4]),
+                            *c64)
+                    for label, x in (("x_ss", x_ss), ("solution", x_warm), ("smooth", smooth))}
+    jvp64_err = 0.0
+    for label, args in jvp64_inputs.items():
+        for o, r_ in zip(fused_sweep_jvp_f64(*args, **kw), fused_sweep_jvp_reference(*args, **kw)):
+            err, scale = max_abs(o, r_), float(r_.abs().max())
+            require(err <= 1e-10 * max(scale, 1.0),
+                    f"f64 tangent sweep at {label} off its plain version by {err:.3e} "
+                    f"(scale {scale:.3e})")
+            jvp64_err = max(jvp64_err, err)
+    zero64 = torch.zeros(Tm1, dtype=f64, device=dev)
+    out0 = fused_sweep_jvp_f64(*prices(x_ss, f64), zero64, zero64, *c64, **kw)
+    require(bool((out0[1] == 0).all() and (out0[3] == 0).all()),
+            "f64 tangent sweep: a zero tangent did not give exactly zero")
+    base64j = jvp64_inputs["x_ss"]
+    jvp64_inputs["V_T_noise"] = (*base64j[:4], V_noisy.double().contiguous(), *base64j[5:])
+    jvp64_inputs["V_T_nan"] = (*base64j[:4], V_nan.double(), *base64j[5:])
+    jvp64_inputs["grid_swapped"] = (*base64j[:6], swapped.double(), *base64j[7:])
+    bits64 = vs_previous("f64 tangent sweep", fused_sweep_jvp_f64, fused_sweep_jvp_f64_previous,
+                         jvp64_inputs, kw)
+    require(bits64["V_T_noise"]["fallback_rows_implied_wealth"] > 0
+            and bits64["V_T_nan"]["fallback_rows_implied_wealth"] > 0
+            and bits64["grid_swapped"]["fallback_rows_policy"] > 0,
+            f"f64 tangent sweep: an input meant to take a fallback branch did not: {bits64}")
+
     args32 = (*prices(x, f32), *prices(v, f32), *c32)
+    args64j = jvp64_inputs["solution"]
     k2_turns = in_turns({"k2_previous": lambda: fused_residual_sweep_previous(*args64, **kw),
                          "k2": lambda: fused_residual_sweep(*args64, **kw)}, 10)
+    jvp64_turns = in_turns({
+        "jvp_f64_previous": lambda: fused_sweep_jvp_f64_previous(*args64j, **kw),
+        "jvp_f64": lambda: fused_sweep_jvp_f64(*args64j, **kw)}, 10)
     timing = {
         "k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args32, **kw), 20),
         "k1_previous_ms": cuda_ms(lambda: previous_kernel1(args32, kw), 20),
         "k1_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args32, **kw))[1],
         "k2_ms": k2_turns["k2"], "k2_previous_ms": k2_turns["k2_previous"],
         "k2_plain_ms": cuda_ms(lambda: fused_residual_sweep_reference(*args64, **kw), 3),
+        "jvp_f64_ms": jvp64_turns["jvp_f64"],
+        "jvp_f64_previous_ms": jvp64_turns["jvp_f64_previous"],
+        "jvp_f64_plain_ms": cuda_once(lambda: fused_sweep_jvp_reference(*args64j, **kw))[1],
     }
-    emit("kernels", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err,
-         k1_vs_previous_bit_identical=bits, k2_vs_previous_bit_identical=bits2, **timing)
+    emit("kernels", k1_max_abs_err=k1_err, k2_max_abs_err=k2_err, jvp_f64_max_abs_err=jvp64_err,
+         k1_vs_previous_bit_identical=bits, k2_vs_previous_bit_identical=bits2,
+         jvp_f64_vs_previous_bit_identical=bits64, **timing)
 
     # ── 5. solve ───────────────────────────────────────────────────────────
     fused_sweep_jvp.launches = 0
@@ -1721,7 +2023,8 @@ def main() -> int:
     two_asset_kernels = two_asset_phase(dev, ptxas)
 
     # ── 8. driver ──────────────────────────────────────────────────────────
-    driver = driver_phase(dev)
+    phase8 = driver_phase(dev)
+    driver = phase8["cases"]
 
     # ── 9. forward scan ────────────────────────────────────────────────────
     lg = driver["ks_large_grid"]
@@ -1735,6 +2038,8 @@ def main() -> int:
                           one_asset_sweep_ops(Tm1, n_a, n_e, True), "f32")
     k2_bound = least_time(nbytes(*args64) + 2 * nbytes(args64[0]),
                           one_asset_sweep_ops(Tm1, n_a, n_e, False), "f64")
+    jvp64_bound = least_time(nbytes(*args64j) + 4 * nbytes(args64j[0]),
+                             one_asset_sweep_ops(Tm1, n_a, n_e, True), "f64")
     kernels = [
         {"name": "fused_sweep_jvp", "route": "cuda",
          "source": "hank_tpu_torch/csrc/household_sweep.cu",
@@ -1751,6 +2056,15 @@ def main() -> int:
          "fallback_rows": fallback_sum(bits2, ("x_ss", "solution", "smooth")),
          **{f"ms_{k}": c["k2_ms"] for k, c in driver.items()},
          **{f"ms_previous_{k}": c["k2_previous_ms"] for k, c in driver.items()}},
+        {"name": "fused_sweep_jvp_f64", "route": "cuda",
+         "source": "hank_tpu_torch/csrc/household_sweep.cu",
+         "replaces": "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; "
+                     "no TPU kernel)",
+         "launches": phase8["f64_default_launches"], "max_abs_err": jvp64_err,
+         "ms": timing["jvp_f64_ms"], "plain_ms": timing["jvp_f64_plain_ms"], **jvp64_bound,
+         "library_ms": None, "ms_previous": timing["jvp_f64_previous_ms"],
+         "fallback_rows": fallback_sum(bits64, ("x_ss", "solution", "smooth")),
+         **{f"ms_{k}": c["jvp_f64_ms"] for k, c in driver.items()}},
         *ensemble_kernels,
         *two_asset_kernels,
         scan_kernel,

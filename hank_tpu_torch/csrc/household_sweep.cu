@@ -23,7 +23,11 @@
 //       instead of double-single f32 pairs, with general pow (no
 //       integer-gamma gate);
 //     <double, false, true>  the batched kernel 2, the residual of an
-//       ensemble.
+//       ensemble;
+//     <double, true, false>  the f64 primal + tangent sweep, every f64
+//       direction of a one-asset solve on the card (the port's own kernel:
+//       the reference takes f64 directions by XLA AD,
+//       hank_tpu/solvers/newton.py:389, with no Pallas kernel).
 //   household_sweep_jvp_kernel: kernel 1, the single-path f32 primal +
 //       tangent sweep, which replaces the TPU kernel
 //       hank_tpu/ops/fused_sweep.py:385 fused_sweep_jvp
@@ -33,8 +37,11 @@
 //       counting brackets and scanning every source, kept unchanged as the
 //       yardstick the three kernels above are held to bit for bit (the
 //       `_previous` entry points; no solver launches it);
-//   forward_scan_kernel: the forward half alone in primal f32 over given
-//       policies (replaces forward_scan_pallas; its own note below).
+//   forward_scan_kernel: kernel 7, the forward half alone in primal f32
+//       over given policies (replaces forward_scan_pallas), with a pre-pass
+//       and a post-pass on every SM (its own note below);
+//       forward_scan_previous_kernel, the kernel it replaced, kept as its
+//       yardstick.
 // A block reads only its own row of the price paths (and tangents), writes
 // only its own policy slice and output row, and shares V_T, D0, the grids
 // and Pi with every other block, so row b of a batched launch does the same
@@ -679,7 +686,15 @@ size_t jvp_smem_bytes(int n_a, int n_e) {
 //       sweep (every lockstep matvec of an ensemble);
 //   <double, false, false> kernel 2, the f64 residual sweep (every
 //       full-precision F(x) of a one-asset solve);
-//   <double, false, true>  the batched kernel 2 (every F_b of an ensemble).
+//   <double, false, true>  the batched kernel 2 (every F_b of an ensemble);
+//   <double, true, false>  the f64 tangent sweep (every f64 direction of a
+//       one-asset solve on the card), held to the template's <double, true,
+//       false> launch (hank_sweep_jvp_f64_previous). At its ties (a query
+//       on a knot, a policy on the borrowing limit) it takes the template's
+//       one-sided rules; the f64 plain version, AD with ops/clip.py's
+//       balanced rule, agrees where the tangent the rules split is zero (a
+//       policy clipped to the limit has none) or no tie occurs, which
+//       chip_smoke.py checks at the solver's points to 1e-10.
 // It carries kernel 1's three changes (a) the bracket by binary search on
 // implied-wealth rows checked non-decreasing, (b) the lottery over the
 // source range of clamped-policy rows checked non-decreasing, (c) the
@@ -1031,17 +1046,16 @@ int launch_ranged(const void* r, const void* w, const void* dr, const void* dw,
     return (int)cudaGetLastError();
 }
 
-// Forward distribution scan, f32 primal: replaces the TPU kernel
-// hank_tpu/ops/pallas_kernels.py:forward_scan_pallas
-// (_make_forward_scan_kernel). Given T per-period savings policies, it runs
-// the Young lottery, the Markov mix and the aggregation T times from D0 and
-// returns agg[t] = sum(policy_t * D_{t+1}) (the policy unclipped) and D_T.
-// It is household_sweep_kernel's forward loop in primal f32, with three
+// The previous kernel 7: the forward distribution scan, f32 primal, as it
+// was first written (`forward_scan_previous`; forward_scan_kernel below is
+// held to it bit for bit, and no caller but that comparison launches it).
+// Given T per-period savings policies, it runs the Young lottery, the
+// Markov mix and the aggregation T times from D0 and returns agg[t] =
+// sum(policy_t * D_{t+1}) (the policy unclipped) and D_T. It is
+// household_sweep_kernel's forward loop in primal f32, with three
 // differences: the policies come from an input (laid out (T, n_a, n_e), as
 // the JAX function takes them) in place of the scratch, it runs T periods,
-// it writes the final D, and it has no consumption aggregate. It is a body
-// of its own: nvcc's schedule of household_sweep_kernel is fragile (a
-// runtime offset alone cost it 9%), so that kernel's code is left as it is.
+// it writes the final D, and it has no consumption aggregate.
 //
 // The hat form here (policy clamped to [g_0, g_last], then the hat weight)
 // is the same operator as the reference's bracket form (count of grid
@@ -1049,13 +1063,10 @@ int launch_ranged(const void* r, const void* w, const void* dr, const void* dw,
 // but it rounds differently, by a few f32 ulps per period.
 //
 // What bounds it on the H100: latency. T dependent periods run one after
-// another on one SM, each a handful of block-wide barriers (the clamp, the
-// lottery, the mix and a 10-level reduction tree) around a few thousand
-// compares and FMAs per thread; the 1.7 MB of policies it reads at
-// 200x7, T=300 would take ~0.5 us at HBM rate. One block, 1024 threads, D in
-// shared memory, no float atomics (one owner thread per destination and a
-// fixed reduction tree), so two runs are bit-identical.
-__global__ void __launch_bounds__(kThreads) forward_scan_kernel(
+// another on one SM, each 13 block-wide barriers (the clamp, the lottery,
+// the mix and a 10-level reduction tree) around O(n_a) compares per
+// destination: every destination walks all n_a sources of its row.
+__global__ void __launch_bounds__(kThreads) forward_scan_previous_kernel(
     const float* __restrict__ pol_g,     // (T, n_a, n_e)
     const float* __restrict__ D0,        // (n_a, n_e)
     const float* __restrict__ grid_g,    // (n_a,)
@@ -1151,10 +1162,313 @@ __global__ void __launch_bounds__(kThreads) forward_scan_kernel(
     }
 }
 
-size_t forward_scan_smem_bytes(int n_a, int n_e) {
+size_t forward_scan_previous_smem_bytes(int n_a, int n_e) {
     return sizeof(float) * (3 * (size_t)n_a * n_e + 5 * (size_t)n_a
                             + (size_t)n_e * n_e + kThreads);
 }
+
+// Kernel 7: the forward distribution scan, f32 primal, replacing the TPU
+// kernel hank_tpu/ops/pallas_kernels.py:62 forward_scan_pallas
+// (_make_forward_scan_kernel). Its outputs are bit for bit those of
+// forward_scan_previous_kernel above on every input (chip_smoke.py holds
+// both outputs to it). Three launches on one stream; only the second is a
+// serial chain, and the work that does not depend on D is taken off it:
+//   forward_scan_prep_kernel, one block per (period, income row), all
+//       periods at once on every SM: the clamped policy row in the (e, a)
+//       layout, whether it is non-decreasing, and for every destination b
+//       of the row the range of sources inside its hat. On a non-decreasing
+//       row the sources with gl < P[a] < gh (the previous kernel's test)
+//       are exactly the contiguous range from the first a with P[a] > gl to
+//       the first with !(P[a] < gh): two binary searches. A row that is not
+//       non-decreasing (noise, a NaN) gets the range [0, n_a) marked for
+//       the previous kernel's test on every source (its full scan), and is
+//       counted in `fallback`.
+//   forward_scan_kernel, one block of 1024 threads: per period the lottery
+//       over each destination's range in ascending a, so the same terms in
+//       the same order; a barrier; the Markov mix, written to shared memory
+//       and to the history of D; a barrier. Two barriers a period in place
+//       of 13. On a checked row the range needs no test, so the hat weights
+//       and loads of its sources are independent and only the sum is a
+//       chain (the sources piled on g_0 by the borrowing limit make one
+//       destination's range tens of sources long). The next period's
+//       clamped rows are copied into shared memory by cp.async during the
+//       mix (a second buffer, copied a period ahead, measured no faster),
+//       and each thread's next ranges (its first kMaxOwned destinations)
+//       are loaded into registers a period ahead.
+//   forward_scan_agg_kernel, one block per period: agg[t] from the stored
+//       D_{t+1} with the previous kernel's per-thread partial sums (the same
+//       FMAs in the same order) and its reduction tree.
+// Shared memory: D, D_half and the clamped rows (3 n), the hat-basis grid
+// arrays (4 n_a) and Pi, less than the previous kernel's, so every grid it
+// takes fits. Global scratch: the clamped rows, the ranges and the history
+// of D, T n each.
+//
+// What bounds it: latency still, one block walking T dependent periods on
+// one SM: two barriers, each thread's short lottery loops and mix, and the
+// longest range of the period (the borrowing limit's pile) as one chain of
+// FMAs.
+// Destinations per thread whose ranges live in registers (4 × 1024 in all);
+// `tools/scan_owned_ab.py` builds the source with -DHANK_SCAN_OWNED=0 to time
+// the kernel with every range read in its period's own loop.
+#ifndef HANK_SCAN_OWNED
+#define HANK_SCAN_OWNED 4
+#endif
+constexpr int kMaxOwned = HANK_SCAN_OWNED;
+constexpr int kOwnedSlots = kMaxOwned > 0 ? kMaxOwned : 1;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A destination's source range [begin, end), packed as begin | end << 16,
+// a non-negative int while n_a < 32768 (the launcher checks; every grid the
+// shared memory takes has n_a < 7200), with bit 15 set on a fallback row:
+// there the range is the whole row and each source is tested. On a
+// non-decreasing row every source of the range passes the test (P[a] > gl
+// from `begin` on, P[a] < gh before `end`), so it is not repeated.
+constexpr int kTested = 0x8000;
+
+__device__ __forceinline__ int pack_range(int begin, int end) { return begin | (end << 16); }
+
+__global__ void __launch_bounds__(256) forward_scan_prep_kernel(
+    const float* __restrict__ pol_g,     // (T, n_a, n_e)
+    const float* __restrict__ grid_g,    // (n_a,)
+    float* __restrict__ Pc,              // (T, n_e, n_a) clamped rows
+    int* __restrict__ Rg,                // (T, n_e, n_a) packed source ranges
+    int* __restrict__ fallback,          // (1,) or null
+    int n_a, int n_e)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* P = reinterpret_cast<float*>(smem_raw);     // this row, (n_a,)
+    const int t = blockIdx.x, e = blockIdx.y;
+    const size_t n = (size_t)n_a * n_e;
+    const float* pol_t = pol_g + (size_t)t * n;
+    const float g_bot = grid_g[0], g_top = grid_g[n_a - 1];
+    for (int a = threadIdx.x; a < n_a; a += blockDim.x) {
+        const float p = fminf(fmaxf(pol_t[a * n_e + e], g_bot), g_top);
+        P[a] = p;
+        Pc[(size_t)t * n + (size_t)e * n_a + a] = p;
+    }
+    __syncthreads();
+    int ok = 1;
+    for (int a = threadIdx.x; a < n_a - 1; a += blockDim.x) ok &= P[a] <= P[a + 1];
+    const bool mono = __syncthreads_and(ok);
+    if (!mono && fallback != nullptr && threadIdx.x == 0) atomicAdd(fallback, 1);
+    for (int b = threadIdx.x; b < n_a; b += blockDim.x) {
+        int begin = 0, end = n_a;
+        if (mono) {
+            // The hat's support, as the previous kernel computes glo/ghi.
+            const float gl = b == 0 ? grid_g[0] - (grid_g[1] - grid_g[0]) : grid_g[b - 1];
+            const float gh = b == n_a - 1
+                ? grid_g[n_a - 1] + (grid_g[n_a - 1] - grid_g[n_a - 2]) : grid_g[b + 1];
+            int hi_a = n_a;      // the first a with P[a] > gl
+            while (begin < hi_a) {
+                const int mid = (begin + hi_a) >> 1;
+                if (P[mid] > gl) hi_a = mid; else begin = mid + 1;
+            }
+            int lo_a = begin;    // the first a >= begin with !(P[a] < gh)
+            while (lo_a < end) {
+                const int mid = (lo_a + end) >> 1;
+                if (P[mid] < gh) lo_a = mid + 1; else end = mid;
+            }
+        }
+        Rg[(size_t)t * n + (size_t)e * n_a + b] = pack_range(begin, end) | (mono ? 0 : kTested);
+    }
+}
+
+// One destination of the lottery: D_half[e, b] over the sources of `range`
+// (`row` = e * n_a).
+__device__ __forceinline__ float lottery_dest(
+    const float* __restrict__ P, const float* __restrict__ X, const float* __restrict__ glo,
+    const float* __restrict__ ghi, const float* __restrict__ iup,
+    const float* __restrict__ idn, int row, int b, int range)
+{
+    const float gl = glo[b], gh = ghi[b], iu = iup[b], id = idn[b];
+    const float* Pe = P + row;
+    const float* Xe = X + row;
+    float acc = 0.0f;
+    const int begin = range & 0x7fff, end = range >> 16;
+    if (range & kTested) {
+        for (int a = begin; a < end; ++a) {
+            const float p = Pe[a];
+            if (!(p > gl && p < gh)) continue;   // the previous kernel's test
+            const float up = (p - gl) * iu;
+            const float down = (gh - p) * id;
+            acc += fmaxf(down < up ? down : up, 0.0f) * Xe[a];
+        }
+        return acc;
+    }
+    // Every source passes the test: the hat weights and loads of several
+    // sources are independent, and only the ascending sum is a chain.
+#pragma unroll 8
+    for (int a = begin; a < end; ++a) {
+        const float p = Pe[a];
+        const float up = (p - gl) * iu;
+        const float down = (gh - p) * id;
+        acc += fmaxf(down < up ? down : up, 0.0f) * Xe[a];
+    }
+    return acc;
+}
+
+// Markov mix of one destination: D'[e2, b] = sum_e Pi[e, e2] D_half[e, b].
+__device__ __forceinline__ float mix_dest(const float* __restrict__ Pi,
+                                          const float* __restrict__ Y, int e2, int b,
+                                          int n_a, int n_e)
+{
+    float Dn = 0.0f;
+    for (int e = 0; e < n_e; ++e) Dn += Pi[e * n_e + e2] * Y[e * n_a + b];
+    return Dn;
+}
+
+__global__ void __launch_bounds__(kThreads) forward_scan_kernel(
+    const float* __restrict__ Pc,        // (T, n_e, n_a) clamped rows
+    const int* __restrict__ Rg,          // (T, n_e, n_a) packed source ranges
+    const float* __restrict__ D0,        // (n_a, n_e)
+    const float* __restrict__ grid_g,    // (n_a,)
+    const float* __restrict__ Pi_g,      // (n_e, n_e) row-stochastic
+    float* __restrict__ Dhist,           // (T, n_e, n_a): D_{t+1}
+    float* __restrict__ D_T,             // (n_a, n_e)
+    int T, int n_a, int n_e)
+{
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* X = reinterpret_cast<float*>(smem_raw);   // D, laid out (n_e, n_a)
+    const int n = n_a * n_e;
+    const int tid = threadIdx.x;
+    float* Y = X + n;             // D_half
+    float* glo = Y + n;
+    float* ghi = glo + n_a;
+    float* iup = ghi + n_a;
+    float* idn = iup + n_a;
+    float* Pi = idn + n_a;
+    float* P = Pi + n_e * n_e;    // the period's clamped rows
+
+    for (int i = tid; i < n_e * n_e; i += kThreads) Pi[i] = Pi_g[i];
+    for (int idx = tid; idx < n; idx += kThreads) {
+        const int e = idx / n_a;
+        const int a = idx - e * n_a;
+        X[idx] = D0[a * n_e + e];
+        P[idx] = Pc[idx];
+    }
+    for (int i = tid; i < n_a; i += kThreads) {
+        // The previous kernel's expressions on the same values.
+        const float gi = grid_g[i];
+        const float lo = i == 0 ? grid_g[0] - (grid_g[1] - grid_g[0]) : grid_g[i - 1];
+        const float hi = i == n_a - 1 ? grid_g[n_a - 1] + (grid_g[n_a - 1] - grid_g[n_a - 2])
+                                      : grid_g[i + 1];
+        glo[i] = lo;
+        ghi[i] = hi;
+        iup[i] = 1.0f / (gi - lo);
+        idn[i] = 1.0f / (hi - gi);
+    }
+    // This thread's first kMaxOwned destinations: income row, knot, and
+    // the period's source range (the next period's is loaded a period ahead).
+    int own_e[kOwnedSlots], own_b[kOwnedSlots], rr[kOwnedSlots], rr_next[kOwnedSlots];
+#pragma unroll
+    for (int k = 0; k < kMaxOwned; ++k) {
+        const int idx = tid + k * kThreads;
+        own_e[k] = idx < n ? idx / n_a : 0;
+        own_b[k] = idx - own_e[k] * n_a;
+        rr[k] = idx < n ? Rg[idx] : 0;
+        rr_next[k] = 0;
+    }
+    __syncthreads();
+
+    for (int t = 0; t < T; ++t) {
+        const bool next = t + 1 < T;
+        if (next) {
+#pragma unroll
+            for (int k = 0; k < kMaxOwned; ++k) {
+                const int idx = tid + k * kThreads;
+                if (idx < n) rr_next[k] = Rg[(size_t)(t + 1) * n + idx];
+            }
+        }
+
+        // Hat-basis Young lottery: D_half[e, b] = sum_a hat_b(p[e, a]) D[e, a].
+#pragma unroll
+        for (int k = 0; k < kMaxOwned; ++k) {
+            const int idx = tid + k * kThreads;
+            if (idx < n)
+                Y[idx] = lottery_dest(P, X, glo, ghi, iup, idn, own_e[k] * n_a, own_b[k],
+                                      rr[k]);
+        }
+        for (int idx = tid + kMaxOwned * kThreads; idx < n; idx += kThreads) {
+            const int e = idx / n_a;
+            Y[idx] = lottery_dest(P, X, glo, ghi, iup, idn, e * n_a, idx - e * n_a,
+                                  Rg[(size_t)t * n + idx]);
+        }
+        __syncthreads();
+
+        // The next period's rows, copied while the mix runs.
+        if (next) {
+            const float* Pn = Pc + (size_t)(t + 1) * n;
+            for (int idx = tid; idx < n; idx += kThreads) cp_async4(P + idx, Pn + idx);
+        }
+        // Markov mix D'[e', b] = sum_e Pi[e, e'] D_half[e, b].
+        float* Dt = Dhist + (size_t)t * n;
+#pragma unroll
+        for (int k = 0; k < kMaxOwned; ++k) {
+            const int idx = tid + k * kThreads;
+            if (idx < n) {
+                const float Dn = mix_dest(Pi, Y, own_e[k], own_b[k], n_a, n_e);
+                X[idx] = Dn;
+                Dt[idx] = Dn;
+            }
+        }
+        for (int idx = tid + kMaxOwned * kThreads; idx < n; idx += kThreads) {
+            const int e2 = idx / n_a;
+            const float Dn = mix_dest(Pi, Y, e2, idx - e2 * n_a, n_a, n_e);
+            X[idx] = Dn;
+            Dt[idx] = Dn;
+        }
+#pragma unroll
+        for (int k = 0; k < kMaxOwned; ++k) rr[k] = rr_next[k];
+        cp_async_wait_all();
+        __syncthreads();
+    }
+    for (int idx = tid; idx < n; idx += kThreads) {
+        const int e = idx / n_a;
+        const int a = idx - e * n_a;
+        D_T[a * n_e + e] = X[idx];
+    }
+}
+
+__global__ void __launch_bounds__(kThreads) forward_scan_agg_kernel(
+    const float* __restrict__ pol_g,     // (T, n_a, n_e)
+    const float* __restrict__ Dhist,     // (T, n_e, n_a): D_{t+1}
+    float* __restrict__ agg,             // (T,)
+    int n_a, int n_e)
+{
+    __shared__ float red[kThreads];
+    const int t = blockIdx.x, tid = threadIdx.x;
+    const int n = n_a * n_e;
+    const float* pol_t = pol_g + (size_t)t * n;
+    const float* Dt = Dhist + (size_t)t * n;
+    // The previous kernel's share of thread tid, in its order.
+    float s = 0.0f;
+    for (int idx = tid; idx < n; idx += kThreads) {
+        const int e2 = idx / n_a;
+        const int b = idx - e2 * n_a;
+        s += pol_t[b * n_e + e2] * Dt[idx];
+    }
+    red[tid] = s;
+    __syncthreads();
+    for (int k = kThreads / 2; k > 0; k >>= 1) {
+        if (tid < k) red[tid] += red[tid + k];
+        __syncthreads();
+    }
+    if (tid == 0) agg[t] = red[0];
+}
+
+size_t forward_scan_smem_bytes(int n_a, int n_e) {
+    return sizeof(float) * (3 * (size_t)n_a * n_e + 4 * (size_t)n_a + (size_t)n_e * n_e);
+}
+
+size_t forward_scan_prep_smem_bytes(int n_a) { return sizeof(float) * (size_t)n_a; }
 
 }  // namespace
 
@@ -1222,6 +1536,29 @@ int hank_sweep_residual_f64(const void* r, const void* w, const void* V_T,
                                                beta, gamma, borrow_cons, stream);
 }
 
+int hank_sweep_jvp_f64(const void* r, const void* w, const void* dr, const void* dw,
+                       const void* V_T, const void* D0, const void* grid,
+                       const void* egrid, const void* Pi, void* pol, void* dpol,
+                       void* agg, void* dagg, void* aggc, void* daggc, void* fallback,
+                       int Tm1, int n_a, int n_e, double beta, double gamma,
+                       double borrow_cons, void* stream) {
+    return launch_ranged<double, true, false>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol,
+                                              dpol, agg, dagg, aggc, daggc, fallback, 1,
+                                              Tm1, n_a, n_e, beta, gamma, borrow_cons,
+                                              stream);
+}
+
+int hank_sweep_jvp_f64_previous(const void* r, const void* w, const void* dr,
+                                const void* dw, const void* V_T, const void* D0,
+                                const void* grid, const void* egrid, const void* Pi,
+                                void* pol, void* dpol, void* agg, void* dagg, void* aggc,
+                                void* daggc, int Tm1, int n_a, int n_e, double beta,
+                                double gamma, double borrow_cons, void* stream) {
+    return launch<double, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol, agg,
+                                dagg, aggc, daggc, 1, Tm1, n_a, n_e, beta, gamma,
+                                borrow_cons, stream);
+}
+
 int hank_sweep_jvp_f32_batch_previous(const void* r, const void* w, const void* dr,
                                       const void* dw, const void* V_T, const void* D0,
                                       const void* grid, const void* egrid,
@@ -1256,31 +1593,66 @@ int hank_sweep_residual_f64_previous(const void* r, const void* w, const void* V
 }
 
 int hank_forward_scan_f32(const void* pol, const void* D0, const void* grid,
-                          const void* Pi, void* agg, void* D_T, int T, int n_a,
-                          int n_e, void* stream) {
+                          const void* Pi, void* agg, void* D_T, void* Pc, void* Rg,
+                          void* Dhist, void* fallback, int T, int n_a, int n_e,
+                          void* stream) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     const size_t smem = forward_scan_smem_bytes(n_a, n_e);
+    const size_t smem_prep = forward_scan_prep_smem_bytes(n_a);
+    if (n_a >= 32768) return (int)cudaErrorInvalidValue;   // the packed ranges
     cudaError_t err = cudaFuncSetAttribute(
         forward_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    forward_scan_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    err = cudaFuncSetAttribute(forward_scan_prep_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_prep);
+    if (err != cudaSuccess) return (int)err;
+    forward_scan_prep_kernel<<<dim3(T, n_e), 256, smem_prep, st>>>(
+        (const float*)pol, (const float*)grid, (float*)Pc, (int*)Rg, (int*)fallback, n_a, n_e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    forward_scan_kernel<<<1, kThreads, smem, st>>>(
+        (const float*)Pc, (const int*)Rg, (const float*)D0, (const float*)grid,
+        (const float*)Pi, (float*)Dhist, (float*)D_T, T, n_a, n_e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    forward_scan_agg_kernel<<<T, kThreads, 0, st>>>(
+        (const float*)pol, (const float*)Dhist, (float*)agg, n_a, n_e);
+    return (int)cudaGetLastError();
+}
+
+int hank_forward_scan_f32_previous(const void* pol, const void* D0, const void* grid,
+                                   const void* Pi, void* agg, void* D_T, int T, int n_a,
+                                   int n_e, void* stream) {
+    const size_t smem = forward_scan_previous_smem_bytes(n_a, n_e);
+    cudaError_t err = cudaFuncSetAttribute(
+        forward_scan_previous_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    forward_scan_previous_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         (const float*)pol, (const float*)D0, (const float*)grid, (const float*)Pi,
         (float*)agg, (float*)D_T, T, n_a, n_e);
     return (int)cudaGetLastError();
 }
 
-size_t hank_forward_scan_smem_bytes(int n_a, int n_e) {
-    return forward_scan_smem_bytes(n_a, n_e);
+// which: 0 the previous kernel 7, 1 kernel 7 (its serial kernel; the prep
+// kernel takes 4 n_a bytes).
+size_t hank_forward_scan_smem_bytes(int which, int n_a, int n_e) {
+    return which == 0 ? forward_scan_previous_smem_bytes(n_a, n_e)
+                      : forward_scan_smem_bytes(n_a, n_e);
 }
 
 // which: 0 the template <double, false>, 1 the template <float, true>,
 // 2 household_sweep_jvp_kernel, 3 household_sweep_ranged_kernel
-// <float, true>, 4 household_sweep_ranged_kernel <double, false>.
+// <float, true>, 4 household_sweep_ranged_kernel <double, false>,
+// 5 household_sweep_ranged_kernel <double, true>, 6 the template
+// <double, true>.
 size_t hank_sweep_smem_bytes(int which, int n_a, int n_e) {
     switch (which) {
         case 1: return smem_bytes<float, true>(n_a, n_e);
         case 2: return jvp_smem_bytes(n_a, n_e);
         case 3: return smem_bytes<float, true>(n_a, n_e);      // the template's bytes
         case 4: return smem_bytes<double, false>(n_a, n_e);
+        case 5: return smem_bytes<double, true>(n_a, n_e);     // the template's bytes
+        case 6: return smem_bytes<double, true>(n_a, n_e);
         default: return smem_bytes<double, false>(n_a, n_e);
     }
 }

@@ -4,16 +4,22 @@ Each source under `csrc/` is compiled by nvcc for Hopper (`sm_90a`) into a
 shared library with a plain C interface, under `hank_tpu_torch/_build/`
 (git-ignored):
   - `household_sweep.cu`: the one-asset sweep (kernels 1-4): kernel 1,
-    kernels 2-4 (single-path and path-batched entry points of one kernel
-    template with kernel 1's design), the previous kernels 2-4 they are
-    held to (`_previous` entry points); and the forward distribution scan
-    (kernel 7);
+    kernels 2-4 and the f64 tangent sweep (single-path and path-batched
+    entry points of one kernel template with kernel 1's design), the
+    previous kernels they are held to (`_previous` entry points); and the
+    forward distribution scan (kernel 7) with its previous kernel;
   - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, and the
     previous kernels 5 and 6 that they are held to).
 The libraries are keyed by the SHA-256 of both sources, so an edited source
 rebuilds; a build runs one nvcc per source, all started together. The
 libraries are loaded with ctypes. Nothing here runs at import: the CPU
 tests import every module, and the CPU has no nvcc.
+
+`check_fit(need_bytes, what)` is the one shared-memory rule: ValueError
+when a kernel needs more than one block has. The wrappers apply it at each
+launch; the kernel maps apply it, with the library's own count
+(`sweep_smem_bytes` / `sweep2_smem_bytes`), when they are built on the
+card, so a grid past a kernel's limit stops a solve before it starts.
 
 `python -m hank_tpu_torch.ops.cuda_build SOURCE.cu ...` compiles each
 source with the same flags into a temporary directory and prints, per
@@ -47,7 +53,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class BuildInfo:
     paths: dict        # library name -> shared library
     seconds: float     # nvcc wall-clock of this call (0.0 when already built)
-    log: str           # nvcc's output (ptxas register/shared-memory report)
+    log: str           # nvcc's output (ptxas register/shared-memory report),
+                       # kept beside each library for later calls
 
 
 def _nvcc() -> str:
@@ -79,7 +86,7 @@ def build() -> BuildInfo:
     paths = {name: os.path.join(BUILD_DIR, f"{name}_{digest}.so") for name in LIBRARIES}
     todo = [name for name in LIBRARIES if not os.path.exists(paths[name])]
     if not todo:
-        return BuildInfo(paths, 0.0, "")
+        return BuildInfo(paths, 0.0, _saved_logs(paths))
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -99,10 +106,22 @@ def build() -> BuildInfo:
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
         else:
+            with open(f"{paths[name]}.log", "w") as f:
+                f.write(out)
             os.replace(tmp, paths[name])
     if failed:
         raise RuntimeError("\n".join(failed))
     return BuildInfo(paths, time.perf_counter() - t0, "\n".join(logs))
+
+
+def _saved_logs(paths: dict) -> str:
+    """The nvcc output kept beside each built library (its ptxas report)."""
+    logs = []
+    for name, path in paths.items():
+        if os.path.exists(f"{path}.log"):
+            with open(f"{path}.log") as f:
+                logs.append(f"== {name}\n{f.read()}")
+    return "\n".join(logs)
 
 
 _SIGNATURES = {
@@ -115,7 +134,10 @@ _SIGNATURES = {
         "hank_sweep_residual_f64_previous": (10, 3, 3),
         "hank_sweep_jvp_f32_batch_previous": (15, 4, 3),
         "hank_sweep_residual_f64_batch_previous": (10, 4, 3),
-        "hank_forward_scan_f32": (6, 3, 0),
+        "hank_sweep_jvp_f64": (16, 3, 3),
+        "hank_sweep_jvp_f64_previous": (15, 3, 3),
+        "hank_forward_scan_f32": (10, 3, 0),
+        "hank_forward_scan_f32_previous": (6, 3, 0),
     },
     "household_sweep2": {
         "hank_sweep2_policies_jvp_f32": (15, 4, 4),
@@ -137,7 +159,7 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
     if name == "household_sweep":
         lib.hank_sweep_smem_bytes.argtypes = [i, i, i]
         lib.hank_sweep_smem_bytes.restype = ctypes.c_size_t
-        lib.hank_forward_scan_smem_bytes.argtypes = [i, i]
+        lib.hank_forward_scan_smem_bytes.argtypes = [i, i, i]
         lib.hank_forward_scan_smem_bytes.restype = ctypes.c_size_t
     else:
         lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i, i]
@@ -151,23 +173,49 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
 MAX_SMEM_BYTES = 232_448
 
 
-def _check_smem(need: int, what: str) -> None:
+def check_fit(need: int, what: str, hint: str = "") -> None:
+    """ValueError (ending in `hint`) when a kernel that needs `need` bytes of
+    dynamic shared memory per block does not fit one block."""
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{what} needs {need} bytes of shared memory; "
-                         f"one block has {MAX_SMEM_BYTES}")
+                         f"one block has {MAX_SMEM_BYTES}{hint}")
+
+
+# `which` of `hank_sweep_smem_bytes`, one per kernel of the one-asset sweep
+# (`csrc/household_sweep.cu`): the counting template's builds (the previous
+# kernels), kernel 1, and household_sweep_ranged_kernel's builds.
+PREVIOUS_KERNEL2, PREVIOUS_KERNELS3_4, KERNEL1, KERNELS3_4, KERNEL2 = 0, 1, 2, 3, 4
+JVP_F64, PREVIOUS_JVP_F64 = 5, 6
+
+
+def sweep_smem_bytes(which: int, n_a: int, n_e: int) -> int:
+    """The library's count of a one-asset sweep kernel's shared memory at an
+    n_a×n_e grid (`which` as above). Builds the library."""
+    return load_library().hank_sweep_smem_bytes(which, n_a, n_e)
+
+
+def sweep2_smem_bytes(which: int, n_b: int, n_a: int, n_e: int, cluster: int = 1) -> int:
+    """The library's count of a two-asset kernel's shared memory per block
+    (`check_shared_memory2`'s `which`). Builds the library."""
+    return load_library("household_sweep2").hank_sweep2_smem_bytes(which, n_b, n_a, n_e,
+                                                                   cluster)
 
 
 def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:
     """The one-asset sweep at an n_a×n_e grid: which = 0 the previous
     kernel 2 (the counting template's f64 residual build), 1 the previous
-    kernels 3-4 (its f32 dual build), 2 kernel 1, 3 kernels 3-4, 4 kernel 2
-    (the template with kernel 1's design, f32 dual and f64 builds)."""
-    _check_smem(lib.hank_sweep_smem_bytes(which, n_a, n_e), f"grid {n_a}x{n_e}")
+    kernels 1 and 3-4 (its f32 dual build), 2 kernel 1, 3 kernels 3-4, 4
+    kernel 2 (the template with kernel 1's design, f32 dual and f64 builds),
+    5 the f64 tangent sweep (its f64 dual build), 6 the previous f64 tangent
+    sweep (the counting template's f64 dual build)."""
+    check_fit(lib.hank_sweep_smem_bytes(which, n_a, n_e), f"grid {n_a}x{n_e}")
 
 
-def check_shared_memory_scan(lib: ctypes.CDLL, n_a: int, n_e: int) -> None:
-    """Kernel 7 (the forward scan) at an n_a×n_e grid."""
-    _check_smem(lib.hank_forward_scan_smem_bytes(n_a, n_e), f"forward scan at grid {n_a}x{n_e}")
+def check_shared_memory_scan(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:
+    """The forward scan at an n_a×n_e grid: which = 0 the previous kernel 7,
+    1 kernel 7."""
+    check_fit(lib.hank_forward_scan_smem_bytes(which, n_a, n_e),
+                f"forward scan at grid {n_a}x{n_e}")
 
 
 def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int,
@@ -178,7 +226,7 @@ def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: 
     block)."""
     what = ("previous kernel 5", "previous kernel 6", f"kernel 6 on a cluster of {cluster}",
             f"kernel 5 on a cluster of {cluster}")[which]
-    _check_smem(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e, cluster),
+    check_fit(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e, cluster),
                 f"{what} at grid {n_b}x{n_a}x{n_e}x2")
 
 

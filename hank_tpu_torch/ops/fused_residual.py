@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
+from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fallback_pointer,
                                             household_aggregates, launch_sweep,
                                             require_card, sweep_setup)
@@ -160,7 +161,8 @@ def make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths):
     """F(x) -> f64 residual with the household block in kernel 2; the price
     map and the residual tail (assembly + equations over the (n_v, T)
     matrix) run in f64 torch ops."""
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64)
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64,
+                                            cuda_build.KERNEL2)
     cs = model.compspec
 
     def F(x):
@@ -181,7 +183,8 @@ def make_sweep_residual_fn_batch(model, ss_initial, ss_ending):
     The household block of every row runs in one batched kernel-2 launch;
     the price map and the residual tail run per row under
     `torch.func.vmap` in f64 torch ops."""
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64)
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64,
+                                            cuda_build.KERNEL2)
     cs = model.compspec
 
     def prices(xx, ex):

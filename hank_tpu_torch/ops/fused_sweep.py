@@ -19,6 +19,23 @@ f32 blocks plus the budget-rebuilt consumption aggregate) only for CPU
 tensors. `fused_sweep_jvp.launches` counts kernel launches and
 `fused_sweep_jvp_reference.calls` counts plain-version calls.
 
+`fused_sweep_jvp_f64` is the same sweep in f64, primal and tangent
+(`household_sweep_ranged_kernel<double, true, false>`), the port's own
+kernel: the reference takes its f64 directions by XLA AD of the f64
+pipeline (`hank_tpu/solvers/newton.py:389`), with no Pallas kernel. Its
+plain version is `fused_sweep_jvp_reference` in f64, and it is held bit for
+bit to the counting template's `<double, true, false>` launch
+(`fused_sweep_jvp_f64_previous`) on the card. `make_fused_jvp_dir_f64` is
+the f64 direction map around it.
+
+Every kernel map over the sweep is built through `sweep_setup`, which on
+the card holds the model's grid to the kernel's shared memory
+(`cuda_build.check_fit` of the library's count): a grid past the limit
+raises ValueError when the map is built, before a solve starts, and no
+route falls back to a plain version on the card. The reference probes the
+kernel and degrades to XLA instead (`hank_tpu/solvers/newton.py:356-376,
+431-450`).
+
 A model opts in by defining `fused_prices(xp, exog_paths, model) -> (r, s)`
 next to its `ValueFunction` (the hook lookup goes through
 `value_fn.__module__`, `hank_tpu/ops/fused_sweep.py:455-467`).
@@ -36,7 +53,7 @@ from hank_tpu_torch.ops.clip import floor
 from hank_tpu_torch.ops.egm import crra_egm_step
 from hank_tpu_torch.ops.transition import forward_step
 
-f32 = torch.float32
+f32, f64 = torch.float32, torch.float64
 
 
 def household_aggregates(r_path, w_path, V_T, D0, grid, e_grid, Pi,
@@ -210,6 +227,48 @@ def fused_sweep_jvp_reference(r_path, w_path, dr_path, dw_path, V_T, D0, grid,
 fused_sweep_jvp_reference.calls = 0
 
 
+def fused_sweep_jvp_f64(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
+                        *, beta: float, gamma: float, borrow_cons: float,
+                        fallback_rows: torch.Tensor | None = None):
+    """`fused_sweep_jvp` in float64: all inputs float64, the same outputs
+    and `fallback_rows` (a (2,) int32 CUDA tensor, refused on CPU tensors).
+    On the card `household_sweep_ranged_kernel<double, true, false>`; on CPU
+    tensors the plain version `fused_sweep_jvp_reference` in f64."""
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp_f64", f64, paths, V_T, D0, grid, e_grid, Pi)
+    fallback = fallback_pointer("fused_sweep_jvp_f64", fallback_rows, V_T, (2,))
+    kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    if V_T.device.type == "cpu":
+        return fused_sweep_jvp_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    out = launch_sweep("hank_sweep_jvp_f64", paths, V_T, D0, grid, e_grid, Pi,
+                       n_out=4, smem_kind=cuda_build.JVP_F64, extra_ptrs=fallback, **kw)
+    fused_sweep_jvp_f64.launches += 1
+    return out
+
+
+fused_sweep_jvp_f64.launches = 0
+
+
+def fused_sweep_jvp_f64_previous(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
+                                 Pi, *, beta: float, gamma: float, borrow_cons: float):
+    """The counting template's `<double, true, false>` launch
+    (`household_sweep_kernel`, which counts brackets and scans every
+    source), with `fused_sweep_jvp_f64`'s arguments and outputs: the
+    yardstick it is held to bit for bit. No solver calls it. CUDA tensors
+    only."""
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp_f64_previous", f64, paths, V_T, D0, grid, e_grid, Pi)
+    require_card("fused_sweep_jvp_f64_previous", V_T, "fused_sweep_jvp_reference")
+    out = launch_sweep("hank_sweep_jvp_f64_previous", paths, V_T, D0, grid, e_grid, Pi,
+                       n_out=4, smem_kind=cuda_build.PREVIOUS_JVP_F64, beta=beta,
+                       gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp_f64_previous.launches += 1
+    return out
+
+
+fused_sweep_jvp_f64_previous.launches = 0
+
+
 def _fused_price_hook(model):
     """The model's `fused_prices(xp, exog_paths, model)` hook, or None.
     Defining it declares the Bellman step to be the canonical one-asset
@@ -242,10 +301,21 @@ def aggregate_keys(model) -> tuple[str, str | None]:
     return policy_var, (extra[0] if extra else None)
 
 
-def sweep_setup(model, ss_initial, ss_ending, dtype):
+# The one-asset sweep's kernel maps, by `cuda_build`'s `which`.
+KERNEL_NAMES = {cuda_build.KERNEL1: "kernel 1 (the f32 tangent sweep)",
+                cuda_build.KERNELS3_4: "kernels 3-4 (the batched f32 tangent sweep)",
+                cuda_build.KERNEL2: "kernel 2 (the f64 residual sweep)",
+                cuda_build.JVP_F64: "the f64 tangent sweep"}
+PLAIN_ROUTES = ("; on the card only the plain routes take this grid "
+                "(direction_mode='xla', residual_mode='f64')")
+
+
+def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None):
     """What `_build_fused` and the `make_*` functions over the household
     sweep take from a supported model, with the steady-state arrays in
-    `dtype`.
+    `dtype`. With `which` (the kernel the map launches, `cuda_build`'s
+    numbering) and the arrays on the card, ValueError where that kernel's
+    shared memory does not take the model's grid.
 
     Returns (hook, consts, kw, to_aggs): the model's `fused_prices` hook;
     the shared kernel inputs (V_T, D0, grid, e_grid, Pi), contiguous; the
@@ -261,6 +331,10 @@ def sweep_setup(model, ss_initial, ss_ending, dtype):
     consts = [t.to(dtype).contiguous() for t in
               (ss_ending.value, ss_initial.D, wealth.grid, prod.grid, prod.transition)]
     kw = dict(beta=float(p["β"]), gamma=float(p["γ"]), borrow_cons=float(p["borrow_cons"]))
+    if which is not None and consts[0].is_cuda:
+        cuda_build.check_fit(cuda_build.sweep_smem_bytes(which, wealth.n, prod.n),
+                             f"{KERNEL_NAMES[which]} at grid {wealth.n}x{prod.n}",
+                             PLAIN_ROUTES)
 
     def to_aggs(agg, aggc):
         return {policy_var: agg} if c_key is None else {policy_var: agg, c_key: aggc}
@@ -268,53 +342,63 @@ def sweep_setup(model, ss_initial, ss_ending, dtype):
     return _fused_price_hook(model), consts, kw, to_aggs
 
 
-def _build_fused(model, ss_initial, ss_ending, exog_paths):
-    """Kernel-1 entry points (`hank_tpu/ops/fused_sweep.py:505-592`).
+def _build_fused(model, ss_initial, ss_ending, exog_paths, dtype=f32):
+    """The direction map through the household sweep in `dtype`
+    (`hank_tpu/ops/fused_sweep.py:505-592` for f32): kernel 1 in f32,
+    `fused_sweep_jvp_f64` in f64.
 
-    Returns (jvp_dir, residual32):
-      jvp_dir(x, v) -> f32 directional derivative of F at x along v: the
+    Returns (jvp_dir, residual):
+      jvp_dir(x, v) -> `dtype` directional derivative of F at x along v: the
         household JVP in the kernel, the price map and the assembly +
-        residual tail by `torch.func.jvp` in f32 (the reference's f32 tail).
-      residual32(x) -> f32 F(x) through the same kernel with zero tangent.
+        residual tail by `torch.func.jvp` in `dtype` (the reference's f32
+        tail; in f64 the f64 pipeline's).
+      residual(x) -> `dtype` F(x) through the same kernel with zero tangent.
     """
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f32)
+    which = cuda_build.KERNEL1 if dtype == f32 else cuda_build.JVP_F64
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, dtype, which)
+    kernel = fused_sweep_jvp if dtype == f32 else fused_sweep_jvp_f64
     cs = model.compspec
     Tm1 = cs.T - 1
-    exog32 = {k: v.to(f32) for k, v in exog_paths.items()}
-    vars0 = {k: torch.as_tensor(v).to(f32) for k, v in ss_initial.vars.items()}
-    varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
+    exog_d = {k: v.to(dtype) for k, v in exog_paths.items()}
+    vars0 = {k: torch.as_tensor(v).to(dtype) for k, v in ss_initial.vars.items()}
+    varsT = {k: torch.as_tensor(v).to(dtype) for k, v in ss_ending.vars.items()}
 
     def price_map(xx):
-        r, s = hook(xx.reshape(Tm1, cs.n_endog), exog32, model)
-        return r.to(f32), s.to(f32)
+        r, s = hook(xx.reshape(Tm1, cs.n_endog), exog_d, model)
+        return r.to(dtype), s.to(dtype)
 
-    def sweep(x32, v32):
-        (r, s), (dr, ds) = torch.func.jvp(price_map, (x32,), (v32,))
-        agg, dagg, aggc, daggc = fused_sweep_jvp(
+    def sweep(x_d, v_d):
+        (r, s), (dr, ds) = torch.func.jvp(price_map, (x_d,), (v_d,))
+        agg, dagg, aggc, daggc = kernel(
             r.contiguous(), s.contiguous(), dr.contiguous(), ds.contiguous(),
             *consts, **kw)
         return to_aggs(agg, aggc), to_aggs(dagg, daggc)
 
     def tail(xx, aggs):
-        x_mat = assemble_full_xmat(xx, aggs, exog32, model, vars0, varsT)
+        x_mat = assemble_full_xmat(xx, aggs, exog_d, model, vars0, varsT)
         return residuals(x_mat, model)
 
     def jvp_dir(x, v):
-        x32, v32 = x.to(f32), v.to(f32)
-        aggs, daggs = sweep(x32, v32)
-        return torch.func.jvp(tail, (x32, aggs), (v32, daggs))[1]
+        x_d, v_d = x.to(dtype), v.to(dtype)
+        aggs, daggs = sweep(x_d, v_d)
+        return torch.func.jvp(tail, (x_d, aggs), (v_d, daggs))[1]
 
-    def residual32(x):
-        x32 = x.to(f32)
-        aggs, _ = sweep(x32, torch.zeros_like(x32))
-        return tail(x32, aggs)
+    def residual(x):
+        x_d = x.to(dtype)
+        aggs, _ = sweep(x_d, torch.zeros_like(x_d))
+        return tail(x_d, aggs)
 
-    return jvp_dir, residual32
+    return jvp_dir, residual
 
 
 def make_fused_jvp_dir(model, ss_initial, ss_ending, exog_paths):
-    """jvp_dir(x, v) through kernel 1 (see `_build_fused`)."""
+    """f32 jvp_dir(x, v) through kernel 1 (see `_build_fused`)."""
     return _build_fused(model, ss_initial, ss_ending, exog_paths)[0]
+
+
+def make_fused_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths):
+    """f64 jvp_dir(x, v) through `fused_sweep_jvp_f64` (see `_build_fused`)."""
+    return _build_fused(model, ss_initial, ss_ending, exog_paths, f64)[0]
 
 
 def make_fused_residual_fn(model, ss_initial, ss_ending, exog_paths):

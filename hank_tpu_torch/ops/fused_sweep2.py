@@ -37,7 +37,7 @@ import torch
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import check_tensors
+from hank_tpu_torch.ops.fused_sweep import PLAIN_ROUTES, check_tensors
 from hank_tpu_torch.ops.precision import cast_model
 
 f32 = torch.float32
@@ -324,6 +324,14 @@ def _build_fused2(model, ss_initial, ss_ending, exog_paths, plain: bool = False)
     varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
     value_T = ss_ending.value.to(f32).contiguous()
     D0 = ss_initial.D.to(f32).contiguous()
+    if not plain and value_T.is_cuda:
+        # Kernels 5-6 on their default clusters, by the library's count.
+        liquid, illiq, income, _ = _dims(model)
+        grid = (liquid.n, illiq.n, income.n)
+        need = max(cuda_build.sweep2_smem_bytes(3, *grid, default_bwd_cluster(income.n)),
+                   cuda_build.sweep2_smem_bytes(2, *grid, default_cluster(income.n)))
+        cuda_build.check_fit(need, f"kernels 5-6 at grid {'x'.join(map(str, grid))}x2",
+                             PLAIN_ROUTES)
 
     def price_map(xx):
         return tuple(q.to(f32) for q in hook(xx.reshape(Tm1, cs.n_endog), exog32, model32))

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
+from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fallback_pointer,
                                             fused_sweep_jvp_reference, launch_sweep,
                                             require_card, supports_fused_sweep,
@@ -123,7 +124,8 @@ def make_fused_jvp_batch(model, ss_initial, ss_ending):
     {k: exog_batch[k][b]}, (B, T-1) each — the batched analogue of
     `fused_sweep._build_fused`'s jvp_dir, with the same f32 tail.
     """
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f32)
+    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f32,
+                                            cuda_build.KERNELS3_4)
     cs = model.compspec
     Tm1 = cs.T - 1
     vars0 = {k: torch.as_tensor(v).to(f32) for k, v in ss_initial.vars.items()}

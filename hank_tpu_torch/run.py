@@ -132,6 +132,10 @@ def main(argv=None) -> dict:
     parser.add_argument("--residual-mode", default="auto", choices=["auto", "ds", "f64"],
                         help="full-precision residual: the FP64 residual kernel "
                              "(auto/ds) or the plain f64 pipeline")
+    parser.add_argument("--direction-mode", default="auto", choices=["auto", "xla", "pallas"],
+                        help="direction route (solvers/newton.py): 'auto' the CUDA kernels "
+                             "where the model has them, 'xla' AD of the plain pipeline, which "
+                             "also takes grids past the kernels' shared memory")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the model and the solve (default: cuda)")
     parser.add_argument("--out", default=None, help="CSV output path")
@@ -157,7 +161,8 @@ def main(argv=None) -> dict:
         model, method=args.method,
         direction_dtype=torch.float32 if args.mixed else None,
         eps=args.eps, cache=not args.no_cache,
-        residual_mode=args.residual_mode, warm_start=args.warm_start)
+        residual_mode=args.residual_mode, warm_start=args.warm_start,
+        **({} if args.direction_mode == "auto" else {"direction_mode": args.direction_mode}))
     wall = time.time() - t0
 
     endog = model.vars_of_type("endogenous")

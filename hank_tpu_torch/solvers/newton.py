@@ -2,9 +2,9 @@
 (port of `hank_tpu/solvers/newton.py`).
 
 Both methods keep the residuals in f64 and take their search directions
-in f64 by default (`direction_dtype=None`: `torch.func.jvp` through the
-plain pipeline) or in f32 (`direction_dtype=torch.float32`), by the route
-`direction_mode` picks (`:394-494`):
+in f64 by default (`direction_dtype=None`) or in f32
+(`direction_dtype=torch.float32`), by the route `direction_mode` picks
+(`:394-494`). With f32 directions (`direction_route`):
   - "pallas", the kernel route: the model's f32 kernel pair, kernel 1
     (`ops/fused_sweep.py`) for the one-asset CRRA EGM family
     (`supports_fused_sweep`), kernels 5-6 (`ops/fused_sweep2.py`) for the
@@ -14,9 +14,26 @@ plain pipeline) or in f32 (`direction_dtype=torch.float32`), by the route
     f32, the assembly and residual tail in f64, AD by `torch.func.jvp`;
   - "auto": the kernel route where a kernel pair supports the model and
     the model's arrays are on the card, else the mixed-tail map.
-Residuals come from the native-f64 kernel 2 (`ops/fused_residual.py`) for
-the one-asset family unless `residual_mode="f64"`, else from the plain f64
-pipeline (the reference has no kernel for the two-asset residual either).
+With f64 directions (`f64_direction_route`), a departure from the
+reference, whose f64 directions ignore `direction_mode` and are always XLA
+AD of the f64 pipeline (`:389`):
+  - "auto": the f64 sweep kernel (`ops/fused_sweep.fused_sweep_jvp_f64`,
+    `household_sweep_ranged_kernel<double, true, false>`) for the one-asset
+    family on the card, else `torch.func.jvp` of the plain f64 pipeline
+    (always on CPU tensors);
+  - "xla": `torch.func.jvp` of the plain f64 pipeline;
+  - "pallas": the f64 sweep kernel, its plain version on CPU tensors;
+    ValueError for a model outside the one-asset family.
+The boehl endgame's "f64-ad" rung is the f64 direction route under f64
+directions and AD of the plain f64 pipeline under f32 ones. Residuals come
+from the native-f64 kernel 2 (`ops/fused_residual.py`) for the one-asset
+family unless `residual_mode="f64"`, else from the plain f64 pipeline (the
+reference has no kernel for the two-asset residual either).
+On the card a kernel route whose kernel's shared memory does not take the
+model's grid raises ValueError when the solver is built (`sweep_setup`,
+`fused_sweep2._build_fused2`), naming the plain routes ("xla", "f64") that
+take it: a departure from the reference, which probes its kernel and
+degrades to XLA with a warning (`:356-376, 431-450`).
 
 method="newton_krylov" (`:900-1069`): per outer, the Newton step from
 `gmres_matfree` over the direction operator, left-preconditioned by one
@@ -57,8 +74,8 @@ from hank_tpu_torch.blocks.backward import backward_iteration
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn
-from hank_tpu_torch.ops.fused_sweep import (make_fused_jvp_dir, make_fused_residual_fn,
-                                            supports_fused_sweep)
+from hank_tpu_torch.ops.fused_sweep import (make_fused_jvp_dir, make_fused_jvp_dir_f64,
+                                            make_fused_residual_fn, supports_fused_sweep)
 from hank_tpu_torch.ops.fused_sweep2 import (make_fused2_jvp_dir, make_fused2_residual_fn,
                                              supports_fused_sweep2)
 from hank_tpu_torch.ops.precision import cast_model, cast_paths, cast_ss
@@ -273,6 +290,44 @@ def direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode: st
     return (lambda x, v: jvp_dir(x, v, exog_paths)), (lambda x: F_lo(x, exog_paths))
 
 
+def ad_direction(F: Callable) -> Callable:
+    """jvp_dir(x, v) by `torch.func.jvp` of F (the plain f64 pipeline):
+    the f64 directions' plain route. `ad_direction.calls` counts its
+    directions."""
+    def jvp_dir(x, v):
+        ad_direction.calls += 1
+        return torch.func.jvp(F, (x,), (v,))[1]
+
+    return jvp_dir
+
+
+ad_direction.calls = 0
+
+
+def f64_direction_route(model, ss_initial, ss_ending, exog_paths,
+                        direction_mode: str = "auto") -> Callable:
+    """jvp_dir(x, v) of the f64 direction route `direction_mode` picks
+    (module docstring).
+
+    A departure from the reference, whose f64 directions are XLA AD of the
+    f64 pipeline whatever `direction_mode` says (`:389`): on the card "auto"
+    takes the f64 sweep kernel (`household_sweep_ranged_kernel<double,
+    true, false>`) for the one-asset family, because AD through the eager
+    plain pipeline took 65.1 s for the one-asset HANK 50×7, T=300 solve
+    (one outer) where the f64 tangent sweep takes 0.110 s, on an H100 80GB
+    HBM3 at 700 W (PERF.md §5). On CPU tensors "auto" is AD, as in the
+    reference."""
+    sweep = supports_fused_sweep(model)
+    if direction_mode == "pallas" and not sweep:
+        raise ValueError("direction_mode='pallas' with f64 directions needs the one-asset "
+                         "f64 sweep kernel (supports_fused_sweep is False for this "
+                         "model); use 'auto' or 'xla'")
+    if direction_mode == "pallas" or (direction_mode == "auto" and sweep
+                                      and ss_ending.value.is_cuda):
+        return make_fused_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths)
+    return ad_direction(make_full_residual_fn(model, ss_initial, ss_ending, exog_paths))
+
+
 def _kernel_residual(model, residual_mode: str) -> bool:
     """Whether `residual_mode` picks kernel 2 as the full-precision F(x)."""
     if residual_mode not in ("auto", "ds", "f64"):
@@ -330,10 +385,11 @@ def make_path_solver(
 ):
     """Build a reusable path solver `run(x0) -> (x, info)` (module docstring).
 
-    direction_dtype: None (or torch.float64) for f64 directions, AD
-      through the plain pipeline; torch.float32 for f32 directions.
-    direction_mode: the f32 directions' route, "auto" | "xla" | "pallas"
-      (`direction_route`); f64 directions ignore it, as in the reference.
+    direction_dtype: None (or torch.float64) for f64 directions
+      (`f64_direction_route`); torch.float32 for f32 directions.
+    direction_mode: the directions' route, "auto" | "xla" | "pallas"
+      (`direction_route` for f32 directions, `f64_direction_route` for f64
+      ones; the reference's f64 directions ignore it).
     residual_mode: "auto" | "ds" | "f64" (`residual_route`).
     host_inner: (boehl) Richardson phase + host-PGMRES endgame.
     richardson_max_outer: (boehl, host_inner) cap on the Richardson outers;
@@ -372,9 +428,11 @@ def make_path_solver(
     F_exact = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
     solve_jbar = make_reusable_solver(Jbar)
     max_outer = config.path_newton_max_iter if max_outer is None else max_outer
-
-    def jvp_full(x, v):
-        return torch.func.jvp(F_exact, (x,), (v,))[1]
+    # The f64 directions; under f32 directions, AD for the boehl endgame's
+    # "f64-ad" rung, as before the f64 sweep kernel (`direction_mode` names
+    # the f32 route there).
+    jvp_full = (ad_direction(F_exact) if mixed else
+                f64_direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode))
 
     F32 = None
     if mixed:

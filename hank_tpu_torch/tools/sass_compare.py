@@ -1,22 +1,32 @@
 """Whether two builds of a kernel source compile a kernel to the same code.
 
-    python -m hank_tpu_torch.tools.sass_compare OLD.cu NEW.cu [--kernels REGEX] [--out FILE]
+    python -m hank_tpu_torch.tools.sass_compare OLD.cu NEW.cu [--kernels REGEX]
+        [--rename OLD_PART=NEW_PART ...] [--out FILE]
+    python -m hank_tpu_torch.tools.sass_compare --digest SOURCE.cu [--rename ...] [--out FILE]
 
 Compiles each source with the library's nvcc flags (`ops/cuda_build.py`)
 into a temporary directory, disassembles both with `cuobjdump -sass` and,
 per kernel, compares the instruction text with addresses, encodings and
 column padding stripped. Kernels of the same mangled name in both builds
-are compared when the name matches `--kernels` (default: all).
+are compared when the name matches `--kernels` (default: all). A kernel
+renamed between the builds is compared under `--rename`: each OLD_PART of
+an old build's mangled name is read as NEW_PART (e.g.
+`19forward_scan_kernel=28forward_scan_previous_kernel`).
 
 Prints one JSON line per compared kernel: its name, the instruction counts
 of both builds, whether they are identical and, if not, the index and text
-of the first differing instruction. Needs nvcc and cuobjdump (the CUDA
-toolkit), not a card.
+of the first differing instruction. With `--digest` it prints one JSON
+object instead: the nvcc version and, per kernel of one source, its
+instruction count and the SHA-256 of its instruction text (`digests`), the
+record `chip_smoke.py` holds a build to when the old source is not at hand
+(`sass_reference.json` beside this file: the previous build's kernels).
+Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -85,6 +95,22 @@ def parse_sass(text: str) -> dict[str, list[str]]:
     return out
 
 
+def digests(kernels: dict[str, list[str]]) -> dict[str, dict]:
+    """{kernel: {"instructions": count, "sha256": digest of the text}}."""
+    return {name: {"instructions": len(text),
+                   "sha256": hashlib.sha256("\n".join(text).encode()).hexdigest()}
+            for name, text in kernels.items()}
+
+
+def nvcc_version() -> str:
+    """The last line of `nvcc --version` (the release and build)."""
+    from hank_tpu_torch.ops import cuda_build
+
+    out = subprocess.run([cuda_build._nvcc(), "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return out.strip().splitlines()[-1]
+
+
 def compare(old: list[str], new: list[str]) -> dict:
     first = next((i for i, (a, b) in enumerate(zip(old, new)) if a != b),
                  None if len(old) == len(new) else min(len(old), len(new)))
@@ -97,19 +123,44 @@ def compare(old: list[str], new: list[str]) -> dict:
     return rec
 
 
+def renamed(kernels: dict, rules: list[str]) -> dict:
+    """`kernels` with each rule "OLD_PART=NEW_PART" applied to every name."""
+    for rule in rules:
+        a, b = rule.split("=", 1)
+        kernels = {name.replace(a, b): text for name, text in kernels.items()}
+    return kernels
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("old")
-    ap.add_argument("new")
+    ap.add_argument("sources", nargs="+", help="OLD.cu NEW.cu, or SOURCE.cu with --digest")
+    ap.add_argument("--digest", action="store_true")
     ap.add_argument("--kernels", default="")
+    ap.add_argument("--rename", action="append", default=[])
     ap.add_argument("--out")
     args = ap.parse_args(argv)
+    if len(args.sources) != (1 if args.digest else 2):
+        ap.error("give OLD.cu NEW.cu, or one SOURCE.cu with --digest")
+    if args.digest:
+        with tempfile.TemporaryDirectory() as tmp:
+            build(args.sources[0], os.path.join(tmp, "k.so"))
+            kernels = renamed(sass(os.path.join(tmp, "k.so")), args.rename)
+        rec = {"nvcc": nvcc_version(), "source": args.sources[0],
+               "kernels": digests({k: v for k, v in kernels.items()
+                                   if re.search(args.kernels, k)})}
+        print(json.dumps(rec), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(rec, f, indent=1)
+        return 0
+    args.old, args.new = args.sources
     lines = []
     with tempfile.TemporaryDirectory() as tmp:
         libs = [os.path.join(tmp, "old.so"), os.path.join(tmp, "new.so")]
         build(args.old, libs[0])
         build(args.new, libs[1])
         old, new = sass(libs[0]), sass(libs[1])
+    old = renamed(old, args.rename)
     for name in sorted(set(old) & set(new)):
         if re.search(args.kernels, name):
             lines.append({"kernel": name, **compare(old[name], new[name])})

@@ -1,4 +1,5 @@
-"""PyTorch port: kernels 1-4 held bit for bit to the counting template.
+"""PyTorch port: kernels 1-4 and the f64 tangent sweep held bit for bit to
+the counting template, and kernel 7 to the previous kernel 7.
 
 Imports no JAX, so the card tests run on a machine without it:
 
@@ -12,10 +13,15 @@ each new kernel of `hank_tpu_torch/csrc/household_sweep.cu` is held to the
 previous kernel (`household_sweep_kernel`, the `_previous` wrappers) on
 every output bit, NaNs included: kernel 2, kernels 3-4 and the batched
 kernel 2, near the steady state and on the grid with two knots swapped
-(the fallback branches, whose counts are checked per path); kernel 1 too;
-and the rows of a batched launch equal single launches of kernel 1 and of
-kernel 2. Here, without a card, those tests skip; the CPU test checks that
-`ops/cuda_build._SIGNATURES` declares every entry point of the sources.
+(the fallback branches, whose counts are checked per path); kernel 1 and
+the f64 tangent sweep (`fused_sweep_jvp_f64`, against
+`fused_sweep_jvp_f64_previous`) too; and the rows of a batched launch equal
+single launches of kernel 1 and of kernel 2. Kernel 7 (`forward_scan`) is
+held to the previous kernel 7 (`forward_scan_previous`) on seeded monotone
+policies, with 10% noise (fallback rows), one NaN policy and every policy
+clamped at a grid end. Here, without a card, those tests skip; the CPU test
+checks that `ops/cuda_build._SIGNATURES` declares every entry point of the
+sources.
 """
 
 import re
@@ -31,7 +37,11 @@ from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_batch,
                                                fused_residual_sweep_batch_previous,
                                                fused_residual_sweep_previous)
-from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
+from hank_tpu_torch.ops.forward_scan import (forward_scan, forward_scan_previous,
+                                             forward_scan_reference)
+from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                            fused_sweep_jvp_f64_previous,
+                                            fused_sweep_jvp_reference)
 from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
                                                   fused_sweep_jvp_batch_previous)
 
@@ -245,3 +255,101 @@ def test_batched_rows_on_card_equal_single_launches(cuda):
         assert all(same_bits(o[b], q) for o, q in zip(out, single))
         single64 = fused_residual_sweep(paths64[0][b], paths64[1][b], *c64, **kw)
         assert all(same_bits(o[b], q) for o, q in zip(out64, single64))
+
+
+@pytest.mark.gpu
+def test_f64_tangent_sweep_on_card_is_bit_for_bit_the_template(cuda):
+    """`<double, true, false>` against the counting template's launch on all
+    four outputs, near the steady state and on the swapped grid (its
+    fallback branches); within 1e-10 of its plain version in f64 near the
+    steady state; a zero tangent exactly zero."""
+    kw = kernel_kwargs()
+    paths, c = inputs(1, f64, cuda, seed=6)
+    single = [p[0] for p in paths]
+    counts = []
+    for shared in (c, swapped_grid(c)):
+        fallback = torch.zeros(2, dtype=torch.int32, device=cuda)
+        launches = (fused_sweep_jvp_f64.launches, fused_sweep_jvp_f64_previous.launches)
+        out = fused_sweep_jvp_f64(*single, *shared, **kw, fallback_rows=fallback)
+        old = fused_sweep_jvp_f64_previous(*single, *shared, **kw)
+        assert (fused_sweep_jvp_f64.launches, fused_sweep_jvp_f64_previous.launches) == \
+            (launches[0] + 1, launches[1] + 1)
+        assert all(same_bits(o, q) for o, q in zip(out, old))
+        counts.append(fallback.tolist())
+    assert counts[0] == [0, 0] and sum(counts[1]) > 0
+    out = fused_sweep_jvp_f64(*single, *c, **kw)
+    ref = fused_sweep_jvp_reference(*(a.cpu() for a in (*single, *c)), **kw)
+    for o, q in zip(out, ref):
+        assert float((o.cpu() - q).abs().max()) <= 1e-10 * max(float(q.abs().max()), 1.0)
+    zero = torch.zeros_like(single[2])
+    out0 = fused_sweep_jvp_f64(*single[:2], zero, zero, *c, **kw)
+    assert bool((out0[1] == 0).all() and (out0[3] == 0).all())
+
+
+def scan_inputs(device, seed=0, T=9, n_a=40, n_e=5):
+    """Kernel 7's inputs on the small grid: savings policies rising in
+    wealth (a share of cash on hand, with a constrained bottom), a seeded
+    D0, the grid and Pi, f32."""
+    rng = np.random.default_rng(seed)
+    grid = make_double_exponential_grid(0.0, 200.0, n_a)
+    Pi, _, z = rouwenhorst(n_e, 0.966, 0.283)
+    share = 0.9 + 0.05 * rng.uniform(size=(T, 1, 1))
+    pols = share * (1.01 * grid[None, :, None] + 0.9 * z[None, None, :]) - 1.0
+    D = rng.uniform(0.5, 1.5, (n_a, n_e))
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=f32, device=device)
+
+    return [t(a) for a in (pols, D / D.sum(), grid, Pi)]
+
+
+@pytest.mark.gpu
+def test_kernel7_on_card_is_bit_for_bit_the_previous_kernel(cuda):
+    """Kernel 7 against the previous kernel 7 on both outputs (NaNs
+    included): monotone policies (no fallback row), 10% i.i.d. noise
+    (fallback rows: 1% keeps this coarse grid's rows in order), one NaN policy (a NaN aggregate in its period only)
+    and every policy below the grid or above it; within 5e-5 of the plain
+    version in f64 on the monotone input."""
+    pols, D0, grid, Pi = scan_inputs(cuda)
+    rng = np.random.default_rng(7)
+    noisy = pols * torch.tensor(1.0 + 0.1 * rng.normal(size=pols.shape), dtype=f32,
+                                device=cuda)
+    nan = pols.clone()
+    nan[3, 17, 2] = float("nan")
+    cases = {"monotone": pols, "noise": noisy.contiguous(), "nan": nan,
+             "below": torch.full_like(pols, -5.0), "above": torch.full_like(pols, 1e4)}
+    counts = {}
+    for label, p in cases.items():
+        fallback = torch.zeros(1, dtype=torch.int32, device=cuda)
+        launches = (forward_scan.launches, forward_scan_previous.launches)
+        out = forward_scan(p, D0, grid, Pi, fallback_rows=fallback)
+        old = forward_scan_previous(p, D0, grid, Pi)
+        assert (forward_scan.launches, forward_scan_previous.launches) == \
+            (launches[0] + 1, launches[1] + 1)
+        assert all(same_bits(o, q) for o, q in zip(out, old)), label
+        counts[label] = int(fallback[0])
+    assert counts["monotone"] == counts["below"] == counts["above"] == 0
+    assert counts["noise"] > 0 and counts["nan"] > 0
+    agg_nan = forward_scan(nan, D0, grid, Pi)[0]
+    assert torch.isnan(agg_nan).tolist() == [t == 3 for t in range(pols.shape[0])]
+    agg, D_T = forward_scan(pols, D0, grid, Pi)
+    ref_agg, ref_D = forward_scan_reference(*(a.double().cpu() for a in (pols, D0, grid, Pi)))
+    assert float((agg.double().cpu() - ref_agg).abs().max()) <= \
+        5e-5 * max(float(ref_agg.abs().max()), 1.0)
+    assert float((D_T.double().cpu() - ref_D).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_kernel7_on_card_past_the_destinations_kept_in_registers(cuda):
+    """A grid of 1100×4 = 4400 states: each thread's destinations past the
+    first four (those whose ranges live in registers) take the loop that
+    reads its ranges at use; bit for bit the previous kernel 7, monotone
+    and noisy."""
+    pols, D0, grid, Pi = scan_inputs(cuda, seed=8, T=4, n_a=1100, n_e=4)
+    rng = np.random.default_rng(8)
+    noisy = pols * torch.tensor(1.0 + 0.1 * rng.normal(size=pols.shape), dtype=f32,
+                                device=cuda)
+    for p in (pols, noisy.contiguous()):
+        out = forward_scan(p, D0, grid, Pi)
+        old = forward_scan_previous(p, D0, grid, Pi)
+        assert all(same_bits(o, q) for o, q in zip(out, old))
