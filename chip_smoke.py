@@ -190,6 +190,29 @@ exits non-zero and never prints the final `"ok": true` line:
                large-grid input on its grid with every interval halved
                (999×7, 6993 cells, past the 4096 destinations whose ranges
                kernel 7 keeps in registers); the fallback counts reported.
+ 10. mesh    — the sharded paths of `hank_tpu_torch/parallel/` in a one-rank
+               NCCL group (`init_distributed()`, a FileStore in a temporary
+               directory), destroyed at the phase's end: J̄ with its seed
+               sweeps on the mesh within 1e-12 of phase 3's J̄, and bit for
+               bit an unmeshed J̄ when both are built under torch's
+               deterministic algorithms (the lottery's scatter_add sums with
+               atomics on the card, so two J̄ builds differ in their last
+               bits; an unmeshed rebuild's gap to phase 3's is reported); phase 6's B=64
+               Newton-Krylov ensemble on the mesh (one warm-up, then 3 timed
+               solves, counters zeroed right before: kernels 3-4 and the
+               batched kernel 2 launched, no plain version and no previous
+               kernel), bit for bit phase 6's paths and residual norms with
+               its outers and matvecs, its median beside phase 6's; the
+               state-sharded backward and forward blocks at phase 4's warm-up
+               solution within 1e-12 of the unsplit blocks (whether the bits
+               match is reported). Then `direct_jacobian_columns` (jvp) for
+               the last period's n_endog columns at the initial steady state
+               within 1e-9 of the meshed J̄ there (`tests/test_jacobian.py:84`),
+               with the fd columns' gap, the gap at the ending steady state
+               to phase 3's J̄ and `single_run`'s ‖F‖ reported; and the
+               port's `dryrun_multichip(1)` (one spawned NCCL rank: SP, TP
+               and DP on a 16×2 Krusell-Smith). The `kernels` line's rows of
+               kernels 3-4 and of the batched kernel 2 gain `launches_mesh`.
 
 Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
@@ -430,6 +453,35 @@ def previous_launches() -> dict:
 def zero_previous_launches() -> None:
     for fn in previous_wrappers().values():
         fn.launches = 0
+
+
+def zero_batch_counts() -> None:
+    """Zero the launch counts of the batched kernels (kernels 3-4, the batched
+    kernel 2), their plain versions' calls and the previous kernels'."""
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_reference)
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_reference)
+
+    fused_sweep_jvp_batch.launches = fused_residual_sweep_batch.launches = 0
+    fused_sweep_jvp_batch_reference.calls = fused_residual_sweep_batch_reference.calls = 0
+    zero_previous_launches()
+
+
+def read_batch_counts(path: str) -> tuple:
+    """(launches, plain calls) of the batched kernels since
+    `zero_batch_counts`; raises when a previous kernel ran on `path`."""
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_reference)
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_reference)
+
+    previous = previous_launches()
+    require(not any(previous.values()), f"a previous kernel ran on the {path}: {previous}")
+    return ({"k3_4": fused_sweep_jvp_batch.launches,
+             "k2_batch": fused_residual_sweep_batch.launches},
+            {"k3_4": fused_sweep_jvp_batch_reference.calls,
+             "k2_batch": fused_residual_sweep_batch_reference.calls})
 
 
 def one_asset_grids() -> dict:
@@ -726,10 +778,11 @@ def steady_residual(model, ss) -> float:
 
 
 def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
-                   widths=(1, 64, 132, 256, 1024)) -> list:
+                   widths=(1, 64, 132, 256, 1024)) -> tuple:
     """Phase 6: the ensemble path at B paths (see the module docstring).
     Emits its JSON lines and returns the `kernels` entries of the batched
-    kernels."""
+    kernels and the timed Newton-Krylov solve (its shocks, path, info and
+    median seconds), which phase 10 repeats on a mesh."""
     import torch
 
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
@@ -871,22 +924,7 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          k2_batch_turns_ms=k2b_turns)
 
     # Newton-Krylov: 3 timed runs after the warm-up.
-    def zero_counts():
-        fused_sweep_jvp_batch.launches = fused_residual_sweep_batch.launches = 0
-        fused_sweep_jvp_batch_reference.calls = 0
-        fused_residual_sweep_batch_reference.calls = 0
-        zero_previous_launches()
-
-    def read_counts():
-        previous = previous_launches()
-        require(not any(previous.values()),
-                f"a previous kernel ran on the ensemble path: {previous}")
-        return ({"k3_4": fused_sweep_jvp_batch.launches,
-                 "k2_batch": fused_residual_sweep_batch.launches},
-                {"k3_4": fused_sweep_jvp_batch_reference.calls,
-                 "k2_batch": fused_residual_sweep_batch_reference.calls})
-
-    zero_counts()
+    zero_batch_counts()
     runs, xs, infos = [], [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -894,7 +932,7 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
         runs.append(time.perf_counter() - t0)
         xs.append(x_sol)
         infos.append(info)
-    launches, plain_calls = read_counts()
+    launches, plain_calls = read_batch_counts("ensemble path")
     require(launches["k3_4"] > 0 and launches["k2_batch"] > 0,
             f"a batched kernel of the ensemble path never launched: {launches}")
     require(plain_calls["k3_4"] == 0 and plain_calls["k2_batch"] == 0,
@@ -926,11 +964,11 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          bit_identical=True, row_last_vs_single_path_max_abs=max_abs(xs[0][B - 1], x_one))
 
     # Lockstep boehl Richardson: one run.
-    zero_counts()
+    zero_batch_counts()
     t0 = time.perf_counter()
     x_rich, info_r = solve("boehl")
     rich_s = time.perf_counter() - t0
-    rich_launches, rich_plain = read_counts()
+    rich_launches, rich_plain = read_batch_counts("boehl ensemble path")
     fr = info_r["residual_norm"]
     require(bool((fr <= 1e-8).all()) and info_r["stalled_paths"] == 0,
             f"ensemble boehl: max ‖F‖ {float(fr.max()):.3e}, "
@@ -972,6 +1010,7 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
              "fallback_rows": fallback_sum(k34_bits, solver_points),
              f"ms_B{B}": k34_turns[f"B{B}"]["new"],
              f"ms_previous_B{B}": k34_turns[f"B{B}"]["previous"]}
+    solved = {"exog_b": exog_b, "x": xs[0], "info": info, "median_s": statistics.median(runs)}
     return [
         {"name": "fused_sweep_jvp_batch (backward EGM)",
          "replaces": "hank_tpu/ops/fused_sweep_batch.py:87", **entry},
@@ -984,7 +1023,134 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          "library_ms": None, "ms_previous": k2b_turns["B2"]["previous"],
          "fallback_rows": fallback_sum(k2b_bits, solver_points),
          f"ms_B{B}": k2b_ms_full, f"ms_previous_B{B}": k2b_turns[f"B{B}"]["previous"]},
-    ]
+    ], solved
+
+
+def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict) -> dict:
+    """Phase 10: the meshed paths in a one-rank group on the card (see the
+    module docstring). Emits its JSON line and returns the batched kernels'
+    launches in the meshed solves."""
+    import torch
+    import torch.distributed as dist
+
+    from hank_tpu_torch.blocks.backward import backward_iteration
+    from hank_tpu_torch.blocks.forward import forward_iteration
+    from hank_tpu_torch.parallel.dryrun import dryrun_multichip
+    from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
+    from hank_tpu_torch.parallel.mesh import destroy_distributed, init_distributed, make_mesh
+    from hank_tpu_torch.parallel.state_sharding import (backward_iteration_sharded,
+                                                        forward_iteration_sharded)
+    from hank_tpu_torch.solvers.ss_jacobian import (direct_jacobian_columns,
+                                                    get_steady_state_jacobian)
+    from hank_tpu_torch.solvers.steady_state import single_run
+
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    out = {}
+    init_distributed(x_ss.device)
+    try:
+        out["backend"], out["world_size"] = dist.get_backend(), dist.get_world_size()
+        mesh = make_mesh()
+
+        # J̄ with its seeds on the mesh. The lottery's scatter_add sums with
+        # atomics on the card, so two builds of J̄ differ in the last bits:
+        # the meshed J̄ is held bit for bit to an unmeshed one with both
+        # built under torch's deterministic algorithms, and to phase 3's J̄
+        # within 1e-12 (an unmeshed rebuild's gap to it is reported).
+        t0 = time.perf_counter()
+        J_mesh = get_steady_state_jacobian(ssT, model, mesh=mesh)
+        torch.cuda.synchronize()
+        out["jacobian_s"] = time.perf_counter() - t0
+        out["jacobian_vs_phase3_max_abs"] = max_abs(J_mesh, Jbar)
+        out["jacobian_rebuild_vs_phase3_max_abs"] = max_abs(
+            get_steady_state_jacobian(ssT, model), Jbar)
+        require(out["jacobian_vs_phase3_max_abs"] <= 1e-12,
+                f"the meshed J̄ is off phase 3's by {out['jacobian_vs_phase3_max_abs']:.3e}")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            J_det = get_steady_state_jacobian(ssT, model)
+            J_det_mesh = get_steady_state_jacobian(ssT, model, mesh=mesh)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(torch.equal(J_det_mesh, J_det), "under deterministic algorithms the meshed "
+                f"J̄ differs from the unmeshed one (max abs {max_abs(J_det_mesh, J_det):.3e})")
+        out["jacobian_deterministic_bits_equal"] = True
+        J0_mesh = get_steady_state_jacobian(ss0, model, mesh=mesh)
+
+        # Phase 6's Newton-Krylov ensemble on the mesh: its path bit for bit,
+        # its outers and matvecs, through kernels 3-4 and the batched kernel 2.
+        def solve():
+            x, info = solve_ensemble_host(x_ss, Jbar, ensemble["exog_b"], model, ss0, ssT,
+                                          mesh=mesh, eps=1e-8, method="newton_krylov",
+                                          direction_dtype=torch.float32)
+            torch.cuda.synchronize()
+            return x, info
+
+        solve()
+        zero_batch_counts()
+        runs, xs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            x, info = solve()
+            runs.append(time.perf_counter() - t0)
+            xs.append(x)
+        launches, plain_calls = read_batch_counts("meshed ensemble path")
+        require(launches["k3_4"] > 0 and launches["k2_batch"] > 0,
+                f"a batched kernel never launched on the meshed ensemble path: {launches}")
+        require(not any(plain_calls.values()),
+                f"a plain version ran on the meshed ensemble path: {plain_calls}")
+        ref = ensemble["info"]
+        require(all(torch.equal(xi, ensemble["x"]) for xi in xs),
+                "the meshed ensemble solve differs from phase 6's")
+        require((info["iterations"], info["inner_iterations"], info["stalled_paths"])
+                == (ref["iterations"], ref["inner_iterations"], ref["stalled_paths"])
+                and torch.equal(info["residual_norm"], ref["residual_norm"]),
+                f"the meshed ensemble solve took another schedule: {info} against {ref}")
+        out.update(ensemble_nk_median_s=statistics.median(runs), ensemble_nk_runs_s=runs,
+                   phase6_median_s=ensemble["median_s"], outer_iterations=info["iterations"],
+                   matvecs=info["inner_iterations"], launches=launches, plain_calls=plain_calls,
+                   bit_identical_to_phase6=True)
+
+        # The household blocks with the state split over a one-rank axis, at
+        # phase 4's warm-up solution.
+        state_mesh = make_mesh(axis_names=("state",))
+        pol = backward_iteration(x_warm, exog, model, ssT.vars, ssT.value)
+        pol_sh = backward_iteration_sharded(x_warm, exog, model, ssT.vars, ssT.value, state_mesh)
+        agg = forward_iteration(pol, model, ss0.D)
+        agg_sh = forward_iteration_sharded(pol_sh, model, ss0.D, state_mesh)
+        out["state_backward_max_abs"] = max(max_abs(pol_sh[k], pol[k]) for k in pol)
+        out["state_forward_max_abs"] = max(max_abs(agg_sh[k], agg[k]) for k in agg)
+        out["state_bits_equal"] = (all(torch.equal(pol_sh[k], pol[k]) for k in pol)
+                                   and all(torch.equal(agg_sh[k], agg[k]) for k in agg))
+        require(out["state_backward_max_abs"] <= 1e-12 and out["state_forward_max_abs"] <= 1e-12,
+                f"state-split blocks off the unsplit ones: {out}")
+    finally:
+        destroy_distributed()
+
+    # The AD validation tools on the last period's n_endog columns, held to
+    # J̄ at the initial steady state (Z = 1, the point `tests/test_jacobian.py`
+    # checks at); at the ending steady state the difference is reported.
+    cols = [(Tm1 - 1) * nE + i for i in range(nE)]
+    t0 = time.perf_counter()
+    jvp_cols = direct_jacobian_columns(ss0, ss0, model, cols)
+    torch.cuda.synchronize()
+    out["jvp_columns_s"] = time.perf_counter() - t0
+    out["jvp_columns_vs_jbar_ss0_max_abs"] = max_abs(jvp_cols, J0_mesh[:, cols])
+    require(out["jvp_columns_vs_jbar_ss0_max_abs"] <= 1e-9,
+            f"direct JVP columns off J̄'s by {out['jvp_columns_vs_jbar_ss0_max_abs']:.3e}")
+    out["fd_columns_vs_jvp_max_abs"] = max_abs(
+        direct_jacobian_columns(ss0, ss0, model, cols, mode="fd"), jvp_cols)
+    out["fd_step"] = cs.dx
+    out["jvp_columns_vs_jbar_ssT_max_abs"] = max_abs(
+        direct_jacobian_columns(ssT, ssT, model, cols), Jbar[:, cols])
+    out["single_run_norm"] = float(torch.linalg.norm(single_run(ss0, ssT, model, exog)))
+
+    # The dry run of the SP, TP and DP paths, one spawned NCCL rank.
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(1, device=x_ss.device.type)
+    out["dryrun_s"] = time.perf_counter() - t0
+    emit("mesh", **out)
+    return launches
 
 
 def two_asset_phase(dev, ptxas) -> list:
@@ -2017,7 +2183,7 @@ def main() -> int:
          plain_calls=plain_calls, previous_kernel_launches=previous, bit_identical=True)
 
     # ── 6. ensemble ────────────────────────────────────────────────────────
-    ensemble_kernels = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
+    ensemble_kernels, ensemble = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
 
     # ── 7. two-asset ───────────────────────────────────────────────────────
     two_asset_kernels = two_asset_phase(dev, ptxas)
@@ -2032,6 +2198,11 @@ def main() -> int:
         "ks_200x7_T300": scan_inputs(model, ss0, ssT, exog, x_warm),
         "ks_large_grid_500x7_T150": scan_inputs(lg["model"], lg["ss0"], lg["ssT"],
                                                 lg["exog"], lg["x"])})
+
+    # ── 10. mesh ───────────────────────────────────────────────────────────
+    mesh_launches = mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble)
+    for entry, key in zip(ensemble_kernels, ("k3_4", "k3_4", "k2_batch")):
+        entry["launches_mesh"] = mesh_launches[key]
 
     n_a, n_e = wealth.n, prod.n
     k1_bound = least_time(nbytes(*args32) + 4 * nbytes(args32[0]),

@@ -10,6 +10,9 @@ the household sweeps of the path solver and of the ensemble solver
 tensors and in their plain PyTorch versions on CPU tensors. `run.py` is the
 driver (`solve_model`, `python -m hank_tpu_torch.run`); the model loader and
 the driver target the card unless the caller asks for the CPU.
+`parallel/mesh.py` and `parallel/state_sharding.py` shard ensembles, the J̄
+seed sweeps and the household state over `torch.distributed`, one process
+per device (`parallel/dryrun.py` runs all three paths).
 
 This package imports torch and numpy, never jax or hank_tpu. Dtypes are
 passed explicitly (float64 by default); it never changes torch's default

@@ -46,6 +46,12 @@ class Config:
 
 config = Config()
 
+
+def default_dtype() -> torch.dtype:
+    """The solver pipeline's compute dtype (`config.dtype`)."""
+    return config.dtype
+
+
 # Division-guard epsilon (`hank_tpu/config.py::TINY`).
 TINY = 1e-36
 

@@ -38,6 +38,15 @@ def interp_columns(x: torch.Tensor, knots: torch.Tensor,
     return v_lo + t * (v_hi - v_lo)
 
 
+def egm_consumption(value_next: torch.Tensor, Pi: torch.Tensor,
+                    beta: float, gamma: float) -> torch.Tensor:
+    """Euler-equation inversion c = (β · E[∂V'/∂a' | e])^(−1/γ), the
+    expectation over next-period productivity the matmul V' Πᵀ
+    (`hank_tpu/ops/egm.py:138-146`, `KrusellSmith.jl:59`). value_next is
+    (n_a, n_e). Unfloored, as in the reference; `crra_egm_step` floors E."""
+    return (beta * (value_next @ Pi.T)) ** (-1.0 / gamma)
+
+
 def crra_egm_step(value_next, r, w, grid, e_grid, Pi, beta, gamma, borrow_cons):
     """The canonical one-asset CRRA EGM step (`KrusellSmith.jl:43-83`).
 

@@ -19,10 +19,22 @@ batched operations, by one of two routes:
     (`solvers/newton.mixed_tail_map`, f32);
 and J̄⁻¹ is applied to every row by one (B, n) × (n, n) f64 `torch.matmul`.
 
+With `mesh=` (`parallel/mesh.py`), each rank of the mesh's "dp" axis takes
+its contiguous block of B/size rows and runs them through the route the
+unmeshed call takes, the kernels included. Every decision the host loop
+takes over the whole batch (the outer and inner loop tests, the Arnoldi
+early stop and restart, the backtracking's end, the counts of `records`) is
+taken over every rank's rows by one all-reduce, so a meshed solve follows
+the unmeshed solve's schedule: the same outers and lockstep sweeps. At one
+rank it is the unmeshed solve, bit for bit. The results are gathered on
+every rank. The reference refuses its Pallas kernels under a mesh
+(`hank_tpu/parallel/ensemble.py:293-300`), because its sharded jit would
+gather every chunk to one device; that is a compile form, and the port
+keeps its kernels under the mesh.
+
 The reference's v5e width guard (`chunk`, `_probe_width_consistency` and the
-row padding helpers), its `fused` switch and its `mesh` sharding are not
-ported: the first two are TPU workarounds, the last waits on ROADMAP Queue
-1's `parallel/mesh.py` and `parallel/state_sharding.py`.
+row padding helpers) and its `fused` switch are not ported: they are TPU
+workarounds.
 """
 
 from __future__ import annotations
@@ -38,12 +50,9 @@ from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn_batch
 from hank_tpu_torch.ops.fused_sweep_batch import make_fused_jvp_batch
 from hank_tpu_torch.ops.linalg import make_reusable_solver, rayleigh_quotient
 from hank_tpu_torch.ops.fused_sweep import supports_fused_sweep
+from hank_tpu_torch.parallel.mesh import all_reduce_scalar, gather_rows, shard_rows
 from hank_tpu_torch.solvers.newton import (_boehl_alpha, _is_mixed, make_full_residual_fn,
                                            mixed_tail_map)
-
-_NO_MESH = ("mesh= is not ported yet: sharding an ensemble over several cards "
-            "waits on parallel/mesh.py and parallel/state_sharding.py (ROADMAP.md "
-            "Queue 1)")
 
 # solve_ensemble keyword arguments that solve_ensemble_host takes as they are
 # (`hank_tpu/parallel/ensemble.py:121-124`).
@@ -52,6 +61,36 @@ _ROUTABLE = {"eps", "max_outer", "max_inner", "direction_dtype", "verbose", "rec
 
 def _rownorm(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(a, dim=-1)
+
+
+class _Batch:
+    """The decisions a lockstep loop takes over the whole batch: over this
+    process's rows, or with a mesh over every rank's rows of its "dp" axis,
+    by one all-reduce each."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def _reduce(self, value, op):
+        return value if self.mesh is None else all_reduce_scalar(value, op, self.mesh)
+
+    def any(self, flag) -> bool:
+        return bool(self._reduce(float(bool(flag)), "max"))
+
+    def all(self, flag) -> bool:
+        return bool(self._reduce(float(bool(flag)), "min"))
+
+    def sum(self, count) -> int:
+        return int(self._reduce(int(count), "sum"))
+
+    def max(self, value) -> float:
+        return self._reduce(float(value), "max")
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else shard_rows(t, self.mesh)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.mesh is None else gather_rows(t, self.mesh)
 
 
 def _plain_residual_batch(model, ss_initial, ss_ending):
@@ -70,12 +109,17 @@ def residual_ensemble(x_batch: torch.Tensor,
     kernel 2 for the one-asset family, the vmapped plain F otherwise.
 
     x_batch: (B, n_endog*(T-1)); exog_batch leaves: (B, T-1). Returns (B, n).
+    With `mesh`, each rank computes its block of rows and the result is
+    gathered on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    batch = _Batch(mesh)
+    x_batch = batch.rows(x_batch)
+    exog_batch = {k: batch.rows(v) for k, v in exog_batch.items()}
     if supports_fused_sweep(model):
-        return make_sweep_residual_fn_batch(model, ss_initial, ss_ending)(x_batch, exog_batch)
-    return _plain_residual_batch(model, ss_initial, ss_ending)(x_batch, exog_batch)
+        F_b = make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
+    else:
+        F_b = _plain_residual_batch(model, ss_initial, ss_ending)
+    return batch.gather(F_b(x_batch, exog_batch))
 
 
 def solve_ensemble(x0, Jbar, exog_batch, model, ss_initial, ss_ending, mesh=None,
@@ -125,20 +169,25 @@ def solve_ensemble_host(x0: torch.Tensor,
     kernel route with f32 directions for the one-asset family, the plain
     route otherwise (module docstring).
 
+    mesh: a `parallel/mesh.py` mesh; its "dp" axis must divide B. Each rank
+    solves its block of rows in lockstep with the others (module docstring).
+
     Returns (x (B, n), info) with a (B,) "residual_norm", the lockstep counts
     "iterations" (outers) and "inner_iterations" (direction sweeps), and
     "stalled_paths"; newton_krylov adds "host_ls_seconds", the host clock
-    spent in the per-path Hessenberg least squares.
+    spent in the per-path Hessenberg least squares (the largest of the
+    ranks'). With a mesh, x and "residual_norm" are gathered on every rank
+    and "stalled_paths" is summed over the ranks.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     if method not in ("boehl", "newton_krylov"):
         raise ValueError(f"method={method!r}: expected 'boehl'|'newton_krylov'")
+    batch = _Batch(mesh)
     mixed = _is_mixed(direction_dtype)
     x_dtype = config.dtype
+    exog_batch = {k: batch.rows(v) for k, v in exog_batch.items()}
     B = next(iter(exog_batch.values())).shape[0]
     n = x0.shape[-1]
-    x = x0.to(x_dtype).expand(B, n).clone() if x0.dim() == 1 else x0.to(x_dtype)
+    x = x0.to(x_dtype).expand(B, n).clone() if x0.dim() == 1 else batch.rows(x0).to(x_dtype)
     max_outer = max_outer or config.path_newton_max_iter
 
     if mixed and supports_fused_sweep(model):
@@ -168,7 +217,7 @@ def solve_ensemble_host(x0: torch.Tensor,
 
     if method == "newton_krylov":
         return _run_ensemble_nk(x, exog_batch, F_b, lambda x, v: solve_b(jvp_b(x, v)),
-                                solve_b, eps=eps, max_outer=max_outer, gmres_m=gmres_m,
+                                solve_b, batch, eps=eps, max_outer=max_outer, gmres_m=gmres_m,
                                 gmres_tol=3e-7 if mixed else 1e-12, verbose=verbose,
                                 records=records)
 
@@ -193,12 +242,12 @@ def solve_ensemble_host(x0: torch.Tensor,
     frozen = ~torch.isfinite(fnorm)
     inf = torch.full((B,), float("inf"), dtype=x_dtype, device=x.device)
     iters = total_inner = 0
-    while bool(((fnorm > eps) & ~frozen).any()) and iters < max_outer:
+    while batch.any(((fnorm > eps) & ~frozen).any()) and iters < max_outer:
         tol = torch.clamp(inner_eta * _rownorm(solve_b(Fx)), min=TINY)
         rnorm, best_r, y_best = inf, inf, y
         diverged = frozen            # frozen rows sit out the inner loop too
         inner_its = 0
-        while bool(((rnorm > tol) & ~diverged).any()) and inner_its < max_inner:
+        while batch.any(((rnorm > tol) & ~diverged).any()) and inner_its < max_inner:
             y_prev = y
             y, rnorm = inner_step(x, y, Fx, tol)
             y_best = torch.where((rnorm < best_r)[:, None], y_prev, y_best)
@@ -225,23 +274,32 @@ def solve_ensemble_host(x0: torch.Tensor,
         frozen = frozen | (since_improve >= 4)
         iters += 1
         total_inner += inner_its
-        n_conv = int((fnorm <= eps).sum())
-        n_stall = int((frozen & (fnorm > eps)).sum())
-        if verbose:
-            print(f"[ensemble/host] outer {iters}: max|F| = "
-                  f"{float(torch.where(frozen, 0.0, fnorm).max()):.3e}, "
-                  f"{n_conv}/{B} converged, {n_stall} stalled "
-                  f"(+{inner_its} sweeps)", flush=True)
-        if records is not None:
-            records.append({"iteration": iters, "max_residual_norm": float(fnorm.max()),
-                            "converged": n_conv, "stalled": n_stall,
-                            "inner_sweeps": inner_its})
+        _report(batch, "host", iters, fnorm, frozen, eps, f"+{inner_its} sweeps", verbose,
+                records, {"inner_sweeps": inner_its})
     better = f_best < fnorm
     x = torch.where(better[:, None], x_best, x)
     fnorm = torch.where(better, f_best, fnorm)
-    return x, {"iterations": iters, "inner_iterations": total_inner,
-               "residual_norm": fnorm,
-               "stalled_paths": int((frozen & (fnorm > eps)).sum())}
+    return batch.gather(x), {"iterations": iters, "inner_iterations": total_inner,
+                             "residual_norm": batch.gather(fnorm),
+                             "stalled_paths": batch.sum((frozen & (fnorm > eps)).sum())}
+
+
+def _report(batch: _Batch, label: str, iters: int, fnorm, frozen, eps: float, work: str,
+            verbose: bool, records: list | None, extra: dict) -> None:
+    """One outer's line (`verbose`) and `records` entry, counted over the
+    whole batch."""
+    if not (verbose or records is not None):
+        return
+    n_conv = batch.sum((fnorm <= eps).sum())
+    n_stall = batch.sum((frozen & (fnorm > eps)).sum())
+    if verbose:
+        print(f"[ensemble/{label}] outer {iters}: max|F| = "
+              f"{batch.max(torch.where(frozen, 0.0, fnorm).max()):.3e}, "
+              f"{n_conv}/{batch.sum(fnorm.shape[0])} converged, {n_stall} stalled "
+              f"({work})", flush=True)
+    if records is not None:
+        records.append({"iteration": iters, "max_residual_norm": batch.max(fnorm.max()),
+                        "converged": n_conv, "stalled": n_stall, **extra})
 
 
 def _ls_rrel(H: np.ndarray, bn: np.ndarray, k: int):
@@ -263,7 +321,7 @@ def _ls_rrel(H: np.ndarray, bn: np.ndarray, k: int):
     return y, rrel
 
 
-def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
+def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, batch: _Batch, *, eps: float,
                      max_outer: int, gmres_m: int, gmres_tol: float, verbose: bool,
                      records: list | None) -> tuple[torch.Tensor, dict]:
     """Lockstep batched inexact Newton with a host-driven batched GMRES
@@ -275,7 +333,8 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
     each step brings the new Hessenberg column and norms to the host, where
     the per-path (k+1, k) least squares runs in numpy f64. Per-path
     Eisenstat-Walker forcing, one restart from the deflated residual,
-    lockstep backtracking with per-path halving, and keep-best/freeze.
+    lockstep backtracking with per-path halving, and keep-best/freeze. Every
+    test of the schedule is taken over the whole batch (`batch`).
     """
     B, n = x.shape
     m = gmres_m
@@ -309,7 +368,7 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
             v_next, wn = normalize(w)
             Vs[:, j + 1] = v_next
             hw = torch.cat([h1 + h2, wn[:, None]], dim=1).cpu().numpy()
-            if not np.isfinite(hw).all():
+            if not batch.all(np.isfinite(hw).all()):
                 break                      # the caller keeps its best iterate
             H[:, :, j] = hw[:, :m + 1]
             H[:, j + 1, j] = hw[:, m + 1]
@@ -317,7 +376,7 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
             t0 = time.perf_counter()
             y, rrel = _ls_rrel(H, bn, k)
             ls_seconds += time.perf_counter() - t0
-            if not (active & (rrel > eta)).any():
+            if not batch.any((active & (rrel > eta)).any()):
                 break
         if k == 0:
             return torch.zeros_like(r0), rrel, 0
@@ -334,7 +393,7 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
     frozen = ~torch.isfinite(fnorm)
     fprev = fnorm.cpu().numpy()          # first-outer forcing: eta clips to 0.5
     iters = total_mv = 0
-    while bool(((fnorm > eps) & ~frozen).any()) and iters < max_outer:
+    while batch.any(((fnorm > eps) & ~frozen).any()) and iters < max_outer:
         fn_np = fnorm.cpu().numpy()
         active = ~frozen.cpu().numpy() & (fn_np > eps)
         # Eisenstat-Walker (choice 2) per path, floored at the direction
@@ -344,12 +403,12 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
         b_rhs = -solve_b(Fx)
         dx, rrel, mv = gmres_cycle(x, b_rhs, eta, active)
         total_mv += mv
-        if mv and (active & (rrel > eta)).any():
+        if mv and batch.any((active & (rrel > eta)).any()):
             # One restart from the deflated residual: a cycle that hit m
             # without meeting the forcing term usually still made progress.
             r = b_rhs - matvec(x, dx)
             total_mv += 1
-            if bool(torch.isfinite(_rownorm(r)).all()):
+            if batch.all(torch.isfinite(_rownorm(r)).all()):
                 dx2, _, mv2 = gmres_cycle(x, r, eta, active)
                 dx = dx + dx2
                 total_mv += mv2
@@ -366,7 +425,7 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
             Fx_new = torch.where(ok[:, None], Fx_try, Fx_new)
             fn_new = torch.where(ok, fn_try, fn_new)
             accepted = accepted | ok
-            if bool(accepted.all()):
+            if batch.all(accepted.all()):
                 break
             alpha = torch.where(accepted, alpha, 0.5 * alpha)
         fprev = fn_np
@@ -380,21 +439,12 @@ def _run_ensemble_nk(x, exog_batch, F_b, matvec, solve_b, *, eps: float,
             0, since_improve + 1)
         frozen = frozen | (since_improve >= 3)
         iters += 1
-        n_conv = int((fnorm <= eps).sum())
-        n_stall = int((frozen & (fnorm > eps)).sum())
-        if verbose:
-            print(f"[ensemble/nk] outer {iters}: max|F| = "
-                  f"{float(torch.where(frozen, 0.0, fnorm).max()):.3e}, "
-                  f"{n_conv}/{B} converged, {n_stall} stalled "
-                  f"(+{mv} matvecs)", flush=True)
-        if records is not None:
-            records.append({"iteration": iters, "max_residual_norm": float(fnorm.max()),
-                            "converged": n_conv, "stalled": n_stall,
-                            "matvecs": total_mv})
+        _report(batch, "nk", iters, fnorm, frozen, eps, f"+{mv} matvecs", verbose, records,
+                {"matvecs": total_mv})
     better = f_best < fnorm
     x = torch.where(better[:, None], x_best, x)
     fnorm = torch.where(better, f_best, fnorm)
-    return x, {"iterations": iters, "inner_iterations": total_mv,
-               "residual_norm": fnorm,
-               "stalled_paths": int((frozen & (fnorm > eps)).sum()),
-               "host_ls_seconds": ls_seconds}
+    return batch.gather(x), {"iterations": iters, "inner_iterations": total_mv,
+                             "residual_norm": batch.gather(fnorm),
+                             "stalled_paths": batch.sum((frozen & (fnorm > eps)).sum()),
+                             "host_ls_seconds": batch.max(ls_seconds)}

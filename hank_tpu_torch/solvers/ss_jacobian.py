@@ -8,6 +8,15 @@ suffices, and the full Jacobian follows from a diagonal cumulative sum.
 JDI and JBI are `torch.func.vmap` over the seeds of one `torch.func.jvp`
 (as the reference vmaps `jax.jvp`: one pass carries every seed's tangent);
 JFI is one `torch.func.vjp` whose pullback is vmapped over the seeds.
+
+With `mesh=` (`parallel/mesh.py`), the n_endog seeds of each sweep split
+over the mesh's "dp" axis: each rank runs its block of seeds, then one
+all-gather per output (the reference's sequence parallelism, SURVEY §2.10
+SP row). The mesh size must divide n_endog.
+
+The AD validation tools (`direct_jacobian_columns`, `dense_path_jacobian`)
+differentiate the full plain pipeline, as the reference's
+`directJVPJacobian` / `directNumJacobian` do (`SteadyState.jl:296-356`).
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals as eval
 from hank_tpu_torch.blocks.backward import backward_iteration
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.config import config
+from hank_tpu_torch.parallel.mesh import gather_rows, row_block
 
 
 def _ss_paths(ss, model):
@@ -52,14 +62,38 @@ def _seed_sweep(fn, x: torch.Tensor, first: int, n: int):
     return torch.func.vmap(lambda t: torch.func.jvp(fn, (x,), (t,))[1])(seeds)
 
 
-def direct_jacobian_blocks(ss, model) -> tuple[torch.Tensor, int]:
+def _seed_block(n_seeds: int, mesh) -> tuple[int, int]:
+    """(first, count) of this rank's block of the n_seeds seeds; all of them
+    without a mesh. ValueError when the mesh's "dp" size does not divide
+    n_seeds (`hank_tpu/solvers/ss_jacobian.py:225-227`)."""
+    if mesh is None:
+        return 0, n_seeds
+    try:
+        return row_block(n_seeds, mesh, "dp")
+    except ValueError as e:
+        raise ValueError(f"the mesh size must divide n_endog: {e}") from None
+
+
+def _gather_seeds(out, mesh):
+    """Every rank's seeds of a sweep's output (a tensor or a dict of them,
+    the seed axis first), in seed order, on every rank."""
+    if mesh is None:
+        return out
+    if isinstance(out, dict):
+        return {k: gather_rows(v, mesh, "dp") for k, v in out.items()}
+    return gather_rows(out, mesh, "dp")
+
+
+def direct_jacobian_blocks(ss, model, mesh=None) -> tuple[torch.Tensor, int]:
     """Direct blocks B_δ = ∂z_{p+δ}/∂x_p with policies frozen at SS, from
     n_endog JVPs at the interior period p = T-1-k-1
     (`SteadyStateJacobian.jl:112-145`). Returns (blocks, k) with blocks[j]
-    (n_endog, n_endog) = [res_eq, x_var] for δ = j − k."""
+    (n_endog, n_endog) = [res_eq, x_var] for δ = j − k. With `mesh`, the
+    seeds split over its "dp" axis (module docstring)."""
     cs = model.compspec
     Tm1 = cs.T - 1
     nE = cs.n_endog
+    first, count = _seed_block(nE, mesh)
     x_ss, exog_ss, agg_ss = _ss_paths(ss, model)
 
     def g(x):
@@ -70,18 +104,20 @@ def direct_jacobian_blocks(ss, model) -> tuple[torch.Tensor, int]:
     p0 = Tm1 - 1 - k
     if p0 < 0:
         raise ValueError(f"perturbed period p={p0} out of range for T={cs.T}, k={k}")
-    raw = _seed_sweep(g, x_ss, p0 * nE, nE)                          # (nE, Tm1*nE)
+    raw = _gather_seeds(_seed_sweep(g, x_ss, p0 * nE + first, count), mesh)  # (nE, Tm1*nE)
     blocks = torch.stack([raw[:, (p0 + d) * nE:(p0 + d + 1) * nE].T
                           for d in range(-k, k + 1)])
     return blocks, k
 
 
-def intermediate_jacobians(ss, model) -> tuple[dict, dict]:
+def intermediate_jacobians(ss, model, mesh=None) -> tuple[dict, dict]:
     """JBI[v], JFI[v]: (n_endog, T-1, *state_shape) one-block-columns
-    (`SteadyStateJacobian.jl:187-256`)."""
+    (`SteadyStateJacobian.jl:187-256`). With `mesh`, the seeds of both
+    split over its "dp" axis (module docstring)."""
     cs = model.compspec
     Tm1 = cs.T - 1
     nE = cs.n_endog
+    first, count = _seed_block(nE, mesh)
     x_ss, exog_ss, _ = _ss_paths(ss, model)
     het_keys = model.vars_of_type("heterogeneous")
     last = (Tm1 - 1) * nE
@@ -89,7 +125,7 @@ def intermediate_jacobians(ss, model) -> tuple[dict, dict]:
     def back(x):
         return backward_iteration(x, exog_ss, model, ss.vars, ss.value)
 
-    JBI = _seed_sweep(back, x_ss, last, nE)
+    JBI = _gather_seeds(_seed_sweep(back, x_ss, last + first, count), mesh)
 
     pol_ss = {v: ss.policies[v].to(x_ss.dtype).expand(Tm1, *ss.policies[v].shape).clone()
               for v in het_keys}
@@ -100,8 +136,8 @@ def intermediate_jacobians(ss, model) -> tuple[dict, dict]:
         return eval_residuals(x_mat, model)
 
     _, pullback = torch.func.vjp(fwd, pol_ss)
-    seeds = torch.stack([_unit(Tm1 * nE, last + i, x_ss) for i in range(nE)])
-    JFI = torch.func.vmap(lambda s: pullback(s)[0])(seeds)
+    seeds = torch.stack([_unit(Tm1 * nE, last + first + i, x_ss) for i in range(count)])
+    JFI = _gather_seeds(torch.func.vmap(lambda s: pullback(s)[0])(seeds), mesh)
     return JBI, JFI
 
 
@@ -124,10 +160,15 @@ def _diag_cumsum(G: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_jacobian(blocks: torch.Tensor, k: int, JBI: Mapping, JFI: Mapping,
-                      model) -> torch.Tensor:
+                      model, boundary_correction: bool = False) -> torch.Tensor:
     """Direct blocks + indirect products → the dense
     (n_endog·(T-1), n_endog·(T-1)) J̄, rows residual period-major and
-    columns x period-major (`SteadyStateJacobian.jl:399-410`)."""
+    columns x period-major (`SteadyStateJacobian.jl:399-410`).
+
+    `boundary_correction` adds the lag-1 direct block at the first period's
+    diagonal block, the reference's left-boundary fix (`:374-379`); off by
+    default, because the assembly matches a dense Jacobian without it
+    (`hank_tpu/solvers/ss_jacobian.py:24-29`)."""
     cs = model.compspec
     Tm1 = cs.T - 1
     nE = cs.n_endog
@@ -145,19 +186,72 @@ def assemble_jacobian(blocks: torch.Tensor, k: int, JBI: Mapping, JFI: Mapping,
         H[L - d, L] += blocks[k + d]
         H[L, L - d] += blocks[k - d]
 
-    return _diag_cumsum(H.flip(0, 1)).permute(0, 2, 1, 3).reshape(Tm1 * nE, Tm1 * nE)
+    J = _diag_cumsum(H.flip(0, 1))
+    if boundary_correction and k >= 1:
+        J[0, 0] += blocks[k + 1]
+    return J.permute(0, 2, 1, 3).reshape(Tm1 * nE, Tm1 * nE)
 
 
-def get_steady_state_jacobian(ss, model) -> torch.Tensor:
+def get_steady_state_jacobian(ss, model, boundary_correction: bool = False,
+                              mesh=None) -> torch.Tensor:
     """J̄ at `ss` (the ending steady state, the linearisation point of the
-    path); the system must be square (`SteadyStateJacobian.jl:41-65`). No
-    boundary correction: the reference validates its assembly against a
-    dense Jacobian, which needs none (`hank_tpu/solvers/ss_jacobian.py:24-29`)."""
+    path); the system must be square (`SteadyStateJacobian.jl:41-65`).
+    `boundary_correction` as in `assemble_jacobian`. With `mesh`, the JDI,
+    JBI and JFI seeds split over its "dp" axis, whose size must divide
+    n_endog (ValueError before any sweep); at one rank the result is the
+    unmeshed J̄ bit for bit wherever a J̄ build repeats its own bits (on the
+    card, under torch's deterministic algorithms: the lottery's scatter_add
+    sums with atomics there)."""
     if len(model.equations) != model.compspec.n_endog:
         raise ValueError(
             f"System is not square: {len(model.equations)} equations but "
             f"{model.compspec.n_endog} endogenous variables. "
             "Newton-Raphson requires n_eq == n_endog.")
-    blocks, k = direct_jacobian_blocks(ss, model)
-    JBI, JFI = intermediate_jacobians(ss, model)
-    return assemble_jacobian(blocks, k, JBI, JFI, model)
+    _seed_block(model.compspec.n_endog, mesh)
+    blocks, k = direct_jacobian_blocks(ss, model, mesh=mesh)
+    JBI, JFI = intermediate_jacobians(ss, model, mesh=mesh)
+    return assemble_jacobian(blocks, k, JBI, JFI, model,
+                             boundary_correction=boundary_correction)
+
+
+def _full_pipeline(ss_initial, ss_ending, model, exog_paths):
+    """x at the ending steady state and the full plain F under `exog_paths`
+    (constant at the ending steady state by default)."""
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+
+    x_ss, exog_ss, _ = _ss_paths(ss_ending, model)
+    return x_ss, make_full_residual_fn(model, ss_initial, ss_ending,
+                                       exog_ss if exog_paths is None else exog_paths)
+
+
+def direct_jacobian_columns(ss_initial, ss_ending, model, columns,
+                            exog_paths: Mapping[str, torch.Tensor] | None = None,
+                            mode: str = "jvp", fd_step: float | None = None) -> torch.Tensor:
+    """Selected columns of the full pipeline's Jacobian at the ending steady
+    state's x, by one `torch.func.jvp` per column (mode "jvp") or by forward
+    differences (mode "fd", step `fd_step`, by default the model's
+    `CompSpec.dx`, `ModelParser.jl:312-317`): the reference's
+    `directJVPJacobian` / `directNumJacobian` (`SteadyState.jl:296-356`)
+    for any column set. Returns (n, len(columns))."""
+    if mode not in ("jvp", "fd"):
+        raise ValueError(f"mode must be 'jvp' or 'fd', got {mode!r}")
+    if fd_step is None:
+        fd_step = model.compspec.dx
+    x_ss, F = _full_pipeline(ss_initial, ss_ending, model, exog_paths)
+    n = x_ss.shape[0]
+    if mode == "jvp":
+        cols = [torch.func.jvp(F, (x_ss,), (_unit(n, c, x_ss),))[1] for c in columns]
+    else:
+        base = F(x_ss)
+        cols = [(F(x_ss + fd_step * _unit(n, c, x_ss)) - base) / fd_step for c in columns]
+    return torch.stack(cols, dim=1)
+
+
+def dense_path_jacobian(ss_initial, ss_ending, model,
+                        exog_paths: Mapping[str, torch.Tensor] | None = None) -> torch.Tensor:
+    """The dense ∂F/∂x of the full pipeline at the ending steady state's x,
+    every column by forward-mode AD: the ground truth the Toeplitz assembly
+    is held to. One vmapped JVP over all n_endog·(T-1) seeds, so small T
+    only."""
+    x_ss, F = _full_pipeline(ss_initial, ss_ending, model, exog_paths)
+    return _seed_sweep(F, x_ss, 0, x_ss.shape[0]).T

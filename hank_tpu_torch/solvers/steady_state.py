@@ -287,3 +287,14 @@ def get_steady_states(model, verbose: bool = False) -> tuple[SteadyState, Steady
     if model.ss_initial is model.ss_ending or model.ss_initial == model.ss_ending:
         return ss_initial, ss_initial
     return ss_initial, find_ss(model, model.ss_ending, "ending", verbose)
+
+
+def single_run(ss_initial: SteadyState, ss_ending: SteadyState, model,
+               exog_paths: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """One full pass F(x) at the initial steady state's x, constant over the
+    path (`SteadyState.jl:272-286`)."""
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+
+    x0 = torch.stack([torch.as_tensor(ss_initial.vars[k], dtype=config.dtype, device=model.device)
+                      for k in model.vars_of_type("endogenous")]).repeat(model.compspec.T - 1)
+    return make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)(x0)

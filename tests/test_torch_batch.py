@@ -26,6 +26,7 @@ from hank_tpu_torch.parallel.ensemble import residual_ensemble
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_common import build_small_ks_torch, ss_to_numpy, to_torch
 from tests.test_torch_kernels import kernel_kwargs
+from tests.torch_ranks import MeshOfSize
 
 torch.set_num_threads(1)
 f32, f64 = torch.float32, torch.float64
@@ -118,8 +119,8 @@ def test_residual_ensemble_matches_jax(both):
     assert fused_residual_sweep_batch_reference.calls == calls + 1
     assert out.dtype == f64 and out.shape == ref.shape == (B, x_ss.shape[0])
     assert float(np.max(np.abs(out.numpy() - ref))) <= 1e-12
-    with pytest.raises(NotImplementedError, match="mesh= is not ported"):
-        residual_ensemble(to_torch(x_b), {"Z": to_torch(Z)}, tm, tss, tss, mesh=object())
+    with pytest.raises(ValueError, match="4 rows do not split over the 3 ranks"):
+        residual_ensemble(to_torch(x_b), {"Z": to_torch(Z)}, tm, tss, tss, mesh=MeshOfSize(3))
 
 
 def test_batched_plain_residual_rows_equal_single_rows(both):

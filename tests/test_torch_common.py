@@ -19,6 +19,7 @@ import torch
 from hank_tpu_torch.model import grids as tgrids
 from hank_tpu_torch.model.structures import HeterogeneityDimension, SteadyStateSpec
 from hank_tpu_torch.models import load_model as load_model_torch
+from tests.torch_ranks import build_small_two_asset_torch  # noqa: F401  (shared helper)
 
 torch.set_num_threads(1)
 
@@ -41,29 +42,6 @@ def build_small_ks_torch(T: int, n_a: int = 40, n_e: int = 5, device="cpu"):
         transition=torch.tensor(Pi, dtype=f64, device=device), policy_var=None)
     return dataclasses.replace(model, heterogeneity={"wealth": wealth,
                                                      "productivity": prod})
-
-
-def build_small_two_asset_torch(T: int = 12, n_b: int = 24, n_a: int = 12, n_e: int = 4,
-                                lam: float = 0.10, device="cpu"):
-    """The port's twin of `tests/test_hank_two_asset.py::build_small_two_asset`."""
-    from hank_tpu_torch.models.hank_two_asset import access_process
-
-    def t(a):
-        return torch.tensor(a, dtype=f64, device=device)
-
-    model = load_model_torch("hank_two_asset", T=T, device=device)
-    liq = HeterogeneityDimension(
-        "liquid", "endogenous", n_b, t(tgrids.make_double_exponential_grid(0.0, 120.0, n_b)),
-        None, "B")
-    ill = HeterogeneityDimension(
-        "illiquid", "endogenous", n_a, t(tgrids.make_double_exponential_grid(0.0, 200.0, n_a)),
-        None, "A")
-    Pi, _, z = tgrids.rouwenhorst(n_e, 0.966, 0.283)
-    inc = HeterogeneityDimension("income", "exogenous", n_e, t(z), t(Pi), None)
-    g, P = access_process(2, lam)
-    acc = HeterogeneityDimension("access", "exogenous", 2, t(g), t(P), None)
-    return dataclasses.replace(model, heterogeneity={"liquid": liq, "illiquid": ill,
-                                                     "income": inc, "access": acc})
 
 
 def ss_to_numpy(ss) -> dict:
@@ -249,7 +227,9 @@ def test_package_imports_neither_jax_nor_hank_tpu():
             "hank_tpu_torch.utils.profiling, hank_tpu_torch.utils.plotting, "
             "hank_tpu_torch.models.hank_one_asset, hank_tpu_torch.models.ks_large_grid, "
             "hank_tpu_torch.tools.kernel6_split, hank_tpu_torch.tools.kernel5_split, "
-            "hank_tpu_torch.tools.sweep_ab, hank_tpu_torch.tools.sass_compare\n"
+            "hank_tpu_torch.tools.sweep_ab, hank_tpu_torch.tools.sass_compare, "
+            "hank_tpu_torch.parallel.mesh, hank_tpu_torch.parallel.state_sharding, "
+            "hank_tpu_torch.parallel.dryrun, hank_tpu_torch.utils.native, tests.torch_ranks\n"
             "for name in ('krusell_smith', 'hank_two_asset', 'hank_one_asset', "
             "'ks_large_grid'):\n"
             "    hank_tpu_torch.load_model(name, T=5, device='cpu')\n"

@@ -20,6 +20,7 @@ from hank_tpu_torch.parallel.ensemble import solve_ensemble, solve_ensemble_host
 from hank_tpu_torch.solvers.newton import _boehl_alpha, newton_raphson_hank
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_common import build_small_ks_torch, ss_to_numpy, to_torch
+from tests.torch_ranks import MeshOfSize
 
 torch.set_num_threads(1)
 B = 6
@@ -112,8 +113,8 @@ def test_solve_ensemble_host_survives_a_bad_path(setup, method):
 def test_what_is_not_ported_raises(setup):
     _, _, tm, tss, x0, J, Z = setup
     args = (to_torch(x0), to_torch(J), {"Z": to_torch(Z)}, tm, tss, tss)
-    with pytest.raises(NotImplementedError, match="mesh= is not ported"):
-        solve_ensemble_host(*args, mesh=object())
+    with pytest.raises(ValueError, match="6 rows do not split over the 4 ranks"):
+        solve_ensemble_host(*args, mesh=MeshOfSize(4))
     with pytest.raises(ValueError, match="direction_dtype"):
         solve_ensemble_host(*args, direction_dtype=torch.float16)
     with pytest.raises(ValueError):
