@@ -8,11 +8,14 @@ exits non-zero and never prints the final `"ok": true` line:
 
   1. device  — nvidia-smi name and power limit, torch/CUDA versions; TF32
                off for matmuls and cuDNN.
-  2. build   — both kernel sources under `hank_tpu_torch/csrc/` (the
-               one-asset and the two-asset household sweeps), one nvcc each
-               (sm_90a) started together, with the build seconds and ptxas'
-               registers and spill bytes per kernel (the f64 tangent sweep,
-               its yardstick and kernel 7's three kernels singled out);
+  2. build   — the three kernel sources under `hank_tpu_torch/csrc/` (the
+               one-asset and the two-asset household sweeps, and the
+               two-asset f64 residual pair), one nvcc each (sm_90a) started
+               together, with the build seconds and ptxas' registers and
+               spill bytes per kernel (the f64 pair singled out, and
+               required not to spill); the f64 pair's shared memory on its
+               default clusters, required to fit at 40×20×5×2, and how many
+               of the grids the previous kernels 5 and 6 take it takes;
                every one-asset grid (n_e ≤ 20) the counting template takes
                in one block fits kernels 2-4 and the f64 tangent sweep too,
                in all three arithmetics, and every grid the previous kernel
@@ -131,11 +134,21 @@ exits non-zero and never prints the final `"ok": true` line:
                each asset axis); and kernel 6 bit for bit against the
                previous one at 38×38×2×2 (a grid that keeps fewer counts for
                room) on seeded policies.
+               The f64 residual pair (`ops/fused_residual2.py`, every
+               full-precision F of the route) at x_ss, the solution and the
+               smooth point: its F within 1e-11 of the plain f64 F, the
+               backward kernel's policies pointwise within
+               1e-10·max(scale, 1) of the plain backward scan (largest gaps
+               reported), the forward kernel's aggregates within 1e-11 of
+               `forward_iteration` on the same policies; repeats
+               bit-identical, a NaN in V_T giving NaN; ms per F of the pair
+               and of the plain F, and of each kernel and its plain version.
                Then 3 timed runs of the route (counters zeroed right
-               before: both kernels launched, neither plain version nor a
-               previous kernel called;
+               before: kernels 5-6 and the f64 pair launched, no plain
+               version, no previous kernel and no plain f64 F called;
                paths bit-identical to the warm-up's; the plain f64 ‖F‖ < EPS;
-               within 1e-6 of the JAX package's root), and the other route
+               within 1e-6 of the JAX package's root; `prof["F"]`
+               reported), and the other route
                once: the two-phase one (to ‖F‖ < EPS) after a certified
                endgame-only route, else the endgame-only one cut at 2 outers,
                reported only. (The script's time limit: the plain f32
@@ -218,8 +231,9 @@ Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
 against operations over 67 TFLOP/s f32 or 34 TFLOP/s FP64, whichever is
 larger) and `library_ms` null: no single PyTorch call computes a household
-sweep or the forward scan. The last three lines are the kernel summary JSON, the
-nvidia-smi line and `{"ok": true, "device": {...}}`. There is no CPU path:
+sweep, the forward scan or the two-asset residual. The last three lines
+are the kernel summary JSON, the nvidia-smi line and `{"ok": true,
+"device": {...}}`. There is no CPU path:
 without a CUDA device the script exits non-zero at once.
 """
 
@@ -337,15 +351,17 @@ def forward_scan_ops(T: int, n_a: int, n_e: int) -> float:
     return T * n_a * n_e * (log2_ceil(n_a) + 2 * n_e + 11)
 
 
-def two_asset_ops(Tm1: int, n_b: int, n_a: int, n_e: int, which: int) -> float:
+def two_asset_ops(Tm1: int, n_b: int, n_a: int, n_e: int, which: int,
+                  tangent: bool = True) -> float:
     """Kernel 5 (which = 0): per state and access branch the expectations of
     both marginal values (4·n_e), the EGM brackets on both axes and ~40
     arithmetic operations. Kernel 6 (which = 1): both brackets, the joint
     lottery's weights and 4 corners (~18), the income and access mixes
-    (2·n_e + 4) and three aggregates (6). Dual numbers throughout."""
+    (2·n_e + 4) and three aggregates (6). Dual numbers (tangent=True,
+    kernels 5-6) or values only (the f64 residual pair)."""
     brackets = 2 * (log2_ceil(n_b) + log2_ceil(n_a))
     per = (4 * n_e + brackets + 40) * 2 if which == 0 else brackets + 2 * n_e + 28
-    return Tm1 * n_b * n_a * n_e * 2 * per * 3
+    return Tm1 * n_b * n_a * n_e * 2 * per * (3 if tangent else 1)
 
 
 def previous_kernel1(args, kw):
@@ -765,6 +781,45 @@ def kernel5_other_grids(model) -> dict:
     return report
 
 
+def f64_pair_grids() -> dict:
+    """The f64 residual pair's shared memory per block on its default
+    clusters, by the library's own count: at 40×20×5×2 (required to fit),
+    and at every grid of `kernel5_grids` (the backward kernel: the grids
+    the previous kernel 5 takes) and of `kernel6_grids` (the forward
+    kernel: those the previous kernel 6 takes), how many each takes
+    (reported)."""
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    lib2 = cuda_build.load_library("household_sweep2")
+    f64 = cuda_build.load_library("household_sweep2_f64")
+    limit = cuda_build.MAX_SMEM_BYTES
+    bwd, fwd = [0, 0], [0, 0]                    # [grids, of which the pair takes]
+    for n_e in range(1, 21):
+        c = fs2.default_bwd_cluster(n_e)
+        for n_b in range(2, 5000):
+            if lib2.hank_sweep2_smem_bytes(0, n_b, 2, n_e, 1) > limit:
+                break
+            for n_a in range(2, 5000):
+                if lib2.hank_sweep2_smem_bytes(0, n_b, n_a, n_e, 1) > limit:
+                    break
+                bwd[0] += 1
+                bwd[1] += f64.hank_sweep2_f64_smem_bytes(0, n_b, n_a, n_e, c) <= limit
+    for n_e in range(1, 9):
+        c = fs2.default_cluster(n_e)
+        for n_b in range(6, 2048 // 6 + 1):
+            for n_a in range(6, 2048 // n_b + 1):
+                if lib2.hank_sweep2_smem_bytes(1, n_b, n_a, n_e, 1) <= limit:
+                    fwd[0] += 1
+                    fwd[1] += f64.hank_sweep2_f64_smem_bytes(1, n_b, n_a, n_e, c) <= limit
+    at = {"backward": f64.hank_sweep2_f64_smem_bytes(0, 40, 20, 5, fs2.default_bwd_cluster(5)),
+          "forward": f64.hank_sweep2_f64_smem_bytes(1, 40, 20, 5, fs2.default_cluster(5))}
+    require(max(at.values()) <= limit, f"the f64 pair does not fit 40x20x5x2: {at}")
+    return {"smem_bytes_40x20x5x2": at,
+            "backward_of_kernel5_grids": {"grids": bwd[0], "taken": bwd[1]},
+            "forward_of_kernel6_grids": {"grids": fwd[0], "taken": fwd[1]}}
+
+
 def steady_residual(model, ss) -> float:
     """max |F| of the model's equations at the steady state `ss`."""
     import torch
@@ -1164,7 +1219,9 @@ def two_asset_phase(dev, ptxas) -> list:
     from hank_tpu_torch.model.structures import generate_exog_paths
     from hank_tpu_torch.models import load_model
     from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import fused_residual2 as fr2
     from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.solvers import newton as newton_mod
     from hank_tpu_torch.solvers.linear import linear_impulse_response
     from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
     from hank_tpu_torch.utils.checkpoint import get_or_solve
@@ -1209,7 +1266,23 @@ def two_asset_phase(dev, ptxas) -> list:
         return make_path_solver(Jbar, exog, model, ss0, ssT, method="boehl",
                                 direction_dtype=f32, eps=EPS, host_inner=True, **kw)
 
+    # The plain f64 F's calls by these solvers (their F, and the endgame's AD
+    # and fd rungs), counted through the name they are built from.
+    plain_F_calls = [0]
+    plain_residual = newton_mod.make_full_residual_fn
+
+    def counted_residual(*a):
+        F = plain_residual(*a)
+
+        def counted(x):
+            plain_F_calls[0] += 1
+            return F(x)
+
+        return counted
+
+    newton_mod.make_full_residual_fn = counted_residual
     endgame_only, two_phase = boehl(richardson_max_outer=0), boehl()
+    newton_mod.make_full_residual_fn = plain_residual
 
     def lin_route():
         x_lin, _ = linear_impulse_response(Jbar, exog, model, ss0, ssT,
@@ -1384,6 +1457,8 @@ def two_asset_phase(dev, ptxas) -> list:
     }
     F_plain = make_full_residual_fn(model, ss0, ssT, exog)
     timing["F_f64_ms"] = cuda_once(lambda: F_plain(x_warm))[1]
+    pair = f64_pair_checks(model, ss0, ssT, exog, F_plain,
+                           {"x_ss": x_ss, "solution": x_warm, "smooth": smooth_x}, ptxas)
     k6_ptxas = [k for k in ptxas if "two_asset_fwd" in k["kernel"]]
     k6_grids = kernel6_grids()
     k6_large = kernel6_large_grid(m32)
@@ -1402,6 +1477,9 @@ def two_asset_phase(dev, ptxas) -> list:
     fs2.fused2_policies_jvp.launches = fs2.fused2_forward_jvp.launches = 0
     fs2.fused2_policies_jvp_previous.launches = fs2.fused2_forward_jvp_previous.launches = 0
     fs2.fused2_policies_jvp_reference.calls = fs2.fused2_forward_jvp_reference.calls = 0
+    fr2.fused2_policies_f64.launches = fr2.fused2_forward_f64.launches = 0
+    fr2.fused2_policies_f64_reference.calls = fr2.fused2_forward_f64_reference.calls = 0
+    plain_F_calls[0] = 0
     runs, xs, infos = [], [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1409,12 +1487,17 @@ def two_asset_phase(dev, ptxas) -> list:
         runs.append(time.perf_counter() - t0)
         xs.append(x_sol)
         infos.append(info)
-    launches = {"k5": fs2.fused2_policies_jvp.launches, "k6": fs2.fused2_forward_jvp.launches}
+    launches = {"k5": fs2.fused2_policies_jvp.launches, "k6": fs2.fused2_forward_jvp.launches,
+                "k5_f64": fr2.fused2_policies_f64.launches,
+                "k6_f64": fr2.fused2_forward_f64.launches}
     plain_calls = {"k5": fs2.fused2_policies_jvp_reference.calls,
-                   "k6": fs2.fused2_forward_jvp_reference.calls}
-    require(launches["k5"] > 0 and launches["k6"] > 0,
+                   "k6": fs2.fused2_forward_jvp_reference.calls,
+                   "k5_f64": fr2.fused2_policies_f64_reference.calls,
+                   "k6_f64": fr2.fused2_forward_f64_reference.calls,
+                   "F_f64": plain_F_calls[0]}
+    require(all(n > 0 for n in launches.values()),
             f"a kernel of the two-asset route never launched: {launches}")
-    require(plain_calls["k5"] == 0 and plain_calls["k6"] == 0,
+    require(not any(plain_calls.values()),
             f"a plain version ran on the two-asset route: {plain_calls}")
     previous = {"k5": fs2.fused2_policies_jvp_previous.launches,
                 "k6": fs2.fused2_forward_jvp_previous.launches}
@@ -1460,7 +1543,10 @@ def two_asset_phase(dev, ptxas) -> list:
                           two_asset_ops(Tm1, n_b, n_a, n_e, 0), "f32")
     k6_bound = least_time(pol_bytes + nbytes(D32, *agg.values(), *dagg.values()),
                           two_asset_ops(Tm1, n_b, n_a, n_e, 1), "f32")
-    return [
+    replaces_f64 = ("hank_tpu/solvers/newton.py:352-376 (the two-asset F in f64 under XLA; "
+                    "no TPU kernel)")
+    return [*({**entry, "launches": launches[key], "replaces": replaces_f64}
+              for key, entry in pair.items()),
         {"name": "fused2_policies_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:673", "launches": launches["k5"],
          "max_abs_err": k5_err, "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_f32_ms"],
@@ -1472,6 +1558,98 @@ def two_asset_phase(dev, ptxas) -> list:
          **k6_bound, "library_ms": None, "ms_previous": timing["k6_previous_ms"],
          "cluster": fs2.default_cluster(n_e)},
     ]
+
+
+def f64_pair_checks(model, ss0, ssT, exog, F_plain, points: dict, ptxas) -> dict:
+    """Phase 7's checks of the f64 residual pair (`ops/fused_residual2.py`)
+    on the two-asset route's inputs: at each point {label: x} the pair's F
+    within 1e-11 of the plain f64 F (kernel 2's bound), the backward
+    kernel's policies against the plain backward scan pointwise within
+    1e-10·max(scale, 1) (the largest gaps reported, over the path and in
+    the first backward period, t = T-2), the forward kernel's
+    aggregates against `forward_iteration` on the same policies within
+    1e-11; two launches of each bit-identical; a NaN in V_T gives NaN. Then
+    ms per F of the pair (CUDA events) and of the plain F (one run), each
+    kernel alone and its plain version, ptxas' registers and spills. Emits
+    one JSON line; returns the `kernels` entries by launch-count key."""
+    import torch
+
+    from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+
+    f64 = torch.float64
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    VT, D0 = ssT.value.to(f64).contiguous(), ss0.D.to(f64).contiguous()
+    F_pair = fr2.make_fused2_residual_fn_f64(model, ss0, ssT, exog)
+    checks, k5_err, k6_err = {}, 0.0, 0.0
+    for name, x in points.items():
+        F_err = max_abs(F_pair(x), F_plain(x))
+        require(F_err <= 1e-11, f"the f64 pair's F at {name} is {F_err:.3e} off the plain F")
+        prices = [q.contiguous() for q in fused2_prices(x.reshape(Tm1, nE), exog, model)]
+        pol = fr2.fused2_policies_f64(*prices, VT, model)
+        ref = fr2.fused2_policies_f64_reference(*prices, VT, model)
+        gaps = {k: (pol[k] - ref[k]).abs() for k in ref}
+        e5 = max(float(g.max()) for g in gaps.values())
+        scale = max(float(t.abs().max()) for t in ref.values())
+        require(e5 <= 1e-10 * max(scale, 1.0),
+                f"the f64 backward kernel at {name} is {e5:.3e} off its plain version")
+        aggs = fr2.fused2_forward_f64(pol, D0, model)
+        e6 = max_abs(torch.stack(list(aggs.values())),
+                     torch.stack(list(fr2.fused2_forward_f64_reference(pol, D0, model).values())))
+        require(e6 <= 1e-11, f"the f64 forward kernel at {name} is {e6:.3e} off its plain version")
+        checks[name] = {"F": F_err, "policies": {k: float(g.max()) for k, g in gaps.items()},
+                        "policies_first_backward_period": {k: float(g[-1].max())
+                                                           for k, g in gaps.items()},
+                        "policy_states_past_1e-13": {k: int((g > 1e-13).sum())
+                                                     for k, g in gaps.items()},
+                        "aggregates": e6}
+        k5_err, k6_err = max(k5_err, e5), max(k6_err, e6)
+    # Repeats bit-identical; a NaN in V_T gives NaN (at the last point).
+    pol_b = fr2.fused2_policies_f64(*prices, VT, model)
+    require(all(torch.equal(pol[k], pol_b[k]) for k in pol)
+            and all(torch.equal(aggs[k], v) for k, v in
+                    fr2.fused2_forward_f64(pol_b, D0, model).items()),
+            "the f64 pair: repeated launches differ")
+    V_nan = VT.clone()
+    V_nan.view(-1)[V_nan.numel() // 3] = float("nan")
+    nan_aggs = fr2.fused2_forward_f64(fr2.fused2_policies_f64(*prices, V_nan, model), D0, model)
+    require(any(bool(torch.isnan(v).any()) for v in nan_aggs.values()),
+            "the f64 pair: a NaN in V_T gave finite aggregates")
+    # Timings at the solution.
+    x = points["solution"]
+    prices = [q.contiguous() for q in fused2_prices(x.reshape(Tm1, nE), exog, model)]
+    pol = fr2.fused2_policies_f64(*prices, VT, model)
+    timing = {
+        "F_pair_ms": cuda_ms(lambda: F_pair(x), 10),
+        "F_plain_ms": cuda_once(lambda: F_plain(x))[1],
+        "k5_f64_ms": cuda_ms(lambda: fr2.fused2_policies_f64(*prices, VT, model), 10),
+        "k6_f64_ms": cuda_ms(lambda: fr2.fused2_forward_f64(pol, D0, model), 10),
+        "k5_f64_plain_ms": cuda_once(lambda: fr2.fused2_policies_f64_reference(
+            *prices, VT, model))[1],
+        "k6_f64_plain_ms": cuda_once(lambda: fr2.fused2_forward_f64_reference(
+            pol, D0, model))[1],
+    }
+    emit("two_asset_f64_pair", checks=checks, bit_identical=True, nan_gives_nan=True,
+         ptxas=[k for k in ptxas if "f64_cluster" in k["kernel"]], **timing)
+    n_b, n_a, n_e = model.state_shape()[:3]
+    pol_bytes = nbytes(*pol.values())
+    source = "hank_tpu_torch/csrc/household_sweep2_f64.cu"
+    return {
+        "k5_f64": {"name": "fused2_policies_f64", "route": "cuda", "source": source,
+                   "max_abs_err": k5_err, "ms": timing["k5_f64_ms"],
+                   "plain_ms": timing["k5_f64_plain_ms"],
+                   **least_time(nbytes(*prices, VT) + pol_bytes,
+                                two_asset_ops(Tm1, n_b, n_a, n_e, 0, tangent=False), "f64"),
+                   "library_ms": None, "F_ms": timing["F_pair_ms"],
+                   "F_plain_ms": timing["F_plain_ms"]},
+        "k6_f64": {"name": "fused2_forward_f64", "route": "cuda", "source": source,
+                   "max_abs_err": k6_err, "ms": timing["k6_f64_ms"],
+                   "plain_ms": timing["k6_f64_plain_ms"],
+                   **least_time(pol_bytes + nbytes(D0, *aggs.values()),
+                                two_asset_ops(Tm1, n_b, n_a, n_e, 1, tangent=False), "f64"),
+                   "library_ms": None},
+    }
 
 
 def driver_case(name: str, T: int, dev, cache: str) -> dict:
@@ -1962,12 +2140,13 @@ def main() -> int:
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
-    new_kernels = [k for k in ptxas if any(
-        part in k["kernel"] for part in ("household_sweep_ranged_kernelIdLb1ELb0E",
-                                         "household_sweep_kernelIdLb1ELb0E", "forward_scan"))]
+    new_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]]
+    require(len(new_kernels) == 2 and not any(k.get("spill_stores") or k.get("spill_loads")
+                                              for k in new_kernels),
+            f"the f64 residual pair spills (or was not built): {new_kernels}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
-         ptxas_of_this_pr=new_kernels, one_asset_grids=one_asset_grids(),
-         fit_decisions=fit_decisions(),
+         ptxas_of_this_pr=new_kernels, f64_pair_fit=f64_pair_grids(),
+         one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
          sass_vs_previous_build=sass_vs_reference(built.paths["household_sweep"]))
 
     # ── 3. setup ───────────────────────────────────────────────────────────

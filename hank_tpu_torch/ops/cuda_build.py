@@ -9,17 +9,22 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
     previous kernels they are held to (`_previous` entry points); and the
     forward distribution scan (kernel 7) with its previous kernel;
   - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, and the
-    previous kernels 5 and 6 that they are held to).
-The libraries are keyed by the SHA-256 of both sources, so an edited source
-rebuilds; a build runs one nvcc per source, all started together. The
-libraries are loaded with ctypes. Nothing here runs at import: the CPU
-tests import every module, and the CPU has no nvcc.
+    previous kernels 5 and 6 that they are held to);
+  - `household_sweep2_f64.cu`: the two-asset full-precision residual
+    (kernels 5-6's designs in FP64, values only), built with
+    `-fmad=false` (`EXTRA_FLAGS`): each product and sum rounds on its own,
+    as the plain f64 pipeline's elementwise operations do.
+The libraries are keyed by the SHA-256 of the sources and the flags, so an
+edited source rebuilds; a build runs one nvcc per source, all started
+together. The libraries are loaded with ctypes. Nothing here runs at
+import: the CPU tests import every module, and the CPU has no nvcc.
 
 `check_fit(need_bytes, what)` is the one shared-memory rule: ValueError
 when a kernel needs more than one block has. The wrappers apply it at each
 launch; the kernel maps apply it, with the library's own count
-(`sweep_smem_bytes` / `sweep2_smem_bytes`), when they are built on the
-card, so a grid past a kernel's limit stops a solve before it starts.
+(`sweep_smem_bytes` / `sweep2_smem_bytes` / `sweep2_f64_smem_bytes`), when
+they are built on the card, so a grid past a kernel's limit stops a solve
+before it starts.
 
 `python -m hank_tpu_torch.ops.cuda_build SOURCE.cu ...` compiles each
 source with the same flags into a temporary directory and prints, per
@@ -42,11 +47,18 @@ import tempfile
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIBRARIES = ("household_sweep", "household_sweep2")
+LIBRARIES = ("household_sweep", "household_sweep2", "household_sweep2_f64")
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu") for name in LIBRARIES}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of one library beyond NVCC_FLAGS.
+EXTRA_FLAGS = {"household_sweep2_f64": ("-fmad=false",)}
+
+
+def nvcc_flags(source: str) -> tuple:
+    """NVCC_FLAGS and the source's own EXTRA_FLAGS (by file name)."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(os.path.splitext(os.path.basename(source))[0], ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +88,7 @@ def _digest() -> str:
     for name in LIBRARIES:
         with open(SOURCES[name], "rb") as f:
             h.update(f.read())
+        h.update(" ".join(nvcc_flags(SOURCES[name])).encode())
     return h.hexdigest()[:16]
 
 
@@ -92,7 +105,7 @@ def build() -> BuildInfo:
     procs = {}
     for name in todo:
         tmp = f"{paths[name]}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        cmd = [_nvcc(), *nvcc_flags(SOURCES[name]), "-o", tmp, SOURCES[name]]
         procs[name] = (cmd, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                   stderr=subprocess.STDOUT, text=True))
     logs, failed = [], []
@@ -145,6 +158,10 @@ _SIGNATURES = {
         "hank_sweep2_forward_jvp_f32": (12, 4, 0),
         "hank_sweep2_forward_jvp_cluster_f32": (13, 5, 0),
     },
+    "household_sweep2_f64": {
+        "hank_sweep2_policies_f64": (10, 5, 4),
+        "hank_sweep2_forward_f64": (10, 5, 0),
+    },
 }
 
 
@@ -161,9 +178,12 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
         lib.hank_sweep_smem_bytes.restype = ctypes.c_size_t
         lib.hank_forward_scan_smem_bytes.argtypes = [i, i, i]
         lib.hank_forward_scan_smem_bytes.restype = ctypes.c_size_t
-    else:
+    elif name == "household_sweep2":
         lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_smem_bytes.restype = ctypes.c_size_t
+    else:
+        lib.hank_sweep2_f64_smem_bytes.argtypes = [i, i, i, i, i]
+        lib.hank_sweep2_f64_smem_bytes.restype = ctypes.c_size_t
     lib.hank_cuda_error_string.argtypes = [i]
     lib.hank_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -201,6 +221,13 @@ def sweep2_smem_bytes(which: int, n_b: int, n_a: int, n_e: int, cluster: int = 1
                                                                    cluster)
 
 
+def sweep2_f64_smem_bytes(which: int, n_b: int, n_a: int, n_e: int, cluster: int = 1) -> int:
+    """The library's count of an f64 residual kernel's shared memory per
+    block (`check_shared_memory2_f64`'s `which`). Builds the library."""
+    return load_library("household_sweep2_f64").hank_sweep2_f64_smem_bytes(
+        which, n_b, n_a, n_e, cluster)
+
+
 def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:
     """The one-asset sweep at an n_a×n_e grid: which = 0 the previous
     kernel 2 (the counting template's f64 residual build), 1 the previous
@@ -228,6 +255,15 @@ def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: 
             f"kernel 5 on a cluster of {cluster}")[which]
     check_fit(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e, cluster),
                 f"{what} at grid {n_b}x{n_a}x{n_e}x2")
+
+
+def check_shared_memory2_f64(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int,
+                             cluster: int) -> None:
+    """At an n_b×n_a×n_e×2 grid, on a cluster of `cluster` blocks: the f64
+    backward recursion (which = 0) or the f64 forward push (which = 1)."""
+    what = ("the f64 backward recursion", "the f64 forward push")[which]
+    check_fit(lib.hank_sweep2_f64_smem_bytes(which, n_b, n_a, n_e, cluster),
+              f"{what} on a cluster of {cluster} at grid {n_b}x{n_a}x{n_e}x2")
 
 
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
@@ -263,7 +299,7 @@ def ptxas_report(log: str) -> list[dict]:
 def main(argv: list[str]) -> int:
     for src in argv:
         with tempfile.TemporaryDirectory() as tmp:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", os.path.join(tmp, "k.so"), src]
+            cmd = [_nvcc(), *nvcc_flags(src), "-o", os.path.join(tmp, "k.so"), src]
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)

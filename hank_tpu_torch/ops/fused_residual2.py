@@ -1,0 +1,197 @@
+"""The two-asset full-precision residual F(x) in native FP64 on the card.
+
+The two-asset counterpart of `ops/fused_residual.py`, as kernels 5-6 are of
+kernel 1. The reference computes this F under XLA in f64: its
+double-single residual kernel (`hank_tpu/ops/fused_ds.py`) takes the
+one-asset family only (`supports_ds_residual`, `:425-427`), so
+`make_path_solver` leaves the two-asset F on the compiled f64 pipeline
+(`hank_tpu/solvers/newton.py:352-376`). Here it is a kernel pair in
+`csrc/household_sweep2_f64.cu`, kernels 5-6's cluster designs in double,
+values only:
+  - `fused2_policies_f64` (`two_asset_bwd_f64_cluster_kernel`): the
+    backward Bellman recursion of `models/hank_two_asset.ValueFunction`
+    over T-1 periods, the B/A/C policies of both access branches, on one
+    thread-block cluster (one income state per block); plain version
+    `fused2_policies_f64_reference` (`fused_sweep2.backward_policies` in
+    f64);
+  - `fused2_forward_f64` (`two_asset_fwd_f64_cluster_kernel`):
+    `forward_iteration` (joint two-axis Young lottery, income then access
+    mixing, the B/A/C aggregates against the mixed distribution), on one
+    cluster (one (income, access) group per block); plain version
+    `fused2_forward_f64_reference` (`forward_iteration` in f64).
+On CPU tensors each wrapper runs its plain version; on CUDA tensors it
+launches its kernel, and a build or launch error raises. `.launches`
+counts kernel launches and `.calls` plain calls.
+
+`make_fused2_residual_fn_f64` is F(x) through the pair: the model's
+`fused2_prices` hook, the two kernels, and the f64 tail (`assemble_full_xmat`
++ `residuals`), as `fused_sweep2._build_fused2`'s `residual32` is in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
+from hank_tpu_torch.blocks.forward import forward_iteration
+from hank_tpu_torch.ops import cuda_build
+from hank_tpu_torch.ops.fused_sweep import check_tensors
+from hank_tpu_torch.ops.fused_sweep2 import (KEYS, _dims, _fused2_price_hook,
+                                             _policies_inputs, backward_policies,
+                                             default_bwd_cluster, default_cluster,
+                                             supports_fused_sweep2)
+from hank_tpu_torch.ops.precision import cast_model
+
+f64 = torch.float64
+LIBRARY = "household_sweep2_f64"
+# The forward kernel takes two sources per thread of its 1024.
+MAX_ASSET_STATES = 2048
+# What the card's check names when the pair does not take a grid.
+PLAIN_ROUTE = "; on the card only the plain residual takes this grid (residual_mode='f64')"
+
+
+def _state(model) -> tuple:
+    liquid, illiq, income, _ = _dims(model)
+    return liquid.n, illiq.n, income.n, 2
+
+
+def _launch(entry, tensors, ints, doubles=()):
+    """Launch `entry` of the f64 library on the card of `tensors` (their
+    data pointers in order), after its ints and doubles."""
+    dev = tensors[-1].device
+    lib = cuda_build.load_library(LIBRARY)
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *ints, *doubles,
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, entry)
+
+
+def _on_card(t: torch.Tensor, dev) -> torch.Tensor:
+    return t.to(device=dev, dtype=f64).contiguous()
+
+
+def fused2_policies_f64(r, ra, w, tau, value_T, model):
+    """Backward recursion: (T-1,) f64 price paths (r, ra, w, tau) and the
+    ending steady state's packed value (2, n_b, n_a, n_e, 2) f64 ↦ {B, A,
+    C} dict of (T-1, n_b, n_a, n_e, 2) f64 policy paths.
+
+    On the card: `two_asset_bwd_f64_cluster_kernel` on one cluster of
+    `default_bwd_cluster(n_e)` blocks."""
+    paths = (r, ra, w, tau)
+    Tm1, state = _policies_inputs("fused2_policies_f64", paths, value_T, model, f64)
+    if value_T.device.type == "cpu":
+        return fused2_policies_f64_reference(*paths, value_T, model)
+    liquid, illiq, income, access = _dims(model)
+    cluster = default_bwd_cluster(income.n)
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 0, *state[:3],
+                                        cluster)
+    dev, p = value_T.device, model.params
+    out = torch.empty((3, Tm1, *state), dtype=f64, device=dev)
+    _launch("hank_sweep2_policies_f64",
+            [*paths, value_T, *(_on_card(t, dev) for t in (liquid.grid, illiq.grid, income.grid,
+                                                           income.transition)), out],
+            (Tm1, *state[:3], cluster),
+            (float(p["β"]), float(access.transition[0, 1]), float(p.get("portfolio_reg", 0.0)),
+             float(p["borrow_cons"])))
+    fused2_policies_f64.launches += 1
+    return dict(zip(KEYS, out))
+
+
+fused2_policies_f64.launches = 0
+
+
+def fused2_policies_f64_reference(r, ra, w, tau, value_T, model):
+    """Plain PyTorch version of the backward recursion: the backward scan
+    through the ported `ValueFunction`, in f64."""
+    fused2_policies_f64_reference.calls += 1
+    return backward_policies(r, ra, w, tau, value_T, cast_model(model, f64))
+
+
+fused2_policies_f64_reference.calls = 0
+
+
+def fused2_forward_f64(policies, D0, model):
+    """Forward push: {B, A, C} (T-1, n_b, n_a, n_e, 2) f64 policy paths and
+    the initial distribution D0 (n_b, n_a, n_e, 2) f64 ↦ {B, A, C} dict of
+    (T-1,) f64 aggregate paths (`forward_iteration`).
+
+    On the card: `two_asset_fwd_f64_cluster_kernel` on one cluster of
+    `default_cluster(n_e)` blocks."""
+    tensors = [*(policies[k] for k in KEYS), D0]
+    check_tensors("fused2_forward_f64", tensors, f64)
+    state = _state(model)
+    Tm1 = tensors[0].shape[0]
+    if any(t.shape != (Tm1, *state) for t in tensors[:3]) or D0.shape != state or Tm1 < 1:
+        raise ValueError(f"fused2_forward_f64: expected (T-1, *{state}) policies and D0 "
+                         f"{state}; got {[tuple(t.shape) for t in tensors]}")
+    if D0.device.type == "cpu":
+        return fused2_forward_f64_reference(policies, D0, model)
+    liquid, illiq, income, access = _dims(model)
+    cluster = default_cluster(income.n)
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 1, *state[:3],
+                                        cluster)
+    dev = D0.device
+    # Scratch: each period's D, which the aggregates read after the recursion.
+    Dpath = torch.empty((Tm1, D0.numel()), dtype=f64, device=dev)
+    out = torch.empty((3, Tm1), dtype=f64, device=dev)
+    _launch("hank_sweep2_forward_f64",
+            [*tensors, *(_on_card(t, dev) for t in (liquid.grid, illiq.grid, income.transition,
+                                                    access.transition)), Dpath, out],
+            (Tm1, *state[:3], cluster))
+    fused2_forward_f64.launches += 1
+    return dict(zip(KEYS, out))
+
+
+fused2_forward_f64.launches = 0
+
+
+def fused2_forward_f64_reference(policies, D0, model):
+    """Plain PyTorch version of the forward push: `forward_iteration` in
+    f64."""
+    fused2_forward_f64_reference.calls += 1
+    return forward_iteration(policies, cast_model(model, f64), D0)
+
+
+fused2_forward_f64_reference.calls = 0
+
+
+def check_fit_f64(model) -> None:
+    """ValueError (naming the plain route, residual_mode='f64') where the
+    pair does not take the model's grid: past a block's shared memory by
+    the library's count on the default clusters, or past the forward
+    kernel's asset states."""
+    n_b, n_a, n_e, _ = _state(model)
+    grid = f"the f64 residual pair at grid {n_b}x{n_a}x{n_e}x2"
+    if n_b * n_a > MAX_ASSET_STATES:
+        raise ValueError(f"{grid} has {n_b * n_a} asset states; the forward kernel takes "
+                         f"{MAX_ASSET_STATES}{PLAIN_ROUTE}")
+    need = max(cuda_build.sweep2_f64_smem_bytes(0, n_b, n_a, n_e, default_bwd_cluster(n_e)),
+               cuda_build.sweep2_f64_smem_bytes(1, n_b, n_a, n_e, default_cluster(n_e)))
+    cuda_build.check_fit(need, grid, PLAIN_ROUTE)
+
+
+def make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths):
+    """F(x) -> f64 residual through the pair: the `fused2_prices` hook in
+    f64, the backward recursion, the forward push, then the f64 tail
+    (`assemble_full_xmat` + `residuals`). On the card the pair is held to
+    the model's grid here (`check_fit_f64`), before any launch."""
+    if not supports_fused_sweep2(model):
+        raise ValueError("model does not declare the two-asset price hook "
+                         "(fused2_prices) and structure the kernels need")
+    hook = _fused2_price_hook(model)
+    cs = model.compspec
+    value_T = ss_ending.value.to(f64).contiguous()
+    D0 = ss_initial.D.to(f64).contiguous()
+    if value_T.is_cuda:
+        check_fit_f64(model)
+
+    def F(x):
+        x64 = x.to(f64)
+        prices = (q.to(f64).contiguous()
+                  for q in hook(x64.reshape(cs.T - 1, cs.n_endog), exog_paths, model))
+        aggs = fused2_forward_f64(fused2_policies_f64(*prices, value_T, model), D0, model)
+        x_mat = assemble_full_xmat(x64, aggs, exog_paths, model, ss_initial.vars,
+                                   ss_ending.vars)
+        return residuals(x_mat, model)
+
+    return F

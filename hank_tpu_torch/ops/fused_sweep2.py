@@ -49,8 +49,8 @@ def _dims(model):
     return het["liquid"], het["illiquid"], het["income"], het["access"]
 
 
-def _policies_inputs(name, paths, value_T, model):
-    check_tensors(name, [value_T, *paths], f32)
+def _policies_inputs(name, paths, value_T, model, dtype=f32):
+    check_tensors(name, [value_T, *paths], dtype)
     Tm1 = paths[0].shape[0]
     liquid, illiq, income, _ = _dims(model)
     state = (liquid.n, illiq.n, income.n, 2)

@@ -130,8 +130,9 @@ def main(argv=None) -> dict:
                         help="nonlinear-solver initial guess: steady-state "
                              "path or the first-order IRF (solvers/linear.py)")
     parser.add_argument("--residual-mode", default="auto", choices=["auto", "ds", "f64"],
-                        help="full-precision residual: the FP64 residual kernel "
-                             "(auto/ds) or the plain f64 pipeline")
+                        help="full-precision residual: an FP64 residual kernel "
+                             "(auto/ds: kernel 2, or the two-asset pair; "
+                             "solvers/newton.residual_route) or the plain f64 pipeline")
     parser.add_argument("--direction-mode", default="auto", choices=["auto", "xla", "pallas"],
                         help="direction route (solvers/newton.py): 'auto' the CUDA kernels "
                              "where the model has them, 'xla' AD of the plain pipeline, which "

@@ -25,10 +25,13 @@ AD of the f64 pipeline (`:389`):
   - "pallas": the f64 sweep kernel, its plain version on CPU tensors;
     ValueError for a model outside the one-asset family.
 The boehl endgame's "f64-ad" rung is the f64 direction route under f64
-directions and AD of the plain f64 pipeline under f32 ones. Residuals come
-from the native-f64 kernel 2 (`ops/fused_residual.py`) for the one-asset
-family unless `residual_mode="f64"`, else from the plain f64 pipeline (the
-reference has no kernel for the two-asset residual either).
+directions and AD of the plain f64 pipeline under f32 ones. Residuals
+(`residual_route`) come from the native-f64 kernel 2
+(`ops/fused_residual.py`) for the one-asset family unless
+`residual_mode="f64"`; for the two-asset family from the f64 kernel pair
+(`ops/fused_residual2.py`) on the card ("auto") or on any device ("ds"),
+a departure from the reference, which keeps that F on XLA; else from the
+plain f64 pipeline.
 On the card a kernel route whose kernel's shared memory does not take the
 model's grid raises ValueError when the solver is built (`sweep_setup`,
 `fused_sweep2._build_fused2`), naming the plain routes ("xla", "f64") that
@@ -74,6 +77,7 @@ from hank_tpu_torch.blocks.backward import backward_iteration
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn
+from hank_tpu_torch.ops.fused_residual2 import make_fused2_residual_fn_f64
 from hank_tpu_torch.ops.fused_sweep import (make_fused_jvp_dir, make_fused_jvp_dir_f64,
                                             make_fused_residual_fn, supports_fused_sweep)
 from hank_tpu_torch.ops.fused_sweep2 import (make_fused2_jvp_dir, make_fused2_residual_fn,
@@ -329,22 +333,39 @@ def f64_direction_route(model, ss_initial, ss_ending, exog_paths,
 
 
 def _kernel_residual(model, residual_mode: str) -> bool:
-    """Whether `residual_mode` picks kernel 2 as the full-precision F(x)."""
+    """Whether `residual_mode` picks kernel 2 as the full-precision F(x),
+    which also turns off Newton-Krylov's f32-residual phase."""
     if residual_mode not in ("auto", "ds", "f64"):
         raise ValueError(f"unknown residual_mode {residual_mode!r}")
     sweep = supports_fused_sweep(model)
-    if residual_mode == "ds" and not sweep:
-        raise ValueError("residual_mode='ds' needs the one-asset residual kernel "
-                         "(supports_fused_sweep is False for this model)")
+    if residual_mode == "ds" and not (sweep or supports_fused_sweep2(model)):
+        raise ValueError("residual_mode='ds' needs a residual kernel: the one-asset "
+                         "kernel 2 (supports_fused_sweep) or the two-asset f64 pair "
+                         "(supports_fused_sweep2); both are False for this model")
     return residual_mode != "f64" and sweep
 
 
 def residual_route(model, ss_initial, ss_ending, exog_paths, residual_mode: str = "auto"):
     """The full-precision F(x) that `residual_mode` picks (`:330-331`):
-    "auto" kernel 2 wherever `supports_fused_sweep` holds, else the plain
-    f64 pipeline; "ds" kernel 2 or ValueError; "f64" the plain pipeline."""
+      - "auto": kernel 2 wherever `supports_fused_sweep` holds; the two-asset
+        f64 pair (`ops/fused_residual2.py`) for `supports_fused_sweep2`
+        models on the card; else the plain f64 pipeline;
+      - "ds": kernel 2 or the f64 pair (their plain versions on CPU
+        tensors), or ValueError for a model outside both families;
+      - "f64": the plain pipeline.
+    The f64 pair is a departure from the reference, whose two-asset F stays
+    on the compiled f64 pipeline (`:352-376`: its residual kernel takes the
+    one-asset family only): the plain f64 F took 2.0-5.4 s a call on the
+    two-asset route at 40×20×5×2, T=300, 94% of the solve, on an H100 80GB
+    HBM3 at 700 W (PERF.md §5). Unlike kernel 2, the pair leaves
+    Newton-Krylov's f32-residual phase on (`_kernel_residual`), as the
+    reference runs it for this family, so the solver's outers, matvecs
+    and F calls are those of the plain route."""
     if _kernel_residual(model, residual_mode):
         return make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths)
+    if (residual_mode != "f64" and supports_fused_sweep2(model)
+            and (residual_mode == "ds" or ss_ending.value.is_cuda)):
+        return make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths)
     return make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
 
 
