@@ -12,8 +12,9 @@ exits non-zero and never prints the final `"ok": true` line:
                one-asset and the two-asset household sweeps, and the
                two-asset f64 residual pair), one nvcc each (sm_90a) started
                together, with the build seconds and ptxas' registers and
-               spill bytes per kernel (the f64 pair singled out, and
-               required not to spill); the f64 pair's shared memory on its
+               spill bytes per kernel (the f64 pair's four kernels, single
+               and batched, required not to spill; the four batched
+               two-asset kernels singled out); the f64 pair's shared memory on its
                default clusters, required to fit at 40×20×5×2, and how many
                of the grids the previous kernels 5 and 6 take it takes;
                every one-asset grid (n_e ≤ 20) the counting template takes
@@ -24,9 +25,12 @@ exits non-zero and never prints the final `"ok": true` line:
                kernel's limit (kernel 2 n_a 1036/1037, kernel 1 1147/1148,
                kernels 3-4 1148/1149, the f64 tangent sweep 529/530); the
                SASS of kernel 1, of the previous kernel 7 and of the
-               template's and the ranged kernel's earlier instantiations
-               against the previous build's (`hank_tpu_torch/tools/
-               sass_reference.json`, compared where nvcc is the same).
+               template's and the ranged kernel's earlier instantiations,
+               and of every single-path kernel of the two two-asset
+               libraries (the cluster kernels as their <false>
+               instantiations), against the previous builds'
+               (`hank_tpu_torch/tools/sass_reference.json`, per library,
+               compared where nvcc is the same).
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
                (max|F_ss| ≤ 1e-9 each, `find_ss`'s own stopping target) and
                the steady-state Jacobian J̄.
@@ -226,12 +230,46 @@ exits non-zero and never prints the final `"ok": true` line:
                port's `dryrun_multichip(1)` (one spawned NCCL rank: SP, TP
                and DP on a 16×2 Krusell-Smith). The `kernels` line's rows of
                kernels 3-4 and of the batched kernel 2 gain `launches_mesh`.
+ 11. two-asset ensemble — run right after phase 7, on its model, steady
+               states and J̄: B=16 fiscal shocks G_b,t = s_b·ρ_bᵗ, s_b = 0.005
+               + 0.005·b/(B−1), ρ_b = 0.5 + 0.4·b/B, from x_ss on every row,
+               through `solve_ensemble_host` (f32 directions through the
+               batched kernels 5-6, every F_b through the batched f64
+               pair). One warm-up Newton-Krylov solve, then: at x_ss and at
+               the warm-up's rows (smooth seeded directions) every row of
+               the four batched kernels bit for bit a single-path launch, a
+               zero tangent exactly zero, F_b within 1e-13 of the
+               single-path pair's F (whether the bits match reported), rows
+               0 and B−1 of F_b within 1e-11 of the plain f64 F; the
+               batched plain versions at B = 1 on row 0 (kernel 5's
+               policies and kernel 6 within 5e-5·max(scale, 1), the f64
+               pair within 1e-10·max(scale, 1) and 1e-11); the card's max
+               active clusters per cluster size, the cluster each kernel
+               takes at B ∈ {1, 16, 64}, and where it is not the default,
+               every row at that width bit for bit a single launch; ms per
+               launch of each batched kernel at B ∈ {1, 16, 64}, in turns
+               with the single-path kernel on one row. Then 3 timed
+               Newton-Krylov solves (counters zeroed right before: all four
+               batched kernels launched, no plain version, no plain f64 F
+               and no single-path two-asset kernel; bit-identical paths;
+               every row ‖F‖ ≤ EPS or a stalled path, not all stalled; each
+               stalled row stalled in phase 7's single-path route on its own
+               shock too (some of these shocks stall at kinks of F in every
+               solver of the port, PERF.md §6), that route's ‖F‖ and
+               gap reported for it and for row B−1; the plain f64 ‖F‖ of rows
+               0, B−1 and the worst row the solver's within 1e-12 + 1e-6
+               relative, and < EPS on converged rows), and one lockstep boehl
+               solve, capped at 10 outers of 200 sweeps (reported).
 
 Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
 against operations over 67 TFLOP/s f32 or 34 TFLOP/s FP64, whichever is
 larger) and `library_ms` null: no single PyTorch call computes a household
-sweep, the forward scan or the two-asset residual. The last three lines
+sweep, the forward scan or the two-asset residual. The rows of phase 11's
+batched kernels give `ms` at B=16 (with `ms_B1`, `ms_B64` and the
+single-path kernel's beside them), their bound from `two_asset_ops` × B,
+their plain version's time at B = 1 (`plain_ms_at`) and their launches
+per ensemble solve. The last three lines
 are the kernel summary JSON, the nvidia-smi line and `{"ok": true,
 "device": {...}}`. There is no CPU path:
 without a CUDA device the script exits non-zero at once.
@@ -576,23 +614,26 @@ SASS_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "hank_
                               "tools", "sass_reference.json")
 
 
-def sass_vs_reference(library: str) -> dict:
-    """The built library's SASS of every kernel in `SASS_REFERENCE`, digest
-    against digest. Compared, and required identical, where nvcc is the
-    reference's; reported as not compared otherwise."""
+def sass_vs_reference(libraries: dict) -> dict:
+    """Per library of `SASS_REFERENCE` ({name: built library}), the built
+    SASS of every kernel it records, digest against digest. Compared, and
+    required identical, where nvcc is the reference's; reported as not
+    compared otherwise."""
     from hank_tpu_torch.tools import sass_compare
 
     with open(SASS_REFERENCE) as f:
         ref = json.load(f)
-    got = sass_compare.digests(sass_compare.sass(library))
     nvcc = sass_compare.nvcc_version()
-    same = {name: got.get(name) == rec for name, rec in ref["kernels"].items()}
     compared = nvcc == ref["nvcc"]
-    if compared:
-        require(all(same.values()), f"SASS differs from the previous build: "
-                                    f"{[k for k, v in same.items() if not v]}")
-    return {"nvcc": nvcc, "reference": ref["source"], "compared": compared,
-            "identical": same}
+    report = {"nvcc": nvcc, "compared": compared}
+    for name, rec in ref["libraries"].items():
+        got = sass_compare.digests(sass_compare.sass(libraries[name]))
+        same = {kernel: got.get(kernel) == d for kernel, d in rec["kernels"].items()}
+        if compared:
+            require(all(same.values()), f"{name}: SASS differs from the previous build: "
+                                        f"{[k for k, v in same.items() if not v]}")
+        report[name] = {"reference": rec["source"], "identical": same}
+    return report
 
 
 def kernel6_vs_previous(inputs: dict, D0, model) -> dict:
@@ -1208,10 +1249,12 @@ def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict) -> dic
     return launches
 
 
-def two_asset_phase(dev, ptxas) -> list:
+def two_asset_phase(dev, ptxas) -> tuple:
     """Phase 7: the two-asset production route at full width (see the
     module docstring). Emits its JSON lines and returns the `kernels`
-    entries of kernels 5 and 6. `ptxas` is phase 2's per-kernel report."""
+    entries of kernels 5 and 6 and of the f64 pair, and what phase 11
+    reuses: the model, both steady states, J̄ and x_ss. `ptxas` is phase
+    2's per-kernel report."""
     import numpy as np
     import torch
 
@@ -1545,6 +1588,7 @@ def two_asset_phase(dev, ptxas) -> list:
                           two_asset_ops(Tm1, n_b, n_a, n_e, 1), "f32")
     replaces_f64 = ("hank_tpu/solvers/newton.py:352-376 (the two-asset F in f64 under XLA; "
                     "no TPU kernel)")
+    setup = {"model": model, "ss0": ss0, "ssT": ssT, "Jbar": Jbar, "x_ss": x_ss}
     return [*({**entry, "launches": launches[key], "replaces": replaces_f64}
               for key, entry in pair.items()),
         {"name": "fused2_policies_jvp", "route": "cuda", "source": source,
@@ -1557,7 +1601,7 @@ def two_asset_phase(dev, ptxas) -> list:
          "max_abs_err": k6_err, "ms": timing["k6_ms"], "plain_ms": timing["k6_plain_f32_ms"],
          **k6_bound, "library_ms": None, "ms_previous": timing["k6_previous_ms"],
          "cluster": fs2.default_cluster(n_e)},
-    ]
+    ], setup
 
 
 def f64_pair_checks(model, ss0, ssT, exog, F_plain, points: dict, ptxas) -> dict:
@@ -1650,6 +1694,418 @@ def f64_pair_checks(model, ss0, ssT, exog, F_plain, points: dict, ptxas) -> dict
                                 two_asset_ops(Tm1, n_b, n_a, n_e, 1, tangent=False), "f64"),
                    "library_ms": None},
     }
+
+
+def guarded_route(Jbar, exog, model, ss0, ssT, x_ss):
+    """Phase 7's route (`bench.py:282-310`) on the shock `exog`: the linear
+    start and the endgame-only boehl solve when the linear step beats the
+    forcing and that solve reaches EPS, else the two-phase boehl solve from
+    x_ss; f32 directions. Returns (x, ‖F(x)‖ by the route's own full-precision
+    F, the route's name)."""
+    import torch
+
+    from hank_tpu_torch.solvers.linear import linear_impulse_response
+    from hank_tpu_torch.solvers.newton import make_path_solver
+
+    def boehl(**kw):
+        return make_path_solver(Jbar, exog, model, ss0, ssT, method="boehl",
+                                direction_dtype=torch.float32, eps=EPS, host_inner=True, **kw)
+
+    x_lin, lin = linear_impulse_response(Jbar, exog, model, ss0, ssT)
+    if lin["residual_norm"] < lin["f0_norm"]:
+        x, info = boehl(richardson_max_outer=0)(x_lin)
+        if info["residual_norm"] <= EPS:
+            return x, float(info["residual_norm"]), "linstart_endgame_only"
+    x, info = boehl()(x_ss)
+    return x, float(info["residual_norm"]), "ss_two_phase_fallback"
+
+
+def two_asset_batch_wrappers() -> dict:
+    """The four batched two-asset wrappers {key: (wrapper, its plain
+    version)}: kernels 5 and 6 and the f64 pair over B paths."""
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    return {"k5_batch": (fs2.fused2_policies_jvp_batch, fs2.fused2_policies_jvp_batch_reference),
+            "k6_batch": (fs2.fused2_forward_jvp_batch, fs2.fused2_forward_jvp_batch_reference),
+            "k5_f64_batch": (fr2.fused2_policies_f64_batch,
+                             fr2.fused2_policies_f64_batch_reference),
+            "k6_f64_batch": (fr2.fused2_forward_f64_batch,
+                             fr2.fused2_forward_f64_batch_reference)}
+
+
+def two_asset_single_wrappers() -> dict:
+    """The single-path two-asset wrappers {key: (wrapper, its plain
+    version)}, which no ensemble may launch or call."""
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    return {"k5": (fs2.fused2_policies_jvp, fs2.fused2_policies_jvp_reference),
+            "k6": (fs2.fused2_forward_jvp, fs2.fused2_forward_jvp_reference),
+            "k5_f64": (fr2.fused2_policies_f64, fr2.fused2_policies_f64_reference),
+            "k6_f64": (fr2.fused2_forward_f64, fr2.fused2_forward_f64_reference),
+            "k5_previous": (fs2.fused2_policies_jvp_previous, None),
+            "k6_previous": (fs2.fused2_forward_jvp_previous, None)}
+
+
+def zero_two_asset_counts() -> None:
+    for group in (two_asset_batch_wrappers(), two_asset_single_wrappers()):
+        for fn, plain in group.values():
+            fn.launches = 0
+            if plain is not None:
+                plain.calls = 0
+
+
+def read_two_asset_counts() -> tuple:
+    """(batched launches, batched plain calls, single-path launches and
+    plain calls) since `zero_two_asset_counts`."""
+    batch = two_asset_batch_wrappers()
+    single = {**{k: fn.launches for k, (fn, _) in two_asset_single_wrappers().items()},
+              **{f"{k}_plain": plain.calls for k, (_, plain) in
+                 two_asset_single_wrappers().items() if plain is not None}}
+    return ({k: fn.launches for k, (fn, _) in batch.items()},
+            {k: plain.calls for k, (_, plain) in batch.items()}, single)
+
+
+F_B_REPLACES = ("hank_tpu/parallel/ensemble.py:76-95 (the ensemble's F, vmapped under XLA in "
+                "f64; no TPU kernel)")
+
+
+def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) -> list:
+    """Phase 11: a B-path two-asset ensemble through `solve_ensemble_host`
+    and the path-batched kernels 5-6 and f64 pair, on phase 7's model,
+    steady states and J̄ (see the module docstring). Emits its JSON lines
+    and returns the `kernels` entries of the four batched kernels."""
+    import torch
+
+    import hank_tpu_torch.parallel.ensemble as ens
+    from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+
+    f32, f64 = torch.float32, torch.float64
+    model, ss0, ssT, Jbar, x_ss = (two[k] for k in ("model", "ss0", "ssT", "Jbar", "x_ss"))
+    dev = x_ss.device
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    n_b, n_a, n_e = model.state_shape()[:3]
+    grid = (n_b, n_a, n_e)
+    # The fiscal shocks G_b,t = s_b·ρ_bᵗ: sizes up to fiscalShock's default
+    # 0.01 (larger ones stall any Newton method at the kinks,
+    # hank_tpu/models/hank_two_asset.py:115-123), ρ as
+    # scripts/r5_ensemble_two_asset.py's.
+    b = torch.arange(B, dtype=f64)
+    size, rho = 0.005 + 0.005 * b / (B - 1), 0.5 + 0.4 * b / B
+    t = torch.arange(1, Tm1 + 1, dtype=f64)
+    exog_b = {"G": (size[:, None] * rho[:, None] ** t[None, :]).to(dev)}
+
+    def solve(method, **kw):
+        x, info = ens.solve_ensemble_host(x_ss, Jbar, exog_b, model, ss0, ssT, eps=EPS,
+                                          method=method, direction_dtype=f32, **kw)
+        torch.cuda.synchronize()
+        return x, info
+
+    def prices(x_b, dtype):
+        rows = [fused2_prices(x.reshape(Tm1, nE), None, model) for x in x_b]
+        return [torch.stack(q).to(dtype).contiguous() for q in zip(*rows)]
+
+    def rows_of(args, rows):
+        return [a[rows].contiguous() for a in args]
+
+    x_warm, info_warm = solve("newton_krylov")
+
+    # The batched kernels at the solver's own points, x_ss on every row and
+    # the warm-up's rows, along smooth seeded directions: every row bit for
+    # bit a single-path launch (NaNs included), a zero tangent exactly zero;
+    # the f64 pair's F_b row by row within 1e-13 of the single-path pair's F.
+    m32 = fs2.cast_model(model, f32)
+    VT32, D32 = ssT.value.to(f32).contiguous(), ss0.D.to(f32).contiguous()
+    VT64, D64 = ssT.value.to(f64).contiguous(), ss0.D.to(f64).contiguous()
+    gen = torch.Generator().manual_seed(17)
+    decay = (0.9 ** torch.arange(Tm1, dtype=f64))[None, :, None]
+    F_b = fr2.make_fused2_residual_fn_f64_batch(model, ss0, ssT)
+
+    def k56(args):
+        pol, dpol = fs2.fused2_policies_jvp_batch(*args, VT32, m32)
+        return (pol, dpol, *fs2.fused2_forward_jvp_batch(pol, dpol, D32, m32))
+
+    def pair(p64):
+        pol = fr2.fused2_policies_f64_batch(*p64, VT64, model)
+        return pol, fr2.fused2_forward_f64_batch(pol, D64, model)
+
+    def single_rows(args, p64, rows):
+        """{source row: its single-path kernels 5-6 and pair outputs}."""
+        out = {}
+        for r in rows:
+            sp, sd = fs2.fused2_policies_jvp(*(a[r].contiguous() for a in args), VT32, m32)
+            sp64 = fr2.fused2_policies_f64(*(q[r].contiguous() for q in p64), VT64, model)
+            out[r] = (sp, sd, *fs2.fused2_forward_jvp(sp, sd, D32, m32), sp64,
+                      fr2.fused2_forward_f64(sp64, D64, model))
+        return out
+
+    def rows_bit_for_bit(args, p64, label, source=None):
+        """Every row of the four batched kernels on (args, p64) against the
+        single-path launch on its source row (`source[i]`, default i)."""
+        got = (*k56(args), *pair(p64))
+        width = args[0].shape[0]
+        source = list(range(width)) if source is None else source
+        single = single_rows(args, p64, sorted(set(source)))
+        for i in range(width):
+            ref = single[source[i]]
+            for o, s_ in zip(got, ref):
+                require(all(same_bits(o[k][i], s_[k]) for k in s_),
+                        f"a batched two-asset kernel at {label}: row {i} differs from the "
+                        f"single-path launch")
+        return got
+
+    checks = {}
+    for label, x_b in (("x_ss", x_ss.expand(B, -1)), ("solution", x_warm)):
+        v_b = (torch.randn((B, 1, nE), generator=gen, dtype=f64) * decay).reshape(B, -1).to(dev)
+        args = [*prices(x_b, f32), *prices(v_b, f32)]
+        p64 = prices(x_b, f64)
+        got = rows_bit_for_bit(args, p64, label)
+        zero = [torch.zeros_like(a) for a in args[4:]]
+        _, dpol0, _, dagg0 = k56([*args[:4], *zero])
+        require(all(bool((d == 0).all()) for d in (*dpol0.values(), *dagg0.values())),
+                f"batched kernels 5-6 at {label}: a zero tangent did not give exactly zero")
+        Fb = F_b(x_b, exog_b)
+        F_single = torch.stack([fr2.make_fused2_residual_fn_f64(
+            model, ss0, ssT, {"G": exog_b["G"][i]})(x_b[i]) for i in range(B)])
+        gap = max_abs(Fb, F_single)
+        require(gap <= 1e-13, f"F_b at {label} is {gap:.3e} off the single-path pair's F")
+        checks[label] = {"rows_bit_identical": True, "F_b_vs_single_pair_max_abs": gap,
+                         "F_b_bits_equal_single_pair": same_bits(Fb, F_single),
+                         "finite": all(bool(torch.isfinite(o[k]).all())
+                                       for o in got for k in o)}
+    # Rows 0 and B-1 of F_b at the warm-up's rows against the plain f64 F.
+    plain = {r: make_full_residual_fn(model, ss0, ssT, {"G": exog_b["G"][r]})(x_warm[r])
+             for r in (0, B - 1)}
+    F_plain_gap = max(max_abs(Fb[r], plain[r]) for r in plain)
+    require(F_plain_gap <= 1e-11, f"F_b is {F_plain_gap:.3e} off the plain f64 F")
+    checks["F_b_rows_0_and_last_vs_plain_f64_F"] = F_plain_gap
+    sol_args, sol_p64 = args, p64
+
+    # The batched plain versions at B = 1 (row 0 of the warm-up's rows):
+    # kernel 5's policies and kernel 6 on kernel 5's outputs within
+    # 5e-5·max(scale, 1), kernel 6's tangents aggregated from kernel 5's
+    # reported; the f64 pair within 1e-10·max(scale, 1) and 1e-11.
+    one = rows_of(sol_args, [0])
+    one64 = rows_of(sol_p64, [0])
+    (pol_r, dpol_r), k5_plain_ms = cuda_once(
+        lambda: fs2.fused2_policies_jvp_batch_reference(*one, VT32, m32))
+    pol_k, dpol_k, aggs_k, daggs_k = k56(one)
+    (agg_r, dagg_r), k6_plain_ms = cuda_once(
+        lambda: fs2.fused2_forward_jvp_batch_reference(pol_k, dpol_k, D32, m32))
+    agg_rr, dagg_rr = fs2.fused2_forward_jvp_batch_reference(pol_r, dpol_r, D32, m32)
+
+    def err_scale(a, r):
+        return (max(max_abs(a[k], r[k]) for k in r),
+                max(1.0, max(float(r[k].abs().max()) for k in r)))
+
+    k5_err, k5_scale = err_scale(pol_k, pol_r)
+    k6_err, k6_scale = err_scale({**aggs_k, **{f"d{k}": v for k, v in daggs_k.items()}},
+                                 {**agg_r, **{f"d{k}": v for k, v in dagg_r.items()}})
+    require(k5_err <= 5e-5 * k5_scale and k6_err <= 5e-5 * k6_scale,
+            f"batched kernels 5-6 off their plain versions: {k5_err:.3e}, {k6_err:.3e}")
+    k5_tangent_aggregated = err_scale(daggs_k, dagg_rr)[0]
+    pol64_r, k5_f64_plain_ms = cuda_once(
+        lambda: fr2.fused2_policies_f64_batch_reference(*one64, VT64, model))
+    pol64_k, aggs64_k = pair(one64)
+    aggs64_r, k6_f64_plain_ms = cuda_once(
+        lambda: fr2.fused2_forward_f64_batch_reference(pol64_k, D64, model))
+    k5_f64_err, k5_f64_scale = err_scale(pol64_k, pol64_r)
+    k6_f64_err = err_scale(aggs64_k, aggs64_r)[0]
+    require(k5_f64_err <= 1e-10 * k5_f64_scale and k6_f64_err <= 1e-11,
+            f"the batched f64 pair off its plain versions: {k5_f64_err:.3e}, {k6_f64_err:.3e}")
+
+    # The cluster each batched kernel takes at each width, the card's max
+    # active clusters per size, and the rows at any width whose cluster is
+    # not the default bit for bit their single-path launches.
+    kinds = {"k5_batch": ("household_sweep2", 3, fs2.default_bwd_cluster(n_e)),
+             "k6_batch": ("household_sweep2", 2, fs2.default_cluster(n_e)),
+             "k5_f64_batch": (fr2.LIBRARY, 0, fs2.default_bwd_cluster(n_e)),
+             "k6_f64_batch": (fr2.LIBRARY, 1, fs2.default_cluster(n_e))}
+    max_clusters = {k: {C: cuda_build.max_clusters(lib, which, *grid, C)
+                        for C in range(1, default + 1)}
+                    for k, (lib, which, default) in kinds.items()}
+    picks = {Bw: {k: fs2.batch_cluster_of(lib, which, Bw, grid)
+                  for k, (lib, which, _) in kinds.items()} for Bw in widths}
+    wide = {}
+    for Bw in widths:
+        idx = [i % B for i in range(Bw)]
+        wide[Bw] = (rows_of(sol_args, idx), rows_of(sol_p64, idx))
+        if any(picks[Bw][k] != kinds[k][2] for k in kinds):
+            rows_bit_for_bit(*wide[Bw], f"width {Bw}", source=idx)
+            checks[f"rows_bit_identical_at_width_{Bw}"] = True
+
+    # ms per launch of each batched kernel at each width, in turns with the
+    # single-path kernel on row 0 (single, batched, batched, single).
+    def launchers(args, p64):
+        pol, dpol = fs2.fused2_policies_jvp_batch(*args, VT32, m32)
+        pol64 = fr2.fused2_policies_f64_batch(*p64, VT64, model)
+        row = [a[0].contiguous() for a in args]
+        sp, sd = fs2.fused2_policies_jvp(*row, VT32, m32)
+        row64 = [q[0].contiguous() for q in p64]
+        sp64 = fr2.fused2_policies_f64(*row64, VT64, model)
+        return {
+            "k5_batch": (lambda: fs2.fused2_policies_jvp(*row, VT32, m32),
+                         lambda: fs2.fused2_policies_jvp_batch(*args, VT32, m32)),
+            "k6_batch": (lambda: fs2.fused2_forward_jvp(sp, sd, D32, m32),
+                         lambda: fs2.fused2_forward_jvp_batch(pol, dpol, D32, m32)),
+            "k5_f64_batch": (lambda: fr2.fused2_policies_f64(*row64, VT64, model),
+                             lambda: fr2.fused2_policies_f64_batch(*p64, VT64, model)),
+            "k6_f64_batch": (lambda: fr2.fused2_forward_f64(sp64, D64, model),
+                             lambda: fr2.fused2_forward_f64_batch(pol64, D64, model))}
+
+    width_ms = {k: {} for k in kinds}
+    for Bw in widths:
+        for k, (single, batched) in launchers(*wide[Bw]).items():
+            turns = in_turns({"single": single, "batched": batched}, 5)
+            width_ms[k][Bw] = {"ms": turns["batched"], "ms_per_path": turns["batched"] / Bw,
+                               "single_ms": turns["single"], "cluster": picks[Bw][k]}
+        torch.cuda.empty_cache()
+    emit("two_asset_ensemble_kernels", B=B, checks=checks,
+         k5_policies_vs_plain=k5_err, k6_vs_plain=k6_err,
+         k5_tangents_aggregated_vs_plain=k5_tangent_aggregated,
+         k5_f64_vs_plain=k5_f64_err, k6_f64_vs_plain=k6_f64_err,
+         plain_ms_B1={"k5_batch": k5_plain_ms, "k6_batch": k6_plain_ms,
+                      "k5_f64_batch": k5_f64_plain_ms, "k6_f64_batch": k6_f64_plain_ms},
+         max_active_clusters=max_clusters, clusters_by_width=picks, width_ms=width_ms,
+         ptxas_batched=[k for k in ptxas if "cluster_kernelILb1E" in k["kernel"]])
+
+    # Three timed lockstep Newton-Krylov solves; counts zeroed right before:
+    # every batched kernel launched, no plain version and no single-path
+    # two-asset kernel, no plain f64 F (counted through the name the
+    # ensemble takes it by).
+    plain_F_calls = [0]
+    plain_residual = ens.make_full_residual_fn
+
+    def counted_residual(*a):
+        F = plain_residual(*a)
+
+        def counted(x):
+            plain_F_calls[0] += 1
+            return F(x)
+
+        return counted
+
+    ens.make_full_residual_fn = counted_residual
+    try:
+        zero_two_asset_counts()
+        runs, xs, infos = [], [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            x_sol, info = solve("newton_krylov")
+            runs.append(time.perf_counter() - t0)
+            xs.append(x_sol)
+            infos.append(info)
+        launches, plain_calls, single = read_two_asset_counts()
+    finally:
+        ens.make_full_residual_fn = plain_residual
+    require(all(n > 0 for n in launches.values()),
+            f"a batched two-asset kernel never launched: {launches}")
+    require(not any(plain_calls.values()) and plain_F_calls[0] == 0 and not any(single.values()),
+            f"a plain version, the plain F or a single-path kernel ran on the two-asset "
+            f"ensemble path: {plain_calls}, {plain_F_calls[0]}, {single}")
+    require(all(torch.equal(x_warm, xi) for xi in xs),
+            "repeated two-asset ensemble solves returned different paths")
+    info = infos[0]
+    fn = info["residual_norm"]
+    require(xs[0].shape == (B, x_ss.numel()) and bool(torch.isfinite(xs[0]).all()),
+            "two-asset ensemble solution is not finite paths of the expected shape")
+    # Every row reaches EPS or is a stalled (frozen) path. Some of these
+    # shocks stall at kinks of F, in the single-path solvers too (PERF.md
+    # §6): each stalled row must stall in phase 7's single-path
+    # route on its own shock as well, or the batched route is at fault.
+    stalled_rows = [r for r in range(B) if float(fn[r]) > EPS]
+    require(len(stalled_rows) == info["stalled_paths"],
+            f"two-asset ensemble NK: rows {stalled_rows} above EPS but "
+            f"{info['stalled_paths']} stalled paths")
+    single_route = {}
+    for r in sorted({*stalled_rows, B - 1}):
+        x_r, norm_r, route_r = guarded_route(Jbar, {"G": exog_b["G"][r]}, model, ss0, ssT, x_ss)
+        single_route[r] = {"route": route_r, "ensemble_norm": float(fn[r]),
+                           "single_path_norm": norm_r, "max_abs": max_abs(xs[0][r], x_r)}
+        require(r not in stalled_rows or norm_r > EPS,
+                f"row {r} stalls in the ensemble at {float(fn[r]):.3e}, but the single-path "
+                f"route reaches {norm_r:.3e}")
+    require(len(stalled_rows) < B, "every row of the two-asset ensemble stalled")
+    # ‖F‖ of rows 0, B-1 and the worst row by the plain f64 pipeline: the
+    # solver's own within 1e-12 + 1e-6 relative, and < EPS where it converged.
+    worst = int(fn.argmax())
+    plain_fn = {}
+    for r in sorted({0, B - 1, worst}):
+        F_plain = make_full_residual_fn(model, ss0, ssT, {"G": exog_b["G"][r]})
+        plain_fn[r] = float(torch.linalg.norm(F_plain(xs[0][r])))
+        require(abs(plain_fn[r] - float(fn[r])) <= 1e-12 + 1e-6 * float(fn[r])
+                and (r in stalled_rows or plain_fn[r] < EPS),
+                f"plain f64 ‖F‖ of row {r} is {plain_fn[r]:.3e}, the solver's {float(fn[r]):.3e}")
+    emit("two_asset_ensemble_nk", B=B, median_s=statistics.median(runs), runs_s=runs,
+         per_path_s=statistics.median(runs) / B, outer_iterations=info["iterations"],
+         matvecs=info["inner_iterations"], residual_norm_max=float(fn.max()),
+         residual_norm_median=float(fn.median()), residual_norm_plain_f64=plain_fn,
+         host_ls_s=[i["host_ls_seconds"] for i in infos], stalled_paths=info["stalled_paths"],
+         launches=launches, plain_calls=plain_calls, plain_F_calls=plain_F_calls[0],
+         single_path_counts=single, bit_identical=True,
+         warm_up={"outer_iterations": info_warm["iterations"],
+                  "matvecs": info_warm["inner_iterations"]},
+         rows_within_eps=B - len(stalled_rows), stalled_rows=stalled_rows,
+         single_path_route=single_route)
+
+    # One lockstep boehl solve (Richardson), reported; capped for the
+    # script's time limit.
+    zero_two_asset_counts()
+    t0 = time.perf_counter()
+    x_rich, info_r = solve("boehl", max_outer=10, max_inner=200)
+    rich_s = time.perf_counter() - t0
+    fr = info_r["residual_norm"]
+    emit("two_asset_ensemble_boehl", B=B, seconds=rich_s, outer_iterations=info_r["iterations"],
+         sweeps=info_r["inner_iterations"], residual_norm_max=float(fr.max()),
+         rows_within_eps=int((fr <= EPS).sum()), stalled_paths=info_r["stalled_paths"],
+         launches=read_two_asset_counts()[0], max_abs_vs_nk=max_abs(x_rich, xs[0]))
+
+    # The `kernels` entries: launches per ensemble solve, the ms of the
+    # ensemble's width B, the bound of that launch from two_asset_ops × B.
+    per_solve = {k: n // len(runs) for k, n in launches.items()}
+    args_B, p64_B = wide[B] if B in wide else (sol_args, sol_p64)
+    pol, dpol = fs2.fused2_policies_jvp_batch(*args_B, VT32, m32)
+    pol_bytes = nbytes(*pol.values(), *dpol.values())
+    pol64 = fr2.fused2_policies_f64_batch(*p64_B, VT64, model)
+    pol64_bytes = nbytes(*pol64.values())
+    agg_bytes = B * 6 * Tm1 * 4
+    bounds = {
+        "k5_batch": least_time(nbytes(*args_B, VT32) + pol_bytes,
+                               B * two_asset_ops(Tm1, *grid, 0), "f32"),
+        "k6_batch": least_time(pol_bytes + nbytes(D32) + agg_bytes,
+                               B * two_asset_ops(Tm1, *grid, 1), "f32"),
+        "k5_f64_batch": least_time(nbytes(*p64_B, VT64) + pol64_bytes,
+                                   B * two_asset_ops(Tm1, *grid, 0, tangent=False), "f64"),
+        "k6_f64_batch": least_time(pol64_bytes + nbytes(D64) + agg_bytes,
+                                   B * two_asset_ops(Tm1, *grid, 1, tangent=False), "f64")}
+    meta = {
+        "k5_batch": ("fused2_policies_jvp_batch", "hank_tpu_torch/csrc/household_sweep2.cu",
+                     "hank_tpu/ops/fused_sweep2.py:673", k5_err,
+                     width_ms["k5_batch"], k5_plain_ms),
+        "k6_batch": ("fused2_forward_jvp_batch", "hank_tpu_torch/csrc/household_sweep2.cu",
+                     "hank_tpu/ops/fused_sweep2.py:984", k6_err,
+                     width_ms["k6_batch"], k6_plain_ms),
+        "k5_f64_batch": ("fused2_policies_f64_batch",
+                         "hank_tpu_torch/csrc/household_sweep2_f64.cu",
+                         F_B_REPLACES, k5_f64_err,
+                         width_ms["k5_f64_batch"], k5_f64_plain_ms),
+        "k6_f64_batch": ("fused2_forward_f64_batch",
+                         "hank_tpu_torch/csrc/household_sweep2_f64.cu",
+                         F_B_REPLACES, k6_f64_err,
+                         width_ms["k6_f64_batch"], k6_f64_plain_ms)}
+    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": per_solve[k], "max_abs_err": err, "ms": ms[B]["ms"],
+             "plain_ms": plain_ms, **bounds[k], "library_ms": None, "B": B,
+             "plain_ms_at": "B=1", "cluster": ms[B]["cluster"],
+             **{f"ms_B{Bw}": ms[Bw]["ms"] for Bw in widths},
+             **{f"single_ms_B{Bw}": ms[Bw]["single_ms"] for Bw in widths}}
+            for k, (name, source, replaces, err, ms, plain_ms) in meta.items()]
 
 
 def driver_case(name: str, T: int, dev, cache: str) -> dict:
@@ -2140,14 +2596,16 @@ def main() -> int:
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
-    new_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]]
-    require(len(new_kernels) == 2 and not any(k.get("spill_stores") or k.get("spill_loads")
-                                              for k in new_kernels),
-            f"the f64 residual pair spills (or was not built): {new_kernels}")
+    f64_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]]
+    require(len(f64_kernels) == 4 and not any(k.get("spill_stores") or k.get("spill_loads")
+                                              for k in f64_kernels),
+            f"the f64 residual pair spills (or was not built): {f64_kernels}")
+    batched = [k for k in ptxas if "cluster_kernelILb1E" in k["kernel"]]
+    require(len(batched) == 4, f"the four batched two-asset kernels were not built: {batched}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
-         ptxas_of_this_pr=new_kernels, f64_pair_fit=f64_pair_grids(),
+         ptxas_of_this_pr=batched, f64_pair_fit=f64_pair_grids(),
          one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
-         sass_vs_previous_build=sass_vs_reference(built.paths["household_sweep"]))
+         sass_vs_previous_build=sass_vs_reference(built.paths))
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -2365,7 +2823,12 @@ def main() -> int:
     ensemble_kernels, ensemble = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
 
     # ── 7. two-asset ───────────────────────────────────────────────────────
-    two_asset_kernels = two_asset_phase(dev, ptxas)
+    two_asset_kernels, two = two_asset_phase(dev, ptxas)
+
+    # ── 11. two-asset ensemble (on phase 7's setup) ────────────────────────
+    two_asset_kernels += two_asset_ensemble_phase(two, ptxas)
+    del two
+    torch.cuda.empty_cache()
 
     # ── 8. driver ──────────────────────────────────────────────────────────
     phase8 = driver_phase(dev)

@@ -16,6 +16,16 @@
 // kernel 5: one block walking the periods in order. Kernels 5 and 6 launch
 // back to back, the same split as on the TPU.
 //
+// Ensembles: both cluster kernels take a path axis (template flag BATCHED,
+// the `_batch` entry points): a grid of (C, B) blocks, one cluster per path,
+// each path on its own rows of the inputs and its own slice of the outputs
+// and scratch, the steady state, grids and transitions shared. The
+// reference vmaps its XLA pipeline for a two-asset ensemble
+// (hank_tpu/parallel/ensemble.py:283-292: its batched Pallas pair takes the
+// one-asset family only). A row of a batched launch is the single-path
+// launch on that row, bit for bit: the path offset is the only difference,
+// and neither kernel's arithmetic depends on the cluster size.
+//
 // Semantics are those of the plain PyTorch version (torch.func.jvp of
 // ValueFunction and of forward_iteration), stage by stage: the gather-form
 // interpolations (count bracket clipped to [1, n-1], clipped lerp, flat
@@ -776,11 +786,32 @@ __device__ __forceinline__ float access_mix(float one_lam, float lam, float x0, 
     return __fmaf_rn(one_lam, x0, __fmul_rn(x1, lam));
 }
 
+// The path of a batched launch (blockIdx.y) times `per_path` elements; 0
+// without BATCHED, which compiles it out. blockIdx.y is read anew at every
+// use (a volatile read the compiler cannot hoist), so no path offset stays
+// live in registers across the periods: the cluster kernels take every
+// register ptxas gives a thread at their block size.
+template <bool BATCHED>
+__device__ __forceinline__ size_t path_offset(size_t per_path) {
+    if constexpr (BATCHED) {
+        unsigned b;
+        asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(b));
+        return b * per_path;
+    } else {
+        return 0;
+    }
+}
+
 // Outputs as two_asset_bwd_kernel's; `tabled` as bwd_cluster_tabled(). Stamp
 // slots (per block, 32 apart): [0] the wait before A, [1] A, [2] B1 and C1,
 // [3] C2 and the scan, [4] the wait before B2, [5] B2 and the root chain,
 // [6] thread 0's share of B2, [7] C4 and D, [8] from D to the next wait,
 // [9] the sweep.
+// BATCHED: a grid of (C, B) blocks, one cluster per path b = blockIdx.y, which
+// reads row b of each (B, Tm1) price and tangent path and writes its own
+// (6, Tm1, N4) slice of out (B, 6, Tm1, N4); V_T, the grids and Pi are
+// shared. Without it (the single-path entry point) the offset compiles out.
+template <bool BATCHED>
 __global__ void __launch_bounds__(kB5Threads, 1) two_asset_bwd_cluster_kernel(
     const float* __restrict__ r_p, const float* __restrict__ ra_p,
     const float* __restrict__ w_p, const float* __restrict__ tau_p,
@@ -844,7 +875,8 @@ __global__ void __launch_bounds__(kB5Threads, 1) two_asset_bwd_cluster_kernel(
     for (int i = tid; i < NA; i += kB5Threads) ag[i] = agrid_g[i];
     for (int i = tid; i < NE; i += kB5Threads) eg[i] = egrid_g[i];
     for (int i = tid; i < NE * NE; i += kB5Threads) Pi[i] = Pi_g[i];
-    if (tid < 8) pc[8 * ((Tm1 - 1) & 1) + tid] = prices[tid][Tm1 - 1];
+    if (tid < 8)
+        pc[8 * ((Tm1 - 1) & 1) + tid] = (prices[tid] + path_offset<BATCHED>(Tm1))[Tm1 - 1];
     // The access mix of V_T (no tangent) for the own incomes.
     for (int j = tid; j < my_n; j += kB5Threads) {
         const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
@@ -877,13 +909,15 @@ __global__ void __launch_bounds__(kB5Threads, 1) two_asset_bwd_cluster_kernel(
         const float* pt = pc + 8 * (t & 1);
         const float r = pt[0], ra = pt[1], w = pt[2], tau = pt[3];
         const float dr = pt[4], dra = pt[5], dw = pt[6], dtau = pt[7];
-        if (t > 0 && tid < 8) pc[8 * ((t - 1) & 1) + tid] = prices[tid][t - 1];
+        if (t > 0 && tid < 8)
+            pc[8 * ((t - 1) & 1) + tid] = (prices[tid] + path_offset<BATCHED>(Tm1))[t - 1];
         const float one_r = 1.f + r, one_ra = 1.f + ra;
         const float pre = (1.f - tau) * w;
         const float dpre = -dtau * w + (1.f - tau) * dw;
         const float ymax = floor_f(pre, 1e-9f);
         const float dymax = floor_d(pre, 1e-9f) * dpre;
-        float* Bo = out + (size_t)t * N4;          // B, A, C, dB, dA, dC rows of t
+        // B, A, C, dB, dA, dC rows of t
+        float* Bo = out + path_offset<BATCHED>(6 * TN) + (size_t)t * N4;
 
         // Every income's vm of period t + 1 is with its owner.
         st.to(8);
@@ -1565,6 +1599,13 @@ int fwd_cluster_shift(int NB, int NA, int NE, int C) {
 // lists, [2] the sources' weights, terms and ranks, [3] summing and sending
 // the lists, [4] the wait at the first cluster barrier, [5] M (thread 0's
 // share), [6] the wait at the second, [7] the aggregates, [8] the sweep.
+// BATCHED: a grid of (C, B) blocks, one cluster per path b = blockIdx.y. The
+// six policy inputs are the rows of one (B, 6, Tm1, N4) tensor (pB at q = 0 to
+// dC at q = 5, as the batched kernel 5 writes them), so path b's start
+// b * 6 * Tm1 * N4 elements on; it keeps its own Dpath (B, Tm1, 2, N4) and
+// writes its own row of out (B, 6, Tm1); D0, the grids, Pi and Pacc are
+// shared. Without it (the single-path entry point) the offset compiles out.
+template <bool BATCHED>
 __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     const float* __restrict__ pB, const float* __restrict__ pA,
     const float* __restrict__ pC, const float* __restrict__ dB,
@@ -1588,6 +1629,7 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     const int cells = (NS + C - 1) / C;           // block r mixes cells [r * cells, ...)
     const int my_cells = max(0, min(NS - rank * cells, cells));
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t TN = (size_t)Tm1 * N4;
 
     float4* lists = reinterpret_cast<float4*>(sm);  // entries (mass, wm, T, 0), 4 * NS
     float* Hc = reinterpret_cast<float*>(lists + 4 * NS);  // [value, tangent][NG][cells]
@@ -1617,7 +1659,7 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     // This thread's sources' policies for the next (period, group), in registers.
     float npb[kCluSources], ndb[kCluSources], npa[kCluSources], nda[kCluSources];
     auto prefetch = [&](int t, int gi) {
-        const size_t off = (size_t)t * N4 + rank + gi * C;
+        const size_t off = path_offset<BATCHED>(6 * TN) + (size_t)t * N4 + rank + gi * C;
 #pragma unroll
         for (int i = 0; i < kCluSources; ++i) {
             const int s = tid + i * kCluThreads;
@@ -1787,7 +1829,7 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
         //    two_asset_fwd_kernel's loop order (access outer, income inner);
         //    D goes to the block that owns its group, and to Dpath[t] for the
         //    aggregates.
-        float* Dt = Dpath + (size_t)t * 2 * N4;
+        float* Dt = Dpath + path_offset<BATCHED>(2 * TN) + (size_t)t * 2 * N4;
         for (int i = tid; i < my_cells * NG; i += kCluThreads) {
             const int g2 = i % NG, c = i / NG, e2 = g2 >> 1, acc2 = g2 & 1;
             float Dn = 0.f, dDn = 0.f;
@@ -1821,8 +1863,8 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     // then the same butterflies and warp-0 tree.
     st.from(7);
     for (int t = rank; t < Tm1; t += C) {
-        const size_t off = (size_t)t * N4;
-        const float* Dt = Dpath + (size_t)t * 2 * N4;
+        const size_t off = path_offset<BATCHED>(6 * TN) + (size_t)t * N4;
+        const float* Dt = Dpath + path_offset<BATCHED>(2 * TN) + (size_t)t * 2 * N4;
         float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f, s5 = 0.f;
         for (int k = tid; k < N4; k += kCluThreads) {
             const float Dn = Dt[k], dDn = Dt[N4 + k];
@@ -1844,7 +1886,8 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             for (int q = 0; q < 6; ++q) {
                 float x = red[q * kCluWarps + lane];
                 for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-                if (lane == 0) out[(size_t)q * Tm1 + t] = x;
+                if (lane == 0)
+                    out[path_offset<BATCHED>(6 * (size_t)Tm1) + (size_t)q * Tm1 + t] = x;
             }
         }
         __syncthreads();
@@ -1870,6 +1913,51 @@ __global__ void __launch_bounds__(1024) block_sync_loop(int iters, long long* cy
     if (threadIdx.x == 0) cycles[0] = clock64() - t0;
 }
 #endif
+
+// A grid of `paths` clusters of `cluster` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory each: the kernel's attributes set,
+// `cfg` filled (its cluster dimension in `attr`), and in `clusters` how many
+// such clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+template <typename... KArgs>
+cudaError_t cluster_config(void (*kernel)(KArgs...), int cluster, int paths, int threads,
+                           size_t smem, void* stream, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute* attr, int& clusters) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cfg = {};
+    cfg.gridDim = dim3(cluster, paths, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    clusters = 0;
+    return cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+}
+
+// `paths` clusters of `kernel` on `stream`; cudaErrorLaunchOutOfResources when
+// the card cannot hold one such cluster.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_paths(void (*kernel)(KArgs...), int cluster, int paths, int threads,
+                         size_t smem, void* stream, Args... args) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int clusters = 0;
+    cudaError_t err = cluster_config(kernel, cluster, paths, threads, smem, stream, cfg, attr,
+                                     clusters);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1917,39 +2005,14 @@ int hank_sweep2_policies_jvp_cluster_f32(const void* r, const void* ra, const vo
                                          double borrow_cons K5_ENTRY_PARAM, void* stream) {
     if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2)
         return (int)cudaErrorInvalidValue;
-    const size_t smem = bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster);
-    const int tabled = bwd_cluster_tabled(n_b, n_a, n_e, cluster) ? 1 : 0;
-    cudaError_t err = cudaFuncSetAttribute(
-        two_asset_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(two_asset_bwd_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, 1, 1);
-    cfg.blockDim = dim3(kB5Threads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, two_asset_bwd_cluster_kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    err = cudaLaunchKernelEx(&cfg, two_asset_bwd_cluster_kernel,
-                             (const float*)r, (const float*)ra, (const float*)w,
-                             (const float*)tau, (const float*)dr, (const float*)dra,
-                             (const float*)dw, (const float*)dtau, (const float*)V_T,
-                             (const float*)bgrid, (const float*)agrid, (const float*)egrid,
-                             (const float*)Pi, (float*)out, Tm1, n_b, n_a, n_e, (float)beta,
-                             (float)lam, (float)chi, (float)borrow_cons, tabled K5_ENTRY_ARG);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return (int)launch_paths(
+        two_asset_bwd_cluster_kernel<false>, cluster, 1, kB5Threads,
+        bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster), stream, (const float*)r,
+        (const float*)ra, (const float*)w, (const float*)tau, (const float*)dr,
+        (const float*)dra, (const float*)dw, (const float*)dtau, (const float*)V_T,
+        (const float*)bgrid, (const float*)agrid, (const float*)egrid, (const float*)Pi,
+        (float*)out, Tm1, n_b, n_a, n_e, (float)beta, (float)lam, (float)chi,
+        (float)borrow_cons, bwd_cluster_tabled(n_b, n_a, n_e, cluster) ? 1 : 0 K5_ENTRY_ARG);
 }
 
 int hank_sweep2_forward_jvp_f32(const void* pB, const void* pA, const void* pC,
@@ -1986,37 +2049,83 @@ int hank_sweep2_forward_jvp_cluster_f32(const void* pB, const void* pA, const vo
         || n_b * n_a > kCluSources * kCluThreads)
         return (int)cudaErrorInvalidValue;
     const int shift = fwd_cluster_shift(n_b, n_a, n_e, cluster);
-    const size_t smem = fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift);
-    cudaError_t err = cudaFuncSetAttribute(
-        two_asset_fwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(two_asset_fwd_cluster_kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, 1, 1);
-    cfg.blockDim = dim3(kCluThreads, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = static_cast<cudaStream_t>(stream);
+    return (int)launch_paths(
+        two_asset_fwd_cluster_kernel<false>, cluster, 1, kCluThreads,
+        fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, (const float*)pB,
+        (const float*)pA, (const float*)pC, (const float*)dB, (const float*)dA,
+        (const float*)dC, (const float*)D0, (const float*)bgrid, (const float*)agrid,
+        (const float*)Pi, (const float*)Pacc, (float*)Dpath, (float*)out, Tm1, n_b, n_a, n_e,
+        shift K6_ENTRY_ARG);
+}
+
+// Kernel 5 over B paths, one cluster of `cluster` blocks (1 to min(n_e, 16))
+// per path: (B, Tm1) price and tangent paths -> out (B, 6, Tm1, n_b, n_a,
+// n_e, 2). Row b is the single-path launch on row b, bit for bit, at any
+// cluster size. Returns as hank_sweep2_policies_jvp_cluster_f32, and
+// cudaErrorInvalidValue for B outside [1, 65535].
+int hank_sweep2_policies_jvp_cluster_f32_batch(
+    const void* r, const void* ra, const void* w, const void* tau, const void* dr,
+    const void* dra, const void* dw, const void* dtau, const void* V_T, const void* bgrid,
+    const void* agrid, const void* egrid, const void* Pi, void* out, int Tm1, int n_b,
+    int n_a, int n_e, int cluster, int B, double beta, double lam, double chi,
+    double borrow_cons K5_ENTRY_PARAM, void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2 || B < 1
+        || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_paths(
+        two_asset_bwd_cluster_kernel<true>, cluster, B, kB5Threads,
+        bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster), stream, (const float*)r,
+        (const float*)ra, (const float*)w, (const float*)tau, (const float*)dr,
+        (const float*)dra, (const float*)dw, (const float*)dtau, (const float*)V_T,
+        (const float*)bgrid, (const float*)agrid, (const float*)egrid, (const float*)Pi,
+        (float*)out, Tm1, n_b, n_a, n_e, (float)beta, (float)lam, (float)chi,
+        (float)borrow_cons, bwd_cluster_tabled(n_b, n_a, n_e, cluster) ? 1 : 0 K5_ENTRY_ARG);
+}
+
+// Kernel 6 over B paths, one cluster of `cluster` blocks (1 to min(2 * n_e,
+// 16)) per path: pol is the (B, 6, Tm1, n_b, n_a, n_e, 2) output of the
+// batched kernel 5 (policies B, A, C, then their tangents), Dpath (B, Tm1, 2,
+// N4) f32 of global scratch -> out (B, 6, Tm1). Row b is the single-path
+// launch on row b, bit for bit, at any cluster size. Returns as
+// hank_sweep2_forward_jvp_cluster_f32, and cudaErrorInvalidValue for B
+// outside [1, 65535].
+int hank_sweep2_forward_jvp_cluster_f32_batch(const void* pol, const void* D0,
+                                              const void* bgrid, const void* agrid,
+                                              const void* Pi, const void* Pacc, void* Dpath,
+                                              void* out, int Tm1, int n_b, int n_a, int n_e,
+                                              int cluster, int B K6_ENTRY_PARAM,
+                                              void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2
+        || n_b * n_a > kCluSources * kCluThreads || B < 1 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_cluster_shift(n_b, n_a, n_e, cluster);
+    const float* p = static_cast<const float*>(pol);
+    const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
+    return (int)launch_paths(
+        two_asset_fwd_cluster_kernel<true>, cluster, B, kCluThreads,
+        fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, p, p + TN, p + 2 * TN,
+        p + 3 * TN, p + 4 * TN, p + 5 * TN, (const float*)D0, (const float*)bgrid,
+        (const float*)agrid, (const float*)Pi, (const float*)Pacc, (float*)Dpath, (float*)out,
+        Tm1, n_b, n_a, n_e, shift K6_ENTRY_ARG);
+}
+
+// How many clusters of `cluster` blocks of the batched kernel 6 (which = 2)
+// or the batched kernel 5 (which = 3) the card holds at once, at an n_b x n_a
+// x n_e x 2 grid (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+int hank_sweep2_max_clusters(int which, int n_b, int n_a, int n_e, int cluster) {
+    cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, two_asset_fwd_cluster_kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    err = cudaLaunchKernelEx(&cfg, two_asset_fwd_cluster_kernel,
-                             (const float*)pB, (const float*)pA, (const float*)pC,
-                             (const float*)dB, (const float*)dA, (const float*)dC,
-                             (const float*)D0, (const float*)bgrid, (const float*)agrid,
-                             (const float*)Pi, (const float*)Pacc, (float*)Dpath,
-                             (float*)out, Tm1, n_b, n_a, n_e, shift K6_ENTRY_ARG);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    const cudaError_t err =
+        which == 2 ? cluster_config(two_asset_fwd_cluster_kernel<true>, cluster, 1, kCluThreads,
+                                    fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster,
+                                                           fwd_cluster_shift(n_b, n_a, n_e,
+                                                                             cluster)),
+                                    nullptr, cfg, attr, clusters)
+                   : cluster_config(two_asset_bwd_cluster_kernel<true>, cluster, 1, kB5Threads,
+                                    bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster), nullptr,
+                                    cfg, attr, clusters);
+    return err != cudaSuccess ? -(int)err : clusters;
 }
 
 // Dynamic shared memory of the previous kernel 5 (which = 0), of the

@@ -14,7 +14,9 @@
 // kernel, hank_tpu/ops/fused_ds.py, takes the one-asset family only). They
 // are kernels 5 and 6 of household_sweep2.cu (two_asset_bwd_cluster_kernel,
 // two_asset_fwd_cluster_kernel) in double without the tangent, on the same
-// cluster designs; that file keeps its f32 kernels as they are.
+// cluster designs; that file keeps its f32 kernels as they are. Both take a
+// path axis for ensembles as kernels 5 and 6 do (BATCHED, the `_batch` entry
+// points: one cluster per path, row b bit for bit the single-path launch).
 //
 // Semantics are those of the plain PyTorch versions, operation for
 // operation: every expression is the plain version's, in its order, and the
@@ -192,6 +194,27 @@ size_t bwd_smem_bytes(int NB, int NA, int NE, int C) {
     return bwd_smem(NB, NA, NE, C, bwd_tabled(NB, NA, NE, C));
 }
 
+// The path of a batched launch (blockIdx.y) times `per_path` elements; 0
+// without BATCHED, which compiles it out. blockIdx.y is read anew at every
+// use (a volatile read the compiler cannot hoist), so no path offset stays
+// live in registers across the periods (at 1024 threads the forward kernel
+// has 64 registers a thread, and the single-path kernel takes all of them).
+template <bool BATCHED>
+__device__ __forceinline__ size_t path_offset(size_t per_path) {
+    if constexpr (BATCHED) {
+        unsigned b;
+        asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(b));
+        return b * per_path;
+    } else {
+        return 0;
+    }
+}
+
+// BATCHED: a grid of (C, B) blocks, one cluster per path b = blockIdx.y, which
+// reads row b of each (B, Tm1) price path and writes its own (3, Tm1, N4)
+// slice of out (B, 3, Tm1, N4); V_T, the grids and Pi are shared. Without it
+// (the single-path entry point) the offset compiles out.
+template <bool BATCHED>
 __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kernel(
     const double* __restrict__ r_p, const double* __restrict__ ra_p,
     const double* __restrict__ w_p, const double* __restrict__ tau_p,
@@ -240,7 +263,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
     for (int i = tid; i < NA; i += kBwdThreads) ag[i] = agrid_g[i];
     for (int i = tid; i < NE; i += kBwdThreads) eg[i] = egrid_g[i];
     for (int i = tid; i < NE * NE; i += kBwdThreads) Pi[i] = Pi_g[i];
-    if (tid < 4) pc[4 * ((Tm1 - 1) & 1) + tid] = prices[tid][Tm1 - 1];
+    if (tid < 4)
+        pc[4 * ((Tm1 - 1) & 1) + tid] = (prices[tid] + path_offset<BATCHED>(Tm1))[Tm1 - 1];
     // The access mix of V_T for the own incomes.
     for (int j = tid; j < my_n; j += kBwdThreads) {
         const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
@@ -267,10 +291,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
     for (int t = Tm1 - 1; t >= 0; --t) {
         const double* pt = pc + 4 * (t & 1);
         const double r = pt[0], ra = pt[1], w = pt[2], tau = pt[3];
-        if (t > 0 && tid < 4) pc[4 * ((t - 1) & 1) + tid] = prices[tid][t - 1];
+        if (t > 0 && tid < 4)
+            pc[4 * ((t - 1) & 1) + tid] = (prices[tid] + path_offset<BATCHED>(Tm1))[t - 1];
         const double one_r = 1.0 + r, one_ra = 1.0 + ra;
         const double ymax = dmax((1.0 - tau) * w, 1e-9);
-        double* Bo = out + (size_t)t * N4;          // B, A, C rows of t
+        double* Bo = out + path_offset<BATCHED>(3 * TN) + (size_t)t * N4;   // B, A, C of t
 
         // Every income's vm of period t + 1 is with its owner.
         cluster_wait();
@@ -572,6 +597,13 @@ __device__ __forceinline__ double lottery_weight(const double* g, int jc, double
     return dclip((p - g[jc - 1]) / (g[jc] - g[jc - 1]), 0.0, 1.0);
 }
 
+// BATCHED: a grid of (C, B) blocks, one cluster per path b = blockIdx.y. The
+// three policy inputs are the rows of one (B, 3, Tm1, N4) tensor (as the
+// batched backward kernel writes them), so path b's start b * 3 * Tm1 * N4
+// elements on; it keeps its own Dpath (B, Tm1, N4) and writes its own row of
+// out (B, 3, Tm1); D0, the grids, Pi and Pacc are shared. Without it (the
+// single-path entry point) the offset compiles out.
+template <bool BATCHED>
 __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kernel(
     const double* __restrict__ pB, const double* __restrict__ pA,
     const double* __restrict__ pC, const double* __restrict__ D0,
@@ -591,6 +623,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     const int cells = (NS + C - 1) / C;           // block r mixes cells [r * cells, ...)
     const int my_cells = max(0, min(NS - rank * cells, cells));
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const size_t TN = (size_t)Tm1 * N4;
 
     double* lists = reinterpret_cast<double*>(smem_fwd);   // terms, 4 * NS
     double* Hc = lists + 4 * NS;                  // [NG][cells]
@@ -616,7 +649,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     // This thread's sources' policies for the next (period, group), in registers.
     double npb[kFwdSources], npa[kFwdSources];
     auto prefetch = [&](int t, int gi) {
-        const size_t off = (size_t)t * N4 + rank + gi * C;
+        const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + rank + gi * C;
 #pragma unroll
         for (int i = 0; i < kFwdSources; ++i) {
             const int s = tid + i * kFwdThreads;
@@ -752,7 +785,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
         // M. Income then access mixing on this block's cells, every group;
         //    D goes to the block that owns its group, and to Dpath[t] for the
         //    aggregates.
-        double* Dt = Dpath + (size_t)t * N4;
+        double* Dt = Dpath + path_offset<BATCHED>(TN) + (size_t)t * N4;
         for (int i = tid; i < my_cells * NG; i += kFwdThreads) {
             const int g2 = i % NG, c = i / NG, e2 = g2 >> 1, acc2 = g2 & 1;
             double Dn = 0.0;
@@ -773,8 +806,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     // Dpath visible), block r taking the periods t = r (mod C): thread tid
     // sums k = tid + kFwdThreads * i, then warp butterflies and warp 0's tree.
     for (int t = rank; t < Tm1; t += C) {
-        const size_t off = (size_t)t * N4;
-        const double* Dt = Dpath + off;
+        const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4;
+        const double* Dt = Dpath + path_offset<BATCHED>(TN) + (size_t)t * N4;
         double v[3] = {0.0, 0.0, 0.0};
         for (int k = tid; k < N4; k += kFwdThreads) {
             const double Dn = Dt[k];
@@ -791,37 +824,52 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             for (int q = 0; q < 3; ++q) {
                 double x = red[q * kFwdWarps + lane];
                 for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-                if (lane == 0) out[(size_t)q * Tm1 + t] = x;
+                if (lane == 0)
+                    out[path_offset<BATCHED>(3 * (size_t)Tm1) + (size_t)q * Tm1 + t] = x;
             }
         }
         __syncthreads();
     }
 }
 
-// One cluster of `cluster` blocks of `threads` threads with `smem` bytes of
-// dynamic shared memory each, on `stream`.
-template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), int cluster, int threads, size_t smem,
-                           void* stream, Args... args) {
+// A grid of `paths` clusters of `cluster` blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory each: the kernel's attributes set,
+// `cfg` filled (its cluster dimension in `attr`), and in `clusters` how many
+// such clusters the card holds at once (cudaOccupancyMaxActiveClusters).
+template <typename... KArgs>
+cudaError_t cluster_config(void (*kernel)(KArgs...), int cluster, int paths, int threads,
+                           size_t smem, void* stream, cudaLaunchConfig_t& cfg,
+                           cudaLaunchAttribute* attr, int& clusters) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster, 1, 1);
+    cfg = {};
+    cfg.gridDim = dim3(cluster, paths, 1);
     cfg.blockDim = dim3(threads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
-    cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = cluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
+    clusters = 0;
+    return cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+}
+
+// `paths` clusters of `cluster` blocks on `stream` (one path: the single-path
+// kernels); cudaErrorLaunchOutOfResources when the card cannot hold one.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), int cluster, int paths, int threads,
+                           size_t smem, void* stream, Args... args) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
     int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    cudaError_t err = cluster_config(kernel, cluster, paths, threads, smem, stream, cfg, attr,
+                                     clusters);
     if (err != cudaSuccess) return err;
     if (clusters < 1) return cudaErrorLaunchOutOfResources;
     err = cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
@@ -849,7 +897,7 @@ int hank_sweep2_policies_f64(const void* r, const void* ra, const void* w, const
     if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1)
         return (int)cudaErrorInvalidValue;
     return (int)launch_cluster(
-        two_asset_bwd_f64_cluster_kernel, cluster, kBwdThreads,
+        two_asset_bwd_f64_cluster_kernel<false>, cluster, 1, kBwdThreads,
         bwd_smem_bytes(n_b, n_a, n_e, cluster), stream, (const double*)r, (const double*)ra,
         (const double*)w, (const double*)tau, (const double*)V_T, (const double*)bgrid,
         (const double*)agrid, (const double*)egrid, (const double*)Pi, (double*)out, Tm1, n_b,
@@ -869,11 +917,73 @@ int hank_sweep2_forward_f64(const void* pB, const void* pA, const void* pC, cons
         return (int)cudaErrorInvalidValue;
     const int shift = fwd_shift(n_b, n_a, n_e, cluster);
     return (int)launch_cluster(
-        two_asset_fwd_f64_cluster_kernel, cluster, kFwdThreads,
+        two_asset_fwd_f64_cluster_kernel<false>, cluster, 1, kFwdThreads,
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, (const double*)pB,
         (const double*)pA, (const double*)pC, (const double*)D0, (const double*)bgrid,
         (const double*)agrid, (const double*)Pi, (const double*)Pacc, (double*)Dpath,
         (double*)out, Tm1, n_b, n_a, n_e, shift);
+}
+
+// The backward recursion over B paths, one cluster of `cluster` blocks per
+// path: (B, Tm1) price paths -> out (B, 3, Tm1, n_b, n_a, n_e, 2). Row b is
+// the single-path launch on row b, bit for bit, at any cluster size.
+// cudaErrorInvalidValue also for B outside [1, 65535].
+int hank_sweep2_policies_f64_batch(const void* r, const void* ra, const void* w,
+                                   const void* tau, const void* V_T, const void* bgrid,
+                                   const void* agrid, const void* egrid, const void* Pi,
+                                   void* out, int Tm1, int n_b, int n_a, int n_e, int cluster,
+                                   int B, double beta, double lam, double chi,
+                                   double borrow_cons, void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || B < 1 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_cluster(
+        two_asset_bwd_f64_cluster_kernel<true>, cluster, B, kBwdThreads,
+        bwd_smem_bytes(n_b, n_a, n_e, cluster), stream, (const double*)r, (const double*)ra,
+        (const double*)w, (const double*)tau, (const double*)V_T, (const double*)bgrid,
+        (const double*)agrid, (const double*)egrid, (const double*)Pi, (double*)out, Tm1, n_b,
+        n_a, n_e, beta, lam, chi, borrow_cons, bwd_tabled(n_b, n_a, n_e, cluster) ? 1 : 0);
+}
+
+// The forward push over B paths, one cluster of `cluster` blocks per path:
+// pol is the (B, 3, Tm1, n_b, n_a, n_e, 2) output of the batched backward
+// kernel, Dpath (B, Tm1, N4) f64 of global scratch -> out (B, 3, Tm1). Row b
+// is the single-path launch on row b, bit for bit, at any cluster size.
+// cudaErrorInvalidValue also for B outside [1, 65535].
+int hank_sweep2_forward_f64_batch(const void* pol, const void* D0, const void* bgrid,
+                                  const void* agrid, const void* Pi, const void* Pacc,
+                                  void* Dpath, void* out, int Tm1, int n_b, int n_a, int n_e,
+                                  int cluster, int B, void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || n_b * n_a > kFwdSources * kFwdThreads || B < 1 || B > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_shift(n_b, n_a, n_e, cluster);
+    const double* p = static_cast<const double*>(pol);
+    const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
+    return (int)launch_cluster(
+        two_asset_fwd_f64_cluster_kernel<true>, cluster, B, kFwdThreads,
+        fwd_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, p, p + TN, p + 2 * TN,
+        (const double*)D0, (const double*)bgrid, (const double*)agrid, (const double*)Pi,
+        (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift);
+}
+
+// How many clusters of `cluster` blocks of the batched backward kernel
+// (which = 0) or forward kernel (which = 1) the card holds at once, at an
+// n_b x n_a x n_e x 2 grid (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+int hank_sweep2_f64_max_clusters(int which, int n_b, int n_a, int n_e, int cluster) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    int clusters = 0;
+    const cudaError_t err =
+        which == 0 ? cluster_config(two_asset_bwd_f64_cluster_kernel<true>, cluster, 1,
+                                    kBwdThreads, bwd_smem_bytes(n_b, n_a, n_e, cluster),
+                                    nullptr, cfg, attr, clusters)
+                   : cluster_config(two_asset_fwd_f64_cluster_kernel<true>, cluster, 1,
+                                    kFwdThreads,
+                                    fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                                                   fwd_shift(n_b, n_a, n_e, cluster)),
+                                    nullptr, cfg, attr, clusters);
+    return err != cudaSuccess ? -(int)err : clusters;
 }
 
 // Dynamic shared memory per block of the backward kernel (which = 0) or of

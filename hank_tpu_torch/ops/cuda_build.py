@@ -8,10 +8,12 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
     entry points of one kernel template with kernel 1's design), the
     previous kernels they are held to (`_previous` entry points); and the
     forward distribution scan (kernel 7) with its previous kernel;
-  - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, and the
-    previous kernels 5 and 6 that they are held to);
+  - `household_sweep2.cu`: the two-asset sweep (kernels 5-6, single-path
+    and path-batched entry points, and the previous kernels 5 and 6 that
+    they are held to);
   - `household_sweep2_f64.cu`: the two-asset full-precision residual
-    (kernels 5-6's designs in FP64, values only), built with
+    (kernels 5-6's designs in FP64, values only, single-path and
+    path-batched), built with
     `-fmad=false` (`EXTRA_FLAGS`): each product and sum rounds on its own,
     as the plain f64 pipeline's elementwise operations do.
 The libraries are keyed by the SHA-256 of the sources and the flags, so an
@@ -157,10 +159,14 @@ _SIGNATURES = {
         "hank_sweep2_policies_jvp_cluster_f32": (14, 5, 4),
         "hank_sweep2_forward_jvp_f32": (12, 4, 0),
         "hank_sweep2_forward_jvp_cluster_f32": (13, 5, 0),
+        "hank_sweep2_policies_jvp_cluster_f32_batch": (14, 6, 4),
+        "hank_sweep2_forward_jvp_cluster_f32_batch": (8, 6, 0),
     },
     "household_sweep2_f64": {
         "hank_sweep2_policies_f64": (10, 5, 4),
         "hank_sweep2_forward_f64": (10, 5, 0),
+        "hank_sweep2_policies_f64_batch": (10, 6, 4),
+        "hank_sweep2_forward_f64_batch": (8, 6, 0),
     },
 }
 
@@ -181,9 +187,13 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
     elif name == "household_sweep2":
         lib.hank_sweep2_smem_bytes.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_smem_bytes.restype = ctypes.c_size_t
+        lib.hank_sweep2_max_clusters.argtypes = [i, i, i, i, i]
+        lib.hank_sweep2_max_clusters.restype = i
     else:
         lib.hank_sweep2_f64_smem_bytes.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_f64_smem_bytes.restype = ctypes.c_size_t
+        lib.hank_sweep2_f64_max_clusters.argtypes = [i, i, i, i, i]
+        lib.hank_sweep2_f64_max_clusters.restype = i
     lib.hank_cuda_error_string.argtypes = [i]
     lib.hank_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -226,6 +236,23 @@ def sweep2_f64_smem_bytes(which: int, n_b: int, n_a: int, n_e: int, cluster: int
     block (`check_shared_memory2_f64`'s `which`). Builds the library."""
     return load_library("household_sweep2_f64").hank_sweep2_f64_smem_bytes(
         which, n_b, n_a, n_e, cluster)
+
+
+@functools.cache
+def max_clusters(name: str, which: int, n_b: int, n_a: int, n_e: int, cluster: int) -> int:
+    """How many clusters of `cluster` blocks of a batched two-asset kernel the
+    card holds at once (cudaOccupancyMaxActiveClusters; 0: not one): library
+    `name` "household_sweep2" with which = 2 (kernel 6) or 3 (kernel 5), or
+    "household_sweep2_f64" with which = 0 (backward) or 1 (forward), at an
+    n_b×n_a×n_e×2 grid. Builds the library."""
+    lib = load_library(name)
+    query = (lib.hank_sweep2_max_clusters if name == "household_sweep2"
+             else lib.hank_sweep2_f64_max_clusters)
+    n = query(which, n_b, n_a, n_e, cluster)
+    if n < 0:
+        raise RuntimeError(f"{name}: CUDA error {-n} asking the clusters of kernel {which}: "
+                           f"{lib.hank_cuda_error_string(-n).decode()}")
+    return n
 
 
 def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:

@@ -26,6 +26,13 @@ counts kernel launches and `.calls` plain calls.
 `make_fused2_residual_fn_f64` is F(x) through the pair: the model's
 `fused2_prices` hook, the two kernels, and the f64 tail (`assemble_full_xmat`
 + `residuals`), as `fused_sweep2._build_fused2`'s `residual32` is in f32.
+
+For ensembles, `fused2_policies_f64_batch` and `fused2_forward_f64_batch`
+launch the pair over B paths, one cluster per path (plain versions
+`*_batch_reference`, loops over rows), row b bit for bit the single-path
+launch on row b, and `make_fused2_residual_fn_f64_batch` is F_b through
+them. The reference's ensemble F for this family is its vmapped XLA
+pipeline (`hank_tpu/parallel/ensemble.py:76-95`).
 """
 
 from __future__ import annotations
@@ -36,9 +43,11 @@ from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import check_tensors
-from hank_tpu_torch.ops.fused_sweep2 import (KEYS, _dims, _fused2_price_hook,
+from hank_tpu_torch.ops.fused_sweep2 import (KEYS, _batch_inputs, _dims,
+                                             _forward_batch_inputs, _fused2_price_hook,
                                              _policies_inputs, backward_policies,
-                                             default_bwd_cluster, default_cluster,
+                                             batch_cluster_of, default_bwd_cluster,
+                                             default_cluster, path_block,
                                              supports_fused_sweep2)
 from hank_tpu_torch.ops.precision import cast_model
 
@@ -155,6 +164,98 @@ def fused2_forward_f64_reference(policies, D0, model):
 fused2_forward_f64_reference.calls = 0
 
 
+def fused2_policies_f64_batch(r_b, ra_b, w_b, tau_b, value_T, model):
+    """The backward recursion over an ensemble: (B, T-1) f64 price paths and
+    the shared value_T ↦ {B, A, C} dict of (B, T-1, n_b, n_a, n_e, 2) f64
+    policy paths, views of one (B, 3, T-1, ...) tensor.
+
+    On the card: one launch of `two_asset_bwd_f64_cluster_kernel<true>`, one
+    cluster per path; row b is bit for bit `fused2_policies_f64` on row b.
+    On CPU tensors: the plain version."""
+    paths = (r_b, ra_b, w_b, tau_b)
+    B, Tm1, state = _batch_inputs("fused2_policies_f64_batch", paths, value_T, model, f64)
+    if value_T.device.type == "cpu":
+        return fused2_policies_f64_batch_reference(*paths, value_T, model)
+    liquid, illiq, income, access = _dims(model)
+    cluster = batch_cluster_of(LIBRARY, 0, B, state[:3])
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 0, *state[:3],
+                                        cluster)
+    dev, p = value_T.device, model.params
+    out = torch.empty((B, 3, Tm1, *state), dtype=f64, device=dev)
+    _launch("hank_sweep2_policies_f64_batch",
+            [*paths, value_T, *(_on_card(t, dev) for t in (liquid.grid, illiq.grid, income.grid,
+                                                           income.transition)), out],
+            (Tm1, *state[:3], cluster, B),
+            (float(p["β"]), float(access.transition[0, 1]), float(p.get("portfolio_reg", 0.0)),
+             float(p["borrow_cons"])))
+    fused2_policies_f64_batch.launches += 1
+    return dict(zip(KEYS, out.transpose(0, 1)))
+
+
+fused2_policies_f64_batch.launches = 0
+
+
+def fused2_policies_f64_batch_reference(r_b, ra_b, w_b, tau_b, value_T, model):
+    """Plain version of the batched backward recursion: a loop over rows of
+    `fused2_policies_f64_reference`."""
+    fused2_policies_f64_batch_reference.calls += 1
+    rows = [fused2_policies_f64_reference(r_b[b], ra_b[b], w_b[b], tau_b[b], value_T, model)
+            for b in range(r_b.shape[0])]
+    return {k: torch.stack([r[k] for r in rows]) for k in KEYS}
+
+
+fused2_policies_f64_batch_reference.calls = 0
+
+
+def fused2_forward_f64_batch(policies, D0, model):
+    """The forward push over an ensemble: {B, A, C} (B, T-1, n_b, n_a, n_e,
+    2) f64 policy paths and the shared D0 ↦ {B, A, C} dict of (B, T-1) f64
+    aggregate paths.
+
+    On the card: one launch of `two_asset_fwd_f64_cluster_kernel<true>`, one
+    cluster per path, on the policies as `fused2_policies_f64_batch` returns
+    them (other layouts are stacked into that one first); row b is bit for
+    bit `fused2_forward_f64` on row b. On CPU tensors: the plain version."""
+    tensors, B, Tm1 = _forward_batch_inputs("fused2_forward_f64_batch", (policies,), D0, model,
+                                            f64, KEYS)
+    if D0.device.type == "cpu":
+        return fused2_forward_f64_batch_reference(policies, D0, model)
+    state = _state(model)
+    if state[0] * state[1] > MAX_ASSET_STATES:
+        raise ValueError(f"fused2_forward_f64_batch: {state[0] * state[1]} asset states; the "
+                         f"forward kernel takes {MAX_ASSET_STATES}")
+    liquid, illiq, income, access = _dims(model)
+    cluster = batch_cluster_of(LIBRARY, 1, B, state[:3])
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 1, *state[:3],
+                                        cluster)
+    dev = D0.device
+    # Scratch: each path's D of every period, which the aggregates read
+    # after the recursion.
+    Dpath = torch.empty((B, Tm1, D0.numel()), dtype=f64, device=dev)
+    out = torch.empty((B, 3, Tm1), dtype=f64, device=dev)
+    _launch("hank_sweep2_forward_f64_batch",
+            [path_block(tensors), D0, *(_on_card(t, dev) for t in (
+                liquid.grid, illiq.grid, income.transition, access.transition)), Dpath, out],
+            (Tm1, *state[:3], cluster, B))
+    fused2_forward_f64_batch.launches += 1
+    return dict(zip(KEYS, out.transpose(0, 1)))
+
+
+fused2_forward_f64_batch.launches = 0
+
+
+def fused2_forward_f64_batch_reference(policies, D0, model):
+    """Plain version of the batched forward push: a loop over rows of
+    `fused2_forward_f64_reference`."""
+    fused2_forward_f64_batch_reference.calls += 1
+    rows = [fused2_forward_f64_reference({k: policies[k][b] for k in KEYS}, D0, model)
+            for b in range(policies["B"].shape[0])]
+    return {k: torch.stack([r[k] for r in rows]) for k in KEYS}
+
+
+fused2_forward_f64_batch_reference.calls = 0
+
+
 def check_fit_f64(model) -> None:
     """ValueError (naming the plain route, residual_mode='f64') where the
     pair does not take the model's grid: past a block's shared memory by
@@ -195,3 +296,39 @@ def make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths):
         return residuals(x_mat, model)
 
     return F
+
+
+def make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending):
+    """F_b(x_b, exog_batch) -> the f64 (B, n) residual of a two-asset
+    ensemble: row b is F(x_b[b]) under the shock paths {k: exog_batch[k][b]},
+    (B, T-1) each, as `make_fused2_residual_fn_f64` computes it. The price
+    hook and the f64 tail run per row under `torch.func.vmap`; every row's
+    household block is one launch each of the batched pair. On the card
+    the pair is held to the model's grid here (`check_fit_f64`), before any
+    launch."""
+    if not supports_fused_sweep2(model):
+        raise ValueError("model does not declare the two-asset price hook "
+                         "(fused2_prices) and structure the kernels need")
+    hook = _fused2_price_hook(model)
+    cs = model.compspec
+    value_T = ss_ending.value.to(f64).contiguous()
+    D0 = ss_initial.D.to(f64).contiguous()
+    if value_T.is_cuda:
+        check_fit_f64(model)
+
+    def prices(xx, ex):
+        return tuple(q.to(f64) for q in hook(xx.reshape(cs.T - 1, cs.n_endog), ex, model))
+
+    def tail(xx, aggs, ex):
+        x_mat = assemble_full_xmat(xx, aggs, ex, model, ss_initial.vars, ss_ending.vars)
+        return residuals(x_mat, model)
+
+    def F_b(x_b, exog_batch):
+        x64 = x_b.to(f64)
+        paths = torch.func.vmap(prices)(x64, exog_batch)
+        aggs = fused2_forward_f64_batch(
+            fused2_policies_f64_batch(*(q.contiguous() for q in paths), value_T, model), D0,
+            model)
+        return torch.func.vmap(tail)(x64, aggs, exog_batch)
+
+    return F_b

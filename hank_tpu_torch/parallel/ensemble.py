@@ -4,7 +4,7 @@ An ensemble is B perfect-foresight problems that share the model, both
 steady states and J̄, and differ in their shock paths: x is (B, n) and each
 exogenous path (B, T-1). The batch is a leading dimension, not a vmap of the
 single-path solver. A host loop drives every path in lockstep through three
-batched operations, by one of two routes:
+batched operations, by one of three routes:
   - the kernel route, for the one-asset CRRA EGM family
     (`supports_fused_sweep`) with f32 directions: F_b, the f64 residual of
     every row, has its household block in one launch of the batched kernel
@@ -12,12 +12,31 @@ batched operations, by one of two routes:
     map every row's f32 JVP in one launch of the batched kernel 1
     (`ops/fused_sweep_batch.make_fused_jvp_batch`, kernels 3-4); on CPU
     tensors the two kernels run their plain versions;
+  - the two-asset route, for the Calvo-access family
+    (`supports_fused_sweep2`) with the state on the card
+    (`ss_ending.value.is_cuda`, the rule "auto" follows in
+    `solvers/newton.direction_route` and `residual_route`): F_b has every
+    row's household block in one launch each of the batched f64 residual
+    pair (`ops/fused_residual2.make_fused2_residual_fn_f64_batch`), for
+    either direction dtype, and f32 directions every row's JVP in one
+    launch each of the batched kernels 5 and 6
+    (`ops/fused_sweep2.make_fused2_jvp_batch`: the f32 tail of the
+    single-path kernel map). A grid past the kernels' shared memory raises
+    ValueError when the route is built;
   - the plain route, for every other model or f64 directions
     (`hank_tpu/parallel/ensemble.py:76-95, 242-279`): F_b is
     `torch.func.vmap` of the plain f64 F, the direction map that of
     `torch.func.jvp` of F (f64) or of the single path's mixed-tail map
-    (`solvers/newton.mixed_tail_map`, f32);
+    (`solvers/newton.mixed_tail_map`, f32); on CPU tensors the two-asset
+    family takes it too;
 and J̄⁻¹ is applied to every row by one (B, n) × (n, n) f64 `torch.matmul`.
+
+The two-asset route departs from the reference, which vmaps its XLA
+pipeline for this family (`hank_tpu/parallel/ensemble.py:283-292`: its
+batched Pallas pair takes the one-asset family only): on the card the
+vmapped plain F took ~2.9 s a path and the plain f32 direction 15-27 s a
+path (PERF.md §6). Its f64 directions stay vmapped AD of the plain F, as in
+the reference: neither package has a kernel for them.
 
 With `mesh=` (`parallel/mesh.py`), each rank of the mesh's "dp" axis takes
 its contiguous block of B/size rows and runs them through the route the
@@ -47,9 +66,11 @@ import torch
 
 from hank_tpu_torch.config import TINY, config
 from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn_batch
+from hank_tpu_torch.ops.fused_residual2 import make_fused2_residual_fn_f64_batch
+from hank_tpu_torch.ops.fused_sweep import supports_fused_sweep
+from hank_tpu_torch.ops.fused_sweep2 import make_fused2_jvp_batch, supports_fused_sweep2
 from hank_tpu_torch.ops.fused_sweep_batch import make_fused_jvp_batch
 from hank_tpu_torch.ops.linalg import make_reusable_solver, rayleigh_quotient
-from hank_tpu_torch.ops.fused_sweep import supports_fused_sweep
 from hank_tpu_torch.parallel.mesh import all_reduce_scalar, gather_rows, shard_rows
 from hank_tpu_torch.solvers.newton import (_boehl_alpha, _is_mixed, make_full_residual_fn,
                                            mixed_tail_map)
@@ -102,11 +123,26 @@ def _plain_residual_batch(model, ss_initial, ss_ending):
     return torch.func.vmap(F_one)
 
 
+def _two_asset_on_card(model, ss_ending) -> bool:
+    """Whether the ensemble takes the two-asset route (module docstring)."""
+    return supports_fused_sweep2(model) and ss_ending.value.is_cuda
+
+
+def _residual_batch(model, ss_initial, ss_ending):
+    """F_b(x_b, exog_batch) of the route the model and state take."""
+    if supports_fused_sweep(model):
+        return make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
+    if _two_asset_on_card(model, ss_ending):
+        return make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending)
+    return _plain_residual_batch(model, ss_initial, ss_ending)
+
+
 def residual_ensemble(x_batch: torch.Tensor,
                       exog_batch: Mapping[str, torch.Tensor],
                       model, ss_initial, ss_ending, mesh=None) -> torch.Tensor:
     """Batched f64 F(x) over an ensemble of (x, shock-path) pairs: batched
-    kernel 2 for the one-asset family, the vmapped plain F otherwise.
+    kernel 2 for the one-asset family, the batched f64 residual pair for the
+    two-asset family on the card, the vmapped plain F otherwise.
 
     x_batch: (B, n_endog*(T-1)); exog_batch leaves: (B, T-1). Returns (B, n).
     With `mesh`, each rank computes its block of rows and the result is
@@ -115,10 +151,7 @@ def residual_ensemble(x_batch: torch.Tensor,
     batch = _Batch(mesh)
     x_batch = batch.rows(x_batch)
     exog_batch = {k: batch.rows(v) for k, v in exog_batch.items()}
-    if supports_fused_sweep(model):
-        F_b = make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
-    else:
-        F_b = _plain_residual_batch(model, ss_initial, ss_ending)
+    F_b = _residual_batch(model, ss_initial, ss_ending)
     return batch.gather(F_b(x_batch, exog_batch))
 
 
@@ -166,8 +199,9 @@ def solve_ensemble_host(x0: torch.Tensor,
     lockstep inexact Newton with a host-driven batched GMRES
     (`_run_ensemble_nk`, `:522-702`); gmres_m is its Arnoldi length.
     direction_dtype: torch.float32 (default) or None / torch.float64; the
-    kernel route with f32 directions for the one-asset family, the plain
-    route otherwise (module docstring).
+    kernel route with f32 directions for the one-asset family, the
+    two-asset route for that family on the card, the plain route otherwise
+    (module docstring).
 
     mesh: a `parallel/mesh.py` mesh; its "dp" axis must divide B. Each rank
     solves its block of rows in lockstep with the others (module docstring).
@@ -190,14 +224,17 @@ def solve_ensemble_host(x0: torch.Tensor,
     x = x0.to(x_dtype).expand(B, n).clone() if x0.dim() == 1 else batch.rows(x0).to(x_dtype)
     max_outer = max_outer or config.path_newton_max_iter
 
-    if mixed and supports_fused_sweep(model):
-        F_b = make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
-        jvp_kernel = make_fused_jvp_batch(model, ss_initial, ss_ending)
+    two_asset = _two_asset_on_card(model, ss_ending)
+    kernels = mixed and (supports_fused_sweep(model) or two_asset)
+    F_b = (_residual_batch(model, ss_initial, ss_ending) if kernels or two_asset
+           else _plain_residual_batch(model, ss_initial, ss_ending))
+    if kernels:
+        jvp_kernel = (make_fused2_jvp_batch if two_asset else make_fused_jvp_batch)(
+            model, ss_initial, ss_ending)
 
         def jvp_b(x, v):
             return jvp_kernel(x, v, exog_batch).to(x_dtype)
     else:
-        F_b = _plain_residual_batch(model, ss_initial, ss_ending)
         jvp_mixed = mixed_tail_map(model, ss_initial, ss_ending)[0] if mixed else None
 
         def jvp_one(x, v, ex):

@@ -4,7 +4,8 @@
         [--rename OLD_PART=NEW_PART ...] [--out FILE]
     python -m hank_tpu_torch.tools.sass_compare --digest SOURCE.cu [--rename ...] [--out FILE]
 
-Compiles each source with the library's nvcc flags (`ops/cuda_build.py`)
+Compiles each source with its library's nvcc flags (`ops/cuda_build.py`'s
+`nvcc_flags`, by file name)
 into a temporary directory, disassembles both with `cuobjdump -sass` and,
 per kernel, compares the instruction text with addresses, encodings and
 column padding stripped. Kernels of the same mangled name in both builds
@@ -19,7 +20,8 @@ of the first differing instruction. With `--digest` it prints one JSON
 object instead: the nvcc version and, per kernel of one source, its
 instruction count and the SHA-256 of its instruction text (`digests`), the
 record `chip_smoke.py` holds a build to when the old source is not at hand
-(`sass_reference.json` beside this file: the previous build's kernels).
+(`sass_reference.json` beside this file: per library, the previous builds'
+kernels, under the names the current source gives them).
 Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
@@ -49,12 +51,12 @@ def _tool(name: str) -> str:
 
 
 def build(source: str, out: str) -> None:
-    """`source` compiled with the library's flags into the shared library
+    """`source` compiled with its library's flags into the shared library
     `out`."""
     from hank_tpu_torch.ops import cuda_build
 
-    proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", out, source],
-                          capture_output=True, text=True, timeout=900)
+    cmd = [cuda_build._nvcc(), *cuda_build.nvcc_flags(source), "-o", out, source]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(proc.stdout + proc.stderr)
 
