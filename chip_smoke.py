@@ -23,11 +23,21 @@ exits non-zero and never prints the final `"ok": true` line:
                7 takes fits kernel 7 (the library's counts); the kernel
                maps' fit check at n_e = 7 on both sides of each
                kernel's limit (kernel 2 n_a 1036/1037, kernel 1 1147/1148,
-               kernels 3-4 1148/1149, the f64 tangent sweep 529/530); the
-               SASS of kernel 1, of the previous kernel 7 and of the
-               template's and the ranged kernel's earlier instantiations,
-               and of every single-path kernel of the two two-asset
-               libraries (the cluster kernels as their <false>
+               kernels 3-4 1148/1149, the f64 tangent sweep 529/530), the
+               decision one past each picking the kernel's global-state
+               instantiation, and each of those on both sides of its own
+               limit (5390/5391 in kernel 2's place, 10792/10793 in kernel
+               1's and kernels 3-4's, 4980/4981 in the f64 tangent
+               sweep's), the decision raising past it; the ranged kernel's
+               nine instantiations built (ptxas' registers and spills
+               reported) and, from `nvcc -ptx`, each global-state one with
+               as many `ld.global.nc` loads as the shared-state ones of its
+               arithmetic (no load of its state workspace takes the
+               read-only path); the SASS of kernel 1, of the previous
+               kernel 7 and of the template's and the ranged kernel's
+               earlier instantiations (these under their <..., false>
+               names), and of every single-path kernel of the two
+               two-asset libraries (the cluster kernels as their <false>
                instantiations), against the previous builds'
                (`hank_tpu_torch/tools/sass_reference.json`, per library,
                compared where nvcc is the same).
@@ -61,7 +71,14 @@ exits non-zero and never prints the final `"ok": true` line:
                previous kernel 2, the f64 tangent sweep and its yardstick
                (in turns: previous, new, new, previous) and kernel 2's
                plain version, and one timed run each of kernel 1's and the
-               f64 tangent sweep's.
+               f64 tangent sweep's. The global-state instantiations
+               (`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`)
+               against the one-block kernels whose places they take, bit
+               for bit on every output and fallback count at the same six
+               inputs (the stress inputs taking their fallback branches):
+               `<float, true, false, true>` against kernel 1,
+               `<double, false, false, true>` against kernel 2,
+               `<double, true, false, true>` against the f64 tangent sweep.
   5. solve   — 3 timed runs of the same solve. The launch counters are zeroed right
                before the timed runs; both kernels must have launched and
                neither plain version nor a previous kernel been called. The
@@ -83,7 +100,12 @@ exits non-zero and never prints the final `"ok": true` line:
                (the counting template), bit for bit on every row at x_ss, at
                the warm-up's rows and on the grid with two knots swapped
                (fallback rows required there), each timed in turns with its
-               previous kernel on a few rows and on all B. Then 3 timed
+               previous kernel on a few rows and on all B. The batched
+               global-state instantiations bit for bit kernels 3-4 and the
+               batched kernel 2 on every row at the same three inputs, and
+               every row of a B=16 launch of each bit for bit a single-path
+               global-state launch (the warm-up's rows, the swapped grid).
+               Then 3 timed
                Newton-Krylov solves (counters zeroed right before: both
                batched kernels launched, neither plain version nor a
                previous kernel called; bit-identical paths; ‖F‖ ≤ 1e-8 on
@@ -185,11 +207,38 @@ exits non-zero and never prints the final `"ok": true` line:
                kernel-2 residuals), counters zeroed right before: the
                f64 tangent sweep launched, no AD direction and no plain or
                previous kernel; plain-f64 ‖F‖ < 1e-8 and within 1e-7 of the
-               JAX CPU root; seconds, outers and directions. Then large-grid
-               KS at 560×7, T=30, past the f64 tangent sweep's shared
-               memory: `solve_model` with the default f64 directions
-               raises ValueError when it builds the path solver, after the
-               steady states and before any sweep launch or AD direction.
+               JAX CPU root; seconds, outers and directions. At large-grid
+               500×7 the five global-state instantiations bit for bit
+               their one-block kernels at phase 8's points (the batched
+               ones on 16 rows of them) and on the swapped grid, and timed
+               in turns with them (one-block, global, global, one-block):
+               the price of global memory at a grid both take.
+               Then large-grid KS at 1200×7, T=150 (LARGE_GRID_CASE, past
+               every one-block kernel's shared memory): setup by
+               `get_or_solve` (timed; max|F_ss| ≤ 1e-9, within 1e-8 of the
+               JAX CPU steady state), every map deciding on its
+               global-state instantiation; one warm-up each of
+               `solve_model`'s default (Newton-Krylov, f64 directions) and
+               of the mixed one (f32 directions), eps 1e-8; the three
+               single-path instantiations against their plain versions at
+               x_ss, the default's solution and a smooth seeded point at
+               phase 4's bounds, a zero tangent exactly zero; 3 timed runs
+               of each solve (counters zeroed right before: only the
+               global-state instantiations of its route launched, no
+               one-block kernel, plain version, AD direction or previous
+               kernel; bit-identical; plain-f64 ‖F‖ < 1e-8; within 1e-7 of
+               the JAX CPU root `ks_large_grid_1200x7_T150_jax_cpu.npz`;
+               the ZLB economics); then a B=16 Newton-Krylov ensemble of
+               the model's own kinked shock at ρ_b = 0.75 + 0.2·b/16 (the
+               floor binding on every row) through `solve_ensemble_host`:
+               the batched instantiations at the warm-up's rows, every row
+               bit for bit a single global-state launch, rows 0 and 15
+               within phase 4's bounds of the plain versions; 3 timed
+               solves (only the batched global-state instantiations
+               launched, bit-identical, every row ≤ 1e-8 or a stalled row
+               that mixed Newton-Krylov on its own shock does not bring
+               under 1e-8 either); ms per launch of each instantiation at
+               1200×7 and its bound.
   9. forward scan — kernel 7 on the f32 savings policies of the plain
                backward block at phase 4's warm-up solution (KS 200×7, 299
                periods, from ss0.D) and at phase 8's large-grid solution
@@ -269,7 +318,11 @@ sweep, the forward scan or the two-asset residual. The rows of phase 11's
 batched kernels give `ms` at B=16 (with `ms_B1`, `ms_B64` and the
 single-path kernel's beside them), their bound from `two_asset_ops` × B,
 their plain version's time at B = 1 (`plain_ms_at`) and their launches
-per ensemble solve. The last three lines
+per ensemble solve. The five global-state rows give `ms`, `plain_ms`,
+the error and the bound at 1200×7 (the batched ones at B=16), their
+launches in phase 8's three timed solves of their route, and their ms at
+500×7 beside the one-block kernel's (`ms_500x7`, `ms_one_block_500x7`).
+The last three lines
 are the kernel summary JSON, the nvidia-smi line and `{"ok": true,
 "device": {...}}`. There is no CPU path:
 without a CUDA device the script exits non-zero at once.
@@ -465,6 +518,42 @@ def kernel2_vs_previous(inputs: dict, kw) -> dict:
                        inputs, kw)
 
 
+def global_vs_one_block(name: str, global_fn, one_block_fn, inputs: dict, kw,
+                        batch: int | None = None) -> dict:
+    """A global-state instantiation (`global_fn`, a `_global` entry point)
+    against the one-block kernel whose place it takes (`one_block_fn`, its
+    wrapper), on every input {label: args}: bit for bit on all outputs (NaNs
+    included) and on the fallback counts. Per input: the (period, income
+    row) pairs that took each fallback branch, summed over the paths of a
+    batched launch, and whether the outputs are finite."""
+    import torch
+
+    report = {}
+    for label, args in inputs.items():
+        shape = (2,) if batch is None else (batch, 2)
+        fb_global, fb_one = (torch.zeros(shape, dtype=torch.int32, device=args[0].device)
+                             for _ in range(2))
+        new = global_fn(*args, **kw, fallback_rows=fb_global)
+        old = one_block_fn(*args, **kw, fallback_rows=fb_one)
+        require(all(same_bits(a, b) for a, b in zip(new, old)),
+                f"{name} on global state at {label} differs from the one-block kernel")
+        require(torch.equal(fb_global, fb_one),
+                f"{name} on global state at {label}: fallback counts differ")
+        counts = fb_global.reshape(-1, 2).sum(0)
+        report[label] = {"fallback_rows_implied_wealth": int(counts[0]),
+                         "fallback_rows_policy": int(counts[1]),
+                         "finite": all(bool(torch.isfinite(o).all()) for o in new)}
+    return report
+
+
+def require_fallbacks(name: str, report: dict) -> None:
+    """The stress inputs of phase 4 took their fallback branches."""
+    require(report["V_T_noise"]["fallback_rows_implied_wealth"] > 0
+            and report["V_T_nan"]["fallback_rows_implied_wealth"] > 0
+            and report["grid_swapped"]["fallback_rows_policy"] > 0,
+            f"{name}: an input meant to take a fallback branch did not: {report}")
+
+
 def fallback_sum(report: dict, labels) -> list:
     """[implied wealth, policy] fallback rows summed over `labels` of a
     `vs_previous` report."""
@@ -595,15 +684,79 @@ def fit_decisions() -> dict:
             return False
         return True
 
+    from hank_tpu_torch.ops.fused_sweep import KERNEL_NAMES, sweep_kernel
+
     limits = {"kernel2": (cb.KERNEL2, 1036), "kernel1": (cb.KERNEL1, 1147),
               "kernels3_4": (cb.KERNELS3_4, 1148), "jvp_f64": (cb.JVP_F64, 529)}
+    global_limits = {"kernel2": 5390, "kernel1": 10792, "kernels3_4": 10792, "jvp_f64": 4980}
     report = {}
     for name, (which, last) in limits.items():
         taken = {n_a: fits(cb.sweep_smem_bytes(which, n_a, 7)) for n_a in (last, last + 1)}
         require(taken == {last: True, last + 1: False},
                 f"{name}: the fit decision at n_e = 7 is {taken}, not a limit at {last}")
+        glob, g_last = cb.GLOBAL_STATE[which], global_limits[name]
+        decided = {n_a: sweep_kernel(which, n_a, 7) for n_a in (last, last + 1, g_last)}
+        require(decided == {last: which, last + 1: glob, g_last: glob},
+                f"{name}: the kernel decided at n_e = 7 is {decided}")
+        taken = {n_a: fits(cb.sweep_smem_bytes(glob, n_a, 7)) for n_a in (g_last, g_last + 1)}
+        require(taken == {g_last: True, g_last + 1: False},
+                f"{name} on global state: the fit at n_e = 7 is {taken}, not a limit at {g_last}")
+        try:
+            sweep_kernel(which, g_last + 1, 7)
+            error = None
+        except ValueError as exc:
+            error = str(exc)
+        require(error is not None and "direction_mode='xla'" in error,
+                f"{name}: past the global-state count the decision did not raise: {error}")
         report[name] = {"last_n_a_taken": last, "bytes": [cb.sweep_smem_bytes(which, n_a, 7)
-                                                           for n_a in (last, last + 1)]}
+                                                           for n_a in (last, last + 1)],
+                        "one_past_takes": KERNEL_NAMES[glob],
+                        "global_state": {"last_n_a_taken": g_last,
+                                         "bytes": [cb.sweep_smem_bytes(glob, n_a, 7)
+                                                   for n_a in (g_last, g_last + 1)]}}
+    return report
+
+
+def start_ptx():
+    """nvcc -ptx of the one-asset source, started in the background
+    (~20 s): (process, temporary directory, output path)."""
+    from hank_tpu_torch.ops import cuda_build
+
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "household_sweep.ptx")
+    cmd = [cuda_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-ptx", "-o", out, cuda_build.SOURCES["household_sweep"]]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out
+
+
+def state_loads_coherent(job) -> dict:
+    """From `start_ptx`'s PTX: each global-state instantiation of the ranged
+    kernel has as many non-coherent loads (`ld.global.nc`, the read-only
+    path) as the shared-state instantiations of its arithmetic, whose state
+    is in shared memory: none of its loads of the state workspace, which
+    the launch writes, takes that path. Fails otherwise."""
+    import re
+
+    proc, tmp, out = job
+    log = proc.communicate(timeout=900)[0]
+    require(proc.returncode == 0, f"nvcc -ptx failed: {log}")
+    with open(out) as f:
+        text = f.read()
+    tmp.cleanup()
+    counts = {}
+    for m in re.finditer(r"\.entry (\S+)\(", text):
+        tag = re.search(r"ranged_kernelI([fd])Lb([01])ELb([01])ELb([01])E", m.group(1))
+        if tag:
+            body = text[m.end():text.find("\n}", m.end())]
+            counts[tag.groups()] = len(re.findall(r"ld\.global\.nc\.", body))
+    report = {}
+    for (S, tangent, batched, glob), n in counts.items():
+        if glob == "1":
+            twins = {v for k, v in counts.items() if k[:2] == (S, tangent) and k[3] == "0"}
+            require(twins == {n}, f"<{S},{tangent},{batched},G>: {n} ld.global.nc against the "
+                                  f"shared-state instantiations' {twins}")
+            report[f"<{S},{tangent},{batched},G>"] = n
+    require(len(report) == 5, f"the five global-state instantiations were not found: {report}")
     return report
 
 
@@ -883,10 +1036,13 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
 
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_global,
                                                    fused_residual_sweep_batch_previous,
-                                                   fused_residual_sweep_batch_reference)
-    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp
+                                                   fused_residual_sweep_batch_reference,
+                                                   fused_residual_sweep_global)
+    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp, fused_sweep_jvp_global
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_global,
                                                       fused_sweep_jvp_batch_previous,
                                                       fused_sweep_jvp_batch_reference)
     from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
@@ -991,6 +1147,36 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     require(sum(fallback_sum(k34_bits, ["grid_swapped"])) > 0
             and sum(fallback_sum(k2b_bits, ["grid_swapped"])) > 0,
             f"the swapped grid took no fallback branch: {k34_bits}, {k2b_bits}")
+
+    # The batched global-state instantiations against kernels 3-4 and the
+    # batched kernel 2 at the same inputs, bit for bit on every row and
+    # fallback count; and every row of a B=16 launch of each bit for bit a
+    # single-path launch of the global-state instantiation.
+    k34_global = global_vs_one_block("kernels 3-4", fused_sweep_jvp_batch_global,
+                                     fused_sweep_jvp_batch, k34_inputs, kw, batch=B)
+    k2b_global = global_vs_one_block("batched kernel 2", fused_residual_sweep_batch_global,
+                                     fused_residual_sweep_batch, k2b_inputs, kw, batch=B)
+    require(sum(fallback_sum(k34_global, ["grid_swapped"])) > 0
+            and sum(fallback_sum(k2b_global, ["grid_swapped"])) > 0,
+            f"the swapped grid took no fallback branch on global state: {k34_global}")
+    rows16 = list(range(16))
+    for label in ("solution", "grid_swapped"):
+        args = k34_inputs[label]
+        out = fused_sweep_jvp_batch_global(*rows_of(args[:4], rows16), *args[4:], **kw)
+        args64 = k2b_inputs[label]
+        out64 = fused_residual_sweep_batch_global(*rows_of(args64[:2], rows16), *args64[2:],
+                                                  **kw)
+        for b in rows16:
+            single = fused_sweep_jvp_global(*(q[b].contiguous() for q in args[:4]),
+                                            *args[4:], **kw)
+            single64 = fused_residual_sweep_global(*(q[b].contiguous() for q in args64[:2]),
+                                                   *args64[2:], **kw)
+            require(all(same_bits(o[b], s_) for o, s_ in zip(out, single))
+                    and all(same_bits(o[b], s_) for o, s_ in zip(out64, single64)),
+                    f"batched global-state kernels at {label}: row {b} differs from its "
+                    f"single launch")
+    emit("global_state_ensemble", B=B, rows_vs_single_B=16,
+         k3_4_bit_identical=k34_global, k2_batch_bit_identical=k2b_global)
 
     # ms of each against its previous kernel in turns: kernels 3-4 on the 4
     # check rows and on all B, the batched kernel 2 on rows {0, B-1} and on
@@ -2173,7 +2359,7 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     # along smooth seeded directions, at the bounds of phase 4.
     exog = generate_exog_paths(model, Tm1)
     x_ss = torch.stack([torch.as_tensor(ssT.vars[k]) for k in endog]).repeat(Tm1)
-    hook, c32, kw, _ = sweep_setup(model, ss0, ssT, f32)
+    hook, c32, kw, _, _ = sweep_setup(model, ss0, ssT, f32)
     c64 = [c.double() for c in sweep_setup(model, ss0, ssT, f64)[1]]
     gen = torch.Generator().manual_seed(8)
     decay = (0.9 ** torch.arange(Tm1, dtype=f64))[:, None]
@@ -2226,6 +2412,10 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
         "k2_previous": lambda: fused_residual_sweep_previous(*args64, *c64, **kw),
         "k2": lambda: fused_residual_sweep(*args64, *c64, **kw)}, 10)
     jvp64_args = sweep_args(x_cli, v, f64)
+    global_500 = None
+    if name == "ks_large_grid":
+        global_500 = global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_cli,
+                                         smooth, v, c32, c64, swapped, kw)
     timing = {"k1_ms": cuda_ms(lambda: fused_sweep_jvp(*args, *c32, **kw), 20),
               "k1_previous_ms": cuda_ms(lambda: previous_kernel1((*args, *c32), kw), 20),
               "k2_ms": k2_turns["k2"], "k2_previous_ms": k2_turns["k2_previous"],
@@ -2298,41 +2488,138 @@ def driver_case(name: str, T: int, dev, cache: str) -> dict:
     return {"model": model, "ss0": ss0, "ssT": ssT, "exog": exog, "x": x_sol, "cli": cli,
             "x_jax": x_jax, "k1_ms": timing["k1_ms"], "k1_previous_ms": timing["k1_previous_ms"],
             "k2_ms": timing["k2_ms"], "k2_previous_ms": timing["k2_previous_ms"],
-            "jvp_f64_ms": timing["jvp_f64_ms"]}
+            "jvp_f64_ms": timing["jvp_f64_ms"], "global_500": global_500}
 
 
-# Past the f64 tangent sweep's shared memory at n_e = 7 (it takes n_a ≤
-# 529): large-grid KS with 560 asset knots, at a short horizon.
-PAST_FIT_CASE = ("ks_large_grid", 560, 30)
+def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smooth, v,
+                        c32, c64, swapped, kw) -> dict:
+    """Phase 8 at large-grid KS 500×7: each global-state instantiation
+    against its one-block kernel, bit for bit on every output and fallback
+    count at phase 8's points (x_ss, the solution, the smooth point; and
+    the swapped grid for kernel 2 and the f64 tangent sweep), the batched
+    ones on 16 rows of those points and on the swapped grid; then both
+    timed in turns (one-block, global, global, one-block), the single-path
+    ones at the solution: the price of global memory at a grid both take.
+    Returns {kernel: {"ms": ..., "ms_one_block": ...}}."""
+    import torch
 
-
-def zero_one_asset_counts() -> None:
-    """Every counter of the one-asset single-path route: kernel launches,
-    plain-version calls, AD directions and the previous kernels."""
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_global,
+                                                   fused_residual_sweep_global)
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_f64_global,
+                                                fused_sweep_jvp_global)
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_global)
+
+    f32, f64 = torch.float32, torch.float64
+    jvp64_inputs = {label: (*sweep_args(x, v, f64), *c64) for label, x in
+                    (("x_ss", x_ss), ("solution", x_sol), ("smooth", smooth))}
+    jvp64_inputs["grid_swapped"] = (*jvp64_inputs["x_ss"][:6], swapped,
+                                    *jvp64_inputs["x_ss"][7:])
+    bits = {"k1": global_vs_one_block("kernel 1", fused_sweep_jvp_global, fused_sweep_jvp,
+                                      bit_inputs, kw),
+            "k2": global_vs_one_block("kernel 2", fused_residual_sweep_global,
+                                      fused_residual_sweep, bit_inputs64, kw),
+            "jvp_f64": global_vs_one_block("f64 tangent sweep", fused_sweep_jvp_f64_global,
+                                           fused_sweep_jvp_f64, jvp64_inputs, kw)}
+    require(sum(fallback_sum(bits["k2"], ["grid_swapped"])) > 0
+            and sum(fallback_sum(bits["jvp_f64"], ["grid_swapped"])) > 0,
+            f"500x7: the swapped grid took no fallback branch on global state: {bits}")
+    a32 = (*sweep_args(x_sol, v, f32), *c32)
+    a64 = (*sweep_args(x_sol, v, f64), *c64)
+    # 16 rows cycling through the three points, for the batched ones: bit
+    # for bit their one-block kernels on the grid and on the swapped grid.
+    rows = [(x_ss, x_sol, smooth)[b % 3] for b in range(16)]
+    r32 = [torch.stack(p) for p in zip(*(sweep_args(x, v, f32) for x in rows))]
+    r64 = [torch.stack(p) for p in zip(*(sweep_args(x, v, f64)[:2] for x in rows))]
+    b32, b64 = (*r32, *c32), (*r64, *c64)
+    bits["k3_4_B16"] = global_vs_one_block(
+        "kernels 3-4", fused_sweep_jvp_batch_global, fused_sweep_jvp_batch,
+        {"points": b32, "grid_swapped": (*r32, *c32[:2], swapped.float(), *c32[3:])}, kw,
+        batch=16)
+    bits["k2_batch_B16"] = global_vs_one_block(
+        "batched kernel 2", fused_residual_sweep_batch_global, fused_residual_sweep_batch,
+        {"points": b64, "grid_swapped": (*r64, *c64[:2], swapped, *c64[3:])}, kw, batch=16)
+    pairs = {
+        "k1": (lambda: fused_sweep_jvp(*a32, **kw),
+               lambda: fused_sweep_jvp_global(*a32, **kw)),
+        "k2": (lambda: fused_residual_sweep(*a64[:2], *c64, **kw),
+               lambda: fused_residual_sweep_global(*a64[:2], *c64, **kw)),
+        "jvp_f64": (lambda: fused_sweep_jvp_f64(*a64, **kw),
+                    lambda: fused_sweep_jvp_f64_global(*a64, **kw)),
+        "k3_4_B16": (lambda: fused_sweep_jvp_batch(*b32, **kw),
+                     lambda: fused_sweep_jvp_batch_global(*b32, **kw)),
+        "k2_batch_B16": (lambda: fused_residual_sweep_batch(*b64, **kw),
+                         lambda: fused_residual_sweep_batch_global(*b64, **kw))}
+    timing = {}
+    for key, (one_block, glob) in pairs.items():
+        turns = in_turns({"one_block": one_block, "global": glob}, 10)
+        timing[key] = {"ms": turns["global"], "ms_one_block": turns["one_block"]}
+    emit("global_state_500", grid=list(c64[0].shape), bit_identical=bits, ms=timing)
+    return timing
+
+
+# Past every one-block one-asset kernel's shared memory at n_e = 7 (the
+# f64 tangent sweep takes n_a ≤ 529, kernel 2 ≤ 1036, kernel 1 ≤ 1147,
+# kernels 3-4 ≤ 1148): large-grid KS with 1200 wealth knots at its published
+# horizon, and the JAX package's CPU root of it
+# (`tests/test_torch_large_grid.py::jax_cpu_root_large_grid`).
+LARGE_GRID_CASE = ("ks_large_grid", 1200, 150)
+LARGE_GRID_REFERENCE = os.path.join(os.path.dirname(TWO_ASSET_REFERENCE),
+                                    "ks_large_grid_1200x7_T150_jax_cpu.npz")
+
+
+def one_asset_wrappers() -> dict:
+    """The five one-asset sweep wrappers that launch the ranged kernel or
+    kernel 1, by key, with their plain versions."""
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_reference,
                                                    fused_residual_sweep_reference)
     from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
                                                 fused_sweep_jvp_reference)
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_reference)
+
+    return {"k1": (fused_sweep_jvp, fused_sweep_jvp_reference),
+            "jvp_f64": (fused_sweep_jvp_f64, fused_sweep_jvp_reference),
+            "k2": (fused_residual_sweep, fused_residual_sweep_reference),
+            "k3_4": (fused_sweep_jvp_batch, fused_sweep_jvp_batch_reference),
+            "k2_batch": (fused_residual_sweep_batch, fused_residual_sweep_batch_reference)}
+
+
+def zero_one_asset_counts() -> None:
+    """Every counter of the one-asset routes: kernel launches (one-block and
+    global-state), plain-version calls, AD directions and the previous
+    kernels."""
     from hank_tpu_torch.solvers.newton import ad_direction
 
-    fused_sweep_jvp.launches = fused_sweep_jvp_f64.launches = 0
-    fused_residual_sweep.launches = 0
-    fused_sweep_jvp_reference.calls = fused_residual_sweep_reference.calls = 0
+    for fn, plain in one_asset_wrappers().values():
+        fn.launches = fn.launches_global = plain.calls = 0
     ad_direction.calls = 0
     zero_previous_launches()
 
 
 def one_asset_counts() -> dict:
-    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
-                                                   fused_residual_sweep_reference)
-    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
-                                                fused_sweep_jvp_reference)
     from hank_tpu_torch.solvers.newton import ad_direction
 
-    return {"k1": fused_sweep_jvp.launches, "jvp_f64": fused_sweep_jvp_f64.launches,
-            "k2": fused_residual_sweep.launches, "ad_directions": ad_direction.calls,
-            "plain_calls": fused_sweep_jvp_reference.calls + fused_residual_sweep_reference.calls,
+    wrappers = one_asset_wrappers()
+    return {**{k: fn.launches for k, (fn, _) in wrappers.items()},
+            **{f"{k}_global": fn.launches_global for k, (fn, _) in wrappers.items()},
+            "ad_directions": ad_direction.calls,
+            "plain_calls": sum({id(p): p.calls for _, p in wrappers.values()}.values()),
             "previous": sum(previous_launches().values())}
+
+
+def require_only(counts: dict, launched: set, path: str) -> None:
+    """On `path` the kernels `launched` (keys of `one_asset_counts`) ran and
+    no other counter moved: no other one-asset kernel, no plain version, no
+    AD direction, no previous kernel."""
+    ran = {k for k, n in counts.items() if n}
+    require(ran == launched, f"{path}: the counters that moved are {sorted(ran)}, not "
+                             f"{sorted(launched)}: {counts}")
 
 
 def cli_default(name: str, case: dict) -> dict:
@@ -2365,58 +2652,310 @@ def cli_default(name: str, case: dict) -> dict:
     return counts
 
 
-def past_fit_case(dev) -> dict:
-    """Large-grid KS at `PAST_FIT_CASE`'s grid: `solve_model` with the
-    default f64 directions on the card raises ValueError when it builds the
-    path solver, naming the f64 tangent sweep and the plain routes, after
-    the steady states and before any sweep launch or AD direction."""
+def large_grid_case(dev) -> dict:
+    """Phase 8 at `LARGE_GRID_CASE` (large-grid KS 1200×7, T=150), past
+    every one-block kernel's shared memory (see the module docstring).
+    Emits its JSON lines and returns the `kernels` entries of the five
+    global-state instantiations."""
     import dataclasses
 
+    import numpy as np
     import torch
 
     from hank_tpu_torch import run
     from hank_tpu_torch.model.grids import make_double_exponential_grid
+    from hank_tpu_torch.model.structures import generate_exog_paths
     from hank_tpu_torch.models import load_model
-    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import cuda_build as cb
+    from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_reference,
+                                                   fused_residual_sweep_global,
+                                                   fused_residual_sweep_reference)
+    from hank_tpu_torch.ops.fused_sweep import (KERNEL_NAMES, fused_sweep_jvp,
+                                                fused_sweep_jvp_f64, fused_sweep_jvp_global,
+                                                fused_sweep_jvp_reference, state_workspace_bytes,
+                                                sweep_setup)
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_reference)
+    from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
+    from hank_tpu_torch.utils.checkpoint import get_or_solve
 
-    name, n_a, T = PAST_FIT_CASE
+    f32, f64 = torch.float32, torch.float64
+    name, n_a, T = LARGE_GRID_CASE
     model = load_model(name, T=T, device=dev)
     wealth = model.endog_dims()[0]
-    grid = torch.tensor(make_double_exponential_grid(0.0, 200.0, n_a), dtype=torch.float64,
-                        device=dev)
+    grid = torch.tensor(make_double_exponential_grid(0.0, 200.0, n_a), dtype=f64, device=dev)
     model = dataclasses.replace(model, heterogeneity={
         **model.heterogeneity, wealth.name: dataclasses.replace(wealth, n=n_a, grid=grid)})
     n_e = model.exog_dims()[0].n
-    need = cuda_build.sweep_smem_bytes(cuda_build.JVP_F64, n_a, n_e)
-    require(need > cuda_build.MAX_SMEM_BYTES,
-            f"{n_a}x{n_e} fits the f64 tangent sweep ({need} bytes)")
+    cs = model.compspec
+    Tm1, nE = T - 1, cs.n_endog
+    endog = model.vars_of_type("endogenous")
+
+    # Setup into the fresh cache, and the kernel each map decides on.
+    t0 = time.perf_counter()
+    ss0, ssT, Jbar = get_or_solve(model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    F_ss = steady_residual(model, ssT)
+    require(F_ss <= 1e-9, f"{n_a}x{n_e}: steady state residual {F_ss:.3e} > 1e-9")
+    with np.load(LARGE_GRID_REFERENCE) as z:
+        ref_vars = dict(zip([str(v) for v in z["var_names"]], z["var_values"]))
+        x_jax = torch.as_tensor(z["x"], dtype=f64, device=dev)
+    ss_gap = max(abs(float(ssT.vars[k]) - float(v)) for k, v in ref_vars.items())
+    require(ss_gap <= 1e-8, f"{n_a}x{n_e}: steady state {ss_gap:.3e} off the JAX reference")
+    decided = {KERNEL_NAMES[w]: sweep_setup(model, ss0, ssT, dtype, w).kernel
+               for w, dtype in ((cb.KERNEL1, f32), (cb.KERNELS3_4, f32), (cb.KERNEL2, f64),
+                                (cb.JVP_F64, f64))}
+    require(set(decided.values()) == set(cb.GLOBAL_STATE.values()),
+            f"{n_a}x{n_e}: the maps decided on {decided}")
+    lib = cb.load_library()
+    emit("large_grid_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
+         max_abs_F_ss=F_ss, max_abs_vs_jax_ss=ss_gap,
+         kernels_decided={k: KERNEL_NAMES[w] for k, w in decided.items()},
+         smem_bytes={KERNEL_NAMES[w]: lib.hank_sweep_smem_bytes(w, n_a, n_e)
+                     for w in (*cb.GLOBAL_STATE, *cb.GLOBAL_STATE.values())},
+         **{k: float(ssT.vars[k]) for k in endog})
+
+    exog = generate_exog_paths(model, Tm1)
+    x_ss = torch.stack([torch.as_tensor(ssT.vars[k]) for k in endog]).repeat(Tm1)
+    F_plain = make_full_residual_fn(model, ss0, ssT, exog)
+    modes = {"default": None, "mixed": f32}
+
+    def solve(mode):
+        recs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_path, info, _, _ = run.solve_model(model, method="newton_krylov",
+                                             direction_dtype=modes[mode], eps=1e-8,
+                                             verbose=False, records=recs)
+        seconds = time.perf_counter() - t0
+        x = torch.as_tensor(x_path.reshape(-1), dtype=f64, device=dev)
+        return x, info, seconds, next(r["seconds"] for r in recs
+                                      if r.get("phase") == "path solve")
+
+    warm = {mode: solve(mode) for mode in modes}
+
+    # Each global-state instantiation against its plain version at x_ss, the
+    # default's solution and a smooth seeded point, along smooth seeded
+    # directions, at phase 4's bounds (the f32 one's plain version in
+    # float64 on the same f32 inputs); a zero tangent exactly zero.
+    hook, c32, kw, _, _ = sweep_setup(model, ss0, ssT, f32)
+    c64 = [c.double() for c in c32]
+    gen = torch.Generator().manual_seed(12)
+    decay = (0.9 ** torch.arange(Tm1, dtype=f64))[:, None]
+
+    def sweep_args(x, v, dtype):
+        (r, s_), (dr, ds) = torch.func.jvp(
+            lambda xx: hook(xx.reshape(Tm1, nE), exog, model), (x,), (v,))
+        return [t.to(dtype).contiguous() for t in (r, s_, dr, ds)]
+
+    smooth = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
+                     * decay).reshape(-1).to(dev)
+    err = {"k1": 0.0, "k2": 0.0, "jvp_f64": 0.0}
+    plain_ms = {}
+    for label, x in (("x_ss", x_ss), ("solution", warm["default"][0]), ("smooth", smooth)):
+        v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+        a32, a64 = sweep_args(x, v, f32), sweep_args(x, v, f64)
+        ref, plain_ms["k1"] = cuda_once(lambda: fused_sweep_jvp_reference(
+            *(a.double() for a in a32), *c64, **kw))
+        for o, r_ in zip(fused_sweep_jvp(*a32, *c32, **kw), ref):
+            e, scale = max_abs(o.double(), r_), float(r_.abs().max())
+            require(e <= 3e-5 * max(scale, 1.0),
+                    f"{n_a}x{n_e} at {label}: the global-state f32 tangent sweep off its "
+                    f"plain version by {e:.3e} (scale {scale:.3e})")
+            err["k1"] = max(err["k1"], e)
+        ref, plain_ms["jvp_f64"] = cuda_once(lambda: fused_sweep_jvp_reference(*a64, *c64, **kw))
+        for o, r_ in zip(fused_sweep_jvp_f64(*a64, *c64, **kw), ref):
+            e, scale = max_abs(o, r_), float(r_.abs().max())
+            require(e <= 1e-10 * max(scale, 1.0),
+                    f"{n_a}x{n_e} at {label}: the global-state f64 tangent sweep off its "
+                    f"plain version by {e:.3e} (scale {scale:.3e})")
+            err["jvp_f64"] = max(err["jvp_f64"], e)
+        ref, plain_ms["k2"] = cuda_once(lambda: fused_residual_sweep_reference(
+            *a64[:2], *c64, **kw))
+        err["k2"] = max(err["k2"], *(max_abs(o, r_) for o, r_ in zip(
+            fused_residual_sweep(*a64[:2], *c64, **kw), ref)))
+    require(err["k2"] <= 1e-11,
+            f"{n_a}x{n_e}: the global-state f64 residual sweep off its plain version by "
+            f"{err['k2']:.3e}")
+    zero32, zero64 = torch.zeros(Tm1, dtype=f32, device=dev), torch.zeros(Tm1, dtype=f64,
+                                                                         device=dev)
+    out32 = fused_sweep_jvp(*a32[:2], zero32, zero32, *c32, **kw)
+    out64 = fused_sweep_jvp_f64(*a64[:2], zero64, zero64, *c64, **kw)
+    require(all(bool((o[i] == 0).all()) for o in (out32, out64) for i in (1, 3)),
+            f"{n_a}x{n_e}: a zero tangent did not give exactly zero on global state")
+
+    # Three timed runs of each solve, counters zeroed right before each set:
+    # only the global-state instantiations of its route launched.
+    solves = {}
+    for mode, launched in (("default", {"jvp_f64_global", "k2_global"}),
+                           ("mixed", {"k1_global", "k2_global"})):
+        zero_one_asset_counts()
+        runs = [solve(mode) for _ in range(3)]
+        counts = one_asset_counts()
+        require_only(counts, launched, f"{n_a}x{n_e} {mode} solve")
+        x_sol, info = runs[0][0], runs[0][1]
+        require(all(torch.equal(r[0], warm[mode][0]) for r in runs),
+                f"{n_a}x{n_e} {mode}: repeated solves returned different paths")
+        require(bool(torch.isfinite(x_sol).all()) and x_sol.shape == x_ss.shape,
+                f"{n_a}x{n_e} {mode}: the solution is not a finite path of the expected shape")
+        fnorm = float(torch.linalg.norm(F_plain(x_sol)))
+        vs_jax = max_abs(x_sol, x_jax)
+        require(fnorm < 1e-8 and vs_jax <= 1e-7,
+                f"{n_a}x{n_e} {mode}: plain f64 ‖F‖ {fnorm:.3e}, {vs_jax:.3e} off the JAX root")
+        solves[mode] = {"median_s": statistics.median(r[2] for r in runs),
+                        "runs_s": [r[2] for r in runs], "path_solve_s": [r[3] for r in runs],
+                        "outer_iterations": info["iterations"],
+                        "residual_norm": info["residual_norm"],
+                        "residual_norm_plain_f64": fnorm, "max_abs_vs_jax": vs_jax,
+                        "launches": counts, "bit_identical": True}
+    path = warm["default"][0].reshape(Tm1, nE)
+    y0, r_max = float(path[0, endog.index("Y")]), float(path[:, endog.index("r")].max())
+    require(y0 < 0.95 * float(ssT.vars["Y"]) and r_max > float(ssT.vars["r"]),
+            f"{n_a}x{n_e}: the ZLB path fails the reference's economics: {y0}, {r_max}")
+    emit("large_grid_solve", model=name, grid=[n_a, n_e], T=T, solves=solves,
+         max_abs_default_vs_mixed=max_abs(warm["default"][0], warm["mixed"][0]))
+
+    # The B=16 ensemble: rows of the model's own kinked shock at ρ_b = 0.75 +
+    # 0.2·b/16 (the floor binds on every row), Newton-Krylov with f32
+    # directions through the batched global-state instantiations.
+    B = 16
+    rhos = [0.75 + 0.2 * b / B for b in range(B)]
+    exog_b = {"Z": torch.stack([generate_exog_paths(model, Tm1, rho=r)["Z"] for r in rhos])}
+    require(all(bool((exog_b["Z"][b] <= 0.88 + 1e-15).any()) for b in range(B)),
+            "a row of the ensemble's shocks never reaches the floor")
+
+    def solve_b():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_b, info_b = solve_ensemble_host(x_ss, Jbar, exog_b, model, ss0, ssT, eps=1e-8,
+                                          method="newton_krylov", direction_dtype=f32)
+        torch.cuda.synchronize()
+        return x_b, info_b, time.perf_counter() - t0
+
+    x_warm_b, _, _ = solve_b()
+    i_r, i_w = endog.index("r"), endog.index("w")
+
+    def prices(x_b, dtype):
+        xp = x_b.reshape(x_b.shape[0], Tm1, nE)
+        return xp[:, :, i_r].to(dtype).contiguous(), xp[:, :, i_w].to(dtype).contiguous()
+
+    # The batched instantiations at the warm-up's rows: every row bit for
+    # bit a single launch of the global-state instantiation, rows 0 and B-1
+    # within phase 4's bounds of the plain versions.
+    v_b = (torch.randn((B, 1, nE), generator=gen, dtype=f64) * decay[None]).reshape(B, -1)
+    paths32 = (*prices(x_warm_b, f32), *prices(v_b.to(dev), f32))
+    paths64 = prices(x_warm_b, f64)
+    out_b = fused_sweep_jvp_batch(*paths32, *c32, **kw)
+    out_b64 = fused_residual_sweep_batch(*paths64, *c64, **kw)
+    for b in range(B):
+        single = fused_sweep_jvp_global(*(q[b].contiguous() for q in paths32), *c32, **kw)
+        single64 = fused_residual_sweep_global(*(q[b].contiguous() for q in paths64), *c64,
+                                               **kw)
+        require(all(same_bits(o[b], s_) for o, s_ in zip(out_b, single))
+                and all(same_bits(o[b], s_) for o, s_ in zip(out_b64, single64)),
+                f"{n_a}x{n_e}: batched global-state row {b} differs from its single launch")
+    ends = [0, B - 1]
+    ref, plain_ms["k3_4"] = cuda_once(lambda: fused_sweep_jvp_batch_reference(
+        *(q[ends].double() for q in paths32), *c64, **kw))
+    err["k3_4"] = 0.0
+    for o, r_ in zip(out_b, ref):
+        e, scale = max_abs(o[ends].double(), r_), float(r_.abs().max())
+        require(e <= 3e-5 * max(scale, 1.0),
+                f"{n_a}x{n_e}: the batched global-state f32 tangent sweep off its plain "
+                f"version by {e:.3e} (scale {scale:.3e})")
+        err["k3_4"] = max(err["k3_4"], e)
+    ref, plain_ms["k2_batch"] = cuda_once(lambda: fused_residual_sweep_batch_reference(
+        *(q[ends].contiguous() for q in paths64), *c64, **kw))
+    err["k2_batch"] = max(max_abs(o[ends], r_) for o, r_ in zip(out_b64, ref))
+    require(err["k2_batch"] <= 1e-11,
+            f"{n_a}x{n_e}: the batched global-state f64 residual sweep off its plain version "
+            f"by {err['k2_batch']:.3e}")
+
     zero_one_asset_counts()
-    recs = []
-    error = None
-    try:
-        run.solve_model(model, method="newton_krylov", eps=1e-8, verbose=False, records=recs)
-    except ValueError as exc:
-        error = str(exc)
-    counts = one_asset_counts()
-    expected = f"the f64 tangent sweep at grid {n_a}x{n_e} needs {need} bytes of shared memory"
-    require(error is not None and error.startswith(expected)
-            and "direction_mode='xla'" in error,
-            f"{n_a}x{n_e}: the default did not stop at the solver's build: {error!r}")
-    require(not any(counts.values()) and not any(r.get("phase") == "path solve" for r in recs),
-            f"{n_a}x{n_e}: work ran past the fit check: {counts}, {recs}")
-    emit("past_fit", model=name, grid=[n_a, n_e], T=T, smem_bytes_f64_tangent=need,
-         error=error, setup_s=next(r["seconds"] for r in recs
-                                   if r.get("phase", "").startswith("steady")),
-         launches=counts)
-    return counts
+    runs_b = [solve_b() for _ in range(3)]
+    counts_b = one_asset_counts()
+    require_only(counts_b, {"k3_4_global", "k2_batch_global"}, f"{n_a}x{n_e} B={B} ensemble")
+    require(all(torch.equal(r[0], x_warm_b) for r in runs_b),
+            f"{n_a}x{n_e}: repeated ensemble solves returned different paths")
+    info_b = runs_b[0][1]
+    fn = info_b["residual_norm"]
+    require(bool(torch.isfinite(x_warm_b).all()) and x_warm_b.shape == (B, x_ss.numel()),
+            f"{n_a}x{n_e}: the ensemble solution is not finite paths of the expected shape")
+    # Every row within 1e-8, or a stalled row that the single-path route
+    # (mixed Newton-Krylov on its own shock) does not bring under 1e-8 either.
+    stalled = [b for b in range(B) if float(fn[b]) > 1e-8]
+    require(len(stalled) == info_b["stalled_paths"] and len(stalled) < B,
+            f"{n_a}x{n_e}: rows {stalled} above 1e-8, {info_b['stalled_paths']} stalled paths")
+    single_route = {}
+    for b in sorted({*stalled, B - 1}):
+        x_b, info_1 = make_path_solver(Jbar, {"Z": exog_b["Z"][b]}, model, ss0, ssT,
+                                       method="newton_krylov", direction_dtype=f32,
+                                       eps=1e-8)(x_ss)
+        single_route[b] = {"ensemble_norm": float(fn[b]),
+                           "single_path_norm": float(info_1["residual_norm"]),
+                           "max_abs": max_abs(x_warm_b[b], x_b)}
+        require(b not in stalled or float(info_1["residual_norm"]) > 1e-8,
+                f"{n_a}x{n_e}: row {b} stalls in the ensemble at {float(fn[b]):.3e}, but the "
+                f"single-path route reaches {float(info_1['residual_norm']):.3e}")
+    plain_fn = {}
+    for b in sorted({0, B - 1, int(fn.argmax())}):
+        F_b = make_full_residual_fn(model, ss0, ssT, {"Z": exog_b["Z"][b]})
+        plain_fn[b] = float(torch.linalg.norm(F_b(x_warm_b[b])))
+        require(b in stalled or plain_fn[b] < 1e-8,
+                f"{n_a}x{n_e}: plain f64 ‖F‖ of row {b} is {plain_fn[b]:.3e}")
+    emit("large_grid_ensemble", B=B, rhos=[rhos[0], rhos[-1]],
+         median_s=statistics.median(r[2] for r in runs_b), runs_s=[r[2] for r in runs_b],
+         outer_iterations=info_b["iterations"], matvecs=info_b["inner_iterations"],
+         residual_norm_max=float(fn.max()), residual_norm_plain_f64=plain_fn,
+         stalled_rows=stalled, single_path_route=single_route, launches=counts_b,
+         host_ls_s=[r[1]["host_ls_seconds"] for r in runs_b], bit_identical=True)
+
+    # ms per launch of each instantiation at 1200×7 (the solution; B=16 for
+    # the batched ones) and its bound from the timed call's inputs.
+    a32 = (*sweep_args(warm["mixed"][0], v, f32), *c32)
+    a64 = (*sweep_args(warm["default"][0], v, f64), *c64)
+    timed = {
+        "k1": (lambda: fused_sweep_jvp(*a32, **kw), a32, 4, True, "f32", 1),
+        "jvp_f64": (lambda: fused_sweep_jvp_f64(*a64, **kw), a64, 4, True, "f64", 1),
+        "k2": (lambda: fused_residual_sweep(*a64[:2], *c64, **kw), (*a64[:2], *c64), 2, False,
+               "f64", 1),
+        "k3_4": (lambda: fused_sweep_jvp_batch(*paths32, *c32, **kw), (*paths32, *c32), 4, True,
+                 "f32", B),
+        "k2_batch": (lambda: fused_residual_sweep_batch(*paths64, *c64, **kw),
+                     (*paths64, *c64), 2, False, "f64", B)}
+    per_solve = {"k1": solves["mixed"]["launches"]["k1_global"] / 3,
+                 "jvp_f64": solves["default"]["launches"]["jvp_f64_global"] / 3,
+                 "k2": (solves["default"]["launches"]["k2_global"]
+                        + solves["mixed"]["launches"]["k2_global"]) / 6,
+                 "k3_4": counts_b["k3_4_global"] / 3, "k2_batch": counts_b["k2_batch_global"] / 3}
+    rows = {}
+    for key, (fn_, args, n_out, tangent, kind, paths) in timed.items():
+        rows[key] = {"ms": cuda_ms(fn_, 5), "plain_ms": plain_ms[key],
+                     "max_abs_err": err[key], "launches_per_solve": per_solve[key],
+                     **least_time(nbytes(*args) + n_out * nbytes(args[0]),
+                                  one_asset_sweep_ops(Tm1, n_a, n_e, tangent, paths), kind)}
+    emit("large_grid_kernels", grid=[n_a, n_e], T=T, kernels=rows,
+         workspace_mb={k: state_workspace_bytes(f32 if kind == "f32" else f64, t, n_a, n_e,
+                                                p_) / 1e6
+                       for k, (_, _, _, t, kind, p_) in timed.items()})
+    return {"rows": rows, "launches": {"k1": solves["mixed"]["launches"]["k1_global"],
+                                       "jvp_f64": solves["default"]["launches"]["jvp_f64_global"],
+                                       "k2": solves["default"]["launches"]["k2_global"]
+                                       + solves["mixed"]["launches"]["k2_global"],
+                                       "k3_4": counts_b["k3_4_global"],
+                                       "k2_batch": counts_b["k2_batch_global"]}}
 
 
 def driver_phase(dev) -> dict:
     """Phase 8: `hank_tpu_torch.run` on the two families (module
-    docstring), then the CLI's default on each and the grid past the
-    f64 tangent sweep's fit. Returns the cases for phase 9 and the summary
+    docstring), then the CLI's default on each and the grid past every
+    one-block kernel's fit. Returns the cases for phase 9 and the summary
     (`"f64_default_launches"`: the f64 tangent sweep's launches in the
-    default runs)."""
+    default runs; `"large_grid"`: the 1200×7 case's rows)."""
     cases = {}
     previous = os.environ.get("HANK_TPU_TORCH_CACHE")
     with tempfile.TemporaryDirectory() as cache:
@@ -2426,13 +2965,44 @@ def driver_phase(dev) -> dict:
                 cases[name] = driver_case(name, T, dev, cache)
             launches = sum(cli_default(name, case)["jvp_f64"]
                            for name, case in cases.items())
-            past_fit_case(dev)
+            large = large_grid_case(dev)
         finally:
             if previous is None:
                 os.environ.pop("HANK_TPU_TORCH_CACHE", None)
             else:
                 os.environ["HANK_TPU_TORCH_CACHE"] = previous
-    return {"cases": cases, "f64_default_launches": launches}
+    return {"cases": cases, "f64_default_launches": launches, "large_grid": large}
+
+
+def global_state_kernels(large: dict, at_500: dict) -> list:
+    """The `kernels` entries of the five global-state instantiations: ms,
+    plain ms, error and bound at 1200×7 (B=16 for the batched ones), their
+    launches in phase 8's three timed solves of each route (the batched
+    ones in the three ensemble solves), and at 500×7 their ms beside the
+    one-block kernel's, timed in turns."""
+    source = "hank_tpu_torch/csrc/household_sweep.cu"
+    specs = (
+        ("k1", "k1", "fused_sweep_jvp (global state: household_sweep_ranged_kernel"
+                     "<float,true,false,true>)", "hank_tpu/ops/fused_sweep.py:385"),
+        ("k3_4", "k3_4_B16", "fused_sweep_jvp_batch (global state: <float,true,true,true>)",
+         "hank_tpu/ops/fused_sweep_batch.py:87 and :177"),
+        ("k2", "k2", "fused_residual_sweep (global state: <double,false,false,true>)",
+         "hank_tpu/ops/fused_ds.py:338"),
+        ("k2_batch", "k2_batch_B16", "fused_residual_sweep_batch (global state: "
+                                     "<double,false,true,true>)", "hank_tpu/ops/fused_ds.py:338"),
+        ("jvp_f64", "jvp_f64", "fused_sweep_jvp_f64 (global state: <double,true,false,true>)",
+         "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; no TPU kernel)"))
+    entries = []
+    for key, key_500, name, replaces in specs:
+        row = large["rows"][key]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": large["launches"][key], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "grid": "1200x7, T=150",
+            "launches_per_solve": row["launches_per_solve"],
+            "ms_500x7": at_500[key_500]["ms"], "ms_one_block_500x7": at_500[key_500]["ms_one_block"]})
+    return entries
 
 
 def forward_scan_phase(inputs: dict) -> dict:
@@ -2569,10 +3139,13 @@ def main() -> int:
     from hank_tpu_torch.models.krusell_smith import exogenousZ
     from hank_tpu_torch.ops import cuda_build
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_global,
                                                    fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
     from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_f64_global,
                                                 fused_sweep_jvp_f64_previous,
+                                                fused_sweep_jvp_global,
                                                 fused_sweep_jvp_reference)
     from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
     from hank_tpu_torch.solvers.ss_jacobian import get_steady_state_jacobian
@@ -2592,6 +3165,7 @@ def main() -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     # ── 2. build ───────────────────────────────────────────────────────────
+    ptx_job = start_ptx()
     built = cuda_build.build()
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
@@ -2602,10 +3176,16 @@ def main() -> int:
             f"the f64 residual pair spills (or was not built): {f64_kernels}")
     batched = [k for k in ptxas if "cluster_kernelILb1E" in k["kernel"]]
     require(len(batched) == 4, f"the four batched two-asset kernels were not built: {batched}")
+    ranged = [k for k in ptxas if "household_sweep_ranged_kernel" in k["kernel"]]
+    global_state = [k for k in ranged if "ELb1EEEv" in k["kernel"]]
+    require(len(ranged) == 9 and len(global_state) == 5,
+            f"the ranged kernel's nine instantiations were not built: {ranged}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
-         ptxas_of_this_pr=batched, f64_pair_fit=f64_pair_grids(),
+         ptxas_two_asset_batched=batched, ptxas_ranged=ranged,
+         ptxas_of_this_pr=global_state, f64_pair_fit=f64_pair_grids(),
          one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
-         sass_vs_previous_build=sass_vs_reference(built.paths))
+         sass_vs_previous_build=sass_vs_reference(built.paths),
+         global_state_nc_loads=state_loads_coherent(ptx_job))
 
     # ── 3. setup ───────────────────────────────────────────────────────────
     model = load_model("krusell_smith", T=300, device=dev)
@@ -2764,6 +3344,22 @@ def main() -> int:
             and bits64["grid_swapped"]["fallback_rows_policy"] > 0,
             f"f64 tangent sweep: an input meant to take a fallback branch did not: {bits64}")
 
+    # The global-state instantiations against the one-block kernels whose
+    # places they take, bit for bit on every output and fallback count, at
+    # the same points and stress inputs: <float, true, false, G> against
+    # kernel 1, <double, false, false, G> against kernel 2, <double, true,
+    # false, G> against the f64 tangent sweep.
+    globals_ks = {
+        "k1": global_vs_one_block("kernel 1", fused_sweep_jvp_global, fused_sweep_jvp,
+                                  bit_inputs, kw),
+        "k2": global_vs_one_block("kernel 2", fused_residual_sweep_global,
+                                  fused_residual_sweep, bit_inputs64, kw),
+        "jvp_f64": global_vs_one_block("f64 tangent sweep", fused_sweep_jvp_f64_global,
+                                       fused_sweep_jvp_f64, jvp64_inputs, kw)}
+    for name, report in globals_ks.items():
+        require_fallbacks(f"{name} on global state", report)
+    emit("global_state_ks", grid=[wealth.n, prod.n], T=cs.T, bit_identical=globals_ks)
+
     args32 = (*prices(x, f32), *prices(v, f32), *c32)
     args64j = jvp64_inputs["solution"]
     k2_turns = in_turns({"k2_previous": lambda: fused_residual_sweep_previous(*args64, **kw),
@@ -2881,6 +3477,7 @@ def main() -> int:
         *ensemble_kernels,
         *two_asset_kernels,
         scan_kernel,
+        *global_state_kernels(phase8["large_grid"], lg["global_500"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,9 +7,10 @@
 // (gridDim.x = B, one block per path), in two arithmetics, each built for
 // B = 1 (path offset compiled out) and for B > 1, and two kernels of their
 // own:
-//   household_sweep_ranged_kernel<S, TANGENT, BATCHED>: the template's
-//       arithmetic with kernel 1's binary-search brackets and lottery source
-//       ranges (its own note below). It serves
+//   household_sweep_ranged_kernel<S, TANGENT, BATCHED, GLOBAL_STATE>: the
+//       template's arithmetic with kernel 1's binary-search brackets and
+//       lottery source ranges (its own note below). With its state in shared
+//       memory (GLOBAL_STATE = false) it serves
 //     <float, true, true>    kernels 3-4, the f32 primal + tangent (dual
 //       numbers) sweep over B > 1 paths, which replaces the TPU kernel pair
 //       of hank_tpu/ops/fused_sweep_batch.py (_make_bwd_kernel and
@@ -28,6 +29,9 @@
 //       direction of a one-asset solve on the card (the port's own kernel:
 //       the reference takes f64 directions by XLA AD,
 //       hank_tpu/solvers/newton.py:389, with no Pallas kernel).
+//     With its six state arrays in a global workspace (GLOBAL_STATE = true)
+//     the same five arithmetics, <float, true, false> in kernel 1's place,
+//     take the grids past one block's shared memory (its note below).
 //   household_sweep_jvp_kernel: kernel 1, the single-path f32 primal +
 //       tangent sweep, which replaces the TPU kernel
 //       hank_tpu/ops/fused_sweep.py:385 fused_sweep_jvp
@@ -716,7 +720,27 @@ size_t jvp_smem_bytes(int n_a, int n_e) {
 // pow is a library routine, not an SFU instruction), so with the count
 // loops gone they take a larger share than in kernel 1. The batched
 // instantiation runs one path per SM, in waves past 132 paths.
-template <typename S, bool TANGENT, bool BATCHED>
+//
+// GLOBAL_STATE: the six n = n_a*n_e state arrays (X, Y, P and the tangents
+// dX, dY, dQ; three without TANGENT) live in this path's slice of `state`,
+// a (B, 6n) or (B, 3n) workspace in global memory that the caller
+// allocates, and only the grid arrays, labor, Pi and the reduction slots
+// (with the row flags) stay in shared memory: global_smem_bytes, 5 n_a +
+// n_e + n_e^2 + kRed*kThreads values, so at n_e = 7 the f64 tangent sweep
+// takes n_a up to 4980 in place of 529. Every operation, its order and
+// every barrier are the shared-state kernel's (one sum written as the fma
+// that ptxas makes of it there, below), and __syncthreads() orders a
+// block's global accesses as it orders its shared ones, so on every grid
+// both take the outputs are bit for bit the shared-state kernel's
+// (chip_smoke.py holds each instantiation to it; <float, true, false> to
+// kernel 1, which is bit for bit the template's B = 1 launch). `state` is
+// written and read within the launch, so it is not const __restrict__: no
+// load of it may take the read-only path. The workspace stays in L2 at the
+// grids it serves (0.40 MB a path for the f64 tangent sweep at 1200x7), so
+// each state access costs an L2 round trip in place of a shared one.
+// Without GLOBAL_STATE, `state` is null and compiled out, and the shared
+// layout is the template's.
+template <typename S, bool TANGENT, bool BATCHED, bool GLOBAL_STATE>
 __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
     const S* __restrict__ r_path, const S* __restrict__ w_path,     // (B, Tm1)
     const S* __restrict__ dr_path, const S* __restrict__ dw_path,   // (B, Tm1) or null
@@ -727,7 +751,8 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
     S* __restrict__ agg, S* __restrict__ dagg,                      // (B, Tm1)
     S* __restrict__ aggc, S* __restrict__ daggc,                    // (B, Tm1)
     int* __restrict__ fallback,                                     // (B, 2) or null
-    int Tm1, int n_a, int n_e, S beta, S gamma, S borrow_cons)
+    int Tm1, int n_a, int n_e, S beta, S gamma, S borrow_cons,
+    S* state)                                    // (B, 6n or 3n) under GLOBAL_STATE, else null
 {
     constexpr int kRed = TANGENT ? 4 : 2;
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -736,7 +761,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
     const int tid = threadIdx.x;
 
     // This block's path, as in the template (size_t offsets, compiled out
-    // of a single-path launch).
+    // of a single-path launch); under GLOBAL_STATE also its state slice.
     const size_t path = BATCHED ? blockIdx.x : 0;
     r_path += path * Tm1;
     w_path += path * Tm1;
@@ -757,14 +782,16 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
     // forward half leaves slots [kThreads/2, kThreads) alone from the tree's
     // first level to the next period's aggregates: the implied-wealth flags
     // take slots [0, n_e), the policy flags [kThreads/2, kThreads/2 + n_e)
-    // (n_e <= kThreads/2, which the launcher checks).
-    S* X = smem;                 // V (backward) / D (forward)
+    // (n_e <= kThreads/2, which the launcher checks). Under GLOBAL_STATE
+    // the six state arrays move to `state` and the rest keeps its order.
+    S* X = GLOBAL_STATE ? state + path * (TANGENT ? 6 : 3) * (size_t)n
+                        : smem;  // V (backward) / D (forward)
     S* Y = X + n;                // implied wealth (backward) / D_half (forward)
     S* P = Y + n;                // clipped policy (forward)
     S* dX = P + n;               // tangents (TANGENT only)
     S* dY = dX + n;
     S* dQ = dY + n;              // dpol * D (forward)
-    S* g = smem + (TANGENT ? 6 : 3) * n;
+    S* g = GLOBAL_STATE ? smem : smem + (TANGENT ? 6 : 3) * n;
     S* glo = g + n_a;
     S* ghi = glo + n_a;
     S* iup = ghi + n_a;
@@ -879,7 +906,14 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
             if (TANGENT) {
                 dpol = unbound ? dpol : S(0);
                 const S dcg = cg_live ? dr * x + dw * lab[e] - dpol : S(0);
-                dX[idx] = dr * cpow + one_r * (-gamma) * cpow / cg * dcg;
+                // Under GLOBAL_STATE the contraction the shared-state builds
+                // get from ptxas (dr * cpow fused, the other product rounded)
+                // is written out: left to itself, ptxas fuses the other
+                // product in the global-state <double, true, false>.
+                if constexpr (GLOBAL_STATE)
+                    dX[idx] = fma(dr, cpow, one_r * (-gamma) * cpow / cg * dcg);
+                else
+                    dX[idx] = dr * cpow + one_r * (-gamma) * cpow / cg * dcg;
                 dpol_scr[(size_t)t * n + idx] = dpol;
             }
         }
@@ -1026,15 +1060,26 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
 }
 
 
-template <typename S, bool TANGENT, bool BATCHED>
+// The global-state instantiations' shared memory: the grid with its
+// hat-basis neighbours and slopes, labor, Pi and the reduction slots.
+template <typename S, bool TANGENT>
+size_t global_smem_bytes(int n_a, int n_e) {
+    return sizeof(S) * (5 * (size_t)n_a + n_e + (size_t)n_e * n_e
+                        + (TANGENT ? 4 : 2) * kThreads);
+}
+
+template <typename S, bool TANGENT, bool BATCHED, bool GLOBAL_STATE = false>
 int launch_ranged(const void* r, const void* w, const void* dr, const void* dw,
                   const void* V_T, const void* D0, const void* grid, const void* egrid,
                   const void* Pi, void* pol, void* dpol, void* agg, void* dagg,
                   void* aggc, void* daggc, void* fallback, int B, int Tm1, int n_a,
-                  int n_e, double beta, double gamma, double borrow_cons, void* stream) {
+                  int n_e, double beta, double gamma, double borrow_cons, void* stream,
+                  void* state = nullptr) {
     if (n_e > kThreads / 2) return (int)cudaErrorInvalidValue;   // the flags' slots
-    const size_t smem = smem_bytes<S, TANGENT>(n_a, n_e);
-    auto kern = household_sweep_ranged_kernel<S, TANGENT, BATCHED>;
+    if (GLOBAL_STATE && state == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t smem = GLOBAL_STATE ? global_smem_bytes<S, TANGENT>(n_a, n_e)
+                                     : smem_bytes<S, TANGENT>(n_a, n_e);
+    auto kern = household_sweep_ranged_kernel<S, TANGENT, BATCHED, GLOBAL_STATE>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -1042,7 +1087,8 @@ int launch_ranged(const void* r, const void* w, const void* dr, const void* dw,
         (const S*)r, (const S*)w, (const S*)dr, (const S*)dw,
         (const S*)V_T, (const S*)D0, (const S*)grid, (const S*)egrid,
         (const S*)Pi, (S*)pol, (S*)dpol, (S*)agg, (S*)dagg, (S*)aggc,
-        (S*)daggc, (int*)fallback, Tm1, n_a, n_e, (S)beta, (S)gamma, (S)borrow_cons);
+        (S*)daggc, (int*)fallback, Tm1, n_a, n_e, (S)beta, (S)gamma, (S)borrow_cons,
+        (S*)state);
     return (int)cudaGetLastError();
 }
 
@@ -1548,6 +1594,73 @@ int hank_sweep_jvp_f64(const void* r, const void* w, const void* dr, const void*
                                               stream);
 }
 
+// The global-state instantiations: the same arguments with `state`, the
+// (B, 6n) workspace (3n for the residual sweeps) in the inputs' type, after
+// `fallback`.
+int hank_sweep_jvp_f32_global(const void* r, const void* w, const void* dr, const void* dw,
+                              const void* V_T, const void* D0, const void* grid,
+                              const void* egrid, const void* Pi, void* pol, void* dpol,
+                              void* agg, void* dagg, void* aggc, void* daggc,
+                              void* fallback, void* state, int Tm1, int n_a, int n_e,
+                              double beta, double gamma, double borrow_cons, void* stream) {
+    return launch_ranged<float, true, false, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi,
+                                                   pol, dpol, agg, dagg, aggc, daggc,
+                                                   fallback, 1, Tm1, n_a, n_e, beta, gamma,
+                                                   borrow_cons, stream, state);
+}
+
+int hank_sweep_jvp_f32_batch_global(const void* r, const void* w, const void* dr,
+                                    const void* dw, const void* V_T, const void* D0,
+                                    const void* grid, const void* egrid, const void* Pi,
+                                    void* pol, void* dpol, void* agg, void* dagg,
+                                    void* aggc, void* daggc, void* fallback, void* state,
+                                    int B, int Tm1, int n_a, int n_e, double beta,
+                                    double gamma, double borrow_cons, void* stream) {
+    return launch_ranged<float, true, true, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi,
+                                                  pol, dpol, agg, dagg, aggc, daggc,
+                                                  fallback, B, Tm1, n_a, n_e, beta, gamma,
+                                                  borrow_cons, stream, state);
+}
+
+int hank_sweep_residual_f64_global(const void* r, const void* w, const void* V_T,
+                                   const void* D0, const void* grid, const void* egrid,
+                                   const void* Pi, void* pol, void* agg, void* aggc,
+                                   void* fallback, void* state, int Tm1, int n_a, int n_e,
+                                   double beta, double gamma, double borrow_cons,
+                                   void* stream) {
+    return launch_ranged<double, false, false, true>(r, w, nullptr, nullptr, V_T, D0, grid,
+                                                     egrid, Pi, pol, nullptr, agg, nullptr,
+                                                     aggc, nullptr, fallback, 1, Tm1, n_a,
+                                                     n_e, beta, gamma, borrow_cons, stream,
+                                                     state);
+}
+
+int hank_sweep_residual_f64_batch_global(const void* r, const void* w, const void* V_T,
+                                         const void* D0, const void* grid,
+                                         const void* egrid, const void* Pi, void* pol,
+                                         void* agg, void* aggc, void* fallback,
+                                         void* state, int B, int Tm1, int n_a, int n_e,
+                                         double beta, double gamma, double borrow_cons,
+                                         void* stream) {
+    return launch_ranged<double, false, true, true>(r, w, nullptr, nullptr, V_T, D0, grid,
+                                                    egrid, Pi, pol, nullptr, agg, nullptr,
+                                                    aggc, nullptr, fallback, B, Tm1, n_a,
+                                                    n_e, beta, gamma, borrow_cons, stream,
+                                                    state);
+}
+
+int hank_sweep_jvp_f64_global(const void* r, const void* w, const void* dr, const void* dw,
+                              const void* V_T, const void* D0, const void* grid,
+                              const void* egrid, const void* Pi, void* pol, void* dpol,
+                              void* agg, void* dagg, void* aggc, void* daggc,
+                              void* fallback, void* state, int Tm1, int n_a, int n_e,
+                              double beta, double gamma, double borrow_cons, void* stream) {
+    return launch_ranged<double, true, false, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi,
+                                                    pol, dpol, agg, dagg, aggc, daggc,
+                                                    fallback, 1, Tm1, n_a, n_e, beta, gamma,
+                                                    borrow_cons, stream, state);
+}
+
 int hank_sweep_jvp_f64_previous(const void* r, const void* w, const void* dr,
                                 const void* dw, const void* V_T, const void* D0,
                                 const void* grid, const void* egrid, const void* Pi,
@@ -1644,9 +1757,15 @@ size_t hank_forward_scan_smem_bytes(int which, int n_a, int n_e) {
 // 2 household_sweep_jvp_kernel, 3 household_sweep_ranged_kernel
 // <float, true>, 4 household_sweep_ranged_kernel <double, false>,
 // 5 household_sweep_ranged_kernel <double, true>, 6 the template
-// <double, true>.
+// <double, true>; the global-state instantiations 7 <float, true, false>
+// (kernel 1's place), 8 <float, true, true>, 9 <double, false, *>,
+// 10 <double, true, false>.
 size_t hank_sweep_smem_bytes(int which, int n_a, int n_e) {
     switch (which) {
+        case 7:
+        case 8: return global_smem_bytes<float, true>(n_a, n_e);
+        case 9: return global_smem_bytes<double, false>(n_a, n_e);
+        case 10: return global_smem_bytes<double, true>(n_a, n_e);
         case 1: return smem_bytes<float, true>(n_a, n_e);
         case 2: return jvp_smem_bytes(n_a, n_e);
         case 3: return smem_bytes<float, true>(n_a, n_e);      // the template's bytes

@@ -26,7 +26,10 @@ when a kernel needs more than one block has. The wrappers apply it at each
 launch; the kernel maps apply it, with the library's own count
 (`sweep_smem_bytes` / `sweep2_smem_bytes` / `sweep2_f64_smem_bytes`), when
 they are built on the card, so a grid past a kernel's limit stops a solve
-before it starts.
+before it starts. A one-asset kernel whose count does not fit gives way,
+by that count and before any launch, to its global-state instantiation
+(`GLOBAL_STATE`; `ops/fused_sweep.sweep_kernel`), and the rule applies to
+that one's count.
 
 `python -m hank_tpu_torch.ops.cuda_build SOURCE.cu ...` compiles each
 source with the same flags into a temporary directory and prints, per
@@ -151,6 +154,11 @@ _SIGNATURES = {
         "hank_sweep_residual_f64_batch_previous": (10, 4, 3),
         "hank_sweep_jvp_f64": (16, 3, 3),
         "hank_sweep_jvp_f64_previous": (15, 3, 3),
+        "hank_sweep_jvp_f32_global": (17, 3, 3),
+        "hank_sweep_jvp_f32_batch_global": (17, 4, 3),
+        "hank_sweep_residual_f64_global": (12, 3, 3),
+        "hank_sweep_residual_f64_batch_global": (12, 4, 3),
+        "hank_sweep_jvp_f64_global": (17, 3, 3),
         "hank_forward_scan_f32": (10, 3, 0),
         "hank_forward_scan_f32_previous": (6, 3, 0),
     },
@@ -213,9 +221,15 @@ def check_fit(need: int, what: str, hint: str = "") -> None:
 
 # `which` of `hank_sweep_smem_bytes`, one per kernel of the one-asset sweep
 # (`csrc/household_sweep.cu`): the counting template's builds (the previous
-# kernels), kernel 1, and household_sweep_ranged_kernel's builds.
+# kernels), kernel 1, and household_sweep_ranged_kernel's builds, with its
+# state in shared memory and (GLOBAL_*) in a global workspace.
 PREVIOUS_KERNEL2, PREVIOUS_KERNELS3_4, KERNEL1, KERNELS3_4, KERNEL2 = 0, 1, 2, 3, 4
 JVP_F64, PREVIOUS_JVP_F64 = 5, 6
+GLOBAL_KERNEL1, GLOBAL_KERNELS3_4, GLOBAL_KERNEL2, GLOBAL_JVP_F64 = 7, 8, 9, 10
+# The global-state instantiation that takes a one-block kernel's place on
+# the grids past its shared memory.
+GLOBAL_STATE = {KERNEL1: GLOBAL_KERNEL1, KERNELS3_4: GLOBAL_KERNELS3_4,
+                KERNEL2: GLOBAL_KERNEL2, JVP_F64: GLOBAL_JVP_F64}
 
 
 def sweep_smem_bytes(which: int, n_a: int, n_e: int) -> int:
@@ -261,7 +275,8 @@ def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> Non
     kernels 1 and 3-4 (its f32 dual build), 2 kernel 1, 3 kernels 3-4, 4
     kernel 2 (the template with kernel 1's design, f32 dual and f64 builds),
     5 the f64 tangent sweep (its f64 dual build), 6 the previous f64 tangent
-    sweep (the counting template's f64 dual build)."""
+    sweep (the counting template's f64 dual build), 7-10 the global-state
+    instantiations of 2-5 (`GLOBAL_STATE`)."""
     check_fit(lib.hank_sweep_smem_bytes(which, n_a, n_e), f"grid {n_a}x{n_e}")
 
 

@@ -28,6 +28,12 @@ launch the previous kernel 2 (the counting template
 `household_sweep_kernel<double, false, *>`), which both are held to bit for
 bit on the card; no solver calls them. `.launches` counts kernel launches
 and `.calls` plain-version calls.
+
+Past one block's shared memory (at n_e = 7, n_a > 1036) both wrappers
+launch the global-state instantiations `<double, false, *, true>`
+(`fused_sweep.sweep_kernel`, counted in `.launches_global`), bit for bit
+the one-block kernel where both fit; `fused_residual_sweep_global` and
+`fused_residual_sweep_batch_global` launch them at any grid, for the checks.
 """
 
 from __future__ import annotations
@@ -36,9 +42,9 @@ import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fallback_pointer,
+from hank_tpu_torch.ops.fused_sweep import (_check_inputs, count_launch, fallback_pointer,
                                             household_aggregates, launch_sweep,
-                                            require_card, sweep_setup)
+                                            require_card, sweep_kernel, sweep_setup)
 
 f64 = torch.float64
 
@@ -57,13 +63,32 @@ def fused_residual_sweep(r_path, w_path, V_T, D0, grid, e_grid, Pi,
     if V_T.device.type == "cpu":
         return fused_residual_sweep_reference(r_path, w_path, V_T, D0, grid,
                                               e_grid, Pi, **kw)
+    kernel = sweep_kernel(cuda_build.KERNEL2, *V_T.shape)
     out = launch_sweep("hank_sweep_residual_f64", (r_path, w_path), V_T, D0, grid,
-                       e_grid, Pi, n_out=2, smem_kind=4, extra_ptrs=fallback, **kw)
-    fused_residual_sweep.launches += 1
+                       e_grid, Pi, n_out=2, smem_kind=kernel, extra_ptrs=fallback, **kw)
+    count_launch(fused_residual_sweep, cuda_build.KERNEL2, kernel)
     return out
 
 
-fused_residual_sweep.launches = 0
+fused_residual_sweep.launches = fused_residual_sweep.launches_global = 0
+
+
+def fused_residual_sweep_global(r_path, w_path, V_T, D0, grid, e_grid, Pi,
+                                *, beta: float, gamma: float, borrow_cons: float,
+                                fallback_rows: torch.Tensor | None = None):
+    """`fused_residual_sweep` through `household_sweep_ranged_kernel<double,
+    false, false, true>` at any grid, held to kernel 2 bit for bit. No
+    solver calls it. CUDA tensors only; counted in
+    `fused_residual_sweep.launches_global`."""
+    _check_inputs("fused_residual_sweep_global", f64, (r_path, w_path),
+                  V_T, D0, grid, e_grid, Pi)
+    require_card("fused_residual_sweep_global", V_T, "fused_residual_sweep_reference")
+    fallback = fallback_pointer("fused_residual_sweep_global", fallback_rows, V_T, (2,))
+    out = launch_sweep("hank_sweep_residual_f64", (r_path, w_path), V_T, D0, grid, e_grid,
+                       Pi, n_out=2, smem_kind=cuda_build.GLOBAL_KERNEL2, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_residual_sweep.launches_global += 1
+    return out
 
 
 def fused_residual_sweep_previous(r_path, w_path, V_T, D0, grid, e_grid, Pi,
@@ -112,13 +137,34 @@ def fused_residual_sweep_batch(r_b, w_b, V_T, D0, grid, e_grid, Pi,
     if V_T.device.type == "cpu":
         return fused_residual_sweep_batch_reference(r_b, w_b, V_T, D0, grid,
                                                     e_grid, Pi, **kw)
+    kernel = sweep_kernel(cuda_build.KERNEL2, *V_T.shape)
     out = launch_sweep("hank_sweep_residual_f64_batch", (r_b, w_b), V_T, D0, grid,
-                       e_grid, Pi, n_out=2, smem_kind=4, extra_ptrs=fallback, **kw)
-    fused_residual_sweep_batch.launches += 1
+                       e_grid, Pi, n_out=2, smem_kind=kernel, extra_ptrs=fallback, **kw)
+    count_launch(fused_residual_sweep_batch, cuda_build.KERNEL2, kernel)
     return out
 
 
-fused_residual_sweep_batch.launches = 0
+fused_residual_sweep_batch.launches = fused_residual_sweep_batch.launches_global = 0
+
+
+def fused_residual_sweep_batch_global(r_b, w_b, V_T, D0, grid, e_grid, Pi,
+                                      *, beta: float, gamma: float, borrow_cons: float,
+                                      fallback_rows: torch.Tensor | None = None):
+    """`fused_residual_sweep_batch` through `household_sweep_ranged_kernel<
+    double, false, true, true>` at any grid, held to the batched kernel 2
+    bit for bit. No solver calls it. CUDA tensors only; counted in
+    `fused_residual_sweep_batch.launches_global`."""
+    _check_inputs("fused_residual_sweep_batch_global", f64, (r_b, w_b),
+                  V_T, D0, grid, e_grid, Pi, batched=True)
+    require_card("fused_residual_sweep_batch_global", V_T,
+                 "fused_residual_sweep_batch_reference")
+    fallback = fallback_pointer("fused_residual_sweep_batch_global", fallback_rows, V_T,
+                                (r_b.shape[0], 2))
+    out = launch_sweep("hank_sweep_residual_f64_batch", (r_b, w_b), V_T, D0, grid, e_grid,
+                       Pi, n_out=2, smem_kind=cuda_build.GLOBAL_KERNEL2, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_residual_sweep_batch.launches_global += 1
+    return out
 
 
 def fused_residual_sweep_batch_previous(r_b, w_b, V_T, D0, grid, e_grid, Pi,
@@ -161,8 +207,8 @@ def make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths):
     """F(x) -> f64 residual with the household block in kernel 2; the price
     map and the residual tail (assembly + equations over the (n_v, T)
     matrix) run in f64 torch ops."""
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64,
-                                            cuda_build.KERNEL2)
+    hook, consts, kw, to_aggs, _ = sweep_setup(model, ss_initial, ss_ending, f64,
+                                               cuda_build.KERNEL2)
     cs = model.compspec
 
     def F(x):
@@ -183,8 +229,8 @@ def make_sweep_residual_fn_batch(model, ss_initial, ss_ending):
     The household block of every row runs in one batched kernel-2 launch;
     the price map and the residual tail run per row under
     `torch.func.vmap` in f64 torch ops."""
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f64,
-                                            cuda_build.KERNEL2)
+    hook, consts, kw, to_aggs, _ = sweep_setup(model, ss_initial, ss_ending, f64,
+                                               cuda_build.KERNEL2)
     cs = model.compspec
 
     def prices(xx, ex):

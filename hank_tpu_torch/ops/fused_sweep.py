@@ -29,12 +29,21 @@ bit to the counting template's `<double, true, false>` launch
 the f64 direction map around it.
 
 Every kernel map over the sweep is built through `sweep_setup`, which on
-the card holds the model's grid to the kernel's shared memory
-(`cuda_build.check_fit` of the library's count): a grid past the limit
-raises ValueError when the map is built, before a solve starts, and no
-route falls back to a plain version on the card. The reference probes the
+the card decides by the model's grid, with the library's shared-memory
+counts, which instantiation the map launches (`sweep_kernel`): the
+one-block kernel where its shared memory takes the grid, else its
+global-state instantiation (`household_sweep_ranged_kernel<S, TANGENT,
+BATCHED, true>`, the six state arrays in a global workspace the wrapper
+allocates, bit for bit the one-block kernel where both fit), and past that
+one's count ValueError when the map is built, before a solve starts. No
+route falls back to a plain version on the card. The reference probes its
 kernel and degrades to XLA instead (`hank_tpu/solvers/newton.py:356-376,
-431-450`).
+431-450`). Each wrapper takes the same decision at each launch, by shape;
+`.launches` counts its one-block launches and `.launches_global` its
+global-state ones. The `_global` entry points (`fused_sweep_jvp_global`,
+`fused_sweep_jvp_f64_global`) launch the global-state instantiation at any
+grid, for the checks that hold it to the one-block kernel; no solver
+calls them.
 
 A model opts in by defining `fused_prices(xp, exog_paths, model) -> (r, s)`
 next to its `ValueFunction` (the hook lookup goes through
@@ -44,6 +53,7 @@ next to its `ValueFunction` (the hook lookup goes through
 from __future__ import annotations
 
 import sys
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -118,6 +128,12 @@ def _check_inputs(name, dtype, paths, V_T, D0, grid, e_grid, Pi, *, batched=Fals
                          f"{tuple(e_grid.shape)}, {tuple(Pi.shape)}")
 
 
+def state_workspace_bytes(dtype, tangent: bool, n_a: int, n_e: int, B: int = 1) -> int:
+    """Bytes of the global workspace a global-state launch takes: the six
+    (three without a tangent) n_a·n_e state arrays of each of B paths."""
+    return torch.empty((), dtype=dtype).element_size() * (6 if tangent else 3) * n_a * n_e * B
+
+
 def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
                  borrow_cons, smem_kind, extra_ptrs=()):
     """Launch one entry point of `csrc/household_sweep.cu` on checked CUDA
@@ -126,13 +142,17 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
     single-path entry point and (B, T-1) for a `_batch` one; the wrapper
     allocates the policy scratch, one (*shape, n_e, n_a) buffer for the
     policies and one for their tangents. `smem_kind` names the kernel for
-    the shared-memory check (`cuda_build.check_shared_memory`);
-    `extra_ptrs` follow the outputs."""
+    the shared-memory check (`cuda_build.check_shared_memory`); a
+    global-state one (`cuda_build.GLOBAL_STATE`'s values) launches the
+    entry point's `_global` twin with its state workspace
+    (`state_workspace_bytes`) after `extra_ptrs`, which follow the
+    outputs."""
     lib = cuda_build.load_library()
     n_a, n_e = V_T.shape
     cuda_build.check_shared_memory(lib, smem_kind, n_a, n_e)
     shape = tuple(paths[0].shape)
     dev = V_T.device
+    global_state = smem_kind in cuda_build.GLOBAL_STATE.values()
     with torch.cuda.device(dev):
         V_eT = V_T.T.contiguous()          # kernel layout (n_e, n_a)
         D_eT = D0.T.contiguous()
@@ -141,11 +161,27 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
         out = torch.empty((n_out, *shape), dtype=V_T.dtype, device=dev)
         ptrs = [t.data_ptr() for t in (*paths, V_eT, D_eT, grid, e_grid, Pi,
                                        *scratch, *out)] + list(extra_ptrs)
+        if global_state:
+            entry = f"{entry}_global"
+            B = shape[0] if len(shape) == 2 else 1
+            state = torch.empty(state_workspace_bytes(V_T.dtype, len(paths) == 4, n_a, n_e, B),
+                                dtype=torch.uint8, device=dev)
+            ptrs.append(state.data_ptr())
         err = getattr(lib, entry)(
             *ptrs, *shape, n_a, n_e, float(beta), float(gamma), float(borrow_cons),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, entry)
     return tuple(out)
+
+
+def count_launch(wrapper, which: int, kernel: int) -> None:
+    """One launch of `kernel` by the wrapper of one-block kernel `which`:
+    `.launches` counts the one-block kernel, `.launches_global` its
+    global-state instantiation."""
+    if kernel == which:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_global += 1
 
 
 def fallback_pointer(name, fallback_rows, V_T, shape) -> list:
@@ -168,10 +204,10 @@ def fallback_pointer(name, fallback_rows, V_T, shape) -> list:
 
 
 def require_card(name, V_T, plain) -> None:
-    """The previous kernels run on the card only: their plain version is
-    `plain`, the new kernel's."""
+    """The previous kernels and the `_global` entry points run on the card
+    only: their plain version is `plain`, the wrapper's."""
     if V_T.device.type != "cuda":
-        raise ValueError(f"{name}: the previous kernel runs on the card only; "
+        raise ValueError(f"{name}: the kernel runs on the card only; "
                          f"{plain} is the plain version")
 
 
@@ -190,6 +226,11 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     count loop and the full source scan. The plain version has no such
     branches and refuses it.
 
+    On CUDA tensors the grid decides (`sweep_kernel`): kernel 1 where its
+    shared memory takes it, else `household_sweep_ranged_kernel<float,
+    true, false, true>` (`fused_sweep_jvp_global` launches the latter at
+    any grid).
+
     Returns (agg, dagg, aggc, daggc): the (T-1,) savings and consumption
     aggregates and their directional derivatives.
     """
@@ -199,13 +240,32 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
         return fused_sweep_jvp_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    kernel = sweep_kernel(cuda_build.KERNEL1, *V_T.shape)
     out = launch_sweep("hank_sweep_jvp_f32", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, smem_kind=2, extra_ptrs=fallback, **kw)
-    fused_sweep_jvp.launches += 1
+                       n_out=4, smem_kind=kernel, extra_ptrs=fallback, **kw)
+    count_launch(fused_sweep_jvp, cuda_build.KERNEL1, kernel)
     return out
 
 
-fused_sweep_jvp.launches = 0
+fused_sweep_jvp.launches = fused_sweep_jvp.launches_global = 0
+
+
+def fused_sweep_jvp_global(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
+                           *, beta: float, gamma: float, borrow_cons: float,
+                           fallback_rows: torch.Tensor | None = None):
+    """`fused_sweep_jvp` through `household_sweep_ranged_kernel<float, true,
+    false, true>` at any grid: kernel 1's place past its shared memory,
+    held to kernel 1 bit for bit. No solver calls it. CUDA tensors only;
+    counted in `fused_sweep_jvp.launches_global`."""
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp_global", f32, paths, V_T, D0, grid, e_grid, Pi)
+    require_card("fused_sweep_jvp_global", V_T, "fused_sweep_jvp_reference")
+    fallback = fallback_pointer("fused_sweep_jvp_global", fallback_rows, V_T, (2,))
+    out = launch_sweep("hank_sweep_jvp_f32", paths, V_T, D0, grid, e_grid, Pi, n_out=4,
+                       smem_kind=cuda_build.GLOBAL_KERNEL1, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp.launches_global += 1
+    return out
 
 
 def fused_sweep_jvp_reference(r_path, w_path, dr_path, dw_path, V_T, D0, grid,
@@ -232,7 +292,9 @@ def fused_sweep_jvp_f64(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
                         fallback_rows: torch.Tensor | None = None):
     """`fused_sweep_jvp` in float64: all inputs float64, the same outputs
     and `fallback_rows` (a (2,) int32 CUDA tensor, refused on CPU tensors).
-    On the card `household_sweep_ranged_kernel<double, true, false>`; on CPU
+    On the card `household_sweep_ranged_kernel<double, true, false>`, or
+    past its shared memory its global-state instantiation
+    (`fused_sweep_jvp_f64_global` launches that one at any grid); on CPU
     tensors the plain version `fused_sweep_jvp_reference` in f64."""
     paths = (r_path, w_path, dr_path, dw_path)
     _check_inputs("fused_sweep_jvp_f64", f64, paths, V_T, D0, grid, e_grid, Pi)
@@ -240,13 +302,32 @@ def fused_sweep_jvp_f64(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
         return fused_sweep_jvp_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    kernel = sweep_kernel(cuda_build.JVP_F64, *V_T.shape)
     out = launch_sweep("hank_sweep_jvp_f64", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, smem_kind=cuda_build.JVP_F64, extra_ptrs=fallback, **kw)
-    fused_sweep_jvp_f64.launches += 1
+                       n_out=4, smem_kind=kernel, extra_ptrs=fallback, **kw)
+    count_launch(fused_sweep_jvp_f64, cuda_build.JVP_F64, kernel)
     return out
 
 
-fused_sweep_jvp_f64.launches = 0
+fused_sweep_jvp_f64.launches = fused_sweep_jvp_f64.launches_global = 0
+
+
+def fused_sweep_jvp_f64_global(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
+                               Pi, *, beta: float, gamma: float, borrow_cons: float,
+                               fallback_rows: torch.Tensor | None = None):
+    """`fused_sweep_jvp_f64` through `household_sweep_ranged_kernel<double,
+    true, false, true>` at any grid, held to `<double, true, false>` bit for
+    bit. No solver calls it. CUDA tensors only; counted in
+    `fused_sweep_jvp_f64.launches_global`."""
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp_f64_global", f64, paths, V_T, D0, grid, e_grid, Pi)
+    require_card("fused_sweep_jvp_f64_global", V_T, "fused_sweep_jvp_reference")
+    fallback = fallback_pointer("fused_sweep_jvp_f64_global", fallback_rows, V_T, (2,))
+    out = launch_sweep("hank_sweep_jvp_f64", paths, V_T, D0, grid, e_grid, Pi, n_out=4,
+                       smem_kind=cuda_build.GLOBAL_JVP_F64, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp_f64.launches_global += 1
+    return out
 
 
 def fused_sweep_jvp_f64_previous(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
@@ -305,22 +386,52 @@ def aggregate_keys(model) -> tuple[str, str | None]:
 KERNEL_NAMES = {cuda_build.KERNEL1: "kernel 1 (the f32 tangent sweep)",
                 cuda_build.KERNELS3_4: "kernels 3-4 (the batched f32 tangent sweep)",
                 cuda_build.KERNEL2: "kernel 2 (the f64 residual sweep)",
-                cuda_build.JVP_F64: "the f64 tangent sweep"}
+                cuda_build.JVP_F64: "the f64 tangent sweep",
+                cuda_build.GLOBAL_KERNEL1: "the global-state f32 tangent sweep",
+                cuda_build.GLOBAL_KERNELS3_4: "the global-state batched f32 tangent sweep",
+                cuda_build.GLOBAL_KERNEL2: "the global-state f64 residual sweep",
+                cuda_build.GLOBAL_JVP_F64: "the global-state f64 tangent sweep"}
 PLAIN_ROUTES = ("; on the card only the plain routes take this grid "
                 "(direction_mode='xla', residual_mode='f64')")
 
 
-def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None):
+def sweep_kernel(which: int, n_a: int, n_e: int) -> int:
+    """The kernel a map over one-block kernel `which` launches at an n_a×n_e
+    grid, decided by the library's shared-memory counts before any launch:
+    `which` where one block holds it, else its global-state instantiation
+    (`cuda_build.GLOBAL_STATE`), and ValueError, naming that one and the
+    plain routes, where its count does not fit either."""
+    if cuda_build.sweep_smem_bytes(which, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES:
+        return which
+    kernel = cuda_build.GLOBAL_STATE[which]
+    cuda_build.check_fit(cuda_build.sweep_smem_bytes(kernel, n_a, n_e),
+                         f"{KERNEL_NAMES[kernel]} at grid {n_a}x{n_e}", PLAIN_ROUTES)
+    return kernel
+
+
+class SweepSetup(NamedTuple):
+    """`sweep_setup`'s result: the model's `fused_prices` hook; the shared
+    kernel inputs (V_T, D0, grid, e_grid, Pi), contiguous; the kernels' CRRA
+    parameters; to_aggs(agg, aggc), the {variable: path} mapping of the
+    sweep's aggregates that the assembly takes; and the kernel the map
+    launches on the card (`sweep_kernel`; None off the card or without
+    `which`)."""
+
+    hook: Callable
+    consts: list
+    kw: dict
+    to_aggs: Callable
+    kernel: int | None
+
+
+def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None) -> SweepSetup:
     """What `_build_fused` and the `make_*` functions over the household
     sweep take from a supported model, with the steady-state arrays in
-    `dtype`. With `which` (the kernel the map launches, `cuda_build`'s
-    numbering) and the arrays on the card, ValueError where that kernel's
-    shared memory does not take the model's grid.
-
-    Returns (hook, consts, kw, to_aggs): the model's `fused_prices` hook;
-    the shared kernel inputs (V_T, D0, grid, e_grid, Pi), contiguous; the
-    kernels' CRRA parameters; and to_aggs(agg, aggc), the {variable: path}
-    mapping of the sweep's aggregates that the assembly takes.
+    `dtype`. With `which` (the one-block kernel the map launches,
+    `cuda_build`'s numbering) and the arrays on the card, the kernel it
+    launches at the model's grid (`sweep_kernel`: `which` or its
+    global-state instantiation), and ValueError where neither one's shared
+    memory takes the grid.
     """
     if not supports_fused_sweep(model):
         raise ValueError("model does not declare the canonical one-asset EGM "
@@ -331,21 +442,21 @@ def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None):
     consts = [t.to(dtype).contiguous() for t in
               (ss_ending.value, ss_initial.D, wealth.grid, prod.grid, prod.transition)]
     kw = dict(beta=float(p["β"]), gamma=float(p["γ"]), borrow_cons=float(p["borrow_cons"]))
+    kernel = None
     if which is not None and consts[0].is_cuda:
-        cuda_build.check_fit(cuda_build.sweep_smem_bytes(which, wealth.n, prod.n),
-                             f"{KERNEL_NAMES[which]} at grid {wealth.n}x{prod.n}",
-                             PLAIN_ROUTES)
+        kernel = sweep_kernel(which, wealth.n, prod.n)
 
     def to_aggs(agg, aggc):
         return {policy_var: agg} if c_key is None else {policy_var: agg, c_key: aggc}
 
-    return _fused_price_hook(model), consts, kw, to_aggs
+    return SweepSetup(_fused_price_hook(model), consts, kw, to_aggs, kernel)
 
 
 def _build_fused(model, ss_initial, ss_ending, exog_paths, dtype=f32):
     """The direction map through the household sweep in `dtype`
     (`hank_tpu/ops/fused_sweep.py:505-592` for f32): kernel 1 in f32,
-    `fused_sweep_jvp_f64` in f64.
+    `fused_sweep_jvp_f64` in f64, each or its global-state instantiation
+    as `sweep_setup` decides.
 
     Returns (jvp_dir, residual):
       jvp_dir(x, v) -> `dtype` directional derivative of F at x along v: the
@@ -355,7 +466,7 @@ def _build_fused(model, ss_initial, ss_ending, exog_paths, dtype=f32):
       residual(x) -> `dtype` F(x) through the same kernel with zero tangent.
     """
     which = cuda_build.KERNEL1 if dtype == f32 else cuda_build.JVP_F64
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, dtype, which)
+    hook, consts, kw, to_aggs, _ = sweep_setup(model, ss_initial, ss_ending, dtype, which)
     kernel = fused_sweep_jvp if dtype == f32 else fused_sweep_jvp_f64
     cs = model.compspec
     Tm1 = cs.T - 1

@@ -22,6 +22,12 @@ launches the previous kernels 3-4 (the counting template
 `household_sweep_kernel<float, true, *>`), which kernels 1 and 3-4 are held
 to bit for bit on the card; no solver calls it.
 
+Past one block's shared memory (at n_e = 7, n_a > 1148) the wrapper
+launches the global-state instantiation `<float, true, true, true>`
+(`fused_sweep.sweep_kernel`, counted in `.launches_global`), bit for bit
+`<float, true, true>` where both fit; `fused_sweep_jvp_batch_global`
+launches it at any grid, for the checks.
+
 `make_fused_jvp_batch` is the ensemble's direction map
 (`hank_tpu/ops/fused_sweep_batch.py:412-495`): per row, the price-map JVP,
 then the kernel for all rows at once, then the f32 assembly + residual tail
@@ -36,10 +42,10 @@ import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import (_check_inputs, fallback_pointer,
+from hank_tpu_torch.ops.fused_sweep import (_check_inputs, count_launch, fallback_pointer,
                                             fused_sweep_jvp_reference, launch_sweep,
                                             require_card, supports_fused_sweep,
-                                            sweep_setup)
+                                            sweep_kernel, sweep_setup)
 
 f32 = torch.float32
 
@@ -65,13 +71,34 @@ def fused_sweep_jvp_batch(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
     kw = dict(beta=beta, gamma=gamma, borrow_cons=borrow_cons)
     if V_T.device.type == "cpu":
         return fused_sweep_jvp_batch_reference(*paths, V_T, D0, grid, e_grid, Pi, **kw)
+    kernel = sweep_kernel(cuda_build.KERNELS3_4, *V_T.shape)
     out = launch_sweep("hank_sweep_jvp_f32_batch", paths, V_T, D0, grid, e_grid, Pi,
-                       n_out=4, smem_kind=3, extra_ptrs=fallback, **kw)
-    fused_sweep_jvp_batch.launches += 1
+                       n_out=4, smem_kind=kernel, extra_ptrs=fallback, **kw)
+    count_launch(fused_sweep_jvp_batch, cuda_build.KERNELS3_4, kernel)
     return out
 
 
-fused_sweep_jvp_batch.launches = 0
+fused_sweep_jvp_batch.launches = fused_sweep_jvp_batch.launches_global = 0
+
+
+def fused_sweep_jvp_batch_global(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
+                                 *, beta: float, gamma: float, borrow_cons: float,
+                                 fallback_rows: torch.Tensor | None = None):
+    """`fused_sweep_jvp_batch` through `household_sweep_ranged_kernel<float,
+    true, true, true>` at any grid, held to kernels 3-4 bit for bit. No
+    solver calls it. CUDA tensors only; counted in
+    `fused_sweep_jvp_batch.launches_global`."""
+    paths = (r_b, w_b, dr_b, dw_b)
+    _check_inputs("fused_sweep_jvp_batch_global", f32, paths, V_T, D0, grid, e_grid, Pi,
+                  batched=True)
+    require_card("fused_sweep_jvp_batch_global", V_T, "fused_sweep_jvp_batch_reference")
+    fallback = fallback_pointer("fused_sweep_jvp_batch_global", fallback_rows, V_T,
+                                (r_b.shape[0], 2))
+    out = launch_sweep("hank_sweep_jvp_f32_batch", paths, V_T, D0, grid, e_grid, Pi, n_out=4,
+                       smem_kind=cuda_build.GLOBAL_KERNELS3_4, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp_batch.launches_global += 1
+    return out
 
 
 def fused_sweep_jvp_batch_previous(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
@@ -124,8 +151,8 @@ def make_fused_jvp_batch(model, ss_initial, ss_ending):
     {k: exog_batch[k][b]}, (B, T-1) each — the batched analogue of
     `fused_sweep._build_fused`'s jvp_dir, with the same f32 tail.
     """
-    hook, consts, kw, to_aggs = sweep_setup(model, ss_initial, ss_ending, f32,
-                                            cuda_build.KERNELS3_4)
+    hook, consts, kw, to_aggs, _ = sweep_setup(model, ss_initial, ss_ending, f32,
+                                               cuda_build.KERNELS3_4)
     cs = model.compspec
     Tm1 = cs.T - 1
     vars0 = {k: torch.as_tensor(v).to(f32) for k, v in ss_initial.vars.items()}

@@ -11,7 +11,12 @@ batched operations, by one of three routes:
     2 (`ops/fused_residual.make_sweep_residual_fn_batch`), and the direction
     map every row's f32 JVP in one launch of the batched kernel 1
     (`ops/fused_sweep_batch.make_fused_jvp_batch`, kernels 3-4); on CPU
-    tensors the two kernels run their plain versions;
+    tensors the two kernels run their plain versions. On the card each
+    map decides by the grid between the one-block kernel and its
+    global-state instantiation (`<float, true, true, true>`, `<double,
+    false, true, true>`, whose state lives in a global workspace): at n_e =
+    7 past n_a = 1148 and 1036 the global-state ones launch, and past their
+    own counts (10792 and 5390) the route raises ValueError when built;
   - the two-asset route, for the Calvo-access family
     (`supports_fused_sweep2`) with the state on the card
     (`ss_ending.value.is_cuda`, the rule "auto" follows in

@@ -13,13 +13,17 @@ rank's columns:
     this rank's columns e' of Π;
   - the expectation over e' inside the model's `value_fn`, which gets the
     whole next-period value and a model whose sharded dimension holds this
-    rank's grid points and rows of Π. So `value_fn` must take its
-    expectation as V' Πᵀ with the dimension's own transition and size its
-    outputs from that model (the shipped one-asset models do,
-    `ops/egm.crra_egm_step`). The two-asset `value_fn` does not: it stacks
-    both access columns whatever the access dimension holds. A `value_fn`
-    that returns another width than this rank's block is refused with
-    ValueError, where XLA would have run the whole step on every device.
+    rank's grid points and rows of Π. A `value_fn` that takes its
+    expectation as V' Πᵀ with the dimension's own transition and sizes its
+    outputs from that model (the shipped one-asset models,
+    `ops/egm.crra_egm_step`) computes this rank's block. One that returns
+    the split axis at full width whatever the dimension holds (the
+    two-asset `value_fn` stacks both access columns) does not: from its
+    first step on, each rank runs the whole step with the unsplit model on
+    the gathered value and keeps its block of each output, as XLA does
+    with the reference's shardings (`hank_tpu/parallel/state_sharding.py:
+    66-90`). A `value_fn` that returns any other width is refused with
+    ValueError.
 The aggregates are one all-reduce sum. Where the reference lets XLA insert
 these collectives from `NamedSharding`s, the port writes them out.
 """
@@ -132,16 +136,24 @@ def backward_iteration_sharded(
     d = dataclasses.replace(d, n=shard.stop - shard.start, grid=d.grid[shard.start:shard.stop],
                             transition=d.transition[shard.start:shard.stop])
     value_fn = model.value_fn
+    unsplit = False       # set once the value_fn has returned the split axis at full width
 
     def local_value_fn(value_next, xvals, local):
-        result = value_fn(_gather_last(value_next, mesh, axis), xvals, local)
-        for key, t in result.items():
-            if t.shape[-1] != d.n:
+        nonlocal unsplit
+        full = _gather_last(value_next, mesh, axis)
+        if not unsplit:
+            result = value_fn(full, xvals, local)
+            widths = {k: t.shape[-1] for k, t in result.items()}
+            if set(widths.values()) == {d.n}:
+                return result
+            if set(widths.values()) != {shard.n}:
+                found = ", ".join(f"{k} with {w} entries" for k, w in widths.items())
                 raise ValueError(
                     f"backward_iteration_sharded: the value_fn of model {model.name!r} returns "
-                    f"{key} with {t.shape[-1]} entries on the split {name!r} axis, not this "
-                    f"rank's {d.n}: it does not compute a block of that axis")
-        return result
+                    f"{found} on the split {name!r} axis; it must return all of them at this "
+                    f"rank's {d.n} or all at the full {shard.n}")
+            unsplit = True
+        return {k: shard.take(t) for k, t in value_fn(full, xvals, model).items()}
 
     local = dataclasses.replace(model, heterogeneity={**model.heterogeneity, name: d},
                                 value_fn=local_value_fn)

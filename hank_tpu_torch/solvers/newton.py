@@ -32,10 +32,17 @@ directions and AD of the plain f64 pipeline under f32 ones. Residuals
 (`ops/fused_residual2.py`) on the card ("auto") or on any device ("ds"),
 a departure from the reference, which keeps that F on XLA; else from the
 plain f64 pipeline.
-On the card a kernel route whose kernel's shared memory does not take the
-model's grid raises ValueError when the solver is built (`sweep_setup`,
-`fused_sweep2._build_fused2`), naming the plain routes ("xla", "f64") that
-take it: a departure from the reference, which probes its kernel and
+On the card every one-asset kernel route decides by the model's grid,
+before any launch, between two hand-written kernels (`sweep_setup`,
+`fused_sweep.sweep_kernel`): the one-block kernel where its shared memory
+takes the grid, else its global-state instantiation
+(`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`, the state in
+a global workspace; at n_e = 7 it takes n_a ≤ 4980 for the f64 tangent
+sweep, ≤ 5390 for kernel 2, ≤ 10792 in kernel 1's place). Past that
+one's count, and past kernels 5-6's or the f64 pair's for the two-asset
+family (`fused_sweep2._build_fused2`), the route raises ValueError when
+the solver is built, naming the plain routes ("xla", "f64") that take the
+grid: a departure from the reference, which probes its kernel and
 degrades to XLA with a warning (`:356-376, 431-450`).
 
 method="newton_krylov" (`:900-1069`): per outer, the Newton step from
@@ -285,7 +292,9 @@ def direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode: st
     the one-asset family on its TPU (`:402-418`): on the card "auto" takes
     kernels 5-6 for the two-asset family too, because their `jvp_dir` is
     132-133 ms per direction against 15-27 s for the plain f32 one on an
-    H100 80GB HBM3 at 700 W (PERF.md §6)."""
+    H100 80GB HBM3 at 700 W (PERF.md §6). For the one-asset family the
+    kernel is kernel 1, or past its shared memory the global-state
+    `<float, true, false, true>` (module docstring)."""
     kernels = supports_fused_sweep(model) or supports_fused_sweep2(model)
     if direction_mode == "pallas" or (direction_mode == "auto" and kernels
                                       and ss_ending.value.is_cuda):
@@ -319,8 +328,10 @@ def f64_direction_route(model, ss_initial, ss_ending, exog_paths,
     true, false>`) for the one-asset family, because AD through the eager
     plain pipeline took 65.1 s for the one-asset HANK 50×7, T=300 solve
     (one outer) where the f64 tangent sweep takes 0.110 s, on an H100 80GB
-    HBM3 at 700 W (PERF.md §5). On CPU tensors "auto" is AD, as in the
-    reference."""
+    HBM3 at 700 W (PERF.md §5). Past that kernel's shared memory (n_a > 529
+    at n_e = 7) its global-state instantiation `<double, true, false,
+    true>` takes the grid, and past that one's count (n_a > 4980) the
+    build raises. On CPU tensors "auto" is AD, as in the reference."""
     sweep = supports_fused_sweep(model)
     if direction_mode == "pallas" and not sweep:
         raise ValueError("direction_mode='pallas' with f64 directions needs the one-asset "
@@ -360,7 +371,10 @@ def residual_route(model, ss_initial, ss_ending, exog_paths, residual_mode: str 
     HBM3 at 700 W (PERF.md §5). Unlike kernel 2, the pair leaves
     Newton-Krylov's f32-residual phase on (`_kernel_residual`), as the
     reference runs it for this family, so the solver's outers, matvecs
-    and F calls are those of the plain route."""
+    and F calls are those of the plain route. Kernel 2 past its shared
+    memory (n_a > 1036 at n_e = 7) is its global-state instantiation
+    `<double, false, false, true>`; past that one's count (n_a > 5390) the
+    build raises."""
     if _kernel_residual(model, residual_mode):
         return make_sweep_residual_fn(model, ss_initial, ss_ending, exog_paths)
     if (residual_mode != "f64" and supports_fused_sweep2(model)

@@ -3,7 +3,10 @@
 On the card every kernel map is held, when it is built, to the shared
 memory its kernel needs at the model's grid (`ops/cuda_build.check_fit` of
 the library's own count, from `fused_sweep.sweep_setup` and
-`fused_sweep2._build_fused2`): past a kernel's limit the build raises
+`fused_sweep2._build_fused2`). A one-asset map whose one-block kernel does
+not take the grid builds on that kernel's global-state instantiation
+(`fused_sweep.sweep_kernel`: a decision by the counts, before any launch);
+past that one's count, and past a two-asset kernel's, the build raises
 ValueError, under "auto" as under "pallas"/"ds", before a solve starts and
 before any launch, and the message names the plain routes ("xla", "f64")
 that take the grid. No route falls back to a plain version on the card.
@@ -12,7 +15,8 @@ The reference degrades instead, after its probes
 
 Without a card the library cannot count, so the tests count with Python
 transcriptions of `csrc/household_sweep.cu`'s `smem_bytes<S, TANGENT>`,
-`jvp_smem_bytes` and the two forward scans' counts (kernels 5-6 reuse
+`jvp_smem_bytes`, `global_smem_bytes<S, TANGENT>` and the two forward
+scans' counts (kernels 5-6 reuse
 `tests/test_torch_bwd_schedule.py`'s and `tests/test_torch_lottery_schedule.py`'s)
 and hand them to the check through `cuda_build.sweep_smem_bytes`; the steady
 state is made to report its arrays on the card (`OnCard`), while the
@@ -31,6 +35,7 @@ import hank_tpu_torch.parallel.ensemble as ensemble_mod
 import hank_tpu_torch.solvers.newton as newton_mod
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops import fused_sweep2 as fs2
+from hank_tpu_torch.ops.fused_residual import fused_residual_sweep_reference
 from hank_tpu_torch.ops.fused_sweep import KERNEL_NAMES, fused_sweep_jvp_reference, sweep_setup
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_bwd_schedule import cluster_smem_bytes as k5_bytes
@@ -61,6 +66,12 @@ def jvp_smem_bytes(n_a, n_e):
     return smem_bytes(4, True, n_a, n_e) + 2 * 4 * n_e
 
 
+def global_smem_bytes(size, tangent, n_a, n_e):
+    """`global_smem_bytes<S, TANGENT>`: the global-state instantiations keep
+    the grid arrays, labor, Pi and the reduction slots in shared memory."""
+    return size * (5 * n_a + n_e + n_e * n_e + (4 if tangent else 2) * K_THREADS)
+
+
 def forward_scan_previous_smem_bytes(n_a, n_e):
     return 4 * (3 * n_a * n_e + 5 * n_a + n_e * n_e + K_THREADS)
 
@@ -79,11 +90,20 @@ BYTES = {
     cuda_build.KERNEL2: lambda n_a, n_e: smem_bytes(8, False, n_a, n_e),
     cuda_build.JVP_F64: lambda n_a, n_e: smem_bytes(8, True, n_a, n_e),
     cuda_build.PREVIOUS_JVP_F64: lambda n_a, n_e: smem_bytes(8, True, n_a, n_e),
+    cuda_build.GLOBAL_KERNEL1: lambda n_a, n_e: global_smem_bytes(4, True, n_a, n_e),
+    cuda_build.GLOBAL_KERNELS3_4: lambda n_a, n_e: global_smem_bytes(4, True, n_a, n_e),
+    cuda_build.GLOBAL_KERNEL2: lambda n_a, n_e: global_smem_bytes(8, False, n_a, n_e),
+    cuda_build.GLOBAL_JVP_F64: lambda n_a, n_e: global_smem_bytes(8, True, n_a, n_e),
 }
 
 # The last n_a each kernel takes at n_e = 7.
 LIMITS = {"kernel2": (cuda_build.KERNEL2, 1036), "kernel1": (cuda_build.KERNEL1, 1147),
           "kernels3_4": (cuda_build.KERNELS3_4, 1148), "jvp_f64": (cuda_build.JVP_F64, 529)}
+# The last n_a each global-state instantiation takes at n_e = 7.
+GLOBAL_LIMITS = {"kernel2": (cuda_build.GLOBAL_KERNEL2, 5390),
+                 "kernel1": (cuda_build.GLOBAL_KERNEL1, 10792),
+                 "kernels3_4": (cuda_build.GLOBAL_KERNELS3_4, 10792),
+                 "jvp_f64": (cuda_build.GLOBAL_JVP_F64, 4980)}
 
 
 class OnCard(torch.Tensor):
@@ -116,9 +136,30 @@ def count(monkeypatch):
 
 @pytest.fixture
 def over(monkeypatch):
-    """Every one-asset and two-asset kernel one byte past a block."""
+    """Every one-asset (the global-state instantiations too) and two-asset
+    kernel one byte past a block."""
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda *a: SMEM + 1)
     monkeypatch.setattr(cuda_build, "sweep2_smem_bytes", lambda *a: SMEM + 1)
+
+
+def one_block_over(n_a, n_e, which):
+    """Every one-block one-asset kernel one byte past a block; the
+    global-state instantiations at the transcription's count."""
+    return SMEM + 1 if which in cuda_build.GLOBAL_STATE else BYTES[which](n_a, n_e)
+
+
+@pytest.fixture
+def past_one_block(monkeypatch):
+    """`one_block_over` as the library's count; returns the list of the
+    `which` asked."""
+    asked = []
+
+    def counted(which, n_a, n_e):
+        asked.append(which)
+        return one_block_over(n_a, n_e, which)
+
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes", counted)
+    return asked
 
 
 def test_check_fit_is_the_block_limit():
@@ -132,20 +173,40 @@ def test_check_fit_is_the_block_limit():
 @pytest.mark.parametrize("name", sorted(LIMITS))
 def test_decision_at_each_limit_and_one_past_it(ks, count, name):
     """At n_e = 7: kernel 2 takes n_a ≤ 1036, kernel 1 ≤ 1147, kernels 3-4
-    ≤ 1148, the f64 tangent sweep ≤ 529; one knot more and the map's build
-    raises, naming the kernel, its bytes and the plain routes."""
+    ≤ 1148, the f64 tangent sweep ≤ 529; one knot more and the map builds
+    on the kernel's global-state instantiation, decided by the counts."""
     which, last = LIMITS[name]
     tss = on_card(ks[1])
     dtype = f32 if which in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
-    sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype, which)
+    setup = sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype, which)
+    assert setup.kernel == which
+    model = build_small_ks_torch(T=12, n_a=last + 1, n_e=7)
+    assert sweep_setup(model, tss, tss, dtype, which).kernel == cuda_build.GLOBAL_STATE[which]
+    assert BYTES[which](last + 1, 7) > SMEM
+    assert count == [which, which, cuda_build.GLOBAL_STATE[which]]
+
+
+@pytest.mark.parametrize("name", sorted(GLOBAL_LIMITS))
+def test_decision_at_each_global_state_limit_and_one_past_it(ks, count, name):
+    """At n_e = 7 the global-state instantiations take n_a ≤ 5390 (kernel
+    2's place), ≤ 10792 (kernel 1's and kernels 3-4's), ≤ 4980 (the f64
+    tangent sweep's); one knot more and the map's build raises, naming the
+    instantiation, its bytes and the plain routes."""
+    which, last = GLOBAL_LIMITS[name]
+    one_block = LIMITS[name][0]
+    tss = on_card(ks[1])
+    dtype = f32 if one_block in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
+    setup = sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype,
+                        one_block)
+    assert setup.kernel == which
     model = build_small_ks_torch(T=12, n_a=last + 1, n_e=7)
     with pytest.raises(ValueError) as err:
-        sweep_setup(model, tss, tss, dtype, which)
+        sweep_setup(model, tss, tss, dtype, one_block)
     text = str(err.value)
     assert text.startswith(f"{KERNEL_NAMES[which]} at grid {last + 1}x7 needs "
                            f"{BYTES[which](last + 1, 7)} bytes of shared memory")
     assert text.endswith(PLAIN)
-    assert count == [which, which]
+    assert count == [one_block, which] * 2
 
 
 def test_kernel7_takes_every_grid_the_previous_kernel7_takes():
@@ -212,8 +273,9 @@ def test_two_asset_pair_build_asks_both_kernels(monkeypatch):
 
 def test_auto_f32_direction_route_takes_kernel1_or_raises(ks, count, monkeypatch):
     """On the card "auto" builds kernel 1's map (its plain version here)
-    where it fits; past its limit the build raises, and "xla" builds the
-    mixed-tail map without asking."""
+    where it fits, and past its limit the map of its global-state
+    instantiation; past that one's count the build raises, and "xla" builds
+    the mixed-tail map without asking."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     v = torch.ones_like(x)
@@ -222,8 +284,14 @@ def test_auto_f32_direction_route_takes_kernel1_or_raises(ks, count, monkeypatch
         warnings.simplefilter("error", UserWarning)
         newton_mod.direction_route(tm, card, card, exog, "auto")[0](x, v)
     assert fused_sweep_jvp_reference.calls == calls + 1 and set(count) == {cuda_build.KERNEL1}
+    count.clear()
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
+                        lambda w, n_a, n_e: count.append(w) or one_block_over(n_a, n_e, w))
+    newton_mod.direction_route(tm, card, card, exog, "auto")[0](x, v)
+    assert fused_sweep_jvp_reference.calls == calls + 2
+    assert set(count) == {cuda_build.KERNEL1, cuda_build.GLOBAL_KERNEL1}
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda *a: SMEM + 1)
-    with pytest.raises(ValueError, match="kernel 1 .* needs"):
+    with pytest.raises(ValueError, match="the global-state f32 tangent sweep .* needs"):
         newton_mod.direction_route(tm, card, card, exog, "auto")
     jvp_dir, _ = newton_mod.direction_route(tm, card, card, exog, "xla")
     mixed, _ = newton_mod.mixed_tail_map(tm, tss, tss)
@@ -232,8 +300,9 @@ def test_auto_f32_direction_route_takes_kernel1_or_raises(ks, count, monkeypatch
 
 def test_auto_f64_direction_route_takes_the_f64_sweep_or_raises(ks, count, monkeypatch):
     """On the card "auto" builds the f64 tangent sweep's map (its plain
-    version here) where it fits; past its limit the build raises, and
-    "xla" is AD."""
+    version here) where it fits, and past its limit the map of its
+    global-state instantiation, with no AD direction; past that one's count
+    the build raises, and "xla" is AD."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     v = torch.ones_like(x)
@@ -241,40 +310,67 @@ def test_auto_f64_direction_route_takes_the_f64_sweep_or_raises(ks, count, monke
     newton_mod.f64_direction_route(tm, card, card, exog, "auto")(x, v)
     assert (fused_sweep_jvp_reference.calls, newton_mod.ad_direction.calls) == (calls + 1, ad)
     assert count == [cuda_build.JVP_F64]
+    count.clear()
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
+                        lambda w, n_a, n_e: count.append(w) or one_block_over(n_a, n_e, w))
+    newton_mod.f64_direction_route(tm, card, card, exog, "auto")(x, v)
+    assert (fused_sweep_jvp_reference.calls, newton_mod.ad_direction.calls) == (calls + 2, ad)
+    assert count == [cuda_build.JVP_F64, cuda_build.GLOBAL_JVP_F64]
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda *a: SMEM + 1)
-    with pytest.raises(ValueError, match="the f64 tangent sweep at grid 40x5 needs"):
+    with pytest.raises(ValueError,
+                       match="the global-state f64 tangent sweep at grid 40x5 needs"):
         newton_mod.f64_direction_route(tm, card, card, exog, "auto")
     newton_mod.f64_direction_route(tm, card, card, exog, "xla")(x, v)
     assert newton_mod.ad_direction.calls == ad + 1
 
 
-def test_kernel2_residual_routes_raise_past_the_limit(ks, over):
-    """Past kernel 2's limit "auto" and "ds" raise when the residual is
-    built; "f64" takes the plain f64 pipeline."""
+def test_kernel2_residual_routes_raise_past_the_limit(ks, over, monkeypatch):
+    """Past kernel 2's one-block limit "auto" and "ds" build on its
+    global-state instantiation (its plain version here: the same F as the
+    plain f64 pipeline); past that one's count they raise when the residual
+    is built; "f64" takes the plain f64 pipeline."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     for mode in ("auto", "ds"):
-        with pytest.raises(ValueError, match="kernel 2 .* needs"):
+        with pytest.raises(ValueError, match="the global-state f64 residual sweep .* needs"):
             newton_mod.residual_route(tm, card, card, exog, mode)
     F = newton_mod.residual_route(tm, card, card, exog, "f64")
-    assert torch.equal(F(x), newton_mod.make_full_residual_fn(tm, tss, tss, exog)(x))
+    plain = newton_mod.make_full_residual_fn(tm, tss, tss, exog)(x)
+    assert torch.equal(F(x), plain)
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
+                        lambda w, n_a, n_e: one_block_over(n_a, n_e, w))
+    for mode in ("auto", "ds"):
+        calls = fused_residual_sweep_reference.calls
+        F = newton_mod.residual_route(tm, card, card, exog, mode)
+        assert float((F(x) - plain).abs().max()) <= 1e-12
+        assert fused_residual_sweep_reference.calls == calls + 1
 
 
-def test_explicit_pallas_modes_raise_at_the_build(ks, over):
-    """"pallas" past the limit raises when the map is built, not at its
-    first launch."""
+def test_explicit_pallas_modes_raise_at_the_build(ks, over, monkeypatch):
+    """"pallas" past the global-state instantiations' counts raises when
+    the map is built, not at its first launch; past the one-block kernels'
+    alone it builds on the global-state ones."""
     tm, tss, exog, x = ks
     card = on_card(tss)
-    with pytest.raises(ValueError, match="kernel 1 .* needs"):
+    with pytest.raises(ValueError, match="the global-state f32 tangent sweep .* needs"):
         newton_mod.direction_route(tm, card, card, exog, "pallas")
-    with pytest.raises(ValueError, match="the f64 tangent sweep .* needs"):
+    with pytest.raises(ValueError, match="the global-state f64 tangent sweep .* needs"):
         newton_mod.f64_direction_route(tm, card, card, exog, "pallas")
+    asked = []
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
+                        lambda w, n_a, n_e: asked.append(w) or one_block_over(n_a, n_e, w))
+    newton_mod.direction_route(tm, card, card, exog, "pallas")
+    newton_mod.f64_direction_route(tm, card, card, exog, "pallas")
+    assert set(asked) == {cuda_build.KERNEL1, cuda_build.GLOBAL_KERNEL1,
+                          cuda_build.JVP_F64, cuda_build.GLOBAL_JVP_F64}
 
 
-def test_path_solver_raises_at_the_build_past_the_limits(ks, over):
+def test_path_solver_raises_at_the_build_past_the_limits(ks, over, monkeypatch):
     """`make_path_solver` with the defaults (f64 directions, kernel-2
-    residual) past every limit raises before a solve; the plain routes
-    build and solve, without a warning."""
+    residual) past every limit, the global-state instantiations' included,
+    raises before a solve; the plain routes build and solve, without a
+    warning. Past the one-block limits alone the defaults build on the
+    global-state instantiations."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     J = torch.eye(x.shape[0], dtype=f64)
@@ -289,24 +385,45 @@ def test_path_solver_raises_at_the_build_past_the_limits(ks, over):
     ad = newton_mod.ad_direction.calls
     run(x)
     assert newton_mod.ad_direction.calls > ad
+    asked = []
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
+                        lambda w, n_a, n_e: asked.append(w) or one_block_over(n_a, n_e, w))
+    for kw in ({}, {"direction_dtype": f32}):
+        asked.clear()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", UserWarning)
+            newton_mod.make_path_solver(J, exog, tm, card, card, method="boehl", **kw)
+        assert {w for w in asked if w in cuda_build.GLOBAL_STATE.values()} == {
+            cuda_build.GLOBAL_KERNEL2,
+            cuda_build.GLOBAL_KERNEL1 if kw else cuda_build.GLOBAL_JVP_F64}
 
 
-def test_ensemble_routes_raise_past_the_limits(ks, over):
-    """Past both limits the ensemble's kernel-2 residual and its batched
+def test_ensemble_routes_raise_past_the_limits(ks, over, monkeypatch):
+    """Past every limit the ensemble's kernel-2 residual and its batched
     f32 direction map raise when built; f64 ensemble directions take the
-    plain route."""
+    plain route. Past the one-block limits alone both build on the
+    batched global-state instantiations."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     B = 2
     exog_b = {k: v[None].expand(B, -1).contiguous() for k, v in exog.items()}
     x_b = x[None].expand(B, -1).contiguous()
-    with pytest.raises(ValueError, match="kernel 2 .* needs"):
+    with pytest.raises(ValueError, match="the global-state f64 residual sweep .* needs"):
         ensemble_mod.residual_ensemble(x_b, exog_b, tm, card, card)
     J = torch.eye(x.shape[0], dtype=f64)
-    with pytest.raises(ValueError, match="kernel 2 .* needs"):
+    with pytest.raises(ValueError, match="the global-state f64 residual sweep .* needs"):
         ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1)
     ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1,
                                      direction_dtype=None)
+    asked = []
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
+                        lambda w, n_a, n_e: asked.append(w) or one_block_over(n_a, n_e, w))
+    F_b = ensemble_mod.residual_ensemble(x_b, exog_b, tm, card, card)
+    assert float((F_b[0] - newton_mod.make_full_residual_fn(tm, tss, tss, exog)(x))
+                 .abs().max()) <= 1e-12
+    ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1)
+    assert {w for w in asked if w in cuda_build.GLOBAL_STATE.values()} == {
+        cuda_build.GLOBAL_KERNEL2, cuda_build.GLOBAL_KERNELS3_4}
 
 
 @pytest.mark.parametrize("mode", ["pallas", "auto"])

@@ -8,6 +8,10 @@ x = 1.01·x_ss under Z_t = 1 + 0.1·0.8ᵗ: each rank's block of the backward
 block's policy paths within 1e-11, and the forward block's aggregates
 within 1e-12, of the port's unsplit blocks and of hank_tpu's
 (`tests/test_sharded_jacobian.py:54, 72`); the split refused at n_e = 7.
+The small two-asset model's backward block split over its access axis at
+two ranks against the unsplit port within 1e-12 and hank_tpu within 1e-12
+of the policies' scale, and a value_fn of a third or of mixed widths
+refused.
 """
 
 import jax.numpy as jnp
@@ -93,8 +97,36 @@ def test_state_split_refuses_an_axis_the_ranks_do_not_divide(ranks):
 
 def test_backward_iteration_sharded_refuses_a_value_fn_that_does_not_split():
     """The two-asset value_fn stacks both access columns whatever the access
-    dimension holds; split over two ranks, each rank's step comes back at
-    full width, and every rank raises ValueError naming the model."""
-    msgs = spawn_ranks(torch_ranks.two_asset_state_rank, 2, device="cpu", timeout=300)
-    for msg in msgs:
-        assert msg is not None and "Two-Asset HANK" in msg and "'access'" in msg, msg
+    dimension holds. Split over two ranks, each rank runs the whole step on
+    the gathered value and keeps its access column: gathered, the policy
+    paths are the port's unsplit block's within 1e-12, and the JAX
+    package's (`backward_iteration` on the same inputs) within 1e-12 of
+    their scale (the policies reach 120). A value_fn that
+    returns a third width (its outputs three times over), or one output at
+    the rank's width and the others at full width, is refused with
+    ValueError on every rank, naming the model, the axis and the widths."""
+    from hank_tpu.blocks.backward import backward_iteration as jbackward
+    from tests.test_hank_two_asset import build_small_two_asset
+
+    ranks = spawn_ranks(torch_ranks.two_asset_state_rank, 2, device="cpu", timeout=300)
+    model = torch_ranks.build_small_two_asset_torch()
+    x, exog, ss_vars, value = torch_ranks.two_asset_block_inputs(model)
+    unsplit = backward_iteration(to_torch(x), {k: to_torch(v) for k, v in exog.items()}, model,
+                                 {k: torch.tensor(v, dtype=torch.float64)
+                                  for k, v in ss_vars.items()}, to_torch(value))
+    ref = jbackward(jnp.asarray(x), {k: jnp.asarray(v) for k, v in exog.items()},
+                    build_small_two_asset(), {k: jnp.asarray(v) for k, v in ss_vars.items()},
+                    jnp.asarray(value))
+    assert [(r["start"], r["stop"]) for r in ranks] == [(0, 1), (1, 2)]
+    for k, p_unsplit in unsplit.items():
+        gathered = torch.cat([r["policies"][k] for r in ranks], dim=-1)
+        assert gathered.shape == p_unsplit.shape
+        assert bool(torch.isfinite(gathered).all())
+        assert float((gathered - p_unsplit).abs().max()) <= 1e-12
+        scale = max(float(np.max(np.abs(np.asarray(ref[k])))), 1.0)
+        assert float(np.max(np.abs(gathered.numpy() - np.asarray(ref[k])))) <= 1e-12 * scale
+    for r in ranks:
+        for label, width in (("tripled", "with 6 entries"), ("mixed", "with 1 entries")):
+            msg = r["errors"][label]
+            assert msg is not None and "Two-Asset HANK" in msg and "'access'" in msg, msg
+            assert "returns" in msg and width in msg, msg

@@ -35,14 +35,19 @@ from hank_tpu_torch.models import load_model
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_batch,
+                                               fused_residual_sweep_batch_global,
                                                fused_residual_sweep_batch_previous,
-                                               fused_residual_sweep_previous)
+                                               fused_residual_sweep_global,
+                                               fused_residual_sweep_previous,
+                                               fused_residual_sweep_reference)
 from hank_tpu_torch.ops.forward_scan import (forward_scan, forward_scan_previous,
                                              forward_scan_reference)
 from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+                                            fused_sweep_jvp_f64_global,
                                             fused_sweep_jvp_f64_previous,
-                                            fused_sweep_jvp_reference)
+                                            fused_sweep_jvp_global, fused_sweep_jvp_reference)
 from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                  fused_sweep_jvp_batch_global,
                                                   fused_sweep_jvp_batch_previous)
 
 torch.set_num_threads(1)
@@ -284,6 +289,94 @@ def test_f64_tangent_sweep_on_card_is_bit_for_bit_the_template(cuda):
     zero = torch.zeros_like(single[2])
     out0 = fused_sweep_jvp_f64(*single[:2], zero, zero, *c, **kw)
     assert bool((out0[1] == 0).all() and (out0[3] == 0).all())
+
+
+def with_nan(c):
+    """The shared inputs with one NaN in V_T."""
+    V = c[0].clone()
+    V[17, 2] = float("nan")
+    return [V, *c[1:]]
+
+
+@pytest.mark.gpu
+def test_global_state_instantiations_on_card_are_bit_for_bit_the_one_block_kernels(cuda):
+    """Each global-state instantiation against the one-block kernel whose
+    place it takes, on every output bit and fallback count: near the steady
+    state, on the swapped grid and with a NaN in V_T (fallback branches
+    taken); `<float, true, false, true>` against kernel 1, every batched row
+    against a single global-state launch; `.launches_global` counts them."""
+    kw = kernel_kwargs()
+    p32, c32 = inputs(3, f32, cuda, seed=9)
+    p64, c64 = inputs(3, f64, cuda, seed=9)
+    singles = ((fused_sweep_jvp, fused_sweep_jvp_global, [p[0] for p in p32], c32),
+               (fused_sweep_jvp_f64, fused_sweep_jvp_f64_global, [p[0] for p in p64], c64),
+               (fused_residual_sweep, fused_residual_sweep_global, [p[0] for p in p64[:2]],
+                c64))
+    batches = ((fused_sweep_jvp_batch, fused_sweep_jvp_batch_global, fused_sweep_jvp_global,
+                p32, c32),
+               (fused_residual_sweep_batch, fused_residual_sweep_batch_global,
+                fused_residual_sweep_global, p64[:2], c64))
+    for one_block, glob, paths, c in singles:
+        for shared in (c, swapped_grid(c), with_nan(c)):
+            fb_one, fb_glob = (torch.zeros(2, dtype=torch.int32, device=cuda) for _ in "ab")
+            launches = (one_block.launches, one_block.launches_global)
+            out = glob(*paths, *shared, **kw, fallback_rows=fb_glob)
+            old = one_block(*paths, *shared, **kw, fallback_rows=fb_one)
+            assert (one_block.launches, one_block.launches_global) == \
+                (launches[0] + 1, launches[1] + 1)
+            assert all(same_bits(o, q) for o, q in zip(out, old)), one_block.__name__
+            assert torch.equal(fb_one, fb_glob)
+        assert int(fb_glob.sum()) > 0
+    for one_block, glob, single, paths, c in batches:
+        for shared in (c, swapped_grid(c)):
+            fb_one, fb_glob = (torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+                               for _ in "ab")
+            out = glob(*paths, *shared, **kw, fallback_rows=fb_glob)
+            old = one_block(*paths, *shared, **kw, fallback_rows=fb_one)
+            assert all(same_bits(o, q) for o, q in zip(out, old)), one_block.__name__
+            assert torch.equal(fb_one, fb_glob)
+            for b in range(3):
+                row = single(*(p[b] for p in paths), *shared, **kw)
+                assert all(same_bits(o[b], q) for o, q in zip(out, row))
+
+
+@pytest.mark.gpu
+def test_wrappers_on_card_launch_the_global_state_kernels_past_one_block(cuda):
+    """At 1200×7, past every one-block kernel's shared memory, each wrapper
+    launches its global-state instantiation by the grid, within phase 4's
+    bounds of its plain version in f64, a zero tangent exactly zero."""
+    kw = kernel_kwargs()
+    p64, c64 = inputs(2, f64, cuda, seed=10, n_a=1200, n_e=7, Tm1=6)
+    p32, c32 = inputs(2, f32, cuda, seed=10, n_a=1200, n_e=7, Tm1=6)
+    cpu64 = [a.cpu() for a in c64]
+
+    def close(out, ref, tol):
+        for o, q in zip(out, ref):
+            assert float((o.double().cpu() - q).abs().max()) <= \
+                tol * max(float(q.abs().max()), 1.0)
+
+    before = {fn: (fn.launches, fn.launches_global) for fn in
+              (fused_sweep_jvp, fused_sweep_jvp_f64, fused_residual_sweep,
+               fused_sweep_jvp_batch, fused_residual_sweep_batch)}
+    ref = fused_sweep_jvp_reference(*(p[0].cpu() for p in p64), *cpu64, **kw)
+    ref32 = fused_sweep_jvp_reference(*(p[0].double().cpu() for p in p32),
+                                      *(a.double().cpu() for a in c32), **kw)
+    close(fused_sweep_jvp_f64(*(p[0] for p in p64), *c64, **kw), ref, 1e-10)
+    close(fused_sweep_jvp(*(p[0] for p in p32), *c32, **kw), ref32, 3e-5)
+    out_b = fused_sweep_jvp_batch(*p32, *c32, **kw)
+    close([o[0] for o in out_b], ref32, 3e-5)
+    close(fused_residual_sweep(p64[0][0], p64[1][0], *c64, **kw),
+          fused_residual_sweep_reference(p64[0][0].cpu(), p64[1][0].cpu(), *cpu64, **kw),
+          1e-11)
+    out_b64 = fused_residual_sweep_batch(*p64[:2], *c64, **kw)
+    close([o[1] for o in out_b64],
+          fused_residual_sweep_reference(p64[0][1].cpu(), p64[1][1].cpu(), *cpu64, **kw),
+          1e-11)
+    zero = torch.zeros_like(p64[2][0])
+    out0 = fused_sweep_jvp_f64(p64[0][0], p64[1][0], zero, zero, *c64, **kw)
+    assert bool((out0[1] == 0).all() and (out0[3] == 0).all())
+    for fn, (launches, launches_global) in before.items():
+        assert fn.launches == launches and fn.launches_global > launches_global, fn.__name__
 
 
 def scan_inputs(device, seed=0, T=9, n_a=40, n_e=5):

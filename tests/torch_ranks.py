@@ -124,27 +124,72 @@ def state_rank(device, ss_np, x, Z, n_a, n_e, T) -> dict:
                 mesh, tiny_model(n_a=n_a, n_e=7, T=T, device="cpu")))}
 
 
-def two_asset_state_rank(device) -> str | None:
+def two_asset_block_inputs(model) -> tuple:
+    """(x, exog, ss_vars, terminal value) of the small two-asset model's
+    backward block, as numpy f64: the steady-state guesses along the path, a
+    fiscal shock G_t = 0.01·0.8ᵗ, and seeded marginal values (V_b, V_a) that
+    fall in both assets, as a CRRA value's do."""
+    import numpy as np
+
+    spec = model.ss_initial
+    ss_vars = {k: 1.0 for k in model.var_names()}
+    ss_vars.update({k: float(v) for k, v in {**spec.guesses, **spec.fixed}.items()})
+    Tm1 = model.compspec.T - 1
+    x = np.tile([ss_vars[k] for k in model.vars_of_type("endogenous")], Tm1)
+    exog = {k: np.zeros(Tm1) for k in model.vars_of_type("exogenous")}
+    exog["G"] = 0.01 * 0.8 ** np.arange(1, Tm1 + 1, dtype=np.float64)
+    rng = np.random.default_rng(11)
+    b, a, e = (np.asarray(model.heterogeneity[k].grid, dtype=np.float64)
+               for k in ("liquid", "illiquid", "income"))
+    c = (0.3 + 0.05 * b[:, None, None, None] + 0.02 * a[None, :, None, None]
+         + 0.5 * e[None, None, :, None]) * rng.uniform(0.95, 1.05, (1, 1, 1, 2))
+    value = np.stack([1.01 * c ** -2.0, 1.02 * (1.0 + 0.1 * c) * c ** -2.0])
+    return x, exog, ss_vars, value
+
+
+def two_asset_state_rank(device) -> dict:
     """The state-sharded backward block on the small two-asset model, whose
-    value_fn computes both access columns at any split: the ValueError's
-    message, or None when the call returns."""
+    value_fn computes both access columns at any split: this rank's block of
+    each policy path on `two_asset_block_inputs`, and the ValueError's
+    message for a value_fn that returns a third width ("tripled") and for
+    one that returns one output at this rank's width and the others at
+    full width ("mixed")."""
     from hank_tpu_torch.parallel.mesh import make_mesh
-    from hank_tpu_torch.parallel.state_sharding import backward_iteration_sharded
+    from hank_tpu_torch.parallel.state_sharding import backward_iteration_sharded, state_sharding
 
     model = build_small_two_asset_torch()
-    spec = model.ss_initial
-    ss_vars = {k: torch.tensor(1.0, dtype=f64) for k in model.var_names()}
-    ss_vars.update({k: torch.tensor(v, dtype=f64) for k, v in {**spec.guesses, **spec.fixed}.items()})
-    Tm1 = model.compspec.T - 1
-    x = torch.stack([ss_vars[k] for k in model.vars_of_type("endogenous")]).repeat(Tm1)
-    exog = {k: torch.zeros(Tm1, dtype=f64) for k in model.vars_of_type("exogenous")}
-    value = torch.ones((2, *model.state_shape()), dtype=f64)
-    try:
-        backward_iteration_sharded(x, exog, model, ss_vars, value,
-                                   make_mesh(axis_names=("state",)))
-    except ValueError as e:
-        return str(e)
-    return None
+    x, exog, ss_vars, value = two_asset_block_inputs(model)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=f64)
+
+    args = (t(x), {k: t(v) for k, v in exog.items()}, model,
+            {k: t(v) for k, v in ss_vars.items()}, t(value))
+    mesh = make_mesh(axis_names=("state",))
+    policies = backward_iteration_sharded(*args, mesh)
+
+    def mixed(v, xv, m):
+        """The first output at the width of m's split axis, the rest as the
+        model returns them (at full width)."""
+        n = m.exog_dims()[-1].n
+        out = model.value_fn(v, xv, m)
+        first = next(iter(out))
+        return {**out, first: out[first].narrow(-1, 0, n)}
+
+    value_fns = {"tripled": lambda v, xv, m: {
+                     k: torch.cat([p, p, p], dim=-1) for k, p in model.value_fn(v, xv, m).items()},
+                 "mixed": mixed}
+    errors = {}
+    for label, value_fn in value_fns.items():
+        try:
+            backward_iteration_sharded(args[0], args[1],
+                                       dataclasses.replace(model, value_fn=value_fn),
+                                       *args[3:], mesh)
+            errors[label] = None
+        except ValueError as e:
+            errors[label] = str(e)
+    shard = state_sharding(mesh, model, time_axis=True)
+    return {"policies": policies, "start": shard.start, "stop": shard.stop, "errors": errors}
 
 
 def failing_rank(device) -> None:
