@@ -8,9 +8,10 @@ exits non-zero and never prints the final `"ok": true` line:
 
   1. device  — nvidia-smi name and power limit, torch/CUDA versions; TF32
                off for matmuls and cuDNN.
-  2. build   — the three kernel sources under `hank_tpu_torch/csrc/` (the
-               one-asset and the two-asset household sweeps, and the
-               two-asset f64 residual pair), one nvcc each (sm_90a) started
+  2. build   — the four kernel sources under `hank_tpu_torch/csrc/` (the
+               one-asset and the two-asset household sweeps, the two-asset
+               f64 residual pair, and the one-asset tangent sweeps on a
+               thread-block cluster), one nvcc each (sm_90a) started
                together, with the build seconds and ptxas' registers and
                spill bytes per kernel (the f64 pair's four kernels, single
                and batched, required not to spill; the four batched
@@ -24,11 +25,17 @@ exits non-zero and never prints the final `"ok": true` line:
                maps' fit check at n_e = 7 on both sides of each
                kernel's limit (kernel 2 n_a 1036/1037, kernel 1 1147/1148,
                kernels 3-4 1148/1149, the f64 tangent sweep 529/530), the
-               decision one past each picking the kernel's global-state
-               instantiation, and each of those on both sides of its own
+               decision one past each picking, for kernel 1 and the f64
+               tangent sweep, the cluster instantiation (on both sides of
+               its own limit per block: 3597/3598 and 1660/1661, with the
+               card holding such a cluster, and the decision one past it
+               the global-state one), and for kernels 2-4 the global-state
+               instantiation; each of those on both sides of its own
                limit (5390/5391 in kernel 2's place, 10792/10793 in kernel
                1's and kernels 3-4's, 4980/4981 in the f64 tangent
-               sweep's), the decision raising past it; the ranged kernel's
+               sweep's), the decision raising past it; the two cluster
+               instantiations built (ptxas' registers and spills); the
+               ranged kernel's
                nine instantiations built (ptxas' registers and spills
                reported) and, from `nvcc -ptx`, each global-state one with
                as many `ld.global.nc` loads as the shared-state ones of its
@@ -38,7 +45,8 @@ exits non-zero and never prints the final `"ok": true` line:
                earlier instantiations (these under their <..., false>
                names), and of every single-path kernel of the two
                two-asset libraries (the cluster kernels as their <false>
-               instantiations), against the previous builds'
+               instantiations) and of the cluster library's two kernels,
+               against the previous builds'
                (`hank_tpu_torch/tools/sass_reference.json`, per library,
                compared where nvcc is the same).
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
@@ -79,6 +87,11 @@ exits non-zero and never prints the final `"ok": true` line:
                `<float, true, false, true>` against kernel 1,
                `<double, false, false, true>` against kernel 2,
                `<double, true, false, true>` against the f64 tangent sweep.
+               The cluster instantiations (`household_sweep_cluster_kernel
+               <S, true>`, one cluster of 7 blocks, one income row a
+               block) the same way against kernel 1 and the f64 tangent
+               sweep, and timed in turns with them at the solution
+               (one-block, cluster, cluster, one-block).
   5. solve   — 3 timed runs of the same solve. The launch counters are zeroed right
                before the timed runs; both kernels must have launched and
                neither plain version nor a previous kernel been called. The
@@ -212,21 +225,28 @@ exits non-zero and never prints the final `"ok": true` line:
                their one-block kernels at phase 8's points (the batched
                ones on 16 rows of them) and on the swapped grid, and timed
                in turns with them (one-block, global, global, one-block):
-               the price of global memory at a grid both take.
+               the price of global memory at a grid both take; the two
+               cluster instantiations the same way against kernel 1 and
+               the f64 tangent sweep.
                Then large-grid KS at 1200×7, T=150 (LARGE_GRID_CASE, past
                every one-block kernel's shared memory): setup by
                `get_or_solve` (timed; max|F_ss| ≤ 1e-9, within 1e-8 of the
-               JAX CPU steady state), every map deciding on its
-               global-state instantiation; one warm-up each of
-               `solve_model`'s default (Newton-Krylov, f64 directions) and
-               of the mixed one (f32 directions), eps 1e-8; the three
-               single-path instantiations against their plain versions at
-               x_ss, the default's solution and a smooth seeded point at
-               phase 4's bounds, a zero tangent exactly zero; 3 timed runs
-               of each solve (counters zeroed right before: only the
-               global-state instantiations of its route launched, no
-               one-block kernel, plain version, AD direction or previous
-               kernel; bit-identical; plain-f64 ‖F‖ < 1e-8; within 1e-7 of
+               JAX CPU steady state), the maps of kernel 1 and the f64
+               tangent sweep deciding on their cluster instantiations and
+               those of kernels 2-4 on their global-state ones; one
+               warm-up each of `solve_model`'s default (Newton-Krylov, f64
+               directions) and of the mixed one (f32 directions), eps
+               1e-8; the two cluster and three single-path global-state
+               instantiations against their plain versions at x_ss, the
+               default's solution and a smooth seeded point at phase 4's
+               bounds, each cluster one bit for bit the global-state one
+               there (outputs and fallback counts), a zero tangent exactly
+               zero; 3 timed runs of each solve (counters zeroed right
+               before: only the cluster instantiation of its directions
+               and the global-state kernel 2 launched, no one-block
+               kernel, other global-state one, plain version, AD direction
+               or previous kernel; bit-identical; plain-f64 ‖F‖ < 1e-8;
+               within 1e-7 of
                the JAX CPU root `ks_large_grid_1200x7_T150_jax_cpu.npz`;
                the ZLB economics); then a B=16 Newton-Krylov ensemble of
                the model's own kinked shock at ρ_b = 0.75 + 0.2·b/16 (the
@@ -238,7 +258,8 @@ exits non-zero and never prints the final `"ok": true` line:
                launched, bit-identical, every row ≤ 1e-8 or a stalled row
                that mixed Newton-Krylov on its own shock does not bring
                under 1e-8 either); ms per launch of each instantiation at
-               1200×7 and its bound.
+               1200×7 (the cluster ones in turns with the global-state
+               ones) and its bound.
   9. forward scan — kernel 7 on the f32 savings policies of the plain
                backward block at phase 4's warm-up solution (KS 200×7, 299
                periods, from ss0.D) and at phase 8's large-grid solution
@@ -318,10 +339,15 @@ sweep, the forward scan or the two-asset residual. The rows of phase 11's
 batched kernels give `ms` at B=16 (with `ms_B1`, `ms_B64` and the
 single-path kernel's beside them), their bound from `two_asset_ops` × B,
 their plain version's time at B = 1 (`plain_ms_at`) and their launches
-per ensemble solve. The five global-state rows give `ms`, `plain_ms`,
-the error and the bound at 1200×7 (the batched ones at B=16), their
-launches in phase 8's three timed solves of their route, and their ms at
-500×7 beside the one-block kernel's (`ms_500x7`, `ms_one_block_500x7`).
+per ensemble solve. The two cluster rows give `ms`, `plain_ms`, the error
+and the bound at 1200×7, their launches in phase 8's three timed solves
+of their route, `ms_global` (in turns) and their ms at 200×7 and 500×7
+beside the one-block kernel's. The five global-state rows give `ms`,
+`plain_ms`, the error and the bound at 1200×7 (the batched ones at B=16),
+their launches in phase 8's three timed solves of their route (0 for the
+single-path tangent ones, which no solve takes at 1200×7 since the
+cluster ones do: `main_path` says so), and their ms at 500×7 beside the
+one-block kernel's (`ms_500x7`, `ms_one_block_500x7`).
 The last three lines
 are the kernel summary JSON, the nvidia-smi line and `{"ok": true,
 "device": {...}}`. There is no CPU path:
@@ -518,28 +544,27 @@ def kernel2_vs_previous(inputs: dict, kw) -> dict:
                        inputs, kw)
 
 
-def global_vs_one_block(name: str, global_fn, one_block_fn, inputs: dict, kw,
-                        batch: int | None = None) -> dict:
-    """A global-state instantiation (`global_fn`, a `_global` entry point)
-    against the one-block kernel whose place it takes (`one_block_fn`, its
-    wrapper), on every input {label: args}: bit for bit on all outputs (NaNs
-    included) and on the fallback counts. Per input: the (period, income
-    row) pairs that took each fallback branch, summed over the paths of a
-    batched launch, and whether the outputs are finite."""
+def bits_vs(name: str, new_fn, old_fn, inputs: dict, kw, batch: int | None = None) -> dict:
+    """A global-state or cluster instantiation (`new_fn`, a `_global` or
+    `_cluster` entry point) against the kernel it is held to (`old_fn`: the
+    one-block kernel's wrapper, or a `_global` entry point), on every input
+    {label: args}: bit for bit on all outputs (NaNs included) and on the
+    fallback counts. Per input: the (period, income row) pairs that took
+    each fallback branch, summed over the paths of a batched launch, and
+    whether the outputs are finite."""
     import torch
 
     report = {}
     for label, args in inputs.items():
         shape = (2,) if batch is None else (batch, 2)
-        fb_global, fb_one = (torch.zeros(shape, dtype=torch.int32, device=args[0].device)
-                             for _ in range(2))
-        new = global_fn(*args, **kw, fallback_rows=fb_global)
-        old = one_block_fn(*args, **kw, fallback_rows=fb_one)
+        fb_new, fb_old = (torch.zeros(shape, dtype=torch.int32, device=args[0].device)
+                          for _ in range(2))
+        new = new_fn(*args, **kw, fallback_rows=fb_new)
+        old = old_fn(*args, **kw, fallback_rows=fb_old)
         require(all(same_bits(a, b) for a, b in zip(new, old)),
-                f"{name} on global state at {label} differs from the one-block kernel")
-        require(torch.equal(fb_global, fb_one),
-                f"{name} on global state at {label}: fallback counts differ")
-        counts = fb_global.reshape(-1, 2).sum(0)
+                f"{name} at {label} differs from {old_fn.__name__}")
+        require(torch.equal(fb_new, fb_old), f"{name} at {label}: fallback counts differ")
+        counts = fb_new.reshape(-1, 2).sum(0)
         report[label] = {"fallback_rows_implied_wealth": int(counts[0]),
                          "fallback_rows_policy": int(counts[1]),
                          "finite": all(bool(torch.isfinite(o).all()) for o in new)}
@@ -673,8 +698,11 @@ def one_asset_grids() -> dict:
 def fit_decisions() -> dict:
     """The kernel maps' fit check (`cuda_build.check_fit` of the library's
     count) at n_e = 7 on both sides of each one-asset kernel's limit: the
-    last n_a it takes and the first it refuses. Fails if the library's
-    count disagrees with those limits."""
+    last n_a it takes and the first it refuses; for kernel 1 and the f64
+    tangent sweep the cluster instantiation's limit (per block, on a
+    cluster of 7 the card holds: `cuda_build.max_clusters`) between the
+    one-block and the global-state ones. Fails if the libraries' counts
+    disagree with those limits or the decision with the tiers."""
     from hank_tpu_torch.ops import cuda_build as cb
 
     def fits(need):
@@ -689,15 +717,35 @@ def fit_decisions() -> dict:
     limits = {"kernel2": (cb.KERNEL2, 1036), "kernel1": (cb.KERNEL1, 1147),
               "kernels3_4": (cb.KERNELS3_4, 1148), "jvp_f64": (cb.JVP_F64, 529)}
     global_limits = {"kernel2": 5390, "kernel1": 10792, "kernels3_4": 10792, "jvp_f64": 4980}
+    cluster_limits = {"kernel1": 3597, "jvp_f64": 1660}
     report = {}
     for name, (which, last) in limits.items():
         taken = {n_a: fits(cb.sweep_smem_bytes(which, n_a, 7)) for n_a in (last, last + 1)}
         require(taken == {last: True, last + 1: False},
                 f"{name}: the fit decision at n_e = 7 is {taken}, not a limit at {last}")
         glob, g_last = cb.GLOBAL_STATE[which], global_limits[name]
-        decided = {n_a: sweep_kernel(which, n_a, 7) for n_a in (last, last + 1, g_last)}
-        require(decided == {last: which, last + 1: glob, g_last: glob},
-                f"{name}: the kernel decided at n_e = 7 is {decided}")
+        cluster = {}
+        if which in cb.CLUSTER:
+            kind, c_last = cb.CLUSTER[which], cluster_limits[name]
+            taken = {n_a: fits(cb.sweep_smem_bytes(kind, n_a, 7)) for n_a in (c_last, c_last + 1)}
+            require(taken == {c_last: True, c_last + 1: False},
+                    f"{name} on a cluster: the fit at n_e = 7 is {taken}, not a limit at {c_last}")
+            held = {n_a: cb.max_clusters("household_sweep_cluster", kind, n_a, 7)
+                    for n_a in (last + 1, c_last)}
+            require(min(held.values()) >= 1, f"{name}: the card holds no cluster: {held}")
+            decided = {n_a: sweep_kernel(which, n_a, 7)
+                       for n_a in (last, last + 1, c_last, c_last + 1, g_last)}
+            require(decided == {last: which, last + 1: kind, c_last: kind, c_last + 1: glob,
+                                g_last: glob},
+                    f"{name}: the kernel decided at n_e = 7 is {decided}")
+            cluster = {"cluster": {"last_n_a_taken": c_last, "one_past_takes": KERNEL_NAMES[glob],
+                                   "bytes": [cb.sweep_smem_bytes(kind, n_a, 7)
+                                             for n_a in (c_last, c_last + 1)],
+                                   "clusters_the_card_holds": held}}
+        else:
+            decided = {n_a: sweep_kernel(which, n_a, 7) for n_a in (last, last + 1, g_last)}
+            require(decided == {last: which, last + 1: glob, g_last: glob},
+                    f"{name}: the kernel decided at n_e = 7 is {decided}")
         taken = {n_a: fits(cb.sweep_smem_bytes(glob, n_a, 7)) for n_a in (g_last, g_last + 1)}
         require(taken == {g_last: True, g_last + 1: False},
                 f"{name} on global state: the fit at n_e = 7 is {taken}, not a limit at {g_last}")
@@ -710,7 +758,7 @@ def fit_decisions() -> dict:
                 f"{name}: past the global-state count the decision did not raise: {error}")
         report[name] = {"last_n_a_taken": last, "bytes": [cb.sweep_smem_bytes(which, n_a, 7)
                                                            for n_a in (last, last + 1)],
-                        "one_past_takes": KERNEL_NAMES[glob],
+                        "one_past_takes": KERNEL_NAMES[decided[last + 1]], **cluster,
                         "global_state": {"last_n_a_taken": g_last,
                                          "bytes": [cb.sweep_smem_bytes(glob, n_a, 7)
                                                    for n_a in (g_last, g_last + 1)]}}
@@ -1152,10 +1200,10 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     # batched kernel 2 at the same inputs, bit for bit on every row and
     # fallback count; and every row of a B=16 launch of each bit for bit a
     # single-path launch of the global-state instantiation.
-    k34_global = global_vs_one_block("kernels 3-4", fused_sweep_jvp_batch_global,
-                                     fused_sweep_jvp_batch, k34_inputs, kw, batch=B)
-    k2b_global = global_vs_one_block("batched kernel 2", fused_residual_sweep_batch_global,
-                                     fused_residual_sweep_batch, k2b_inputs, kw, batch=B)
+    k34_global = bits_vs("kernels 3-4 on global state", fused_sweep_jvp_batch_global,
+                         fused_sweep_jvp_batch, k34_inputs, kw, batch=B)
+    k2b_global = bits_vs("batched kernel 2 on global state", fused_residual_sweep_batch_global,
+                         fused_residual_sweep_batch, k2b_inputs, kw, batch=B)
     require(sum(fallback_sum(k34_global, ["grid_swapped"])) > 0
             and sum(fallback_sum(k2b_global, ["grid_swapped"])) > 0,
             f"the swapped grid took no fallback branch on global state: {k34_global}")
@@ -2500,6 +2548,8 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
     ones on 16 rows of those points and on the swapped grid; then both
     timed in turns (one-block, global, global, one-block), the single-path
     ones at the solution: the price of global memory at a grid both take.
+    The cluster instantiations the same way against kernel 1 and the f64
+    tangent sweep (keys "k1_cluster", "jvp_f64_cluster").
     Returns {kernel: {"ms": ..., "ms_one_block": ...}}."""
     import torch
 
@@ -2507,7 +2557,8 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
                                                    fused_residual_sweep_batch,
                                                    fused_residual_sweep_batch_global,
                                                    fused_residual_sweep_global)
-    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
+                                                fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
                                                 fused_sweep_jvp_f64_global,
                                                 fused_sweep_jvp_global)
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
@@ -2518,15 +2569,22 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
                     (("x_ss", x_ss), ("solution", x_sol), ("smooth", smooth))}
     jvp64_inputs["grid_swapped"] = (*jvp64_inputs["x_ss"][:6], swapped,
                                     *jvp64_inputs["x_ss"][7:])
-    bits = {"k1": global_vs_one_block("kernel 1", fused_sweep_jvp_global, fused_sweep_jvp,
-                                      bit_inputs, kw),
-            "k2": global_vs_one_block("kernel 2", fused_residual_sweep_global,
-                                      fused_residual_sweep, bit_inputs64, kw),
-            "jvp_f64": global_vs_one_block("f64 tangent sweep", fused_sweep_jvp_f64_global,
-                                           fused_sweep_jvp_f64, jvp64_inputs, kw)}
+    bits = {"k1": bits_vs("kernel 1 on global state", fused_sweep_jvp_global, fused_sweep_jvp,
+                          bit_inputs, kw),
+            "k2": bits_vs("kernel 2 on global state", fused_residual_sweep_global,
+                          fused_residual_sweep, bit_inputs64, kw),
+            "jvp_f64": bits_vs("f64 tangent sweep on global state", fused_sweep_jvp_f64_global,
+                               fused_sweep_jvp_f64, jvp64_inputs, kw)}
     require(sum(fallback_sum(bits["k2"], ["grid_swapped"])) > 0
             and sum(fallback_sum(bits["jvp_f64"], ["grid_swapped"])) > 0,
             f"500x7: the swapped grid took no fallback branch on global state: {bits}")
+    bits["k1_cluster"] = bits_vs("kernel 1 on a cluster", fused_sweep_jvp_cluster,
+                                 fused_sweep_jvp, bit_inputs, kw)
+    bits["jvp_f64_cluster"] = bits_vs("f64 tangent sweep on a cluster",
+                                      fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64,
+                                      jvp64_inputs, kw)
+    require(sum(fallback_sum(bits["jvp_f64_cluster"], ["grid_swapped"])) > 0,
+            f"500x7: the swapped grid took no fallback branch on a cluster: {bits}")
     a32 = (*sweep_args(x_sol, v, f32), *c32)
     a64 = (*sweep_args(x_sol, v, f64), *c64)
     # 16 rows cycling through the three points, for the batched ones: bit
@@ -2535,12 +2593,13 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
     r32 = [torch.stack(p) for p in zip(*(sweep_args(x, v, f32) for x in rows))]
     r64 = [torch.stack(p) for p in zip(*(sweep_args(x, v, f64)[:2] for x in rows))]
     b32, b64 = (*r32, *c32), (*r64, *c64)
-    bits["k3_4_B16"] = global_vs_one_block(
-        "kernels 3-4", fused_sweep_jvp_batch_global, fused_sweep_jvp_batch,
+    bits["k3_4_B16"] = bits_vs(
+        "kernels 3-4 on global state", fused_sweep_jvp_batch_global, fused_sweep_jvp_batch,
         {"points": b32, "grid_swapped": (*r32, *c32[:2], swapped.float(), *c32[3:])}, kw,
         batch=16)
-    bits["k2_batch_B16"] = global_vs_one_block(
-        "batched kernel 2", fused_residual_sweep_batch_global, fused_residual_sweep_batch,
+    bits["k2_batch_B16"] = bits_vs(
+        "batched kernel 2 on global state", fused_residual_sweep_batch_global,
+        fused_residual_sweep_batch,
         {"points": b64, "grid_swapped": (*r64, *c64[:2], swapped, *c64[3:])}, kw, batch=16)
     pairs = {
         "k1": (lambda: fused_sweep_jvp(*a32, **kw),
@@ -2549,6 +2608,10 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
                lambda: fused_residual_sweep_global(*a64[:2], *c64, **kw)),
         "jvp_f64": (lambda: fused_sweep_jvp_f64(*a64, **kw),
                     lambda: fused_sweep_jvp_f64_global(*a64, **kw)),
+        "k1_cluster": (lambda: fused_sweep_jvp(*a32, **kw),
+                       lambda: fused_sweep_jvp_cluster(*a32, **kw)),
+        "jvp_f64_cluster": (lambda: fused_sweep_jvp_f64(*a64, **kw),
+                            lambda: fused_sweep_jvp_f64_cluster(*a64, **kw)),
         "k3_4_B16": (lambda: fused_sweep_jvp_batch(*b32, **kw),
                      lambda: fused_sweep_jvp_batch_global(*b32, **kw)),
         "k2_batch_B16": (lambda: fused_residual_sweep_batch(*b64, **kw),
@@ -2591,13 +2654,15 @@ def one_asset_wrappers() -> dict:
 
 
 def zero_one_asset_counts() -> None:
-    """Every counter of the one-asset routes: kernel launches (one-block and
-    global-state), plain-version calls, AD directions and the previous
-    kernels."""
+    """Every counter of the one-asset routes: kernel launches (one-block,
+    cluster and global-state), plain-version calls, AD directions and the
+    previous kernels."""
     from hank_tpu_torch.solvers.newton import ad_direction
 
     for fn, plain in one_asset_wrappers().values():
         fn.launches = fn.launches_global = plain.calls = 0
+        if hasattr(fn, "launches_cluster"):
+            fn.launches_cluster = 0
     ad_direction.calls = 0
     zero_previous_launches()
 
@@ -2607,6 +2672,8 @@ def one_asset_counts() -> dict:
 
     wrappers = one_asset_wrappers()
     return {**{k: fn.launches for k, (fn, _) in wrappers.items()},
+            **{f"{k}_cluster": fn.launches_cluster for k, (fn, _) in wrappers.items()
+               if hasattr(fn, "launches_cluster")},
             **{f"{k}_global": fn.launches_global for k, (fn, _) in wrappers.items()},
             "ad_directions": ad_direction.calls,
             "plain_calls": sum({id(p): p.calls for _, p in wrappers.values()}.values()),
@@ -2655,8 +2722,8 @@ def cli_default(name: str, case: dict) -> dict:
 def large_grid_case(dev) -> dict:
     """Phase 8 at `LARGE_GRID_CASE` (large-grid KS 1200×7, T=150), past
     every one-block kernel's shared memory (see the module docstring).
-    Emits its JSON lines and returns the `kernels` entries of the five
-    global-state instantiations."""
+    Emits its JSON lines and returns the rows and launches of the two
+    cluster and five global-state instantiations."""
     import dataclasses
 
     import numpy as np
@@ -2673,9 +2740,11 @@ def large_grid_case(dev) -> dict:
                                                    fused_residual_sweep_global,
                                                    fused_residual_sweep_reference)
     from hank_tpu_torch.ops.fused_sweep import (KERNEL_NAMES, fused_sweep_jvp,
-                                                fused_sweep_jvp_f64, fused_sweep_jvp_global,
-                                                fused_sweep_jvp_reference, state_workspace_bytes,
-                                                sweep_setup)
+                                                fused_sweep_jvp_cluster, fused_sweep_jvp_f64,
+                                                fused_sweep_jvp_f64_cluster,
+                                                fused_sweep_jvp_f64_global,
+                                                fused_sweep_jvp_global, fused_sweep_jvp_reference,
+                                                state_workspace_bytes, sweep_setup)
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
                                                       fused_sweep_jvp_batch_reference)
     from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
@@ -2709,14 +2778,15 @@ def large_grid_case(dev) -> dict:
     decided = {KERNEL_NAMES[w]: sweep_setup(model, ss0, ssT, dtype, w).kernel
                for w, dtype in ((cb.KERNEL1, f32), (cb.KERNELS3_4, f32), (cb.KERNEL2, f64),
                                 (cb.JVP_F64, f64))}
-    require(set(decided.values()) == set(cb.GLOBAL_STATE.values()),
+    require(set(decided.values()) == {cb.CLUSTER_KERNEL1, cb.GLOBAL_KERNELS3_4,
+                                      cb.GLOBAL_KERNEL2, cb.CLUSTER_JVP_F64},
             f"{n_a}x{n_e}: the maps decided on {decided}")
-    lib = cb.load_library()
     emit("large_grid_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
          max_abs_F_ss=F_ss, max_abs_vs_jax_ss=ss_gap,
          kernels_decided={k: KERNEL_NAMES[w] for k, w in decided.items()},
-         smem_bytes={KERNEL_NAMES[w]: lib.hank_sweep_smem_bytes(w, n_a, n_e)
-                     for w in (*cb.GLOBAL_STATE, *cb.GLOBAL_STATE.values())},
+         smem_bytes={KERNEL_NAMES[w]: cb.sweep_smem_bytes(w, n_a, n_e)
+                     for w in (*cb.GLOBAL_STATE, *cb.GLOBAL_STATE.values(),
+                               *cb.CLUSTER.values())},
          **{k: float(ssT.vars[k]) for k in endog})
 
     exog = generate_exog_paths(model, Tm1)
@@ -2738,10 +2808,11 @@ def large_grid_case(dev) -> dict:
 
     warm = {mode: solve(mode) for mode in modes}
 
-    # Each global-state instantiation against its plain version at x_ss, the
-    # default's solution and a smooth seeded point, along smooth seeded
-    # directions, at phase 4's bounds (the f32 one's plain version in
-    # float64 on the same f32 inputs); a zero tangent exactly zero.
+    # Each cluster and global-state instantiation against its plain version
+    # at x_ss, the default's solution and a smooth seeded point, along
+    # smooth seeded directions, at phase 4's bounds (the f32 ones' plain
+    # version in float64 on the same f32 inputs), each cluster one bit for
+    # bit the global-state one there; a zero tangent exactly zero.
     hook, c32, kw, _, _ = sweep_setup(model, ss0, ssT, f32)
     c64 = [c.double() for c in c32]
     gen = torch.Generator().manual_seed(12)
@@ -2754,26 +2825,34 @@ def large_grid_case(dev) -> dict:
 
     smooth = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
                      * decay).reshape(-1).to(dev)
-    err = {"k1": 0.0, "k2": 0.0, "jvp_f64": 0.0}
+    err = {"k1": 0.0, "k1_global": 0.0, "k2": 0.0, "jvp_f64": 0.0, "jvp_f64_global": 0.0}
     plain_ms = {}
+    cluster_inputs = {"k1": {}, "jvp_f64": {}}
     for label, x in (("x_ss", x_ss), ("solution", warm["default"][0]), ("smooth", smooth)):
         v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
         a32, a64 = sweep_args(x, v, f32), sweep_args(x, v, f64)
+        cluster_inputs["k1"][label] = (*a32, *c32)
+        cluster_inputs["jvp_f64"][label] = (*a64, *c64)
         ref, plain_ms["k1"] = cuda_once(lambda: fused_sweep_jvp_reference(
             *(a.double() for a in a32), *c64, **kw))
-        for o, r_ in zip(fused_sweep_jvp(*a32, *c32, **kw), ref):
-            e, scale = max_abs(o.double(), r_), float(r_.abs().max())
-            require(e <= 3e-5 * max(scale, 1.0),
-                    f"{n_a}x{n_e} at {label}: the global-state f32 tangent sweep off its "
-                    f"plain version by {e:.3e} (scale {scale:.3e})")
-            err["k1"] = max(err["k1"], e)
+        plain_ms["k1_global"] = plain_ms["k1"]
+        for key, fn in (("k1", fused_sweep_jvp), ("k1_global", fused_sweep_jvp_global)):
+            for o, r_ in zip(fn(*a32, *c32, **kw), ref):
+                e, scale = max_abs(o.double(), r_), float(r_.abs().max())
+                require(e <= 3e-5 * max(scale, 1.0),
+                        f"{n_a}x{n_e} at {label}: {fn.__name__} off its plain version by "
+                        f"{e:.3e} (scale {scale:.3e})")
+                err[key] = max(err[key], e)
         ref, plain_ms["jvp_f64"] = cuda_once(lambda: fused_sweep_jvp_reference(*a64, *c64, **kw))
-        for o, r_ in zip(fused_sweep_jvp_f64(*a64, *c64, **kw), ref):
-            e, scale = max_abs(o, r_), float(r_.abs().max())
-            require(e <= 1e-10 * max(scale, 1.0),
-                    f"{n_a}x{n_e} at {label}: the global-state f64 tangent sweep off its "
-                    f"plain version by {e:.3e} (scale {scale:.3e})")
-            err["jvp_f64"] = max(err["jvp_f64"], e)
+        plain_ms["jvp_f64_global"] = plain_ms["jvp_f64"]
+        for key, fn in (("jvp_f64", fused_sweep_jvp_f64),
+                        ("jvp_f64_global", fused_sweep_jvp_f64_global)):
+            for o, r_ in zip(fn(*a64, *c64, **kw), ref):
+                e, scale = max_abs(o, r_), float(r_.abs().max())
+                require(e <= 1e-10 * max(scale, 1.0),
+                        f"{n_a}x{n_e} at {label}: {fn.__name__} off its plain version by "
+                        f"{e:.3e} (scale {scale:.3e})")
+                err[key] = max(err[key], e)
         ref, plain_ms["k2"] = cuda_once(lambda: fused_residual_sweep_reference(
             *a64[:2], *c64, **kw))
         err["k2"] = max(err["k2"], *(max_abs(o, r_) for o, r_ in zip(
@@ -2786,13 +2865,21 @@ def large_grid_case(dev) -> dict:
     out32 = fused_sweep_jvp(*a32[:2], zero32, zero32, *c32, **kw)
     out64 = fused_sweep_jvp_f64(*a64[:2], zero64, zero64, *c64, **kw)
     require(all(bool((o[i] == 0).all()) for o in (out32, out64) for i in (1, 3)),
-            f"{n_a}x{n_e}: a zero tangent did not give exactly zero on global state")
+            f"{n_a}x{n_e}: a zero tangent did not give exactly zero on a cluster")
+    cluster_bits = {
+        "k1": bits_vs("kernel 1 on a cluster", fused_sweep_jvp_cluster, fused_sweep_jvp_global,
+                      cluster_inputs["k1"], kw),
+        "jvp_f64": bits_vs("f64 tangent sweep on a cluster", fused_sweep_jvp_f64_cluster,
+                           fused_sweep_jvp_f64_global, cluster_inputs["jvp_f64"], kw)}
+    emit("large_grid_cluster", grid=[n_a, n_e], T=T, bit_identical_to_global_state=cluster_bits,
+         max_abs_err_vs_plain=err)
 
     # Three timed runs of each solve, counters zeroed right before each set:
-    # only the global-state instantiations of its route launched.
+    # only the cluster instantiation of its directions and the global-state
+    # kernel 2 launched.
     solves = {}
-    for mode, launched in (("default", {"jvp_f64_global", "k2_global"}),
-                           ("mixed", {"k1_global", "k2_global"})):
+    for mode, launched in (("default", {"jvp_f64_cluster", "k2_global"}),
+                           ("mixed", {"k1_cluster", "k2_global"})):
         zero_one_asset_counts()
         runs = [solve(mode) for _ in range(3)]
         counts = one_asset_counts()
@@ -2915,35 +3002,53 @@ def large_grid_case(dev) -> dict:
          host_ls_s=[r[1]["host_ls_seconds"] for r in runs_b], bit_identical=True)
 
     # ms per launch of each instantiation at 1200×7 (the solution; B=16 for
-    # the batched ones) and its bound from the timed call's inputs.
+    # the batched ones) and its bound from the timed call's inputs; the
+    # cluster ones in turns with the global-state ones (global, cluster,
+    # cluster, global).
     a32 = (*sweep_args(warm["mixed"][0], v, f32), *c32)
     a64 = (*sweep_args(warm["default"][0], v, f64), *c64)
+    turns = {"k1": in_turns({"global": lambda: fused_sweep_jvp_global(*a32, **kw),
+                             "cluster": lambda: fused_sweep_jvp(*a32, **kw)}, 5),
+             "jvp_f64": in_turns({"global": lambda: fused_sweep_jvp_f64_global(*a64, **kw),
+                                  "cluster": lambda: fused_sweep_jvp_f64(*a64, **kw)}, 5)}
     timed = {
         "k1": (lambda: fused_sweep_jvp(*a32, **kw), a32, 4, True, "f32", 1),
+        "k1_global": (lambda: fused_sweep_jvp_global(*a32, **kw), a32, 4, True, "f32", 1),
         "jvp_f64": (lambda: fused_sweep_jvp_f64(*a64, **kw), a64, 4, True, "f64", 1),
+        "jvp_f64_global": (lambda: fused_sweep_jvp_f64_global(*a64, **kw), a64, 4, True, "f64",
+                           1),
         "k2": (lambda: fused_residual_sweep(*a64[:2], *c64, **kw), (*a64[:2], *c64), 2, False,
                "f64", 1),
         "k3_4": (lambda: fused_sweep_jvp_batch(*paths32, *c32, **kw), (*paths32, *c32), 4, True,
                  "f32", B),
         "k2_batch": (lambda: fused_residual_sweep_batch(*paths64, *c64, **kw),
                      (*paths64, *c64), 2, False, "f64", B)}
-    per_solve = {"k1": solves["mixed"]["launches"]["k1_global"] / 3,
-                 "jvp_f64": solves["default"]["launches"]["jvp_f64_global"] / 3,
+    per_solve = {"k1": solves["mixed"]["launches"]["k1_cluster"] / 3,
+                 "k1_global": solves["mixed"]["launches"]["k1_global"] / 3,
+                 "jvp_f64": solves["default"]["launches"]["jvp_f64_cluster"] / 3,
+                 "jvp_f64_global": solves["default"]["launches"]["jvp_f64_global"] / 3,
                  "k2": (solves["default"]["launches"]["k2_global"]
                         + solves["mixed"]["launches"]["k2_global"]) / 6,
                  "k3_4": counts_b["k3_4_global"] / 3, "k2_batch": counts_b["k2_batch_global"] / 3}
     rows = {}
     for key, (fn_, args, n_out, tangent, kind, paths) in timed.items():
-        rows[key] = {"ms": cuda_ms(fn_, 5), "plain_ms": plain_ms[key],
+        pair = turns.get(key.removesuffix("_global"))
+        ms = (pair["global" if key.endswith("_global") else "cluster"] if pair
+              else cuda_ms(fn_, 5))
+        rows[key] = {"ms": ms, "plain_ms": plain_ms[key],
                      "max_abs_err": err[key], "launches_per_solve": per_solve[key],
                      **least_time(nbytes(*args) + n_out * nbytes(args[0]),
                                   one_asset_sweep_ops(Tm1, n_a, n_e, tangent, paths), kind)}
     emit("large_grid_kernels", grid=[n_a, n_e], T=T, kernels=rows,
          workspace_mb={k: state_workspace_bytes(f32 if kind == "f32" else f64, t, n_a, n_e,
                                                 p_) / 1e6
-                       for k, (_, _, _, t, kind, p_) in timed.items()})
-    return {"rows": rows, "launches": {"k1": solves["mixed"]["launches"]["k1_global"],
-                                       "jvp_f64": solves["default"]["launches"]["jvp_f64_global"],
+                       for k, (_, _, _, t, kind, p_) in timed.items()
+                       if k not in ("k1", "jvp_f64")})
+    return {"rows": rows, "launches": {"k1": solves["mixed"]["launches"]["k1_cluster"],
+                                       "k1_global": solves["mixed"]["launches"]["k1_global"],
+                                       "jvp_f64": solves["default"]["launches"]["jvp_f64_cluster"],
+                                       "jvp_f64_global":
+                                           solves["default"]["launches"]["jvp_f64_global"],
                                        "k2": solves["default"]["launches"]["k2_global"]
                                        + solves["mixed"]["launches"]["k2_global"],
                                        "k3_4": counts_b["k3_4_global"],
@@ -2978,19 +3083,22 @@ def global_state_kernels(large: dict, at_500: dict) -> list:
     """The `kernels` entries of the five global-state instantiations: ms,
     plain ms, error and bound at 1200×7 (B=16 for the batched ones), their
     launches in phase 8's three timed solves of each route (the batched
-    ones in the three ensemble solves), and at 500×7 their ms beside the
-    one-block kernel's, timed in turns."""
+    ones in the three ensemble solves; the single-path tangent ones take no
+    solve's directions at 1200×7 since the cluster kernels do, so 0 there
+    on this run's main path, with `main_path` saying so), and at 500×7
+    their ms beside the one-block kernel's, timed in turns."""
     source = "hank_tpu_torch/csrc/household_sweep.cu"
     specs = (
-        ("k1", "k1", "fused_sweep_jvp (global state: household_sweep_ranged_kernel"
-                     "<float,true,false,true>)", "hank_tpu/ops/fused_sweep.py:385"),
+        ("k1_global", "k1", "fused_sweep_jvp (global state: household_sweep_ranged_kernel"
+                            "<float,true,false,true>)", "hank_tpu/ops/fused_sweep.py:385"),
         ("k3_4", "k3_4_B16", "fused_sweep_jvp_batch (global state: <float,true,true,true>)",
          "hank_tpu/ops/fused_sweep_batch.py:87 and :177"),
         ("k2", "k2", "fused_residual_sweep (global state: <double,false,false,true>)",
          "hank_tpu/ops/fused_ds.py:338"),
         ("k2_batch", "k2_batch_B16", "fused_residual_sweep_batch (global state: "
                                      "<double,false,true,true>)", "hank_tpu/ops/fused_ds.py:338"),
-        ("jvp_f64", "jvp_f64", "fused_sweep_jvp_f64 (global state: <double,true,false,true>)",
+        ("jvp_f64_global", "jvp_f64",
+         "fused_sweep_jvp_f64 (global state: <double,true,false,true>)",
          "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; no TPU kernel)"))
     entries = []
     for key, key_500, name, replaces in specs:
@@ -3001,7 +3109,38 @@ def global_state_kernels(large: dict, at_500: dict) -> list:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None, "grid": "1200x7, T=150",
             "launches_per_solve": row["launches_per_solve"],
-            "ms_500x7": at_500[key_500]["ms"], "ms_one_block_500x7": at_500[key_500]["ms_one_block"]})
+            "ms_500x7": at_500[key_500]["ms"], "ms_one_block_500x7": at_500[key_500]["ms_one_block"],
+            **({"main_path": "past the cluster kernel's count only (n_a > 3597 f32, > 1660 "
+                             "f64 at n_e = 7): held through its _global entry point here"}
+               if key in ("k1_global", "jvp_f64_global") else {})})
+    return entries
+
+
+def cluster_kernels(large: dict, at_500: dict, at_200: dict) -> list:
+    """The `kernels` entries of the two cluster instantiations: ms (in turns
+    with the global-state one, `ms_global`), plain ms, error and bound at
+    1200×7, their launches in phase 8's three timed solves of their route,
+    and at 200×7 and 500×7 their ms beside the one-block kernel's, timed in
+    turns."""
+    source = "hank_tpu_torch/csrc/household_sweep_cluster.cu"
+    specs = (
+        ("k1", "fused_sweep_jvp (cluster: household_sweep_cluster_kernel<float,true>)",
+         "hank_tpu/ops/fused_sweep.py:385"),
+        ("jvp_f64", "fused_sweep_jvp_f64 (cluster: household_sweep_cluster_kernel<double,true>)",
+         "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; no TPU kernel)"))
+    entries = []
+    for key, name, replaces in specs:
+        row = large["rows"][key]
+        entries.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": large["launches"][key], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None, "grid": "1200x7, T=150",
+            "launches_per_solve": row["launches_per_solve"],
+            "ms_global": large["rows"][f"{key}_global"]["ms"],
+            "ms_200x7": at_200[key]["cluster"], "ms_one_block_200x7": at_200[key]["one_block"],
+            "ms_500x7": at_500[f"{key}_cluster"]["ms"],
+            "ms_one_block_500x7": at_500[f"{key}_cluster"]["ms_one_block"]})
     return entries
 
 
@@ -3142,7 +3281,8 @@ def main() -> int:
                                                    fused_residual_sweep_global,
                                                    fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
-    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
+                                                fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
                                                 fused_sweep_jvp_f64_global,
                                                 fused_sweep_jvp_f64_previous,
                                                 fused_sweep_jvp_global,
@@ -3180,9 +3320,12 @@ def main() -> int:
     global_state = [k for k in ranged if "ELb1EEEv" in k["kernel"]]
     require(len(ranged) == 9 and len(global_state) == 5,
             f"the ranged kernel's nine instantiations were not built: {ranged}")
+    cluster_ptxas = [k for k in ptxas if "household_sweep_cluster_kernel" in k["kernel"]]
+    require(len(cluster_ptxas) == 2,
+            f"the two cluster instantiations were not built: {cluster_ptxas}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
-         ptxas_two_asset_batched=batched, ptxas_ranged=ranged,
-         ptxas_of_this_pr=global_state, f64_pair_fit=f64_pair_grids(),
+         ptxas_two_asset_batched=batched, ptxas_ranged=ranged, ptxas_global_state=global_state,
+         ptxas_of_this_pr=cluster_ptxas, f64_pair_fit=f64_pair_grids(),
          one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
          sass_vs_previous_build=sass_vs_reference(built.paths),
          global_state_nc_loads=state_loads_coherent(ptx_job))
@@ -3350,15 +3493,36 @@ def main() -> int:
     # kernel 1, <double, false, false, G> against kernel 2, <double, true,
     # false, G> against the f64 tangent sweep.
     globals_ks = {
-        "k1": global_vs_one_block("kernel 1", fused_sweep_jvp_global, fused_sweep_jvp,
-                                  bit_inputs, kw),
-        "k2": global_vs_one_block("kernel 2", fused_residual_sweep_global,
-                                  fused_residual_sweep, bit_inputs64, kw),
-        "jvp_f64": global_vs_one_block("f64 tangent sweep", fused_sweep_jvp_f64_global,
-                                       fused_sweep_jvp_f64, jvp64_inputs, kw)}
+        "k1": bits_vs("kernel 1 on global state", fused_sweep_jvp_global, fused_sweep_jvp,
+                      bit_inputs, kw),
+        "k2": bits_vs("kernel 2 on global state", fused_residual_sweep_global,
+                      fused_residual_sweep, bit_inputs64, kw),
+        "jvp_f64": bits_vs("f64 tangent sweep on global state", fused_sweep_jvp_f64_global,
+                           fused_sweep_jvp_f64, jvp64_inputs, kw)}
     for name, report in globals_ks.items():
         require_fallbacks(f"{name} on global state", report)
     emit("global_state_ks", grid=[wealth.n, prod.n], T=cs.T, bit_identical=globals_ks)
+
+    # The cluster instantiations against the one-block kernels, bit for bit
+    # at the same points and stress inputs, and timed in turns with them at
+    # the solution (one-block, cluster, cluster, one-block).
+    clusters_ks = {
+        "k1": bits_vs("kernel 1 on a cluster", fused_sweep_jvp_cluster, fused_sweep_jvp,
+                      bit_inputs, kw),
+        "jvp_f64": bits_vs("f64 tangent sweep on a cluster", fused_sweep_jvp_f64_cluster,
+                           fused_sweep_jvp_f64, jvp64_inputs, kw)}
+    for name, report in clusters_ks.items():
+        require_fallbacks(f"{name} on a cluster", report)
+    a32 = bit_inputs["solution"]
+    cluster_200 = {
+        "k1": in_turns({"one_block": lambda: fused_sweep_jvp(*a32, **kw),
+                        "cluster": lambda: fused_sweep_jvp_cluster(*a32, **kw)}, 10),
+        "jvp_f64": in_turns({"one_block": lambda: fused_sweep_jvp_f64(*jvp64_inputs["solution"],
+                                                                      **kw),
+                             "cluster": lambda: fused_sweep_jvp_f64_cluster(
+                                 *jvp64_inputs["solution"], **kw)}, 10)}
+    emit("cluster_ks", grid=[wealth.n, prod.n], T=cs.T, bit_identical=clusters_ks,
+         ms_in_turns=cluster_200)
 
     args32 = (*prices(x, f32), *prices(v, f32), *c32)
     args64j = jvp64_inputs["solution"]
@@ -3477,6 +3641,7 @@ def main() -> int:
         *ensemble_kernels,
         *two_asset_kernels,
         scan_kernel,
+        *cluster_kernels(phase8["large_grid"], lg["global_500"], cluster_200),
         *global_state_kernels(phase8["large_grid"], lg["global_500"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

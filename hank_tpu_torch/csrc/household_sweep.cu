@@ -90,6 +90,72 @@ template <typename S> __device__ __forceinline__ S spow(S a, S b);
 template <> __device__ __forceinline__ float spow<float>(float a, float b) { return powf(a, b); }
 template <> __device__ __forceinline__ double spow<double>(double a, double b) { return pow(a, b); }
 
+// Cycle stamps of household_sweep_ranged_kernel, compiled only into the
+// measurement build of hank_tpu_torch/tools/sweep_split.py (nvcc
+// -DHANK_SWEEP_STAMPS); without the macro every SWEEP_* below is empty and
+// the kernels are the library's. Slots (kSweepSlots, summed over the blocks
+// of a launch into g_sweep_stamps): 0-6 the cycles of block thread 0 in each
+// stage, barrier included (0 expectation and Euler inversion, 1 the
+// implied-wealth row check, 2 bracket, lerp and envelope, 3 the policy clamp
+// and row check, 4 the lottery, 5 the Markov mix with the aggregates'
+// partials, 6 the aggregate tree), 7 the set-up; 10-17 the cycles every
+// thread spends in two parts of a stage's loop, summed over the threads (10
+// the expectation's fold over e', 11 the Euler inversion and implied
+// wealth, 12 the bracket search, 13 the lerp, budget and envelope, 14 the
+// lottery's source-range search, 15 its sum, 16 the Markov mix's fold, 17
+// the aggregates' terms).
+#ifdef HANK_SWEEP_STAMPS
+constexpr int kSweepSlots = 24, kSweepParts = 8, kSweepWarps = kThreads / 32;
+__device__ unsigned long long g_sweep_stamps[kSweepSlots];
+#define SWEEP_STAMPS_INIT                                                        \
+    __shared__ unsigned long long sw_slot[kSweepSlots];                         \
+    __shared__ unsigned long long sw_warp[kSweepParts * kSweepWarps];           \
+    long long sw_b = clock64();                                                 \
+    for (int i = threadIdx.x; i < kSweepSlots; i += kThreads) sw_slot[i] = 0;    \
+    for (int i = threadIdx.x; i < kSweepParts * kSweepWarps; i += kThreads)      \
+        sw_warp[i] = 0;
+#define SWEEP_BLOCK(i)                                                           \
+    if (threadIdx.x == 0) {                                                      \
+        const long long sw_now = clock64();                                     \
+        sw_slot[i] += sw_now - sw_b;                                            \
+        sw_b = sw_now;                                                          \
+    }
+#define SWEEP_ACC(a) long long a = 0
+#define SWEEP_MARK(v) long long v = clock64()
+#define SWEEP_LAP(a, v)                                                          \
+    {                                                                           \
+        const long long sw_now = clock64();                                     \
+        a += sw_now - v;                                                        \
+        v = sw_now;                                                             \
+    }
+// A warp's sum of `a` into its own slot of part i (10 <= i < 18), no atomics.
+#define SWEEP_FLUSH(i, a)                                                        \
+    {                                                                           \
+        long long sw_v = a;                                                     \
+        for (int o = 16; o > 0; o >>= 1) sw_v += __shfl_down_sync(0xffffffffu, sw_v, o); \
+        if ((threadIdx.x & 31) == 0)                                             \
+            sw_warp[((i) - 10) * kSweepWarps + (threadIdx.x >> 5)] += sw_v;      \
+    }
+#define SWEEP_SAVE()                                                             \
+    __syncthreads();                                                            \
+    if (threadIdx.x < kSweepParts) {                                             \
+        unsigned long long sw_sum = 0;                                          \
+        for (int w = 0; w < kSweepWarps; ++w) sw_sum += sw_warp[threadIdx.x * kSweepWarps + w]; \
+        sw_slot[10 + threadIdx.x] = sw_sum;                                     \
+    }                                                                           \
+    __syncthreads();                                                            \
+    for (int i = threadIdx.x; i < kSweepSlots; i += kThreads)                    \
+        atomicAdd(&g_sweep_stamps[i], sw_slot[i]);
+#else
+#define SWEEP_STAMPS_INIT
+#define SWEEP_BLOCK(i)
+#define SWEEP_ACC(a)
+#define SWEEP_MARK(v)
+#define SWEEP_LAP(a, v)
+#define SWEEP_FLUSH(i, a)
+#define SWEEP_SAVE()
+#endif
+
 template <typename S, bool TANGENT, bool BATCHED>
 __global__ void __launch_bounds__(kThreads) household_sweep_kernel(
     const S* __restrict__ r_path, const S* __restrict__ w_path,     // (B, Tm1)
@@ -759,6 +825,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
     S* smem = reinterpret_cast<S*>(smem_raw);
     const int n = n_a * n_e;
     const int tid = threadIdx.x;
+    SWEEP_STAMPS_INIT
 
     // This block's path, as in the template (size_t offsets, compiled out
     // of a single-path launch); under GLOBAL_STATE also its state slice.
@@ -823,6 +890,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
         idn[i] = S(1) / (hi - g[i]);
     }
     __syncthreads();
+    SWEEP_BLOCK(7)
 
     // ── Backward EGM recursion: t = Tm1-1 … 0 ─────────────────────────────
     for (int t = Tm1 - 1; t >= 0; --t) {
@@ -833,7 +901,10 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
         for (int e = tid; e < n_e; e += kThreads) kmono[e] = 1;   // read last in period t+1
 
         // 1-3. Expectation over e', Euler inversion, implied wealth.
+        SWEEP_ACC(sw_fold);
+        SWEEP_ACC(sw_euler);
         for (int idx = tid; idx < n; idx += kThreads) {
+            SWEEP_MARK(sw_t);
             const int e = idx / n_a;
             const int a = idx - e * n_a;
             S E = S(0), dE = S(0);
@@ -841,6 +912,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                 E += Pi[e * n_e + k] * X[k * n_a + a];
                 if (TANGENT) dE += Pi[e * n_e + k] * dX[k * n_a + a];
             }
+            SWEEP_LAP(sw_fold, sw_t);
             const bool live = E > tiny;
             E = live ? E : tiny;
             const S c = spow(beta * E, inv_g);
@@ -850,8 +922,12 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                 const S dc = live ? inv_g * c / E * dE : S(0);
                 dY[idx] = (dc - dw * lab[e]) / one_r - implied * dr / one_r;
             }
+            SWEEP_LAP(sw_euler, sw_t);
         }
+        SWEEP_FLUSH(10, sw_fold);
+        SWEEP_FLUSH(11, sw_euler);
         __syncthreads();
+        SWEEP_BLOCK(0)
 
         // Which implied-wealth rows are non-decreasing.
         for (int idx = tid; idx < n; idx += kThreads) {
@@ -861,10 +937,14 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
         __syncthreads();
         if (fallback != nullptr && tid == 0)
             for (int e = 0; e < n_e; ++e) fell_k += kmono[e] == 0;
+        SWEEP_BLOCK(1)
 
         // 4-6. Interpolate the savings policy onto the grid, borrowing clip,
         //      budget, envelope.
+        SWEEP_ACC(sw_bracket);
+        SWEEP_ACC(sw_envelope);
         for (int idx = tid; idx < n; idx += kThreads) {
+            SWEEP_MARK(sw_t);
             const int e = idx / n_a;
             const int a = idx - e * n_a;
             const S x = g[a];
@@ -881,6 +961,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
             }
             const int j = min(max(cnt, 1), n_a - 1);
             const S lo = K[j - 1], hi = K[j];
+            SWEEP_LAP(sw_bracket, sw_t);
             const S vlo = g[j - 1], vhi = g[j];
             const S den = hi - lo;
             const S safe = den > S(0) ? den : S(1);
@@ -916,8 +997,12 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                     dX[idx] = dr * cpow + one_r * (-gamma) * cpow / cg * dcg;
                 dpol_scr[(size_t)t * n + idx] = dpol;
             }
+            SWEEP_LAP(sw_envelope, sw_t);
         }
+        SWEEP_FLUSH(12, sw_bracket);
+        SWEEP_FLUSH(13, sw_envelope);
         __syncthreads();
+        SWEEP_BLOCK(2)
     }
 
     // ── Forward push-forward: t = 0 … Tm1-1 ───────────────────────────────
@@ -927,6 +1012,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
     }
     for (int e = tid; e < n_e; e += kThreads) pmono[e] = 1;
     __syncthreads();
+    SWEEP_BLOCK(7)
     const S g_bot = g[0], g_top = g[n_a - 1];
     for (int t = 0; t < Tm1; ++t) {
         const S r = r_path[t], w = w_path[t];
@@ -949,9 +1035,13 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
         __syncthreads();
         if (fallback != nullptr && tid == 0)
             for (int e = 0; e < n_e; ++e) fell_p += pmono[e] == 0;
+        SWEEP_BLOCK(3)
 
         // Hat-basis Young lottery: D_half[e, b] = Σ_a hat_b(p[e, a]) D[e, a].
+        SWEEP_ACC(sw_range);
+        SWEEP_ACC(sw_sum);
         for (int idx = tid; idx < n; idx += kThreads) {
+            SWEEP_MARK(sw_t);
             const int e = idx / n_a;
             const int b = idx - e * n_a;
             const S gl = glo[b], gh = ghi[b], iu = iup[b], id = idn[b];
@@ -972,6 +1062,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                     if (Pe[mid] > gh) a_end = mid; else lo_a = mid + 1;
                 }
             }
+            SWEEP_LAP(sw_range, sw_t);
             for (int a = a_begin; a < a_end; ++a) {
                 const S p = Pe[a];
                 // Outside (g_{b-1}, g_{b+1}] both the hat and its left-sided
@@ -989,13 +1080,20 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
             }
             Y[idx] = acc;
             if (TANGENT) dY[idx] = dacc;
+            SWEEP_LAP(sw_sum, sw_t);
         }
+        SWEEP_FLUSH(14, sw_range);
+        SWEEP_FLUSH(15, sw_sum);
         __syncthreads();
+        SWEEP_BLOCK(4)
 
         // Markov mix D'[e', b] = Σ_e Pi[e, e'] D_half[e, b], then this
         // thread's share of the aggregates.
         S s0 = S(0), s1 = S(0), s2 = S(0), s3 = S(0);
+        SWEEP_ACC(sw_mix);
+        SWEEP_ACC(sw_terms);
         for (int idx = tid; idx < n; idx += kThreads) {
+            SWEEP_MARK(sw_t);
             const int e2 = idx / n_a;
             const int b = idx - e2 * n_a;
             S Dn = S(0), dDn = S(0);
@@ -1004,6 +1102,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                 if (TANGENT) dDn += Pi[e * n_e + e2] * dY[e * n_a + b];
             }
             X[idx] = Dn;
+            SWEEP_LAP(sw_mix, sw_t);
             const S pol = pol_t[idx];
             const S cg_raw = one_r * g[b] + w * lab[e2] - pol;
             const bool cg_live = cg_raw > tiny;
@@ -1017,7 +1116,10 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                 s1 += dpol * Dn + pol * dDn;
                 s3 += dcg * Dn + cg * dDn;
             }
+            SWEEP_LAP(sw_terms, sw_t);
         }
+        SWEEP_FLUSH(16, sw_mix);
+        SWEEP_FLUSH(17, sw_terms);
         red[0 * kThreads + tid] = s0;
         red[1 * kThreads + tid] = s2;
         if (TANGENT) {
@@ -1025,6 +1127,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
             red[(kRed - 1) * kThreads + tid] = s3;
         }
         __syncthreads();
+        SWEEP_BLOCK(5)
         for (int s = kThreads / 2; s >= 32; s >>= 1) {
             if (tid < s) {
                 for (int q = 0; q < kRed; ++q)
@@ -1052,11 +1155,13 @@ __global__ void __launch_bounds__(kThreads) household_sweep_ranged_kernel(
                 }
             }
         }
+        SWEEP_BLOCK(6)
     }
     if (fallback != nullptr && tid == 0) {
         fallback[2 * path] = fell_k;
         fallback[2 * path + 1] = fell_p;
     }
+    SWEEP_SAVE()
 }
 
 
@@ -1779,5 +1884,18 @@ size_t hank_sweep_smem_bytes(int which, int n_a, int n_e) {
 const char* hank_cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef HANK_SWEEP_STAMPS
+// The measurement build's stamps (kSweepSlots unsigned long long) into `out`
+// (host memory), then set to zero; or only set to zero when `out` is null.
+int hank_sweep_stamps(void* out) {
+    cudaError_t err = cudaSuccess;
+    if (out != nullptr)
+        err = cudaMemcpyFromSymbol(out, g_sweep_stamps, sizeof(g_sweep_stamps));
+    if (err != cudaSuccess) return (int)err;
+    const unsigned long long zero[kSweepSlots] = {};
+    return (int)cudaMemcpyToSymbol(g_sweep_stamps, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -15,7 +15,11 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
     (kernels 5-6's designs in FP64, values only, single-path and
     path-batched), built with
     `-fmad=false` (`EXTRA_FLAGS`): each product and sum rounds on its own,
-    as the plain f64 pipeline's elementwise operations do.
+    as the plain f64 pipeline's elementwise operations do;
+  - `household_sweep_cluster.cu`: the one-asset f32 and f64 tangent sweeps
+    on one thread-block cluster per path, each income row's state in its
+    own block's shared memory (in kernel 1's and the f64 tangent sweep's
+    places on the grids past one block).
 The libraries are keyed by the SHA-256 of the sources and the flags, so an
 edited source rebuilds; a build runs one nvcc per source, all started
 together. The libraries are loaded with ctypes. Nothing here runs at
@@ -27,9 +31,11 @@ launch; the kernel maps apply it, with the library's own count
 (`sweep_smem_bytes` / `sweep2_smem_bytes` / `sweep2_f64_smem_bytes`), when
 they are built on the card, so a grid past a kernel's limit stops a solve
 before it starts. A one-asset kernel whose count does not fit gives way,
-by that count and before any launch, to its global-state instantiation
-(`GLOBAL_STATE`; `ops/fused_sweep.sweep_kernel`), and the rule applies to
-that one's count.
+by that count and before any launch, to its cluster instantiation where
+it has one (`CLUSTER`: kernel 1 and the f64 tangent sweep) and that one's
+count fits a block and the card holds such a cluster (`max_clusters`), else
+to its global-state instantiation (`GLOBAL_STATE`;
+`ops/fused_sweep.sweep_kernel`), and the rule applies to that one's count.
 
 `python -m hank_tpu_torch.ops.cuda_build SOURCE.cu ...` compiles each
 source with the same flags into a temporary directory and prints, per
@@ -52,7 +58,8 @@ import tempfile
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIBRARIES = ("household_sweep", "household_sweep2", "household_sweep2_f64")
+LIBRARIES = ("household_sweep", "household_sweep2", "household_sweep2_f64",
+             "household_sweep_cluster")
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu") for name in LIBRARIES}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -176,7 +183,16 @@ _SIGNATURES = {
         "hank_sweep2_policies_f64_batch": (10, 6, 4),
         "hank_sweep2_forward_f64_batch": (8, 6, 0),
     },
+    "household_sweep_cluster": {
+        "hank_sweep_jvp_f32_cluster": (16, 3, 3),
+        "hank_sweep_jvp_f64_cluster": (16, 3, 3),
+    },
 }
+
+# The query of each cluster library for how many clusters the card holds.
+_MAX_CLUSTERS = {"household_sweep2": "hank_sweep2_max_clusters",
+                 "household_sweep2_f64": "hank_sweep2_f64_max_clusters",
+                 "household_sweep_cluster": "hank_sweep_cluster_max_clusters"}
 
 
 @functools.cache
@@ -197,11 +213,16 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
         lib.hank_sweep2_smem_bytes.restype = ctypes.c_size_t
         lib.hank_sweep2_max_clusters.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_max_clusters.restype = i
-    else:
+    elif name == "household_sweep2_f64":
         lib.hank_sweep2_f64_smem_bytes.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_f64_smem_bytes.restype = ctypes.c_size_t
         lib.hank_sweep2_f64_max_clusters.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_f64_max_clusters.restype = i
+    else:
+        lib.hank_sweep_cluster_smem_bytes.argtypes = [i, i, i]
+        lib.hank_sweep_cluster_smem_bytes.restype = ctypes.c_size_t
+        lib.hank_sweep_cluster_max_clusters.argtypes = [i, i, i]
+        lib.hank_sweep_cluster_max_clusters.restype = i
     lib.hank_cuda_error_string.argtypes = [i]
     lib.hank_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -220,21 +241,34 @@ def check_fit(need: int, what: str, hint: str = "") -> None:
 
 
 # `which` of `hank_sweep_smem_bytes`, one per kernel of the one-asset sweep
-# (`csrc/household_sweep.cu`): the counting template's builds (the previous
-# kernels), kernel 1, and household_sweep_ranged_kernel's builds, with its
-# state in shared memory and (GLOBAL_*) in a global workspace.
+# (`csrc/household_sweep.cu`): 0 the previous kernel 2 (the counting
+# template's f64 residual build), 1 the previous kernels 1 and 3-4 (its f32
+# dual build), 2 kernel 1, 3 kernels 3-4, 4 kernel 2 (the ranged kernel's f32
+# dual and f64 builds), 5 the f64 tangent sweep (its f64 dual build), 6 the
+# previous f64 tangent sweep (the template's f64 dual build), 7-10 the
+# ranged kernel's global-state instantiations of 2-5, its state in a global
+# workspace; and of
+# `hank_sweep_cluster_smem_bytes` (`csrc/household_sweep_cluster.cu`,
+# CLUSTER_*), per block of household_sweep_cluster_kernel's cluster.
 PREVIOUS_KERNEL2, PREVIOUS_KERNELS3_4, KERNEL1, KERNELS3_4, KERNEL2 = 0, 1, 2, 3, 4
 JVP_F64, PREVIOUS_JVP_F64 = 5, 6
 GLOBAL_KERNEL1, GLOBAL_KERNELS3_4, GLOBAL_KERNEL2, GLOBAL_JVP_F64 = 7, 8, 9, 10
+CLUSTER_KERNEL1, CLUSTER_JVP_F64 = 11, 12
 # The global-state instantiation that takes a one-block kernel's place on
 # the grids past its shared memory.
 GLOBAL_STATE = {KERNEL1: GLOBAL_KERNEL1, KERNELS3_4: GLOBAL_KERNELS3_4,
                 KERNEL2: GLOBAL_KERNEL2, JVP_F64: GLOBAL_JVP_F64}
+# The cluster instantiation that takes it first, where it has one.
+CLUSTER = {KERNEL1: CLUSTER_KERNEL1, JVP_F64: CLUSTER_JVP_F64}
 
 
 def sweep_smem_bytes(which: int, n_a: int, n_e: int) -> int:
     """The library's count of a one-asset sweep kernel's shared memory at an
-    n_a×n_e grid (`which` as above). Builds the library."""
+    n_a×n_e grid (`which` as above; a cluster kernel's per block). Builds
+    the library."""
+    if which in CLUSTER.values():
+        return load_library("household_sweep_cluster").hank_sweep_cluster_smem_bytes(
+            which, n_a, n_e)
     return load_library().hank_sweep_smem_bytes(which, n_a, n_e)
 
 
@@ -253,31 +287,22 @@ def sweep2_f64_smem_bytes(which: int, n_b: int, n_a: int, n_e: int, cluster: int
 
 
 @functools.cache
-def max_clusters(name: str, which: int, n_b: int, n_a: int, n_e: int, cluster: int) -> int:
-    """How many clusters of `cluster` blocks of a batched two-asset kernel the
-    card holds at once (cudaOccupancyMaxActiveClusters; 0: not one): library
-    `name` "household_sweep2" with which = 2 (kernel 6) or 3 (kernel 5), or
-    "household_sweep2_f64" with which = 0 (backward) or 1 (forward), at an
-    n_b×n_a×n_e×2 grid. Builds the library."""
+def max_clusters(name: str, which: int, *shape: int) -> int:
+    """How many clusters of a kernel the card holds at once
+    (cudaOccupancyMaxActiveClusters; 0: not one). Library `name`
+    "household_sweep2" with which = 2 (kernel 6) or 3 (kernel 5), or
+    "household_sweep2_f64" with which = 0 (backward) or 1 (forward), at
+    `shape` = (n_b, n_a, n_e, cluster): a batched two-asset kernel at an
+    n_b×n_a×n_e×2 grid on clusters of `cluster` blocks; "household_sweep_cluster"
+    with which = CLUSTER_KERNEL1 or CLUSTER_JVP_F64 at `shape` = (n_a, n_e):
+    a one-asset cluster kernel on its cluster of min(n_e, 8) blocks. Builds
+    the library."""
     lib = load_library(name)
-    query = (lib.hank_sweep2_max_clusters if name == "household_sweep2"
-             else lib.hank_sweep2_f64_max_clusters)
-    n = query(which, n_b, n_a, n_e, cluster)
+    n = getattr(lib, _MAX_CLUSTERS[name])(which, *shape)
     if n < 0:
         raise RuntimeError(f"{name}: CUDA error {-n} asking the clusters of kernel {which}: "
                            f"{lib.hank_cuda_error_string(-n).decode()}")
     return n
-
-
-def check_shared_memory(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:
-    """The one-asset sweep at an n_a×n_e grid: which = 0 the previous
-    kernel 2 (the counting template's f64 residual build), 1 the previous
-    kernels 1 and 3-4 (its f32 dual build), 2 kernel 1, 3 kernels 3-4, 4
-    kernel 2 (the template with kernel 1's design, f32 dual and f64 builds),
-    5 the f64 tangent sweep (its f64 dual build), 6 the previous f64 tangent
-    sweep (the counting template's f64 dual build), 7-10 the global-state
-    instantiations of 2-5 (`GLOBAL_STATE`)."""
-    check_fit(lib.hank_sweep_smem_bytes(which, n_a, n_e), f"grid {n_a}x{n_e}")
 
 
 def check_shared_memory_scan(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -> None:

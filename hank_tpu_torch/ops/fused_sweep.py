@@ -29,21 +29,28 @@ bit to the counting template's `<double, true, false>` launch
 the f64 direction map around it.
 
 Every kernel map over the sweep is built through `sweep_setup`, which on
-the card decides by the model's grid, with the library's shared-memory
-counts, which instantiation the map launches (`sweep_kernel`): the
-one-block kernel where its shared memory takes the grid, else its
-global-state instantiation (`household_sweep_ranged_kernel<S, TANGENT,
-BATCHED, true>`, the six state arrays in a global workspace the wrapper
-allocates, bit for bit the one-block kernel where both fit), and past that
-one's count ValueError when the map is built, before a solve starts. No
-route falls back to a plain version on the card. The reference probes its
-kernel and degrades to XLA instead (`hank_tpu/solvers/newton.py:356-376,
-431-450`). Each wrapper takes the same decision at each launch, by shape;
-`.launches` counts its one-block launches and `.launches_global` its
-global-state ones. The `_global` entry points (`fused_sweep_jvp_global`,
-`fused_sweep_jvp_f64_global`) launch the global-state instantiation at any
-grid, for the checks that hold it to the one-block kernel; no solver
-calls them.
+the card decides by the model's grid, with the libraries' shared-memory
+counts, which kernel the map launches (`sweep_kernel`): the one-block
+kernel where its shared memory takes the grid; else, for kernel 1 and the
+f64 tangent sweep, their cluster instantiation
+(`household_sweep_cluster_kernel<S, true>`, `csrc/household_sweep_cluster.cu`:
+one thread-block cluster a path, each income row's state in its own
+block's shared memory) where its count per block fits and the card holds
+one such cluster; else the global-state instantiation
+(`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`, the six state
+arrays in a global workspace the wrapper allocates); each bit for bit the
+one-block kernel where both fit; and past the last count ValueError when
+the map is built, before a solve starts. No route falls back to another
+kernel or to a plain version on the card, and a refused launch raises.
+The reference probes its kernel and degrades to XLA instead
+(`hank_tpu/solvers/newton.py:356-376, 431-450`). Each wrapper takes the
+same decision at each launch, by shape; `.launches` counts its one-block
+launches, `.launches_cluster` its cluster ones and `.launches_global` its
+global-state ones. The `_cluster` and `_global` entry points
+(`fused_sweep_jvp_cluster`, `fused_sweep_jvp_f64_cluster`,
+`fused_sweep_jvp_global`, `fused_sweep_jvp_f64_global`) launch their
+instantiation at any grid it takes, for the checks that hold it to the
+others; no solver calls them.
 
 A model opts in by defining `fused_prices(xp, exog_paths, model) -> (r, s)`
 next to its `ValueFunction` (the hook lookup goes through
@@ -136,20 +143,23 @@ def state_workspace_bytes(dtype, tangent: bool, n_a: int, n_e: int, B: int = 1) 
 
 def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
                  borrow_cons, smem_kind, extra_ptrs=()):
-    """Launch one entry point of `csrc/household_sweep.cu` on checked CUDA
+    """Launch one entry point of `csrc/household_sweep.cu` (or of
+    `csrc/household_sweep_cluster.cu`) on checked CUDA
     tensors and return its `n_out` output paths, each of the price paths'
     shape. `paths` are (r, w) or (r, w, dr, dw), (T-1,) each for a
     single-path entry point and (B, T-1) for a `_batch` one; the wrapper
     allocates the policy scratch, one (*shape, n_e, n_a) buffer for the
     policies and one for their tangents. `smem_kind` names the kernel for
-    the shared-memory check (`cuda_build.check_shared_memory`); a
+    the shared-memory check (`cuda_build.sweep_smem_bytes`); a
     global-state one (`cuda_build.GLOBAL_STATE`'s values) launches the
     entry point's `_global` twin with its state workspace
     (`state_workspace_bytes`) after `extra_ptrs`, which follow the
-    outputs."""
-    lib = cuda_build.load_library()
+    outputs; a cluster one (`cuda_build.CLUSTER`'s values) the `_cluster`
+    twin in `csrc/household_sweep_cluster.cu`."""
+    cluster = smem_kind in cuda_build.CLUSTER.values()
+    lib = cuda_build.load_library("household_sweep_cluster" if cluster else "household_sweep")
     n_a, n_e = V_T.shape
-    cuda_build.check_shared_memory(lib, smem_kind, n_a, n_e)
+    cuda_build.check_fit(cuda_build.sweep_smem_bytes(smem_kind, n_a, n_e), f"grid {n_a}x{n_e}")
     shape = tuple(paths[0].shape)
     dev = V_T.device
     global_state = smem_kind in cuda_build.GLOBAL_STATE.values()
@@ -161,6 +171,8 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
         out = torch.empty((n_out, *shape), dtype=V_T.dtype, device=dev)
         ptrs = [t.data_ptr() for t in (*paths, V_eT, D_eT, grid, e_grid, Pi,
                                        *scratch, *out)] + list(extra_ptrs)
+        if cluster:
+            entry = f"{entry}_cluster"
         if global_state:
             entry = f"{entry}_global"
             B = shape[0] if len(shape) == 2 else 1
@@ -176,10 +188,12 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
 
 def count_launch(wrapper, which: int, kernel: int) -> None:
     """One launch of `kernel` by the wrapper of one-block kernel `which`:
-    `.launches` counts the one-block kernel, `.launches_global` its
-    global-state instantiation."""
+    `.launches` counts the one-block kernel, `.launches_cluster` its
+    cluster instantiation, `.launches_global` its global-state one."""
     if kernel == which:
         wrapper.launches += 1
+    elif kernel in cuda_build.CLUSTER.values():
+        wrapper.launches_cluster += 1
     else:
         wrapper.launches_global += 1
 
@@ -227,9 +241,10 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     branches and refuses it.
 
     On CUDA tensors the grid decides (`sweep_kernel`): kernel 1 where its
-    shared memory takes it, else `household_sweep_ranged_kernel<float,
-    true, false, true>` (`fused_sweep_jvp_global` launches the latter at
-    any grid).
+    shared memory takes it, else `household_sweep_cluster_kernel<float,
+    true>` where its count fits, else `household_sweep_ranged_kernel<float,
+    true, false, true>` (`fused_sweep_jvp_cluster` and
+    `fused_sweep_jvp_global` launch these at any grid they take).
 
     Returns (agg, dagg, aggc, daggc): the (T-1,) savings and consumption
     aggregates and their directional derivatives.
@@ -247,7 +262,27 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
     return out
 
 
-fused_sweep_jvp.launches = fused_sweep_jvp.launches_global = 0
+fused_sweep_jvp.launches = fused_sweep_jvp.launches_cluster = 0
+fused_sweep_jvp.launches_global = 0
+
+
+def fused_sweep_jvp_cluster(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
+                            *, beta: float, gamma: float, borrow_cons: float,
+                            fallback_rows: torch.Tensor | None = None):
+    """`fused_sweep_jvp` through `household_sweep_cluster_kernel<float,
+    true>` at any grid its shared memory takes: kernel 1's place past its
+    own, held bit for bit to kernel 1 and to the global-state
+    instantiation. No solver calls it. CUDA tensors only; counted in
+    `fused_sweep_jvp.launches_cluster`."""
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp_cluster", f32, paths, V_T, D0, grid, e_grid, Pi)
+    require_card("fused_sweep_jvp_cluster", V_T, "fused_sweep_jvp_reference")
+    fallback = fallback_pointer("fused_sweep_jvp_cluster", fallback_rows, V_T, (2,))
+    out = launch_sweep("hank_sweep_jvp_f32", paths, V_T, D0, grid, e_grid, Pi, n_out=4,
+                       smem_kind=cuda_build.CLUSTER_KERNEL1, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp.launches_cluster += 1
+    return out
 
 
 def fused_sweep_jvp_global(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
@@ -293,9 +328,11 @@ def fused_sweep_jvp_f64(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
     """`fused_sweep_jvp` in float64: all inputs float64, the same outputs
     and `fallback_rows` (a (2,) int32 CUDA tensor, refused on CPU tensors).
     On the card `household_sweep_ranged_kernel<double, true, false>`, or
-    past its shared memory its global-state instantiation
-    (`fused_sweep_jvp_f64_global` launches that one at any grid); on CPU
-    tensors the plain version `fused_sweep_jvp_reference` in f64."""
+    past its shared memory `household_sweep_cluster_kernel<double, true>`
+    where its count fits, else the global-state instantiation
+    (`fused_sweep_jvp_f64_cluster` and `fused_sweep_jvp_f64_global` launch
+    these at any grid they take); on CPU tensors the plain version
+    `fused_sweep_jvp_reference` in f64."""
     paths = (r_path, w_path, dr_path, dw_path)
     _check_inputs("fused_sweep_jvp_f64", f64, paths, V_T, D0, grid, e_grid, Pi)
     fallback = fallback_pointer("fused_sweep_jvp_f64", fallback_rows, V_T, (2,))
@@ -309,7 +346,27 @@ def fused_sweep_jvp_f64(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
     return out
 
 
-fused_sweep_jvp_f64.launches = fused_sweep_jvp_f64.launches_global = 0
+fused_sweep_jvp_f64.launches = fused_sweep_jvp_f64.launches_cluster = 0
+fused_sweep_jvp_f64.launches_global = 0
+
+
+def fused_sweep_jvp_f64_cluster(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
+                                Pi, *, beta: float, gamma: float, borrow_cons: float,
+                                fallback_rows: torch.Tensor | None = None):
+    """`fused_sweep_jvp_f64` through `household_sweep_cluster_kernel<double,
+    true>` at any grid its shared memory takes, held bit for bit to
+    `<double, true, false>` and to the global-state instantiation. No
+    solver calls it. CUDA tensors only; counted in
+    `fused_sweep_jvp_f64.launches_cluster`."""
+    paths = (r_path, w_path, dr_path, dw_path)
+    _check_inputs("fused_sweep_jvp_f64_cluster", f64, paths, V_T, D0, grid, e_grid, Pi)
+    require_card("fused_sweep_jvp_f64_cluster", V_T, "fused_sweep_jvp_reference")
+    fallback = fallback_pointer("fused_sweep_jvp_f64_cluster", fallback_rows, V_T, (2,))
+    out = launch_sweep("hank_sweep_jvp_f64", paths, V_T, D0, grid, e_grid, Pi, n_out=4,
+                       smem_kind=cuda_build.CLUSTER_JVP_F64, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp_f64.launches_cluster += 1
+    return out
 
 
 def fused_sweep_jvp_f64_global(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
@@ -390,19 +447,29 @@ KERNEL_NAMES = {cuda_build.KERNEL1: "kernel 1 (the f32 tangent sweep)",
                 cuda_build.GLOBAL_KERNEL1: "the global-state f32 tangent sweep",
                 cuda_build.GLOBAL_KERNELS3_4: "the global-state batched f32 tangent sweep",
                 cuda_build.GLOBAL_KERNEL2: "the global-state f64 residual sweep",
-                cuda_build.GLOBAL_JVP_F64: "the global-state f64 tangent sweep"}
+                cuda_build.GLOBAL_JVP_F64: "the global-state f64 tangent sweep",
+                cuda_build.CLUSTER_KERNEL1: "the cluster f32 tangent sweep",
+                cuda_build.CLUSTER_JVP_F64: "the cluster f64 tangent sweep"}
 PLAIN_ROUTES = ("; on the card only the plain routes take this grid "
                 "(direction_mode='xla', residual_mode='f64')")
 
 
 def sweep_kernel(which: int, n_a: int, n_e: int) -> int:
     """The kernel a map over one-block kernel `which` launches at an n_a×n_e
-    grid, decided by the library's shared-memory counts before any launch:
-    `which` where one block holds it, else its global-state instantiation
+    grid, decided by the libraries' shared-memory counts before any launch:
+    `which` where one block holds it; else its cluster instantiation
+    (`cuda_build.CLUSTER`, kernel 1 and the f64 tangent sweep only) where
+    its count fits a block and the card holds at least one such cluster
+    (`cuda_build.max_clusters`); else its global-state instantiation
     (`cuda_build.GLOBAL_STATE`), and ValueError, naming that one and the
     plain routes, where its count does not fit either."""
     if cuda_build.sweep_smem_bytes(which, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES:
         return which
+    cluster = cuda_build.CLUSTER.get(which)
+    if (cluster is not None
+            and cuda_build.sweep_smem_bytes(cluster, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES
+            and cuda_build.max_clusters("household_sweep_cluster", cluster, n_a, n_e) >= 1):
+        return cluster
     kernel = cuda_build.GLOBAL_STATE[which]
     cuda_build.check_fit(cuda_build.sweep_smem_bytes(kernel, n_a, n_e),
                          f"{KERNEL_NAMES[kernel]} at grid {n_a}x{n_e}", PLAIN_ROUTES)
@@ -414,8 +481,8 @@ class SweepSetup(NamedTuple):
     kernel inputs (V_T, D0, grid, e_grid, Pi), contiguous; the kernels' CRRA
     parameters; to_aggs(agg, aggc), the {variable: path} mapping of the
     sweep's aggregates that the assembly takes; and the kernel the map
-    launches on the card (`sweep_kernel`; None off the card or without
-    `which`)."""
+    launches on the card (`sweep_kernel`: `which`, its cluster or its
+    global-state instantiation; None off the card or without `which`)."""
 
     hook: Callable
     consts: list
@@ -429,9 +496,9 @@ def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None) -
     sweep take from a supported model, with the steady-state arrays in
     `dtype`. With `which` (the one-block kernel the map launches,
     `cuda_build`'s numbering) and the arrays on the card, the kernel it
-    launches at the model's grid (`sweep_kernel`: `which` or its
-    global-state instantiation), and ValueError where neither one's shared
-    memory takes the grid.
+    launches at the model's grid (`sweep_kernel`: `which`, its cluster or
+    its global-state instantiation), and ValueError where none of their
+    shared memory takes the grid.
     """
     if not supports_fused_sweep(model):
         raise ValueError("model does not declare the canonical one-asset EGM "
@@ -455,8 +522,8 @@ def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None) -
 def _build_fused(model, ss_initial, ss_ending, exog_paths, dtype=f32):
     """The direction map through the household sweep in `dtype`
     (`hank_tpu/ops/fused_sweep.py:505-592` for f32): kernel 1 in f32,
-    `fused_sweep_jvp_f64` in f64, each or its global-state instantiation
-    as `sweep_setup` decides.
+    `fused_sweep_jvp_f64` in f64, each, its cluster or its global-state
+    instantiation as `sweep_setup` decides.
 
     Returns (jvp_dir, residual):
       jvp_dir(x, v) -> `dtype` directional derivative of F at x along v: the

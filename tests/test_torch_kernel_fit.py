@@ -4,9 +4,12 @@ On the card every kernel map is held, when it is built, to the shared
 memory its kernel needs at the model's grid (`ops/cuda_build.check_fit` of
 the library's own count, from `fused_sweep.sweep_setup` and
 `fused_sweep2._build_fused2`). A one-asset map whose one-block kernel does
-not take the grid builds on that kernel's global-state instantiation
-(`fused_sweep.sweep_kernel`: a decision by the counts, before any launch);
-past that one's count, and past a two-asset kernel's, the build raises
+not take the grid builds, for kernel 1 and the f64 tangent sweep, on that
+kernel's cluster instantiation where its count per block fits and the card
+holds such a cluster (`cuda_build.max_clusters`), else on its
+global-state instantiation (`fused_sweep.sweep_kernel`: a decision by the
+counts, before any launch); past that one's count, and past a two-asset
+kernel's, the build raises
 ValueError, under "auto" as under "pallas"/"ds", before a solve starts and
 before any launch, and the message names the plain routes ("xla", "f64")
 that take the grid. No route falls back to a plain version on the card.
@@ -17,8 +20,10 @@ Without a card the library cannot count, so the tests count with Python
 transcriptions of `csrc/household_sweep.cu`'s `smem_bytes<S, TANGENT>`,
 `jvp_smem_bytes`, `global_smem_bytes<S, TANGENT>` and the two forward
 scans' counts (kernels 5-6 reuse
-`tests/test_torch_bwd_schedule.py`'s and `tests/test_torch_lottery_schedule.py`'s)
-and hand them to the check through `cuda_build.sweep_smem_bytes`; the steady
+`tests/test_torch_bwd_schedule.py`'s and `tests/test_torch_lottery_schedule.py`'s,
+the cluster kernels `tests/test_torch_cluster_schedule.py`'s)
+and hand them to the check through `cuda_build.sweep_smem_bytes`, with a
+card that holds one cluster (`cuda_build.max_clusters`); the steady
 state is made to report its arrays on the card (`OnCard`), while the
 wrappers, which look at the device, still run their plain versions.
 `chip_smoke.py` holds the library's count to the same limits on the card.
@@ -39,6 +44,7 @@ from hank_tpu_torch.ops.fused_residual import fused_residual_sweep_reference
 from hank_tpu_torch.ops.fused_sweep import KERNEL_NAMES, fused_sweep_jvp_reference, sweep_setup
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_bwd_schedule import cluster_smem_bytes as k5_bytes
+from tests.test_torch_cluster_schedule import cluster_smem_bytes
 from tests.test_torch_common import (build_small_ks_torch, build_small_two_asset_torch,
                                      ss_to_numpy, to_torch, transitory_exog)
 from tests.test_torch_lottery_schedule import cluster_smem_bytes as k6_bytes
@@ -94,11 +100,17 @@ BYTES = {
     cuda_build.GLOBAL_KERNELS3_4: lambda n_a, n_e: global_smem_bytes(4, True, n_a, n_e),
     cuda_build.GLOBAL_KERNEL2: lambda n_a, n_e: global_smem_bytes(8, False, n_a, n_e),
     cuda_build.GLOBAL_JVP_F64: lambda n_a, n_e: global_smem_bytes(8, True, n_a, n_e),
+    cuda_build.CLUSTER_KERNEL1: lambda n_a, n_e: cluster_smem_bytes(4, n_a, n_e),
+    cuda_build.CLUSTER_JVP_F64: lambda n_a, n_e: cluster_smem_bytes(8, n_a, n_e),
 }
 
 # The last n_a each kernel takes at n_e = 7.
 LIMITS = {"kernel2": (cuda_build.KERNEL2, 1036), "kernel1": (cuda_build.KERNEL1, 1147),
           "kernels3_4": (cuda_build.KERNELS3_4, 1148), "jvp_f64": (cuda_build.JVP_F64, 529)}
+# The last n_a each cluster instantiation takes at n_e = 7 (per block, a
+# cluster of 7).
+CLUSTER_LIMITS = {"kernel1": (cuda_build.CLUSTER_KERNEL1, 3597),
+                  "jvp_f64": (cuda_build.CLUSTER_JVP_F64, 1660)}
 # The last n_a each global-state instantiation takes at n_e = 7.
 GLOBAL_LIMITS = {"kernel2": (cuda_build.GLOBAL_KERNEL2, 5390),
                  "kernel1": (cuda_build.GLOBAL_KERNEL1, 10792),
@@ -120,10 +132,24 @@ def on_card(ss):
     return dataclasses.replace(ss, value=ss.value.as_subclass(OnCard))
 
 
+def holds_clusters(monkeypatch, n=1):
+    """`cuda_build.max_clusters` answering `n` clusters for the one-asset
+    cluster kernels; returns the list of the `which` asked."""
+    asked = []
+
+    def clusters(library, which, n_a, n_e):
+        assert library == "household_sweep_cluster"
+        asked.append(which)
+        return n
+
+    monkeypatch.setattr(cuda_build, "max_clusters", clusters)
+    return asked
+
+
 @pytest.fixture
 def count(monkeypatch):
-    """The transcriptions in place of the library's count; returns the
-    list of the `which` asked."""
+    """The transcriptions in place of the library's count, on a card that
+    holds one cluster; returns the list of the `which` asked."""
     asked = []
 
     def counted(which, n_a, n_e):
@@ -131,6 +157,7 @@ def count(monkeypatch):
         return BYTES[which](n_a, n_e)
 
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", counted)
+    holds_clusters(monkeypatch)
     return asked
 
 
@@ -143,15 +170,22 @@ def over(monkeypatch):
 
 
 def one_block_over(n_a, n_e, which):
-    """Every one-block one-asset kernel one byte past a block; the
-    global-state instantiations at the transcription's count."""
+    """Every one-block and cluster one-asset kernel one byte past a block;
+    the global-state instantiations at the transcription's count."""
+    over = which in cuda_build.GLOBAL_STATE or which in cuda_build.CLUSTER.values()
+    return SMEM + 1 if over else BYTES[which](n_a, n_e)
+
+
+def one_block_only_over(n_a, n_e, which):
+    """Every one-block one-asset kernel one byte past a block; the cluster
+    and global-state instantiations at the transcription's count."""
     return SMEM + 1 if which in cuda_build.GLOBAL_STATE else BYTES[which](n_a, n_e)
 
 
 @pytest.fixture
 def past_one_block(monkeypatch):
-    """`one_block_over` as the library's count; returns the list of the
-    `which` asked."""
+    """`one_block_over` as the library's count: every map past the one-block
+    and cluster tiers; returns the list of the `which` asked."""
     asked = []
 
     def counted(which, n_a, n_e):
@@ -159,6 +193,22 @@ def past_one_block(monkeypatch):
         return one_block_over(n_a, n_e, which)
 
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", counted)
+    return asked
+
+
+@pytest.fixture
+def to_cluster(monkeypatch):
+    """`one_block_only_over` as the library's count, on a card that holds
+    one cluster: kernel 1's and the f64 tangent sweep's maps on their
+    cluster tier; returns the list of the `which` asked."""
+    asked = []
+
+    def counted(which, n_a, n_e):
+        asked.append(which)
+        return one_block_only_over(n_a, n_e, which)
+
+    monkeypatch.setattr(cuda_build, "sweep_smem_bytes", counted)
+    holds_clusters(monkeypatch)
     return asked
 
 
@@ -174,16 +224,41 @@ def test_check_fit_is_the_block_limit():
 def test_decision_at_each_limit_and_one_past_it(ks, count, name):
     """At n_e = 7: kernel 2 takes n_a ≤ 1036, kernel 1 ≤ 1147, kernels 3-4
     ≤ 1148, the f64 tangent sweep ≤ 529; one knot more and the map builds
-    on the kernel's global-state instantiation, decided by the counts."""
+    on the kernel's cluster instantiation (kernel 1, the f64 tangent
+    sweep) or its global-state one (kernels 2-4), decided by the counts."""
     which, last = LIMITS[name]
     tss = on_card(ks[1])
     dtype = f32 if which in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
     setup = sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype, which)
     assert setup.kernel == which
     model = build_small_ks_torch(T=12, n_a=last + 1, n_e=7)
-    assert sweep_setup(model, tss, tss, dtype, which).kernel == cuda_build.GLOBAL_STATE[which]
+    nxt = cuda_build.CLUSTER.get(which, cuda_build.GLOBAL_STATE[which])
+    assert sweep_setup(model, tss, tss, dtype, which).kernel == nxt
     assert BYTES[which](last + 1, 7) > SMEM
-    assert count == [which, which, cuda_build.GLOBAL_STATE[which]]
+    assert count == [which, which, nxt]
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_LIMITS))
+def test_decision_at_each_cluster_limit_and_one_past_it(ks, count, monkeypatch, name):
+    """At n_e = 7 the cluster instantiations take n_a ≤ 3597 (kernel 1's
+    place) and ≤ 1660 (the f64 tangent sweep's); one knot more and the map
+    builds on the global-state instantiation. A card that holds no such
+    cluster sends the map there too, at any grid."""
+    which, last = CLUSTER_LIMITS[name]
+    one_block = LIMITS[name][0]
+    tss = on_card(ks[1])
+    dtype = f32 if one_block == cuda_build.KERNEL1 else f64
+    setup = sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype, one_block)
+    assert setup.kernel == which
+    model = build_small_ks_torch(T=12, n_a=last + 1, n_e=7)
+    glob = cuda_build.GLOBAL_STATE[one_block]
+    assert sweep_setup(model, tss, tss, dtype, one_block).kernel == glob
+    assert BYTES[which](last + 1, 7) > SMEM >= BYTES[glob](last + 1, 7)
+    assert count == [one_block, which, one_block, which, glob]
+    asked = holds_clusters(monkeypatch, 0)
+    model = build_small_ks_torch(T=12, n_a=LIMITS[name][1] + 1, n_e=7)
+    assert sweep_setup(model, tss, tss, dtype, one_block).kernel == glob
+    assert asked == [which]
 
 
 @pytest.mark.parametrize("name", sorted(GLOBAL_LIMITS))
@@ -206,7 +281,9 @@ def test_decision_at_each_global_state_limit_and_one_past_it(ks, count, name):
     assert text.startswith(f"{KERNEL_NAMES[which]} at grid {last + 1}x7 needs "
                            f"{BYTES[which](last + 1, 7)} bytes of shared memory")
     assert text.endswith(PLAIN)
-    assert count == [one_block, which] * 2
+    tiers = [one_block, *([cuda_build.CLUSTER[one_block]] if one_block in cuda_build.CLUSTER
+                          else []), which]
+    assert count == tiers * 2
 
 
 def test_kernel7_takes_every_grid_the_previous_kernel7_takes():
@@ -273,9 +350,9 @@ def test_two_asset_pair_build_asks_both_kernels(monkeypatch):
 
 def test_auto_f32_direction_route_takes_kernel1_or_raises(ks, count, monkeypatch):
     """On the card "auto" builds kernel 1's map (its plain version here)
-    where it fits, and past its limit the map of its global-state
-    instantiation; past that one's count the build raises, and "xla" builds
-    the mixed-tail map without asking."""
+    where it fits, and past its limit and its cluster instantiation's the
+    map of its global-state instantiation; past that one's count the build
+    raises, and "xla" builds the mixed-tail map without asking."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     v = torch.ones_like(x)
@@ -289,7 +366,8 @@ def test_auto_f32_direction_route_takes_kernel1_or_raises(ks, count, monkeypatch
                         lambda w, n_a, n_e: count.append(w) or one_block_over(n_a, n_e, w))
     newton_mod.direction_route(tm, card, card, exog, "auto")[0](x, v)
     assert fused_sweep_jvp_reference.calls == calls + 2
-    assert set(count) == {cuda_build.KERNEL1, cuda_build.GLOBAL_KERNEL1}
+    assert set(count) == {cuda_build.KERNEL1, cuda_build.CLUSTER_KERNEL1,
+                          cuda_build.GLOBAL_KERNEL1}
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda *a: SMEM + 1)
     with pytest.raises(ValueError, match="the global-state f32 tangent sweep .* needs"):
         newton_mod.direction_route(tm, card, card, exog, "auto")
@@ -300,9 +378,9 @@ def test_auto_f32_direction_route_takes_kernel1_or_raises(ks, count, monkeypatch
 
 def test_auto_f64_direction_route_takes_the_f64_sweep_or_raises(ks, count, monkeypatch):
     """On the card "auto" builds the f64 tangent sweep's map (its plain
-    version here) where it fits, and past its limit the map of its
-    global-state instantiation, with no AD direction; past that one's count
-    the build raises, and "xla" is AD."""
+    version here) where it fits, and past its limit and its cluster
+    instantiation's the map of its global-state instantiation, with no AD
+    direction; past that one's count the build raises, and "xla" is AD."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     v = torch.ones_like(x)
@@ -315,7 +393,7 @@ def test_auto_f64_direction_route_takes_the_f64_sweep_or_raises(ks, count, monke
                         lambda w, n_a, n_e: count.append(w) or one_block_over(n_a, n_e, w))
     newton_mod.f64_direction_route(tm, card, card, exog, "auto")(x, v)
     assert (fused_sweep_jvp_reference.calls, newton_mod.ad_direction.calls) == (calls + 2, ad)
-    assert count == [cuda_build.JVP_F64, cuda_build.GLOBAL_JVP_F64]
+    assert count == [cuda_build.JVP_F64, cuda_build.CLUSTER_JVP_F64, cuda_build.GLOBAL_JVP_F64]
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda *a: SMEM + 1)
     with pytest.raises(ValueError,
                        match="the global-state f64 tangent sweep at grid 40x5 needs"):
@@ -349,7 +427,7 @@ def test_kernel2_residual_routes_raise_past_the_limit(ks, over, monkeypatch):
 def test_explicit_pallas_modes_raise_at_the_build(ks, over, monkeypatch):
     """"pallas" past the global-state instantiations' counts raises when
     the map is built, not at its first launch; past the one-block kernels'
-    alone it builds on the global-state ones."""
+    and the cluster ones' alone it builds on the global-state ones."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     with pytest.raises(ValueError, match="the global-state f32 tangent sweep .* needs"):
@@ -361,8 +439,9 @@ def test_explicit_pallas_modes_raise_at_the_build(ks, over, monkeypatch):
                         lambda w, n_a, n_e: asked.append(w) or one_block_over(n_a, n_e, w))
     newton_mod.direction_route(tm, card, card, exog, "pallas")
     newton_mod.f64_direction_route(tm, card, card, exog, "pallas")
-    assert set(asked) == {cuda_build.KERNEL1, cuda_build.GLOBAL_KERNEL1,
-                          cuda_build.JVP_F64, cuda_build.GLOBAL_JVP_F64}
+    assert set(asked) == {cuda_build.KERNEL1, cuda_build.CLUSTER_KERNEL1,
+                          cuda_build.GLOBAL_KERNEL1, cuda_build.JVP_F64,
+                          cuda_build.CLUSTER_JVP_F64, cuda_build.GLOBAL_JVP_F64}
 
 
 def test_path_solver_raises_at_the_build_past_the_limits(ks, over, monkeypatch):

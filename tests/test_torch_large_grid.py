@@ -1,23 +1,30 @@
 """PyTorch port: one-asset grids past one block's shared memory, on the CPU.
 
 On the card every one-asset kernel map decides by the model's grid, with
-the library's shared-memory counts and before any launch, which kernel it
+the libraries' shared-memory counts and before any launch, which kernel it
 launches (`ops/fused_sweep.sweep_kernel`, recorded as `sweep_setup(...).kernel`):
-the one-block kernel where its count fits, else its global-state
-instantiation (`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`,
-whose six state arrays live in a global workspace), and ValueError past
-that one's count. Without a card the library cannot count, so the tests
-feed `cuda_build.sweep_smem_bytes` a count that puts every one-block kernel
-one byte past a block and the transcriptions of
-`tests/test_torch_kernel_fit.py` for the global-state ones; the steady
-state reports its arrays on the card (`OnCard`) while the wrappers, which
-look at the device, run their plain versions.
+the one-block kernel where its count fits; else, for kernel 1 and the f64
+tangent sweep, their cluster instantiation
+(`household_sweep_cluster_kernel<S, true>`, each income row's state in its
+own block's shared memory) where its count per block fits and the card
+holds such a cluster; else the global-state instantiation
+(`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`, whose six
+state arrays live in a global workspace), and ValueError past that one's
+count. Without a card the libraries cannot count, so the tests feed
+`cuda_build.sweep_smem_bytes` a count that puts every one-block kernel one
+byte past a block (the `past_one_block` fixture: the cluster ones too; the
+`to_cluster` fixture: the cluster ones at their transcription, on a card
+that holds one cluster) and the transcriptions of
+`tests/test_torch_kernel_fit.py` for the others; the steady state reports
+its arrays on the card (`OnCard`) while the wrappers, which look at the
+device, run their plain versions.
 
 On the small Krusell-Smith (40×5, T=12, the transitory TFP shock) every
-one-asset route under "auto" then builds on the global-state kernels and
-solves to the JAX package's root within 1e-9: the default boehl solve (f64
-directions, kernel-2 residuals), Newton-Krylov with f32 directions, and a
-B=2 ensemble. The `slow` test rebuilds
+one-asset route under "auto" then builds on the global-state kernels, or
+for the directions on the cluster ones, and solves to the JAX package's
+root within 1e-9: the default boehl solve (f64 directions, kernel-2
+residuals), Newton-Krylov with f32 directions, and a B=2 ensemble. The
+`slow` test rebuilds
 `hank_tpu_torch/data/ks_large_grid_1200x7_T150_jax_cpu.npz` (large-grid KS
 at 1200×7, T=150, the grid past every one-block kernel at n_e = 7) from
 `hank_tpu` on the CPU and holds the port's CPU solve to it.
@@ -40,7 +47,8 @@ from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_batch_global,
                                                fused_residual_sweep_global,
                                                fused_residual_sweep_reference)
-from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
+                                            fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
                                             fused_sweep_jvp_f64_global, fused_sweep_jvp_global,
                                             fused_sweep_jvp_reference, state_workspace_bytes,
                                             sweep_setup)
@@ -48,7 +56,8 @@ from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch, fused_sw
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_common import (REPO, build_small_ks_torch, ss_to_numpy, to_torch,
                                      transitory_exog)
-from tests.test_torch_kernel_fit import BYTES, on_card, past_one_block  # noqa: F401 (fixture)
+from tests.test_torch_kernel_fit import (BYTES, on_card, past_one_block,  # noqa: F401
+                                         to_cluster)                     # (fixtures)
 from tests.test_torch_solve import x_ss_of
 
 torch.set_num_threads(1)
@@ -94,12 +103,15 @@ def ks(ks_small, ks_small_ss):
 
 @pytest.mark.parametrize("which", sorted(cuda_build.GLOBAL_STATE))
 def test_sweep_setup_records_the_kernel_it_launches(ks, past_one_block, monkeypatch, which):
-    """Past one block the map records the global-state instantiation, on
-    CPU tensors nothing, and where the one-block kernel fits, that one."""
+    """Past one block (and past the cluster kernel's count) the map records
+    the global-state instantiation, on CPU tensors nothing, and where the
+    one-block kernel fits, that one."""
     dtype = f32 if which in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
     assert sweep_setup(ks.tm, ks.card, ks.card, dtype, which).kernel == \
         cuda_build.GLOBAL_STATE[which]
-    assert past_one_block == [which, cuda_build.GLOBAL_STATE[which]]
+    assert past_one_block == [which, *([cuda_build.CLUSTER[which]]
+                                       if which in cuda_build.CLUSTER else []),
+                              cuda_build.GLOBAL_STATE[which]]
     assert sweep_setup(ks.tm, ks.tss, ks.tss, dtype, which).kernel is None
     assert sweep_setup(ks.tm, ks.card, ks.card, dtype).kernel is None
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda w, n_a, n_e: BYTES[w](n_a, n_e))
@@ -122,7 +134,7 @@ def test_solves_past_one_block_take_the_global_state_kernels(ks, past_one_block,
     expected = {cuda_build.GLOBAL_KERNEL2,
                 cuda_build.GLOBAL_KERNEL1 if direction_dtype == f32
                 else cuda_build.GLOBAL_JVP_F64}
-    assert {w for w in past_one_block if w >= cuda_build.GLOBAL_KERNEL1} == expected
+    assert {w for w in past_one_block if w in cuda_build.GLOBAL_STATE.values()} == expected
     assert fused_sweep_jvp_reference.calls > calls[0]
     assert fused_residual_sweep_reference.calls > calls[1]
     assert newton_mod.ad_direction.calls == calls[2]
@@ -142,11 +154,47 @@ def test_ensemble_past_one_block_takes_the_global_state_kernels(ks, past_one_blo
                                                ks.tm, ks.card, ks.card, eps=1e-10,
                                                method="newton_krylov")
     assert float(info["residual_norm"].max()) < 1e-10
-    assert {w for w in past_one_block if w >= cuda_build.GLOBAL_KERNEL1} == \
+    assert {w for w in past_one_block if w in cuda_build.GLOBAL_STATE.values()} == \
         {cuda_build.GLOBAL_KERNELS3_4, cuda_build.GLOBAL_KERNEL2}
     for b, z in enumerate(shocks):
         root = ks.root if b == 1 else ks.jax_root(z)
         assert float(np.max(np.abs(x[b].numpy() - root))) <= 1e-9
+
+
+@pytest.mark.parametrize("which", sorted(cuda_build.CLUSTER))
+def test_sweep_setup_records_the_cluster_tier(ks, to_cluster, which):
+    """Past one block, where the cluster instantiation's count fits and
+    the card holds one such cluster, kernel 1's and the f64 tangent
+    sweep's maps record the cluster instantiation; kernels 2-4's, which
+    have none, their global-state ones."""
+    dtype = f32 if which == cuda_build.KERNEL1 else f64
+    assert sweep_setup(ks.tm, ks.card, ks.card, dtype, which).kernel == \
+        cuda_build.CLUSTER[which]
+    assert to_cluster == [which, cuda_build.CLUSTER[which]]
+    for other, dt in ((cuda_build.KERNEL2, f64), (cuda_build.KERNELS3_4, f32)):
+        assert sweep_setup(ks.tm, ks.card, ks.card, dt, other).kernel == \
+            cuda_build.GLOBAL_STATE[other]
+
+
+@pytest.mark.parametrize("method,direction_dtype", [("boehl", None), ("newton_krylov", f32)])
+def test_solves_on_the_cluster_tier(ks, to_cluster, method, direction_dtype):
+    """The default (f64 directions, boehl) and Newton-Krylov with f32
+    directions with the directions' maps on the cluster tier: the solver
+    builds on the cluster instantiation (its plain version here) and the
+    global-state kernel 2, takes no AD direction and reaches the JAX
+    package's root within 1e-9."""
+    calls = (fused_sweep_jvp_reference.calls, newton_mod.ad_direction.calls)
+    x, info = newton_mod.make_path_solver(
+        to_torch(ks.J), ks.exog, ks.tm, ks.card, ks.card, method=method,
+        direction_dtype=direction_dtype, eps=1e-10)(to_torch(ks.x_ss))
+    assert info["residual_norm"] < 1e-10
+    cluster = cuda_build.CLUSTER_KERNEL1 if direction_dtype == f32 else cuda_build.CLUSTER_JVP_F64
+    assert cluster in to_cluster
+    assert {w for w in to_cluster if w in cuda_build.GLOBAL_STATE.values()} == \
+        {cuda_build.GLOBAL_KERNEL2}
+    assert fused_sweep_jvp_reference.calls > calls[0]
+    assert newton_mod.ad_direction.calls == calls[1]
+    assert float(np.max(np.abs(x.numpy() - ks.root))) <= 1e-9
 
 
 @pytest.mark.parametrize("dtype,tangent,B", [(f32, True, 1), (f32, True, 64), (f64, False, 1),
@@ -159,25 +207,29 @@ def test_state_workspace_is_six_or_three_states_a_path(dtype, tangent, B):
 
 
 @pytest.mark.parametrize("entry,wrapper,dtype,n_paths,batched", [
+    (fused_sweep_jvp_cluster, fused_sweep_jvp, f32, 4, False),
+    (fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64, f64, 4, False),
     (fused_sweep_jvp_global, fused_sweep_jvp, f32, 4, False),
     (fused_sweep_jvp_batch_global, fused_sweep_jvp_batch, f32, 4, True),
     (fused_residual_sweep_global, fused_residual_sweep, f64, 2, False),
     (fused_residual_sweep_batch_global, fused_residual_sweep_batch, f64, 2, True),
     (fused_sweep_jvp_f64_global, fused_sweep_jvp_f64, f64, 4, False)])
 def test_global_state_entry_points_refuse_cpu_tensors(entry, wrapper, dtype, n_paths, batched):
-    """The `_global` entry points launch their instantiation or raise: on
-    CPU tensors ValueError naming the wrapper's plain version, and no
-    launch is counted."""
+    """The `_cluster` and `_global` entry points launch their instantiation
+    or raise: on CPU tensors ValueError naming the wrapper's plain version,
+    and no launch is counted."""
     n_a, n_e, Tm1 = 6, 3, 4
     paths = [torch.zeros((2, Tm1) if batched else (Tm1,), dtype=dtype) for _ in range(n_paths)]
     states = [torch.ones(n_a, n_e, dtype=dtype),
               torch.full((n_a, n_e), 1 / (n_a * n_e), dtype=dtype),
               torch.linspace(0, 1, n_a, dtype=dtype), torch.ones(n_e, dtype=dtype),
               torch.eye(n_e, dtype=dtype)]
-    counts = (wrapper.launches, wrapper.launches_global)
+    counts = (wrapper.launches, wrapper.launches_global,
+              getattr(wrapper, "launches_cluster", 0))
     with pytest.raises(ValueError, match="card only.*_reference is the plain version"):
         entry(*paths, *states, beta=0.98, gamma=2.0, borrow_cons=0.0)
-    assert (wrapper.launches, wrapper.launches_global) == counts
+    assert (wrapper.launches, wrapper.launches_global,
+            getattr(wrapper, "launches_cluster", 0)) == counts
 
 
 # ── 1200×7, T=150 ──────────────────────────────────────────────────────────

@@ -16,7 +16,11 @@ kernel 2, near the steady state and on the grid with two knots swapped
 (the fallback branches, whose counts are checked per path); kernel 1 and
 the f64 tangent sweep (`fused_sweep_jvp_f64`, against
 `fused_sweep_jvp_f64_previous`) too; and the rows of a batched launch equal
-single launches of kernel 1 and of kernel 2. Kernel 7 (`forward_scan`) is
+single launches of kernel 1 and of kernel 2. The cluster instantiations
+(`csrc/household_sweep_cluster.cu`) are held to the global-state
+instantiations and the one-block kernels at 40×5, 40×9 and 40×17 (clusters
+of 5 and 8 blocks, one to three rows a block) and to the global-state ones
+at 1200×7. Kernel 7 (`forward_scan`) is
 held to the previous kernel 7 (`forward_scan_previous`) on seeded monotone
 policies, with 10% noise (fallback rows), one NaN policy and every policy
 clamped at a grid end. Here, without a card, those tests skip; the CPU test
@@ -42,7 +46,8 @@ from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_reference)
 from hank_tpu_torch.ops.forward_scan import (forward_scan, forward_scan_previous,
                                              forward_scan_reference)
-from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_f64,
+from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
+                                            fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
                                             fused_sweep_jvp_f64_global,
                                             fused_sweep_jvp_f64_previous,
                                             fused_sweep_jvp_global, fused_sweep_jvp_reference)
@@ -115,6 +120,14 @@ def test_sweep_ab_refuses_to_run_without_a_card():
     from hank_tpu_torch.tools import sweep_ab
 
     assert sweep_ab.main([]) == 1
+
+
+def test_sweep_split_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from hank_tpu_torch.tools import sweep_split
+
+    assert sweep_split.main([]) == 1
 
 
 # ── On the card ────────────────────────────────────────────────────────────
@@ -341,9 +354,66 @@ def test_global_state_instantiations_on_card_are_bit_for_bit_the_one_block_kerne
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_e", [5, 9, 17])
+def test_cluster_instantiations_on_card_are_bit_for_bit_the_global_state_kernels(cuda, n_e):
+    """Each cluster instantiation against the global-state instantiation
+    and the one-block kernel whose place it takes, on every output bit and
+    fallback count: near the steady state, on the swapped grid and with a
+    NaN in V_T; `<float, true>` against kernel 1. At n_e = 5 a cluster of
+    5 blocks, one row each; at 9 and 17 a cluster of 8, some blocks holding
+    two or three rows. `.launches_cluster` counts them."""
+    kw = kernel_kwargs()
+    p32, c32 = inputs(1, f32, cuda, seed=11, n_e=n_e)
+    p64, c64 = inputs(1, f64, cuda, seed=11, n_e=n_e)
+    cases = ((fused_sweep_jvp, fused_sweep_jvp_cluster, fused_sweep_jvp_global,
+              [p[0] for p in p32], c32),
+             (fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64_global,
+              [p[0] for p in p64], c64))
+    for one_block, cluster, glob, paths, c in cases:
+        taken = 0
+        for shared in (c, swapped_grid(c), with_nan(c)):
+            fb = [torch.zeros(2, dtype=torch.int32, device=cuda) for _ in range(3)]
+            launches = (one_block.launches, one_block.launches_cluster)
+            out = cluster(*paths, *shared, **kw, fallback_rows=fb[0])
+            assert (one_block.launches, one_block.launches_cluster) == \
+                (launches[0], launches[1] + 1)
+            for fn, f in ((glob, fb[1]), (one_block, fb[2])):
+                old = fn(*paths, *shared, **kw, fallback_rows=f)
+                assert all(same_bits(o, q) for o, q in zip(out, old)), fn.__name__
+                assert torch.equal(fb[0], f), fn.__name__
+            taken += int(fb[0].sum())
+        assert taken > 0
+
+
+@pytest.mark.gpu
+def test_cluster_instantiations_on_card_at_1200x7(cuda):
+    """At 1200×7 (one row a block on a cluster of 7) each cluster
+    instantiation is bit for bit the global-state one on every output and
+    fallback count, and the wrappers launch it there."""
+    kw = kernel_kwargs()
+    for dtype, wrapper, cluster, glob in ((f32, fused_sweep_jvp, fused_sweep_jvp_cluster,
+                                           fused_sweep_jvp_global),
+                                          (f64, fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
+                                           fused_sweep_jvp_f64_global)):
+        p, c = inputs(1, dtype, cuda, seed=12, n_a=1200, n_e=7, Tm1=20)
+        paths = [q[0] for q in p]
+        for shared in (c, swapped_grid(c, k=600)):
+            fb_c, fb_g = (torch.zeros(2, dtype=torch.int32, device=cuda) for _ in "ab")
+            out = cluster(*paths, *shared, **kw, fallback_rows=fb_c)
+            old = glob(*paths, *shared, **kw, fallback_rows=fb_g)
+            assert all(same_bits(o, q) for o, q in zip(out, old)), cluster.__name__
+            assert torch.equal(fb_c, fb_g)
+        launches = wrapper.launches_cluster
+        out = wrapper(*paths, *c, **kw)
+        assert wrapper.launches_cluster == launches + 1
+        assert all(same_bits(o, q) for o, q in zip(out, glob(*paths, *c, **kw)))
+
+
+@pytest.mark.gpu
 def test_wrappers_on_card_launch_the_global_state_kernels_past_one_block(cuda):
     """At 1200×7, past every one-block kernel's shared memory, each wrapper
-    launches its global-state instantiation by the grid, within phase 4's
+    launches its cluster instantiation (kernel 1's and the f64 tangent
+    sweep's places) or its global-state one by the grid, within phase 4's
     bounds of its plain version in f64, a zero tangent exactly zero."""
     kw = kernel_kwargs()
     p64, c64 = inputs(2, f64, cuda, seed=10, n_a=1200, n_e=7, Tm1=6)
@@ -355,7 +425,7 @@ def test_wrappers_on_card_launch_the_global_state_kernels_past_one_block(cuda):
             assert float((o.double().cpu() - q).abs().max()) <= \
                 tol * max(float(q.abs().max()), 1.0)
 
-    before = {fn: (fn.launches, fn.launches_global) for fn in
+    before = {fn: (fn.launches, fn.launches_global, getattr(fn, "launches_cluster", 0)) for fn in
               (fused_sweep_jvp, fused_sweep_jvp_f64, fused_residual_sweep,
                fused_sweep_jvp_batch, fused_residual_sweep_batch)}
     ref = fused_sweep_jvp_reference(*(p[0].cpu() for p in p64), *cpu64, **kw)
@@ -375,8 +445,13 @@ def test_wrappers_on_card_launch_the_global_state_kernels_past_one_block(cuda):
     zero = torch.zeros_like(p64[2][0])
     out0 = fused_sweep_jvp_f64(p64[0][0], p64[1][0], zero, zero, *c64, **kw)
     assert bool((out0[1] == 0).all() and (out0[3] == 0).all())
-    for fn, (launches, launches_global) in before.items():
-        assert fn.launches == launches and fn.launches_global > launches_global, fn.__name__
+    for fn, (launches, launches_global, launches_cluster) in before.items():
+        if fn in (fused_sweep_jvp, fused_sweep_jvp_f64):
+            moved = (fn.launches_cluster > launches_cluster
+                     and fn.launches_global == launches_global)
+        else:
+            moved = fn.launches_global > launches_global
+        assert fn.launches == launches and moved, fn.__name__
 
 
 def scan_inputs(device, seed=0, T=9, n_a=40, n_e=5):
