@@ -10,7 +10,7 @@ exits non-zero and never prints the final `"ok": true` line:
                off for matmuls and cuDNN.
   2. build   — the four kernel sources under `hank_tpu_torch/csrc/` (the
                one-asset and the two-asset household sweeps, the two-asset
-               f64 residual pair, and the one-asset tangent sweeps on a
+               f64 residual pair, and the one-asset sweeps on a
                thread-block cluster), one nvcc each (sm_90a) started
                together, with the build seconds and ptxas' registers and
                spill bytes per kernel (the f64 pair's four kernels, single
@@ -25,17 +25,18 @@ exits non-zero and never prints the final `"ok": true` line:
                maps' fit check at n_e = 7 on both sides of each
                kernel's limit (kernel 2 n_a 1036/1037, kernel 1 1147/1148,
                kernels 3-4 1148/1149, the f64 tangent sweep 529/530), the
-               decision one past each picking, for kernel 1 and the f64
-               tangent sweep, the cluster instantiation (on both sides of
-               its own limit per block: 3597/3598 and 1660/1661, with the
-               card holding such a cluster, and the decision one past it
-               the global-state one), and for kernels 2-4 the global-state
-               instantiation; each of those on both sides of its own
-               limit (5390/5391 in kernel 2's place, 10792/10793 in kernel
-               1's and kernels 3-4's, 4980/4981 in the f64 tangent
-               sweep's), the decision raising past it; the two cluster
-               instantiations built (ptxas' registers and spills); the
-               ranged kernel's
+               decision one past each picking the cluster instantiation
+               (on both sides of its own limit per block on a cluster of
+               7: 2694/2695 in kernel 2's place, 3597/3598 in kernel 1's
+               and kernels 3-4's, 1660/1661 in the f64 tangent sweep's,
+               with the card holding such a cluster, and the decision one
+               past it the global-state one); each global-state one on
+               both sides of its own limit (5390/5391 in kernel 2's place,
+               10792/10793 in kernel 1's and kernels 3-4's, 4980/4981 in
+               the f64 tangent sweep's), the decision raising past it; the
+               five cluster instantiations built (ptxas' registers and
+               spills; the three values-only or batched ones required not
+               to spill); the ranged kernel's
                nine instantiations built (ptxas' registers and spills
                reported) and, from `nvcc -ptx`, each global-state one with
                as many `ld.global.nc` loads as the shared-state ones of its
@@ -45,7 +46,8 @@ exits non-zero and never prints the final `"ok": true` line:
                earlier instantiations (these under their <..., false>
                names), and of every single-path kernel of the two
                two-asset libraries (the cluster kernels as their <false>
-               instantiations) and of the cluster library's two kernels,
+               instantiations) and of the cluster library's five kernels
+               (the two tangent ones as their <..., false> instantiations),
                against the previous builds'
                (`hank_tpu_torch/tools/sass_reference.json`, per library,
                compared where nvcc is the same).
@@ -87,11 +89,12 @@ exits non-zero and never prints the final `"ok": true` line:
                `<float, true, false, true>` against kernel 1,
                `<double, false, false, true>` against kernel 2,
                `<double, true, false, true>` against the f64 tangent sweep.
-               The cluster instantiations (`household_sweep_cluster_kernel
-               <S, true>`, one cluster of 7 blocks, one income row a
-               block) the same way against kernel 1 and the f64 tangent
-               sweep, and timed in turns with them at the solution
-               (one-block, cluster, cluster, one-block).
+               The single-path cluster instantiations
+               (`household_sweep_cluster_kernel<S, TANGENT, false>`, one
+               cluster of 7 blocks, one income row a block) the same way
+               against kernel 1, the f64 tangent sweep and kernel 2, and
+               timed in turns with them at the solution (one-block,
+               cluster, cluster, one-block).
   5. solve   — 3 timed runs of the same solve. The launch counters are zeroed right
                before the timed runs; both kernels must have launched and
                neither plain version nor a previous kernel been called. The
@@ -117,7 +120,12 @@ exits non-zero and never prints the final `"ok": true` line:
                global-state instantiations bit for bit kernels 3-4 and the
                batched kernel 2 on every row at the same three inputs, and
                every row of a B=16 launch of each bit for bit a single-path
-               global-state launch (the warm-up's rows, the swapped grid).
+               global-state launch (the warm-up's rows, the swapped grid);
+               the batched cluster instantiations (on the cluster the rule
+               takes at B = 64) the same way against kernels 3-4 and the
+               batched kernel 2, each row of a B=16 launch bit for bit a
+               single-path cluster launch, each timed in turns with its
+               one-block kernel at B=16.
                Then 3 timed
                Newton-Krylov solves (counters zeroed right before: both
                batched kernels launched, neither plain version nor a
@@ -225,41 +233,44 @@ exits non-zero and never prints the final `"ok": true` line:
                their one-block kernels at phase 8's points (the batched
                ones on 16 rows of them) and on the swapped grid, and timed
                in turns with them (one-block, global, global, one-block):
-               the price of global memory at a grid both take; the two
-               cluster instantiations the same way against kernel 1 and
-               the f64 tangent sweep.
+               the price of global memory at a grid both take; the five
+               cluster instantiations the same way against kernel 1, the
+               f64 tangent sweep, kernel 2 and the batched kernels (B=16).
                Then large-grid KS at 1200×7, T=150 (LARGE_GRID_CASE, past
                every one-block kernel's shared memory): setup by
                `get_or_solve` (timed; max|F_ss| ≤ 1e-9, within 1e-8 of the
-               JAX CPU steady state), the maps of kernel 1 and the f64
-               tangent sweep deciding on their cluster instantiations and
-               those of kernels 2-4 on their global-state ones; one
+               JAX CPU steady state), every one-asset map deciding on its
+               cluster instantiation; one
                warm-up each of `solve_model`'s default (Newton-Krylov, f64
                directions) and of the mixed one (f32 directions), eps
-               1e-8; the two cluster and three single-path global-state
+               1e-8; the three single-path cluster and global-state
                instantiations against their plain versions at x_ss, the
                default's solution and a smooth seeded point at phase 4's
                bounds, each cluster one bit for bit the global-state one
                there (outputs and fallback counts), a zero tangent exactly
                zero; 3 timed runs of each solve (counters zeroed right
-               before: only the cluster instantiation of its directions
-               and the global-state kernel 2 launched, no one-block
-               kernel, other global-state one, plain version, AD direction
-               or previous kernel; bit-identical; plain-f64 ‖F‖ < 1e-8;
-               within 1e-7 of
+               before: only the cluster instantiations of its directions
+               and of kernel 2 launched, no one-block kernel, global-state
+               one, plain version, AD direction or previous kernel;
+               bit-identical; plain-f64 ‖F‖ < 1e-8; within 1e-7 of
                the JAX CPU root `ks_large_grid_1200x7_T150_jax_cpu.npz`;
                the ZLB economics); then a B=16 Newton-Krylov ensemble of
                the model's own kinked shock at ρ_b = 0.75 + 0.2·b/16 (the
                floor binding on every row) through `solve_ensemble_host`:
-               the batched instantiations at the warm-up's rows, every row
-               bit for bit a single global-state launch, rows 0 and 15
-               within phase 4's bounds of the plain versions; 3 timed
-               solves (only the batched global-state instantiations
-               launched, bit-identical, every row ≤ 1e-8 or a stalled row
-               that mixed Newton-Krylov on its own shock does not bring
-               under 1e-8 either); ms per launch of each instantiation at
-               1200×7 (the cluster ones in turns with the global-state
-               ones) and its bound.
+               the batched cluster instantiations at the warm-up's rows and
+               on the swapped grid bit for bit the global-state ones
+               (outputs and fallback counts), every row of both bit for bit
+               a single launch of its kind, rows 0 and 15 within phase 4's
+               bounds of the plain versions; 3 timed solves (only the
+               batched cluster instantiations launched, bit-identical,
+               every row ≤ 1e-8 or a stalled row that mixed Newton-Krylov
+               on its own shock does not bring under 1e-8 either); ms per
+               launch of each instantiation at 1200×7 (each cluster one in
+               turns with its global-state one) and its bound; the batched
+               cluster ones at B ∈ {1, 16, 64} on the cluster the rule
+               takes, and at B = 16 and 64 on clusters of 7, 6, 5 and 4 in
+               turns (every such launch first held bit for bit to the
+               B=16 rows), beside the card's max active clusters per size.
   9. forward scan — kernel 7 on the f32 savings policies of the plain
                backward block at phase 4's warm-up solution (KS 200×7, 299
                periods, from ss0.D) and at phase 8's large-grid solution
@@ -339,15 +350,16 @@ sweep, the forward scan or the two-asset residual. The rows of phase 11's
 batched kernels give `ms` at B=16 (with `ms_B1`, `ms_B64` and the
 single-path kernel's beside them), their bound from `two_asset_ops` × B,
 their plain version's time at B = 1 (`plain_ms_at`) and their launches
-per ensemble solve. The two cluster rows give `ms`, `plain_ms`, the error
-and the bound at 1200×7, their launches in phase 8's three timed solves
-of their route, `ms_global` (in turns) and their ms at 200×7 and 500×7
-beside the one-block kernel's. The five global-state rows give `ms`,
-`plain_ms`, the error and the bound at 1200×7 (the batched ones at B=16),
-their launches in phase 8's three timed solves of their route (0 for the
-single-path tangent ones, which no solve takes at 1200×7 since the
-cluster ones do: `main_path` says so), and their ms at 500×7 beside the
-one-block kernel's (`ms_500x7`, `ms_one_block_500x7`).
+per ensemble solve. The five cluster rows give `ms`, `plain_ms`, the
+error and the bound at 1200×7 (the batched ones at B=16, with their ms by
+B and by cluster size), their launches in phase 8's three timed solves of
+their route, `ms_global` (in turns) and their ms at 200×7 (the batched
+ones at B=16) and 500×7 beside the one-block kernel's. The five
+global-state rows give `ms`, `plain_ms`, the error and the bound at
+1200×7 (the batched ones at B=16), their launches in phase 8's three
+timed solves of their route (0: every one of them takes 1200×7 on its
+cluster instantiation; `main_path` says so), and their ms at 500×7
+beside the one-block kernel's (`ms_500x7`, `ms_one_block_500x7`).
 The last three lines
 are the kernel summary JSON, the nvidia-smi line and `{"ok": true,
 "device": {...}}`. There is no CPU path:
@@ -358,6 +370,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -587,11 +600,11 @@ def fallback_sum(report: dict, labels) -> list:
 
 
 def in_turns(fns: dict, reps: int) -> dict:
-    """Median ms of each of two callables {name: fn}, timed in turns
-    (first, second, second, first), `reps` launches a turn."""
-    a, b = fns
-    turns = {a: [], b: []}
-    for name in (a, b, b, a):
+    """Median ms of each callable {name: fn}, timed in turns: in order,
+    then in reverse order (first, second, second, first for two), `reps`
+    launches a turn."""
+    turns = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
         turns[name].append(cuda_ms(fns[name], reps))
     return {name: statistics.median(t) for name, t in turns.items()}
 
@@ -698,11 +711,11 @@ def one_asset_grids() -> dict:
 def fit_decisions() -> dict:
     """The kernel maps' fit check (`cuda_build.check_fit` of the library's
     count) at n_e = 7 on both sides of each one-asset kernel's limit: the
-    last n_a it takes and the first it refuses; for kernel 1 and the f64
-    tangent sweep the cluster instantiation's limit (per block, on a
-    cluster of 7 the card holds: `cuda_build.max_clusters`) between the
-    one-block and the global-state ones. Fails if the libraries' counts
-    disagree with those limits or the decision with the tiers."""
+    last n_a it takes and the first it refuses; then its cluster
+    instantiation's limit (per block, on a cluster of 7 the card holds:
+    `cuda_build.max_clusters`) between the one-block and the global-state
+    ones. Fails if the libraries' counts disagree with those limits or the
+    decision with the tiers."""
     from hank_tpu_torch.ops import cuda_build as cb
 
     def fits(need):
@@ -717,35 +730,29 @@ def fit_decisions() -> dict:
     limits = {"kernel2": (cb.KERNEL2, 1036), "kernel1": (cb.KERNEL1, 1147),
               "kernels3_4": (cb.KERNELS3_4, 1148), "jvp_f64": (cb.JVP_F64, 529)}
     global_limits = {"kernel2": 5390, "kernel1": 10792, "kernels3_4": 10792, "jvp_f64": 4980}
-    cluster_limits = {"kernel1": 3597, "jvp_f64": 1660}
+    cluster_limits = {"kernel2": 2694, "kernel1": 3597, "kernels3_4": 3597, "jvp_f64": 1660}
     report = {}
     for name, (which, last) in limits.items():
         taken = {n_a: fits(cb.sweep_smem_bytes(which, n_a, 7)) for n_a in (last, last + 1)}
         require(taken == {last: True, last + 1: False},
                 f"{name}: the fit decision at n_e = 7 is {taken}, not a limit at {last}")
         glob, g_last = cb.GLOBAL_STATE[which], global_limits[name]
-        cluster = {}
-        if which in cb.CLUSTER:
-            kind, c_last = cb.CLUSTER[which], cluster_limits[name]
-            taken = {n_a: fits(cb.sweep_smem_bytes(kind, n_a, 7)) for n_a in (c_last, c_last + 1)}
-            require(taken == {c_last: True, c_last + 1: False},
-                    f"{name} on a cluster: the fit at n_e = 7 is {taken}, not a limit at {c_last}")
-            held = {n_a: cb.max_clusters("household_sweep_cluster", kind, n_a, 7)
-                    for n_a in (last + 1, c_last)}
-            require(min(held.values()) >= 1, f"{name}: the card holds no cluster: {held}")
-            decided = {n_a: sweep_kernel(which, n_a, 7)
-                       for n_a in (last, last + 1, c_last, c_last + 1, g_last)}
-            require(decided == {last: which, last + 1: kind, c_last: kind, c_last + 1: glob,
-                                g_last: glob},
-                    f"{name}: the kernel decided at n_e = 7 is {decided}")
-            cluster = {"cluster": {"last_n_a_taken": c_last, "one_past_takes": KERNEL_NAMES[glob],
-                                   "bytes": [cb.sweep_smem_bytes(kind, n_a, 7)
-                                             for n_a in (c_last, c_last + 1)],
-                                   "clusters_the_card_holds": held}}
-        else:
-            decided = {n_a: sweep_kernel(which, n_a, 7) for n_a in (last, last + 1, g_last)}
-            require(decided == {last: which, last + 1: glob, g_last: glob},
-                    f"{name}: the kernel decided at n_e = 7 is {decided}")
+        kind, c_last = cb.CLUSTER[which], cluster_limits[name]
+        taken = {n_a: fits(cb.sweep_smem_bytes(kind, n_a, 7)) for n_a in (c_last, c_last + 1)}
+        require(taken == {c_last: True, c_last + 1: False},
+                f"{name} on a cluster: the fit at n_e = 7 is {taken}, not a limit at {c_last}")
+        held = {n_a: cb.max_clusters("household_sweep_cluster", kind, n_a, 7)
+                for n_a in (last + 1, c_last)}
+        require(min(held.values()) >= 1, f"{name}: the card holds no cluster: {held}")
+        decided = {n_a: sweep_kernel(which, n_a, 7)
+                   for n_a in (last, last + 1, c_last, c_last + 1, g_last)}
+        require(decided == {last: which, last + 1: kind, c_last: kind, c_last + 1: glob,
+                            g_last: glob},
+                f"{name}: the kernel decided at n_e = 7 is {decided}")
+        cluster = {"cluster": {"last_n_a_taken": c_last, "one_past_takes": KERNEL_NAMES[glob],
+                               "bytes": [cb.sweep_smem_bytes(kind, n_a, 7)
+                                         for n_a in (c_last, c_last + 1)],
+                               "clusters_the_card_holds": held}}
         taken = {n_a: fits(cb.sweep_smem_bytes(glob, n_a, 7)) for n_a in (g_last, g_last + 1)}
         require(taken == {g_last: True, g_last + 1: False},
                 f"{name} on global state: the fit at n_e = 7 is {taken}, not a limit at {g_last}")
@@ -783,8 +790,6 @@ def state_loads_coherent(job) -> dict:
     path) as the shared-state instantiations of its arithmetic, whose state
     is in shared memory: none of its loads of the state workspace, which
     the launch writes, takes that path. Fails otherwise."""
-    import re
-
     proc, tmp, out = job
     log = proc.communicate(timeout=900)[0]
     require(proc.returncode == 0, f"nvcc -ptx failed: {log}")
@@ -1084,12 +1089,16 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
 
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_cluster,
                                                    fused_residual_sweep_batch_global,
                                                    fused_residual_sweep_batch_previous,
                                                    fused_residual_sweep_batch_reference,
+                                                   fused_residual_sweep_cluster,
                                                    fused_residual_sweep_global)
-    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp, fused_sweep_jvp_global
+    from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
+                                                fused_sweep_jvp_global)
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_cluster,
                                                       fused_sweep_jvp_batch_global,
                                                       fused_sweep_jvp_batch_previous,
                                                       fused_sweep_jvp_batch_reference)
@@ -1226,6 +1235,41 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
     emit("global_state_ensemble", B=B, rows_vs_single_B=16,
          k3_4_bit_identical=k34_global, k2_batch_bit_identical=k2b_global)
 
+    # The batched cluster instantiations the same way (at B the cluster
+    # size the rule takes), every row of a B=16 launch bit for bit a
+    # single-path cluster launch, and each timed in turns with its one-block
+    # kernel at B=16 (one-block, cluster, cluster, one-block).
+    k34_cluster = bits_vs("kernels 3-4 on a cluster", fused_sweep_jvp_batch_cluster,
+                          fused_sweep_jvp_batch, k34_inputs, kw, batch=B)
+    k2b_cluster = bits_vs("batched kernel 2 on a cluster", fused_residual_sweep_batch_cluster,
+                          fused_residual_sweep_batch, k2b_inputs, kw, batch=B)
+    require(sum(fallback_sum(k34_cluster, ["grid_swapped"])) > 0
+            and sum(fallback_sum(k2b_cluster, ["grid_swapped"])) > 0,
+            f"the swapped grid took no fallback branch on a cluster: {k34_cluster}")
+    for label in ("solution", "grid_swapped"):
+        args, args64 = k34_inputs[label], k2b_inputs[label]
+        out = fused_sweep_jvp_batch_cluster(*rows_of(args[:4], rows16), *args[4:], **kw)
+        out64 = fused_residual_sweep_batch_cluster(*rows_of(args64[:2], rows16), *args64[2:],
+                                                   **kw)
+        for b in rows16:
+            single = fused_sweep_jvp_cluster(*(q[b].contiguous() for q in args[:4]),
+                                             *args[4:], **kw)
+            single64 = fused_residual_sweep_cluster(*(q[b].contiguous() for q in args64[:2]),
+                                                    *args64[2:], **kw)
+            require(all(same_bits(o[b], s_) for o, s_ in zip(out, single))
+                    and all(same_bits(o[b], s_) for o, s_ in zip(out64, single64)),
+                    f"batched cluster kernels at {label}: row {b} differs from its single "
+                    f"launch")
+    sol16, sol16_64 = (*rows_of(sol32[:4], rows16), *c32), (*rows_of(sol64[:2], rows16), *c64)
+    cluster_200 = {
+        "k3_4": in_turns({"one_block": lambda: fused_sweep_jvp_batch(*sol16, **kw),
+                          "cluster": lambda: fused_sweep_jvp_batch_cluster(*sol16, **kw)}, 10),
+        "k2_batch": in_turns({"one_block": lambda: fused_residual_sweep_batch(*sol16_64, **kw),
+                              "cluster": lambda: fused_residual_sweep_batch_cluster(*sol16_64,
+                                                                                    **kw)}, 10)}
+    emit("cluster_ensemble", B=B, rows_vs_single_B=16, k3_4_bit_identical=k34_cluster,
+         k2_batch_bit_identical=k2b_cluster, ms_in_turns_B16=cluster_200)
+
     # ms of each against its previous kernel in turns: kernels 3-4 on the 4
     # check rows and on all B, the batched kernel 2 on rows {0, B-1} and on
     # all B.
@@ -1340,7 +1384,8 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
              "fallback_rows": fallback_sum(k34_bits, solver_points),
              f"ms_B{B}": k34_turns[f"B{B}"]["new"],
              f"ms_previous_B{B}": k34_turns[f"B{B}"]["previous"]}
-    solved = {"exog_b": exog_b, "x": xs[0], "info": info, "median_s": statistics.median(runs)}
+    solved = {"exog_b": exog_b, "x": xs[0], "info": info, "median_s": statistics.median(runs),
+              "cluster_200": cluster_200}
     return [
         {"name": "fused_sweep_jvp_batch (backward EGM)",
          "replaces": "hank_tpu/ops/fused_sweep_batch.py:87", **entry},
@@ -2548,20 +2593,25 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
     ones on 16 rows of those points and on the swapped grid; then both
     timed in turns (one-block, global, global, one-block), the single-path
     ones at the solution: the price of global memory at a grid both take.
-    The cluster instantiations the same way against kernel 1 and the f64
-    tangent sweep (keys "k1_cluster", "jvp_f64_cluster").
-    Returns {kernel: {"ms": ..., "ms_one_block": ...}}."""
+    The five cluster instantiations the same way against kernel 1, the f64
+    tangent sweep, kernel 2 and the batched kernels (keys "k1_cluster",
+    "jvp_f64_cluster", "k2_cluster", "k3_4_cluster_B16",
+    "k2_batch_cluster_B16"). Returns {kernel: {"ms": ..., "ms_one_block":
+    ...}}."""
     import torch
 
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_cluster,
                                                    fused_residual_sweep_batch_global,
+                                                   fused_residual_sweep_cluster,
                                                    fused_residual_sweep_global)
     from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
                                                 fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
                                                 fused_sweep_jvp_f64_global,
                                                 fused_sweep_jvp_global)
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_cluster,
                                                       fused_sweep_jvp_batch_global)
 
     f32, f64 = torch.float32, torch.float64
@@ -2583,7 +2633,10 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
     bits["jvp_f64_cluster"] = bits_vs("f64 tangent sweep on a cluster",
                                       fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64,
                                       jvp64_inputs, kw)
-    require(sum(fallback_sum(bits["jvp_f64_cluster"], ["grid_swapped"])) > 0,
+    bits["k2_cluster"] = bits_vs("kernel 2 on a cluster", fused_residual_sweep_cluster,
+                                 fused_residual_sweep, bit_inputs64, kw)
+    require(sum(fallback_sum(bits["jvp_f64_cluster"], ["grid_swapped"])) > 0
+            and sum(fallback_sum(bits["k2_cluster"], ["grid_swapped"])) > 0,
             f"500x7: the swapped grid took no fallback branch on a cluster: {bits}")
     a32 = (*sweep_args(x_sol, v, f32), *c32)
     a64 = (*sweep_args(x_sol, v, f64), *c64)
@@ -2601,6 +2654,14 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
         "batched kernel 2 on global state", fused_residual_sweep_batch_global,
         fused_residual_sweep_batch,
         {"points": b64, "grid_swapped": (*r64, *c64[:2], swapped, *c64[3:])}, kw, batch=16)
+    bits["k3_4_cluster_B16"] = bits_vs(
+        "kernels 3-4 on a cluster", fused_sweep_jvp_batch_cluster, fused_sweep_jvp_batch,
+        {"points": b32, "grid_swapped": (*r32, *c32[:2], swapped.float(), *c32[3:])}, kw,
+        batch=16)
+    bits["k2_batch_cluster_B16"] = bits_vs(
+        "batched kernel 2 on a cluster", fused_residual_sweep_batch_cluster,
+        fused_residual_sweep_batch,
+        {"points": b64, "grid_swapped": (*r64, *c64[:2], swapped, *c64[3:])}, kw, batch=16)
     pairs = {
         "k1": (lambda: fused_sweep_jvp(*a32, **kw),
                lambda: fused_sweep_jvp_global(*a32, **kw)),
@@ -2612,10 +2673,16 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
                        lambda: fused_sweep_jvp_cluster(*a32, **kw)),
         "jvp_f64_cluster": (lambda: fused_sweep_jvp_f64(*a64, **kw),
                             lambda: fused_sweep_jvp_f64_cluster(*a64, **kw)),
+        "k2_cluster": (lambda: fused_residual_sweep(*a64[:2], *c64, **kw),
+                       lambda: fused_residual_sweep_cluster(*a64[:2], *c64, **kw)),
         "k3_4_B16": (lambda: fused_sweep_jvp_batch(*b32, **kw),
                      lambda: fused_sweep_jvp_batch_global(*b32, **kw)),
         "k2_batch_B16": (lambda: fused_residual_sweep_batch(*b64, **kw),
-                         lambda: fused_residual_sweep_batch_global(*b64, **kw))}
+                         lambda: fused_residual_sweep_batch_global(*b64, **kw)),
+        "k3_4_cluster_B16": (lambda: fused_sweep_jvp_batch(*b32, **kw),
+                             lambda: fused_sweep_jvp_batch_cluster(*b32, **kw)),
+        "k2_batch_cluster_B16": (lambda: fused_residual_sweep_batch(*b64, **kw),
+                                 lambda: fused_residual_sweep_batch_cluster(*b64, **kw))}
     timing = {}
     for key, (one_block, glob) in pairs.items():
         turns = in_turns({"one_block": one_block, "global": glob}, 10)
@@ -2722,7 +2789,7 @@ def cli_default(name: str, case: dict) -> dict:
 def large_grid_case(dev) -> dict:
     """Phase 8 at `LARGE_GRID_CASE` (large-grid KS 1200×7, T=150), past
     every one-block kernel's shared memory (see the module docstring).
-    Emits its JSON lines and returns the rows and launches of the two
+    Emits its JSON lines and returns the rows and launches of the five
     cluster and five global-state instantiations."""
     import dataclasses
 
@@ -2736,7 +2803,10 @@ def large_grid_case(dev) -> dict:
     from hank_tpu_torch.ops import cuda_build as cb
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                    fused_residual_sweep_batch,
+                                                   fused_residual_sweep_batch_cluster,
+                                                   fused_residual_sweep_batch_global,
                                                    fused_residual_sweep_batch_reference,
+                                                   fused_residual_sweep_cluster,
                                                    fused_residual_sweep_global,
                                                    fused_residual_sweep_reference)
     from hank_tpu_torch.ops.fused_sweep import (KERNEL_NAMES, fused_sweep_jvp,
@@ -2744,8 +2814,11 @@ def large_grid_case(dev) -> dict:
                                                 fused_sweep_jvp_f64_cluster,
                                                 fused_sweep_jvp_f64_global,
                                                 fused_sweep_jvp_global, fused_sweep_jvp_reference,
-                                                state_workspace_bytes, sweep_setup)
+                                                state_workspace_bytes, sweep_batch_cluster,
+                                                sweep_setup)
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                      fused_sweep_jvp_batch_cluster,
+                                                      fused_sweep_jvp_batch_global,
                                                       fused_sweep_jvp_batch_reference)
     from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
     from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
@@ -2778,8 +2851,7 @@ def large_grid_case(dev) -> dict:
     decided = {KERNEL_NAMES[w]: sweep_setup(model, ss0, ssT, dtype, w).kernel
                for w, dtype in ((cb.KERNEL1, f32), (cb.KERNELS3_4, f32), (cb.KERNEL2, f64),
                                 (cb.JVP_F64, f64))}
-    require(set(decided.values()) == {cb.CLUSTER_KERNEL1, cb.GLOBAL_KERNELS3_4,
-                                      cb.GLOBAL_KERNEL2, cb.CLUSTER_JVP_F64},
+    require(set(decided.values()) == set(cb.CLUSTER.values()),
             f"{n_a}x{n_e}: the maps decided on {decided}")
     emit("large_grid_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
          max_abs_F_ss=F_ss, max_abs_vs_jax_ss=ss_gap,
@@ -2808,11 +2880,12 @@ def large_grid_case(dev) -> dict:
 
     warm = {mode: solve(mode) for mode in modes}
 
-    # Each cluster and global-state instantiation against its plain version
-    # at x_ss, the default's solution and a smooth seeded point, along
-    # smooth seeded directions, at phase 4's bounds (the f32 ones' plain
-    # version in float64 on the same f32 inputs), each cluster one bit for
-    # bit the global-state one there; a zero tangent exactly zero.
+    # Each single-path cluster and global-state instantiation against its
+    # plain version at x_ss, the default's solution and a smooth seeded
+    # point, along smooth seeded directions, at phase 4's bounds (the f32
+    # ones' plain version in float64 on the same f32 inputs), each cluster
+    # one bit for bit the global-state one there; a zero tangent exactly
+    # zero.
     hook, c32, kw, _, _ = sweep_setup(model, ss0, ssT, f32)
     c64 = [c.double() for c in c32]
     gen = torch.Generator().manual_seed(12)
@@ -2825,14 +2898,16 @@ def large_grid_case(dev) -> dict:
 
     smooth = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
                      * decay).reshape(-1).to(dev)
-    err = {"k1": 0.0, "k1_global": 0.0, "k2": 0.0, "jvp_f64": 0.0, "jvp_f64_global": 0.0}
+    err = {"k1": 0.0, "k1_global": 0.0, "k2": 0.0, "k2_global": 0.0, "jvp_f64": 0.0,
+           "jvp_f64_global": 0.0}
     plain_ms = {}
-    cluster_inputs = {"k1": {}, "jvp_f64": {}}
+    cluster_inputs = {"k1": {}, "jvp_f64": {}, "k2": {}}
     for label, x in (("x_ss", x_ss), ("solution", warm["default"][0]), ("smooth", smooth)):
         v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
         a32, a64 = sweep_args(x, v, f32), sweep_args(x, v, f64)
         cluster_inputs["k1"][label] = (*a32, *c32)
         cluster_inputs["jvp_f64"][label] = (*a64, *c64)
+        cluster_inputs["k2"][label] = (*a64[:2], *c64)
         ref, plain_ms["k1"] = cuda_once(lambda: fused_sweep_jvp_reference(
             *(a.double() for a in a32), *c64, **kw))
         plain_ms["k1_global"] = plain_ms["k1"]
@@ -2855,11 +2930,12 @@ def large_grid_case(dev) -> dict:
                 err[key] = max(err[key], e)
         ref, plain_ms["k2"] = cuda_once(lambda: fused_residual_sweep_reference(
             *a64[:2], *c64, **kw))
-        err["k2"] = max(err["k2"], *(max_abs(o, r_) for o, r_ in zip(
-            fused_residual_sweep(*a64[:2], *c64, **kw), ref)))
-    require(err["k2"] <= 1e-11,
-            f"{n_a}x{n_e}: the global-state f64 residual sweep off its plain version by "
-            f"{err['k2']:.3e}")
+        plain_ms["k2_global"] = plain_ms["k2"]
+        for key, fn in (("k2", fused_residual_sweep), ("k2_global", fused_residual_sweep_global)):
+            err[key] = max(err[key], *(max_abs(o, r_) for o, r_ in zip(
+                fn(*a64[:2], *c64, **kw), ref)))
+    require(err["k2"] <= 1e-11 and err["k2_global"] <= 1e-11,
+            f"{n_a}x{n_e}: an f64 residual sweep off its plain version by {err}")
     zero32, zero64 = torch.zeros(Tm1, dtype=f32, device=dev), torch.zeros(Tm1, dtype=f64,
                                                                          device=dev)
     out32 = fused_sweep_jvp(*a32[:2], zero32, zero32, *c32, **kw)
@@ -2870,16 +2946,18 @@ def large_grid_case(dev) -> dict:
         "k1": bits_vs("kernel 1 on a cluster", fused_sweep_jvp_cluster, fused_sweep_jvp_global,
                       cluster_inputs["k1"], kw),
         "jvp_f64": bits_vs("f64 tangent sweep on a cluster", fused_sweep_jvp_f64_cluster,
-                           fused_sweep_jvp_f64_global, cluster_inputs["jvp_f64"], kw)}
+                           fused_sweep_jvp_f64_global, cluster_inputs["jvp_f64"], kw),
+        "k2": bits_vs("kernel 2 on a cluster", fused_residual_sweep_cluster,
+                      fused_residual_sweep_global, cluster_inputs["k2"], kw)}
     emit("large_grid_cluster", grid=[n_a, n_e], T=T, bit_identical_to_global_state=cluster_bits,
          max_abs_err_vs_plain=err)
 
     # Three timed runs of each solve, counters zeroed right before each set:
-    # only the cluster instantiation of its directions and the global-state
-    # kernel 2 launched.
+    # only the cluster instantiations of its directions and of kernel 2
+    # launched.
     solves = {}
-    for mode, launched in (("default", {"jvp_f64_cluster", "k2_global"}),
-                           ("mixed", {"k1_cluster", "k2_global"})):
+    for mode, launched in (("default", {"jvp_f64_cluster", "k2_cluster"}),
+                           ("mixed", {"k1_cluster", "k2_cluster"})):
         zero_one_asset_counts()
         runs = [solve(mode) for _ in range(3)]
         counts = one_asset_counts()
@@ -2908,7 +2986,7 @@ def large_grid_case(dev) -> dict:
 
     # The B=16 ensemble: rows of the model's own kinked shock at ρ_b = 0.75 +
     # 0.2·b/16 (the floor binds on every row), Newton-Krylov with f32
-    # directions through the batched global-state instantiations.
+    # directions through the batched cluster instantiations.
     B = 16
     rhos = [0.75 + 0.2 * b / B for b in range(B)]
     exog_b = {"Z": torch.stack([generate_exog_paths(model, Tm1, rho=r)["Z"] for r in rhos])}
@@ -2930,42 +3008,75 @@ def large_grid_case(dev) -> dict:
         xp = x_b.reshape(x_b.shape[0], Tm1, nE)
         return xp[:, :, i_r].to(dtype).contiguous(), xp[:, :, i_w].to(dtype).contiguous()
 
-    # The batched instantiations at the warm-up's rows: every row bit for
-    # bit a single launch of the global-state instantiation, rows 0 and B-1
-    # within phase 4's bounds of the plain versions.
+    # The batched instantiations at the warm-up's rows and on the grid with
+    # two knots swapped: the cluster ones (the wrappers' route, on the
+    # cluster size the rule takes at B) bit for bit the global-state ones on
+    # every row and fallback count, every row bit for bit a single-path
+    # launch of the cluster instantiation (and of the global-state one),
+    # rows 0 and B-1 of both within phase 4's bounds of the plain versions.
     v_b = (torch.randn((B, 1, nE), generator=gen, dtype=f64) * decay[None]).reshape(B, -1)
     paths32 = (*prices(x_warm_b, f32), *prices(v_b.to(dev), f32))
     paths64 = prices(x_warm_b, f64)
+    k_sw = n_a // 2
+    swapped = c64[2].clone()
+    swapped[[k_sw, k_sw + 1]] = swapped[[k_sw + 1, k_sw]]
+    batch_bits = {
+        "k3_4": bits_vs("kernels 3-4 on a cluster", fused_sweep_jvp_batch_cluster,
+                        fused_sweep_jvp_batch_global,
+                        {"warm_rows": (*paths32, *c32),
+                         "grid_swapped": (*paths32, *c32[:2], swapped.float(), *c32[3:])},
+                        kw, batch=B),
+        "k2_batch": bits_vs("batched kernel 2 on a cluster", fused_residual_sweep_batch_cluster,
+                            fused_residual_sweep_batch_global,
+                            {"warm_rows": (*paths64, *c64),
+                             "grid_swapped": (*paths64, *c64[:2], swapped, *c64[3:])},
+                            kw, batch=B)}
+    require(all(sum(fallback_sum(r, ["grid_swapped"])) > 0 for r in batch_bits.values()),
+            f"{n_a}x{n_e}: the swapped grid took no fallback branch: {batch_bits}")
     out_b = fused_sweep_jvp_batch(*paths32, *c32, **kw)
     out_b64 = fused_residual_sweep_batch(*paths64, *c64, **kw)
+    out_bg = fused_sweep_jvp_batch_global(*paths32, *c32, **kw)
+    out_bg64 = fused_residual_sweep_batch_global(*paths64, *c64, **kw)
     for b in range(B):
-        single = fused_sweep_jvp_global(*(q[b].contiguous() for q in paths32), *c32, **kw)
-        single64 = fused_residual_sweep_global(*(q[b].contiguous() for q in paths64), *c64,
-                                               **kw)
-        require(all(same_bits(o[b], s_) for o, s_ in zip(out_b, single))
-                and all(same_bits(o[b], s_) for o, s_ in zip(out_b64, single64)),
-                f"{n_a}x{n_e}: batched global-state row {b} differs from its single launch")
+        rows = ((fused_sweep_jvp_cluster, fused_sweep_jvp_global, paths32, c32, out_b, out_bg),
+                (fused_residual_sweep_cluster, fused_residual_sweep_global, paths64, c64,
+                 out_b64, out_bg64))
+        for cluster_fn, global_fn, paths, c, out_c, out_g in rows:
+            row = [q[b].contiguous() for q in paths]
+            require(all(same_bits(o[b], s_) for o, s_ in zip(out_c, cluster_fn(*row, *c, **kw)))
+                    and all(same_bits(o[b], s_)
+                            for o, s_ in zip(out_g, global_fn(*row, *c, **kw))),
+                    f"{n_a}x{n_e}: batched row {b} differs from its single launch "
+                    f"({cluster_fn.__name__})")
     ends = [0, B - 1]
     ref, plain_ms["k3_4"] = cuda_once(lambda: fused_sweep_jvp_batch_reference(
         *(q[ends].double() for q in paths32), *c64, **kw))
-    err["k3_4"] = 0.0
-    for o, r_ in zip(out_b, ref):
-        e, scale = max_abs(o[ends].double(), r_), float(r_.abs().max())
-        require(e <= 3e-5 * max(scale, 1.0),
-                f"{n_a}x{n_e}: the batched global-state f32 tangent sweep off its plain "
-                f"version by {e:.3e} (scale {scale:.3e})")
-        err["k3_4"] = max(err["k3_4"], e)
+    plain_ms["k3_4_global"] = plain_ms["k3_4"]
+    for key, out in (("k3_4", out_b), ("k3_4_global", out_bg)):
+        err[key] = 0.0
+        for o, r_ in zip(out, ref):
+            e, scale = max_abs(o[ends].double(), r_), float(r_.abs().max())
+            require(e <= 3e-5 * max(scale, 1.0),
+                    f"{n_a}x{n_e}: the batched f32 tangent sweep ({key}) off its plain "
+                    f"version by {e:.3e} (scale {scale:.3e})")
+            err[key] = max(err[key], e)
     ref, plain_ms["k2_batch"] = cuda_once(lambda: fused_residual_sweep_batch_reference(
         *(q[ends].contiguous() for q in paths64), *c64, **kw))
-    err["k2_batch"] = max(max_abs(o[ends], r_) for o, r_ in zip(out_b64, ref))
-    require(err["k2_batch"] <= 1e-11,
-            f"{n_a}x{n_e}: the batched global-state f64 residual sweep off its plain version "
-            f"by {err['k2_batch']:.3e}")
+    plain_ms["k2_batch_global"] = plain_ms["k2_batch"]
+    for key, out in (("k2_batch", out_b64), ("k2_batch_global", out_bg64)):
+        err[key] = max(max_abs(o[ends], r_) for o, r_ in zip(out, ref))
+        require(err[key] <= 1e-11,
+                f"{n_a}x{n_e}: the batched f64 residual sweep ({key}) off its plain version "
+                f"by {err[key]:.3e}")
+    emit("large_grid_cluster_batch", B=B, cluster=sweep_batch_cluster(cb.CLUSTER_KERNELS3_4, B,
+                                                                      n_a, n_e),
+         cluster_k2_batch=sweep_batch_cluster(cb.CLUSTER_KERNEL2, B, n_a, n_e),
+         bit_identical_to_global_state=batch_bits, rows_bit_identical_to_single=True)
 
     zero_one_asset_counts()
     runs_b = [solve_b() for _ in range(3)]
     counts_b = one_asset_counts()
-    require_only(counts_b, {"k3_4_global", "k2_batch_global"}, f"{n_a}x{n_e} B={B} ensemble")
+    require_only(counts_b, {"k3_4_cluster", "k2_batch_cluster"}, f"{n_a}x{n_e} B={B} ensemble")
     require(all(torch.equal(r[0], x_warm_b) for r in runs_b),
             f"{n_a}x{n_e}: repeated ensemble solves returned different paths")
     info_b = runs_b[0][1]
@@ -3003,56 +3114,69 @@ def large_grid_case(dev) -> dict:
 
     # ms per launch of each instantiation at 1200×7 (the solution; B=16 for
     # the batched ones) and its bound from the timed call's inputs; the
-    # cluster ones in turns with the global-state ones (global, cluster,
-    # cluster, global).
+    # cluster ones (the wrappers' route) in turns with the global-state ones
+    # (global, cluster, cluster, global).
     a32 = (*sweep_args(warm["mixed"][0], v, f32), *c32)
     a64 = (*sweep_args(warm["default"][0], v, f64), *c64)
-    turns = {"k1": in_turns({"global": lambda: fused_sweep_jvp_global(*a32, **kw),
-                             "cluster": lambda: fused_sweep_jvp(*a32, **kw)}, 5),
-             "jvp_f64": in_turns({"global": lambda: fused_sweep_jvp_f64_global(*a64, **kw),
-                                  "cluster": lambda: fused_sweep_jvp_f64(*a64, **kw)}, 5)}
-    timed = {
-        "k1": (lambda: fused_sweep_jvp(*a32, **kw), a32, 4, True, "f32", 1),
-        "k1_global": (lambda: fused_sweep_jvp_global(*a32, **kw), a32, 4, True, "f32", 1),
-        "jvp_f64": (lambda: fused_sweep_jvp_f64(*a64, **kw), a64, 4, True, "f64", 1),
-        "jvp_f64_global": (lambda: fused_sweep_jvp_f64_global(*a64, **kw), a64, 4, True, "f64",
-                           1),
-        "k2": (lambda: fused_residual_sweep(*a64[:2], *c64, **kw), (*a64[:2], *c64), 2, False,
-               "f64", 1),
-        "k3_4": (lambda: fused_sweep_jvp_batch(*paths32, *c32, **kw), (*paths32, *c32), 4, True,
-                 "f32", B),
-        "k2_batch": (lambda: fused_residual_sweep_batch(*paths64, *c64, **kw),
-                     (*paths64, *c64), 2, False, "f64", B)}
-    per_solve = {"k1": solves["mixed"]["launches"]["k1_cluster"] / 3,
-                 "k1_global": solves["mixed"]["launches"]["k1_global"] / 3,
-                 "jvp_f64": solves["default"]["launches"]["jvp_f64_cluster"] / 3,
-                 "jvp_f64_global": solves["default"]["launches"]["jvp_f64_global"] / 3,
-                 "k2": (solves["default"]["launches"]["k2_global"]
-                        + solves["mixed"]["launches"]["k2_global"]) / 6,
-                 "k3_4": counts_b["k3_4_global"] / 3, "k2_batch": counts_b["k2_batch_global"] / 3}
-    rows = {}
-    for key, (fn_, args, n_out, tangent, kind, paths) in timed.items():
-        pair = turns.get(key.removesuffix("_global"))
-        ms = (pair["global" if key.endswith("_global") else "cluster"] if pair
-              else cuda_ms(fn_, 5))
-        rows[key] = {"ms": ms, "plain_ms": plain_ms[key],
-                     "max_abs_err": err[key], "launches_per_solve": per_solve[key],
-                     **least_time(nbytes(*args) + n_out * nbytes(args[0]),
-                                  one_asset_sweep_ops(Tm1, n_a, n_e, tangent, paths), kind)}
-    emit("large_grid_kernels", grid=[n_a, n_e], T=T, kernels=rows,
+    b32, b64 = (*paths32, *c32), (*paths64, *c64)
+    pairs = {"k1": (fused_sweep_jvp_global, fused_sweep_jvp, a32, 4, True, "f32", 1),
+             "jvp_f64": (fused_sweep_jvp_f64_global, fused_sweep_jvp_f64, a64, 4, True, "f64", 1),
+             "k2": (fused_residual_sweep_global, fused_residual_sweep, (*a64[:2], *c64), 2,
+                    False, "f64", 1),
+             "k3_4": (fused_sweep_jvp_batch_global, fused_sweep_jvp_batch, b32, 4, True, "f32", B),
+             "k2_batch": (fused_residual_sweep_batch_global, fused_residual_sweep_batch, b64, 2,
+                          False, "f64", B)}
+    launched = {"k1": solves["mixed"]["launches"], "jvp_f64": solves["default"]["launches"],
+                "k3_4": counts_b, "k2_batch": counts_b}
+    rows, launches = {}, {}
+    for key, (glob, wrapper, args, n_out, tangent, kind, paths) in pairs.items():
+        turns = in_turns({"global": lambda g=glob, a=args: g(*a, **kw),
+                          "cluster": lambda w=wrapper, a=args: w(*a, **kw)}, 5)
+        bound = least_time(nbytes(*args) + n_out * nbytes(args[0]),
+                           one_asset_sweep_ops(Tm1, n_a, n_e, tangent, paths), kind)
+        for row, tier in ((key, "cluster"), (f"{key}_global", "global")):
+            if key == "k2":       # both solves' residuals, six solves in all
+                launches[row] = sum(solves[m]["launches"][f"k2_{tier}"] for m in solves)
+            else:
+                launches[row] = launched[key][f"{key}_{tier}"]
+            rows[row] = {"ms": turns[tier], "plain_ms": plain_ms[row], "max_abs_err": err[row],
+                         "launches_per_solve": launches[row] / (6 if key == "k2" else 3),
+                         **bound}
+
+    # The batched cluster kernels at B ∈ {1, 16, 64} (rows of the warm-up's,
+    # cycled) on the cluster size the rule takes, and at B = 16 and 64 on
+    # clusters of 7, 6, 5 and 4 in turns (7, 6, 5, 4, 4, 5, 6, 7), each
+    # launch first held bit for bit to the B=16 rows (whose rows are the
+    # single-path launches above); the card's max active clusters of each
+    # size.
+    batched = {}
+    for key, fn, args, n_paths, kind, out16 in (
+            ("k3_4", fused_sweep_jvp_batch_cluster, b32, 4, cb.CLUSTER_KERNELS3_4, out_b),
+            ("k2_batch", fused_residual_sweep_batch_cluster, b64, 2, cb.CLUSTER_KERNEL2,
+             out_b64)):
+        rec = {"max_active_clusters": {C: cb.max_clusters("household_sweep_cluster", kind, n_a,
+                                                          n_e, C) for C in range(7, 2, -1)},
+               "by_width": {}, "by_cluster": {}}
+        for Bw in (1, 16, 64):
+            idx = torch.arange(Bw, device=dev) % B
+            args_w = (*(q[idx].contiguous() for q in args[:n_paths]), *args[n_paths:])
+            C = sweep_batch_cluster(kind, Bw, n_a, n_e)
+            sizes = (C,) if Bw == 1 else (C, 7, 6, 5, 4)
+            for size in sizes:
+                out = fn(*args_w, **kw, cluster=size)
+                require(all(same_bits(o, q[idx]) for o, q in zip(out, out16)),
+                        f"{n_a}x{n_e}: {key} at B={Bw} on clusters of {size} differs from "
+                        f"its B={B} rows")
+            rec["by_width"][Bw] = {"cluster": C, "ms": cuda_ms(lambda: fn(*args_w, **kw), 5)}
+            if Bw > 1:
+                rec["by_cluster"][Bw] = in_turns(
+                    {C: (lambda C=C, a=args_w: fn(*a, **kw, cluster=C)) for C in (7, 6, 5, 4)}, 3)
+        batched[key] = rec
+    emit("large_grid_kernels", grid=[n_a, n_e], T=T, kernels=rows, batched_cluster=batched,
          workspace_mb={k: state_workspace_bytes(f32 if kind == "f32" else f64, t, n_a, n_e,
                                                 p_) / 1e6
-                       for k, (_, _, _, t, kind, p_) in timed.items()
-                       if k not in ("k1", "jvp_f64")})
-    return {"rows": rows, "launches": {"k1": solves["mixed"]["launches"]["k1_cluster"],
-                                       "k1_global": solves["mixed"]["launches"]["k1_global"],
-                                       "jvp_f64": solves["default"]["launches"]["jvp_f64_cluster"],
-                                       "jvp_f64_global":
-                                           solves["default"]["launches"]["jvp_f64_global"],
-                                       "k2": solves["default"]["launches"]["k2_global"]
-                                       + solves["mixed"]["launches"]["k2_global"],
-                                       "k3_4": counts_b["k3_4_global"],
-                                       "k2_batch": counts_b["k2_batch_global"]}}
+                       for k, (_, _, _, _, t, kind, p_) in pairs.items()})
+    return {"rows": rows, "launches": launches, "batched": batched}
 
 
 def driver_phase(dev) -> dict:
@@ -3082,21 +3206,21 @@ def driver_phase(dev) -> dict:
 def global_state_kernels(large: dict, at_500: dict) -> list:
     """The `kernels` entries of the five global-state instantiations: ms,
     plain ms, error and bound at 1200×7 (B=16 for the batched ones), their
-    launches in phase 8's three timed solves of each route (the batched
-    ones in the three ensemble solves; the single-path tangent ones take no
-    solve's directions at 1200×7 since the cluster kernels do, so 0 there
-    on this run's main path, with `main_path` saying so), and at 500×7
-    their ms beside the one-block kernel's, timed in turns."""
+    launches in phase 8's three timed solves of each route (0 there: every
+    one of them takes the 1200×7 grid on its cluster instantiation, so each
+    is held through its `_global` entry point, `main_path` saying so), and
+    at 500×7 their ms beside the one-block kernel's, timed in turns."""
     source = "hank_tpu_torch/csrc/household_sweep.cu"
     specs = (
         ("k1_global", "k1", "fused_sweep_jvp (global state: household_sweep_ranged_kernel"
                             "<float,true,false,true>)", "hank_tpu/ops/fused_sweep.py:385"),
-        ("k3_4", "k3_4_B16", "fused_sweep_jvp_batch (global state: <float,true,true,true>)",
+        ("k3_4_global", "k3_4_B16", "fused_sweep_jvp_batch (global state: <float,true,true,true>)",
          "hank_tpu/ops/fused_sweep_batch.py:87 and :177"),
-        ("k2", "k2", "fused_residual_sweep (global state: <double,false,false,true>)",
+        ("k2_global", "k2", "fused_residual_sweep (global state: <double,false,false,true>)",
          "hank_tpu/ops/fused_ds.py:338"),
-        ("k2_batch", "k2_batch_B16", "fused_residual_sweep_batch (global state: "
-                                     "<double,false,true,true>)", "hank_tpu/ops/fused_ds.py:338"),
+        ("k2_batch_global", "k2_batch_B16", "fused_residual_sweep_batch (global state: "
+                                            "<double,false,true,true>)",
+         "hank_tpu/ops/fused_ds.py:338"),
         ("jvp_f64_global", "jvp_f64",
          "fused_sweep_jvp_f64 (global state: <double,true,false,true>)",
          "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; no TPU kernel)"))
@@ -3110,28 +3234,40 @@ def global_state_kernels(large: dict, at_500: dict) -> list:
             "bound_by": row["bound_by"], "library_ms": None, "grid": "1200x7, T=150",
             "launches_per_solve": row["launches_per_solve"],
             "ms_500x7": at_500[key_500]["ms"], "ms_one_block_500x7": at_500[key_500]["ms_one_block"],
-            **({"main_path": "past the cluster kernel's count only (n_a > 3597 f32, > 1660 "
-                             "f64 at n_e = 7): held through its _global entry point here"}
-               if key in ("k1_global", "jvp_f64_global") else {})})
+            "main_path": "past the cluster instantiation's count only (at n_e = 7: n_a > 3597 "
+                         "f32 with a tangent, > 1660 f64 with one, > 2694 f64 values only), or "
+                         "on a card that holds no such cluster: held through its _global entry "
+                         "point here"})
     return entries
 
 
 def cluster_kernels(large: dict, at_500: dict, at_200: dict) -> list:
-    """The `kernels` entries of the two cluster instantiations: ms (in turns
-    with the global-state one, `ms_global`), plain ms, error and bound at
-    1200×7, their launches in phase 8's three timed solves of their route,
-    and at 200×7 and 500×7 their ms beside the one-block kernel's, timed in
-    turns."""
+    """The `kernels` entries of the five cluster instantiations: ms (in
+    turns with the global-state one, `ms_global`), plain ms, error and
+    bound at 1200×7 (B=16 for the batched ones, with their ms at B = 1 and
+    64 on the cluster the rule takes and at B = 16 and 64 on clusters of 7
+    to 4), their launches in phase 8's three timed solves of their route,
+    and at 200×7 (B=16) and 500×7 their ms beside the one-block kernel's,
+    timed in turns."""
     source = "hank_tpu_torch/csrc/household_sweep_cluster.cu"
     specs = (
-        ("k1", "fused_sweep_jvp (cluster: household_sweep_cluster_kernel<float,true>)",
-         "hank_tpu/ops/fused_sweep.py:385"),
-        ("jvp_f64", "fused_sweep_jvp_f64 (cluster: household_sweep_cluster_kernel<double,true>)",
-         "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; no TPU kernel)"))
+        ("k1", "k1_cluster", "fused_sweep_jvp (cluster: household_sweep_cluster_kernel"
+                             "<float,true,false>)", "hank_tpu/ops/fused_sweep.py:385"),
+        ("jvp_f64", "jvp_f64_cluster", "fused_sweep_jvp_f64 (cluster: "
+                                       "household_sweep_cluster_kernel<double,true,false>)",
+         "hank_tpu/solvers/newton.py:389 (f64 directions by jax.jvp under XLA; no TPU kernel)"),
+        ("k2", "k2_cluster", "fused_residual_sweep (cluster: household_sweep_cluster_kernel"
+                             "<double,false,false>)", "hank_tpu/ops/fused_ds.py:338"),
+        ("k3_4", "k3_4_cluster_B16", "fused_sweep_jvp_batch (cluster: "
+                                     "household_sweep_cluster_kernel<float,true,true>)",
+         "hank_tpu/ops/fused_sweep_batch.py:87 and :177"),
+        ("k2_batch", "k2_batch_cluster_B16", "fused_residual_sweep_batch (cluster: "
+                                             "household_sweep_cluster_kernel<double,false,true>)",
+         "hank_tpu/ops/fused_ds.py:338"))
     entries = []
-    for key, name, replaces in specs:
+    for key, key_500, name, replaces in specs:
         row = large["rows"][key]
-        entries.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": large["launches"][key], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3139,8 +3275,15 @@ def cluster_kernels(large: dict, at_500: dict, at_200: dict) -> list:
             "launches_per_solve": row["launches_per_solve"],
             "ms_global": large["rows"][f"{key}_global"]["ms"],
             "ms_200x7": at_200[key]["cluster"], "ms_one_block_200x7": at_200[key]["one_block"],
-            "ms_500x7": at_500[f"{key}_cluster"]["ms"],
-            "ms_one_block_500x7": at_500[f"{key}_cluster"]["ms_one_block"]})
+            "ms_500x7": at_500[key_500]["ms"], "ms_one_block_500x7": at_500[key_500]["ms_one_block"]}
+        if key in large["batched"]:
+            rec = large["batched"][key]
+            entry.update(B=16, cluster=rec["by_width"][16]["cluster"],
+                         ms_by_B={Bw: r["ms"] for Bw, r in rec["by_width"].items()},
+                         cluster_by_B={Bw: r["cluster"] for Bw, r in rec["by_width"].items()},
+                         ms_by_cluster=rec["by_cluster"],
+                         max_active_clusters=rec["max_active_clusters"])
+        entries.append(entry)
     return entries
 
 
@@ -3278,6 +3421,7 @@ def main() -> int:
     from hank_tpu_torch.models.krusell_smith import exogenousZ
     from hank_tpu_torch.ops import cuda_build
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
+                                                   fused_residual_sweep_cluster,
                                                    fused_residual_sweep_global,
                                                    fused_residual_sweep_previous,
                                                    fused_residual_sweep_reference)
@@ -3321,8 +3465,11 @@ def main() -> int:
     require(len(ranged) == 9 and len(global_state) == 5,
             f"the ranged kernel's nine instantiations were not built: {ranged}")
     cluster_ptxas = [k for k in ptxas if "household_sweep_cluster_kernel" in k["kernel"]]
-    require(len(cluster_ptxas) == 2,
-            f"the two cluster instantiations were not built: {cluster_ptxas}")
+    added = [k for k in cluster_ptxas if re.search(r"kernelI(dLb0|fLb1ELb1)", k["kernel"])]
+    require(len(cluster_ptxas) == 5 and len(added) == 3
+            and not any(k.get("spill_stores") or k.get("spill_loads") for k in added),
+            f"the five cluster instantiations were not built, or one added here spills: "
+            f"{cluster_ptxas}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
          ptxas_two_asset_batched=batched, ptxas_ranged=ranged, ptxas_global_state=global_state,
          ptxas_of_this_pr=cluster_ptxas, f64_pair_fit=f64_pair_grids(),
@@ -3503,14 +3650,16 @@ def main() -> int:
         require_fallbacks(f"{name} on global state", report)
     emit("global_state_ks", grid=[wealth.n, prod.n], T=cs.T, bit_identical=globals_ks)
 
-    # The cluster instantiations against the one-block kernels, bit for bit
-    # at the same points and stress inputs, and timed in turns with them at
-    # the solution (one-block, cluster, cluster, one-block).
+    # The single-path cluster instantiations against the one-block kernels,
+    # bit for bit at the same points and stress inputs, and timed in turns
+    # with them at the solution (one-block, cluster, cluster, one-block).
     clusters_ks = {
         "k1": bits_vs("kernel 1 on a cluster", fused_sweep_jvp_cluster, fused_sweep_jvp,
                       bit_inputs, kw),
         "jvp_f64": bits_vs("f64 tangent sweep on a cluster", fused_sweep_jvp_f64_cluster,
-                           fused_sweep_jvp_f64, jvp64_inputs, kw)}
+                           fused_sweep_jvp_f64, jvp64_inputs, kw),
+        "k2": bits_vs("kernel 2 on a cluster", fused_residual_sweep_cluster,
+                      fused_residual_sweep, bit_inputs64, kw)}
     for name, report in clusters_ks.items():
         require_fallbacks(f"{name} on a cluster", report)
     a32 = bit_inputs["solution"]
@@ -3520,7 +3669,11 @@ def main() -> int:
         "jvp_f64": in_turns({"one_block": lambda: fused_sweep_jvp_f64(*jvp64_inputs["solution"],
                                                                       **kw),
                              "cluster": lambda: fused_sweep_jvp_f64_cluster(
-                                 *jvp64_inputs["solution"], **kw)}, 10)}
+                                 *jvp64_inputs["solution"], **kw)}, 10),
+        "k2": in_turns({"one_block": lambda: fused_residual_sweep(*bit_inputs64["solution"],
+                                                                  **kw),
+                        "cluster": lambda: fused_residual_sweep_cluster(
+                            *bit_inputs64["solution"], **kw)}, 10)}
     emit("cluster_ks", grid=[wealth.n, prod.n], T=cs.T, bit_identical=clusters_ks,
          ms_in_turns=cluster_200)
 
@@ -3641,7 +3794,8 @@ def main() -> int:
         *ensemble_kernels,
         *two_asset_kernels,
         scan_kernel,
-        *cluster_kernels(phase8["large_grid"], lg["global_500"], cluster_200),
+        *cluster_kernels(phase8["large_grid"], lg["global_500"],
+                         {**cluster_200, **ensemble["cluster_200"]}),
         *global_state_kernels(phase8["large_grid"], lg["global_500"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

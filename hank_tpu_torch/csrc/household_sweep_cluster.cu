@@ -1,25 +1,46 @@
 // Household sweep for the canonical one-asset CRRA EGM model family
-// (Krusell-Smith) on one thread-block cluster per path: the f32 and f64
-// primal + tangent (dual-number) sweeps at the grids past one block's shared
-// memory. A backward EGM recursion over T-1 periods, then the forward
-// Young-lottery push-forward of the distribution, returning the savings and
-// consumption aggregate paths and their directional derivatives.
+// (Krusell-Smith) on one thread-block cluster per path: the one-asset sweeps
+// at the grids past one block's shared memory. A backward EGM recursion over
+// T-1 periods, then the forward Young-lottery push-forward of the
+// distribution, returning the savings and consumption aggregate paths (and,
+// with a tangent, their directional derivatives).
 //
-// household_sweep_cluster_kernel<S, TANGENT>, instantiated as
-//   <float, true>   in kernel 1's place past its shared memory: every f32
-//       GMRES matvec of a single path there. It replaces the TPU kernel
+// household_sweep_cluster_kernel<S, TANGENT, BATCHED>, instantiated as
+//   <float, true, false>   in kernel 1's place past its shared memory: every
+//       f32 GMRES matvec of a single path there. It replaces the TPU kernel
 //       hank_tpu/ops/fused_sweep.py:385 fused_sweep_jvp
 //       (_make_fused_sweep_kernel), as kernel 1 does;
-//   <double, true>  in the f64 tangent sweep's place past its shared memory:
-//       every f64 direction of a one-asset solve there (the port's own
-//       kernel: the reference takes f64 directions by XLA AD,
-//       hank_tpu/solvers/newton.py:389, with no Pallas kernel).
-// It computes what household_sweep_ranged_kernel<S, true, false, *> of
+//   <double, true, false>  in the f64 tangent sweep's place past its shared
+//       memory: every f64 direction of a one-asset solve there (the port's
+//       own kernel: the reference takes f64 directions by XLA AD,
+//       hank_tpu/solvers/newton.py:389, with no Pallas kernel);
+//   <double, false, false> in kernel 2's place past its shared memory: every
+//       full-precision residual F(x) of a single path there. It replaces the
+//       TPU kernel hank_tpu/ops/fused_ds.py:338 fused_ds_residual_sweep, as
+//       kernel 2 does (native FP64 for the double-single pairs);
+//   <double, false, true>  the batched kernel 2 past its shared memory: every
+//       residual of an ensemble there;
+//   <float, true, true>    kernels 3-4 past their shared memory: every
+//       lockstep matvec of an ensemble there. It replaces the TPU kernel pair
+//       hank_tpu/ops/fused_sweep_batch.py:87 _make_bwd_kernel and :177
+//       _make_fwd_kernel, as kernels 3-4 do.
+// It computes what household_sweep_ranged_kernel<S, TANGENT, BATCHED, *> of
 // csrc/household_sweep.cu computes, bit for bit (chip_smoke.py holds each
 // instantiation to the global-state instantiation it takes the place of at
-// 1200x7, and to the one-block kernel on every grid both take: kernel 1 for
-// <float, true>, <double, true, false> for <double, true>), on another
+// 1200x7, and to the one-block kernel on every grid both take), on another
 // schedule.
+//
+// The path axis. A batched launch is a grid of (C, B) blocks, one cluster of
+// C blocks a path, the path in blockIdx.y; each path reads its own row of the
+// prices (and tangents), writes its own slice of the policy scratch, its own
+// row of the aggregates and its own two fallback counts at 2 b, at offsets
+// path_offset<BATCHED> gives (compiled out of the single-path
+// instantiations). V_T, D0, the grid and Pi are shared, so row b is bit for
+// bit a single-path launch on row b. The cluster size C is the launch's: a
+// single path takes C = cluster_of(n_e); a batch the size
+// ops/fused_sweep2.batch_cluster picks for B (fewer blocks a path, more rows
+// a block, where that runs fewer waves). Any C gives the same bits: the rows
+// a block owns change, no state's arithmetic or order does.
 //
 // Why a cluster. The global-state instantiation walks all 2(T-1) dependent
 // half-periods with one block of 1024 threads on one SM of 132, each thread
@@ -28,8 +49,8 @@
 // expectation E[e, a] = sum_k Pi[e, k] V[k, a], and the forward Markov mix
 // D'[e', b] = sum_e Pi[e, e'] D_half[e, b]. The bracket search, the
 // interpolation, the budget and envelope, the policy clamp and the lottery's
-// source ranges stay inside one row. So a cluster of C = min(n_e, 8) blocks
-// takes one path, block (rank) r owning the income rows e = r, r + C, ...
+// source ranges stay inside one row. So a cluster of C <= min(n_e, 8) blocks
+// (C = min(n_e, 8) on a single path) takes one path, block (rank) r owning the income rows e = r, r + C, ...
 // (kernel 5's rule, fused_sweep2.default_bwd_cluster), each block keeping its
 // rows of the state in its own SM's shared memory: at 1200x7 one row a
 // block, ~1.2 states a thread.
@@ -64,9 +85,9 @@
 // so the counts are exact in any order.
 //
 // Every per-element expression is the ranged kernel's, written as it writes
-// them, with its one explicit fma (the envelope's tangent dX). The
-// tangent-free instantiations are not built: kernel 2 and the batched
-// sweeps keep their global-state kernels.
+// them, with its one explicit fma (the envelope's tangent dX). Without a
+// tangent (kernel 2's places) the state is X, Y twice and P (5 m values) and
+// block 0's tree folds two sums, as the ranged kernel's <double, false, *>.
 //
 // What bounds it: latency, as every one-asset sweep: the 2(T-1) dependent
 // half-periods, each a few barriers (one of them cluster-wide) around
@@ -129,31 +150,48 @@ __device__ __forceinline__ void cluster_wait() {
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// The cluster a path takes: one block an income row, at most kMaxCluster.
+// The cluster a single path takes: one block an income row, at most
+// kMaxCluster.
 int cluster_of(int n_e) { return n_e < kMaxCluster ? n_e : kMaxCluster; }
 
-// Shared memory of a block: the state (10 m values with a tangent, 5 m
-// without), the grid tables (5 n_a), labor, Pi, the reduction slots and the
-// row flags (G implied-wealth flags, 2 G policy flags, 2 counts).
+// Shared memory of a block of a cluster of C: the state (10 m values with a
+// tangent, 5 m without), the grid tables (5 n_a), labor, Pi, the reduction
+// slots and the row flags (G implied-wealth flags, 2 G policy flags, 2
+// counts).
 template <typename S, bool TANGENT>
-size_t cluster_smem_bytes(int n_a, int n_e) {
-    const size_t C = cluster_of(n_e), G = (n_e + C - 1) / C, m = G * n_a;
+size_t cluster_smem_bytes(int n_a, int n_e, int C) {
+    const size_t G = (n_e + C - 1) / C, m = G * n_a;
     return sizeof(S) * ((TANGENT ? 10 : 5) * m + 5 * (size_t)n_a + n_e + (size_t)n_e * n_e
                         + (TANGENT ? 4 : 2) * kThreads)
            + sizeof(int) * (3 * G + 2);
 }
 
-template <typename S, bool TANGENT>
+// The path of a batched launch (blockIdx.y) times `per_path` elements; 0
+// without BATCHED, which compiles it out. blockIdx.y is read anew at every
+// use (a volatile read the compiler cannot hoist), so no path offset stays
+// live in registers across the periods (household_sweep2.cu's rule).
+template <bool BATCHED>
+__device__ __forceinline__ size_t path_offset(size_t per_path) {
+    if constexpr (BATCHED) {
+        unsigned b;
+        asm volatile("mov.u32 %0, %%ctaid.y;" : "=r"(b));
+        return b * per_path;
+    } else {
+        return 0;
+    }
+}
+
+template <typename S, bool TANGENT, bool BATCHED>
 __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
-    const S* __restrict__ r_path, const S* __restrict__ w_path,     // (Tm1,)
-    const S* __restrict__ dr_path, const S* __restrict__ dw_path,   // (Tm1,) or null
+    const S* __restrict__ r_path, const S* __restrict__ w_path,     // (B, Tm1)
+    const S* __restrict__ dr_path, const S* __restrict__ dw_path,   // (B, Tm1) or null
     const S* __restrict__ V_T, const S* __restrict__ D0,            // (n_e, n_a)
     const S* __restrict__ grid_g, const S* __restrict__ egrid_g,    // (n_a,), (n_e,)
     const S* __restrict__ Pi_g,                                     // (n_e, n_e) row-stochastic
-    S* __restrict__ pol_scr, S* __restrict__ dpol_scr,              // (Tm1, n_e, n_a)
-    S* __restrict__ agg, S* __restrict__ dagg,                      // (Tm1,)
-    S* __restrict__ aggc, S* __restrict__ daggc,                    // (Tm1,)
-    int* __restrict__ fallback,                                     // (2,) or null
+    S* __restrict__ pol_scr, S* __restrict__ dpol_scr,              // (B, Tm1, n_e, n_a)
+    S* __restrict__ agg, S* __restrict__ dagg,                      // (B, Tm1)
+    S* __restrict__ aggc, S* __restrict__ daggc,                    // (B, Tm1)
+    int* __restrict__ fallback,                                     // (B, 2) or null
     int Tm1, int n_a, int n_e, S beta, S gamma, S borrow_cons)
 {
     constexpr int kRed = TANGENT ? 4 : 2;
@@ -195,12 +233,14 @@ __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
     // Block 0: the aggregates of period t, the one-block kernel's fold and
     // tree, with every row's D_{t+1} read from its owner.
     auto aggregates = [&](int t) {
-        const S r = r_path[t], w = w_path[t];
-        const S dr = TANGENT ? dr_path[t] : S(0);
-        const S dw = TANGENT ? dw_path[t] : S(0);
+        const S r = (r_path + path_offset<BATCHED>(Tm1))[t];
+        const S w = (w_path + path_offset<BATCHED>(Tm1))[t];
+        const S dr = TANGENT ? (dr_path + path_offset<BATCHED>(Tm1))[t] : S(0);
+        const S dw = TANGENT ? (dw_path + path_offset<BATCHED>(Tm1))[t] : S(0);
         const S one_r = S(1) + r;
-        const S* pol_t = pol_scr + (size_t)t * n;
-        const S* dpol_t = TANGENT ? dpol_scr + (size_t)t * n : nullptr;
+        const S* pol_t = pol_scr + path_offset<BATCHED>((size_t)Tm1 * n) + (size_t)t * n;
+        const S* dpol_t =
+            TANGENT ? dpol_scr + path_offset<BATCHED>((size_t)Tm1 * n) + (size_t)t * n : nullptr;
         const S* Dq = X2 + ((t + 1) & 1) * m;
         const S* dDq = dX2 + ((t + 1) & 1) * m;
         S s0 = S(0), s1 = S(0), s2 = S(0), s3 = S(0);
@@ -245,11 +285,11 @@ __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
             for (int s = 16; s > 0; s >>= 1)
                 for (int q = 0; q < kRed; ++q) v[q] += __shfl_down_sync(0xffffffffu, v[q], s);
             if (tid == 0) {
-                agg[t] = v[0];
-                aggc[t] = v[1];
+                (agg + path_offset<BATCHED>(Tm1))[t] = v[0];
+                (aggc + path_offset<BATCHED>(Tm1))[t] = v[1];
                 if (TANGENT) {
-                    dagg[t] = v[kRed - 2];
-                    daggc[t] = v[kRed - 1];
+                    (dagg + path_offset<BATCHED>(Tm1))[t] = v[kRed - 2];
+                    (daggc + path_offset<BATCHED>(Tm1))[t] = v[kRed - 1];
                 }
             }
         }
@@ -280,9 +320,10 @@ __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
     S* Y = Y2;
     S* dY = dY2;
     for (int t = Tm1 - 1; t >= 0; --t) {
-        const S r = r_path[t], w = w_path[t];
-        const S dr = TANGENT ? dr_path[t] : S(0);
-        const S dw = TANGENT ? dw_path[t] : S(0);
+        const S r = (r_path + path_offset<BATCHED>(Tm1))[t];
+        const S w = (w_path + path_offset<BATCHED>(Tm1))[t];
+        const S dr = TANGENT ? (dr_path + path_offset<BATCHED>(Tm1))[t] : S(0);
+        const S dw = TANGENT ? (dw_path + path_offset<BATCHED>(Tm1))[t] : S(0);
         const S one_r = S(1) + r;
         const S* Xn = X2 + ((t + 1) & 1) * m;      // V_{t+1}, every row with its owner
         const S* dXn = dX2 + ((t + 1) & 1) * m;
@@ -363,7 +404,7 @@ __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
             const bool cg_live = cg_raw > tiny;
             const S cg = cg_live ? cg_raw : tiny;
             const S cpow = spow(cg, -gamma);
-            const size_t at = (size_t)t * n + e * n_a + a;
+            const size_t at = path_offset<BATCHED>((size_t)Tm1 * n) + (size_t)t * n + e * n_a + a;
             Xo[j] = one_r * cpow;
             pol_scr[at] = pol;
             if (TANGENT) {
@@ -390,8 +431,9 @@ __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
     CLUSTER_STAMP(1)
     const S g_bot = g[0], g_top = g[n_a - 1];
     for (int t = 0; t < Tm1; ++t) {
-        const S* pol_t = pol_scr + (size_t)t * n;
-        const S* dpol_t = TANGENT ? dpol_scr + (size_t)t * n : nullptr;
+        const S* pol_t = pol_scr + path_offset<BATCHED>((size_t)Tm1 * n) + (size_t)t * n;
+        const S* dpol_t =
+            TANGENT ? dpol_scr + path_offset<BATCHED>((size_t)Tm1 * n) + (size_t)t * n : nullptr;
         const S* D = X2 + (t & 1) * m;             // D_t of this block's rows
         const S* dD = dX2 + (t & 1) * m;
         S* Dn_o = X2 + ((t + 1) & 1) * m;          // D_{t+1} of this block's rows
@@ -498,8 +540,8 @@ __global__ void __launch_bounds__(kThreads) household_sweep_cluster_kernel(
                 k += f[0];
                 p += f[1];
             }
-            fallback[0] = k;
-            fallback[1] = p;
+            (fallback + path_offset<BATCHED>(2))[0] = k;
+            (fallback + path_offset<BATCHED>(2))[1] = p;
         }
     }
     cluster_arrive();
@@ -553,29 +595,37 @@ cudaError_t launch_paths(void (*kernel)(KArgs...), int cluster, int paths, int t
     return cudaGetLastError();
 }
 
-template <typename S>
+// One cluster of `cluster` blocks a path for each of the B paths (B = 1
+// without BATCHED) of household_sweep_cluster_kernel<S, TANGENT, BATCHED>.
+template <typename S, bool TANGENT, bool BATCHED>
 int launch_cluster(const void* r, const void* w, const void* dr, const void* dw,
                    const void* V_T, const void* D0, const void* grid, const void* egrid,
                    const void* Pi, void* pol, void* dpol, void* agg, void* dagg, void* aggc,
-                   void* daggc, void* fallback, int Tm1, int n_a, int n_e, double beta,
-                   double gamma, double borrow_cons, void* stream) {
-    return (int)launch_paths(household_sweep_cluster_kernel<S, true>, cluster_of(n_e), 1,
-                             kThreads, cluster_smem_bytes<S, true>(n_a, n_e), stream,
+                   void* daggc, void* fallback, int B, int Tm1, int n_a, int n_e, int cluster,
+                   double beta, double gamma, double borrow_cons, void* stream) {
+    if (cluster < 1 || cluster > (n_e < kMaxCluster ? n_e : kMaxCluster) || B < 1)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_paths(household_sweep_cluster_kernel<S, TANGENT, BATCHED>, cluster, B,
+                             kThreads, cluster_smem_bytes<S, TANGENT>(n_a, n_e, cluster), stream,
                              r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol, agg, dagg, aggc,
                              daggc, fallback, Tm1, n_a, n_e, beta, gamma, borrow_cons);
 }
 
 // `which` as ops/cuda_build.py numbers the one-asset kernels: the cluster
-// instantiations in kernel 1's place and in the f64 tangent sweep's.
-constexpr int kClusterKernel1 = 11, kClusterJvpF64 = 12;
+// instantiations in kernel 1's place, in the f64 tangent sweep's, in kernels
+// 3-4's and in kernel 2's (single path and batched).
+constexpr int kClusterKernel1 = 11, kClusterJvpF64 = 12, kClusterKernels3_4 = 13,
+              kClusterKernel2 = 14;
 
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each launcher returns the
 // cudaError_t of the attribute calls or of the launch; 0 means the kernel was
 // enqueued on `stream`, cudaErrorLaunchOutOfResources that the card holds no
-// cluster of this size. Arguments as kernel 1's entry point
-// (hank_sweep_jvp_f32 of csrc/household_sweep.cu); `fallback` may be null.
+// cluster of this size, cudaErrorInvalidValue a cluster size outside
+// [1, min(n_e, 8)]. Arguments as the entry point of csrc/household_sweep.cu
+// whose place each takes (without its `_cluster`), the batched ones with the
+// cluster size after n_e; `fallback` may be null.
 extern "C" {
 
 int hank_sweep_jvp_f32_cluster(const void* r, const void* w, const void* dr, const void* dw,
@@ -584,9 +634,9 @@ int hank_sweep_jvp_f32_cluster(const void* r, const void* w, const void* dr, con
                                void* agg, void* dagg, void* aggc, void* daggc, void* fallback,
                                int Tm1, int n_a, int n_e, double beta, double gamma,
                                double borrow_cons, void* stream) {
-    return launch_cluster<float>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol, agg, dagg,
-                                 aggc, daggc, fallback, Tm1, n_a, n_e, beta, gamma,
-                                 borrow_cons, stream);
+    return launch_cluster<float, true, false>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
+                                              agg, dagg, aggc, daggc, fallback, 1, Tm1, n_a, n_e,
+                                              cluster_of(n_e), beta, gamma, borrow_cons, stream);
 }
 
 int hank_sweep_jvp_f64_cluster(const void* r, const void* w, const void* dr, const void* dw,
@@ -595,35 +645,81 @@ int hank_sweep_jvp_f64_cluster(const void* r, const void* w, const void* dr, con
                                void* agg, void* dagg, void* aggc, void* daggc, void* fallback,
                                int Tm1, int n_a, int n_e, double beta, double gamma,
                                double borrow_cons, void* stream) {
-    return launch_cluster<double>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol, agg, dagg,
-                                  aggc, daggc, fallback, Tm1, n_a, n_e, beta, gamma,
-                                  borrow_cons, stream);
+    return launch_cluster<double, true, false>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
+                                               agg, dagg, aggc, daggc, fallback, 1, Tm1, n_a, n_e,
+                                               cluster_of(n_e), beta, gamma, borrow_cons, stream);
+}
+
+int hank_sweep_jvp_f32_batch_cluster(const void* r, const void* w, const void* dr,
+                                     const void* dw, const void* V_T, const void* D0,
+                                     const void* grid, const void* egrid, const void* Pi,
+                                     void* pol, void* dpol, void* agg, void* dagg, void* aggc,
+                                     void* daggc, void* fallback, int B, int Tm1, int n_a,
+                                     int n_e, int cluster, double beta, double gamma,
+                                     double borrow_cons, void* stream) {
+    return launch_cluster<float, true, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
+                                             agg, dagg, aggc, daggc, fallback, B, Tm1, n_a, n_e,
+                                             cluster, beta, gamma, borrow_cons, stream);
+}
+
+int hank_sweep_residual_f64_cluster(const void* r, const void* w, const void* V_T,
+                                    const void* D0, const void* grid, const void* egrid,
+                                    const void* Pi, void* pol, void* agg, void* aggc,
+                                    void* fallback, int Tm1, int n_a, int n_e, double beta,
+                                    double gamma, double borrow_cons, void* stream) {
+    return launch_cluster<double, false, false>(r, w, nullptr, nullptr, V_T, D0, grid, egrid, Pi,
+                                                pol, nullptr, agg, nullptr, aggc, nullptr,
+                                                fallback, 1, Tm1, n_a, n_e, cluster_of(n_e), beta,
+                                                gamma, borrow_cons, stream);
+}
+
+int hank_sweep_residual_f64_batch_cluster(const void* r, const void* w, const void* V_T,
+                                          const void* D0, const void* grid, const void* egrid,
+                                          const void* Pi, void* pol, void* agg, void* aggc,
+                                          void* fallback, int B, int Tm1, int n_a, int n_e,
+                                          int cluster, double beta, double gamma,
+                                          double borrow_cons, void* stream) {
+    return launch_cluster<double, false, true>(r, w, nullptr, nullptr, V_T, D0, grid, egrid, Pi,
+                                               pol, nullptr, agg, nullptr, aggc, nullptr,
+                                               fallback, B, Tm1, n_a, n_e, cluster, beta, gamma,
+                                               borrow_cons, stream);
 }
 
 // Shared memory of each block of the cluster instantiation `which` (11:
-// <float, true>, 12: <double, true>) at an n_a x n_e grid; 0 for another
-// `which`.
-size_t hank_sweep_cluster_smem_bytes(int which, int n_a, int n_e) {
-    return which == kClusterKernel1 ? cluster_smem_bytes<float, true>(n_a, n_e)
-         : which == kClusterJvpF64 ? cluster_smem_bytes<double, true>(n_a, n_e) : 0;
+// <float, true, *>, 12: <double, true, *>, 13: <float, true, *> in kernels
+// 3-4's place, 14: <double, false, *>) at an n_a x n_e grid on a cluster of
+// `cluster` blocks; 0 for another `which`.
+size_t hank_sweep_cluster_smem_bytes(int which, int n_a, int n_e, int cluster) {
+    if (cluster < 1) return 0;
+    return which == kClusterKernel1 || which == kClusterKernels3_4
+               ? cluster_smem_bytes<float, true>(n_a, n_e, cluster)
+         : which == kClusterJvpF64 ? cluster_smem_bytes<double, true>(n_a, n_e, cluster)
+         : which == kClusterKernel2 ? cluster_smem_bytes<double, false>(n_a, n_e, cluster) : 0;
 }
 
-// How many clusters of the instantiation `which` the card holds at once at an
-// n_a x n_e grid (cudaOccupancyMaxActiveClusters), or -cudaError_t.
-int hank_sweep_cluster_max_clusters(int which, int n_a, int n_e) {
+// How many clusters of `cluster` blocks of the instantiation `which` (the
+// batched one for 13 and 14) the card holds at once at an n_a x n_e grid
+// (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+int hank_sweep_cluster_max_clusters(int which, int n_a, int n_e, int cluster) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     int clusters = 0;
-    const size_t smem = hank_sweep_cluster_smem_bytes(which, n_a, n_e);
+    const size_t smem = hank_sweep_cluster_smem_bytes(which, n_a, n_e, cluster);
     cudaError_t err;
-    if (which == kClusterKernel1)
-        err = cluster_config(household_sweep_cluster_kernel<float, true>, cluster_of(n_e), 1,
+    if (smem == 0)
+        err = cudaErrorInvalidValue;
+    else if (which == kClusterKernel1)
+        err = cluster_config(household_sweep_cluster_kernel<float, true, false>, cluster, 1,
                              kThreads, smem, nullptr, cfg, attr, clusters);
     else if (which == kClusterJvpF64)
-        err = cluster_config(household_sweep_cluster_kernel<double, true>, cluster_of(n_e), 1,
+        err = cluster_config(household_sweep_cluster_kernel<double, true, false>, cluster, 1,
+                             kThreads, smem, nullptr, cfg, attr, clusters);
+    else if (which == kClusterKernels3_4)
+        err = cluster_config(household_sweep_cluster_kernel<float, true, true>, cluster, 1,
                              kThreads, smem, nullptr, cfg, attr, clusters);
     else
-        err = cudaErrorInvalidValue;
+        err = cluster_config(household_sweep_cluster_kernel<double, false, true>, cluster, 1,
+                             kThreads, smem, nullptr, cfg, attr, clusters);
     return err == cudaSuccess ? clusters : -(int)err;
 }
 

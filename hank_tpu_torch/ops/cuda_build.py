@@ -16,10 +16,10 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
     path-batched), built with
     `-fmad=false` (`EXTRA_FLAGS`): each product and sum rounds on its own,
     as the plain f64 pipeline's elementwise operations do;
-  - `household_sweep_cluster.cu`: the one-asset f32 and f64 tangent sweeps
-    on one thread-block cluster per path, each income row's state in its
-    own block's shared memory (in kernel 1's and the f64 tangent sweep's
-    places on the grids past one block).
+  - `household_sweep_cluster.cu`: the one-asset sweeps on one thread-block
+    cluster per path, each income row's state in its own block's shared
+    memory (in kernel 1's, the f64 tangent sweep's, kernel 2's and kernels
+    3-4's places on the grids past one block; single path and batched).
 The libraries are keyed by the SHA-256 of the sources and the flags, so an
 edited source rebuilds; a build runs one nvcc per source, all started
 together. The libraries are loaded with ctypes. Nothing here runs at
@@ -31,10 +31,10 @@ launch; the kernel maps apply it, with the library's own count
 (`sweep_smem_bytes` / `sweep2_smem_bytes` / `sweep2_f64_smem_bytes`), when
 they are built on the card, so a grid past a kernel's limit stops a solve
 before it starts. A one-asset kernel whose count does not fit gives way,
-by that count and before any launch, to its cluster instantiation where
-it has one (`CLUSTER`: kernel 1 and the f64 tangent sweep) and that one's
-count fits a block and the card holds such a cluster (`max_clusters`), else
-to its global-state instantiation (`GLOBAL_STATE`;
+by that count and before any launch, to its cluster instantiation
+(`CLUSTER`) where that one's count fits a block and the card holds such a
+cluster (`max_clusters`), both at the single path's cluster size
+`cluster_of(n_e)`, else to its global-state instantiation (`GLOBAL_STATE`;
 `ops/fused_sweep.sweep_kernel`), and the rule applies to that one's count.
 
 `python -m hank_tpu_torch.ops.cuda_build SOURCE.cu ...` compiles each
@@ -186,6 +186,9 @@ _SIGNATURES = {
     "household_sweep_cluster": {
         "hank_sweep_jvp_f32_cluster": (16, 3, 3),
         "hank_sweep_jvp_f64_cluster": (16, 3, 3),
+        "hank_sweep_jvp_f32_batch_cluster": (16, 5, 3),
+        "hank_sweep_residual_f64_cluster": (11, 3, 3),
+        "hank_sweep_residual_f64_batch_cluster": (11, 5, 3),
     },
 }
 
@@ -219,9 +222,9 @@ def load_library(name: str = "household_sweep") -> ctypes.CDLL:
         lib.hank_sweep2_f64_max_clusters.argtypes = [i, i, i, i, i]
         lib.hank_sweep2_f64_max_clusters.restype = i
     else:
-        lib.hank_sweep_cluster_smem_bytes.argtypes = [i, i, i]
+        lib.hank_sweep_cluster_smem_bytes.argtypes = [i, i, i, i]
         lib.hank_sweep_cluster_smem_bytes.restype = ctypes.c_size_t
-        lib.hank_sweep_cluster_max_clusters.argtypes = [i, i, i]
+        lib.hank_sweep_cluster_max_clusters.argtypes = [i, i, i, i]
         lib.hank_sweep_cluster_max_clusters.restype = i
     lib.hank_cuda_error_string.argtypes = [i]
     lib.hank_cuda_error_string.restype = ctypes.c_char_p
@@ -249,26 +252,40 @@ def check_fit(need: int, what: str, hint: str = "") -> None:
 # ranged kernel's global-state instantiations of 2-5, its state in a global
 # workspace; and of
 # `hank_sweep_cluster_smem_bytes` (`csrc/household_sweep_cluster.cu`,
-# CLUSTER_*), per block of household_sweep_cluster_kernel's cluster.
+# CLUSTER_*), per block of household_sweep_cluster_kernel's cluster: 11
+# <float, true, false>, 12 <double, true, false>, 13 <float, true, true>
+# (kernels 3-4's place), 14 <double, false, *> (kernel 2's, single path and
+# batched).
 PREVIOUS_KERNEL2, PREVIOUS_KERNELS3_4, KERNEL1, KERNELS3_4, KERNEL2 = 0, 1, 2, 3, 4
 JVP_F64, PREVIOUS_JVP_F64 = 5, 6
 GLOBAL_KERNEL1, GLOBAL_KERNELS3_4, GLOBAL_KERNEL2, GLOBAL_JVP_F64 = 7, 8, 9, 10
-CLUSTER_KERNEL1, CLUSTER_JVP_F64 = 11, 12
+CLUSTER_KERNEL1, CLUSTER_JVP_F64, CLUSTER_KERNELS3_4, CLUSTER_KERNEL2 = 11, 12, 13, 14
 # The global-state instantiation that takes a one-block kernel's place on
 # the grids past its shared memory.
 GLOBAL_STATE = {KERNEL1: GLOBAL_KERNEL1, KERNELS3_4: GLOBAL_KERNELS3_4,
                 KERNEL2: GLOBAL_KERNEL2, JVP_F64: GLOBAL_JVP_F64}
-# The cluster instantiation that takes it first, where it has one.
-CLUSTER = {KERNEL1: CLUSTER_KERNEL1, JVP_F64: CLUSTER_JVP_F64}
+# The cluster instantiation that takes it first.
+CLUSTER = {KERNEL1: CLUSTER_KERNEL1, JVP_F64: CLUSTER_JVP_F64,
+           KERNELS3_4: CLUSTER_KERNELS3_4, KERNEL2: CLUSTER_KERNEL2}
+# The largest cluster a path takes (the portable size).
+MAX_CLUSTER = 8
 
 
-def sweep_smem_bytes(which: int, n_a: int, n_e: int) -> int:
+def cluster_of(n_e: int) -> int:
+    """The cluster a single path of a one-asset cluster kernel takes: one
+    block an income row, at most `MAX_CLUSTER` (`cluster_of` of
+    `csrc/household_sweep_cluster.cu`)."""
+    return min(n_e, MAX_CLUSTER)
+
+
+def sweep_smem_bytes(which: int, n_a: int, n_e: int, cluster: int | None = None) -> int:
     """The library's count of a one-asset sweep kernel's shared memory at an
-    n_a×n_e grid (`which` as above; a cluster kernel's per block). Builds
-    the library."""
+    n_a×n_e grid (`which` as above; a cluster kernel's per block, on a
+    cluster of `cluster` blocks, default `cluster_of(n_e)`). Builds the
+    library."""
     if which in CLUSTER.values():
         return load_library("household_sweep_cluster").hank_sweep_cluster_smem_bytes(
-            which, n_a, n_e)
+            which, n_a, n_e, cluster_of(n_e) if cluster is None else cluster)
     return load_library().hank_sweep_smem_bytes(which, n_a, n_e)
 
 
@@ -294,9 +311,11 @@ def max_clusters(name: str, which: int, *shape: int) -> int:
     "household_sweep2_f64" with which = 0 (backward) or 1 (forward), at
     `shape` = (n_b, n_a, n_e, cluster): a batched two-asset kernel at an
     n_b×n_a×n_e×2 grid on clusters of `cluster` blocks; "household_sweep_cluster"
-    with which = CLUSTER_KERNEL1 or CLUSTER_JVP_F64 at `shape` = (n_a, n_e):
-    a one-asset cluster kernel on its cluster of min(n_e, 8) blocks. Builds
-    the library."""
+    with which one of `CLUSTER`'s values at `shape` = (n_a, n_e[, cluster]):
+    a one-asset cluster kernel on clusters of `cluster` blocks (default
+    `cluster_of(n_e)`, a single path's). Builds the library."""
+    if name == "household_sweep_cluster" and len(shape) == 2:
+        shape = (*shape, cluster_of(shape[1]))
     lib = load_library(name)
     n = getattr(lib, _MAX_CLUSTERS[name])(which, *shape)
     if n < 0:

@@ -30,10 +30,16 @@ bit on the card; no solver calls them. `.launches` counts kernel launches
 and `.calls` plain-version calls.
 
 Past one block's shared memory (at n_e = 7, n_a > 1036) both wrappers
-launch the global-state instantiations `<double, false, *, true>`
-(`fused_sweep.sweep_kernel`, counted in `.launches_global`), bit for bit
-the one-block kernel where both fit; `fused_residual_sweep_global` and
-`fused_residual_sweep_batch_global` launch them at any grid, for the checks.
+launch the cluster instantiations `household_sweep_cluster_kernel<double,
+false, *>` (`csrc/household_sweep_cluster.cu`: one thread-block cluster a
+path, the batched one on `fused_sweep.sweep_batch_cluster`'s size; at n_e =
+7 to n_a = 2694), counted in `.launches_cluster`, and past those the
+global-state instantiations `<double, false, *, true>` (counted in
+`.launches_global`), as `fused_sweep.sweep_kernel` decides; each bit for
+bit the one-block kernel where both fit. `fused_residual_sweep_cluster`,
+`fused_residual_sweep_batch_cluster`, `fused_residual_sweep_global` and
+`fused_residual_sweep_batch_global` launch them at any grid they take, for
+the checks.
 """
 
 from __future__ import annotations
@@ -70,7 +76,27 @@ def fused_residual_sweep(r_path, w_path, V_T, D0, grid, e_grid, Pi,
     return out
 
 
-fused_residual_sweep.launches = fused_residual_sweep.launches_global = 0
+fused_residual_sweep.launches = fused_residual_sweep.launches_cluster = 0
+fused_residual_sweep.launches_global = 0
+
+
+def fused_residual_sweep_cluster(r_path, w_path, V_T, D0, grid, e_grid, Pi,
+                                 *, beta: float, gamma: float, borrow_cons: float,
+                                 fallback_rows: torch.Tensor | None = None):
+    """`fused_residual_sweep` through `household_sweep_cluster_kernel<double,
+    false, false>` at any grid its shared memory takes: kernel 2's place
+    past its own, held bit for bit to kernel 2 and to the global-state
+    instantiation. No solver calls it. CUDA tensors only; counted in
+    `fused_residual_sweep.launches_cluster`."""
+    _check_inputs("fused_residual_sweep_cluster", f64, (r_path, w_path),
+                  V_T, D0, grid, e_grid, Pi)
+    require_card("fused_residual_sweep_cluster", V_T, "fused_residual_sweep_reference")
+    fallback = fallback_pointer("fused_residual_sweep_cluster", fallback_rows, V_T, (2,))
+    out = launch_sweep("hank_sweep_residual_f64", (r_path, w_path), V_T, D0, grid, e_grid,
+                       Pi, n_out=2, smem_kind=cuda_build.CLUSTER_KERNEL2, extra_ptrs=fallback,
+                       beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_residual_sweep.launches_cluster += 1
+    return out
 
 
 def fused_residual_sweep_global(r_path, w_path, V_T, D0, grid, e_grid, Pi,
@@ -125,10 +151,11 @@ def fused_residual_sweep_batch(r_b, w_b, V_T, D0, grid, e_grid, Pi,
                                *, beta: float, gamma: float, borrow_cons: float,
                                fallback_rows: torch.Tensor | None = None):
     """Kernel 2 over an ensemble: (B, T-1) f64 price paths ↦ (agg, aggc),
-    each (B, T-1), in one launch of one block per path. Row b is
-    bit-identical to `fused_residual_sweep` on row b. fallback_rows:
-    optional (B, 2) int32 CUDA tensor, row b path b's counts; refused on
-    CPU tensors."""
+    each (B, T-1), in one launch of one block per path (past its shared
+    memory one cluster per path, or one global-state block per path, as
+    `fused_sweep.sweep_kernel` decides). Row b is bit-identical to
+    `fused_residual_sweep` on row b. fallback_rows: optional (B, 2) int32
+    CUDA tensor, row b path b's counts; refused on CPU tensors."""
     _check_inputs("fused_residual_sweep_batch", f64, (r_b, w_b),
                   V_T, D0, grid, e_grid, Pi, batched=True)
     fallback = fallback_pointer("fused_residual_sweep_batch", fallback_rows, V_T,
@@ -144,7 +171,32 @@ def fused_residual_sweep_batch(r_b, w_b, V_T, D0, grid, e_grid, Pi,
     return out
 
 
-fused_residual_sweep_batch.launches = fused_residual_sweep_batch.launches_global = 0
+fused_residual_sweep_batch.launches = fused_residual_sweep_batch.launches_cluster = 0
+fused_residual_sweep_batch.launches_global = 0
+
+
+def fused_residual_sweep_batch_cluster(r_b, w_b, V_T, D0, grid, e_grid, Pi,
+                                       *, beta: float, gamma: float, borrow_cons: float,
+                                       fallback_rows: torch.Tensor | None = None,
+                                       cluster: int | None = None):
+    """`fused_residual_sweep_batch` through `household_sweep_cluster_kernel<
+    double, false, true>` at any grid its shared memory takes, one cluster
+    of `cluster` blocks per path (default: `fused_sweep.sweep_batch_cluster`'s
+    size, as the wrapper launches it), held bit for bit to the batched
+    kernel 2, to the global-state instantiation and, row by row, to
+    `fused_residual_sweep_cluster`. No solver calls it. CUDA tensors only;
+    counted in `fused_residual_sweep_batch.launches_cluster`."""
+    _check_inputs("fused_residual_sweep_batch_cluster", f64, (r_b, w_b),
+                  V_T, D0, grid, e_grid, Pi, batched=True)
+    require_card("fused_residual_sweep_batch_cluster", V_T,
+                 "fused_residual_sweep_batch_reference")
+    fallback = fallback_pointer("fused_residual_sweep_batch_cluster", fallback_rows, V_T,
+                                (r_b.shape[0], 2))
+    out = launch_sweep("hank_sweep_residual_f64_batch", (r_b, w_b), V_T, D0, grid, e_grid,
+                       Pi, n_out=2, smem_kind=cuda_build.CLUSTER_KERNEL2, extra_ptrs=fallback,
+                       cluster=cluster, beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_residual_sweep_batch.launches_cluster += 1
+    return out
 
 
 def fused_residual_sweep_batch_global(r_b, w_b, V_T, D0, grid, e_grid, Pi,

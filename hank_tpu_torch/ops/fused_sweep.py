@@ -31,12 +31,12 @@ the f64 direction map around it.
 Every kernel map over the sweep is built through `sweep_setup`, which on
 the card decides by the model's grid, with the libraries' shared-memory
 counts, which kernel the map launches (`sweep_kernel`): the one-block
-kernel where its shared memory takes the grid; else, for kernel 1 and the
-f64 tangent sweep, their cluster instantiation
-(`household_sweep_cluster_kernel<S, true>`, `csrc/household_sweep_cluster.cu`:
-one thread-block cluster a path, each income row's state in its own
-block's shared memory) where its count per block fits and the card holds
-one such cluster; else the global-state instantiation
+kernel where its shared memory takes the grid; else its cluster
+instantiation (`household_sweep_cluster_kernel<S, TANGENT, BATCHED>`,
+`csrc/household_sweep_cluster.cu`: one thread-block cluster a path, each
+income row's state in its own block's shared memory) where its count per
+block fits and the card holds one such cluster, both at a single path's
+cluster size; else the global-state instantiation
 (`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`, the six state
 arrays in a global workspace the wrapper allocates); each bit for bit the
 one-block kernel where both fit; and past the last count ValueError when
@@ -46,9 +46,12 @@ The reference probes its kernel and degrades to XLA instead
 (`hank_tpu/solvers/newton.py:356-376, 431-450`). Each wrapper takes the
 same decision at each launch, by shape; `.launches` counts its one-block
 launches, `.launches_cluster` its cluster ones and `.launches_global` its
-global-state ones. The `_cluster` and `_global` entry points
+global-state ones. A batched launch on the cluster tier takes the cluster
+size `sweep_batch_cluster` picks for its B (the decision of the tier does
+not depend on B). The `_cluster` and `_global` entry points
 (`fused_sweep_jvp_cluster`, `fused_sweep_jvp_f64_cluster`,
-`fused_sweep_jvp_global`, `fused_sweep_jvp_f64_global`) launch their
+`fused_sweep_jvp_global`, `fused_sweep_jvp_f64_global`, and those of
+`ops/fused_residual.py` and `ops/fused_sweep_batch.py`) launch their
 instantiation at any grid it takes, for the checks that hold it to the
 others; no solver calls them.
 
@@ -142,7 +145,7 @@ def state_workspace_bytes(dtype, tangent: bool, n_a: int, n_e: int, B: int = 1) 
 
 
 def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
-                 borrow_cons, smem_kind, extra_ptrs=()):
+                 borrow_cons, smem_kind, extra_ptrs=(), cluster=None):
     """Launch one entry point of `csrc/household_sweep.cu` (or of
     `csrc/household_sweep_cluster.cu`) on checked CUDA
     tensors and return its `n_out` output paths, each of the price paths'
@@ -155,12 +158,21 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
     entry point's `_global` twin with its state workspace
     (`state_workspace_bytes`) after `extra_ptrs`, which follow the
     outputs; a cluster one (`cuda_build.CLUSTER`'s values) the `_cluster`
-    twin in `csrc/household_sweep_cluster.cu`."""
-    cluster = smem_kind in cuda_build.CLUSTER.values()
-    lib = cuda_build.load_library("household_sweep_cluster" if cluster else "household_sweep")
+    twin in `csrc/household_sweep_cluster.cu`, a batched one on clusters of
+    `cluster` blocks (default: `sweep_batch_cluster`'s size for its B)."""
+    on_cluster = smem_kind in cuda_build.CLUSTER.values()
+    lib = cuda_build.load_library("household_sweep_cluster" if on_cluster
+                                  else "household_sweep")
     n_a, n_e = V_T.shape
-    cuda_build.check_fit(cuda_build.sweep_smem_bytes(smem_kind, n_a, n_e), f"grid {n_a}x{n_e}")
     shape = tuple(paths[0].shape)
+    sizes = ()
+    if on_cluster and len(shape) == 2:
+        cluster = sweep_batch_cluster(smem_kind, shape[0], n_a, n_e) if cluster is None else cluster
+        sizes = (cluster,)
+        need = cuda_build.sweep_smem_bytes(smem_kind, n_a, n_e, cluster)
+    else:
+        need = cuda_build.sweep_smem_bytes(smem_kind, n_a, n_e)
+    cuda_build.check_fit(need, f"grid {n_a}x{n_e}")
     dev = V_T.device
     global_state = smem_kind in cuda_build.GLOBAL_STATE.values()
     with torch.cuda.device(dev):
@@ -171,7 +183,7 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
         out = torch.empty((n_out, *shape), dtype=V_T.dtype, device=dev)
         ptrs = [t.data_ptr() for t in (*paths, V_eT, D_eT, grid, e_grid, Pi,
                                        *scratch, *out)] + list(extra_ptrs)
-        if cluster:
+        if on_cluster:
             entry = f"{entry}_cluster"
         if global_state:
             entry = f"{entry}_global"
@@ -180,7 +192,7 @@ def launch_sweep(entry, paths, V_T, D0, grid, e_grid, Pi, *, n_out, beta, gamma,
                                 dtype=torch.uint8, device=dev)
             ptrs.append(state.data_ptr())
         err = getattr(lib, entry)(
-            *ptrs, *shape, n_a, n_e, float(beta), float(gamma), float(borrow_cons),
+            *ptrs, *shape, n_a, n_e, *sizes, float(beta), float(gamma), float(borrow_cons),
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, entry)
     return tuple(out)
@@ -242,7 +254,7 @@ def fused_sweep_jvp(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid, Pi,
 
     On CUDA tensors the grid decides (`sweep_kernel`): kernel 1 where its
     shared memory takes it, else `household_sweep_cluster_kernel<float,
-    true>` where its count fits, else `household_sweep_ranged_kernel<float,
+    true, false>` where its count fits, else `household_sweep_ranged_kernel<float,
     true, false, true>` (`fused_sweep_jvp_cluster` and
     `fused_sweep_jvp_global` launch these at any grid they take).
 
@@ -270,7 +282,7 @@ def fused_sweep_jvp_cluster(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_g
                             *, beta: float, gamma: float, borrow_cons: float,
                             fallback_rows: torch.Tensor | None = None):
     """`fused_sweep_jvp` through `household_sweep_cluster_kernel<float,
-    true>` at any grid its shared memory takes: kernel 1's place past its
+    true, false>` at any grid its shared memory takes: kernel 1's place past its
     own, held bit for bit to kernel 1 and to the global-state
     instantiation. No solver calls it. CUDA tensors only; counted in
     `fused_sweep_jvp.launches_cluster`."""
@@ -328,8 +340,8 @@ def fused_sweep_jvp_f64(r_path, w_path, dr_path, dw_path, V_T, D0, grid, e_grid,
     """`fused_sweep_jvp` in float64: all inputs float64, the same outputs
     and `fallback_rows` (a (2,) int32 CUDA tensor, refused on CPU tensors).
     On the card `household_sweep_ranged_kernel<double, true, false>`, or
-    past its shared memory `household_sweep_cluster_kernel<double, true>`
-    where its count fits, else the global-state instantiation
+    past its shared memory `household_sweep_cluster_kernel<double, true,
+    false>` where its count fits, else the global-state instantiation
     (`fused_sweep_jvp_f64_cluster` and `fused_sweep_jvp_f64_global` launch
     these at any grid they take); on CPU tensors the plain version
     `fused_sweep_jvp_reference` in f64."""
@@ -354,7 +366,7 @@ def fused_sweep_jvp_f64_cluster(r_path, w_path, dr_path, dw_path, V_T, D0, grid,
                                 Pi, *, beta: float, gamma: float, borrow_cons: float,
                                 fallback_rows: torch.Tensor | None = None):
     """`fused_sweep_jvp_f64` through `household_sweep_cluster_kernel<double,
-    true>` at any grid its shared memory takes, held bit for bit to
+    true, false>` at any grid its shared memory takes, held bit for bit to
     `<double, true, false>` and to the global-state instantiation. No
     solver calls it. CUDA tensors only; counted in
     `fused_sweep_jvp_f64.launches_cluster`."""
@@ -449,7 +461,9 @@ KERNEL_NAMES = {cuda_build.KERNEL1: "kernel 1 (the f32 tangent sweep)",
                 cuda_build.GLOBAL_KERNEL2: "the global-state f64 residual sweep",
                 cuda_build.GLOBAL_JVP_F64: "the global-state f64 tangent sweep",
                 cuda_build.CLUSTER_KERNEL1: "the cluster f32 tangent sweep",
-                cuda_build.CLUSTER_JVP_F64: "the cluster f64 tangent sweep"}
+                cuda_build.CLUSTER_JVP_F64: "the cluster f64 tangent sweep",
+                cuda_build.CLUSTER_KERNELS3_4: "the cluster batched f32 tangent sweep",
+                cuda_build.CLUSTER_KERNEL2: "the cluster f64 residual sweep"}
 PLAIN_ROUTES = ("; on the card only the plain routes take this grid "
                 "(direction_mode='xla', residual_mode='f64')")
 
@@ -458,22 +472,38 @@ def sweep_kernel(which: int, n_a: int, n_e: int) -> int:
     """The kernel a map over one-block kernel `which` launches at an n_a×n_e
     grid, decided by the libraries' shared-memory counts before any launch:
     `which` where one block holds it; else its cluster instantiation
-    (`cuda_build.CLUSTER`, kernel 1 and the f64 tangent sweep only) where
-    its count fits a block and the card holds at least one such cluster
-    (`cuda_build.max_clusters`); else its global-state instantiation
-    (`cuda_build.GLOBAL_STATE`), and ValueError, naming that one and the
-    plain routes, where its count does not fit either."""
+    (`cuda_build.CLUSTER`) where its count fits a block and the card holds
+    at least one such cluster (`cuda_build.max_clusters`), both at a single
+    path's cluster size, so a batched map's tier does not depend on B; else
+    its global-state instantiation (`cuda_build.GLOBAL_STATE`), and
+    ValueError, naming that one and the plain routes, where its count does
+    not fit either."""
     if cuda_build.sweep_smem_bytes(which, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES:
         return which
-    cluster = cuda_build.CLUSTER.get(which)
-    if (cluster is not None
-            and cuda_build.sweep_smem_bytes(cluster, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES
+    cluster = cuda_build.CLUSTER[which]
+    if (cuda_build.sweep_smem_bytes(cluster, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES
             and cuda_build.max_clusters("household_sweep_cluster", cluster, n_a, n_e) >= 1):
         return cluster
     kernel = cuda_build.GLOBAL_STATE[which]
     cuda_build.check_fit(cuda_build.sweep_smem_bytes(kernel, n_a, n_e),
                          f"{KERNEL_NAMES[kernel]} at grid {n_a}x{n_e}", PLAIN_ROUTES)
     return kernel
+
+
+def sweep_batch_cluster(kind: int, B: int, n_a: int, n_e: int) -> int:
+    """The cluster size of a batched launch of the cluster instantiation
+    `kind` (`cuda_build.CLUSTER_KERNELS3_4` or `CLUSTER_KERNEL2`) over B
+    paths at an n_a×n_e grid: `fused_sweep2.batch_cluster`'s rule, the n_e
+    income rows shared by C = `cuda_build.cluster_of(n_e)`, ..., 1 blocks,
+    held to the library's count per block and the card's max active
+    clusters of each size. One path takes `cluster_of(n_e)`; every size
+    gives its bits."""
+    from hank_tpu_torch.ops.fused_sweep2 import batch_cluster
+
+    return batch_cluster(
+        B, n_e, cuda_build.cluster_of(n_e),
+        lambda C: cuda_build.sweep_smem_bytes(kind, n_a, n_e, C) <= cuda_build.MAX_SMEM_BYTES,
+        lambda C: cuda_build.max_clusters("household_sweep_cluster", kind, n_a, n_e, C))
 
 
 class SweepSetup(NamedTuple):

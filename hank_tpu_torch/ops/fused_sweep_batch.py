@@ -23,10 +23,15 @@ launches the previous kernels 3-4 (the counting template
 to bit for bit on the card; no solver calls it.
 
 Past one block's shared memory (at n_e = 7, n_a > 1148) the wrapper
-launches the global-state instantiation `<float, true, true, true>`
-(`fused_sweep.sweep_kernel`, counted in `.launches_global`), bit for bit
-`<float, true, true>` where both fit; `fused_sweep_jvp_batch_global`
-launches it at any grid, for the checks.
+launches the cluster instantiation `household_sweep_cluster_kernel<float,
+true, true>` (`csrc/household_sweep_cluster.cu`: one thread-block cluster
+a path, of `fused_sweep.sweep_batch_cluster`'s size for B; at n_e = 7 to
+n_a = 3597), counted in `.launches_cluster`, and past that the
+global-state instantiation `<float, true, true, true>` (counted in
+`.launches_global`), as `fused_sweep.sweep_kernel` decides; each bit for
+bit `<float, true, true>` where both fit. `fused_sweep_jvp_batch_cluster`
+and `fused_sweep_jvp_batch_global` launch them at any grid they take, for
+the checks.
 
 `make_fused_jvp_batch` is the ensemble's direction map
 (`hank_tpu/ops/fused_sweep_batch.py:412-495`): per row, the price-map JVP,
@@ -54,7 +59,9 @@ def fused_sweep_jvp_batch(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
                           *, beta: float, gamma: float, borrow_cons: float,
                           fallback_rows: torch.Tensor | None = None):
     """Batched JVP of the household map: (B, T-1) price paths and tangents
-    ↦ (agg, dagg, aggc, daggc), each (B, T-1) float32.
+    ↦ (agg, dagg, aggc, daggc), each (B, T-1) float32: one launch of one
+    block per path, or past its shared memory one cluster per path (or one
+    global-state block per path), as `fused_sweep.sweep_kernel` decides.
 
     All inputs float32 and contiguous on one device; V_T, D0 (n_a, n_e),
     grid (n_a,), e_grid (n_e,), Pi (n_e, n_e) are shared by every path.
@@ -78,7 +85,32 @@ def fused_sweep_jvp_batch(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
     return out
 
 
-fused_sweep_jvp_batch.launches = fused_sweep_jvp_batch.launches_global = 0
+fused_sweep_jvp_batch.launches = fused_sweep_jvp_batch.launches_cluster = 0
+fused_sweep_jvp_batch.launches_global = 0
+
+
+def fused_sweep_jvp_batch_cluster(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,
+                                  *, beta: float, gamma: float, borrow_cons: float,
+                                  fallback_rows: torch.Tensor | None = None,
+                                  cluster: int | None = None):
+    """`fused_sweep_jvp_batch` through `household_sweep_cluster_kernel<float,
+    true, true>` at any grid its shared memory takes, one cluster of
+    `cluster` blocks per path (default: `fused_sweep.sweep_batch_cluster`'s
+    size, as the wrapper launches it), held bit for bit to kernels 3-4, to
+    the global-state instantiation and, row by row, to
+    `fused_sweep.fused_sweep_jvp_cluster`. No solver calls it. CUDA tensors
+    only; counted in `fused_sweep_jvp_batch.launches_cluster`."""
+    paths = (r_b, w_b, dr_b, dw_b)
+    _check_inputs("fused_sweep_jvp_batch_cluster", f32, paths, V_T, D0, grid, e_grid, Pi,
+                  batched=True)
+    require_card("fused_sweep_jvp_batch_cluster", V_T, "fused_sweep_jvp_batch_reference")
+    fallback = fallback_pointer("fused_sweep_jvp_batch_cluster", fallback_rows, V_T,
+                                (r_b.shape[0], 2))
+    out = launch_sweep("hank_sweep_jvp_f32_batch", paths, V_T, D0, grid, e_grid, Pi, n_out=4,
+                       smem_kind=cuda_build.CLUSTER_KERNELS3_4, extra_ptrs=fallback,
+                       cluster=cluster, beta=beta, gamma=gamma, borrow_cons=borrow_cons)
+    fused_sweep_jvp_batch.launches_cluster += 1
+    return out
 
 
 def fused_sweep_jvp_batch_global(r_b, w_b, dr_b, dw_b, V_T, D0, grid, e_grid, Pi,

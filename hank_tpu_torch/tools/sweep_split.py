@@ -32,8 +32,8 @@ stage pays for state in global memory, where both fit, and at 1200×7 the
 global-state stage per state against 500×7's.
 
 Then `csrc/household_sweep_cluster.cu` built with `-DHANK_CLUSTER_STAMPS`
-(stamps of each block's thread 0 in the cluster kernel only) and both
-cluster instantiations at the three grids on the same inputs: per block
+(stamps of each block's thread 0 in the cluster kernel only) and its two
+single-path tangent instantiations at the three grids on the same inputs: per block
 (rank) of the cluster, the cycles a period in each stage (the waits at
 the cluster barriers, the expectation, the row check, bracket and
 envelope, the clamp, the lottery, the mix, block 0's aggregates), ms of

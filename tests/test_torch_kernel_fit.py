@@ -4,10 +4,10 @@ On the card every kernel map is held, when it is built, to the shared
 memory its kernel needs at the model's grid (`ops/cuda_build.check_fit` of
 the library's own count, from `fused_sweep.sweep_setup` and
 `fused_sweep2._build_fused2`). A one-asset map whose one-block kernel does
-not take the grid builds, for kernel 1 and the f64 tangent sweep, on that
-kernel's cluster instantiation where its count per block fits and the card
-holds such a cluster (`cuda_build.max_clusters`), else on its
-global-state instantiation (`fused_sweep.sweep_kernel`: a decision by the
+not take the grid builds on that kernel's cluster instantiation where its
+count per block fits and the card holds such a cluster
+(`cuda_build.max_clusters`), both at a single path's cluster size, else on
+its global-state instantiation (`fused_sweep.sweep_kernel`: a decision by the
 counts, before any launch); past that one's count, and past a two-asset
 kernel's, the build raises
 ValueError, under "auto" as under "pallas"/"ds", before a solve starts and
@@ -102,6 +102,8 @@ BYTES = {
     cuda_build.GLOBAL_JVP_F64: lambda n_a, n_e: global_smem_bytes(8, True, n_a, n_e),
     cuda_build.CLUSTER_KERNEL1: lambda n_a, n_e: cluster_smem_bytes(4, n_a, n_e),
     cuda_build.CLUSTER_JVP_F64: lambda n_a, n_e: cluster_smem_bytes(8, n_a, n_e),
+    cuda_build.CLUSTER_KERNELS3_4: lambda n_a, n_e: cluster_smem_bytes(4, n_a, n_e),
+    cuda_build.CLUSTER_KERNEL2: lambda n_a, n_e: cluster_smem_bytes(8, n_a, n_e, tangent=False),
 }
 
 # The last n_a each kernel takes at n_e = 7.
@@ -109,7 +111,9 @@ LIMITS = {"kernel2": (cuda_build.KERNEL2, 1036), "kernel1": (cuda_build.KERNEL1,
           "kernels3_4": (cuda_build.KERNELS3_4, 1148), "jvp_f64": (cuda_build.JVP_F64, 529)}
 # The last n_a each cluster instantiation takes at n_e = 7 (per block, a
 # cluster of 7).
-CLUSTER_LIMITS = {"kernel1": (cuda_build.CLUSTER_KERNEL1, 3597),
+CLUSTER_LIMITS = {"kernel2": (cuda_build.CLUSTER_KERNEL2, 2694),
+                  "kernel1": (cuda_build.CLUSTER_KERNEL1, 3597),
+                  "kernels3_4": (cuda_build.CLUSTER_KERNELS3_4, 3597),
                   "jvp_f64": (cuda_build.CLUSTER_JVP_F64, 1660)}
 # The last n_a each global-state instantiation takes at n_e = 7.
 GLOBAL_LIMITS = {"kernel2": (cuda_build.GLOBAL_KERNEL2, 5390),
@@ -224,15 +228,14 @@ def test_check_fit_is_the_block_limit():
 def test_decision_at_each_limit_and_one_past_it(ks, count, name):
     """At n_e = 7: kernel 2 takes n_a ≤ 1036, kernel 1 ≤ 1147, kernels 3-4
     ≤ 1148, the f64 tangent sweep ≤ 529; one knot more and the map builds
-    on the kernel's cluster instantiation (kernel 1, the f64 tangent
-    sweep) or its global-state one (kernels 2-4), decided by the counts."""
+    on the kernel's cluster instantiation, decided by the counts."""
     which, last = LIMITS[name]
     tss = on_card(ks[1])
     dtype = f32 if which in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
     setup = sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype, which)
     assert setup.kernel == which
     model = build_small_ks_torch(T=12, n_a=last + 1, n_e=7)
-    nxt = cuda_build.CLUSTER.get(which, cuda_build.GLOBAL_STATE[which])
+    nxt = cuda_build.CLUSTER[which]
     assert sweep_setup(model, tss, tss, dtype, which).kernel == nxt
     assert BYTES[which](last + 1, 7) > SMEM
     assert count == [which, which, nxt]
@@ -240,14 +243,15 @@ def test_decision_at_each_limit_and_one_past_it(ks, count, name):
 
 @pytest.mark.parametrize("name", sorted(CLUSTER_LIMITS))
 def test_decision_at_each_cluster_limit_and_one_past_it(ks, count, monkeypatch, name):
-    """At n_e = 7 the cluster instantiations take n_a ≤ 3597 (kernel 1's
-    place) and ≤ 1660 (the f64 tangent sweep's); one knot more and the map
-    builds on the global-state instantiation. A card that holds no such
-    cluster sends the map there too, at any grid."""
+    """At n_e = 7 the cluster instantiations take n_a ≤ 2694 (kernel 2's
+    place, values only), ≤ 3597 (kernel 1's and kernels 3-4's) and ≤ 1660
+    (the f64 tangent sweep's); one knot more and the map builds on the
+    global-state instantiation. A card that holds no such cluster sends the
+    map there too, at any grid."""
     which, last = CLUSTER_LIMITS[name]
     one_block = LIMITS[name][0]
     tss = on_card(ks[1])
-    dtype = f32 if one_block == cuda_build.KERNEL1 else f64
+    dtype = f32 if one_block in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
     setup = sweep_setup(build_small_ks_torch(T=12, n_a=last, n_e=7), tss, tss, dtype, one_block)
     assert setup.kernel == which
     model = build_small_ks_torch(T=12, n_a=last + 1, n_e=7)
@@ -281,8 +285,7 @@ def test_decision_at_each_global_state_limit_and_one_past_it(ks, count, name):
     assert text.startswith(f"{KERNEL_NAMES[which]} at grid {last + 1}x7 needs "
                            f"{BYTES[which](last + 1, 7)} bytes of shared memory")
     assert text.endswith(PLAIN)
-    tiers = [one_block, *([cuda_build.CLUSTER[one_block]] if one_block in cuda_build.CLUSTER
-                          else []), which]
+    tiers = [one_block, cuda_build.CLUSTER[one_block], which]
     assert count == tiers * 2
 
 
@@ -403,10 +406,11 @@ def test_auto_f64_direction_route_takes_the_f64_sweep_or_raises(ks, count, monke
 
 
 def test_kernel2_residual_routes_raise_past_the_limit(ks, over, monkeypatch):
-    """Past kernel 2's one-block limit "auto" and "ds" build on its
-    global-state instantiation (its plain version here: the same F as the
-    plain f64 pipeline); past that one's count they raise when the residual
-    is built; "f64" takes the plain f64 pipeline."""
+    """Past kernel 2's one-block limit and its cluster instantiation's
+    "auto" and "ds" build on its global-state instantiation (its plain
+    version here: the same F as the plain f64 pipeline); past that one's
+    count they raise when the residual is built; "f64" takes the plain f64
+    pipeline."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     for mode in ("auto", "ds"):
@@ -480,8 +484,8 @@ def test_path_solver_raises_at_the_build_past_the_limits(ks, over, monkeypatch):
 def test_ensemble_routes_raise_past_the_limits(ks, over, monkeypatch):
     """Past every limit the ensemble's kernel-2 residual and its batched
     f32 direction map raise when built; f64 ensemble directions take the
-    plain route. Past the one-block limits alone both build on the
-    batched global-state instantiations."""
+    plain route. Past the one-block and cluster limits alone both build on
+    the batched global-state instantiations."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     B = 2

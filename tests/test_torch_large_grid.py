@@ -3,11 +3,10 @@
 On the card every one-asset kernel map decides by the model's grid, with
 the libraries' shared-memory counts and before any launch, which kernel it
 launches (`ops/fused_sweep.sweep_kernel`, recorded as `sweep_setup(...).kernel`):
-the one-block kernel where its count fits; else, for kernel 1 and the f64
-tangent sweep, their cluster instantiation
-(`household_sweep_cluster_kernel<S, true>`, each income row's state in its
-own block's shared memory) where its count per block fits and the card
-holds such a cluster; else the global-state instantiation
+the one-block kernel where its count fits; else its cluster instantiation
+(`household_sweep_cluster_kernel<S, TANGENT, BATCHED>`, each income row's
+state in its own block's shared memory) where its count per block fits and
+the card holds such a cluster; else the global-state instantiation
 (`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`, whose six
 state arrays live in a global workspace), and ValueError past that one's
 count. Without a card the libraries cannot count, so the tests feed
@@ -20,10 +19,11 @@ its arrays on the card (`OnCard`) while the wrappers, which look at the
 device, run their plain versions.
 
 On the small Krusell-Smith (40×5, T=12, the transitory TFP shock) every
-one-asset route under "auto" then builds on the global-state kernels, or
-for the directions on the cluster ones, and solves to the JAX package's
-root within 1e-9: the default boehl solve (f64 directions, kernel-2
-residuals), Newton-Krylov with f32 directions, and a B=2 ensemble. The
+one-asset route under "auto" then builds on the global-state kernels
+(`past_one_block`), or on the cluster ones (`to_cluster`), and solves to
+the JAX package's root within 1e-9: the default boehl solve (f64
+directions, kernel-2 residuals), Newton-Krylov with f32 directions, and a
+B=2 ensemble (kernels 3-4 and the batched kernel 2). The
 `slow` test rebuilds
 `hank_tpu_torch/data/ks_large_grid_1200x7_T150_jax_cpu.npz` (large-grid KS
 at 1200×7, T=150, the grid past every one-block kernel at n_e = 7) from
@@ -44,7 +44,9 @@ import hank_tpu_torch.solvers.newton as newton_mod
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_batch,
+                                               fused_residual_sweep_batch_cluster,
                                                fused_residual_sweep_batch_global,
+                                               fused_residual_sweep_cluster,
                                                fused_residual_sweep_global,
                                                fused_residual_sweep_reference)
 from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_cluster,
@@ -52,7 +54,9 @@ from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_clu
                                             fused_sweep_jvp_f64_global, fused_sweep_jvp_global,
                                             fused_sweep_jvp_reference, state_workspace_bytes,
                                             sweep_setup)
-from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch, fused_sweep_jvp_batch_global
+from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                  fused_sweep_jvp_batch_cluster,
+                                                  fused_sweep_jvp_batch_global)
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_common import (REPO, build_small_ks_torch, ss_to_numpy, to_torch,
                                      transitory_exog)
@@ -109,9 +113,7 @@ def test_sweep_setup_records_the_kernel_it_launches(ks, past_one_block, monkeypa
     dtype = f32 if which in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
     assert sweep_setup(ks.tm, ks.card, ks.card, dtype, which).kernel == \
         cuda_build.GLOBAL_STATE[which]
-    assert past_one_block == [which, *([cuda_build.CLUSTER[which]]
-                                       if which in cuda_build.CLUSTER else []),
-                              cuda_build.GLOBAL_STATE[which]]
+    assert past_one_block == [which, cuda_build.CLUSTER[which], cuda_build.GLOBAL_STATE[which]]
     assert sweep_setup(ks.tm, ks.tss, ks.tss, dtype, which).kernel is None
     assert sweep_setup(ks.tm, ks.card, ks.card, dtype).kernel is None
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes", lambda w, n_a, n_e: BYTES[w](n_a, n_e))
@@ -164,37 +166,58 @@ def test_ensemble_past_one_block_takes_the_global_state_kernels(ks, past_one_blo
 @pytest.mark.parametrize("which", sorted(cuda_build.CLUSTER))
 def test_sweep_setup_records_the_cluster_tier(ks, to_cluster, which):
     """Past one block, where the cluster instantiation's count fits and
-    the card holds one such cluster, kernel 1's and the f64 tangent
-    sweep's maps record the cluster instantiation; kernels 2-4's, which
-    have none, their global-state ones."""
-    dtype = f32 if which == cuda_build.KERNEL1 else f64
+    the card holds one such cluster, every one-asset map (kernel 1's, the
+    f64 tangent sweep's, kernel 2's and kernels 3-4's) records its cluster
+    instantiation, asking the count and the card once each."""
+    dtype = f32 if which in (cuda_build.KERNEL1, cuda_build.KERNELS3_4) else f64
     assert sweep_setup(ks.tm, ks.card, ks.card, dtype, which).kernel == \
         cuda_build.CLUSTER[which]
     assert to_cluster == [which, cuda_build.CLUSTER[which]]
-    for other, dt in ((cuda_build.KERNEL2, f64), (cuda_build.KERNELS3_4, f32)):
-        assert sweep_setup(ks.tm, ks.card, ks.card, dt, other).kernel == \
-            cuda_build.GLOBAL_STATE[other]
 
 
 @pytest.mark.parametrize("method,direction_dtype", [("boehl", None), ("newton_krylov", f32)])
 def test_solves_on_the_cluster_tier(ks, to_cluster, method, direction_dtype):
     """The default (f64 directions, boehl) and Newton-Krylov with f32
-    directions with the directions' maps on the cluster tier: the solver
-    builds on the cluster instantiation (its plain version here) and the
-    global-state kernel 2, takes no AD direction and reaches the JAX
-    package's root within 1e-9."""
-    calls = (fused_sweep_jvp_reference.calls, newton_mod.ad_direction.calls)
+    directions with every map on the cluster tier: the solver builds on
+    the cluster instantiations of its directions and of kernel 2 (their
+    plain versions here) and on no global-state one, takes no AD direction
+    and reaches the JAX package's root within 1e-9."""
+    calls = (fused_sweep_jvp_reference.calls, fused_residual_sweep_reference.calls,
+             newton_mod.ad_direction.calls)
     x, info = newton_mod.make_path_solver(
         to_torch(ks.J), ks.exog, ks.tm, ks.card, ks.card, method=method,
         direction_dtype=direction_dtype, eps=1e-10)(to_torch(ks.x_ss))
     assert info["residual_norm"] < 1e-10
     cluster = cuda_build.CLUSTER_KERNEL1 if direction_dtype == f32 else cuda_build.CLUSTER_JVP_F64
-    assert cluster in to_cluster
-    assert {w for w in to_cluster if w in cuda_build.GLOBAL_STATE.values()} == \
-        {cuda_build.GLOBAL_KERNEL2}
+    assert {w for w in to_cluster if w in cuda_build.CLUSTER.values()} == \
+        {cluster, cuda_build.CLUSTER_KERNEL2}
+    assert not {w for w in to_cluster if w in cuda_build.GLOBAL_STATE.values()}
     assert fused_sweep_jvp_reference.calls > calls[0]
-    assert newton_mod.ad_direction.calls == calls[1]
+    assert fused_residual_sweep_reference.calls > calls[1]
+    assert newton_mod.ad_direction.calls == calls[2]
     assert float(np.max(np.abs(x.numpy() - ks.root))) <= 1e-9
+
+
+def test_ensemble_on_the_cluster_tier(ks, to_cluster):
+    """A B=2 Newton-Krylov ensemble (f32 directions) under "auto" with every
+    map on the cluster tier builds on the batched cluster instantiations
+    (kernels 3-4 and the batched kernel 2, their plain versions here) and
+    on no global-state one; each row reaches the JAX package's root of its
+    own shock within 1e-9."""
+    T = ks.tm.compspec.T
+    t = np.arange(1, T, dtype=np.float64)
+    shocks = [1.0 + 0.1 * rho ** t for rho in (0.7, 0.8)]
+    exog_b = {"Z": torch.tensor(np.stack(shocks), dtype=f64)}
+    x, info = ensemble_mod.solve_ensemble_host(to_torch(ks.x_ss), to_torch(ks.J), exog_b,
+                                               ks.tm, ks.card, ks.card, eps=1e-10,
+                                               method="newton_krylov")
+    assert float(info["residual_norm"].max()) < 1e-10
+    assert {w for w in to_cluster if w in cuda_build.CLUSTER.values()} == \
+        {cuda_build.CLUSTER_KERNELS3_4, cuda_build.CLUSTER_KERNEL2}
+    assert not {w for w in to_cluster if w in cuda_build.GLOBAL_STATE.values()}
+    for b, z in enumerate(shocks):
+        root = ks.root if b == 1 else ks.jax_root(z)
+        assert float(np.max(np.abs(x[b].numpy() - root))) <= 1e-9
 
 
 @pytest.mark.parametrize("dtype,tangent,B", [(f32, True, 1), (f32, True, 64), (f64, False, 1),
@@ -209,6 +232,9 @@ def test_state_workspace_is_six_or_three_states_a_path(dtype, tangent, B):
 @pytest.mark.parametrize("entry,wrapper,dtype,n_paths,batched", [
     (fused_sweep_jvp_cluster, fused_sweep_jvp, f32, 4, False),
     (fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64, f64, 4, False),
+    (fused_sweep_jvp_batch_cluster, fused_sweep_jvp_batch, f32, 4, True),
+    (fused_residual_sweep_cluster, fused_residual_sweep, f64, 2, False),
+    (fused_residual_sweep_batch_cluster, fused_residual_sweep_batch, f64, 2, True),
     (fused_sweep_jvp_global, fused_sweep_jvp, f32, 4, False),
     (fused_sweep_jvp_batch_global, fused_sweep_jvp_batch, f32, 4, True),
     (fused_residual_sweep_global, fused_residual_sweep, f64, 2, False),

@@ -16,11 +16,14 @@ kernel 2, near the steady state and on the grid with two knots swapped
 (the fallback branches, whose counts are checked per path); kernel 1 and
 the f64 tangent sweep (`fused_sweep_jvp_f64`, against
 `fused_sweep_jvp_f64_previous`) too; and the rows of a batched launch equal
-single launches of kernel 1 and of kernel 2. The cluster instantiations
-(`csrc/household_sweep_cluster.cu`) are held to the global-state
-instantiations and the one-block kernels at 40×5, 40×9 and 40×17 (clusters
-of 5 and 8 blocks, one to three rows a block) and to the global-state ones
-at 1200×7. Kernel 7 (`forward_scan`) is
+single launches of kernel 1 and of kernel 2. The five cluster
+instantiations (`csrc/household_sweep_cluster.cu`: in kernel 1's, the f64
+tangent sweep's, kernel 2's places, and the batched kernel 2's and kernels
+3-4's) are held to the global-state instantiations and the one-block
+kernels at 40×5, 40×9 and 40×17 (clusters of 5 and 8 blocks, one to three
+rows a block) and to the global-state ones at 1200×7; the batched ones at
+every cluster size, each row bit for bit a single-path cluster launch.
+Kernel 7 (`forward_scan`) is
 held to the previous kernel 7 (`forward_scan_previous`) on seeded monotone
 policies, with 10% noise (fallback rows), one NaN policy and every policy
 clamped at a grid end. Here, without a card, those tests skip; the CPU test
@@ -39,8 +42,10 @@ from hank_tpu_torch.models import load_model
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
                                                fused_residual_sweep_batch,
+                                               fused_residual_sweep_batch_cluster,
                                                fused_residual_sweep_batch_global,
                                                fused_residual_sweep_batch_previous,
+                                               fused_residual_sweep_cluster,
                                                fused_residual_sweep_global,
                                                fused_residual_sweep_previous,
                                                fused_residual_sweep_reference)
@@ -52,6 +57,7 @@ from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_clu
                                             fused_sweep_jvp_f64_previous,
                                             fused_sweep_jvp_global, fused_sweep_jvp_reference)
 from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
+                                                  fused_sweep_jvp_batch_cluster,
                                                   fused_sweep_jvp_batch_global,
                                                   fused_sweep_jvp_batch_previous)
 
@@ -356,11 +362,12 @@ def test_global_state_instantiations_on_card_are_bit_for_bit_the_one_block_kerne
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_e", [5, 9, 17])
 def test_cluster_instantiations_on_card_are_bit_for_bit_the_global_state_kernels(cuda, n_e):
-    """Each cluster instantiation against the global-state instantiation
-    and the one-block kernel whose place it takes, on every output bit and
-    fallback count: near the steady state, on the swapped grid and with a
-    NaN in V_T; `<float, true>` against kernel 1. At n_e = 5 a cluster of
-    5 blocks, one row each; at 9 and 17 a cluster of 8, some blocks holding
+    """Each single-path cluster instantiation against the global-state
+    instantiation and the one-block kernel whose place it takes, on every
+    output bit and fallback count: near the steady state, on the swapped
+    grid and with a NaN in V_T; `<float, true, false>` against kernel 1,
+    `<double, false, false>` against kernel 2. At n_e = 5 a cluster of 5
+    blocks, one row each; at 9 and 17 a cluster of 8, some blocks holding
     two or three rows. `.launches_cluster` counts them."""
     kw = kernel_kwargs()
     p32, c32 = inputs(1, f32, cuda, seed=11, n_e=n_e)
@@ -368,7 +375,9 @@ def test_cluster_instantiations_on_card_are_bit_for_bit_the_global_state_kernels
     cases = ((fused_sweep_jvp, fused_sweep_jvp_cluster, fused_sweep_jvp_global,
               [p[0] for p in p32], c32),
              (fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64_global,
-              [p[0] for p in p64], c64))
+              [p[0] for p in p64], c64),
+             (fused_residual_sweep, fused_residual_sweep_cluster, fused_residual_sweep_global,
+              [p[0] for p in p64[:2]], c64))
     for one_block, cluster, glob, paths, c in cases:
         taken = 0
         for shared in (c, swapped_grid(c), with_nan(c)):
@@ -385,18 +394,66 @@ def test_cluster_instantiations_on_card_are_bit_for_bit_the_global_state_kernels
         assert taken > 0
 
 
+def batched_cases(p32, c32, p64, c64):
+    """(batched wrapper, its cluster entry point, its global-state one, the
+    single-path cluster entry point, paths, shared inputs) of kernels 3-4
+    and the batched kernel 2."""
+    return ((fused_sweep_jvp_batch, fused_sweep_jvp_batch_cluster, fused_sweep_jvp_batch_global,
+             fused_sweep_jvp_cluster, p32, c32),
+            (fused_residual_sweep_batch, fused_residual_sweep_batch_cluster,
+             fused_residual_sweep_batch_global, fused_residual_sweep_cluster, p64[:2], c64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_e", [5, 9])
+def test_batched_cluster_instantiations_on_card_at_every_cluster_size(cuda, n_e):
+    """`<float, true, true>` and `<double, false, true>` over B = 3 paths on
+    clusters of every size C = 1, ..., min(n_e, 8) (one to n_e rows a
+    block): every output bit and fallback count equal to the one-block
+    batched kernel's and the global-state one's, near the steady state and
+    on the swapped grid, and every row bit for bit a single-path cluster
+    launch; a cluster larger than min(n_e, 8) refused at launch."""
+    kw = kernel_kwargs()
+    p32, c32 = inputs(3, f32, cuda, seed=13, n_e=n_e)
+    p64, c64 = inputs(3, f64, cuda, seed=13, n_e=n_e)
+    for one_block, cluster, glob, single, paths, c in batched_cases(p32, c32, p64, c64):
+        for shared in (c, swapped_grid(c)):
+            fb_one, fb_glob = (torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+                               for _ in "ab")
+            old = one_block(*paths, *shared, **kw, fallback_rows=fb_one)
+            assert all(same_bits(o, q) for o, q in
+                       zip(glob(*paths, *shared, **kw, fallback_rows=fb_glob), old))
+            assert torch.equal(fb_one, fb_glob)
+            rows = [single(*(p[b] for p in paths), *shared, **kw) for b in range(3)]
+            for size in range(1, min(n_e, 8) + 1):
+                fb = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+                launches = one_block.launches_cluster
+                out = cluster(*paths, *shared, **kw, fallback_rows=fb, cluster=size)
+                assert one_block.launches_cluster == launches + 1
+                assert all(same_bits(o, q) for o, q in zip(out, old)), (cluster.__name__, size)
+                assert torch.equal(fb, fb_one), (cluster.__name__, size)
+                for b in range(3):
+                    assert all(same_bits(o[b], q) for o, q in zip(out, rows[b]))
+        assert int(fb_one.sum()) > 0
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            cluster(*paths, *c, **kw, cluster=min(n_e, 8) + 1)
+
+
 @pytest.mark.gpu
 def test_cluster_instantiations_on_card_at_1200x7(cuda):
     """At 1200×7 (one row a block on a cluster of 7) each cluster
     instantiation is bit for bit the global-state one on every output and
-    fallback count, and the wrappers launch it there."""
+    fallback count, and the wrappers launch it there; the batched ones over
+    B = 2 paths on clusters of 7 and of 4 (two rows a block), every row bit
+    for bit a single-path cluster launch."""
     kw = kernel_kwargs()
-    for dtype, wrapper, cluster, glob in ((f32, fused_sweep_jvp, fused_sweep_jvp_cluster,
-                                           fused_sweep_jvp_global),
-                                          (f64, fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster,
-                                           fused_sweep_jvp_f64_global)):
+    for dtype, wrapper, cluster, glob, n_paths in (
+            (f32, fused_sweep_jvp, fused_sweep_jvp_cluster, fused_sweep_jvp_global, 4),
+            (f64, fused_sweep_jvp_f64, fused_sweep_jvp_f64_cluster, fused_sweep_jvp_f64_global, 4),
+            (f64, fused_residual_sweep, fused_residual_sweep_cluster,
+             fused_residual_sweep_global, 2)):
         p, c = inputs(1, dtype, cuda, seed=12, n_a=1200, n_e=7, Tm1=20)
-        paths = [q[0] for q in p]
+        paths = [q[0] for q in p[:n_paths]]
         for shared in (c, swapped_grid(c, k=600)):
             fb_c, fb_g = (torch.zeros(2, dtype=torch.int32, device=cuda) for _ in "ab")
             out = cluster(*paths, *shared, **kw, fallback_rows=fb_c)
@@ -407,14 +464,32 @@ def test_cluster_instantiations_on_card_at_1200x7(cuda):
         out = wrapper(*paths, *c, **kw)
         assert wrapper.launches_cluster == launches + 1
         assert all(same_bits(o, q) for o, q in zip(out, glob(*paths, *c, **kw)))
+    p32, c32 = inputs(2, f32, cuda, seed=14, n_a=1200, n_e=7, Tm1=12)
+    p64, c64 = inputs(2, f64, cuda, seed=14, n_a=1200, n_e=7, Tm1=12)
+    for wrapper, cluster, glob, single, paths, c in batched_cases(p32, c32, p64, c64):
+        for shared in (c, swapped_grid(c, k=600)):
+            fb_c, fb_g = (torch.zeros((2, 2), dtype=torch.int32, device=cuda) for _ in "ab")
+            old = glob(*paths, *shared, **kw, fallback_rows=fb_g)
+            for size in (7, 4):
+                out = cluster(*paths, *shared, **kw, fallback_rows=fb_c, cluster=size)
+                assert all(same_bits(o, q) for o, q in zip(out, old)), (cluster.__name__, size)
+                assert torch.equal(fb_c, fb_g)
+            for b in range(2):
+                row = single(*(q[b] for q in paths), *shared, **kw)
+                assert all(same_bits(o[b], q) for o, q in zip(out, row))
+        launches = wrapper.launches_cluster
+        out = wrapper(*paths, *c, **kw)
+        assert wrapper.launches_cluster == launches + 1
+        assert all(same_bits(o, q) for o, q in zip(out, glob(*paths, *c, **kw)))
 
 
 @pytest.mark.gpu
 def test_wrappers_on_card_launch_the_global_state_kernels_past_one_block(cuda):
     """At 1200×7, past every one-block kernel's shared memory, each wrapper
-    launches its cluster instantiation (kernel 1's and the f64 tangent
-    sweep's places) or its global-state one by the grid, within phase 4's
-    bounds of its plain version in f64, a zero tangent exactly zero."""
+    launches its cluster instantiation by the grid (every one-asset kernel
+    has one, and 1200×7 is inside each one's count), within phase 4's
+    bounds of its plain version in f64, a zero tangent exactly zero; no
+    global-state launch."""
     kw = kernel_kwargs()
     p64, c64 = inputs(2, f64, cuda, seed=10, n_a=1200, n_e=7, Tm1=6)
     p32, c32 = inputs(2, f32, cuda, seed=10, n_a=1200, n_e=7, Tm1=6)
@@ -446,11 +521,7 @@ def test_wrappers_on_card_launch_the_global_state_kernels_past_one_block(cuda):
     out0 = fused_sweep_jvp_f64(p64[0][0], p64[1][0], zero, zero, *c64, **kw)
     assert bool((out0[1] == 0).all() and (out0[3] == 0).all())
     for fn, (launches, launches_global, launches_cluster) in before.items():
-        if fn in (fused_sweep_jvp, fused_sweep_jvp_f64):
-            moved = (fn.launches_cluster > launches_cluster
-                     and fn.launches_global == launches_global)
-        else:
-            moved = fn.launches_global > launches_global
+        moved = fn.launches_cluster > launches_cluster and fn.launches_global == launches_global
         assert fn.launches == launches and moved, fn.__name__
 
 
