@@ -13,9 +13,14 @@ exits non-zero and never prints the final `"ok": true` line:
                f64 residual pair, and the one-asset sweeps on a
                thread-block cluster), one nvcc each (sm_90a) started
                together, with the build seconds and ptxas' registers and
-               spill bytes per kernel (the f64 pair's four kernels, single
-               and batched, required not to spill; the four batched
-               two-asset kernels singled out); the f64 pair's shared memory on its
+               spill bytes per kernel (the f64 pair's six kernels, single
+               and batched, the global-list forward push's two among them,
+               required not to spill; the six batched two-asset kernels and
+               the four global-list forward kernels singled out); the
+               global-list forward kernels, kernel 5 and the f64 backward
+               within a block at 50×70, 48×64 and 64×64 (×5×2) by the
+               libraries' counts, and how many grids past 2048 asset states
+               up to 4096 the global-list ones take; the f64 pair's shared memory on its
                default clusters, required to fit at 40×20×5×2, and how many
                of the grids the previous kernels 5 and 6 take it takes;
                every one-asset grid (n_e ≤ 20) the counting template takes
@@ -46,7 +51,9 @@ exits non-zero and never prints the final `"ok": true` line:
                earlier instantiations (these under their <..., false>
                names), and of every single-path kernel of the two
                two-asset libraries (the cluster kernels as their <false>
-               instantiations) and of the cluster library's five kernels
+               instantiations, the forward ones as <false, false>, and the
+               four global-list forward kernels as first built) and of the
+               cluster library's five kernels
                (the two tangent ones as their <..., false> instantiations),
                against the previous builds'
                (`hank_tpu_torch/tools/sass_reference.json`, per library,
@@ -341,6 +348,53 @@ exits non-zero and never prints the final `"ok": true` line:
                0, B−1 and the worst row the solver's within 1e-12 + 1e-6
                relative, and < EPS on converged rows), and one lockstep boehl
                solve, capped at 10 outers of 200 sweeps (reported).
+ 12. two-asset large grid — `hank_two_asset` at 50×70×5×2, T=150
+               (LARGE_TWO_ASSET: the yaml's bounds, income and access, 50
+               liquid and 70 illiquid knots, the published two-asset width
+               of `sequence_jacobian`'s hh_twoasset; 3,500 asset states,
+               past the shared-list forward kernels' 2048), fiscal shock G
+               from `generate_exog_paths`. Setup, cut: the steady state is
+               the reference file's (`hank_two_asset_50x70_T150_jax_cpu.npz`,
+               the one the JAX CPU root was solved from), carried across
+               (the port's steady-state Newton takes ~6 min an iteration at
+               this grid on the card), J̄ by
+               `get_or_solve` into a fresh temporary cache (timed);
+               max|F_ss| ≤ 1e-9 by the port's equations, markets to 1e-8,
+               and the port's household at it a fixed point (one Bellman
+               step off the value by ≤ 1e-13 and giving its policies to
+               1e-10, one period of D off D by ≤ 1e-15, the aggregates
+               Σ policy·D to 1e-12); the
+               routes' decisions by the libraries' counts (kernel 6 and the
+               f64 forward push on their global-list instantiations
+               `<*, true>`, kernel 5 and the f64 backward untabled) required.
+               Phase 7's route once (warm-up), then kernels 5-6 and the f64
+               pair at x_ss and at its solution against their plain versions
+               at phase 7's bounds (the f64 pair's F within 1e-11 of the
+               plain F), repeats bit-identical; the batched global-list
+               forward kernels on the solution's policies at B = 4, every
+               row bit for bit the single launch, and their ms per launch at
+               B = 1, 4, 16 beside the cluster `batch_cluster_of` takes; ms
+               per launch of each kernel of the route and of the pair's F.
+               Then 3 timed runs of the route (counters zeroed right before:
+               kernel 5, the global-list kernel 6 and the f64 pair launched,
+               no shared-list forward kernel, plain version, previous kernel
+               or plain f64 F; bit-identical; the plain f64 ‖F‖ ≤ EPS;
+               within 1e-7 of the JAX CPU root), with outers, matvecs and
+               launches per solve. Phase 7 holds this PR's instantiations
+               to the route's kernels at 40×20 on its own inputs: kernel 6
+               on global lists bit for bit kernel 6 at its six inputs on
+               clusters of 10 and 5, kernel 5 untabled kernel 5 at its six,
+               the f64 backward untabled, the forward push on global lists
+               and the F through it the pair's at its three points (each
+               instantiation launched by its wrapper's launcher with
+               `which` given), and the batched
+               global-list kernels the batched shared-list ones at B = 4;
+               each global-list forward kernel timed in turns with its
+               shared-list one at the solution there;
+               phase 2 builds the four global-list instantiations (the f64
+               ones required not to spill) and requires them, kernel 5 and
+               the f64 backward to fit 50×70, 48×64 and 64×64 (×5×2) by the
+               libraries' counts.
 
 Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
@@ -350,7 +404,10 @@ sweep, the forward scan or the two-asset residual. The rows of phase 11's
 batched kernels give `ms` at B=16 (with `ms_B1`, `ms_B64` and the
 single-path kernel's beside them), their bound from `two_asset_ops` × B,
 their plain version's time at B = 1 (`plain_ms_at`) and their launches
-per ensemble solve. The five cluster rows give `ms`, `plain_ms`, the
+per ensemble solve. Phase 12's six rows give the ms, plain ms, error and
+bound at 50×70×5×2, T=150 (`grid`), their launches per route solve (the
+two batched global-list rows 0: no ensemble runs at 50×70 here;
+`main_path` says so; their ms at B=16 with `ms_B1`, `ms_B4`). The five cluster rows give `ms`, `plain_ms`, the
 error and the bound at 1200×7 (the batched ones at B=16, with their ms by
 B and by cluster size), their launches in phase 8's three timed solves of
 their route, `ms_global` (in turns) and their ms at 200×7 (the batched
@@ -1781,6 +1838,8 @@ def two_asset_phase(dev, ptxas) -> tuple:
     timing["F_f64_ms"] = cuda_once(lambda: F_plain(x_warm))[1]
     pair = f64_pair_checks(model, ss0, ssT, exog, F_plain,
                            {"x_ss": x_ss, "solution": x_warm, "smooth": smooth_x}, ptxas)
+    lists = global_lists_at_published(model, ss0, ssT, exog, k5_inputs, k6_inputs,
+                                      {"x_ss": x_ss, "solution": x_warm, "smooth": smooth_x})
     k6_ptxas = [k for k in ptxas if "two_asset_fwd" in k["kernel"]]
     k6_grids = kernel6_grids()
     k6_large = kernel6_large_grid(m32)
@@ -1793,7 +1852,8 @@ def two_asset_phase(dev, ptxas) -> tuple:
          k5_grids=kernel5_grids(), k5_other_grids_vs_previous=kernel5_other_grids(m32),
          k6_vs_previous_bit_identical=k6_bits, k6_turns_ms=k6_turns,
          k6_cluster=fs2.default_cluster(model.heterogeneity["income"].n),
-         k6_ptxas=k6_ptxas, k6_grids=k6_grids, k6_large_grid_vs_previous=k6_large, **timing)
+         k6_ptxas=k6_ptxas, k6_grids=k6_grids, k6_large_grid_vs_previous=k6_large,
+         global_lists_and_untabled_vs_route_kernels=lists, **timing)
 
     # Three timed runs of the route; counts zeroed right before them.
     fs2.fused2_policies_jvp.launches = fs2.fused2_forward_jvp.launches = 0
@@ -2385,6 +2445,521 @@ def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) 
              **{f"ms_B{Bw}": ms[Bw]["ms"] for Bw in widths},
              **{f"single_ms_B{Bw}": ms[Bw]["single_ms"] for Bw in widths}}
             for k, (name, source, replaces, err, ms, plain_ms) in meta.items()]
+
+
+# Phase 12's model: the shipped two-asset calibration at the published
+# two-asset width of `sequence_jacobian`'s hh_twoasset (Auclert, Bardóczy,
+# Rognlie & Straub 2021): 50 liquid × 70 illiquid knots on the yaml's
+# bounds, T = 150; and the JAX package's CPU root of its fiscal shock.
+LARGE_TWO_ASSET = (50, 70, 150)
+LARGE_TWO_ASSET_REFERENCE = os.path.join(os.path.dirname(TWO_ASSET_REFERENCE),
+                                         "hank_two_asset_50x70_T150_jax_cpu.npz")
+
+
+def large_two_asset_model(dev):
+    """`hank_two_asset` on `dev` with LARGE_TWO_ASSET's grids and horizon."""
+    import dataclasses
+
+    import torch
+
+    from hank_tpu_torch.model.grids import make_double_exponential_grid
+    from hank_tpu_torch.models import load_model
+
+    n_b, n_a, T = LARGE_TWO_ASSET
+    model = load_model("hank_two_asset", T=T, device=dev)
+    het = model.heterogeneity
+
+    def axis(name, hi, n):
+        grid = torch.tensor(make_double_exponential_grid(0.0, hi, n), dtype=torch.float64,
+                            device=dev)
+        return dataclasses.replace(het[name], n=n, grid=grid)
+
+    return dataclasses.replace(model, heterogeneity={
+        **het, "liquid": axis("liquid", 120.0, n_b), "illiquid": axis("illiquid", 300.0, n_a)})
+
+
+def forward_global_lists(pol, dpol, D0, model, cluster=None):
+    """Kernel 6 (`dpol` given, an f32 model) or the f64 forward push (`dpol`
+    None) through its global-list instantiation at any grid it takes, by
+    the wrappers' own launchers with `which` the global-list one: single
+    path ((T-1, ...) policies) on `cluster` blocks (default the wrapper's),
+    or batched ((B, T-1, ...)) on `batch_cluster_of`'s. Counted nowhere."""
+    import torch
+
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    grid = tuple(model.state_shape())[:3]
+    C = cluster or fs2.default_cluster(grid[2])
+    if dpol is None:
+        if pol["B"].dim() == 5:
+            return fr2._launch_forward(*fr2._forward_f64_inputs("f64 push", pol, D0, model),
+                                       model, fr2.GLOBAL_LISTS, C)
+        tensors, B, Tm1 = fs2._forward_batch_inputs("f64 push", (pol,), D0, model,
+                                                    torch.float64, fs2.KEYS)
+        return fr2._launch_forward_batch(
+            tensors, B, Tm1, D0, model, fr2.GLOBAL_LISTS,
+            fs2.batch_cluster_of(fr2.LIBRARY, fr2.GLOBAL_LISTS, B, grid))
+    if pol["B"].dim() == 5:
+        return fs2._launch_cluster(*fs2._forward_inputs("k6", pol, dpol, D0, model), model, C, 4)
+    tensors, B, Tm1 = fs2._forward_batch_inputs("k6", (pol, dpol), D0, model, torch.float32,
+                                                fs2.KEYS)
+    return fs2._launch_forward_batch(tensors, B, Tm1, D0, model, 4,
+                                     fs2.batch_cluster_of("household_sweep2", 4, B, grid))
+
+
+def global_lists_at_published(model, ss0, ssT, exog, k5_inputs, k6_inputs, points) -> dict:
+    """Phase 7's A/B of the global-list forward kernels and the untabled
+    backward ones against what the routes launch at 40×20×5×2 (shared
+    lists, tabled), on phase 7's inputs: kernel 6 on global lists
+    (`forward_global_lists`) bit for bit
+    `fused2_forward_jvp` at its six inputs on clusters of 10 and 5; kernel 5
+    untabled bit for bit `fused2_policies_jvp` at its six; the f64
+    backward untabled, the forward push on global lists and the f64 F through it
+    bit for bit the pair's at `points`; at B = 4 the batched global-list
+    kernels bit for bit the batched shared-list ones on four of those
+    inputs. Emits nothing; returns the report."""
+    import torch
+
+    from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    f32, f64 = torch.float32, torch.float64
+    m32 = fs2.cast_model(model, f32)
+    D32, VT64, D64 = (ss0.D.to(f32).contiguous(), ssT.value.to(f64).contiguous(),
+                      ss0.D.to(f64).contiguous())
+    Tm1, nE = model.compspec.T - 1, model.compspec.n_endog
+    report = {"k6_global": {}, "k5_untabled": {}, "f64": {}}
+    for label, (pol, dpol) in k6_inputs.items():
+        new = fs2.fused2_forward_jvp(pol, dpol, D32, m32)
+        for C in (fs2.default_cluster(model.heterogeneity["income"].n), 5):
+            got = forward_global_lists(pol, dpol, D32, m32, C)
+            require(all(same_bits(a[k], b[k]) for a, b in zip(got, new) for k in a),
+                    f"the global-list kernel 6 at {label} (cluster {C}) differs from kernel 6")
+        report["k6_global"][label] = True
+    for label, (args, VT) in k5_inputs.items():
+        new = fs2.fused2_policies_jvp(*args, VT, m32)
+        got = fs2._launch_bwd_cluster(tuple(args), VT, m32, fs2.default_bwd_cluster(
+            model.heterogeneity["income"].n), untabled=True)
+        require(all(same_bits(a[k], b[k]) for a, b in zip(got, new) for k in a),
+                f"kernel 5 untabled at {label} differs from kernel 5 tabled")
+        report["k5_untabled"][label] = True
+    F_pair = fr2.make_fused2_residual_fn_f64(model, ss0, ssT, exog)
+    for label, x in points.items():
+        prices = [q.contiguous() for q in fused2_prices(x.reshape(Tm1, nE), exog, model)]
+        pol = fr2.fused2_policies_f64(*prices, VT64, model)
+        untabled = fr2._launch_policies(prices, VT64, model, untabled=True)
+        aggs = fr2.fused2_forward_f64(pol, D64, model)
+        glob = forward_global_lists(pol, None, D64, model)
+        F = F_pair(x)
+        forward = fr2.forward_kernel
+        fr2.forward_kernel = lambda *a: fr2.GLOBAL_LISTS
+        try:
+            F_global = F_pair(x)
+        finally:
+            fr2.forward_kernel = forward
+        require(all(same_bits(untabled[k], pol[k]) and same_bits(glob[k], aggs[k]) for k in pol)
+                and same_bits(F_global, F),
+                f"the f64 pair's untabled or global-list kernel at {label} differs")
+        report["f64"][label] = True
+    labels = list(k6_inputs)[:4]
+    pol_b = {k: torch.stack([k6_inputs[lb][0][k] for lb in labels]) for k in fs2.KEYS}
+    dpol_b = {k: torch.stack([k6_inputs[lb][1][k] for lb in labels]) for k in fs2.KEYS}
+    got = forward_global_lists(pol_b, dpol_b, D32, m32)
+    new = fs2.fused2_forward_jvp_batch(pol_b, dpol_b, D32, m32)
+    pol64_b = {k: v.double() for k, v in pol_b.items()}
+    got64 = forward_global_lists(pol64_b, None, D64, model)
+    new64 = fr2.fused2_forward_f64_batch(pol64_b, D64, model)
+    require(all(same_bits(a[k], b[k]) for a, b in [*zip(got, new), (got64, new64)] for k in a),
+            "a batched global-list forward kernel at B = 4 differs from the shared-list one")
+    report["batched_B4"] = labels
+    # The price of global lists at a grid both take: each forward kernel in
+    # turns with its shared-list instantiation at the solution (shared,
+    # global, global, shared), medians of the turns.
+    pol, dpol = k6_inputs["solution"]
+    pol64 = {k: v.double() for k, v in pol.items()}
+    report["ms_in_turns"] = {
+        "k6": in_turns({"shared": lambda: fs2.fused2_forward_jvp(pol, dpol, D32, m32),
+                        "global": lambda: forward_global_lists(pol, dpol, D32, m32)},
+                       5),
+        "k6_f64": in_turns({"shared": lambda: fr2.fused2_forward_f64(pol64, D64, model),
+                            "global": lambda: forward_global_lists(pol64, None, D64, model)},
+                           5)}
+    return report
+
+
+def two_asset_large_grid_phase(dev, ptxas) -> list:
+    """Phase 12: the two-asset route at LARGE_TWO_ASSET (50×70×5×2, T=150),
+    past the shared-list forward kernels' 2048 asset states (see the module
+    docstring). Emits its JSON lines and returns the `kernels` entries of
+    the instantiations it launches."""
+    import numpy as np
+    import torch
+
+    from hank_tpu_torch.blocks.assemble import residuals as eval_residuals
+    from hank_tpu_torch.model.structures import generate_exog_paths
+    from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.ops.transition import exog_apply, lottery_apply_multi
+    from hank_tpu_torch.solvers import newton as newton_mod
+    from hank_tpu_torch.solvers.linear import linear_impulse_response
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
+    from hank_tpu_torch.utils.checkpoint import (get_or_solve, save_steady_state,
+                                                 steady_state_from_numpy)
+
+    f32, f64 = torch.float32, torch.float64
+    model = large_two_asset_model(dev)
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    n_b, n_a, n_e = model.state_shape()[:3]
+    grid = (n_b, n_a, n_e)
+    p = model.params
+
+    # Setup, cut (PERF.md §4): the port's steady-state Newton takes ~6 min an
+    # iteration at this grid on the card, and one household solve near the
+    # root up to minutes, so the steady state is the reference file's (the
+    # one the JAX CPU root was solved from: the port's, by a warm-started
+    # Newton, `tests/two_asset_50x70_recipe.py`; the JAX package's household
+    # gives the same arrays at its prices, a slow test), carried across by
+    # `steady_state_from_numpy`, and the card builds J̄ by `get_or_solve`
+    # into a fresh temporary cache (timed).
+    with np.load(LARGE_TWO_ASSET_REFERENCE) as z:
+        ref_vars = dict(zip([str(s) for s in z["var_names"]], z["var_values"]))
+        x_jax = torch.as_tensor(z["x"], dtype=f64, device=dev)
+        ss = steady_state_from_numpy(
+            {"vars": ref_vars, "policies": {k: z[f"policy_{k}"] for k in fs2.KEYS},
+             "D": z["D"], "value": z["value"]}, device=dev)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as cache:
+        save_steady_state(ss, model, "initial", cache_dir=cache)
+        ss0, ssT, Jbar = get_or_solve(model, cache_dir=cache)
+    torch.cuda.synchronize()
+    jbar_s = time.perf_counter() - t0
+    col = torch.stack([torch.as_tensor(ssT.vars[k]) for k in model.var_names()])
+    F_ss = float(eval_residuals(col[:, None].expand(cs.n_v, 1 + cs.max_lag + cs.max_lead),
+                                model).abs().max())
+    require(F_ss <= 1e-9, f"50x70 steady state residual {F_ss:.3e} > 1e-9")
+    clearing = max(abs(float(ssT.vars["B"]) - p["Bg"]),
+                   abs(float(ssT.vars["A"]) - float(ssT.vars["KS"])))
+    require(clearing <= 1e-8, f"50x70 markets off by {clearing:.3e}")
+    # The file's steady state is a fixed point of the port's household, on
+    # the card: one Bellman step returns its value and policies, one period
+    # of the distribution its D, and its B, A, C are Σ policy·D
+    # (`tests/test_torch_fused2_large_grid.py`'s limits).
+    step = model.value_fn(ssT.value, ssT.vars, model)
+    dims = model.endog_dims()
+    D_next = exog_apply(lottery_apply_multi([step[d.policy_var] for d in dims], ssT.D,
+                                            [d.grid for d in dims]),
+                        [d.transition for d in model.exog_dims()], len(dims))
+    fixed_point = {
+        "bellman": max_abs(step["Value"], ssT.value),
+        "policies": max(max_abs(step[k], ssT.policies[k]) for k in fs2.KEYS),
+        "transition": max_abs(D_next, ssT.D),
+        "aggregates": max(abs(float(torch.sum(ssT.policies[k] * ssT.D)) - float(ssT.vars[k]))
+                          for k in fs2.KEYS)}
+    limits = {"bellman": 1e-13, "policies": 1e-10, "transition": 1e-15, "aggregates": 1e-12}
+    require(all(fixed_point[k] <= limits[k] for k in limits),
+            f"the 50x70 steady state is not the household's fixed point: {fixed_point}")
+
+    # The routes' decisions on the card: kernel 6 and the f64 forward push on
+    # their global-list instantiations, kernel 5 and the f64 backward untabled.
+    decisions = {"k6": fs2.check_fit_kernels(model), "k6_f64": fr2.check_fit_f64(model),
+                 "k5_tabled": cuda_build.sweep2_smem_bytes(3, *grid, 5)
+                 != cuda_build.sweep2_smem_bytes(5, *grid, 5),
+                 "k5_f64_tabled": cuda_build.sweep2_f64_smem_bytes(0, *grid, 5)
+                 != cuda_build.sweep2_f64_smem_bytes(3, *grid, 5),
+                 "smem": {"k5": cuda_build.sweep2_smem_bytes(3, *grid, 5),
+                          "k6_global": cuda_build.sweep2_smem_bytes(4, *grid, 10),
+                          "k5_f64": cuda_build.sweep2_f64_smem_bytes(0, *grid, 5),
+                          "k6_f64_global": cuda_build.sweep2_f64_smem_bytes(2, *grid, 10)}}
+    require(decisions["k6"] == 4 and decisions["k6_f64"] == fr2.GLOBAL_LISTS
+            and not decisions["k5_tabled"] and not decisions["k5_f64_tabled"],
+            f"at 50x70 the routes did not take the global-list and untabled kernels: {decisions}")
+    emit("two_asset_large_setup", grid=list(model.state_shape()), T=cs.T, jbar_s=jbar_s,
+         max_abs_F_ss=F_ss, market_clearing=clearing,
+         household_fixed_point={k: [fixed_point[k], limits[k]] for k in limits},
+         KS=float(ssT.vars["KS"]), r=float(ssT.vars["r"]), ra=float(ssT.vars["ra"]),
+         decisions=decisions)
+
+    # Phase 7's route (`bench.py:282-310`), its full-precision F through the
+    # f64 pair; the plain f64 F's calls counted through the name the solvers
+    # are built from.
+    exog = generate_exog_paths(model, Tm1)
+    endog = model.vars_of_type("endogenous")
+    x_ss = torch.stack([torch.as_tensor(ssT.vars[k]) for k in endog]).repeat(Tm1)
+    plain_F_calls = [0]
+    plain_residual = newton_mod.make_full_residual_fn
+
+    def counted_residual(*a):
+        F = plain_residual(*a)
+
+        def counted(x):
+            plain_F_calls[0] += 1
+            return F(x)
+
+        return counted
+
+    def boehl(**kw):
+        return make_path_solver(Jbar, exog, model, ss0, ssT, method="boehl",
+                                direction_dtype=f32, eps=EPS, host_inner=True, **kw)
+
+    newton_mod.make_full_residual_fn = counted_residual
+    endgame_only, two_phase = boehl(richardson_max_outer=0), boehl()
+    newton_mod.make_full_residual_fn = plain_residual
+
+    def lin_route():
+        x_lin, _ = linear_impulse_response(Jbar, exog, model, ss0, ssT,
+                                           compute_residual=False)
+        x, info = endgame_only(x_lin)
+        torch.cuda.synchronize()
+        return x, info
+
+    def ss_route():
+        x, info = two_phase(x_ss)
+        torch.cuda.synchronize()
+        return x, info
+
+    lin_info = linear_impulse_response(Jbar, exog, model, ss0, ssT)[1]
+    lin_ok = lin_info["residual_norm"] < lin_info["f0_norm"]
+    route, route_name = lin_route, "linstart_endgame_only"
+    if lin_ok:
+        x_warm, info_warm = route()
+    if not lin_ok or info_warm["residual_norm"] > EPS:
+        route, route_name = ss_route, "ss_two_phase_fallback"
+        x_warm, info_warm = route()
+
+    # Each kernel the route launches at x_ss and at the solution against its
+    # plain version (phase 7's bounds; smooth seeded directions; kernel 5's
+    # tangents aggregated by kernel 6's plain version); its plain ms once.
+    m32 = fs2.cast_model(model, f32)
+    VT32, D32 = ssT.value.to(f32).contiguous(), ss0.D.to(f32).contiguous()
+    VT32d, D32d = VT32.double(), D32.double()     # the f32 kernels' inputs, for their plain runs
+    VT64, D64 = ssT.value.to(f64).contiguous(), ss0.D.to(f64).contiguous()
+    gen = torch.Generator().manual_seed(12)
+    decay = (0.9 ** torch.arange(Tm1, dtype=f64))[:, None]
+
+    def k5_args(x, v):
+        return [q.to(f32).contiguous() for q in
+                (*fused2_prices(x.reshape(Tm1, nE), exog, model),
+                 *fused2_prices(v.reshape(Tm1, nE), exog, model))]
+
+    def as64(d):
+        return {k: t.double() for k, t in d.items()}
+
+    def dict_err(a, b):
+        return max(max_abs(a[k].double(), b[k]) for k in b)
+
+    def scale_of(*ds):
+        return max(1.0, max(float(t.abs().max()) for d in ds for t in d.values()))
+
+    F_plain = make_full_residual_fn(model, ss0, ssT, exog)
+    F_pair = fr2.make_fused2_residual_fn_f64(model, ss0, ssT, exog)
+    checks, errs, plain_ms = {}, {"k5": 0.0, "k6": 0.0, "k5_f64": 0.0, "k6_f64": 0.0}, {}
+    for name, x in (("x_ss", x_ss), ("solution", x_warm)):
+        v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+        args = k5_args(x, v)
+        pol, dpol = fs2.fused2_policies_jvp(*args, VT32, m32)
+        (ref, dref), plain_ms["k5"] = cuda_once(lambda: fs2.fused2_policies_jvp_reference(
+            *(a.double() for a in args), VT32d, model))
+        agg, dagg = fs2.fused2_forward_jvp(pol, dpol, D32, m32)
+        (ragg, rdagg), plain_ms["k6"] = cuda_once(lambda: fs2.fused2_forward_jvp_reference(
+            as64(pol), as64(dpol), D32d, model))
+        _, pdagg = fs2.fused2_forward_jvp_reference(ref, dref, D32d, model)
+        e5p, e5t = dict_err(pol, ref), dict_err(rdagg, pdagg)
+        e6 = max(dict_err(agg, ragg), dict_err(dagg, rdagg))
+        for what, err, scale in (("kernel 5 policies", e5p, scale_of(ref)),
+                                 ("kernel 5 tangents (aggregated)", e5t, scale_of(pdagg)),
+                                 ("kernel 6", e6, scale_of(ragg, rdagg))):
+            require(err <= 5e-5 * scale,
+                    f"50x70 {what} at {name} off its plain version by {err:.3e} (scale {scale})")
+        prices = [q.contiguous() for q in fused2_prices(x.reshape(Tm1, nE), exog, model)]
+        pol64 = fr2.fused2_policies_f64(*prices, VT64, model)
+        ref64, plain_ms["k5_f64"] = cuda_once(lambda: fr2.fused2_policies_f64_reference(
+            *prices, VT64, model))
+        aggs64 = fr2.fused2_forward_f64(pol64, D64, model)
+        raggs64, plain_ms["k6_f64"] = cuda_once(lambda: fr2.fused2_forward_f64_reference(
+            pol64, D64, model))
+        e5f, e6f = dict_err(pol64, ref64), dict_err(aggs64, raggs64)
+        F_err = max_abs(F_pair(x), F_plain(x))
+        require(e5f <= 1e-10 * scale_of(ref64) and e6f <= 1e-11 and F_err <= 1e-11,
+                f"the 50x70 f64 pair at {name}: {e5f:.3e}, {e6f:.3e}, F {F_err:.3e}")
+        checks[name] = {"k5_policies": e5p, "k5_tangents_aggregated": e5t, "k6": e6,
+                        "k5_f64": e5f, "k6_f64": e6f, "F_pair_vs_plain": F_err}
+        errs = {"k5": max(errs["k5"], e5p, e5t), "k6": max(errs["k6"], e6),
+                "k5_f64": max(errs["k5_f64"], e5f), "k6_f64": max(errs["k6_f64"], e6f)}
+    require(all(torch.equal(a, b) for a, b in
+                ((pol["B"], fs2.fused2_policies_jvp(*args, VT32, m32)[0]["B"]),
+                 (agg["A"], fs2.fused2_forward_jvp(pol, dpol, D32, m32)[0]["A"]))),
+            "50x70 kernels 5-6: repeated launches differ")
+
+    # The batched global-list kernels on the solution's policies: at B = 4
+    # every row bit for bit a single launch; ms per launch at B = 1, 4, 16
+    # beside the cluster `batch_cluster_of` takes.
+    def rows(d, B):
+        return {k: t.unsqueeze(0).expand(B, *t.shape).contiguous() for k, t in d.items()}
+
+    b4 = fs2.fused2_forward_jvp_batch(rows(pol, 4), rows(dpol, 4), D32, m32)
+    b4_64 = fr2.fused2_forward_f64_batch(rows(pol64, 4), D64, model)
+    require(all(same_bits(b4[i][k][r], (agg, dagg)[i][k]) and same_bits(b4_64[k][r], aggs64[k])
+                for i in range(2) for k in agg for r in range(4)),
+            "a batched global-list forward kernel's row at 50x70 differs from a single launch")
+    batched = {"k6_batch": {}, "k6_f64_batch": {}}
+    for B in (1, 4, 16):
+        pb, db, pb64 = rows(pol, B), rows(dpol, B), rows(pol64, B)
+        batched["k6_batch"][B] = {
+            "ms": cuda_ms(lambda: fs2.fused2_forward_jvp_batch(pb, db, D32, m32), 3),
+            "cluster": fs2.batch_cluster_of("household_sweep2", 4, B, grid)}
+        batched["k6_f64_batch"][B] = {
+            "ms": cuda_ms(lambda: fr2.fused2_forward_f64_batch(pb64, D64, model), 3),
+            "cluster": fs2.batch_cluster_of(fr2.LIBRARY, fr2.GLOBAL_LISTS, B, grid)}
+        del pb, db, pb64
+        torch.cuda.empty_cache()
+    timing = {"k5_ms": cuda_ms(lambda: fs2.fused2_policies_jvp(*args, VT32, m32), 3),
+              "k6_ms": cuda_ms(lambda: fs2.fused2_forward_jvp(pol, dpol, D32, m32), 3),
+              "k5_f64_ms": cuda_ms(lambda: fr2.fused2_policies_f64(*prices, VT64, model), 3),
+              "k6_f64_ms": cuda_ms(lambda: fr2.fused2_forward_f64(pol64, D64, model), 3),
+              "F_pair_ms": cuda_ms(lambda: F_pair(x_warm), 3),
+              "F_plain_ms": cuda_once(lambda: F_plain(x_warm))[1]}
+    emit("two_asset_large_kernels", checks=checks, batched=batched, plain_ms=plain_ms,
+         cluster={"k5": fs2.default_bwd_cluster(n_e), "k6": fs2.default_cluster(n_e)},
+         ptxas=[k for k in ptxas if "fwd_cluster_kernelI" in k["kernel"]
+                or "fwd_f64_cluster_kernelI" in k["kernel"]], **timing)
+
+    # Three timed runs of the route; counts zeroed right before: kernel 5,
+    # the global-list kernel 6 and the f64 pair (its global-list forward
+    # push) launched, no shared-list forward kernel, plain version, previous
+    # kernel or plain f64 F.
+    zero_two_asset_counts()
+    for fn in (fs2.fused2_forward_jvp, fr2.fused2_forward_f64):
+        fn.launches_global = 0
+    plain_F_calls[0] = 0
+    runs, xs, infos = [], [], []
+    newton_mod.make_full_residual_fn = counted_residual     # the linear start's F too
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            x_sol, info = route()
+            runs.append(time.perf_counter() - t0)
+            xs.append(x_sol)
+            infos.append(info)
+    finally:
+        newton_mod.make_full_residual_fn = plain_residual
+    launches = {"k5": fs2.fused2_policies_jvp.launches,
+                "k6_global": fs2.fused2_forward_jvp.launches_global,
+                "k5_f64": fr2.fused2_policies_f64.launches,
+                "k6_f64_global": fr2.fused2_forward_f64.launches_global}
+    others = {**read_two_asset_counts()[2], "F_f64": plain_F_calls[0]}
+    others = {k: n for k, n in others.items() if k not in ("k5", "k5_f64")}
+    require(all(n > 0 for n in launches.values()),
+            f"a kernel of the 50x70 route never launched: {launches}")
+    require(not any(others.values()),
+            f"a shared-list forward kernel, a plain version, a previous kernel or the plain "
+            f"f64 F ran on the 50x70 route: {others}")
+    require(all(torch.equal(x_warm, xi) for xi in xs),
+            "repeated 50x70 solves returned different paths")
+    require(bool(torch.isfinite(x_warm).all()) and x_warm.shape == x_ss.shape,
+            "the 50x70 solution is not a finite path of the expected shape")
+    fnorm_plain = float(torch.linalg.norm(F_plain(x_warm)))
+    require(fnorm_plain <= EPS, f"50x70 plain f64 ‖F‖ is {fnorm_plain:.3e}")
+    vs_jax = max_abs(x_warm, x_jax)
+    require(vs_jax <= 1e-7, f"the 50x70 path is {vs_jax:.3e} off the JAX CPU root")
+    info = infos[0]
+    per_solve = {k: n // 3 for k, n in launches.items()}
+    emit("two_asset_large_solve", route=route_name, median_s=statistics.median(runs),
+         runs_s=runs, linear_residual_norm=lin_info["residual_norm"],
+         forcing_norm=lin_info["f0_norm"], outer_iterations=info["iterations"],
+         matvecs_and_sweeps=info["inner_iterations"], prof=info["prof"],
+         residual_norm=info["residual_norm"], residual_norm_plain_f64=fnorm_plain,
+         max_abs_vs_jax=vs_jax, launches=launches, launches_per_solve=per_solve,
+         other_counts=others, stalled_rows=[], bit_identical=True)
+
+    # The `kernels` entries at 50x70: launches per route solve, bounds from
+    # the timed calls' inputs.
+    s2, s64 = "hank_tpu_torch/csrc/household_sweep2.cu", "hank_tpu_torch/csrc/household_sweep2_f64.cu"
+    pol_bytes = nbytes(*pol.values(), *dpol.values())
+    pol64_bytes = nbytes(*pol64.values())
+    replaces_f64 = ("hank_tpu/solvers/newton.py:352-376 (the two-asset F in f64 under XLA; "
+                    "no TPU kernel)")
+    common = {"route": "cuda", "library_ms": None, "grid": "50x70x5x2, T=150"}
+    out = [
+        {**common, "name": "fused2_policies_jvp (untabled, 50x70)", "source": s2,
+         "replaces": "hank_tpu/ops/fused_sweep2.py:673", "launches": per_solve["k5"],
+         "max_abs_err": errs["k5"], "ms": timing["k5_ms"], "plain_ms": plain_ms["k5"],
+         **least_time(nbytes(*args, VT32) + pol_bytes, two_asset_ops(Tm1, *grid, 0), "f32"),
+         "cluster": fs2.default_bwd_cluster(n_e)},
+        {**common, "name": "fused2_forward_jvp (global lists)", "source": s2,
+         "replaces": "hank_tpu/ops/fused_sweep2.py:984", "launches": per_solve["k6_global"],
+         "max_abs_err": errs["k6"], "ms": timing["k6_ms"], "plain_ms": plain_ms["k6"],
+         **least_time(pol_bytes + nbytes(D32, *agg.values(), *dagg.values()),
+                      two_asset_ops(Tm1, *grid, 1), "f32"), "cluster": fs2.default_cluster(n_e)},
+        {**common, "name": "fused2_policies_f64 (untabled, 50x70)", "source": s64,
+         "replaces": replaces_f64, "launches": per_solve["k5_f64"],
+         "max_abs_err": errs["k5_f64"], "ms": timing["k5_f64_ms"],
+         "plain_ms": plain_ms["k5_f64"],
+         **least_time(nbytes(*prices, VT64) + pol64_bytes,
+                      two_asset_ops(Tm1, *grid, 0, tangent=False), "f64"),
+         "F_ms": timing["F_pair_ms"], "F_plain_ms": timing["F_plain_ms"]},
+        {**common, "name": "fused2_forward_f64 (global lists)", "source": s64,
+         "replaces": replaces_f64, "launches": per_solve["k6_f64_global"],
+         "max_abs_err": errs["k6_f64"], "ms": timing["k6_f64_ms"],
+         "plain_ms": plain_ms["k6_f64"],
+         **least_time(pol64_bytes + nbytes(D64, *aggs64.values()),
+                      two_asset_ops(Tm1, *grid, 1, tangent=False), "f64")},
+    ]
+    for key, name, source, replaces, err, kind, tangent in (
+            ("k6_batch", "fused2_forward_jvp_batch (global lists)", s2,
+             "hank_tpu/ops/fused_sweep2.py:984", errs["k6"], "f32", True),
+            ("k6_f64_batch", "fused2_forward_f64_batch (global lists)", s64, F_B_REPLACES,
+             errs["k6_f64"], "f64", False)):
+        per_path = (pol_bytes + nbytes(*agg.values(), *dagg.values()) if tangent
+                    else pol64_bytes + nbytes(*aggs64.values()))
+        out.append({**common, "name": name, "source": source, "replaces": replaces,
+                    "launches": 0, "main_path": "no ensemble at 50x70 on this script's path",
+                    "max_abs_err": err, "ms": batched[key][16]["ms"], "B": 16,
+                    "plain_ms": plain_ms["k6" if tangent else "k6_f64"], "plain_ms_at": "B=1",
+                    **least_time(16 * per_path + nbytes(D32 if tangent else D64),
+                                 16 * two_asset_ops(Tm1, *grid, 1, tangent=tangent), kind),
+                    "cluster": batched[key][16]["cluster"],
+                    **{f"ms_B{B}": batched[key][B]["ms"] for B in (1, 4, 16)}})
+    return out
+
+
+def global_list_grids() -> dict:
+    """The global-list forward kernels' shared memory on their default
+    clusters by the libraries' own counts: required to fit at 50×70×5×2,
+    48×64×5×2 and 64×64×5×2 (the 4096-state cap), with kernel 5 and the f64
+    backward (untabled where their tables have no room); and of every grid
+    past 2048 asset states up to the cap (n_b, n_a ≥ 6, n_e ≤ 8), how many
+    each takes (reported)."""
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    lib2 = cuda_build.load_library("household_sweep2")
+    f64 = cuda_build.load_library("household_sweep2_f64")
+    limit = cuda_build.MAX_SMEM_BYTES
+    at = {}
+    for n_b, n_a in ((50, 70), (48, 64), (64, 64)):
+        c5, c6 = fs2.default_bwd_cluster(5), fs2.default_cluster(5)
+        at[f"{n_b}x{n_a}x5x2"] = {
+            "k5": lib2.hank_sweep2_smem_bytes(3, n_b, n_a, 5, c5),
+            "k6_global": lib2.hank_sweep2_smem_bytes(4, n_b, n_a, 5, c6),
+            "k5_f64": f64.hank_sweep2_f64_smem_bytes(0, n_b, n_a, 5, c5),
+            "k6_f64_global": f64.hank_sweep2_f64_smem_bytes(2, n_b, n_a, 5, c6)}
+        require(max(at[f"{n_b}x{n_a}x5x2"].values()) <= limit,
+                f"a kernel of the two-asset route does not fit {n_b}x{n_a}x5x2: {at}")
+    taken = {"grids": 0, "k6_global": 0, "k6_f64_global": 0}
+    for n_e in range(1, 9):
+        c = fs2.default_cluster(n_e)
+        for n_b in range(6, 4096 // 6 + 1):
+            for n_a in range(max(6, 2048 // n_b + 1), 4096 // n_b + 1):
+                taken["grids"] += 1
+                taken["k6_global"] += lib2.hank_sweep2_smem_bytes(4, n_b, n_a, n_e, c) <= limit
+                taken["k6_f64_global"] += f64.hank_sweep2_f64_smem_bytes(
+                    2, n_b, n_a, n_e, c) <= limit
+    return {"smem_bytes": at, "grids_past_2048_states": taken}
 
 
 def driver_case(name: str, T: int, dev, cache: str) -> dict:
@@ -3455,11 +4030,15 @@ def main() -> int:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
     f64_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]]
-    require(len(f64_kernels) == 4 and not any(k.get("spill_stores") or k.get("spill_loads")
+    require(len(f64_kernels) == 6 and not any(k.get("spill_stores") or k.get("spill_loads")
                                               for k in f64_kernels),
             f"the f64 residual pair spills (or was not built): {f64_kernels}")
     batched = [k for k in ptxas if "cluster_kernelILb1E" in k["kernel"]]
-    require(len(batched) == 4, f"the four batched two-asset kernels were not built: {batched}")
+    require(len(batched) == 6, f"the six batched two-asset kernels were not built: {batched}")
+    global_lists = [k for k in ptxas if re.search(r"fwd_(f64_)?cluster_kernelILb[01]ELb1E",
+                                                  k["kernel"])]
+    require(len(global_lists) == 4,
+            f"the four global-list forward kernels were not built: {global_lists}")
     ranged = [k for k in ptxas if "household_sweep_ranged_kernel" in k["kernel"]]
     global_state = [k for k in ranged if "ELb1EEEv" in k["kernel"]]
     require(len(ranged) == 9 and len(global_state) == 5,
@@ -3472,7 +4051,8 @@ def main() -> int:
             f"{cluster_ptxas}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
          ptxas_two_asset_batched=batched, ptxas_ranged=ranged, ptxas_global_state=global_state,
-         ptxas_of_this_pr=cluster_ptxas, f64_pair_fit=f64_pair_grids(),
+         ptxas_cluster=cluster_ptxas, ptxas_of_this_pr=global_lists,
+         f64_pair_fit=f64_pair_grids(), global_list_fit=global_list_grids(),
          one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
          sass_vs_previous_build=sass_vs_reference(built.paths),
          global_state_nc_loads=state_loads_coherent(ptx_job))
@@ -3741,6 +4321,10 @@ def main() -> int:
     # ── 11. two-asset ensemble (on phase 7's setup) ────────────────────────
     two_asset_kernels += two_asset_ensemble_phase(two, ptxas)
     del two
+    torch.cuda.empty_cache()
+
+    # ── 12. two-asset large grid (50×70×5×2, T=150) ────────────────────────
+    two_asset_kernels += two_asset_large_grid_phase(dev, ptxas)
     torch.cuda.empty_cache()
 
     # ── 8. driver ──────────────────────────────────────────────────────────

@@ -26,6 +26,14 @@
 // launch on that row, bit for bit: the path offset is the only difference,
 // and neither kernel's arithmetic depends on the cluster size.
 //
+// Grids past 2048 (b, a) states: kernel 6 takes a second template flag,
+// GLOBAL_LISTS (its note is at the kernel), whose instantiations keep the
+// lottery lists in a global workspace and take up to 4096 states, bit for
+// bit the shared-list kernel; the wrappers pick it by the shared-memory
+// count (hank_sweep2_smem_bytes, which = 4). Kernel 5 past its table's room
+// runs untabled (bwd_cluster_tabled); hank_sweep2_policies_jvp_cluster_
+// untabled_f32 launches that branch at any grid, for the card's A/B.
+//
 // Semantics are those of the plain PyTorch version (torch.func.jvp of
 // ValueFunction and of forward_iteration), stage by stage: the gather-form
 // interpolations (count bracket clipped to [1, n-1], clipped lerp, flat
@@ -784,6 +792,11 @@ __device__ __forceinline__ void bracket2(const float* gb, int nb, float qb, floa
 // (1 - lam) * x0 + lam * x1 as fma(1 - lam, x0, x1 * lam).
 __device__ __forceinline__ float access_mix(float one_lam, float lam, float x0, float x1) {
     return __fmaf_rn(one_lam, x0, __fmul_rn(x1, lam));
+}
+
+// An L2 prefetch of the line holding *p (no register waits for it).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 // The path of a batched launch (blockIdx.y) times `per_path` elements; 0
@@ -1569,17 +1582,20 @@ __global__ void __launch_bounds__(kFwdThreads) two_asset_fwd_kernel(
 constexpr int kCluThreads = 1024;   // power of two: the tree reduction needs it
 constexpr int kCluWarps = kCluThreads / 32;
 constexpr int kCluSources = 2;      // sources (and destinations) per thread: n_b * n_a <= 2048
+constexpr int kCluSourcesGlobal = 4;  // the same under GLOBAL_LISTS: n_b * n_a <= 4096
 
-// Per block: the lists' entries (mass, wm, T, 0; 4 per source), every
-// group's H and dH on the block's cells (Hc), the own groups' D and dD, the
+// Per block: the lists' entries (mass, wm, T, 0; 4 per source; under
+// global_lists each source's packed brackets in their place), every group's
+// H and dH on the block's cells (Hc), the own groups' D and dD, the
 // constants and warp partials, the row and column bitmaps, each
 // destination's list offset, and its count before every 2^shift-th bitmap
 // word (16 bit).
-size_t fwd_cluster_smem_bytes(int NB, int NA, int NE, int C, int shift) {
+size_t fwd_cluster_smem_bytes(int NB, int NA, int NE, int C, int shift,
+                              bool global_lists = false) {
     const size_t NS = (size_t)NB * NA, NG = 2 * (size_t)NE, G = (NG + C - 1) / C;
     const size_t nw = (NS + 31) / 32, cells = (NS + C - 1) / C;
     const size_t counts = ((nw - 1) >> shift) + 1;
-    return sizeof(float4) * 4 * NS
+    return (global_lists ? sizeof(int) * NS : sizeof(float4) * 4 * NS)
            + sizeof(float) * (2 * NG * cells + 2 * G * NS + NB + NA + (size_t)NE * NE + 4
                               + 6 * kCluWarps)
            + sizeof(unsigned) * ((NB + NA) * nw + NS + 4) + sizeof(unsigned short) * NS * counts;
@@ -1587,10 +1603,11 @@ size_t fwd_cluster_smem_bytes(int NB, int NA, int NE, int C, int shift) {
 
 // The least shift whose layout fits in a block (or the one keeping a single
 // count per destination, which the launch then refuses).
-int fwd_cluster_shift(int NB, int NA, int NE, int C) {
+int fwd_cluster_shift(int NB, int NA, int NE, int C, bool global_lists = false) {
     const int nw = (NB * NA + 31) / 32;
     int shift = 0;
-    while ((1 << shift) < nw && fwd_cluster_smem_bytes(NB, NA, NE, C, shift) > kSmemOptin)
+    while ((1 << shift) < nw
+           && fwd_cluster_smem_bytes(NB, NA, NE, C, shift, global_lists) > kSmemOptin)
         ++shift;
     return shift;
 }
@@ -1605,7 +1622,24 @@ int fwd_cluster_shift(int NB, int NA, int NE, int C) {
 // b * 6 * Tm1 * N4 elements on; it keeps its own Dpath (B, Tm1, 2, N4) and
 // writes its own row of out (B, 6, Tm1); D0, the grids, Pi and Pacc are
 // shared. Without it (the single-path entry point) the offset compiles out.
-template <bool BATCHED>
+//
+// GLOBAL_LISTS: the lists live in this (path, block)'s slice of `lists_g`, a
+// (B, C, 4 * NS) float4 workspace in global memory that the caller allocates
+// (224 KB a block at 50x70, which stays in L2), and each source's two
+// brackets, packed in one int, take their place in shared memory; a thread
+// takes up to kCluSourcesGlobal sources, so the instantiation takes n_b * n_a
+// up to 4096 where its shared memory fits. Policies are not held in
+// registers across the barriers (four sources' would add 16 registers to a
+// kernel at its 64-register cap): each stage reads them where it needs
+// them, after an L2 prefetch one group ahead.
+// Every term, its rounding and every list's order are the shared-list
+// kernel's, and __syncthreads() orders a block's global accesses as it
+// orders its shared ones, so on every grid both take the outputs are bit for
+// bit the shared-list kernel's. `lists_g` is written and read within the
+// launch, so it is not const __restrict__: no load of it takes the read-only
+// path. Without GLOBAL_LISTS `lists_g` is null and compiled out, and the
+// shared layout is as above.
+template <bool BATCHED, bool GLOBAL_LISTS>
 __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     const float* __restrict__ pB, const float* __restrict__ pA,
     const float* __restrict__ pC, const float* __restrict__ dB,
@@ -1614,8 +1648,9 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     const float* __restrict__ bgrid_g, const float* __restrict__ agrid_g,
     const float* __restrict__ Pi_g, const float* __restrict__ Pacc_g,
     float* __restrict__ Dpath, float* __restrict__ out, int Tm1, int NB, int NA, int NE,
-    int shift K6_STAMPS_PARAM)
+    int shift, float4* lists_g K6_STAMPS_PARAM)
 {
+    constexpr int kSrc = GLOBAL_LISTS ? kCluSourcesGlobal : kCluSources;
     extern __shared__ __align__(16) float sm[];
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -1632,7 +1667,9 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
     const size_t TN = (size_t)Tm1 * N4;
 
     float4* lists = reinterpret_cast<float4*>(sm);  // entries (mass, wm, T, 0), 4 * NS
-    float* Hc = reinterpret_cast<float*>(lists + 4 * NS);  // [value, tangent][NG][cells]
+    int* brk = reinterpret_cast<int*>(sm);  // GLOBAL_LISTS: (jb << 16) | ja per source
+    float* Hc = GLOBAL_LISTS ? sm + NS   // [value, tangent][NG][cells]
+                             : reinterpret_cast<float*>(lists + 4 * NS);
     float* D = Hc + 2 * NG * cells;               // own groups: [value, tangent][G][NS]
     float* bg = D + 2 * G * NS;
     float* ag = bg + NB;
@@ -1656,21 +1693,33 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
         }
     }
 
-    // This thread's sources' policies for the next (period, group), in registers.
+    // This thread's sources' policies for the next (period, group), in
+    // registers (under GLOBAL_LISTS into L2 only).
     float npb[kCluSources], ndb[kCluSources], npa[kCluSources], nda[kCluSources];
     auto prefetch = [&](int t, int gi) {
         const size_t off = path_offset<BATCHED>(6 * TN) + (size_t)t * N4 + rank + gi * C;
 #pragma unroll
-        for (int i = 0; i < kCluSources; ++i) {
+        for (int i = 0; i < kSrc; ++i) {
             const int s = tid + i * kCluThreads;
             if (s < NS) {
                 const size_t k = off + (size_t)s * NG;
-                npb[i] = pB[k];
-                ndb[i] = dB[k];
-                npa[i] = pA[k];
-                nda[i] = dA[k];
+                if constexpr (GLOBAL_LISTS) {
+                    prefetch_l2(pB + k);
+                    prefetch_l2(dB + k);
+                    prefetch_l2(pA + k);
+                    prefetch_l2(dA + k);
+                } else {
+                    npb[i] = pB[k];
+                    ndb[i] = dB[k];
+                    npa[i] = pA[k];
+                    nda[i] = dA[k];
+                }
             }
         }
+    };
+    // Under GLOBAL_LISTS: the policies of source s of group g in period t.
+    auto policy = [&](const float* __restrict__ p, int t, int g, int s) {
+        return p[path_offset<BATCHED>(6 * TN) + (size_t)t * N4 + g + (size_t)s * NG];
     };
     prefetch(0, 0);
 
@@ -1686,13 +1735,20 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             //    atomicOr per warp and distinct bracket).
             int kjb[kCluSources], kja[kCluSources];
 #pragma unroll
-            for (int i = 0; i < kCluSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int s = tid + i * kCluThreads;
                 if (s < NS) {
-                    const int jbs = lottery_bracket(bg, NB, npb[i]);
-                    const int jas = lottery_bracket(ag, NA, npa[i]);
-                    kjb[i] = jbs;
-                    kja[i] = jas;
+                    int jbs, jas;
+                    if constexpr (GLOBAL_LISTS) {
+                        jbs = lottery_bracket(bg, NB, policy(pB, t, g, s));
+                        jas = lottery_bracket(ag, NA, policy(pA, t, g, s));
+                        brk[s] = (jbs << 16) | jas;
+                    } else {
+                        jbs = lottery_bracket(bg, NB, npb[i]);
+                        jas = lottery_bracket(ag, NA, npa[i]);
+                        kjb[i] = jbs;
+                        kja[i] = jas;
+                    }
                     const unsigned act = __activemask();
                     const int w = s >> 5;
                     const unsigned mb = __match_any_sync(act, jbs);
@@ -1716,9 +1772,9 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             //    its total and a place for its list (a warp scan, one
             //    atomicAdd per warp: where a list lies does not change its
             //    sum).
-            int cnt[kCluSources];
+            int cnt[kSrc];
 #pragma unroll
-            for (int i = 0; i < kCluSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 cnt[i] = 0;
                 const int d = tid + i * kCluThreads;
                 if (d < NS) {
@@ -1733,7 +1789,7 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             }
             int mine = 0;
 #pragma unroll
-            for (int i = 0; i < kCluSources; ++i) mine += cnt[i];
+            for (int i = 0; i < kSrc; ++i) mine += cnt[i];
             int incl = mine;
             for (int o = 1; o < 32; o <<= 1) {
                 const int y = __shfl_up_sync(0xffffffffu, incl, o);
@@ -1743,7 +1799,7 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             if (lane == 31) base = atomicAdd(alloc, incl);
             base = __shfl_sync(0xffffffffu, base, 31) + incl - mine;
 #pragma unroll
-            for (int i = 0; i < kCluSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int d = tid + i * kCluThreads;
                 if (d < NS) offs[d] = base;
                 base += cnt[i];
@@ -1758,34 +1814,48 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             //    goes into its list at its rank: the destination's count
             //    before the source's word plus the set bits below it.
 #pragma unroll
-            for (int i = 0; i < kCluSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int s = tid + i * kCluThreads;
                 if (s < NS) {
                     float wbs, dwbs, was, dwas;
-                    lottery_weights(bg, kjb[i], npb[i], ndb[i], wbs, dwbs);
-                    lottery_weights(ag, kja[i], npa[i], nda[i], was, dwas);
+                    int jb, ja;
+                    if constexpr (GLOBAL_LISTS) {
+                        jb = brk[s] >> 16;
+                        ja = brk[s] & 0xffff;
+                        lottery_weights(bg, jb, policy(pB, t, g, s), policy(dB, t, g, s), wbs,
+                                        dwbs);
+                        lottery_weights(ag, ja, policy(pA, t, g, s), policy(dA, t, g, s), was,
+                                        dwas);
+                    } else {
+                        jb = kjb[i];
+                        ja = kja[i];
+                        lottery_weights(bg, kjb[i], npb[i], ndb[i], wbs, dwbs);
+                        lottery_weights(ag, kja[i], npa[i], nda[i], was, dwas);
+                    }
                     const float src = D[gi * NS + s], dsrc = D[(G + gi) * NS + s];
                     const int w = s >> 5;
                     const unsigned below = (1u << (s & 31)) - 1u;
+                    float4* Ls = GLOBAL_LISTS
+                        ? lists_g + (path_offset<BATCHED>(C) + rank) * 4 * (size_t)NS : lists;
 #pragma unroll
                     for (int rc = 0; rc < 2; ++rc) {
                         const float wj = rc == 0 ? 1.f - wbs : wbs;
                         const float dwj = rc == 0 ? -dwbs : dwbs;
                         const float mass = __fmul_rn(wj, src);
                         const float A = __fmaf_rn(dwj, src, __fmul_rn(wj, dsrc));
-                        const int j = kjb[i] - 1 + rc;
+                        const int j = jb - 1 + rc;
                         const unsigned* rj = rowbits + j * nw;
 #pragma unroll
                         for (int cc = 0; cc < 2; ++cc) {
                             const float wm = cc == 0 ? 1.f - was : was;
                             const float dwm = cc == 0 ? -dwas : dwas;
-                            const int m = kja[i] - 1 + cc, d = j * NA + m;
+                            const int m = ja - 1 + cc, d = j * NA + m;
                             const unsigned* cm = colbits + m * nw;
                             int pos = before[d * counts + (w >> shift)]
                                       + __popc(rj[w] & cm[w] & below);
                             for (int u = w & ~((1 << shift) - 1); u < w; ++u)
                                 pos += __popc(rj[u] & cm[u]);
-                            lists[offs[d] + pos] = make_float4(
+                            Ls[offs[d] + pos] = make_float4(
                                 mass, wm, __fmaf_rn(mass, dwm, __fmul_rn(A, wm)), 0.f);
                         }
                     }
@@ -1799,10 +1869,12 @@ __global__ void __launch_bounds__(kCluThreads, 1) two_asset_fwd_cluster_kernel(
             //    One thread per destination sums its list: v = fma(mass, wm, v)
             //    and dv = dv + T, the previous kernel's sum in its order.
 #pragma unroll
-            for (int i = 0; i < kCluSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int d = tid + i * kCluThreads;
                 if (d < NS) {
-                    const float4* L = lists + offs[d];
+                    const float4* L = (GLOBAL_LISTS ? lists_g + (path_offset<BATCHED>(C) + rank)
+                                                                    * 4 * (size_t)NS
+                                                    : lists) + offs[d];
                     float v = 0.f, dv = 0.f;
 #pragma unroll 4
                     for (int q = 0; q < cnt[i]; ++q) {
@@ -2015,6 +2087,28 @@ int hank_sweep2_policies_jvp_cluster_f32(const void* r, const void* ra, const vo
         (float)borrow_cons, bwd_cluster_tabled(n_b, n_a, n_e, cluster) ? 1 : 0 K5_ENTRY_ARG);
 }
 
+// Kernel 5 on one cluster as hank_sweep2_policies_jvp_cluster_f32, with its
+// candidates' brackets never tabled (the branch the kernel takes where the
+// table has no room), for a bit-for-bit comparison of the two branches on a
+// grid that has the room. No route launches it.
+int hank_sweep2_policies_jvp_cluster_untabled_f32(
+    const void* r, const void* ra, const void* w, const void* tau, const void* dr,
+    const void* dra, const void* dw, const void* dtau, const void* V_T, const void* bgrid,
+    const void* agrid, const void* egrid, const void* Pi, void* out, int Tm1, int n_b, int n_a,
+    int n_e, int cluster, double beta, double lam, double chi,
+    double borrow_cons K5_ENTRY_PARAM, void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_paths(
+        two_asset_bwd_cluster_kernel<false>, cluster, 1, kB5Threads,
+        bwd_cluster_smem(n_b, n_a, n_e, cluster, false), stream, (const float*)r,
+        (const float*)ra, (const float*)w, (const float*)tau, (const float*)dr,
+        (const float*)dra, (const float*)dw, (const float*)dtau, (const float*)V_T,
+        (const float*)bgrid, (const float*)agrid, (const float*)egrid, (const float*)Pi,
+        (float*)out, Tm1, n_b, n_a, n_e, (float)beta, (float)lam, (float)chi,
+        (float)borrow_cons, 0 K5_ENTRY_ARG);
+}
+
 int hank_sweep2_forward_jvp_f32(const void* pB, const void* pA, const void* pC,
                                 const void* dB, const void* dA, const void* dC,
                                 const void* D0, const void* bgrid, const void* agrid,
@@ -2050,12 +2144,39 @@ int hank_sweep2_forward_jvp_cluster_f32(const void* pB, const void* pA, const vo
         return (int)cudaErrorInvalidValue;
     const int shift = fwd_cluster_shift(n_b, n_a, n_e, cluster);
     return (int)launch_paths(
-        two_asset_fwd_cluster_kernel<false>, cluster, 1, kCluThreads,
+        two_asset_fwd_cluster_kernel<false, false>, cluster, 1, kCluThreads,
         fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, (const float*)pB,
         (const float*)pA, (const float*)pC, (const float*)dB, (const float*)dA,
         (const float*)dC, (const float*)D0, (const float*)bgrid, (const float*)agrid,
         (const float*)Pi, (const float*)Pacc, (float*)Dpath, (float*)out, Tm1, n_b, n_a, n_e,
-        shift K6_ENTRY_ARG);
+        shift, nullptr K6_ENTRY_ARG);
+}
+
+// Kernel 6 with its lottery lists in global memory
+// (two_asset_fwd_cluster_kernel<false, true>) on one cluster of `cluster`
+// blocks: the arguments of hank_sweep2_forward_jvp_cluster_f32, and `lists`
+// (cluster, 4 * n_b * n_a) float4 of global scratch after Dpath. Takes n_b *
+// n_a up to 4096 where hank_sweep2_smem_bytes(4, ...) fits; bit for bit
+// hank_sweep2_forward_jvp_cluster_f32 on every grid both take. Returns as
+// that one.
+int hank_sweep2_forward_jvp_cluster_global_f32(const void* pB, const void* pA, const void* pC,
+                                               const void* dB, const void* dA, const void* dC,
+                                               const void* D0, const void* bgrid,
+                                               const void* agrid, const void* Pi,
+                                               const void* Pacc, void* Dpath, void* lists,
+                                               void* out, int Tm1, int n_b, int n_a, int n_e,
+                                               int cluster K6_ENTRY_PARAM, void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2
+        || n_b * n_a > kCluSourcesGlobal * kCluThreads || lists == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_cluster_shift(n_b, n_a, n_e, cluster, true);
+    return (int)launch_paths(
+        two_asset_fwd_cluster_kernel<false, true>, cluster, 1, kCluThreads,
+        fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift, true), stream, (const float*)pB,
+        (const float*)pA, (const float*)pC, (const float*)dB, (const float*)dA,
+        (const float*)dC, (const float*)D0, (const float*)bgrid, (const float*)agrid,
+        (const float*)Pi, (const float*)Pacc, (float*)Dpath, (float*)out, Tm1, n_b, n_a, n_e,
+        shift, (float4*)lists K6_ENTRY_ARG);
 }
 
 // Kernel 5 over B paths, one cluster of `cluster` blocks (1 to min(n_e, 16))
@@ -2102,43 +2223,80 @@ int hank_sweep2_forward_jvp_cluster_f32_batch(const void* pol, const void* D0,
     const float* p = static_cast<const float*>(pol);
     const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
     return (int)launch_paths(
-        two_asset_fwd_cluster_kernel<true>, cluster, B, kCluThreads,
+        two_asset_fwd_cluster_kernel<true, false>, cluster, B, kCluThreads,
         fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, p, p + TN, p + 2 * TN,
         p + 3 * TN, p + 4 * TN, p + 5 * TN, (const float*)D0, (const float*)bgrid,
         (const float*)agrid, (const float*)Pi, (const float*)Pacc, (float*)Dpath, (float*)out,
-        Tm1, n_b, n_a, n_e, shift K6_ENTRY_ARG);
+        Tm1, n_b, n_a, n_e, shift, nullptr K6_ENTRY_ARG);
 }
 
-// How many clusters of `cluster` blocks of the batched kernel 6 (which = 2)
-// or the batched kernel 5 (which = 3) the card holds at once, at an n_b x n_a
-// x n_e x 2 grid (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+// The global-list kernel 6 over B paths (two_asset_fwd_cluster_kernel<true,
+// true>): the arguments of hank_sweep2_forward_jvp_cluster_f32_batch, and
+// `lists` (B, cluster, 4 * n_b * n_a) float4 of global scratch after Dpath.
+// Row b is the single-path launch on row b, bit for bit, at any cluster
+// size. Returns as hank_sweep2_forward_jvp_cluster_global_f32, and
+// cudaErrorInvalidValue for B outside [1, 65535].
+int hank_sweep2_forward_jvp_cluster_global_f32_batch(
+    const void* pol, const void* D0, const void* bgrid, const void* agrid, const void* Pi,
+    const void* Pacc, void* Dpath, void* lists, void* out, int Tm1, int n_b, int n_a, int n_e,
+    int cluster, int B K6_ENTRY_PARAM, void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2
+        || n_b * n_a > kCluSourcesGlobal * kCluThreads || B < 1 || B > 65535
+        || lists == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_cluster_shift(n_b, n_a, n_e, cluster, true);
+    const float* p = static_cast<const float*>(pol);
+    const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
+    return (int)launch_paths(
+        two_asset_fwd_cluster_kernel<true, true>, cluster, B, kCluThreads,
+        fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster, shift, true), stream, p, p + TN,
+        p + 2 * TN, p + 3 * TN, p + 4 * TN, p + 5 * TN, (const float*)D0, (const float*)bgrid,
+        (const float*)agrid, (const float*)Pi, (const float*)Pacc, (float*)Dpath, (float*)out,
+        Tm1, n_b, n_a, n_e, shift, (float4*)lists K6_ENTRY_ARG);
+}
+
+// How many clusters of `cluster` blocks of the batched kernel 6 (which = 2),
+// the batched kernel 5 (which = 3) or the batched global-list kernel 6
+// (which = 4) the card holds at once, at an n_b x n_a x n_e x 2 grid
+// (cudaOccupancyMaxActiveClusters), or -cudaError_t.
 int hank_sweep2_max_clusters(int which, int n_b, int n_a, int n_e, int cluster) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     int clusters = 0;
     const cudaError_t err =
-        which == 2 ? cluster_config(two_asset_fwd_cluster_kernel<true>, cluster, 1, kCluThreads,
+        which == 2 ? cluster_config(two_asset_fwd_cluster_kernel<true, false>, cluster, 1,
+                                    kCluThreads,
                                     fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster,
                                                            fwd_cluster_shift(n_b, n_a, n_e,
                                                                              cluster)),
                                     nullptr, cfg, attr, clusters)
-                   : cluster_config(two_asset_bwd_cluster_kernel<true>, cluster, 1, kB5Threads,
-                                    bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster), nullptr,
-                                    cfg, attr, clusters);
+        : which == 4 ? cluster_config(two_asset_fwd_cluster_kernel<true, true>, cluster, 1,
+                                      kCluThreads,
+                                      fwd_cluster_smem_bytes(
+                                          n_b, n_a, n_e, cluster,
+                                          fwd_cluster_shift(n_b, n_a, n_e, cluster, true), true),
+                                      nullptr, cfg, attr, clusters)
+                     : cluster_config(two_asset_bwd_cluster_kernel<true>, cluster, 1,
+                                      kB5Threads, bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster),
+                                      nullptr, cfg, attr, clusters);
     return err != cudaSuccess ? -(int)err : clusters;
 }
 
 // Dynamic shared memory of the previous kernel 5 (which = 0), of the
 // previous kernel 6 (which = 1), of kernel 6 on a cluster of `cluster`
 // blocks (which = 2; per block, at the least shift that fits, or at its
-// largest) or of kernel 5 on a cluster of `cluster` blocks (which = 3; per
-// block).
+// largest), of kernel 5 on a cluster of `cluster` blocks (which = 3; per
+// block, tabled where the room is), of the global-list kernel 6 (which = 4;
+// as 2) or of kernel 5 untabled (which = 5; per block).
 size_t hank_sweep2_smem_bytes(int which, int n_b, int n_a, int n_e, int cluster) {
     switch (which) {
     case 0: return bwd_smem_bytes(n_b, n_a, n_e);
     case 1: return fwd_smem_bytes(n_b, n_a, n_e);
     case 2: return fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster,
                                           fwd_cluster_shift(n_b, n_a, n_e, cluster));
+    case 4: return fwd_cluster_smem_bytes(n_b, n_a, n_e, cluster,
+                                          fwd_cluster_shift(n_b, n_a, n_e, cluster, true), true);
+    case 5: return bwd_cluster_smem(n_b, n_a, n_e, cluster, false);
     default: return bwd_cluster_smem_bytes(n_b, n_a, n_e, cluster);
     }
 }

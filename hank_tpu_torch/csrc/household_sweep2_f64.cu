@@ -16,7 +16,9 @@
 // two_asset_fwd_cluster_kernel) in double without the tangent, on the same
 // cluster designs; that file keeps its f32 kernels as they are. Both take a
 // path axis for ensembles as kernels 5 and 6 do (BATCHED, the `_batch` entry
-// points: one cluster per path, row b bit for bit the single-path launch).
+// points: one cluster per path, row b bit for bit the single-path launch),
+// and the forward push kernel 6's GLOBAL_LISTS flag past 2048 (b, a) states
+// (the `_global` entry points, to 4096).
 //
 // Semantics are those of the plain PyTorch versions, operation for
 // operation: every expression is the plain version's, in its order, and the
@@ -192,6 +194,11 @@ bool bwd_tabled(int NB, int NA, int NE, int C) {
 
 size_t bwd_smem_bytes(int NB, int NA, int NE, int C) {
     return bwd_smem(NB, NA, NE, C, bwd_tabled(NB, NA, NE, C));
+}
+
+// An L2 prefetch of the line holding *p (no register waits for it).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 // The path of a batched launch (blockIdx.y) times `per_path` elements; 0
@@ -570,26 +577,30 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
 constexpr int kFwdThreads = 1024;   // 32 warps: warp 0's tree takes one partial a lane
 constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFwdSources = 2;      // sources (and destinations) per thread: n_b * n_a <= 2048
+constexpr int kFwdSourcesGlobal = 4;  // the same under GLOBAL_LISTS: n_b * n_a <= 4096
 
-// Per block: the lists' entries (4 per source), every group's H on the
-// block's cells, the own groups' D, the constants and warp partials, the row
-// and column bitmaps, each destination's list offset, and its count before
-// every 2^shift-th bitmap word (16 bit).
-size_t fwd_smem_bytes(int NB, int NA, int NE, int C, int shift) {
+// Per block: the lists' entries (4 per source; under global_lists each
+// source's packed brackets in their place, rounded up to an even count),
+// every group's H on the block's cells, the own groups' D, the constants and
+// warp partials, the row and column bitmaps, each destination's list offset,
+// and its count before every 2^shift-th bitmap word (16 bit).
+size_t fwd_smem_bytes(int NB, int NA, int NE, int C, int shift, bool global_lists = false) {
     const size_t NS = (size_t)NB * NA, NG = 2 * (size_t)NE, G = (NG + C - 1) / C;
     const size_t nw = (NS + 31) / 32, cells = (NS + C - 1) / C;
     const size_t counts = ((nw - 1) >> shift) + 1;
-    return sizeof(double) * (4 * NS + NG * cells + G * NS + NB + NA + (size_t)NE * NE + 4
-                             + 3 * kFwdWarps)
+    return (global_lists ? sizeof(int) * ((NS + 1) & ~(size_t)1) : sizeof(double) * 4 * NS)
+           + sizeof(double) * (NG * cells + G * NS + NB + NA + (size_t)NE * NE + 4
+                               + 3 * kFwdWarps)
            + sizeof(unsigned) * ((NB + NA) * nw + NS + 4) + sizeof(unsigned short) * NS * counts;
 }
 
 // The least shift whose layout fits in a block (or the one keeping a single
 // count per destination, which the launch then refuses).
-int fwd_shift(int NB, int NA, int NE, int C) {
+int fwd_shift(int NB, int NA, int NE, int C, bool global_lists = false) {
     const int nw = (NB * NA + 31) / 32;
     int shift = 0;
-    while ((1 << shift) < nw && fwd_smem_bytes(NB, NA, NE, C, shift) > kSmemOptin) ++shift;
+    while ((1 << shift) < nw && fwd_smem_bytes(NB, NA, NE, C, shift, global_lists) > kSmemOptin)
+        ++shift;
     return shift;
 }
 
@@ -603,15 +614,27 @@ __device__ __forceinline__ double lottery_weight(const double* g, int jc, double
 // elements on; it keeps its own Dpath (B, Tm1, N4) and writes its own row of
 // out (B, 3, Tm1); D0, the grids, Pi and Pacc are shared. Without it (the
 // single-path entry point) the offset compiles out.
-template <bool BATCHED>
+//
+// GLOBAL_LISTS: as kernel 6's (household_sweep2.cu): the lists live in this
+// (path, block)'s slice of `lists_g`, a (B, C, 4 * NS) f64 workspace in
+// global memory that the caller allocates (112 KB a block at 50x70), each
+// source's packed brackets take their place in shared memory, a thread takes
+// up to kFwdSourcesGlobal sources (n_b * n_a up to 4096), and each stage
+// reads the policies where it needs them, after an L2 prefetch one group
+// ahead. Terms, their order and the barriers are the shared-list kernel's,
+// so the outputs are bit for bit its own on every grid both take. `lists_g`
+// is written and read within the launch (not const __restrict__); without
+// GLOBAL_LISTS it is null and compiled out.
+template <bool BATCHED, bool GLOBAL_LISTS>
 __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kernel(
     const double* __restrict__ pB, const double* __restrict__ pA,
     const double* __restrict__ pC, const double* __restrict__ D0,
     const double* __restrict__ bgrid_g, const double* __restrict__ agrid_g,
     const double* __restrict__ Pi_g, const double* __restrict__ Pacc_g,
     double* __restrict__ Dpath, double* __restrict__ out, int Tm1, int NB, int NA, int NE,
-    int shift)
+    int shift, double* lists_g)
 {
+    constexpr int kSrc = GLOBAL_LISTS ? kFwdSourcesGlobal : kFwdSources;
     extern __shared__ __align__(16) unsigned char smem_fwd[];
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -626,7 +649,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     const size_t TN = (size_t)Tm1 * N4;
 
     double* lists = reinterpret_cast<double*>(smem_fwd);   // terms, 4 * NS
-    double* Hc = lists + 4 * NS;                  // [NG][cells]
+    int* brk = reinterpret_cast<int*>(smem_fwd);  // GLOBAL_LISTS: (jb << 16) | ja per source
+    double* Hc = GLOBAL_LISTS ? reinterpret_cast<double*>(brk + ((NS + 1) & ~1))  // [NG][cells]
+                              : lists + 4 * NS;
     double* D = Hc + NG * cells;                  // own groups: [G][NS]
     double* bg = D + G * NS;
     double* ag = bg + NB;
@@ -646,18 +671,28 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     for (int gi = 0; gi < own; ++gi)
         for (int s = tid; s < NS; s += kFwdThreads) D[gi * NS + s] = D0[s * NG + rank + gi * C];
 
-    // This thread's sources' policies for the next (period, group), in registers.
+    // This thread's sources' policies for the next (period, group), in
+    // registers (under GLOBAL_LISTS into L2 only).
     double npb[kFwdSources], npa[kFwdSources];
     auto prefetch = [&](int t, int gi) {
         const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + rank + gi * C;
 #pragma unroll
-        for (int i = 0; i < kFwdSources; ++i) {
+        for (int i = 0; i < kSrc; ++i) {
             const int s = tid + i * kFwdThreads;
             if (s < NS) {
-                npb[i] = pB[off + (size_t)s * NG];
-                npa[i] = pA[off + (size_t)s * NG];
+                if constexpr (GLOBAL_LISTS) {
+                    prefetch_l2(pB + off + (size_t)s * NG);
+                    prefetch_l2(pA + off + (size_t)s * NG);
+                } else {
+                    npb[i] = pB[off + (size_t)s * NG];
+                    npa[i] = pA[off + (size_t)s * NG];
+                }
             }
         }
+    };
+    // Under GLOBAL_LISTS: the policy of source s of group g in period t.
+    auto policy = [&](const double* __restrict__ p, int t, int g, int s) {
+        return p[path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + g + (size_t)s * NG];
     };
     prefetch(0, 0);
 
@@ -672,13 +707,20 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             //    atomicOr per warp and distinct bracket).
             int kjb[kFwdSources], kja[kFwdSources];
 #pragma unroll
-            for (int i = 0; i < kFwdSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int s = tid + i * kFwdThreads;
                 if (s < NS) {
-                    const int jbs = min(max(count_below(bg, NB, npb[i]), 1), NB - 1);
-                    const int jas = min(max(count_below(ag, NA, npa[i]), 1), NA - 1);
-                    kjb[i] = jbs;
-                    kja[i] = jas;
+                    int jbs, jas;
+                    if constexpr (GLOBAL_LISTS) {
+                        jbs = min(max(count_below(bg, NB, policy(pB, t, g, s)), 1), NB - 1);
+                        jas = min(max(count_below(ag, NA, policy(pA, t, g, s)), 1), NA - 1);
+                        brk[s] = (jbs << 16) | jas;
+                    } else {
+                        jbs = min(max(count_below(bg, NB, npb[i]), 1), NB - 1);
+                        jas = min(max(count_below(ag, NA, npa[i]), 1), NA - 1);
+                        kjb[i] = jbs;
+                        kja[i] = jas;
+                    }
                     const unsigned act = __activemask();
                     const int w = s >> 5;
                     const unsigned mb = __match_any_sync(act, jbs);
@@ -698,9 +740,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             //    word, its total and a place for its list (a warp scan, one
             //    atomicAdd per warp: where a list lies does not change its
             //    sum).
-            int cnt[kFwdSources];
+            int cnt[kSrc];
 #pragma unroll
-            for (int i = 0; i < kFwdSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 cnt[i] = 0;
                 const int d = tid + i * kFwdThreads;
                 if (d < NS) {
@@ -714,7 +756,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             }
             int mine = 0;
 #pragma unroll
-            for (int i = 0; i < kFwdSources; ++i) mine += cnt[i];
+            for (int i = 0; i < kSrc; ++i) mine += cnt[i];
             int incl = mine;
             for (int o = 1; o < 32; o <<= 1) {
                 const int y = __shfl_up_sync(0xffffffffu, incl, o);
@@ -724,7 +766,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             if (lane == 31) base = atomicAdd(alloc, incl);
             base = __shfl_sync(0xffffffffu, base, 31) + incl - mine;
 #pragma unroll
-            for (int i = 0; i < kFwdSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int d = tid + i * kFwdThreads;
                 if (d < NS) offs[d] = base;
                 base += cnt[i];
@@ -735,29 +777,42 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             //    its list at its rank: the destination's count before the
             //    source's word plus the set bits below it.
 #pragma unroll
-            for (int i = 0; i < kFwdSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int s = tid + i * kFwdThreads;
                 if (s < NS) {
-                    const double wbs = lottery_weight(bg, kjb[i], npb[i]);
-                    const double was = lottery_weight(ag, kja[i], npa[i]);
+                    double wbs, was;
+                    int jb, ja;
+                    if constexpr (GLOBAL_LISTS) {
+                        jb = brk[s] >> 16;
+                        ja = brk[s] & 0xffff;
+                        wbs = lottery_weight(bg, jb, policy(pB, t, g, s));
+                        was = lottery_weight(ag, ja, policy(pA, t, g, s));
+                    } else {
+                        jb = kjb[i];
+                        ja = kja[i];
+                        wbs = lottery_weight(bg, kjb[i], npb[i]);
+                        was = lottery_weight(ag, kja[i], npa[i]);
+                    }
                     const double src = D[gi * NS + s];
                     const int w = s >> 5;
                     const unsigned below = (1u << (s & 31)) - 1u;
+                    double* Ls = GLOBAL_LISTS
+                        ? lists_g + (path_offset<BATCHED>(C) + rank) * 4 * (size_t)NS : lists;
 #pragma unroll
                     for (int rc = 0; rc < 2; ++rc) {
                         const double mass = (rc == 0 ? 1.0 - wbs : wbs) * src;
-                        const int j = kjb[i] - 1 + rc;
+                        const int j = jb - 1 + rc;
                         const unsigned* rj = rowbits + j * nw;
 #pragma unroll
                         for (int cc = 0; cc < 2; ++cc) {
                             const double wm = cc == 0 ? 1.0 - was : was;
-                            const int m = kja[i] - 1 + cc, d = j * NA + m;
+                            const int m = ja - 1 + cc, d = j * NA + m;
                             const unsigned* cm = colbits + m * nw;
                             int pos = before[d * counts + (w >> shift)]
                                       + __popc(rj[w] & cm[w] & below);
                             for (int u = w & ~((1 << shift) - 1); u < w; ++u)
                                 pos += __popc(rj[u] & cm[u]);
-                            lists[offs[d] + pos] = mass * wm;
+                            Ls[offs[d] + pos] = mass * wm;
                         }
                     }
                 }
@@ -768,10 +823,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             //    One thread per destination sums its list in source order,
             //    and sends the sum to the block that mixes cell d.
 #pragma unroll
-            for (int i = 0; i < kFwdSources; ++i) {
+            for (int i = 0; i < kSrc; ++i) {
                 const int d = tid + i * kFwdThreads;
                 if (d < NS) {
-                    const double* L = lists + offs[d];
+                    const double* L = (GLOBAL_LISTS ? lists_g + (path_offset<BATCHED>(C) + rank)
+                                                                     * 4 * (size_t)NS
+                                                     : lists) + offs[d];
                     double v = 0.0;
                     for (int q = 0; q < cnt[i]; ++q) v += L[q];
                     const int r = d / cells;
@@ -904,6 +961,26 @@ int hank_sweep2_policies_f64(const void* r, const void* ra, const void* w, const
         n_a, n_e, beta, lam, chi, borrow_cons, bwd_tabled(n_b, n_a, n_e, cluster) ? 1 : 0);
 }
 
+// The backward recursion as hank_sweep2_policies_f64, with its candidates'
+// brackets never tabled (the branch it takes where the table has no room),
+// for a bit-for-bit comparison of the two branches on a grid that has the
+// room. No route launches it.
+int hank_sweep2_policies_f64_untabled(const void* r, const void* ra, const void* w,
+                                      const void* tau, const void* V_T, const void* bgrid,
+                                      const void* agrid, const void* egrid, const void* Pi,
+                                      void* out, int Tm1, int n_b, int n_a, int n_e, int cluster,
+                                      double beta, double lam, double chi, double borrow_cons,
+                                      void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1)
+        return (int)cudaErrorInvalidValue;
+    return (int)launch_cluster(
+        two_asset_bwd_f64_cluster_kernel<false>, cluster, 1, kBwdThreads,
+        bwd_smem(n_b, n_a, n_e, cluster, false), stream, (const double*)r, (const double*)ra,
+        (const double*)w, (const double*)tau, (const double*)V_T, (const double*)bgrid,
+        (const double*)agrid, (const double*)egrid, (const double*)Pi, (double*)out, Tm1, n_b,
+        n_a, n_e, beta, lam, chi, borrow_cons, 0);
+}
+
 // The forward push on one cluster of `cluster` blocks (1 to min(2 * n_e,
 // 16)): policies (T-1, n_b, n_a, n_e, 2) each and D0 (n_b, n_a, n_e, 2) ->
 // out (3, T-1), the B, A and C aggregates; Dpath is (T-1, N4) f64 of global
@@ -917,11 +994,34 @@ int hank_sweep2_forward_f64(const void* pB, const void* pA, const void* pC, cons
         return (int)cudaErrorInvalidValue;
     const int shift = fwd_shift(n_b, n_a, n_e, cluster);
     return (int)launch_cluster(
-        two_asset_fwd_f64_cluster_kernel<false>, cluster, 1, kFwdThreads,
+        two_asset_fwd_f64_cluster_kernel<false, false>, cluster, 1, kFwdThreads,
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, (const double*)pB,
         (const double*)pA, (const double*)pC, (const double*)D0, (const double*)bgrid,
         (const double*)agrid, (const double*)Pi, (const double*)Pacc, (double*)Dpath,
-        (double*)out, Tm1, n_b, n_a, n_e, shift);
+        (double*)out, Tm1, n_b, n_a, n_e, shift, nullptr);
+}
+
+// The forward push with its lists in global memory
+// (two_asset_fwd_f64_cluster_kernel<false, true>): the arguments of
+// hank_sweep2_forward_f64, and `lists` (cluster, 4 * n_b * n_a) f64 of
+// global scratch after Dpath. Takes n_b * n_a up to 4096 where
+// hank_sweep2_f64_smem_bytes(2, ...) fits; bit for bit
+// hank_sweep2_forward_f64 on every grid both take.
+int hank_sweep2_forward_f64_global(const void* pB, const void* pA, const void* pC,
+                                   const void* D0, const void* bgrid, const void* agrid,
+                                   const void* Pi, const void* Pacc, void* Dpath, void* lists,
+                                   void* out, int Tm1, int n_b, int n_a, int n_e, int cluster,
+                                   void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || n_b * n_a > kFwdSourcesGlobal * kFwdThreads || lists == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_shift(n_b, n_a, n_e, cluster, true);
+    return (int)launch_cluster(
+        two_asset_fwd_f64_cluster_kernel<false, true>, cluster, 1, kFwdThreads,
+        fwd_smem_bytes(n_b, n_a, n_e, cluster, shift, true), stream, (const double*)pB,
+        (const double*)pA, (const double*)pC, (const double*)D0, (const double*)bgrid,
+        (const double*)agrid, (const double*)Pi, (const double*)Pacc, (double*)Dpath,
+        (double*)out, Tm1, n_b, n_a, n_e, shift, (double*)lists);
 }
 
 // The backward recursion over B paths, one cluster of `cluster` blocks per
@@ -961,15 +1061,40 @@ int hank_sweep2_forward_f64_batch(const void* pol, const void* D0, const void* b
     const double* p = static_cast<const double*>(pol);
     const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
     return (int)launch_cluster(
-        two_asset_fwd_f64_cluster_kernel<true>, cluster, B, kFwdThreads,
+        two_asset_fwd_f64_cluster_kernel<true, false>, cluster, B, kFwdThreads,
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, p, p + TN, p + 2 * TN,
         (const double*)D0, (const double*)bgrid, (const double*)agrid, (const double*)Pi,
-        (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift);
+        (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift, nullptr);
+}
+
+// The global-list forward push over B paths
+// (two_asset_fwd_f64_cluster_kernel<true, true>): the arguments of
+// hank_sweep2_forward_f64_batch, and `lists` (B, cluster, 4 * n_b * n_a) f64
+// of global scratch after Dpath. Row b is the single-path launch on row b,
+// bit for bit, at any cluster size.
+int hank_sweep2_forward_f64_global_batch(const void* pol, const void* D0, const void* bgrid,
+                                         const void* agrid, const void* Pi, const void* Pacc,
+                                         void* Dpath, void* lists, void* out, int Tm1, int n_b,
+                                         int n_a, int n_e, int cluster, int B, void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || n_b * n_a > kFwdSourcesGlobal * kFwdThreads || B < 1 || B > 65535
+        || lists == nullptr)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_shift(n_b, n_a, n_e, cluster, true);
+    const double* p = static_cast<const double*>(pol);
+    const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
+    return (int)launch_cluster(
+        two_asset_fwd_f64_cluster_kernel<true, true>, cluster, B, kFwdThreads,
+        fwd_smem_bytes(n_b, n_a, n_e, cluster, shift, true), stream, p, p + TN, p + 2 * TN,
+        (const double*)D0, (const double*)bgrid, (const double*)agrid, (const double*)Pi,
+        (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift,
+        (double*)lists);
 }
 
 // How many clusters of `cluster` blocks of the batched backward kernel
-// (which = 0) or forward kernel (which = 1) the card holds at once, at an
-// n_b x n_a x n_e x 2 grid (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+// (which = 0), forward kernel (which = 1) or global-list forward kernel
+// (which = 2) the card holds at once, at an n_b x n_a x n_e x 2 grid
+// (cudaOccupancyMaxActiveClusters), or -cudaError_t.
 int hank_sweep2_f64_max_clusters(int which, int n_b, int n_a, int n_e, int cluster) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
@@ -978,21 +1103,33 @@ int hank_sweep2_f64_max_clusters(int which, int n_b, int n_a, int n_e, int clust
         which == 0 ? cluster_config(two_asset_bwd_f64_cluster_kernel<true>, cluster, 1,
                                     kBwdThreads, bwd_smem_bytes(n_b, n_a, n_e, cluster),
                                     nullptr, cfg, attr, clusters)
-                   : cluster_config(two_asset_fwd_f64_cluster_kernel<true>, cluster, 1,
-                                    kFwdThreads,
-                                    fwd_smem_bytes(n_b, n_a, n_e, cluster,
-                                                   fwd_shift(n_b, n_a, n_e, cluster)),
-                                    nullptr, cfg, attr, clusters);
+        : which == 1 ? cluster_config(two_asset_fwd_f64_cluster_kernel<true, false>, cluster, 1,
+                                      kFwdThreads,
+                                      fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                                                     fwd_shift(n_b, n_a, n_e, cluster)),
+                                      nullptr, cfg, attr, clusters)
+                     : cluster_config(two_asset_fwd_f64_cluster_kernel<true, true>, cluster, 1,
+                                      kFwdThreads,
+                                      fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                                                     fwd_shift(n_b, n_a, n_e, cluster, true),
+                                                     true),
+                                      nullptr, cfg, attr, clusters);
     return err != cudaSuccess ? -(int)err : clusters;
 }
 
-// Dynamic shared memory per block of the backward kernel (which = 0) or of
-// the forward kernel (which = 1; at the least shift that fits, or at its
-// largest) on a cluster of `cluster` blocks.
+// Dynamic shared memory per block of the backward kernel (which = 0; tabled
+// where the room is), of the forward kernel (which = 1; at the least shift
+// that fits, or at its largest), of the global-list forward kernel (which =
+// 2; as 1) or of the backward kernel untabled (which = 3) on a cluster of
+// `cluster` blocks.
 size_t hank_sweep2_f64_smem_bytes(int which, int n_b, int n_a, int n_e, int cluster) {
-    return which == 0 ? bwd_smem_bytes(n_b, n_a, n_e, cluster)
-                      : fwd_smem_bytes(n_b, n_a, n_e, cluster,
-                                       fwd_shift(n_b, n_a, n_e, cluster));
+    switch (which) {
+    case 0: return bwd_smem_bytes(n_b, n_a, n_e, cluster);
+    case 1: return fwd_smem_bytes(n_b, n_a, n_e, cluster, fwd_shift(n_b, n_a, n_e, cluster));
+    case 2: return fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                                  fwd_shift(n_b, n_a, n_e, cluster, true), true);
+    default: return bwd_smem(n_b, n_a, n_e, cluster, false);
+    }
 }
 
 const char* hank_cuda_error_string(int err) {

@@ -176,12 +176,18 @@ _SIGNATURES = {
         "hank_sweep2_forward_jvp_cluster_f32": (13, 5, 0),
         "hank_sweep2_policies_jvp_cluster_f32_batch": (14, 6, 4),
         "hank_sweep2_forward_jvp_cluster_f32_batch": (8, 6, 0),
+        "hank_sweep2_forward_jvp_cluster_global_f32": (14, 5, 0),
+        "hank_sweep2_forward_jvp_cluster_global_f32_batch": (9, 6, 0),
+        "hank_sweep2_policies_jvp_cluster_untabled_f32": (14, 5, 4),
     },
     "household_sweep2_f64": {
         "hank_sweep2_policies_f64": (10, 5, 4),
         "hank_sweep2_forward_f64": (10, 5, 0),
         "hank_sweep2_policies_f64_batch": (10, 6, 4),
         "hank_sweep2_forward_f64_batch": (8, 6, 0),
+        "hank_sweep2_forward_f64_global": (11, 5, 0),
+        "hank_sweep2_forward_f64_global_batch": (9, 6, 0),
+        "hank_sweep2_policies_f64_untabled": (10, 5, 4),
     },
     "household_sweep_cluster": {
         "hank_sweep_jvp_f32_cluster": (16, 3, 3),
@@ -307,8 +313,9 @@ def sweep2_f64_smem_bytes(which: int, n_b: int, n_a: int, n_e: int, cluster: int
 def max_clusters(name: str, which: int, *shape: int) -> int:
     """How many clusters of a kernel the card holds at once
     (cudaOccupancyMaxActiveClusters; 0: not one). Library `name`
-    "household_sweep2" with which = 2 (kernel 6) or 3 (kernel 5), or
-    "household_sweep2_f64" with which = 0 (backward) or 1 (forward), at
+    "household_sweep2" with which = 2 (kernel 6), 3 (kernel 5) or 4 (kernel
+    6 with global lists), or "household_sweep2_f64" with which = 0
+    (backward), 1 (forward) or 2 (forward with global lists), at
     `shape` = (n_b, n_a, n_e, cluster): a batched two-asset kernel at an
     n_b×n_a×n_e×2 grid on clusters of `cluster` blocks; "household_sweep_cluster"
     with which one of `CLUSTER`'s values at `shape` = (n_a, n_e[, cluster]):
@@ -334,11 +341,14 @@ def check_shared_memory_scan(lib: ctypes.CDLL, which: int, n_a: int, n_e: int) -
 def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int,
                          cluster: int = 1) -> None:
     """At an n_b×n_a×n_e×2 grid: the previous kernel 5 (which = 0), the
-    previous kernel 6 (which = 1), or kernel 6 (which = 2) or kernel 5
-    (which = 3) on a cluster of `cluster` blocks (the shared memory of each
-    block)."""
+    previous kernel 6 (which = 1), or kernel 6 (which = 2), kernel 5 (which =
+    3), kernel 6 with its lists in global memory (which = 4) or kernel 5
+    untabled (which = 5) on a cluster of `cluster` blocks (the shared memory
+    of each block)."""
     what = ("previous kernel 5", "previous kernel 6", f"kernel 6 on a cluster of {cluster}",
-            f"kernel 5 on a cluster of {cluster}")[which]
+            f"kernel 5 on a cluster of {cluster}",
+            f"kernel 6 with global lists on a cluster of {cluster}",
+            f"kernel 5 untabled on a cluster of {cluster}")[which]
     check_fit(lib.hank_sweep2_smem_bytes(which, n_b, n_a, n_e, cluster),
                 f"{what} at grid {n_b}x{n_a}x{n_e}x2")
 
@@ -346,8 +356,12 @@ def check_shared_memory2(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: 
 def check_shared_memory2_f64(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n_e: int,
                              cluster: int) -> None:
     """At an n_b×n_a×n_e×2 grid, on a cluster of `cluster` blocks: the f64
-    backward recursion (which = 0) or the f64 forward push (which = 1)."""
-    what = ("the f64 backward recursion", "the f64 forward push")[which]
+    backward recursion (which = 0), the f64 forward push (which = 1), the
+    forward push with global lists (which = 2) or the backward recursion
+    untabled (which = 3)."""
+    what = ("the f64 backward recursion", "the f64 forward push",
+            "the f64 forward push with global lists",
+            "the f64 backward recursion untabled")[which]
     check_fit(lib.hank_sweep2_f64_smem_bytes(which, n_b, n_a, n_e, cluster),
               f"{what} on a cluster of {cluster} at grid {n_b}x{n_a}x{n_e}x2")
 

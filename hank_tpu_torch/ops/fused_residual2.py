@@ -26,6 +26,10 @@ counts kernel launches and `.calls` plain calls.
 `make_fused2_residual_fn_f64` is F(x) through the pair: the model's
 `fused2_prices` hook, the two kernels, and the f64 tail (`assemble_full_xmat`
 + `residuals`), as `fused_sweep2._build_fused2`'s `residual32` is in f32.
+Past 2048 asset states (or where the shared lists have no room) the
+forward push keeps its lottery lists in a global workspace (its
+`<*, true>` instantiations, the same bits), to 4096; the builds record
+which (`F.forward_kernel`) and raise past it.
 
 For ensembles, `fused2_policies_f64_batch` and `fused2_forward_f64_batch`
 launch the pair over B paths, one cluster per path (plain versions
@@ -43,25 +47,22 @@ from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import check_tensors
-from hank_tpu_torch.ops.fused_sweep2 import (KEYS, _batch_inputs, _dims,
+from hank_tpu_torch.ops.fused_sweep2 import (FORWARD_KERNELS, KEYS, _batch_inputs, _dims,
                                              _forward_batch_inputs, _fused2_price_hook,
-                                             _policies_inputs, backward_policies,
-                                             batch_cluster_of, default_bwd_cluster,
-                                             default_cluster, path_block,
-                                             supports_fused_sweep2)
+                                             _policies_inputs, _state, backward_policies,
+                                             batch_cluster_of, check_fit_forward,
+                                             count_forward, default_bwd_cluster,
+                                             default_cluster, forward_kernel, lists_scratch,
+                                             path_block, supports_fused_sweep2)
 from hank_tpu_torch.ops.precision import cast_model
 
 f64 = torch.float64
 LIBRARY = "household_sweep2_f64"
-# The forward kernel takes two sources per thread of its 1024.
-MAX_ASSET_STATES = 2048
+# The forward push's instantiations by `which` of the library's count: its
+# lists in shared memory, or in a global workspace.
+SHARED_LISTS, GLOBAL_LISTS = FORWARD_KERNELS[LIBRARY]
 # What the card's check names when the pair does not take a grid.
 PLAIN_ROUTE = "; on the card only the plain residual takes this grid (residual_mode='f64')"
-
-
-def _state(model) -> tuple:
-    liquid, illiq, income, _ = _dims(model)
-    return liquid.n, illiq.n, income.n, 2
 
 
 def _launch(entry, tensors, ints, doubles=()):
@@ -87,26 +88,38 @@ def fused2_policies_f64(r, ra, w, tau, value_T, model):
     On the card: `two_asset_bwd_f64_cluster_kernel` on one cluster of
     `default_bwd_cluster(n_e)` blocks."""
     paths = (r, ra, w, tau)
-    Tm1, state = _policies_inputs("fused2_policies_f64", paths, value_T, model, f64)
+    _policies_inputs("fused2_policies_f64", paths, value_T, model, f64)
     if value_T.device.type == "cpu":
         return fused2_policies_f64_reference(*paths, value_T, model)
+    out = _launch_policies(paths, value_T, model)
+    fused2_policies_f64.launches += 1
+    return out
+
+
+fused2_policies_f64.launches = 0
+
+
+def _launch_policies(paths, value_T, model, untabled: bool = False):
+    """The backward recursion on one cluster of `default_bwd_cluster(n_e)`
+    blocks, on CUDA tensors. `untabled` never tables the candidates'
+    brackets: the branch the kernel takes where the table has no room, bit
+    for bit the tabled one where both fit (a check on the card; no route
+    asks it)."""
     liquid, illiq, income, access = _dims(model)
+    state = _state(model)
+    Tm1 = paths[0].shape[0]
     cluster = default_bwd_cluster(income.n)
-    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 0, *state[:3],
-                                        cluster)
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 3 if untabled else 0,
+                                        *state[:3], cluster)
     dev, p = value_T.device, model.params
     out = torch.empty((3, Tm1, *state), dtype=f64, device=dev)
-    _launch("hank_sweep2_policies_f64",
+    _launch("hank_sweep2_policies_f64_untabled" if untabled else "hank_sweep2_policies_f64",
             [*paths, value_T, *(_on_card(t, dev) for t in (liquid.grid, illiq.grid, income.grid,
                                                            income.transition)), out],
             (Tm1, *state[:3], cluster),
             (float(p["β"]), float(access.transition[0, 1]), float(p.get("portfolio_reg", 0.0)),
              float(p["borrow_cons"])))
-    fused2_policies_f64.launches += 1
     return dict(zip(KEYS, out))
-
-
-fused2_policies_f64.launches = 0
 
 
 def fused2_policies_f64_reference(r, ra, w, tau, value_T, model):
@@ -125,33 +138,52 @@ def fused2_forward_f64(policies, D0, model):
     (T-1,) f64 aggregate paths (`forward_iteration`).
 
     On the card: `two_asset_fwd_f64_cluster_kernel` on one cluster of
-    `default_cluster(n_e)` blocks."""
+    `default_cluster(n_e)` blocks, its lists in shared memory
+    (`<false, false>`, counted in `.launches`) or, where the grid decides so
+    (`fused_sweep2.forward_kernel`), in a global workspace (`<false, true>`,
+    `.launches_global`), which gives the same bits."""
+    tensors, Tm1 = _forward_f64_inputs("fused2_forward_f64", policies, D0, model)
+    if D0.device.type == "cpu":
+        return fused2_forward_f64_reference(policies, D0, model)
+    which = forward_kernel(LIBRARY, *_state(model)[:3])
+    out = _launch_forward(tensors, Tm1, model, which, default_cluster(_state(model)[2]))
+    count_forward(fused2_forward_f64, LIBRARY, which)
+    return out
+
+
+fused2_forward_f64.launches = fused2_forward_f64.launches_global = 0
+
+
+def _forward_f64_inputs(name, policies, D0, model):
     tensors = [*(policies[k] for k in KEYS), D0]
-    check_tensors("fused2_forward_f64", tensors, f64)
+    check_tensors(name, tensors, f64)
     state = _state(model)
     Tm1 = tensors[0].shape[0]
     if any(t.shape != (Tm1, *state) for t in tensors[:3]) or D0.shape != state or Tm1 < 1:
-        raise ValueError(f"fused2_forward_f64: expected (T-1, *{state}) policies and D0 "
+        raise ValueError(f"{name}: expected (T-1, *{state}) policies and D0 "
                          f"{state}; got {[tuple(t.shape) for t in tensors]}")
-    if D0.device.type == "cpu":
-        return fused2_forward_f64_reference(policies, D0, model)
+    return tensors, Tm1
+
+
+def _launch_forward(tensors, Tm1, model, which: int, cluster: int):
+    """The forward push's instantiation `which` on one cluster of `cluster`
+    blocks, on `_forward_f64_inputs`' CUDA tensors."""
     liquid, illiq, income, access = _dims(model)
-    cluster = default_cluster(income.n)
-    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 1, *state[:3],
+    state = _state(model)
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), which, *state[:3],
                                         cluster)
-    dev = D0.device
-    # Scratch: each period's D, which the aggregates read after the recursion.
-    Dpath = torch.empty((Tm1, D0.numel()), dtype=f64, device=dev)
+    dev = tensors[-1].device
+    # Scratch: each period's D, which the aggregates read after the
+    # recursion, and the global-list instantiation's lists.
+    scratch = [torch.empty(shape, dtype=f64, device=dev) for shape in
+               [(Tm1, tensors[-1].numel()), *lists_scratch(which, LIBRARY, cluster, state)]]
     out = torch.empty((3, Tm1), dtype=f64, device=dev)
-    _launch("hank_sweep2_forward_f64",
+    _launch("hank_sweep2_forward_f64" if which == SHARED_LISTS else
+            "hank_sweep2_forward_f64_global",
             [*tensors, *(_on_card(t, dev) for t in (liquid.grid, illiq.grid, income.transition,
-                                                    access.transition)), Dpath, out],
+                                                    access.transition)), *scratch, out],
             (Tm1, *state[:3], cluster))
-    fused2_forward_f64.launches += 1
     return dict(zip(KEYS, out))
-
-
-fused2_forward_f64.launches = 0
 
 
 def fused2_forward_f64_reference(policies, D0, model):
@@ -220,28 +252,36 @@ def fused2_forward_f64_batch(policies, D0, model):
                                             f64, KEYS)
     if D0.device.type == "cpu":
         return fused2_forward_f64_batch_reference(policies, D0, model)
-    state = _state(model)
-    if state[0] * state[1] > MAX_ASSET_STATES:
-        raise ValueError(f"fused2_forward_f64_batch: {state[0] * state[1]} asset states; the "
-                         f"forward kernel takes {MAX_ASSET_STATES}")
+    grid = _state(model)[:3]
+    which = forward_kernel(LIBRARY, *grid)
+    out = _launch_forward_batch(tensors, B, Tm1, D0, model, which,
+                                batch_cluster_of(LIBRARY, which, B, grid))
+    count_forward(fused2_forward_f64_batch, LIBRARY, which)
+    return out
+
+
+fused2_forward_f64_batch.launches = fused2_forward_f64_batch.launches_global = 0
+
+
+def _launch_forward_batch(tensors, B, Tm1, D0, model, which: int, cluster: int):
+    """The batched forward push's instantiation `which` on B clusters of
+    `cluster` blocks, on `_forward_batch_inputs`' CUDA tensors."""
     liquid, illiq, income, access = _dims(model)
-    cluster = batch_cluster_of(LIBRARY, 1, B, state[:3])
-    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), 1, *state[:3],
+    state = _state(model)
+    cuda_build.check_shared_memory2_f64(cuda_build.load_library(LIBRARY), which, *state[:3],
                                         cluster)
     dev = D0.device
     # Scratch: each path's D of every period, which the aggregates read
-    # after the recursion.
-    Dpath = torch.empty((B, Tm1, D0.numel()), dtype=f64, device=dev)
+    # after the recursion, and the global-list instantiation's lists.
+    scratch = [torch.empty(shape, dtype=f64, device=dev) for shape in
+               [(B, Tm1, D0.numel()), *lists_scratch(which, LIBRARY, cluster, state, (B,))]]
     out = torch.empty((B, 3, Tm1), dtype=f64, device=dev)
-    _launch("hank_sweep2_forward_f64_batch",
+    _launch("hank_sweep2_forward_f64_batch" if which == SHARED_LISTS else
+            "hank_sweep2_forward_f64_global_batch",
             [path_block(tensors), D0, *(_on_card(t, dev) for t in (
-                liquid.grid, illiq.grid, income.transition, access.transition)), Dpath, out],
+                liquid.grid, illiq.grid, income.transition, access.transition)), *scratch, out],
             (Tm1, *state[:3], cluster, B))
-    fused2_forward_f64_batch.launches += 1
     return dict(zip(KEYS, out.transpose(0, 1)))
-
-
-fused2_forward_f64_batch.launches = 0
 
 
 def fused2_forward_f64_batch_reference(policies, D0, model):
@@ -256,19 +296,15 @@ def fused2_forward_f64_batch_reference(policies, D0, model):
 fused2_forward_f64_batch_reference.calls = 0
 
 
-def check_fit_f64(model) -> None:
+def check_fit_f64(model) -> int:
     """ValueError (naming the plain route, residual_mode='f64') where the
-    pair does not take the model's grid: past a block's shared memory by
-    the library's count on the default clusters, or past the forward
-    kernel's asset states."""
-    n_b, n_a, n_e, _ = _state(model)
-    grid = f"the f64 residual pair at grid {n_b}x{n_a}x{n_e}x2"
-    if n_b * n_a > MAX_ASSET_STATES:
-        raise ValueError(f"{grid} has {n_b * n_a} asset states; the forward kernel takes "
-                         f"{MAX_ASSET_STATES}{PLAIN_ROUTE}")
-    need = max(cuda_build.sweep2_f64_smem_bytes(0, n_b, n_a, n_e, default_bwd_cluster(n_e)),
-               cuda_build.sweep2_f64_smem_bytes(1, n_b, n_a, n_e, default_cluster(n_e)))
-    cuda_build.check_fit(need, grid, PLAIN_ROUTE)
+    pair does not take the model's grid: past the forward kernel's
+    global-list instantiation's 4096 asset states, or past a block's shared
+    memory by the library's count of the backward kernel and of the forward
+    instantiation `fused_sweep2.forward_kernel` picks, on their default
+    clusters. Returns that instantiation (SHARED_LISTS or GLOBAL_LISTS)."""
+    return check_fit_forward(LIBRARY, _state(model)[:3], 0, "the f64 residual pair",
+                             PLAIN_ROUTE)
 
 
 def make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths):
@@ -283,8 +319,7 @@ def make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths):
     cs = model.compspec
     value_T = ss_ending.value.to(f64).contiguous()
     D0 = ss_initial.D.to(f64).contiguous()
-    if value_T.is_cuda:
-        check_fit_f64(model)
+    forward = check_fit_f64(model) if value_T.is_cuda else None
 
     def F(x):
         x64 = x.to(f64)
@@ -295,6 +330,7 @@ def make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths):
                                    ss_ending.vars)
         return residuals(x_mat, model)
 
+    F.forward_kernel = forward
     return F
 
 
@@ -313,8 +349,7 @@ def make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending):
     cs = model.compspec
     value_T = ss_ending.value.to(f64).contiguous()
     D0 = ss_initial.D.to(f64).contiguous()
-    if value_T.is_cuda:
-        check_fit_f64(model)
+    forward = check_fit_f64(model) if value_T.is_cuda else None
 
     def prices(xx, ex):
         return tuple(q.to(f64) for q in hook(xx.reshape(cs.T - 1, cs.n_endog), ex, model))
@@ -331,4 +366,5 @@ def make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending):
             model)
         return torch.func.vmap(tail)(x64, aggs, exog_batch)
 
+    F_b.forward_kernel = forward
     return F_b

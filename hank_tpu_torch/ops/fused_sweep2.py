@@ -16,6 +16,19 @@ The CUDA source is `hank_tpu_torch/csrc/household_sweep2.cu`. Every f32
 direction (GMRES or Richardson matvec) of the two-asset path solver is one
 launch of kernels 5 and 6, back to back.
 
+Kernel 6 and the f64 forward push (`ops/fused_residual2.py`) keep each
+source's lottery-list entries in shared memory and give a thread two
+sources of 1024: n_b·n_a ≤ 2048. Past that, or where the shared lists have
+no room, the maps take their `GLOBAL_LISTS` instantiations (the lists in a
+global workspace the wrapper allocates, four sources a thread, the same
+bits) to 4096 asset states; `forward_kernel` decides by the library's
+count before any launch, the builds record it (`.forward_kernel` on the
+map) and raise past it (`check_fit_forward`). The card's bit-for-bit checks
+launch an instantiation the grid does not decide through the private
+launchers: `_launch_cluster` and `_launch_forward_batch` take `which`, and
+`_launch_bwd_cluster(..., untabled=True)` runs kernel 5's untabled branch
+(which the routes take where the brackets' table has no room).
+
 For ensembles, `fused2_policies_jvp_batch` and `fused2_forward_jvp_batch`
 launch the same kernels over B paths, one cluster per path (plain versions
 `*_batch_reference`, loops over rows), row b bit for bit the single-path
@@ -54,6 +67,11 @@ KEYS = ("B", "A", "C")
 def _dims(model):
     het = model.heterogeneity
     return het["liquid"], het["illiquid"], het["income"], het["access"]
+
+
+def _state(model) -> tuple:
+    liquid, illiq, income, _ = _dims(model)
+    return liquid.n, illiq.n, income.n, 2
 
 
 def _policies_inputs(name, paths, value_T, model, dtype=f32):
@@ -123,15 +141,19 @@ def fused2_policies_jvp(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, value_
 fused2_policies_jvp.launches = 0
 
 
-def _launch_bwd_cluster(paths, value_T, model, cluster: int):
+def _launch_bwd_cluster(paths, value_T, model, cluster: int, untabled: bool = False):
     """Kernel 5 on one cluster of `cluster` blocks (1 to
     default_bwd_cluster(n_e)), on CUDA tensors. `fused2_policies_jvp` passes
-    the default; the split tool and `chip_smoke.py` also try other sizes."""
+    the default; the split tool and `chip_smoke.py` also try other sizes.
+    `untabled` never tables the candidates' brackets: the branch the kernel
+    takes where the table has no room, bit for bit the tabled one where
+    both fit (a check on the card; no route asks it)."""
     Tm1, state = _policies_inputs("fused2_policies_jvp", paths, value_T, model)
-    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 3,
-                                    *state[:3], cluster)
-    return _launch_backward("hank_sweep2_policies_jvp_cluster_f32", paths, value_T, model,
-                            Tm1, state, extra=(cluster,))
+    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"),
+                                    5 if untabled else 3, *state[:3], cluster)
+    entry = ("hank_sweep2_policies_jvp_cluster_untabled_f32" if untabled
+             else "hank_sweep2_policies_jvp_cluster_f32")
+    return _launch_backward(entry, paths, value_T, model, Tm1, state, extra=(cluster,))
 
 
 def fused2_policies_jvp_previous(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, value_T,
@@ -203,21 +225,76 @@ def batch_cluster(B: int, units: int, default: int, fits, clusters) -> int:
     return best
 
 
+def _smem_count(library: str):
+    return (cuda_build.sweep2_smem_bytes if library == "household_sweep2"
+            else cuda_build.sweep2_f64_smem_bytes)
+
+
 def batch_cluster_of(library: str, which: int, B: int, grid) -> int:
     """`batch_cluster` for a batched two-asset kernel (`cuda_build.max_clusters`'
-    library and `which`) at an n_b×n_a×n_e grid: the backward kernels share
-    n_e income states over up to `default_bwd_cluster(n_e)` blocks, the
+    library and `which`, a forward kernel's the instantiation
+    `forward_kernel` chose) at an n_b×n_a×n_e grid: the backward kernels
+    share n_e income states over up to `default_bwd_cluster(n_e)` blocks, the
     forward kernels 2·n_e groups over up to `default_cluster(n_e)`; sizes
-    held to the library's shared-memory count."""
+    held to that instantiation's shared-memory count."""
     n_e = grid[2]
-    forward = which == (2 if library == "household_sweep2" else 1)
+    forward = which in FORWARD_KERNELS[library]
     units, default = ((2 * n_e, default_cluster(n_e)) if forward
                       else (n_e, default_bwd_cluster(n_e)))
-    count = (cuda_build.sweep2_smem_bytes if library == "household_sweep2"
-             else cuda_build.sweep2_f64_smem_bytes)
+    count = _smem_count(library)
     return batch_cluster(B, units, default,
                          lambda C: count(which, *grid, C) <= cuda_build.MAX_SMEM_BYTES,
                          lambda C: cuda_build.max_clusters(library, which, *grid, C))
+
+
+# The two instantiations of each forward kernel (kernel 6 in
+# `household_sweep2`, the f64 forward push in `household_sweep2_f64`), by
+# `which` of the library's shared-memory count and max-clusters query: the
+# lottery lists in each block's shared memory (two sources a thread of 1024),
+# or in a global workspace the wrapper allocates (GLOBAL_LISTS; four sources a
+# thread), and the asset states (n_b·n_a) each takes.
+FORWARD_KERNELS = {"household_sweep2": (2, 4), "household_sweep2_f64": (1, 2)}
+FORWARD_MAX_STATES = (2048, 4096)
+
+
+def forward_kernel(library: str, n_b: int, n_a: int, n_e: int) -> int:
+    """The forward kernel's instantiation (`FORWARD_KERNELS[library]`) a map
+    launches at an n_b×n_a×n_e×2 grid, decided by the library's count on the
+    default cluster before any launch: the shared-list one where it takes
+    the grid (n_b·n_a ≤ 2048 and its count fits a block), else the
+    global-list one. Whether that one fits is the builds' check
+    (`check_fit_forward`), which raises past it; a launch past it raises."""
+    return _forward_choice(library, (n_b, n_a, n_e))[0]
+
+
+def _forward_choice(library: str, grid) -> tuple:
+    """(`forward_kernel`'s instantiation, its count on the default cluster),
+    each count asked once."""
+    shared, global_lists = FORWARD_KERNELS[library]
+    count, C = _smem_count(library), default_cluster(grid[2])
+    if grid[0] * grid[1] <= FORWARD_MAX_STATES[0]:
+        need = count(shared, *grid, C)
+        if need <= cuda_build.MAX_SMEM_BYTES:
+            return shared, need
+    return global_lists, count(global_lists, *grid, C)
+
+
+def check_fit_forward(library: str, grid, backward: int, what: str, hint: str) -> int:
+    """ValueError (ending in `hint`) where a backward kernel (`backward`, on
+    its default cluster) and the forward kernel's instantiation
+    `forward_kernel` picks do not take an n_b×n_a×n_e grid: past the
+    global-list one's asset states (before any count is asked), or past a
+    block's shared memory by the library's count. Returns that
+    instantiation."""
+    n_b, n_a, n_e = grid
+    what = f"{what} at grid {n_b}x{n_a}x{n_e}x2"
+    if n_b * n_a > FORWARD_MAX_STATES[1]:
+        raise ValueError(f"{what} has {n_b * n_a} asset states; the forward kernel takes "
+                         f"{FORWARD_MAX_STATES[1]}{hint}")
+    which, need = _forward_choice(library, grid)
+    cuda_build.check_fit(max(_smem_count(library)(backward, *grid, default_bwd_cluster(n_e)),
+                             need), what, hint)
+    return which
 
 
 def _batch_inputs(name, paths, value_T, model, dtype=f32):
@@ -325,30 +402,62 @@ def fused2_forward_jvp(policies, dpolicies, D0, model):
 
     On the card: `two_asset_fwd_cluster_kernel` on one thread-block cluster
     of `default_cluster(n_e)` blocks (one (income, access) group per block),
-    bit for bit `fused2_forward_jvp_previous`. A cluster the card cannot
-    schedule raises."""
+    bit for bit `fused2_forward_jvp_previous`; the grid decides
+    (`forward_kernel`) whether its lottery lists live in shared memory
+    (`<false, false>`, counted in `.launches`) or in a global workspace
+    (`<false, true>`, past 2048 asset states or where the shared lists have
+    no room; `.launches_global`), which gives the same bits. A cluster the
+    card cannot schedule raises."""
     tensors, Tm1 = _forward_inputs("fused2_forward_jvp", policies, dpolicies, D0, model)
     if D0.device.type == "cpu":
         return fused2_forward_jvp_reference(policies, dpolicies, D0, model)
-    out = _launch_cluster(tensors, Tm1, model, default_cluster(_dims(model)[2].n))
-    fused2_forward_jvp.launches += 1
+    liquid, illiq, income, _ = _dims(model)
+    which = forward_kernel("household_sweep2", liquid.n, illiq.n, income.n)
+    out = _launch_cluster(tensors, Tm1, model, default_cluster(income.n), which)
+    count_forward(fused2_forward_jvp, "household_sweep2", which)
     return out
 
 
-fused2_forward_jvp.launches = 0
+fused2_forward_jvp.launches = fused2_forward_jvp.launches_global = 0
 
 
-def _launch_cluster(tensors, Tm1, model, cluster: int):
+def count_forward(wrapper, library: str, which: int) -> None:
+    """One launch of a forward kernel's instantiation `which`: `.launches`
+    counts the shared-list one, `.launches_global` the global-list one."""
+    if which == FORWARD_KERNELS[library][0]:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_global += 1
+
+
+def lists_scratch(which: int, library: str, cluster: int, state, lead=()) -> list:
+    """The global-list instantiation's workspace shape, (*lead, cluster,
+    4·n_b·n_a, entry) of the library's dtype (an f32 entry is a float4),
+    or none for the shared-list one."""
+    if which == FORWARD_KERNELS[library][0]:
+        return []
+    entry = (4,) if library == "household_sweep2" else ()
+    return [(*lead, cluster, 4 * state[0] * state[1], *entry)]
+
+
+def _launch_cluster(tensors, Tm1, model, cluster: int, which: int = 2):
     """Kernel 6 on one cluster of `cluster` blocks (1 to default_cluster(n_e)),
-    on `_forward_inputs`' CUDA tensors. `fused2_forward_jvp` passes the
-    default; the split tool and the card test also try other sizes."""
+    on `_forward_inputs`' CUDA tensors: the shared-list instantiation
+    (which = 2) or the global-list one (4). `fused2_forward_jvp` passes the
+    default cluster and `forward_kernel`'s choice; the split tool and the
+    card tests also try other sizes."""
     liquid, illiq, income, _ = _dims(model)
-    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 2,
+    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), which,
                                     liquid.n, illiq.n, income.n, cluster)
+    entry = ("hank_sweep2_forward_jvp_cluster_f32" if which == 2
+             else "hank_sweep2_forward_jvp_cluster_global_f32")
     # Scratch: each period's D and dD, which the aggregates read after the
-    # recursion.
-    return _launch_forward("hank_sweep2_forward_jvp_cluster_f32", tensors, Tm1, model,
-                           scratch=[(Tm1, 2, tensors[-1].numel())], extra=(cluster,))
+    # recursion, and the global-list instantiation's lists.
+    return _launch_forward(entry, tensors, Tm1, model,
+                           scratch=[(Tm1, 2, tensors[-1].numel()),
+                                    *lists_scratch(which, "household_sweep2", cluster,
+                                                   (liquid.n, illiq.n))],
+                           extra=(cluster,))
 
 
 def fused2_forward_jvp_previous(policies, dpolicies, D0, model):
@@ -431,31 +540,44 @@ def fused2_forward_jvp_batch(policies, dpolicies, D0, model):
                                             D0, model, f32, KEYS)
     if D0.device.type == "cpu":
         return fused2_forward_jvp_batch_reference(policies, dpolicies, D0, model)
+    grid = _state(model)[:3]
+    which = forward_kernel("household_sweep2", *grid)
+    out = _launch_forward_batch(tensors, B, Tm1, D0, model, which,
+                                batch_cluster_of("household_sweep2", which, B, grid))
+    count_forward(fused2_forward_jvp_batch, "household_sweep2", which)
+    return out
+
+
+fused2_forward_jvp_batch.launches = fused2_forward_jvp_batch.launches_global = 0
+
+
+def _launch_forward_batch(tensors, B, Tm1, D0, model, which: int, cluster: int):
+    """The batched kernel 6's instantiation `which` (2 shared lists, 4 global
+    lists) on B clusters of `cluster` blocks, on `_forward_batch_inputs`'
+    CUDA tensors: (aggs, daggs) as `fused2_forward_jvp_batch` returns them."""
     liquid, illiq, income, access = _dims(model)
     grid = (liquid.n, illiq.n, income.n)
-    cluster = batch_cluster_of("household_sweep2", 2, B, grid)
-    cuda_build.check_shared_memory2(cuda_build.load_library("household_sweep2"), 2, *grid,
-                                    cluster)
-    dev = D0.device
     lib = cuda_build.load_library("household_sweep2")
-    entry = "hank_sweep2_forward_jvp_cluster_f32_batch"
+    cuda_build.check_shared_memory2(lib, which, *grid, cluster)
+    dev = D0.device
+    entry = ("hank_sweep2_forward_jvp_cluster_f32_batch" if which == 2
+             else "hank_sweep2_forward_jvp_cluster_global_f32_batch")
     with torch.cuda.device(dev):
         # Scratch: each path's D and dD of every period, which the
-        # aggregates read after the recursion.
-        Dpath = torch.empty((B, Tm1, 2, D0.numel()), dtype=f32, device=dev)
+        # aggregates read after the recursion, and the global-list
+        # instantiation's lists.
+        scratch = [torch.empty(shape, dtype=f32, device=dev) for shape in
+                   [(B, Tm1, 2, D0.numel()),
+                    *lists_scratch(which, "household_sweep2", cluster, grid, (B,))]]
         out = torch.empty((B, 6, Tm1), dtype=f32, device=dev)
         args = [path_block(tensors), D0, *(t.to(device=dev, dtype=f32).contiguous() for t in
                              (liquid.grid, illiq.grid, income.transition, access.transition)),
-                Dpath, out]
+                *scratch, out]
         err = getattr(lib, entry)(*(t.data_ptr() for t in args), Tm1, *grid, cluster, B,
                                   torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, entry)
-    fused2_forward_jvp_batch.launches += 1
     rows = out.transpose(0, 1)
     return dict(zip(KEYS, rows[:3])), dict(zip(KEYS, rows[3:]))
-
-
-fused2_forward_jvp_batch.launches = 0
 
 
 def fused2_forward_jvp_batch_reference(policies, dpolicies, D0, model):
@@ -493,16 +615,15 @@ def supports_fused_sweep2(model) -> bool:
     return set(model.vars_of_type("heterogeneous")) == set(KEYS)
 
 
-def check_fit_kernels(model) -> None:
+def check_fit_kernels(model) -> int:
     """ValueError (naming the plain routes) where kernels 5-6 on their
-    default clusters do not take the model's grid, by the library's count
-    of a block's shared memory. A path axis adds nothing to a block."""
-    liquid, illiq, income, _ = _dims(model)
-    grid = (liquid.n, illiq.n, income.n)
-    need = max(cuda_build.sweep2_smem_bytes(3, *grid, default_bwd_cluster(income.n)),
-               cuda_build.sweep2_smem_bytes(2, *grid, default_cluster(income.n)))
-    cuda_build.check_fit(need, f"kernels 5-6 at grid {'x'.join(map(str, grid))}x2",
-                         PLAIN_ROUTES)
+    default clusters do not take the model's grid: past kernel 6's
+    global-list instantiation's 4096 asset states, or past a block's shared
+    memory by the library's count of kernel 5 and of the kernel 6
+    `forward_kernel` picks. A path axis adds nothing to a block. Returns
+    that kernel 6 (2 shared lists, 4 global lists)."""
+    return check_fit_forward("household_sweep2", _state(model)[:3], 3, "kernels 5-6",
+                             PLAIN_ROUTES)
 
 
 def _build_fused2(model, ss_initial, ss_ending, exog_paths, plain: bool = False):
@@ -529,8 +650,7 @@ def _build_fused2(model, ss_initial, ss_ending, exog_paths, plain: bool = False)
     varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
     value_T = ss_ending.value.to(f32).contiguous()
     D0 = ss_initial.D.to(f32).contiguous()
-    if not plain and value_T.is_cuda:
-        check_fit_kernels(model)
+    forward = check_fit_kernels(model) if not plain and value_T.is_cuda else None
 
     def price_map(xx):
         return tuple(q.to(f32) for q in hook(xx.reshape(Tm1, cs.n_endog), exog32, model32))
@@ -558,6 +678,7 @@ def _build_fused2(model, ss_initial, ss_ending, exog_paths, plain: bool = False)
         aggs, _ = sweep(x32, torch.zeros_like(x32))
         return tail(x32, aggs)
 
+    jvp_dir.forward_kernel = residual32.forward_kernel = forward
     return jvp_dir, residual32
 
 
@@ -583,7 +704,9 @@ def make_fused2_jvp_batch(model, ss_initial, ss_ending):
     under `torch.func.vmap`, one launch each of the batched kernels 5 and
     6, then the f32 assembly and residual tail's JVP per row under
     `torch.func.vmap`. On the card the grid is held to the kernels' shared
-    memory here (`check_fit_kernels`), before any launch.
+    memory here (`check_fit_kernels`), before any launch, and the kernel 6
+    it launches is recorded as `jvp_batch.forward_kernel` (None off the
+    card).
     """
     if not supports_fused_sweep2(model):
         raise ValueError("model does not declare the two-asset price hook "
@@ -596,8 +719,7 @@ def make_fused2_jvp_batch(model, ss_initial, ss_ending):
     varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
     value_T = ss_ending.value.to(f32).contiguous()
     D0 = ss_initial.D.to(f32).contiguous()
-    if value_T.is_cuda:
-        check_fit_kernels(model)
+    forward = check_fit_kernels(model) if value_T.is_cuda else None
 
     def price_jvp(xx, vv, ex):
         def price_map(z):
@@ -618,4 +740,5 @@ def make_fused2_jvp_batch(model, ss_initial, ss_ending):
         aggs, daggs = fused2_forward_jvp_batch(pol, dpol, D0, model32)
         return torch.func.vmap(tail_jvp)(x32, v32, aggs, daggs, ex32)
 
+    jvp_batch.forward_kernel = forward
     return jvp_batch

@@ -4,7 +4,11 @@
 The linear solution is one preconditioned Newton step from the
 steady-state path, x_lin = x_ss − J̄⁻¹·F(x_ss; Z): one full-precision
 residual and one J̄⁻¹ matvec. It is the warm start of the two-asset
-production route (the GMRES-endgame-only boehl solve).
+production route (the GMRES-endgame-only boehl solve). The residual is the
+path solver's own (`newton.residual_route`'s "auto": on the card kernel 2
+or the two-asset f64 pair, on CPU tensors the plain f64 pipeline, which the
+reference uses everywhere): at 50×70×5×2 on the card the plain f64 F costs
+1.58 s, five times the whole route through the pair (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Mapping
 import torch
 
 from hank_tpu_torch.ops.linalg import make_reusable_solver
-from hank_tpu_torch.solvers.newton import make_full_residual_fn
+from hank_tpu_torch.solvers.newton import residual_route
 
 
 def linear_impulse_response(Jbar: torch.Tensor, exog_paths: Mapping[str, torch.Tensor],
@@ -29,7 +33,7 @@ def linear_impulse_response(Jbar: torch.Tensor, exog_paths: Mapping[str, torch.T
     endog = model.vars_of_type("endogenous")
     x_ss = torch.stack([torch.as_tensor(ss_ending.vars[k], dtype=Jbar.dtype,
                                         device=Jbar.device) for k in endog]).repeat(Tm1)
-    F = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
+    F = residual_route(model, ss_initial, ss_ending, exog_paths)
     f0 = F(x_ss)
     dx = -make_reusable_solver(Jbar)(f0)
     x_lin = x_ss + dx

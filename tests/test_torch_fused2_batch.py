@@ -364,8 +364,9 @@ def test_batch_cluster_skips_sizes_past_a_block():
 
 
 @pytest.mark.parametrize("library,which,expect", [
-    ("household_sweep2", 3, 3), ("household_sweep2", 2, 7),
-    ("household_sweep2_f64", 0, 3), ("household_sweep2_f64", 1, 7)])
+    ("household_sweep2", 3, 3), ("household_sweep2", 2, 7), ("household_sweep2", 4, 7),
+    ("household_sweep2_f64", 0, 3), ("household_sweep2_f64", 1, 7),
+    ("household_sweep2_f64", 2, 7)])
 def test_batch_cluster_of_each_kernel(monkeypatch, library, which, expect):
     """Each batched kernel's units and default (the backward kernels 4 income
     states on up to 4 blocks, the forward kernels 8 groups on up to 8 at

@@ -177,6 +177,25 @@ def test_residual_route_on_cpu_tensors(case, mode, pair):
     assert torch.equal(F, plain)
 
 
+def test_linear_start_takes_the_routes_residual(case, monkeypatch):
+    """`linear_impulse_response` evaluates F(x_ss) by the route's residual:
+    on CPU tensors the plain f64 F, on the card the f64 pair (here its plain
+    versions, the count patched), never the plain F there; both warm starts
+    agree to 1e-12."""
+    before = counts()
+    x_cpu, info_cpu = linear_impulse_response(case.J, case.exog, case.tm, case.tss, case.tss,
+                                              compute_residual=False)
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 0, 0, 1]
+    count_on(monkeypatch, SMEM)
+    card = on_card(case.tss)
+    before = counts()
+    x_card, info_card = linear_impulse_response(case.J, case.exog, case.tm, card, card,
+                                                compute_residual=False)
+    assert [a - b for a, b in zip(counts(), before)] == [1, 1, 0, 0, 0]
+    assert float((x_card - x_cpu).abs().max()) <= 1e-12
+    assert abs(info_card["f0_norm"] - info_cpu["f0_norm"]) <= 1e-12
+
+
 def test_residual_mode_ds_raises_outside_both_families(case):
     other = dataclasses.replace(case.tm, value_fn=lambda v, x, m: None)
     assert not fs2.supports_fused_sweep2(other)
@@ -228,17 +247,27 @@ def test_auto_on_the_card_takes_the_pair_or_raises_at_the_build(case, monkeypatc
 
 
 def test_pair_refuses_grids_past_its_asset_states(case, monkeypatch):
-    """Past 2048 (b, a) states (the forward kernel's two sources a thread)
-    the pair's build raises before asking the count."""
+    """Past 4096 (b, a) states (the global-list forward kernel's four
+    sources a thread) the pair's build raises before asking the count;
+    at 2112 (past the shared-list kernel's 2048) it builds on the
+    global-list one."""
     het = case.tm.heterogeneity
-    big = dataclasses.replace(case.tm, heterogeneity={
-        **het, "liquid": dataclasses.replace(het["liquid"], n=64),
-        "illiquid": dataclasses.replace(het["illiquid"], n=33)})
+
+    def grid(n_b, n_a):
+        return dataclasses.replace(case.tm, heterogeneity={
+            **het, "liquid": dataclasses.replace(het["liquid"], n=n_b),
+            "illiquid": dataclasses.replace(het["illiquid"], n=n_a)})
+
     asked = count_on(monkeypatch, SMEM)
     card = on_card(case.tss)
-    with pytest.raises(ValueError, match="2112 asset states.*residual_mode='f64'"):
-        fr2.make_fused2_residual_fn_f64(big, card, card, case.exog)
+    with pytest.raises(ValueError, match="4160 asset states.*residual_mode='f64'"):
+        fr2.make_fused2_residual_fn_f64(grid(64, 65), card, card, case.exog)
     assert not asked
+    F = fr2.make_fused2_residual_fn_f64(grid(64, 33), card, card, case.exog)
+    assert F.forward_kernel == fr2.GLOBAL_LISTS
+    n_e = het["income"].n
+    assert sorted(asked) == [(0, fs2.default_bwd_cluster(n_e)),
+                             (fr2.GLOBAL_LISTS, fs2.default_cluster(n_e))]
 
 
 def test_cpu_routes_never_ask_the_count(case, monkeypatch):

@@ -592,3 +592,283 @@ def test_kernel7_on_card_past_the_destinations_kept_in_registers(cuda):
         out = forward_scan(p, D0, grid, Pi)
         old = forward_scan_previous(p, D0, grid, Pi)
         assert all(same_bits(o, q) for o, q in zip(out, old))
+
+
+# ── Kernel 6 and the f64 forward push past 2048 asset states ───────────────
+
+def two_asset_on(dev, n_b, n_a, n_e=5, T=12):
+    """The shipped two-asset model on `dev` at an n_b×n_a×n_e×2 grid (its
+    liquid and illiquid bounds, the income process at n_e states)."""
+    import dataclasses
+
+    from hank_tpu_torch.model.structures import HeterogeneityDimension as H
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=f64, device=dev)
+
+    model = load_model("hank_two_asset", T=T, device=dev)
+    Pi, _, z = rouwenhorst(n_e, 0.966, 0.283)
+    het = model.heterogeneity
+    return dataclasses.replace(model, heterogeneity={
+        "liquid": H("liquid", "endogenous", n_b, t(make_double_exponential_grid(0., 120., n_b)),
+                    None, "B"),
+        "illiquid": H("illiquid", "endogenous", n_a,
+                      t(make_double_exponential_grid(0., 300., n_a)), None, "A"),
+        "income": H("income", "exogenous", n_e, t(z), t(Pi), None),
+        "access": het["access"]})
+
+
+def two_asset_policies(model, dtype, seed, B=None, nan=False):
+    """Seeded forward-kernel inputs on the model's grids, (B,) T-1 periods:
+    policies spread past both ends of each grid, 30% of the liquid ones
+    piled on the borrowing limit and 10% of the illiquid ones on knots,
+    normal tangents, a normalized D0; with `nan` one NaN liquid policy."""
+    het = model.heterogeneity
+    rng = np.random.default_rng(seed)
+    shape = ((B,) if B else ()) + (model.compspec.T - 1, het["liquid"].n, het["illiquid"].n,
+                                   het["income"].n, 2)
+    bg, ag = het["liquid"].grid.cpu().numpy(), het["illiquid"].grid.cpu().numpy()
+    pB = rng.uniform(bg[0] - 1.0, bg[-1] * 1.05, shape)
+    pB[rng.random(shape) < 0.3] = bg[0]
+    pA = rng.uniform(ag[0] - 1.0, ag[-1] * 1.02, shape)
+    on = rng.random(shape) < 0.1
+    pA[on] = ag[rng.integers(0, len(ag), int(on.sum()))]
+    if nan:
+        pB.reshape(-1)[pB.size // 3] = np.nan
+    pol = {"B": pB, "A": pA, "C": rng.uniform(0.1, 1.1, shape)}
+    D0 = rng.random(shape[-4:])
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=het["liquid"].grid.device)
+
+    return ({k: t(v) for k, v in pol.items()},
+            {k: t(rng.normal(size=shape)) for k in pol}, t(D0 / D0.sum()))
+
+
+def outputs_same_bits(a, b) -> bool:
+    return all(same_bits(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+
+def rows_of(out, b):
+    return tuple({k: v[b] for k, v in d.items()} for d in out)
+
+
+def k6_global(pol, dpol, D0, m32, cluster=None, batch=False):
+    """Kernel 6's global-list instantiation (`which` 4) through the
+    wrappers' launchers, on `cluster` blocks (default: the wrapper's)."""
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    n_e = m32.heterogeneity["income"].n
+    if not batch:
+        tensors, Tm1 = fs2._forward_inputs("k6", pol, dpol, D0, m32)
+        return fs2._launch_cluster(tensors, Tm1, m32, cluster or fs2.default_cluster(n_e), 4)
+    tensors, B, Tm1 = fs2._forward_batch_inputs("k6", (pol, dpol), D0, m32, f32, fs2.KEYS)
+    grid = tuple(m32.state_shape())[:3]
+    return fs2._launch_forward_batch(tensors, B, Tm1, D0, m32, 4,
+                                     cluster or fs2.batch_cluster_of("household_sweep2", 4, B,
+                                                                     grid))
+
+
+def f64_push_global(pol, D0, model, cluster=None, batch=False):
+    """The f64 forward push's global-list instantiation through the
+    wrappers' launchers, on `cluster` blocks (default: the wrapper's)."""
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    n_e = model.heterogeneity["income"].n
+    if not batch:
+        tensors, Tm1 = fr2._forward_f64_inputs("f64 push", pol, D0, model)
+        return fr2._launch_forward(tensors, Tm1, model, fr2.GLOBAL_LISTS,
+                                   cluster or fs2.default_cluster(n_e))
+    tensors, B, Tm1 = fs2._forward_batch_inputs("f64 push", (pol,), D0, model, f64, fs2.KEYS)
+    grid = tuple(model.state_shape())[:3]
+    return fr2._launch_forward_batch(
+        tensors, B, Tm1, D0, model, fr2.GLOBAL_LISTS,
+        cluster or fs2.batch_cluster_of(fr2.LIBRARY, fr2.GLOBAL_LISTS, B, grid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_a", [5, 9, 17, 20])
+def test_global_list_forward_kernels_on_card_are_bit_for_bit_the_shared_list_ones(cuda, n_a):
+    """At 40×5, 40×9, 40×17 and 40×20 (×5×2, T = 12; seeded, piled, on-knot
+    and NaN policies) kernel 6 and the f64 forward push with their lists in
+    global memory (launched through the wrappers' launchers with `which`
+    the global-list one) are bit for bit the shared-list kernels the
+    routes launch there, on their default clusters and on smaller ones; at
+    B = 4 the batched global-list kernels are the batched shared-list ones
+    and each row a single global-list launch."""
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    model = two_asset_on(cuda, 40, n_a)
+    m32 = fs2.cast_model(model, f32)
+    assert fs2.forward_kernel("household_sweep2", 40, n_a, 5) == 2
+    assert fs2.forward_kernel("household_sweep2_f64", 40, n_a, 5) == fr2.SHARED_LISTS
+    for seed, nan in ((1, False), (2, True)):
+        pol, dpol, D0 = two_asset_policies(m32, f32, seed, nan=nan)
+        shared = fs2.fused2_forward_jvp(pol, dpol, D0, m32)
+        for C in (10, 5, 3):
+            assert outputs_same_bits(k6_global(pol, dpol, D0, m32, C),
+                                     shared), (seed, C)
+        assert all(bool(torch.isnan(v).any()) == nan for v in shared[0].values())
+        pol64, _, D064 = two_asset_policies(model, f64, seed, nan=nan)
+        shared64 = fr2.fused2_forward_f64(pol64, D064, model)
+        for C in (10, 5, 3):
+            assert outputs_same_bits((f64_push_global(pol64, D064, model, C),),
+                                     (shared64,)), (seed, C)
+    polb, dpolb, D0 = two_asset_policies(m32, f32, 3, B=4, nan=True)
+    rows = k6_global(polb, dpolb, D0, m32, batch=True)
+    assert outputs_same_bits(rows, fs2.fused2_forward_jvp_batch(polb, dpolb, D0, m32))
+    for b in range(4):
+        single = k6_global(*rows_of((polb, dpolb), b), D0, m32)
+        assert outputs_same_bits(rows_of(rows, b), single), b
+    pol64, _, D064 = two_asset_policies(model, f64, 3, B=4, nan=True)
+    rows64 = f64_push_global(pol64, D064, model, batch=True)
+    assert outputs_same_bits((rows64,), (fr2.fused2_forward_f64_batch(pol64, D064, model),))
+    for b in range(4):
+        single = f64_push_global({k: v[b] for k, v in pol64.items()}, D064, model)
+        assert outputs_same_bits(({k: v[b] for k, v in rows64.items()},), (single,)), b
+
+
+@pytest.mark.gpu
+def test_routes_on_card_take_the_global_list_kernels_at_50x70(cuda):
+    """At 50×70×5×2 (3500 asset states, T = 12) the wrappers launch the
+    global-list instantiations (`.launches_global`), within the plain
+    versions' bounds (kernel 6 5e-5·max(scale, 1) of its plain version in
+    f64 on the same grids, the f64 push 1e-12), the batched rows bit for
+    bit single launches."""
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    model = two_asset_on(cuda, 50, 70)
+    m32 = fs2.cast_model(model, f32)
+    pol, dpol, D0 = two_asset_policies(m32, f32, 4)
+    counts = (fs2.fused2_forward_jvp.launches, fs2.fused2_forward_jvp.launches_global)
+    out = fs2.fused2_forward_jvp(pol, dpol, D0, m32)
+    assert (fs2.fused2_forward_jvp.launches, fs2.fused2_forward_jvp.launches_global) == (
+        counts[0], counts[1] + 1)
+    # The plain version in f64 on the kernel's f32 grids (a policy drawn on a
+    # knot stays on it).
+    ref = fs2.fused2_forward_jvp_reference({k: v.double() for k, v in pol.items()},
+                                           {k: v.double() for k, v in dpol.items()},
+                                           D0.double(), m32)
+    scale = max(float(r[k].abs().max()) for r in ref for k in r)
+    err = max(float((o[k].double() - r[k]).abs().max()) for o, r in zip(out, ref) for k in r)
+    assert err <= 5e-5 * max(scale, 1.0)
+    pol64, _, D064 = two_asset_policies(model, f64, 4)
+    counts = fr2.fused2_forward_f64.launches_global
+    out64 = fr2.fused2_forward_f64(pol64, D064, model)
+    assert fr2.fused2_forward_f64.launches_global == counts + 1
+    ref64 = fr2.fused2_forward_f64_reference(pol64, D064, model)
+    assert max(float((out64[k] - ref64[k]).abs().max()) for k in ref64) <= 1e-12
+    polb, dpolb, D0 = two_asset_policies(m32, f32, 5, B=4)
+    rows = fs2.fused2_forward_jvp_batch(polb, dpolb, D0, m32)
+    for b in range(4):
+        assert outputs_same_bits(rows_of(rows, b),
+                                 fs2.fused2_forward_jvp(*rows_of((polb, dpolb), b), D0, m32))
+    pol64, _, D064 = two_asset_policies(model, f64, 5, B=4)
+    rows64 = fr2.fused2_forward_f64_batch(pol64, D064, model)
+    for b in range(4):
+        single = fr2.fused2_forward_f64({k: v[b] for k, v in pol64.items()}, D064, model)
+        assert outputs_same_bits(({k: v[b] for k, v in rows64.items()},), (single,)), b
+
+
+def two_asset_prices(model, dtype, seed):
+    """Seeded (T-1,) prices (r, ra, w, tau) and tangents near the two-asset
+    steady state, and a V_T (marginal values of a consumption rule rising in
+    both assets and income) shaped as the EGM meets it."""
+    het = model.heterogeneity
+    dev = het["liquid"].grid.device
+    rng = np.random.default_rng(seed)
+    Tm1 = model.compspec.T - 1
+    level = np.array([0.01, 0.03, 0.8, 0.3])[:, None]
+    prices = level * (1.0 + 0.05 * rng.random((4, Tm1)))
+    tangents = 1e-3 * rng.normal(size=(4, Tm1))
+    b, a, z = (het[k].grid.cpu().numpy() for k in ("liquid", "illiquid", "income"))
+    c = 0.3 + 0.04 * b[:, None, None] + 0.01 * a[None, :, None] + 0.5 * z[None, None, :]
+    c = c[..., None] * np.array([1.0, 1.05])                 # (n_b, n_a, n_e, access)
+    VT = np.stack([1.01 * c ** -2.0, 1.03 * 0.95 * c ** -2.0])
+
+    def t(x):
+        return torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+    return [t(q) for q in prices], [t(q) for q in tangents], t(VT)
+
+
+def household_prices(model, seed):
+    """The model's steady-state prices at its yaml guesses (r, ra, w, tau)
+    with 1% seeded noise over T-1 periods, small seeded tangents, and the
+    household's converged value there (the port's steady-state pipeline at
+    fixed prices: the V_T a path solve starts from)."""
+    from hank_tpu_torch.solvers.steady_state import make_ss_pipeline
+
+    spec = model.ss_initial
+    _, household, free = make_ss_pipeline(model, spec)
+    dev = model.heterogeneity["liquid"].grid.device
+    xvec, value, _, _ = household(torch.tensor([spec.guesses[k] for k in free], dtype=f64,
+                                               device=dev))
+    at = dict(zip(model.var_names(), xvec.tolist()))
+    rng = np.random.default_rng(seed)
+    Tm1 = model.compspec.T - 1
+    prices = [torch.tensor(at[k] * (1.0 + 0.01 * rng.normal(size=Tm1)), dtype=f64, device=dev)
+              for k in ("r", "ra", "w", "tau")]
+    tangents = [torch.tensor(1e-3 * rng.normal(size=Tm1), dtype=f64, device=dev)
+                for _ in range(4)]
+    return prices, tangents, value.contiguous()
+
+
+@pytest.mark.gpu
+def test_untabled_backward_kernels_on_card(cuda):
+    """Kernel 5 and the f64 backward recursion untabled (the branch they take
+    where the brackets' table has no room; `untabled=True` of their
+    launchers) are bit for bit their tabled launches at 40×20×5×2 (seeded
+    inputs), and at 50×70×5×2 (untabled by the routes: T = 12, the
+    household's value and prices at the yaml's steady-state guesses) within
+    their plain versions' bounds: kernel 5's policies 5e-5·max(scale, 1) of
+    the plain version in f64, the f64 backward 1e-10·max(scale, 1). On the
+    seeded synthetic prices and V_T at 50×70 (seed 7), where the plain
+    version in f32 is itself past 5e-5·scale (`tests/
+    test_torch_fused2_large_grid.py::test_seeded_prices_put_the_plain_f32_
+    backward_past_the_card_bound`), kernel 5 is within twice the plain f32
+    version's error of the plain version in f64."""
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    model = two_asset_on(cuda, 40, 20)
+    m32 = fs2.cast_model(model, f32)
+    prices, tangents, VT = two_asset_prices(model, f32, 6)
+    assert cuda_build.sweep2_smem_bytes(3, 40, 20, 5, 5) > cuda_build.sweep2_smem_bytes(
+        5, 40, 20, 5, 5)                                     # tabled at 40x20
+    tabled = fs2.fused2_policies_jvp(*prices, *tangents, VT, m32)
+    assert outputs_same_bits(fs2._launch_bwd_cluster(
+        (*prices, *tangents), VT, m32, fs2.default_bwd_cluster(5), untabled=True),
+                             tabled)
+    p64, _, VT64 = two_asset_prices(model, f64, 6)
+    assert outputs_same_bits((fr2._launch_policies(p64, VT64, model, untabled=True),),
+                             (fr2.fused2_policies_f64(*p64, VT64, model),))
+
+    model = two_asset_on(cuda, 50, 70)
+    m32 = fs2.cast_model(model, f32)
+    assert cuda_build.sweep2_smem_bytes(3, 50, 70, 5, 5) == cuda_build.sweep2_smem_bytes(
+        5, 50, 70, 5, 5)                                     # untabled at 50x70
+    p64, tangents, VT64 = household_prices(model, 7)
+    prices, VT = [q.to(f32) for q in p64], VT64.to(f32)
+    pol, _ = fs2.fused2_policies_jvp(*prices, *(q.to(f32) for q in tangents), VT, m32)
+    ref, _ = fs2.fused2_policies_jvp_reference(*(q.double() for q in prices), *tangents,
+                                               VT.double(), model)
+    scale = max(float(r.abs().max()) for r in ref.values())
+    assert max(float((pol[k].double() - ref[k]).abs().max()) for k in ref) <= \
+        5e-5 * max(scale, 1.0)
+    seeded, seeded_t, seeded_VT = two_asset_prices(model, f32, 7)
+    pol, _ = fs2.fused2_policies_jvp(*seeded, *seeded_t, seeded_VT, m32)
+    ref, _ = fs2.fused2_policies_jvp_reference(*(q.double() for q in (*seeded, *seeded_t)),
+                                               seeded_VT.double(), model)
+    ref32, _ = fs2.fused2_policies_jvp_reference(*seeded, *seeded_t, seeded_VT, m32)
+    plain32 = max(float((ref32[k].double() - ref[k]).abs().max()) for k in ref)
+    assert max(float((pol[k].double() - ref[k]).abs().max()) for k in ref) <= 2 * plain32
+    pol64 = fr2.fused2_policies_f64(*p64, VT64, model)
+    ref64 = fr2.fused2_policies_f64_reference(*p64, VT64, model)
+    scale = max(float(r.abs().max()) for r in ref64.values())
+    assert max(float((pol64[k] - ref64[k]).abs().max()) for k in ref64) <= \
+        1e-10 * max(scale, 1.0)
