@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises, so the script
+Phases, each printing one JSON line (with `at_s`, the seconds since the
+script started); any failure raises, so the script
 exits non-zero and never prints the final `"ok": true` line:
 
   1. device  — nvidia-smi name and power limit, torch/CUDA versions; TF32
@@ -207,7 +208,29 @@ exits non-zero and never prints the final `"ok": true` line:
                endgame-only route, else the endgame-only one cut at 2 outers,
                reported only. (The script's time limit: the plain f32
                direction is timed once, and the checks of kernels 5-6 and
-               the cut route are kept to these depths.)
+               the cut route are kept to these depths.) Then the f64
+               directions: the f64 tangent pair
+               (`fused2_policies_jvp_f64`, `fused2_forward_jvp_f64`; its
+               shared-state backward and shared-list forward push at this
+               grid) at x_ss and the solution on kernels 5-6's inputs
+               there in f64 (whose plain run kernel 5's check made) and at
+               the smooth point along a smooth seeded direction, each
+               kernel pointwise within 1e-9·max(scale, 1) of its plain
+               version in f64 (the largest gaps reported), its primal bit
+               for bit the f64 pair's,
+               repeats bit-identical, a zero tangent exactly zero; ms per
+               launch of each and of the f64 pair, the plain versions' ms,
+               and one timed plain f64 direction (`ad_direction` of the
+               plain F, the route f64 directions took on the card before),
+               the pair's jvp_dir within 1e-9·max(scale, 1) of it. Then the
+               CLI's default, `hank_tpu_torch.run.main(["--model",
+               "hank_two_asset"])` (Newton-Krylov with f64 directions; its
+               steady state and J̄ read from this phase's cache), counters
+               zeroed right before: the tangent pair and the f64 pair
+               launched and nothing else (no AD direction, plain version,
+               plain f64 F or f32 kernel 5-6); ‖F‖ < 1e-8 by the plain f64
+               pipeline, within 1e-6 of the JAX CPU root; and the same
+               default solve timed, 3 runs.
   8. driver  — `hank_tpu_torch.run` on the two other one-asset families at
                their published widths (DRIVER_CASES: one-asset HANK 50×7,
                T=300, monetary shock; large-grid KS 500×7, T=150, kinked ZLB
@@ -394,7 +417,21 @@ exits non-zero and never prints the final `"ok": true` line:
                phase 2 builds the four global-list instantiations (the f64
                ones required not to spill) and requires them, kernel 5 and
                the f64 backward to fit 50×70, 48×64 and 64×64 (×5×2) by the
-               libraries' counts.
+               libraries' counts. Then the f64 directions at 50×70: the
+               tangent pair (its backward with dW and the knots' tangents
+               in the workspace, `<false, true, true>`, and the global-list
+               push, `<false, true, true>`, required) checked and timed as
+               in phase 7 at x_ss, the solution and a smooth seeded point,
+               and a Newton-Krylov solve with f64 directions from x_ss (a
+               warm-up and a timed run; counters zeroed right before: only
+               those two instantiations and the f64 pair launched), the
+               plain f64 ‖F‖ ≤ EPS and within 1e-7 of the JAX CPU root.
+               Phase 2 builds the tangent pair's four instantiations (ptxas'
+               registers and spills; the two backward ones required not to
+               spill) and requires, by the library's counts, the
+               decisions at 40×20 (shared state, tabled; shared lists) and
+               50×70 (global state, untabled; global lists), and the build
+               to raise at 64×64.
 
 Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
@@ -407,7 +444,12 @@ their plain version's time at B = 1 (`plain_ms_at`) and their launches
 per ensemble solve. Phase 12's six rows give the ms, plain ms, error and
 bound at 50×70×5×2, T=150 (`grid`), their launches per route solve (the
 two batched global-list rows 0: no ensemble runs at 50×70 here;
-`main_path` says so; their ms at B=16 with `ms_B1`, `ms_B4`). The five cluster rows give `ms`, `plain_ms`, the
+`main_path` says so; their ms at B=16 with `ms_B1`, `ms_B4`). The f64
+tangent pair's four rows (two at 40×20, T=300, two at 50×70, T=150,
+`grid`) give the ms, plain ms, error and bound of each instantiation at
+its grid beside the f64 pair's kernel (`ms_values_kernel`), and their
+launches in the CLI default's run (40×20) and per 50×70 f64-direction
+solve. The five cluster rows give `ms`, `plain_ms`, the
 error and the bound at 1200×7 (the batched ones at B=16, with their ms by
 B and by cluster size), their launches in phase 8's three timed solves of
 their route, `ms_global` (in turns) and their ms at 200×7 (the batched
@@ -425,6 +467,7 @@ without a CUDA device the script exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -453,8 +496,13 @@ def jax_root_file(name: str, T: int) -> str:
     return os.path.join(os.path.dirname(TWO_ASSET_REFERENCE), f"{name}_T{T}_jax_cpu.npz")
 
 
+START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line of `phase`, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, "at_s": round(time.perf_counter() - START, 1), **fields}),
+          flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -491,6 +539,34 @@ def cuda_once(fn):
     stop.record()
     stop.synchronize()
     return out, start.elapsed_time(stop)
+
+
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """Within the block, each function `module.<name>` is replaced by one
+    that runs it under `cuda_once`; yields {name: device ms of its last
+    call}. A plain version counts its calls on its module-level name
+    (`<name>.calls`), which is the replacement's in the block: the calls
+    counted there are handed back."""
+    ms, originals = {}, {name: getattr(module, name) for name in names}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            out, ms[name] = cuda_once(lambda: fn(*a, **kw))
+            return out
+
+        run.calls = 0
+        return run
+
+    for name, fn in originals.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield ms
+    finally:
+        for name, fn in originals.items():
+            if hasattr(fn, "calls"):
+                fn.calls += getattr(module, name).calls
+            setattr(module, name, fn)
 
 
 def max_abs(a, b) -> float:
@@ -1124,6 +1200,47 @@ def f64_pair_grids() -> dict:
             "forward_of_kernel6_grids": {"grids": fwd[0], "taken": fwd[1]}}
 
 
+def tangent_pair_grids() -> dict:
+    """The f64 tangent pair's shared memory per block on its default
+    clusters, by the library's own count (which 4-9 of
+    `hank_sweep2_f64_smem_bytes`): at 40×20×5×2 the shared-state backward
+    (tabled) and the shared-list forward push, at 50×70×5×2 the backward
+    with its tangent state in the workspace and the global-list push,
+    required to fit and to be what the maps decide; at 64×64×5×2 the
+    decision raising (reported)."""
+    import dataclasses
+
+    from hank_tpu_torch.models import load_model
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    limit = cuda_build.MAX_SMEM_BYTES
+    at, decided = {}, {}
+    model = load_model("hank_two_asset", device="cpu")
+    het = model.heterogeneity
+    for n_b, n_a in ((40, 20), (50, 70), (64, 64)):
+        c5, c6 = fs2.default_bwd_cluster(5), fs2.default_cluster(5)
+        at[f"{n_b}x{n_a}x5x2"] = {w: cuda_build.sweep2_f64_smem_bytes(
+            w, n_b, n_a, 5, c5 if w in (4, 7, 8, 9) else c6) for w in range(4, 10)}
+        grid = dataclasses.replace(model, heterogeneity={
+            **het, "liquid": dataclasses.replace(het["liquid"], n=n_b),
+            "illiquid": dataclasses.replace(het["illiquid"], n=n_a)})
+        try:
+            decided[f"{n_b}x{n_a}x5x2"] = fs2.check_fit_jvp_f64(grid)
+        except ValueError as e:
+            decided[f"{n_b}x{n_a}x5x2"] = str(e)
+    # (backward, forward, whether the backward tables its candidates)
+    need = {"40x20x5x2": (fs2.JVP_F64_BWD, 5, True),
+            "50x70x5x2": (fs2.JVP_F64_BWD_GLOBAL, 6, False)}
+    for g, (b, f, tabled) in need.items():
+        require(decided[g] == (b, f) and at[g][b] <= limit and at[g][f] <= limit
+                and (at[g][b] != at[g][{4: 7, 8: 9}[b]]) == tabled,
+                f"the tangent pair at {g}: decided {decided[g]}, counts {at[g]}")
+    require(isinstance(decided["64x64x5x2"], str),
+            f"the tangent pair's build did not raise at 64x64x5x2: {decided}")
+    return {"smem_bytes": at, "decided": decided}
+
+
 def steady_residual(model, ss) -> float:
     """max |F| of the model's equations at the steady state `ss`."""
     import torch
@@ -1585,12 +1702,14 @@ def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict) -> dic
     return launches
 
 
-def two_asset_phase(dev, ptxas) -> tuple:
+def two_asset_phase(dev, ptxas, cache: str) -> tuple:
     """Phase 7: the two-asset production route at full width (see the
     module docstring). Emits its JSON lines and returns the `kernels`
-    entries of kernels 5 and 6 and of the f64 pair, and what phase 11
-    reuses: the model, both steady states, J̄ and x_ss. `ptxas` is phase
-    2's per-kernel report."""
+    entries of kernels 5 and 6, of the f64 pair and of the f64 tangent
+    pair, and what phase 11 reuses: the model, both steady states, J̄ and
+    x_ss. `ptxas` is phase 2's per-kernel report; the steady state and J̄
+    go to `cache` (a `HANK_TPU_TORCH_CACHE` directory), where the CLI's
+    default run reads them."""
     import numpy as np
     import torch
 
@@ -1611,10 +1730,12 @@ def two_asset_phase(dev, ptxas) -> tuple:
     Tm1, nE = cs.T - 1, cs.n_endog
     p = model.params
 
-    # Setup: the steady state (transitory shock: one) and J̄, solved afresh.
+    # Setup: the steady state (transitory shock: one) and J̄, solved afresh
+    # into the phase's cache.
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as cache:
-        ss0, ssT, Jbar = get_or_solve(model, cache_dir=cache)
+    artifacts = os.path.join(cache, "artifacts")
+    os.makedirs(artifacts, exist_ok=True)
+    ss0, ssT, Jbar = get_or_solve(model, cache_dir=artifacts)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     col = torch.stack([torch.as_tensor(ssT.vars[k]) for k in model.var_names()])
@@ -1715,11 +1836,13 @@ def two_asset_phase(dev, ptxas) -> tuple:
     def dict_err(a, b):
         return max(max_abs(a[k].double(), b[k]) for k in b)
 
-    checks, k5_err, k6_err = {}, 0.0, 0.0
+    checks, k5_err, k6_err, f64_inputs = {}, 0.0, 0.0, {}
     for name, x in (("x_ss", x_ss), ("solution", x_warm)):
         args = k5_args(x, smooth())
         pol, dpol = fs2.fused2_policies_jvp(*args, VT32, m32)
         ref, dref = fs2.fused2_policies_jvp_reference(*(a.double() for a in args), VT64, model)
+        # The same f64 inputs, and their plain run, check the f64 tangent pair.
+        f64_inputs[name] = ([a.double() for a in args], VT64, D64, (ref, dref))
         agg, dagg = fs2.fused2_forward_jvp(pol, dpol, D32, m32)
         ragg, rdagg = fs2.fused2_forward_jvp_reference(as64(pol), as64(dpol), D64, model)
         _, pdagg = fs2.fused2_forward_jvp_reference(ref, dref, D64, model)
@@ -1805,8 +1928,11 @@ def two_asset_phase(dev, ptxas) -> tuple:
     jvp_dir = fs2.make_fused2_jvp_dir(model, ss0, ssT, exog)
     plain_dir = fs2.make_fused2_jvp_dir(model, ss0, ssT, exog, plain=True)
     # One run of the plain f32 map (15-27 s each, host-bound): the script's
-    # time limit is better spent on the route's timed runs.
-    dir_plain, dir_plain_ms = cuda_once(lambda: plain_dir(x_warm, v))
+    # time limit is better spent on the route's timed runs. The one run of
+    # each plain kernel inside it is timed too (their `plain_ms`).
+    with timed_calls(fs2, ("fused2_policies_jvp_reference",
+                           "fused2_forward_jvp_reference")) as inner_ms:
+        dir_plain, dir_plain_ms = cuda_once(lambda: plain_dir(x_warm, v))
     dir_kernel = jvp_dir(x_warm, v)
     dir_err = max_abs(dir_kernel, dir_plain)
     dir_scale = float(dir_plain.abs().max())
@@ -1828,16 +1954,14 @@ def two_asset_phase(dev, ptxas) -> tuple:
         "k6_ms": statistics.median(k6_turns["k6"]),
         "k6_previous_ms": statistics.median(k6_turns["k6_previous"]),
         "jvp_dir_ms": cuda_ms(lambda: jvp_dir(x_warm, v), 10),
-        "k5_plain_f32_ms": cuda_once(lambda: fs2.fused2_policies_jvp_reference(
-            *args, VT32, m32))[1],
-        "k6_plain_f32_ms": cuda_once(lambda: fs2.fused2_forward_jvp_reference(
-            pol, dpol, D32, m32))[1],
+        "k5_plain_f32_ms": inner_ms["fused2_policies_jvp_reference"],
+        "k6_plain_f32_ms": inner_ms["fused2_forward_jvp_reference"],
         "jvp_dir_plain_f32_ms": dir_plain_ms,
     }
     F_plain = make_full_residual_fn(model, ss0, ssT, exog)
-    timing["F_f64_ms"] = cuda_once(lambda: F_plain(x_warm))[1]
     pair = f64_pair_checks(model, ss0, ssT, exog, F_plain,
                            {"x_ss": x_ss, "solution": x_warm, "smooth": smooth_x}, ptxas)
+    timing["F_f64_ms"] = pair["k5_f64"]["F_plain_ms"]
     lists = global_lists_at_published(model, ss0, ssT, exog, k5_inputs, k6_inputs,
                                       {"x_ss": x_ss, "solution": x_warm, "smooth": smooth_x})
     k6_ptxas = [k for k in ptxas if "two_asset_fwd" in k["kernel"]]
@@ -1918,6 +2042,18 @@ def two_asset_phase(dev, ptxas) -> tuple:
          outer_iterations=info_o["iterations"], matvecs_and_sweeps=info_o["inner_iterations"],
          residual_norm_plain_f64=fnorm_o, max_abs_vs_route=max_abs(x_o, x_warm))
 
+    # f64 directions: the tangent pair at the route's three points (at x_ss
+    # and the solution on the f32 checks' inputs in f64), then the CLI's
+    # default (Newton-Krylov with f64 directions) through it.
+    v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+    tangent = tangent_pair_checks(model, ss0, ssT, exog, f64_inputs, smooth_x, v, 10)
+    emit("two_asset_f64_directions", **{k: v for k, v in tangent.items()
+                                        if not k.endswith("_bytes")},
+         ptxas=[k for k in ptxas if re.search(r"(bwd_f64_cluster_kernelILb0ELb1E|"
+                                              r"fwd_f64_cluster_kernelILb0ELb[01]ELb1E)",
+                                              k["kernel"])])
+    default_counts = two_asset_f64_default(model, ss0, ssT, Jbar, exog, x_jax, cache)
+
     source = "hank_tpu_torch/csrc/household_sweep2.cu"
     n_b, n_a, n_e = model.state_shape()[:3]
     pol_bytes = nbytes(*pol.values(), *dpol.values())
@@ -1930,6 +2066,7 @@ def two_asset_phase(dev, ptxas) -> tuple:
     setup = {"model": model, "ss0": ss0, "ssT": ssT, "Jbar": Jbar, "x_ss": x_ss}
     return [*({**entry, "launches": launches[key], "replaces": replaces_f64}
               for key, entry in pair.items()),
+        *tangent_pair_entries(tangent, model, default_counts, "40x20x5x2, T=300"),
         {"name": "fused2_policies_jvp", "route": "cuda", "source": source,
          "replaces": "hank_tpu/ops/fused_sweep2.py:673", "launches": launches["k5"],
          "max_abs_err": k5_err, "ms": timing["k5_ms"], "plain_ms": timing["k5_plain_f32_ms"],
@@ -1953,8 +2090,9 @@ def f64_pair_checks(model, ss0, ssT, exog, F_plain, points: dict, ptxas) -> dict
     aggregates against `forward_iteration` on the same policies within
     1e-11; two launches of each bit-identical; a NaN in V_T gives NaN. Then
     ms per F of the pair (CUDA events) and of the plain F (one run), each
-    kernel alone and its plain version, ptxas' registers and spills. Emits
-    one JSON line; returns the `kernels` entries by launch-count key."""
+    kernel alone and its plain version (its run at the solution), ptxas'
+    registers and spills. Emits one JSON line; returns the `kernels`
+    entries by launch-count key."""
     import torch
 
     from hank_tpu_torch.models.hank_two_asset import fused2_prices
@@ -1965,22 +2103,25 @@ def f64_pair_checks(model, ss0, ssT, exog, F_plain, points: dict, ptxas) -> dict
     Tm1, nE = cs.T - 1, cs.n_endog
     VT, D0 = ssT.value.to(f64).contiguous(), ss0.D.to(f64).contiguous()
     F_pair = fr2.make_fused2_residual_fn_f64(model, ss0, ssT, exog)
-    checks, k5_err, k6_err = {}, 0.0, 0.0
+    checks, k5_err, k6_err, plain_ms = {}, 0.0, 0.0, {}
     for name, x in points.items():
-        F_err = max_abs(F_pair(x), F_plain(x))
+        F_ref, F_ms = cuda_once(lambda: F_plain(x))
+        F_err = max_abs(F_pair(x), F_ref)
         require(F_err <= 1e-11, f"the f64 pair's F at {name} is {F_err:.3e} off the plain F")
         prices = [q.contiguous() for q in fused2_prices(x.reshape(Tm1, nE), exog, model)]
         pol = fr2.fused2_policies_f64(*prices, VT, model)
-        ref = fr2.fused2_policies_f64_reference(*prices, VT, model)
+        ref, k5_ms = cuda_once(lambda: fr2.fused2_policies_f64_reference(*prices, VT, model))
         gaps = {k: (pol[k] - ref[k]).abs() for k in ref}
         e5 = max(float(g.max()) for g in gaps.values())
         scale = max(float(t.abs().max()) for t in ref.values())
         require(e5 <= 1e-10 * max(scale, 1.0),
                 f"the f64 backward kernel at {name} is {e5:.3e} off its plain version")
         aggs = fr2.fused2_forward_f64(pol, D0, model)
-        e6 = max_abs(torch.stack(list(aggs.values())),
-                     torch.stack(list(fr2.fused2_forward_f64_reference(pol, D0, model).values())))
+        raggs, k6_ms = cuda_once(lambda: fr2.fused2_forward_f64_reference(pol, D0, model))
+        e6 = max_abs(torch.stack(list(aggs.values())), torch.stack(list(raggs.values())))
         require(e6 <= 1e-11, f"the f64 forward kernel at {name} is {e6:.3e} off its plain version")
+        if name == "solution":
+            plain_ms = {"F_plain_ms": F_ms, "k5_f64_plain_ms": k5_ms, "k6_f64_plain_ms": k6_ms}
         checks[name] = {"F": F_err, "policies": {k: float(g.max()) for k, g in gaps.items()},
                         "policies_first_backward_period": {k: float(g[-1].max())
                                                            for k, g in gaps.items()},
@@ -2005,13 +2146,9 @@ def f64_pair_checks(model, ss0, ssT, exog, F_plain, points: dict, ptxas) -> dict
     pol = fr2.fused2_policies_f64(*prices, VT, model)
     timing = {
         "F_pair_ms": cuda_ms(lambda: F_pair(x), 10),
-        "F_plain_ms": cuda_once(lambda: F_plain(x))[1],
         "k5_f64_ms": cuda_ms(lambda: fr2.fused2_policies_f64(*prices, VT, model), 10),
         "k6_f64_ms": cuda_ms(lambda: fr2.fused2_forward_f64(pol, D0, model), 10),
-        "k5_f64_plain_ms": cuda_once(lambda: fr2.fused2_policies_f64_reference(
-            *prices, VT, model))[1],
-        "k6_f64_plain_ms": cuda_once(lambda: fr2.fused2_forward_f64_reference(
-            pol, D0, model))[1],
+        **plain_ms,
     }
     emit("two_asset_f64_pair", checks=checks, bit_identical=True, nan_gives_nan=True,
          ptxas=[k for k in ptxas if "f64_cluster" in k["kernel"]], **timing)
@@ -2059,6 +2196,260 @@ def guarded_route(Jbar, exog, model, ss0, ssT, x_ss):
     return x, float(info["residual_norm"]), "ss_two_phase_fallback"
 
 
+def tangent_pair_checks(model, ss0, ssT, exog, reused: dict, x, v, reps: int) -> dict:
+    """The f64 tangent pair (`fused_sweep2.fused2_policies_jvp_f64`,
+    `fused2_forward_jvp_f64`) on a two-asset route's inputs: at each point
+    of `reused` ({label: (the eight f64 price and tangent paths, V_T, D0,
+    the plain backward's (policies, dpolicies) on them)}: the f32 kernels'
+    checks' inputs in f64, whose plain run the caller made) and at x along
+    v (smooth seeded; the plain backward run here), each kernel pointwise
+    within 1e-9·max(scale, 1) of its plain version in f64
+    (`fused2_*_jvp_reference`, primal and tangents; the largest gaps
+    reported), its primal bit for bit the values pair's
+    (`fused_residual2.fused2_policies_f64`, `fused2_forward_f64`); two
+    launches bit-identical and a zero tangent exactly zero at x. Then, at
+    x, ms per launch of each kernel and of the values pair (`reps`
+    event-timed calls), each plain version's ms (one run), the map's
+    jvp_dir ms and one timed plain f64 direction (`ad_direction` of the
+    plain F: what f64 directions ran on the card before the pair), the map
+    within 1e-9·max(scale, 1) of it. Returns the measurements."""
+    import torch
+
+    from hank_tpu_torch.models.hank_two_asset import fused2_prices
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.solvers.newton import ad_direction, make_full_residual_fn
+
+    f64 = torch.float64
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    VT, D0 = ssT.value.to(f64).contiguous(), ss0.D.to(f64).contiguous()
+
+    def gaps(a, b):
+        return {k: max_abs(a[k], b[k]) for k in b}
+
+    def within(err: dict, ref: dict, bound: float) -> bool:
+        return all(err[k] <= bound * max(float(ref[k].abs().max()), 1.0) for k in ref)
+
+    checks, errs, plain_ms = {}, {"bwd": 0.0, "fwd": 0.0}, {}
+
+    def check(name, paths, VT_, D0_, plain):
+        pol, dpol = fs2.fused2_policies_jvp_f64(*paths, VT_, model)
+        if plain is None:
+            plain, plain_ms["bwd"] = cuda_once(lambda: fs2.fused2_policies_jvp_reference(
+                *paths, VT_, model))
+        ref, dref = plain
+        values = fr2.fused2_policies_f64(*paths[:4], VT_, model)
+        aggs, daggs = fs2.fused2_forward_jvp_f64(pol, dpol, D0_, model)
+        (ragg, rdagg), plain_ms["fwd"] = cuda_once(lambda: fs2.fused2_forward_jvp_reference(
+            pol, dpol, D0_, model))
+        vaggs = fr2.fused2_forward_f64(pol, D0_, model)
+        e = {"policies": gaps(pol, ref), "dpolicies": gaps(dpol, dref),
+             "aggregates": gaps(aggs, ragg), "daggregates": gaps(daggs, rdagg)}
+        bits = {"policies": all(same_bits(pol[k], values[k]) for k in fs2.KEYS),
+                "aggregates": all(same_bits(aggs[k], vaggs[k]) for k in fs2.KEYS)}
+        require(bits["policies"] and bits["aggregates"],
+                f"the tangent pair's primal at {name} is not the values pair's bits: {bits}")
+        for what, ref_ in (("policies", ref), ("dpolicies", dref), ("aggregates", ragg),
+                           ("daggregates", rdagg)):
+            require(within(e[what], ref_, 1e-9),
+                    f"the tangent pair's {what} at {name} off the plain f64 version: {e[what]}")
+        checks[name] = {**e, "dpolicies_scale": max(float(t.abs().max()) for t in dref.values()),
+                        "daggregates_scale": max(float(t.abs().max()) for t in rdagg.values()),
+                        "dpolicy_states_past_1e-12": {k: int(((dpol[k] - dref[k]).abs()
+                                                              > 1e-12).sum()) for k in dref},
+                        "primal_bits": bits}
+        errs["bwd"] = max(errs["bwd"], *e["policies"].values(), *e["dpolicies"].values())
+        errs["fwd"] = max(errs["fwd"], *e["aggregates"].values(), *e["daggregates"].values())
+        return pol, dpol, aggs, daggs
+
+    for name, (paths, VT_, D0_, plain) in reused.items():
+        check(name, paths, VT_, D0_, plain)
+    paths = [q.contiguous() for q in (*fused2_prices(x.reshape(Tm1, nE), exog, model),
+                                      *fused2_prices(v.reshape(Tm1, nE), exog, model))]
+    pol, dpol, aggs, daggs = check("smooth", paths, VT, D0, None)
+    # Repeats and a zero tangent.
+    pol2, dpol2 = fs2.fused2_policies_jvp_f64(*paths, VT, model)
+    aggs2, daggs2 = fs2.fused2_forward_jvp_f64(pol2, dpol2, D0, model)
+    require(all(same_bits(a[k], b[k]) for a, b in ((pol, pol2), (dpol, dpol2), (aggs, aggs2),
+                                                   (daggs, daggs2)) for k in fs2.KEYS),
+            "the tangent pair: repeated launches differ")
+    zero = [torch.zeros_like(q) for q in paths[4:]]
+    _, dz = fs2.fused2_policies_jvp_f64(*paths[:4], *zero, VT, model)
+    _, dza = fs2.fused2_forward_jvp_f64(pol, dz, D0, model)
+    require(all(bool((t == 0).all()) for t in (*dz.values(), *dza.values())),
+            "the tangent pair: a zero tangent did not give exactly zero")
+    # Timings at x.
+    jvp_dir = fs2.make_fused2_jvp_dir_f64(model, ss0, ssT, exog)
+    ad = ad_direction(make_full_residual_fn(model, ss0, ssT, exog))
+    dir_ad, dir_ad_ms = cuda_once(lambda: ad(x, v))
+    dir_err = max_abs(jvp_dir(x, v), dir_ad)
+    dir_scale = float(dir_ad.abs().max())
+    require(dir_err <= 1e-9 * max(dir_scale, 1.0),
+            f"the tangent pair's jvp_dir is {dir_err:.3e} off AD of the plain F")
+    timing = {
+        "bwd_ms": cuda_ms(lambda: fs2.fused2_policies_jvp_f64(*paths, VT, model), reps),
+        "fwd_ms": cuda_ms(lambda: fs2.fused2_forward_jvp_f64(pol, dpol, D0, model), reps),
+        "bwd_values_ms": cuda_ms(lambda: fr2.fused2_policies_f64(*paths[:4], VT, model), reps),
+        "fwd_values_ms": cuda_ms(lambda: fr2.fused2_forward_f64(pol, D0, model), reps),
+        "jvp_dir_ms": cuda_ms(lambda: jvp_dir(x, v), reps),
+        "plain_direction_ms": dir_ad_ms, "bwd_plain_ms": plain_ms["bwd"],
+        "fwd_plain_ms": plain_ms["fwd"]}
+    return {"checks": checks, "jvp_dir_vs_ad": dir_err, "jvp_dir_scale": dir_scale,
+            "kernels": {"backward": jvp_dir.backward_kernel, "forward": jvp_dir.forward_kernel},
+            "err_bwd": errs["bwd"], "err_fwd": errs["fwd"], "timing": timing,
+            "bwd_bytes": nbytes(*paths, VT, *pol.values(), *dpol.values()),
+            "fwd_bytes": nbytes(*pol.values(), *dpol.values(), D0, *aggs.values(),
+                                *daggs.values())}
+
+
+def tangent_pair_entries(pair: dict, model, launches: dict, label: str) -> list:
+    """The `kernels` entries of the tangent pair's two instantiations that
+    `tangent_pair_checks` measured (`pair`), with `launches` {"bwd", "fwd"}
+    from a main-path run."""
+    Tm1 = model.compspec.T - 1
+    n_b, n_a, n_e = model.state_shape()[:3]
+    source = "hank_tpu_torch/csrc/household_sweep2_f64.cu"
+    t = pair["timing"]
+    back = ("<false, true, false> (tangent state in shared memory)"
+            if pair["kernels"]["backward"] == 4 else
+            "<false, true, true> (dW and the knots' tangents in a global workspace)")
+    fwd = ("<false, false, true> (shared lists)" if pair["kernels"]["forward"] == 5
+           else "<false, true, true> (global lists)")
+    common = {"route": "cuda", "source": source, "library_ms": None, "grid": label}
+    return [
+        {**common, "name": f"fused2_policies_jvp_f64 {back}",
+         "replaces": "hank_tpu/ops/fused_sweep2.py:673 (its f32 dual sweep, here in FP64)",
+         "launches": launches["bwd"], "max_abs_err": pair["err_bwd"], "ms": t["bwd_ms"],
+         "plain_ms": t["bwd_plain_ms"], "ms_values_kernel": t["bwd_values_ms"],
+         **least_time(pair["bwd_bytes"], two_asset_ops(Tm1, n_b, n_a, n_e, 0), "f64")},
+        {**common, "name": f"fused2_forward_jvp_f64 {fwd}",
+         "replaces": "hank_tpu/ops/fused_sweep2.py:984 (its f32 dual push, here in FP64)",
+         "launches": launches["fwd"], "max_abs_err": pair["err_fwd"], "ms": t["fwd_ms"],
+         "plain_ms": t["fwd_plain_ms"], "ms_values_kernel": t["fwd_values_ms"],
+         **least_time(pair["fwd_bytes"], two_asset_ops(Tm1, n_b, n_a, n_e, 1), "f64")},
+    ]
+
+
+def tangent_pair_counts() -> dict:
+    """The tangent pair's counters, by key: launches of each instantiation,
+    the plain versions' calls, AD directions, and the f32 kernels 5-6's
+    launches."""
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.solvers.newton import ad_direction
+
+    return {"bwd": fs2.fused2_policies_jvp_f64.launches,
+            "bwd_global": fs2.fused2_policies_jvp_f64.launches_global,
+            "fwd": fs2.fused2_forward_jvp_f64.launches,
+            "fwd_global": fs2.fused2_forward_jvp_f64.launches_global,
+            "values_bwd": fr2.fused2_policies_f64.launches,
+            "values_fwd": fr2.fused2_forward_f64.launches + fr2.fused2_forward_f64.launches_global,
+            "plain": (fs2.fused2_policies_jvp_reference.calls
+                      + fs2.fused2_forward_jvp_reference.calls
+                      + fr2.fused2_policies_f64_reference.calls
+                      + fr2.fused2_forward_f64_reference.calls),
+            "ad_directions": ad_direction.calls,
+            "k5_k6_f32": (fs2.fused2_policies_jvp.launches + fs2.fused2_forward_jvp.launches
+                          + fs2.fused2_forward_jvp.launches_global)}
+
+
+def zero_tangent_pair_counts() -> None:
+    """`tangent_pair_counts`' counters (every two-asset wrapper's) to 0."""
+    from hank_tpu_torch.solvers.newton import ad_direction
+
+    zero_two_asset_counts()
+    ad_direction.calls = 0
+
+
+def require_tangent_route(counts: dict, plain_F: int, launched: set, path: str) -> None:
+    """On `path` the tangent pair's instantiations `launched` (keys of
+    `tangent_pair_counts`) and the values pair ran, and nothing else: no
+    other instantiation, plain version, AD direction, plain f64 F or f32
+    kernel 5-6."""
+    ran = {k for k, n in counts.items() if n}
+    require(ran == launched | {"values_bwd", "values_fwd"} and plain_F == 0,
+            f"{path}: the counters that moved are {sorted(ran)} (plain F {plain_F}), not "
+            f"{sorted(launched)} and the values pair: {counts}")
+
+
+def two_asset_f64_default(model, ss0, ssT, Jbar, exog, x_jax, cache: str) -> dict:
+    """Phase 7's CLI default: `hank_tpu_torch.run.main(["--model",
+    "hank_two_asset"])` in-process (Newton-Krylov, f64 directions, its
+    steady state and J̄ read from phase 7's cache, `cache`), its path read
+    back from the CSV it writes; counters zeroed right before: the tangent
+    pair's shared-memory instantiations and the values pair launched, and
+    nothing else (no AD direction, plain version, plain f64 F or f32 kernel
+    5-6). ‖F‖ < 1e-8 by the plain f64 pipeline and within 1e-6 of the JAX
+    CPU root. Then the same default solve (`make_path_solver`'s defaults
+    with Newton-Krylov) timed, 3 runs. Emits one JSON line; returns the
+    CLI run's counts."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from hank_tpu_torch import run
+    from hank_tpu_torch.solvers import newton as newton_mod
+
+    plain_F = [0]
+    plain = newton_mod.make_full_residual_fn
+
+    def counted_residual(*a):
+        F = plain(*a)
+
+        def counted(x):
+            plain_F[0] += 1
+            return F(x)
+
+        return counted
+
+    previous = os.environ.get("HANK_TPU_TORCH_CACHE")
+    out = os.path.join(cache, "hank_two_asset_default.csv")
+    os.environ["HANK_TPU_TORCH_CACHE"] = cache
+    newton_mod.make_full_residual_fn = counted_residual
+    zero_tangent_pair_counts()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = run.main(["--model", "hank_two_asset", "--out", out])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts, plain_calls = tangent_pair_counts(), plain_F[0]
+    finally:
+        newton_mod.make_full_residual_fn = plain
+        if previous is None:
+            os.environ.pop("HANK_TPU_TORCH_CACHE", None)
+        else:
+            os.environ["HANK_TPU_TORCH_CACHE"] = previous
+    require_tangent_route(counts, plain_calls, {"bwd", "fwd"}, "the two-asset CLI default")
+    path = np.loadtxt(out, delimiter=",", skiprows=1)[:, 1:]
+    x = torch.as_tensor(path.reshape(-1), dtype=torch.float64, device=x_jax.device)
+    fnorm = float(torch.linalg.norm(plain(model, ss0, ssT, exog)(x)))
+    vs_jax = max_abs(x, x_jax)
+    require(summary["residual_norm"] < 1e-8 and fnorm < 1e-8 and vs_jax <= 1e-6,
+            f"the two-asset CLI default: ‖F‖ {summary['residual_norm']:.3e}, plain f64 "
+            f"{fnorm:.3e}, {vs_jax:.3e} off the JAX CPU root")
+    endog = model.vars_of_type("endogenous")
+    x_ss = torch.stack([torch.as_tensor(ssT.vars[k]) for k in endog]).repeat(model.compspec.T - 1)
+    solve = newton_mod.make_path_solver(Jbar, exog, model, ss0, ssT, method="newton_krylov",
+                                        eps=1e-8)
+    runs, xs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        xs.append(solve(x_ss)[0])
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    require(all(torch.equal(xs[0], xi) for xi in xs) and max_abs(xs[0], x) <= 1e-12,
+            "the timed default solves differ from each other or from the CLI's")
+    emit("two_asset_f64_default", cli_s=cli_s, cli_summary=summary,
+         outer_iterations=summary["iterations"], directions=counts["bwd"],
+         F_calls=counts["values_bwd"], residual_norm_plain_f64=fnorm, max_abs_vs_jax=vs_jax,
+         launches=counts, solve_median_s=statistics.median(runs), solve_runs_s=runs)
+    return counts
+
+
 def two_asset_batch_wrappers() -> dict:
     """The four batched two-asset wrappers {key: (wrapper, its plain
     version)}: kernels 5 and 6 and the f64 pair over B paths."""
@@ -2083,6 +2474,8 @@ def two_asset_single_wrappers() -> dict:
             "k6": (fs2.fused2_forward_jvp, fs2.fused2_forward_jvp_reference),
             "k5_f64": (fr2.fused2_policies_f64, fr2.fused2_policies_f64_reference),
             "k6_f64": (fr2.fused2_forward_f64, fr2.fused2_forward_f64_reference),
+            "k5_jvp_f64": (fs2.fused2_policies_jvp_f64, fs2.fused2_policies_jvp_reference),
+            "k6_jvp_f64": (fs2.fused2_forward_jvp_f64, fs2.fused2_forward_jvp_reference),
             "k5_previous": (fs2.fused2_policies_jvp_previous, None),
             "k6_previous": (fs2.fused2_forward_jvp_previous, None)}
 
@@ -2091,6 +2484,8 @@ def zero_two_asset_counts() -> None:
     for group in (two_asset_batch_wrappers(), two_asset_single_wrappers()):
         for fn, plain in group.values():
             fn.launches = 0
+            if hasattr(fn, "launches_global"):
+                fn.launches_global = 0
             if plain is not None:
                 plain.calls = 0
 
@@ -2758,12 +3153,14 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
     F_plain = make_full_residual_fn(model, ss0, ssT, exog)
     F_pair = fr2.make_fused2_residual_fn_f64(model, ss0, ssT, exog)
     checks, errs, plain_ms = {}, {"k5": 0.0, "k6": 0.0, "k5_f64": 0.0, "k6_f64": 0.0}, {}
+    f64_inputs = {}             # for the f64 tangent pair: the same inputs in f64, their plain run
     for name, x in (("x_ss", x_ss), ("solution", x_warm)):
         v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
         args = k5_args(x, v)
         pol, dpol = fs2.fused2_policies_jvp(*args, VT32, m32)
         (ref, dref), plain_ms["k5"] = cuda_once(lambda: fs2.fused2_policies_jvp_reference(
             *(a.double() for a in args), VT32d, model))
+        f64_inputs[name] = ([a.double() for a in args], VT32d, D32d, (ref, dref))
         agg, dagg = fs2.fused2_forward_jvp(pol, dpol, D32, m32)
         (ragg, rdagg), plain_ms["k6"] = cuda_once(lambda: fs2.fused2_forward_jvp_reference(
             as64(pol), as64(dpol), D32d, model))
@@ -2783,7 +3180,8 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
         raggs64, plain_ms["k6_f64"] = cuda_once(lambda: fr2.fused2_forward_f64_reference(
             pol64, D64, model))
         e5f, e6f = dict_err(pol64, ref64), dict_err(aggs64, raggs64)
-        F_err = max_abs(F_pair(x), F_plain(x))
+        F_ref, plain_ms["F"] = cuda_once(lambda: F_plain(x))
+        F_err = max_abs(F_pair(x), F_ref)
         require(e5f <= 1e-10 * scale_of(ref64) and e6f <= 1e-11 and F_err <= 1e-11,
                 f"the 50x70 f64 pair at {name}: {e5f:.3e}, {e6f:.3e}, F {F_err:.3e}")
         checks[name] = {"k5_policies": e5p, "k5_tangents_aggregated": e5t, "k6": e6,
@@ -2822,7 +3220,7 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
               "k5_f64_ms": cuda_ms(lambda: fr2.fused2_policies_f64(*prices, VT64, model), 3),
               "k6_f64_ms": cuda_ms(lambda: fr2.fused2_forward_f64(pol64, D64, model), 3),
               "F_pair_ms": cuda_ms(lambda: F_pair(x_warm), 3),
-              "F_plain_ms": cuda_once(lambda: F_plain(x_warm))[1]}
+              "F_plain_ms": plain_ms.pop("F")}
     emit("two_asset_large_kernels", checks=checks, batched=batched, plain_ms=plain_ms,
          cluster={"k5": fs2.default_bwd_cluster(n_e), "k6": fs2.default_cluster(n_e)},
          ptxas=[k for k in ptxas if "fwd_cluster_kernelI" in k["kernel"]
@@ -2876,6 +3274,45 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
          max_abs_vs_jax=vs_jax, launches=launches, launches_per_solve=per_solve,
          other_counts=others, stalled_rows=[], bit_identical=True)
 
+    # f64 directions at 50x70: the tangent pair (its global-state backward
+    # and global-list forward push) at x_ss, the solution and a smooth
+    # seeded point; then a Newton-Krylov solve with f64 directions (a
+    # warm-up and a timed run; counts zeroed right before them).
+    smooth_x = x_ss + (1e-3 * torch.randn(nE, generator=gen, dtype=f64)
+                       * decay).reshape(-1).to(dev)
+    v = (torch.randn(nE, generator=gen, dtype=f64) * decay).reshape(-1).to(dev)
+    pair = tangent_pair_checks(model, ss0, ssT, exog, f64_inputs, smooth_x, v, 3)
+    require(pair["kernels"] == {"backward": fs2.JVP_F64_BWD_GLOBAL, "forward": 6},
+            f"at 50x70 the tangent pair did not take its global instantiations: {pair}")
+    emit("two_asset_large_f64_directions", **{k: v for k, v in pair.items()
+                                              if not k.endswith("_bytes")})
+    zero_tangent_pair_counts()
+    plain_F_calls[0] = 0
+    newton_mod.make_full_residual_fn = counted_residual
+    try:
+        nk = make_path_solver(Jbar, exog, model, ss0, ssT, method="newton_krylov", eps=EPS)
+        nk_runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            x_nk, info_nk = nk(x_ss)
+            torch.cuda.synchronize()
+            nk_runs.append(time.perf_counter() - t0)
+    finally:
+        newton_mod.make_full_residual_fn = plain_residual
+    nk_counts = tangent_pair_counts()
+    require_tangent_route(nk_counts, plain_F_calls[0], {"bwd_global", "fwd_global"},
+                          "the 50x70 f64-direction solve")
+    fnorm_nk = float(torch.linalg.norm(F_plain(x_nk)))
+    nk_vs_jax = max_abs(x_nk, x_jax)
+    require(fnorm_nk <= EPS and nk_vs_jax <= 1e-7,
+            f"the 50x70 f64-direction solve: plain f64 ‖F‖ {fnorm_nk:.3e}, "
+            f"{nk_vs_jax:.3e} off the JAX CPU root")
+    emit("two_asset_large_f64_solve", method="newton_krylov", seconds=nk_runs[-1],
+         runs_s=nk_runs, outer_iterations=info_nk["iterations"],
+         directions_per_solve=nk_counts["bwd_global"] // 2,
+         F_calls_per_solve=nk_counts["values_bwd"] // 2, residual_norm=info_nk["residual_norm"],
+         residual_norm_plain_f64=fnorm_nk, max_abs_vs_jax=nk_vs_jax, launches=nk_counts)
+
     # The `kernels` entries at 50x70: launches per route solve, bounds from
     # the timed calls' inputs.
     s2, s64 = "hank_tpu_torch/csrc/household_sweep2.cu", "hank_tpu_torch/csrc/household_sweep2_f64.cu"
@@ -2924,6 +3361,9 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
                                  16 * two_asset_ops(Tm1, *grid, 1, tangent=tangent), kind),
                     "cluster": batched[key][16]["cluster"],
                     **{f"ms_B{B}": batched[key][B]["ms"] for B in (1, 4, 16)}})
+    out += tangent_pair_entries(pair, model, {"bwd": nk_counts["bwd_global"] // 2,
+                                                 "fwd": nk_counts["fwd_global"] // 2},
+                                "50x70x5x2, T=150")
     return out
 
 
@@ -4029,13 +4469,25 @@ def main() -> int:
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
-    f64_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]]
+    # The f64 library's values pair (six kernels) and tangent pair (four):
+    # the backward kernel's second template flag and the forward's third
+    # are TANGENT.
+    tangent_re = r"(bwd_f64_cluster_kernelILb[01]ELb1E|fwd_f64_cluster_kernelILb[01]ELb[01]ELb1E)"
+    f64_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]
+                   and not re.search(tangent_re, k["kernel"])]
     require(len(f64_kernels) == 6 and not any(k.get("spill_stores") or k.get("spill_loads")
                                               for k in f64_kernels),
             f"the f64 residual pair spills (or was not built): {f64_kernels}")
+    tangent_kernels = [k for k in ptxas if re.search(tangent_re, k["kernel"])]
+    tangent_bwd = [k for k in tangent_kernels if "bwd_" in k["kernel"]]
+    require(len(tangent_kernels) == 4 and len(tangent_bwd) == 2
+            and not any(k.get("spill_stores") or k.get("spill_loads") for k in tangent_bwd),
+            f"the f64 tangent pair's four instantiations were not built, or a backward one "
+            f"spills: {tangent_kernels}")
     batched = [k for k in ptxas if "cluster_kernelILb1E" in k["kernel"]]
     require(len(batched) == 6, f"the six batched two-asset kernels were not built: {batched}")
-    global_lists = [k for k in ptxas if re.search(r"fwd_(f64_)?cluster_kernelILb[01]ELb1E",
+    global_lists = [k for k in ptxas if re.search(r"fwd_cluster_kernelILb[01]ELb1E|"
+                                                  r"fwd_f64_cluster_kernelILb[01]ELb1ELb0E",
                                                   k["kernel"])]
     require(len(global_lists) == 4,
             f"the four global-list forward kernels were not built: {global_lists}")
@@ -4051,7 +4503,8 @@ def main() -> int:
             f"{cluster_ptxas}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
          ptxas_two_asset_batched=batched, ptxas_ranged=ranged, ptxas_global_state=global_state,
-         ptxas_cluster=cluster_ptxas, ptxas_of_this_pr=global_lists,
+         ptxas_cluster=cluster_ptxas, ptxas_global_lists=global_lists,
+         ptxas_of_this_pr=tangent_kernels, tangent_pair_fit=tangent_pair_grids(),
          f64_pair_fit=f64_pair_grids(), global_list_fit=global_list_grids(),
          one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
          sass_vs_previous_build=sass_vs_reference(built.paths),
@@ -4316,7 +4769,8 @@ def main() -> int:
     ensemble_kernels, ensemble = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
 
     # ── 7. two-asset ───────────────────────────────────────────────────────
-    two_asset_kernels, two = two_asset_phase(dev, ptxas)
+    with tempfile.TemporaryDirectory() as cache:
+        two_asset_kernels, two = two_asset_phase(dev, ptxas, cache)
 
     # ── 11. two-asset ensemble (on phase 7's setup) ────────────────────────
     two_asset_kernels += two_asset_ensemble_phase(two, ptxas)

@@ -1,6 +1,7 @@
 // Two-asset household sweep (Calvo-access portfolio model,
-// hank_tpu_torch/models/hank_two_asset.py) in native FP64, values only: the
-// full-precision residual F(x) of the two-asset path solver.
+// hank_tpu_torch/models/hank_two_asset.py) in native FP64: the values pair,
+// the full-precision residual F(x) of the two-asset path solver, and the
+// tangent pair, its f64 directions.
 //
 //   two_asset_bwd_f64_cluster_kernel  the backward Bellman recursion of
 //       ValueFunction over T-1 periods, writing the B/A/C policies of both
@@ -9,16 +10,35 @@
 //       Young lottery, income then access mixing, and the B/A/C aggregates
 //       against the mixed distribution (plain version:
 //       blocks/forward.forward_iteration).
-// Neither replaces a TPU kernel: the reference computes this F under XLA in
-// f64 (hank_tpu/solvers/newton.py:352-376; its double-single residual
-// kernel, hank_tpu/ops/fused_ds.py, takes the one-asset family only). They
-// are kernels 5 and 6 of household_sweep2.cu (two_asset_bwd_cluster_kernel,
-// two_asset_fwd_cluster_kernel) in double without the tangent, on the same
-// cluster designs; that file keeps its f32 kernels as they are. Both take a
-// path axis for ensembles as kernels 5 and 6 do (BATCHED, the `_batch` entry
-// points: one cluster per path, row b bit for bit the single-path launch),
-// and the forward push kernel 6's GLOBAL_LISTS flag past 2048 (b, a) states
-// (the `_global` entry points, to 4096).
+// The values pair replaces no TPU kernel: the reference computes this F
+// under XLA in f64 (hank_tpu/solvers/newton.py:352-376; its double-single
+// residual kernel, hank_tpu/ops/fused_ds.py, takes the one-asset family
+// only). They are kernels 5 and 6 of household_sweep2.cu
+// (two_asset_bwd_cluster_kernel, two_asset_fwd_cluster_kernel) in double
+// without the tangent, on the same cluster designs; that file keeps its f32
+// kernels as they are. Both take a path axis for ensembles as kernels 5 and
+// 6 do (BATCHED, the `_batch` entry points: one cluster per path, row b bit
+// for bit the single-path launch), and the forward push kernel 6's
+// GLOBAL_LISTS flag past 2048 (b, a) states (the `_global` entry points, to
+// 4096).
+//
+// The tangent pair: each kernel's TANGENT instantiations (single path) add
+// kernel 5's and kernel 6's tangent formulas in double, so they compute
+// what the TPU kernels hank_tpu/ops/fused_sweep2.py: fused2_policies_jvp
+// (body :172, call :599) and fused2_forward_jvp (body :835, call :971)
+// compute in f32, in FP64: the reference's f64 directions are jax.jvp of its
+// f64 pipeline under XLA (hank_tpu/solvers/newton.py:389), the port's on the
+// card are these (the `_jvp_f64` entry points; plain versions
+// ops/fused_sweep2.fused2_policies_jvp_reference and
+// fused2_forward_jvp_reference in f64, torch.func.jvp of the two blocks).
+// Every primal expression is the values pair's, so the primal outputs are
+// the values pair's bits. Beside each primal array its tangent, in the same
+// place: the backward kernel holds 10n doubles of state a block where the
+// values kernel holds 5n (n = ceil(n_e / C) n_b n_a), or 7n with dW and the
+// knots' tangents in a global workspace (GLOBAL_TANGENT, where 10n has no
+// room: 50x70x5x2); the forward push doubles its list entries, H and D
+// (its GLOBAL_LISTS instantiation past 2048 states or where the shared
+// lists have no room). The notes at the kernels give the layouts.
 //
 // Semantics are those of the plain PyTorch versions, operation for
 // operation: every expression is the plain version's, in its order, and the
@@ -67,6 +87,38 @@ __device__ __forceinline__ double inv_marg(double W) {
     return y * (1.5 - 0.5 * W * y * y);
 }
 
+// ── Tangents (the TANGENT instantiations) ───────────────────────────────
+// torch's derivative rules, which ops/clip.py gives the floors and clips:
+// maximum / minimum pass the tangent on the strict side and half of it at
+// a tie (b_t + where(a == b, 1/2, a > b or a < b) * (a_t - b_t)), and
+// clip(x, lo, hi) = minimum(maximum(x, lo), hi) composes the two.
+__device__ __forceinline__ double tie_max(double a, double b) {
+    return a == b ? 0.5 : (a > b ? 1.0 : 0.0);
+}
+__device__ __forceinline__ double tie_min(double a, double b) {
+    return a == b ? 0.5 : (a < b ? 1.0 : 0.0);
+}
+__device__ __forceinline__ double dmax_t(double a, double da, double b, double db) {
+    return db + tie_max(a, b) * (da - db);
+}
+__device__ __forceinline__ double dmin_t(double a, double da, double b, double db) {
+    return db + tie_min(a, b) * (da - db);
+}
+// The tangent of clip(x, lo, hi) with constant bounds.
+__device__ __forceinline__ double dclip_t(double x, double dx, double lo, double hi) {
+    return tie_min(dmax(x, lo), hi) * (tie_max(x, lo) * dx);
+}
+
+// The tangent of inv_marg: y = rsqrt(W) (tangent -y^3/2 W_t), then
+// y * (1.5 - 0.5 W y y) by the product rule.
+__device__ __forceinline__ double inv_marg_t(double W, double dW) {
+    const double y = 1.0 / sqrt(W);
+    const double dy = -0.5 * (y * y * y) * dW;
+    const double u = 1.5 - 0.5 * W * y * y;
+    const double du = -(0.5 * (dW * y * y + W * (dy * y + y * dy)));
+    return dy * u + y * du;
+}
+
 // The count of knots below q on a sorted grid (binary search), and the count
 // bracket of the plain version's _bracket: index i in [1, n-1], clipped
 // weight t and the open-interval flag of the slopes.
@@ -93,6 +145,13 @@ __device__ __forceinline__ Br bracket(const double* g, int n, double q) {
     B.t = dclip((q - B.lo) / (B.hi - B.lo), 0.0, 1.0);
     B.in = q > g[0] && q < g[n - 1];
     return B;
+}
+
+// The tangent of a bracket's weight t at a query q with tangent dq (the
+// grid carries none).
+__device__ __forceinline__ double bracket_t(const Br& B, double q, double dq) {
+    const double h = B.hi - B.lo;
+    return dclip_t((q - B.lo) / h, dq / h, 0.0, 1.0);
 }
 
 // Bilinear value and axis slopes (models/hank_two_asset._bilinear) of a
@@ -126,6 +185,29 @@ __device__ Bi bilinear(const double* W, int N, int NA, int mode, const Br& B, co
           + tb * (1.0 - ta) * W10 + tb * ta * W11;
     o.sb = B.in ? ((1.0 - ta) * (W10 - W00) + ta * (W11 - W01)) / (B.hi - B.lo) : 0.0;
     o.sa = A.in ? ((1.0 - tb) * (W01 - W00) + tb * (W11 - W10)) / (A.hi - A.lo) : 0.0;
+    return o;
+}
+
+// The tangents of bilinear(): through the surface (its tangent dW, in W's
+// layout) and through the queries (the weights' tangents dtb, dta).
+__device__ Bi bilinear_t(const double* W, const double* dW, int N, int NA, int mode,
+                         const Br& B, const Br& A, double dtb, double dta) {
+    const int k00 = (B.i - 1) * NA + A.i - 1;
+    const double W00 = surf(W, N, mode, k00), W01 = surf(W, N, mode, k00 + 1);
+    const double W10 = surf(W, N, mode, k00 + NA), W11 = surf(W, N, mode, k00 + NA + 1);
+    const double d00 = surf(dW, N, mode, k00), d01 = surf(dW, N, mode, k00 + 1);
+    const double d10 = surf(dW, N, mode, k00 + NA), d11 = surf(dW, N, mode, k00 + NA + 1);
+    const double tb = B.t, ta = A.t;
+    Bi o;
+    o.v = (1.0 - tb) * (1.0 - ta) * d00 + (1.0 - tb) * ta * d01 + tb * (1.0 - ta) * d10
+          + tb * ta * d11 + dtb * ((1.0 - ta) * (W10 - W00) + ta * (W11 - W01))
+          + dta * ((1.0 - tb) * (W01 - W00) + tb * (W11 - W10));
+    o.sb = B.in ? (dta * ((W11 - W01) - (W10 - W00)) + (1.0 - ta) * (d10 - d00)
+                   + ta * (d11 - d01)) / (B.hi - B.lo)
+                : 0.0;
+    o.sa = A.in ? (dtb * ((W11 - W10) - (W01 - W00)) + (1.0 - tb) * (d01 - d00)
+                   + tb * (d11 - d10)) / (A.hi - A.lo)
+                : 0.0;
     return o;
 }
 
@@ -173,27 +255,50 @@ __device__ __forceinline__ void cluster_wait() {
 // 512 threads, not kernel 5's 1024: at 1024 ptxas caps a thread at 64
 // registers and the FP64 code spills; at 512 it takes 124 and spills
 // nothing (chip_smoke.py phase 2 requires that).
+//
+// TANGENT: the same recursion with kernel 5's tangent formulas in double
+// (its primal and tangent: torch.func.jvp of the backward scan), every
+// primal expression the values kernel's, so under -fmad=false its B/A/C
+// are the values kernel's bits; the tangents go to out rows 3-5. Beside
+// each primal array its tangent: the vm region's (dvm_b, dvm_a) a state
+// (read across the cluster in stage A as vm is; (dc, dmargin) in B2..D),
+// the prices' (8), dW (2n), the knots' dimp (n), the rows' dpen, dast and
+// dwkn (3R) and the brackets' weights of a_next(a) (NA). GLOBAL_TANGENT
+// keeps dW and dimp, which only their own block reads, in this (path,
+// block)'s slice of `tws`, a (B, C, 3n) f64 workspace the caller
+// allocates (84 KB a block at 50x70x5x2), so the block holds 7n doubles
+// of state where the shared-state one holds 10n. `tws` is written and read
+// within the launch (not const __restrict__: no load of it takes the
+// read-only path); it is null without GLOBAL_TANGENT. 256 threads: at 512
+// ptxas caps a thread at 128 registers and the tangent code spills.
 constexpr int kBwdThreads = 512;
-constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdThreadsTangent = 256;
 
 struct Cand {
     double tb, ta, c;
     int ib, ia;
 };
 
-size_t bwd_smem(int NB, int NA, int NE, int C, bool tabled) {
+// The backward kernel's state: the values kernel's (0), the tangent one's
+// with its tangent state in shared memory (1) or dW and dimp in the
+// global workspace (2).
+enum BwdState { kValues = 0, kTangentShared = 1, kTangentGlobal = 2 };
+
+size_t bwd_smem(int NB, int NA, int NE, int C, bool tabled, int state = kValues) {
     const size_t G = (NE + C - 1) / C, n = G * NB * NA, R = G * NB, K = NA + NB + 2;
-    return sizeof(double) * (5 * n + 9 * R + 2 * (size_t)NA + 2 * (size_t)NB + NE
-                             + (size_t)NE * NE + 8)
+    const size_t per_state = state == kValues ? 5 : (state == kTangentShared ? 10 : 7);
+    const size_t tangent = state == kValues ? 0 : 3 * R + NA + 8;
+    return sizeof(double) * (per_state * n + 9 * R + 2 * (size_t)NA + 2 * (size_t)NB + NE
+                             + (size_t)NE * NE + 8 + tangent)
            + sizeof(int) * (size_t)NA + (tabled ? sizeof(Cand) * K * NB : 0);
 }
 
-bool bwd_tabled(int NB, int NA, int NE, int C) {
-    return bwd_smem(NB, NA, NE, C, true) <= kSmemOptin;
+bool bwd_tabled(int NB, int NA, int NE, int C, int state = kValues) {
+    return bwd_smem(NB, NA, NE, C, true, state) <= kSmemOptin;
 }
 
-size_t bwd_smem_bytes(int NB, int NA, int NE, int C) {
-    return bwd_smem(NB, NA, NE, C, bwd_tabled(NB, NA, NE, C));
+size_t bwd_smem_bytes(int NB, int NA, int NE, int C, int state = kValues) {
+    return bwd_smem(NB, NA, NE, C, bwd_tabled(NB, NA, NE, C, state), state);
 }
 
 // An L2 prefetch of the line holding *p (no register waits for it).
@@ -221,8 +326,12 @@ __device__ __forceinline__ size_t path_offset(size_t per_path) {
 // reads row b of each (B, Tm1) price path and writes its own (3, Tm1, N4)
 // slice of out (B, 3, Tm1, N4); V_T, the grids and Pi are shared. Without it
 // (the single-path entry point) the offset compiles out.
-template <bool BATCHED>
-__global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kernel(
+// TANGENT reads the prices' tangents dr_p, dra_p, dw_p, dtau_p ((B, Tm1)
+// each) and writes out (B, 6, Tm1, N4), the B, A, C policies and their
+// tangents; without it they and `tws` are unused (and null).
+template <bool BATCHED, bool TANGENT = false, bool GLOBAL_TANGENT = false>
+__global__ void __launch_bounds__(TANGENT ? kBwdThreadsTangent : kBwdThreads, 1)
+two_asset_bwd_f64_cluster_kernel(
     const double* __restrict__ r_p, const double* __restrict__ ra_p,
     const double* __restrict__ w_p, const double* __restrict__ tau_p,
     const double* __restrict__ V_T,
@@ -230,8 +339,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
     const double* __restrict__ egrid_g, const double* __restrict__ Pi_g,
     double* __restrict__ out,
     int Tm1, int NB, int NA, int NE, double beta, double lam, double chi, double borrow,
-    int tabled)
+    int tabled, const double* __restrict__ dr_p, const double* __restrict__ dra_p,
+    const double* __restrict__ dw_p, const double* __restrict__ dtau_p, double* tws)
 {
+    constexpr int kThreads = TANGENT ? kBwdThreadsTangent : kBwdThreads;
+    constexpr int kWarps = kThreads / 32;
+    constexpr bool kSharedTangent = TANGENT && !GLOBAL_TANGENT;
     extern __shared__ __align__(16) unsigned char smem_bwd[];
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -244,14 +357,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
     const size_t TN = (size_t)Tm1 * N4;
     const double one_lam = 1.0 - lam;
     // The root chain's threads (whole warps) beside B2's.
-    const int Tc = min(32 * ((my_rows + 31) / 32), kBwdThreads / 2), Tb = kBwdThreads - Tc;
+    const int Tc = min(32 * ((my_rows + 31) / 32), kThreads / 2), Tb = kThreads - Tc;
 
     double2* vm = reinterpret_cast<double2*>(smem_bwd);   // (vm_b, vm_a) a state;
                                                           // (c, margin) in B2..D
-    Cand* tab = reinterpret_cast<Cand*>(vm + n);          // row s's K candidates in a run
+    double2* dvm = vm + n;                                // TANGENT: their tangents
+    Cand* tab = reinterpret_cast<Cand*>(vm + (TANGENT ? 2 : 1) * n);   // row s's K candidates
     double* W = reinterpret_cast<double*>(tab + (tabled ? K * NS : 0));   // [Wb, Wa][n]
-    double* imp = W + 2 * n;          // implied liquid wealth (the EGM's knots), B1 -> B2
-    double* pen = imp + n;            // per row q = gi * NS + s
+    double* imp = W + (kSharedTangent ? 4 : 2) * n;   // implied liquid wealth (the EGM's
+    double* pen = imp + (kSharedTangent ? 2 : 1) * n; // knots), B1 -> B2; per row q = gi * NS + s
     double* ast = pen + R;
     double* wkn = ast + R;
     double* scan = wkn + R;           // [lo, hi, g0, g1, g_lo, g_hi][R]
@@ -262,30 +376,50 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
     double* eg = sg + NB;
     double* Pi = eg + NE;
     double* pc = Pi + NE * NE;        // (r, ra, w, tau) of a period, two periods
-    int* aq_i = reinterpret_cast<int*>(pc + 8);
-    // Threads 0-3 load period t's prices into pc[4 * (t & 1)], a period ahead.
+    // TANGENT: the prices' tangents (as pc), the rows' tangents and the
+    // tangents of the weights in aq_t.
+    double* dpc = pc + 8;
+    double* dpen = dpc + 8;
+    double* dast = dpen + R;
+    double* dwkn = dast + R;
+    double* aq_dt = dwkn + R;
+    int* aq_i = reinterpret_cast<int*>(TANGENT ? aq_dt + NA : pc + 8);
+    // TANGENT: dW ([dWb, dWa][n]) and dimp (n), in shared memory or in the
+    // block's slice of the workspace.
+    double* dW = GLOBAL_TANGENT ? tws + (path_offset<BATCHED>(C) + rank) * 3 * (size_t)n
+                                : W + 2 * n;
+    double* dimp = GLOBAL_TANGENT ? dW + 2 * n : imp + n;
+    // Threads 0-3 load period t's prices into pc[4 * (t & 1)], a period ahead
+    // (TANGENT: threads 4-7 their tangents into dpc).
     const double* const prices[4] = {r_p, ra_p, w_p, tau_p};
+    const double* const dprices[4] = {dr_p, dra_p, dw_p, dtau_p};
 
-    for (int i = tid; i < NB; i += kBwdThreads) bg[i] = bgrid_g[i];
-    for (int i = tid; i < NA; i += kBwdThreads) ag[i] = agrid_g[i];
-    for (int i = tid; i < NE; i += kBwdThreads) eg[i] = egrid_g[i];
-    for (int i = tid; i < NE * NE; i += kBwdThreads) Pi[i] = Pi_g[i];
+    for (int i = tid; i < NB; i += kThreads) bg[i] = bgrid_g[i];
+    for (int i = tid; i < NA; i += kThreads) ag[i] = agrid_g[i];
+    for (int i = tid; i < NE; i += kThreads) eg[i] = egrid_g[i];
+    for (int i = tid; i < NE * NE; i += kThreads) Pi[i] = Pi_g[i];
     if (tid < 4)
         pc[4 * ((Tm1 - 1) & 1) + tid] = (prices[tid] + path_offset<BATCHED>(Tm1))[Tm1 - 1];
-    // The access mix of V_T for the own incomes.
-    for (int j = tid; j < my_n; j += kBwdThreads) {
+    if constexpr (TANGENT) {
+        if (tid >= 4 && tid < 8)
+            dpc[4 * ((Tm1 - 1) & 1) + tid - 4] =
+                (dprices[tid - 4] + path_offset<BATCHED>(Tm1))[Tm1 - 1];
+    }
+    // The access mix of V_T for the own incomes (no tangent).
+    for (int j = tid; j < my_n; j += kThreads) {
         const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
         const int k = (ba * NE + e) * 2;
         vm[j] = make_double2(one_lam * V_T[k] + lam * V_T[k + 1],
                              one_lam * V_T[N4 + k] + lam * V_T[N4 + k + 1]);
+        if constexpr (TANGENT) dvm[j] = make_double2(0.0, 0.0);
     }
     __syncthreads();
     const double btop = bg[NB - 1], atop = ag[NA - 1];
     const double ratio = (btop + atop) / btop;
-    for (int i = tid; i < NB; i += kBwdThreads) sg[i] = bg[i] * ratio;
+    for (int i = tid; i < NB; i += kThreads) sg[i] = bg[i] * ratio;
     __syncthreads();
     if (tabled) {
-        for (int u = tid; u < NS * K; u += kBwdThreads) {
+        for (int u = tid; u < NS * K; u += kThreads) {
             const int s = u / K, k = u - s * K;
             const double s2 = sg[s];
             const double c = candidate(ag, bg, NA, NB, k, s2);
@@ -298,33 +432,62 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
     for (int t = Tm1 - 1; t >= 0; --t) {
         const double* pt = pc + 4 * (t & 1);
         const double r = pt[0], ra = pt[1], w = pt[2], tau = pt[3];
+        double dr = 0.0, dra = 0.0, dw = 0.0, dtau = 0.0;
+        if constexpr (TANGENT) {
+            const double* dpt = dpc + 4 * (t & 1);
+            dr = dpt[0];
+            dra = dpt[1];
+            dw = dpt[2];
+            dtau = dpt[3];
+        }
         if (t > 0 && tid < 4)
             pc[4 * ((t - 1) & 1) + tid] = (prices[tid] + path_offset<BATCHED>(Tm1))[t - 1];
+        if constexpr (TANGENT) {
+            if (t > 0 && tid >= 4 && tid < 8)
+                dpc[4 * ((t - 1) & 1) + tid - 4] =
+                    (dprices[tid - 4] + path_offset<BATCHED>(Tm1))[t - 1];
+        }
         const double one_r = 1.0 + r, one_ra = 1.0 + ra;
         const double ymax = dmax((1.0 - tau) * w, 1e-9);
-        double* Bo = out + path_offset<BATCHED>(3 * TN) + (size_t)t * N4;   // B, A, C of t
+        const double dymax =
+            TANGENT ? tie_max((1.0 - tau) * w, 1e-9) * (-dtau * w + (1.0 - tau) * dw) : 0.0;
+        // B, A, C of t (TANGENT: and their tangents, 3 * TN on)
+        double* Bo = out + path_offset<BATCHED>((TANGENT ? 6 : 3) * TN) + (size_t)t * N4;
 
         // Every income's vm of period t + 1 is with its owner.
         cluster_wait();
         // A. Continuations: income expectation of the access mixes, floor.
-        for (int j = tid; j < my_n; j += kBwdThreads) {
+        for (int j = tid; j < my_n; j += kThreads) {
             const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
-            double E0 = 0.0, E1 = 0.0;
+            double E0 = 0.0, E1 = 0.0, dE0 = 0.0, dE1 = 0.0;
             for (int f = 0; f < NE; ++f) {
                 const double2 v = cluster.map_shared_rank(vm, f % C)[(f / C) * NBA + ba];
                 const double p = Pi[e * NE + f];
                 E0 += v.x * p;
                 E1 += v.y * p;
+                if constexpr (TANGENT) {
+                    const double2 dv = cluster.map_shared_rank(dvm, f % C)[(f / C) * NBA + ba];
+                    dE0 += dv.x * p;
+                    dE1 += dv.y * p;
+                }
             }
             W[j] = dmax(beta * E0, 1e-12);
             W[n + j] = dmax(beta * E1, 1e-12);
+            if constexpr (TANGENT) {
+                dW[j] = tie_max(beta * E0, 1e-12) * (beta * dE0);
+                dW[n + j] = tie_max(beta * E1, 1e-12) * (beta * dE1);
+            }
         }
         // The period's brackets of a_next(a), on threads past the states.
-        for (int a = tid - my_n; a < NA; a += kBwdThreads) {
+        for (int a = tid - my_n; a < NA; a += kThreads) {
             if (a < 0) continue;
             const Br Q = bracket(ag, NA, dmin(one_ra * ag[a], atop));
             aq_i[a] = Q.i;
             aq_t[a] = Q.t;
+            if constexpr (TANGENT) {
+                const double a_raw = one_ra * ag[a];
+                aq_dt[a] = bracket_t(Q, dmin(a_raw, atop), dmin_t(a_raw, dra * ag[a], atop, 0.0));
+            }
         }
         // A's remote reads are done.
         cluster_arrive();
@@ -334,7 +497,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
         //     implied liquid wealth of the EGM. C1, on the threads past the
         //     states: the penalty slope of the portfolio split per row.
         const double s1 = sg[1];
-        for (int j = tid; j < my_n + my_rows; j += kBwdThreads) {
+        for (int j = tid; j < my_n + my_rows; j += kThreads) {
             if (j < my_n) {
                 const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
                 const int b = ba / NA, a = ba - b * NA;
@@ -345,6 +508,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
                 const double c = inv_marg(wn0);
                 const double inc = (a_raw - a_next) + ymax * eg[e];
                 imp[j] = (c + bg[b] - inc) / one_r;
+                if constexpr (TANGENT) {
+                    const double dwn0 = dW[klo] + aq_dt[a] * (W[klo + 1] - W[klo])
+                                        + aq_t[a] * (dW[klo + 1] - dW[klo]);
+                    const double da_raw = dra * ag[a];
+                    const double dinc = (da_raw - dmin_t(a_raw, da_raw, atop, 0.0)) + dymax * eg[e];
+                    dimp[j] = ((inv_marg_t(wn0, dwn0) - dinc) - imp[j] * dr) / one_r;
+                }
             } else {
                 const int q = j - my_n;
                 if (chi > 0.0) {
@@ -354,8 +524,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
                     const double v = bilinear_value(W + gi * NBA, n, NA, 3, Bq.i, Aq.i, Bq.t,
                                                     Aq.t);
                     pen[q] = chi * v / dmax(sg[s], s1);
+                    if constexpr (TANGENT)
+                        dpen[q] = chi * bilinear_value(dW + gi * NBA, n, NA, 3, Bq.i, Aq.i, Bq.t,
+                                                       Aq.t) / dmax(sg[s], s1);
                 } else {
                     pen[q] = 0.0;
+                    if constexpr (TANGENT) dpen[q] = 0.0;
                 }
             }
         }
@@ -367,7 +541,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
         //     over the lanes (NaN-propagating max and min: any order gives
         //     the same values).
         const int per = (K + 31) / 32;
-        for (int q = warp; q < my_rows; q += kBwdWarps) {
+        for (int q = warp; q < my_rows; q += kWarps) {
             const int gi = q / NS, s = q - gi * NS;
             const double* Wg = W + gi * NBA;
             const double s2 = sg[s];
@@ -448,6 +622,25 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
                 Bo[2 * i] = pol;
                 Bo[TN + 2 * i] = a_next;
                 Bo[2 * TN + 2 * i] = c;
+                double dpol = 0.0, dc = 0.0;
+                if constexpr (TANGENT) {
+                    // The knots carry tangents: the safe denominator's and
+                    // the weight's (ops/egm.interp_columns).
+                    const double safe = den > 0.0 ? den : 1.0;
+                    const double dlo = dimp[col + (jj - 1) * NA], dhi = dimp[col + jj * NA];
+                    const double raw = (x - lo) / safe;
+                    const double draw = (-dlo - raw * (den > 0.0 ? dhi - dlo : 0.0)) / safe;
+                    const double pol0 = bg[jj - 1] + tt * (bg[jj] - bg[jj - 1]);
+                    dpol = dclip_t(pol0, dclip_t(raw, draw, 0.0, 1.0) * (bg[jj] - bg[jj - 1]),
+                                   borrow, btop);
+                    const double da_raw = dra * ag[a];
+                    const double da_next = dmin_t(a_raw, da_raw, atop, 0.0);
+                    const double dinc = (da_raw - da_next) + dymax * eg[e];
+                    dc = tie_max(one_r * x + inc - pol, 1e-12) * (dr * x + dinc - dpol);
+                    Bo[3 * TN + 2 * i] = dpol;
+                    Bo[4 * TN + 2 * i] = da_next;
+                    Bo[5 * TN + 2 * i] = dc;
+                }
 
                 // W_a(b', a_next) along b: W_a at a_next on the knots b' and
                 // b' + 1 (B1's expression), then the lerp at the policy.
@@ -458,6 +651,17 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
                     wn[h] = W[n + klo] + aq_t[a] * (W[n + klo + 1] - W[n + klo]);
                 }
                 vm[j] = make_double2(c, a_raw >= atop ? 0.0 : wn[0] + Q.t * (wn[1] - wn[0]));
+                if constexpr (TANGENT) {
+                    double dwn[2];
+                    for (int h = 0; h < 2; ++h) {
+                        const int klo = gi * NBA + (Q.i - 1 + h) * NA + aq_i[a] - 1;
+                        dwn[h] = dW[n + klo] + aq_dt[a] * (W[n + klo + 1] - W[n + klo])
+                                 + aq_t[a] * (dW[n + klo + 1] - dW[n + klo]);
+                    }
+                    dvm[j] = make_double2(dc, a_raw >= atop ? 0.0
+                                              : dwn[0] + bracket_t(Q, pol, dpol) * (wn[1] - wn[0])
+                                                    + Q.t * (dwn[1] - dwn[0]));
+                }
             }
         } else {
             // C3. Quadratic root, implicit-function step, both surfaces at
@@ -510,6 +714,30 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
                 const double Ws = ok ? (wbp * va.v - wap * vb.v) / gps : dmax(vb.v, va.v);
                 ast[q] = a_star;
                 wkn[q] = inv_marg(Ws) + s2;
+                if constexpr (TANGENT) {
+                    // The implicit-function tangent of the root: the gap's
+                    // tangent at the detached root (its queries carry none)
+                    // over the detached slope, then the clip and the corners.
+                    const double* dWg = dW + gi * NBA;
+                    double dg_at = bilinear_value(dWg, n, NA, 2, Bn.i, An.i, Bn.t, An.t);
+                    if (chi > 0.0) dg_at = dg_at + dpen[q] * (a_it - 0.5 * s2);
+                    double da_star = dclip_t(a_it - g_at / dmax(gp, 1e-10),
+                                             -(dg_at / dmax(gp, 1e-10)), 0.0, s2);
+                    if (g_lo >= 0.0 || g_hi <= 0.0) da_star = 0.0;
+                    // Both surfaces at the split (b* = s - a*), through the
+                    // surfaces and the queries; the envelope combination.
+                    const double dtb = bracket_t(Bq, s2 - a_star, -da_star);
+                    const double dta = bracket_t(Aq, a_star, da_star);
+                    const Bi dvb = bilinear_t(Wg, dWg, n, NA, 0, Bq, Aq, dtb, dta);
+                    const Bi dva = bilinear_t(Wg, dWg, n, NA, 1, Bq, Aq, dtb, dta);
+                    const double dwbp = dvb.sa - dvb.sb, dwap = dva.sa - dva.sb;
+                    const double dWs =
+                        ok ? (((dwbp * va.v + wbp * dva.v) - (dwap * vb.v + wap * dvb.v))
+                              - (dwbp - dwap) * Ws) / gps
+                           : dmax_t(vb.v, dvb.v, va.v, dva.v);
+                    dast[q] = da_star;
+                    dwkn[q] = inv_marg_t(Ws, dWs);
+                }
             }
         }
         __syncthreads();
@@ -517,7 +745,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
         // C4. Access branch on the grid: savings through the endogenous
         //     cash-on-hand knots, split at s*, clips, consumption. D. The
         //     envelopes of both branches, and their access mix for A.
-        for (int j = tid; j < my_n; j += kBwdThreads) {
+        for (int j = tid; j < my_n; j += kThreads) {
             const int gi = j / NBA, ba = j - gi * NBA, e = rank + gi * C;
             const int b = ba / NA, a = ba - b * NA;
             const int i = ba * NE + e;
@@ -541,12 +769,43 @@ __global__ void __launch_bounds__(kBwdThreads, 1) two_asset_bwd_f64_cluster_kern
             Bo[2 * i + 1] = pb;
             Bo[TN + 2 * i + 1] = pa;
             Bo[2 * TN + 2 * i + 1] = c1;
+            double dc1 = 0.0;
+            if constexpr (TANGENT) {
+                const double dcoh = dr * bg[b] + dra * ag[a] + dymax * eg[e];
+                const double* dwk = dwkn + gi * NS;
+                const double* das = dast + gi * NS;
+                const double safe = den > 0.0 ? den : 1.0;
+                const double raw = (coh - lo) / safe;
+                const double draw =
+                    (dcoh - dwk[jj - 1] - raw * (den > 0.0 ? dwk[jj] - dwk[jj - 1] : 0.0)) / safe;
+                const double ps0 = sg[jj - 1] + tt * (sg[jj] - sg[jj - 1]);
+                const double dps =
+                    tie_max(ps0, 0.0) * (dclip_t(raw, draw, 0.0, 1.0) * (sg[jj] - sg[jj - 1]));
+                const double dpa0 = das[Q.i - 1] + bracket_t(Q, ps, dps) * (as[Q.i] - as[Q.i - 1])
+                                    + Q.t * (das[Q.i] - das[Q.i - 1]);
+                const double dpa = dmin_t(dmax(pa0, 0.0), tie_max(pa0, 0.0) * dpa0,
+                                          dmin(ps, atop), dmin_t(ps, dps, atop, 0.0));
+                const double dpb = dclip_t(ps - pa, dps - dpa, borrow, btop);
+                dc1 = tie_max(coh - pb - pa, 1e-12) * (dcoh - dpb - dpa);
+                Bo[3 * TN + 2 * i + 1] = dpb;
+                Bo[4 * TN + 2 * i + 1] = dpa;
+                Bo[5 * TN + 2 * i + 1] = dc1;
+            }
 
             // D. (V_b, V_a) of both branches, then their access mix.
             const double2 b2 = vm[j];                 // (c, margin) of access 0
             const double up0 = 1.0 / (b2.x * b2.x), up1 = 1.0 / (c1 * c1);
             vm[j] = make_double2(one_lam * (one_r * up0) + lam * (one_r * up1),
                                  one_lam * (one_ra * b2.y) + lam * (one_ra * up1));
+            if constexpr (TANGENT) {
+                // up = 1 / (c c): the reciprocal's tangent, -(c c)_t up^2.
+                const double2 db2 = dvm[j];           // (dc, dmargin) of access 0
+                const double dup0 = -(db2.x * b2.x + b2.x * db2.x) * (up0 * up0);
+                const double dup1 = -(dc1 * c1 + c1 * dc1) * (up1 * up1);
+                dvm[j] = make_double2(
+                    one_lam * (dr * up0 + one_r * dup0) + lam * (dr * up1 + one_r * dup1),
+                    one_lam * (dra * b2.y + one_ra * db2.y) + lam * (dra * up1 + one_ra * dup1));
+            }
         }
         cluster_arrive();
     }
@@ -579,33 +838,43 @@ constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFwdSources = 2;      // sources (and destinations) per thread: n_b * n_a <= 2048
 constexpr int kFwdSourcesGlobal = 4;  // the same under GLOBAL_LISTS: n_b * n_a <= 4096
 
-// Per block: the lists' entries (4 per source; under global_lists each
-// source's packed brackets in their place, rounded up to an even count),
-// every group's H on the block's cells, the own groups' D, the constants and
-// warp partials, the row and column bitmaps, each destination's list offset,
-// and its count before every 2^shift-th bitmap word (16 bit).
-size_t fwd_smem_bytes(int NB, int NA, int NE, int C, int shift, bool global_lists = false) {
+// Per block: the lists' entries (4 per source, TANGENT each with its
+// tangent; under global_lists each source's packed brackets in their place,
+// rounded up to an even count), every group's H on the block's cells, the
+// own groups' D (TANGENT: and their tangents), the constants and warp
+// partials (3 sums, TANGENT 6), the row and column bitmaps, each
+// destination's list offset, and its count before every 2^shift-th bitmap
+// word (16 bit).
+size_t fwd_smem_bytes(int NB, int NA, int NE, int C, int shift, bool global_lists = false,
+                      bool tangent = false) {
     const size_t NS = (size_t)NB * NA, NG = 2 * (size_t)NE, G = (NG + C - 1) / C;
     const size_t nw = (NS + 31) / 32, cells = (NS + C - 1) / C;
-    const size_t counts = ((nw - 1) >> shift) + 1;
-    return (global_lists ? sizeof(int) * ((NS + 1) & ~(size_t)1) : sizeof(double) * 4 * NS)
-           + sizeof(double) * (NG * cells + G * NS + NB + NA + (size_t)NE * NE + 4
-                               + 3 * kFwdWarps)
+    const size_t counts = ((nw - 1) >> shift) + 1, kE = tangent ? 2 : 1;
+    return (global_lists ? sizeof(int) * ((NS + 1) & ~(size_t)1) : sizeof(double) * kE * 4 * NS)
+           + sizeof(double) * (kE * (NG * cells + G * NS) + NB + NA + (size_t)NE * NE + 4
+                               + 3 * kE * kFwdWarps)
            + sizeof(unsigned) * ((NB + NA) * nw + NS + 4) + sizeof(unsigned short) * NS * counts;
 }
 
 // The least shift whose layout fits in a block (or the one keeping a single
 // count per destination, which the launch then refuses).
-int fwd_shift(int NB, int NA, int NE, int C, bool global_lists = false) {
+int fwd_shift(int NB, int NA, int NE, int C, bool global_lists = false, bool tangent = false) {
     const int nw = (NB * NA + 31) / 32;
     int shift = 0;
-    while ((1 << shift) < nw && fwd_smem_bytes(NB, NA, NE, C, shift, global_lists) > kSmemOptin)
+    while ((1 << shift) < nw
+           && fwd_smem_bytes(NB, NA, NE, C, shift, global_lists, tangent) > kSmemOptin)
         ++shift;
     return shift;
 }
 
 __device__ __forceinline__ double lottery_weight(const double* g, int jc, double p) {
     return dclip((p - g[jc - 1]) / (g[jc] - g[jc - 1]), 0.0, 1.0);
+}
+
+// The tangent of lottery_weight at a policy p with tangent dp.
+__device__ __forceinline__ double lottery_weight_t(const double* g, int jc, double p, double dp) {
+    const double h = g[jc] - g[jc - 1];
+    return dclip_t((p - g[jc - 1]) / h, dp / h, 0.0, 1.0);
 }
 
 // BATCHED: a grid of (C, B) blocks, one cluster per path b = blockIdx.y. The
@@ -625,16 +894,33 @@ __device__ __forceinline__ double lottery_weight(const double* g, int jc, double
 // so the outputs are bit for bit its own on every grid both take. `lists_g`
 // is written and read within the launch (not const __restrict__); without
 // GLOBAL_LISTS it is null and compiled out.
-template <bool BATCHED, bool GLOBAL_LISTS>
+//
+// TANGENT: forward_iteration under torch.func.jvp, kernel 6's dual push in
+// double: the policies' tangents dB, dA, dC ((Tm1, N4) each; unused and null
+// without TANGENT), each list entry with its tangent term (wj D)_t wm +
+// (wj D) wm_t beside the term (two doubles; a (C, 4 * NS, 2) workspace
+// under GLOBAL_LISTS), H and D with their tangents (dD0 = 0), Dpath (2,
+// Tm1, N4) with each period's dD, out (6, Tm1), the aggregates' tangents
+// sum(p_t D + p dD) after the aggregates. Every primal expression and sum
+// order is the values kernel's, so under -fmad=false its aggregates are
+// that kernel's bits. The policies are read where they are needed, as
+// under GLOBAL_LISTS (at 1024 threads a thread has 64 registers; the
+// shared-list instantiation still spills 8 bytes, 24 loaded back, by
+// ptxas' count, PERF.md §6).
+template <bool BATCHED, bool GLOBAL_LISTS, bool TANGENT = false>
 __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kernel(
     const double* __restrict__ pB, const double* __restrict__ pA,
     const double* __restrict__ pC, const double* __restrict__ D0,
     const double* __restrict__ bgrid_g, const double* __restrict__ agrid_g,
     const double* __restrict__ Pi_g, const double* __restrict__ Pacc_g,
     double* __restrict__ Dpath, double* __restrict__ out, int Tm1, int NB, int NA, int NE,
-    int shift, double* lists_g)
+    int shift, double* lists_g, const double* __restrict__ dB, const double* __restrict__ dA,
+    const double* __restrict__ dC)
 {
     constexpr int kSrc = GLOBAL_LISTS ? kFwdSourcesGlobal : kFwdSources;
+    constexpr bool kRead = GLOBAL_LISTS || TANGENT;   // policies read where needed
+    constexpr int kE = TANGENT ? 2 : 1;               // doubles a list entry, H and D
+    constexpr int kQ = TANGENT ? 6 : 3;               // aggregates
     extern __shared__ __align__(16) unsigned char smem_fwd[];
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -648,17 +934,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const size_t TN = (size_t)Tm1 * N4;
 
-    double* lists = reinterpret_cast<double*>(smem_fwd);   // terms, 4 * NS
+    double* lists = reinterpret_cast<double*>(smem_fwd);   // terms, kE * 4 * NS
     int* brk = reinterpret_cast<int*>(smem_fwd);  // GLOBAL_LISTS: (jb << 16) | ja per source
-    double* Hc = GLOBAL_LISTS ? reinterpret_cast<double*>(brk + ((NS + 1) & ~1))  // [NG][cells]
-                              : lists + 4 * NS;
-    double* D = Hc + NG * cells;                  // own groups: [G][NS]
-    double* bg = D + G * NS;
+    double* Hc = GLOBAL_LISTS ? reinterpret_cast<double*>(brk + ((NS + 1) & ~1))
+                              : lists + kE * 4 * NS;  // [value, tangent][NG][cells]
+    double* D = Hc + kE * NG * cells;             // own groups: [value, tangent][G][NS]
+    double* bg = D + kE * G * NS;
     double* ag = bg + NB;
     double* Pi = ag + NA;
     double* Pacc = Pi + NE * NE;
-    double* red = Pacc + 4;                       // (3, kFwdWarps) warp partial sums
-    unsigned* rowbits = reinterpret_cast<unsigned*>(red + 3 * kFwdWarps);  // (NB, nw)
+    double* red = Pacc + 4;                       // (kQ, kFwdWarps) warp partial sums
+    unsigned* rowbits = reinterpret_cast<unsigned*>(red + kQ * kFwdWarps);  // (NB, nw)
     unsigned* colbits = rowbits + NB * nw;                                 // (NA, nw)
     int* offs = reinterpret_cast<int*>(colbits + NA * nw);  // list offset of destination d
     int* alloc = offs + NS;
@@ -669,10 +955,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     for (int i = tid; i < NE * NE; i += kFwdThreads) Pi[i] = Pi_g[i];
     if (tid < 4) Pacc[tid] = Pacc_g[tid];
     for (int gi = 0; gi < own; ++gi)
-        for (int s = tid; s < NS; s += kFwdThreads) D[gi * NS + s] = D0[s * NG + rank + gi * C];
+        for (int s = tid; s < NS; s += kFwdThreads) {
+            D[gi * NS + s] = D0[s * NG + rank + gi * C];
+            if constexpr (TANGENT) D[(G + gi) * NS + s] = 0.0;
+        }
 
     // This thread's sources' policies for the next (period, group), in
-    // registers (under GLOBAL_LISTS into L2 only).
+    // registers (where the policies are read where needed, into L2 only).
     double npb[kFwdSources], npa[kFwdSources];
     auto prefetch = [&](int t, int gi) {
         const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + rank + gi * C;
@@ -680,9 +969,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
         for (int i = 0; i < kSrc; ++i) {
             const int s = tid + i * kFwdThreads;
             if (s < NS) {
-                if constexpr (GLOBAL_LISTS) {
+                if constexpr (kRead) {
                     prefetch_l2(pB + off + (size_t)s * NG);
                     prefetch_l2(pA + off + (size_t)s * NG);
+                    if constexpr (TANGENT) {
+                        prefetch_l2(dB + off + (size_t)s * NG);
+                        prefetch_l2(dA + off + (size_t)s * NG);
+                    }
                 } else {
                     npb[i] = pB[off + (size_t)s * NG];
                     npa[i] = pA[off + (size_t)s * NG];
@@ -690,7 +983,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             }
         }
     };
-    // Under GLOBAL_LISTS: the policy of source s of group g in period t.
+    // Where the policies are read where needed: the policy of source s of
+    // group g in period t.
     auto policy = [&](const double* __restrict__ p, int t, int g, int s) {
         return p[path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + g + (size_t)s * NG];
     };
@@ -711,10 +1005,15 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
                 const int s = tid + i * kFwdThreads;
                 if (s < NS) {
                     int jbs, jas;
-                    if constexpr (GLOBAL_LISTS) {
+                    if constexpr (kRead) {
                         jbs = min(max(count_below(bg, NB, policy(pB, t, g, s)), 1), NB - 1);
                         jas = min(max(count_below(ag, NA, policy(pA, t, g, s)), 1), NA - 1);
-                        brk[s] = (jbs << 16) | jas;
+                        if constexpr (GLOBAL_LISTS) {
+                            brk[s] = (jbs << 16) | jas;
+                        } else {
+                            kjb[i] = jbs;
+                            kja[i] = jas;
+                        }
                     } else {
                         jbs = min(max(count_below(bg, NB, npb[i]), 1), NB - 1);
                         jas = min(max(count_below(ag, NA, npa[i]), 1), NA - 1);
@@ -780,9 +1079,22 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
             for (int i = 0; i < kSrc; ++i) {
                 const int s = tid + i * kFwdThreads;
                 if (s < NS) {
-                    double wbs, was;
+                    double wbs, was, dwbs = 0.0, dwas = 0.0;
                     int jb, ja;
-                    if constexpr (GLOBAL_LISTS) {
+                    if constexpr (TANGENT) {
+                        if constexpr (GLOBAL_LISTS) {
+                            jb = brk[s] >> 16;
+                            ja = brk[s] & 0xffff;
+                        } else {
+                            jb = kjb[i];
+                            ja = kja[i];
+                        }
+                        const double pbs = policy(pB, t, g, s), pas = policy(pA, t, g, s);
+                        wbs = lottery_weight(bg, jb, pbs);
+                        was = lottery_weight(ag, ja, pas);
+                        dwbs = lottery_weight_t(bg, jb, pbs, policy(dB, t, g, s));
+                        dwas = lottery_weight_t(ag, ja, pas, policy(dA, t, g, s));
+                    } else if constexpr (GLOBAL_LISTS) {
                         jb = brk[s] >> 16;
                         ja = brk[s] & 0xffff;
                         wbs = lottery_weight(bg, jb, policy(pB, t, g, s));
@@ -794,13 +1106,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
                         was = lottery_weight(ag, kja[i], npa[i]);
                     }
                     const double src = D[gi * NS + s];
+                    const double dsrc = TANGENT ? D[(G + gi) * NS + s] : 0.0;
                     const int w = s >> 5;
                     const unsigned below = (1u << (s & 31)) - 1u;
                     double* Ls = GLOBAL_LISTS
-                        ? lists_g + (path_offset<BATCHED>(C) + rank) * 4 * (size_t)NS : lists;
+                        ? lists_g + (path_offset<BATCHED>(C) + rank) * kE * 4 * (size_t)NS : lists;
 #pragma unroll
                     for (int rc = 0; rc < 2; ++rc) {
                         const double mass = (rc == 0 ? 1.0 - wbs : wbs) * src;
+                        const double dmass = TANGENT ? (rc == 0 ? -dwbs : dwbs) * src
+                                                           + (rc == 0 ? 1.0 - wbs : wbs) * dsrc
+                                                     : 0.0;
                         const int j = jb - 1 + rc;
                         const unsigned* rj = rowbits + j * nw;
 #pragma unroll
@@ -812,7 +1128,13 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
                                       + __popc(rj[w] & cm[w] & below);
                             for (int u = w & ~((1 << shift) - 1); u < w; ++u)
                                 pos += __popc(rj[u] & cm[u]);
-                            Ls[offs[d] + pos] = mass * wm;
+                            if constexpr (TANGENT) {
+                                double* e = Ls + 2 * (offs[d] + pos);
+                                e[0] = mass * wm;
+                                e[1] = dmass * wm + mass * (cc == 0 ? -dwas : dwas);
+                            } else {
+                                Ls[offs[d] + pos] = mass * wm;
+                            }
                         }
                     }
                 }
@@ -827,12 +1149,17 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
                 const int d = tid + i * kFwdThreads;
                 if (d < NS) {
                     const double* L = (GLOBAL_LISTS ? lists_g + (path_offset<BATCHED>(C) + rank)
-                                                                     * 4 * (size_t)NS
-                                                     : lists) + offs[d];
-                    double v = 0.0;
-                    for (int q = 0; q < cnt[i]; ++q) v += L[q];
+                                                                     * kE * 4 * (size_t)NS
+                                                     : lists) + kE * offs[d];
+                    double v = 0.0, dv = 0.0;
+                    for (int q = 0; q < cnt[i]; ++q) {
+                        v += L[kE * q];
+                        if constexpr (TANGENT) dv += L[2 * q + 1];
+                    }
                     const int r = d / cells;
-                    cluster.map_shared_rank(Hc, r)[g * cells + d - r * cells] = v;
+                    double* Hr = cluster.map_shared_rank(Hc, r);
+                    Hr[g * cells + d - r * cells] = v;
+                    if constexpr (TANGENT) Hr[(NG + g) * cells + d - r * cells] = dv;
                 }
             }
             __syncthreads();
@@ -841,19 +1168,28 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
         cluster.sync();
         // M. Income then access mixing on this block's cells, every group;
         //    D goes to the block that owns its group, and to Dpath[t] for the
-        //    aggregates.
-        double* Dt = Dpath + path_offset<BATCHED>(TN) + (size_t)t * N4;
+        //    aggregates (TANGENT: dD to Dpath[Tm1 + t]).
+        double* Dt = Dpath + path_offset<BATCHED>(kE * TN) + (size_t)t * N4;
         for (int i = tid; i < my_cells * NG; i += kFwdThreads) {
             const int g2 = i % NG, c = i / NG, e2 = g2 >> 1, acc2 = g2 & 1;
-            double Dn = 0.0;
+            double Dn = 0.0, dDn = 0.0;
             for (int acc = 0; acc < 2; ++acc) {
-                double x = 0.0;
-                for (int e = 0; e < NE; ++e) x += Hc[(2 * e + acc) * cells + c] * Pi[e * NE + e2];
+                double x = 0.0, dx = 0.0;
+                for (int e = 0; e < NE; ++e) {
+                    x += Hc[(2 * e + acc) * cells + c] * Pi[e * NE + e2];
+                    if constexpr (TANGENT) dx += Hc[(NG + 2 * e + acc) * cells + c] * Pi[e * NE + e2];
+                }
                 Dn += x * Pacc[acc * 2 + acc2];
+                if constexpr (TANGENT) dDn += dx * Pacc[acc * 2 + acc2];
             }
             const int s = rank * cells + c;
-            cluster.map_shared_rank(D, g2 % C)[(g2 / C) * NS + s] = Dn;
+            double* Dr = cluster.map_shared_rank(D, g2 % C);
+            Dr[(g2 / C) * NS + s] = Dn;
             Dt[s * NG + g2] = Dn;
+            if constexpr (TANGENT) {
+                Dr[(G + g2 / C) * NS + s] = dDn;
+                Dt[TN + s * NG + g2] = dDn;
+            }
         }
         // Every group's D of period t is with its owner; nobody reads Hc now.
         cluster.sync();
@@ -864,25 +1200,31 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     // sums k = tid + kFwdThreads * i, then warp butterflies and warp 0's tree.
     for (int t = rank; t < Tm1; t += C) {
         const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4;
-        const double* Dt = Dpath + path_offset<BATCHED>(TN) + (size_t)t * N4;
-        double v[3] = {0.0, 0.0, 0.0};
+        const double* Dt = Dpath + path_offset<BATCHED>(kE * TN) + (size_t)t * N4;
+        double v[kQ] = {0.0, 0.0, 0.0};
         for (int k = tid; k < N4; k += kFwdThreads) {
             const double Dn = Dt[k];
             v[0] += pB[off + k] * Dn;
             v[1] += pA[off + k] * Dn;
             v[2] += pC[off + k] * Dn;
+            if constexpr (TANGENT) {
+                const double dDn = Dt[TN + k];
+                v[3] += dB[off + k] * Dn + pB[off + k] * dDn;
+                v[4] += dA[off + k] * Dn + pA[off + k] * dDn;
+                v[5] += dC[off + k] * Dn + pC[off + k] * dDn;
+            }
         }
-        for (int q = 0; q < 3; ++q) {
+        for (int q = 0; q < kQ; ++q) {
             for (int o = 16; o > 0; o >>= 1) v[q] += __shfl_xor_sync(0xffffffffu, v[q], o);
             if (lane == 0) red[q * kFwdWarps + warp] = v[q];
         }
         __syncthreads();
         if (warp == 0) {
-            for (int q = 0; q < 3; ++q) {
+            for (int q = 0; q < kQ; ++q) {
                 double x = red[q * kFwdWarps + lane];
                 for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
                 if (lane == 0)
-                    out[path_offset<BATCHED>(3 * (size_t)Tm1) + (size_t)q * Tm1 + t] = x;
+                    out[path_offset<BATCHED>(kQ * (size_t)Tm1) + (size_t)q * Tm1 + t] = x;
             }
         }
         __syncthreads();
@@ -958,7 +1300,8 @@ int hank_sweep2_policies_f64(const void* r, const void* ra, const void* w, const
         bwd_smem_bytes(n_b, n_a, n_e, cluster), stream, (const double*)r, (const double*)ra,
         (const double*)w, (const double*)tau, (const double*)V_T, (const double*)bgrid,
         (const double*)agrid, (const double*)egrid, (const double*)Pi, (double*)out, Tm1, n_b,
-        n_a, n_e, beta, lam, chi, borrow_cons, bwd_tabled(n_b, n_a, n_e, cluster) ? 1 : 0);
+        n_a, n_e, beta, lam, chi, borrow_cons, bwd_tabled(n_b, n_a, n_e, cluster) ? 1 : 0,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
 }
 
 // The backward recursion as hank_sweep2_policies_f64, with its candidates'
@@ -978,7 +1321,7 @@ int hank_sweep2_policies_f64_untabled(const void* r, const void* ra, const void*
         bwd_smem(n_b, n_a, n_e, cluster, false), stream, (const double*)r, (const double*)ra,
         (const double*)w, (const double*)tau, (const double*)V_T, (const double*)bgrid,
         (const double*)agrid, (const double*)egrid, (const double*)Pi, (double*)out, Tm1, n_b,
-        n_a, n_e, beta, lam, chi, borrow_cons, 0);
+        n_a, n_e, beta, lam, chi, borrow_cons, 0, nullptr, nullptr, nullptr, nullptr, nullptr);
 }
 
 // The forward push on one cluster of `cluster` blocks (1 to min(2 * n_e,
@@ -998,7 +1341,7 @@ int hank_sweep2_forward_f64(const void* pB, const void* pA, const void* pC, cons
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, (const double*)pB,
         (const double*)pA, (const double*)pC, (const double*)D0, (const double*)bgrid,
         (const double*)agrid, (const double*)Pi, (const double*)Pacc, (double*)Dpath,
-        (double*)out, Tm1, n_b, n_a, n_e, shift, nullptr);
+        (double*)out, Tm1, n_b, n_a, n_e, shift, nullptr, nullptr, nullptr, nullptr);
 }
 
 // The forward push with its lists in global memory
@@ -1021,7 +1364,7 @@ int hank_sweep2_forward_f64_global(const void* pB, const void* pA, const void* p
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift, true), stream, (const double*)pB,
         (const double*)pA, (const double*)pC, (const double*)D0, (const double*)bgrid,
         (const double*)agrid, (const double*)Pi, (const double*)Pacc, (double*)Dpath,
-        (double*)out, Tm1, n_b, n_a, n_e, shift, (double*)lists);
+        (double*)out, Tm1, n_b, n_a, n_e, shift, (double*)lists, nullptr, nullptr, nullptr);
 }
 
 // The backward recursion over B paths, one cluster of `cluster` blocks per
@@ -1042,7 +1385,8 @@ int hank_sweep2_policies_f64_batch(const void* r, const void* ra, const void* w,
         bwd_smem_bytes(n_b, n_a, n_e, cluster), stream, (const double*)r, (const double*)ra,
         (const double*)w, (const double*)tau, (const double*)V_T, (const double*)bgrid,
         (const double*)agrid, (const double*)egrid, (const double*)Pi, (double*)out, Tm1, n_b,
-        n_a, n_e, beta, lam, chi, borrow_cons, bwd_tabled(n_b, n_a, n_e, cluster) ? 1 : 0);
+        n_a, n_e, beta, lam, chi, borrow_cons, bwd_tabled(n_b, n_a, n_e, cluster) ? 1 : 0,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
 }
 
 // The forward push over B paths, one cluster of `cluster` blocks per path:
@@ -1064,7 +1408,7 @@ int hank_sweep2_forward_f64_batch(const void* pol, const void* D0, const void* b
         two_asset_fwd_f64_cluster_kernel<true, false>, cluster, B, kFwdThreads,
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift), stream, p, p + TN, p + 2 * TN,
         (const double*)D0, (const double*)bgrid, (const double*)agrid, (const double*)Pi,
-        (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift, nullptr);
+        (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift, nullptr, nullptr, nullptr, nullptr);
 }
 
 // The global-list forward push over B paths
@@ -1088,7 +1432,73 @@ int hank_sweep2_forward_f64_global_batch(const void* pol, const void* D0, const 
         fwd_smem_bytes(n_b, n_a, n_e, cluster, shift, true), stream, p, p + TN, p + 2 * TN,
         (const double*)D0, (const double*)bgrid, (const double*)agrid, (const double*)Pi,
         (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift,
-        (double*)lists);
+        (double*)lists, nullptr, nullptr, nullptr);
+}
+
+// The tangent pair (TANGENT). The backward recursion with tangents on one
+// cluster of `cluster` blocks (1 to min(n_e, 16)): (T-1,) f64 price paths
+// and their tangents, value_T (no tangent) -> out (6, T-1, n_b, n_a, n_e,
+// 2), the B, A, C policies and their tangents. global_state 0 keeps the
+// tangent state in shared memory (<false, true, false>, `tws` null), 1 dW
+// and dimp in `tws`, (cluster, 3 * G * n_b * n_a) f64 of global scratch
+// with G = ceil(n_e / cluster) (<false, true, true>); untabled 0 tables
+// the candidates' brackets where the instantiation's room is, 1 never
+// tables them (the branch it takes where the table has no room, for a
+// bit-for-bit comparison of the two where both fit; no route asks it).
+// Rows 0-2 are the values kernel's policies, bit for bit.
+int hank_sweep2_policies_jvp_f64(const void* r, const void* ra, const void* w, const void* tau,
+                                 const void* dr, const void* dra, const void* dw,
+                                 const void* dtau, const void* V_T, const void* bgrid,
+                                 const void* agrid, const void* egrid, const void* Pi,
+                                 void* tws, void* out, int Tm1, int n_b, int n_a, int n_e,
+                                 int cluster, int global_state, int untabled, double beta,
+                                 double lam, double chi, double borrow_cons, void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || (global_state != 0 && global_state != 1) || (global_state == 1 && tws == nullptr)
+        || (untabled != 0 && untabled != 1))
+        return (int)cudaErrorInvalidValue;
+    const int state = global_state ? kTangentGlobal : kTangentShared;
+    const bool tabled = !untabled && bwd_tabled(n_b, n_a, n_e, cluster, state);
+    auto kernel = global_state ? two_asset_bwd_f64_cluster_kernel<false, true, true>
+                               : two_asset_bwd_f64_cluster_kernel<false, true, false>;
+    return (int)launch_cluster(
+        kernel, cluster, 1, kBwdThreadsTangent, bwd_smem(n_b, n_a, n_e, cluster, tabled, state),
+        stream, (const double*)r, (const double*)ra, (const double*)w, (const double*)tau,
+        (const double*)V_T, (const double*)bgrid, (const double*)agrid, (const double*)egrid,
+        (const double*)Pi, (double*)out, Tm1, n_b, n_a, n_e, beta, lam, chi, borrow_cons,
+        tabled ? 1 : 0, (const double*)dr, (const double*)dra, (const double*)dw,
+        (const double*)dtau, global_state ? (double*)tws : nullptr);
+}
+
+// The forward push with tangents on one cluster of `cluster` blocks (1 to
+// min(2 * n_e, 16)): policies and their tangents (T-1, n_b, n_a, n_e, 2)
+// each and D0 -> out (6, T-1), the B, A, C aggregates and their tangents;
+// Dpath is (2, T-1, N4) f64 of global scratch (each period's D and dD).
+// global_lists 0 keeps the lists in shared memory (<false, false, true>,
+// n_b * n_a up to 2048, `lists` null), 1 in `lists`, (cluster, 4 * n_b *
+// n_a, 2) f64 of global scratch (<false, true, true>, to 4096). Rows 0-2
+// are the values kernel's aggregates, bit for bit.
+int hank_sweep2_forward_jvp_f64(const void* pB, const void* pA, const void* pC,
+                                const void* dB, const void* dA, const void* dC, const void* D0,
+                                const void* bgrid, const void* agrid, const void* Pi,
+                                const void* Pacc, void* Dpath, void* lists, void* out, int Tm1,
+                                int n_b, int n_a, int n_e, int cluster, int global_lists,
+                                void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || (global_lists != 0 && global_lists != 1) || (global_lists == 1 && lists == nullptr)
+        || n_b * n_a > (global_lists ? kFwdSourcesGlobal : kFwdSources) * kFwdThreads)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_shift(n_b, n_a, n_e, cluster, global_lists, true);
+    auto kernel = global_lists ? two_asset_fwd_f64_cluster_kernel<false, true, true>
+                               : two_asset_fwd_f64_cluster_kernel<false, false, true>;
+    return (int)launch_cluster(
+        kernel, cluster, 1, kFwdThreads,
+        fwd_smem_bytes(n_b, n_a, n_e, cluster, shift, global_lists, true), stream,
+        (const double*)pB, (const double*)pA, (const double*)pC, (const double*)D0,
+        (const double*)bgrid, (const double*)agrid, (const double*)Pi, (const double*)Pacc,
+        (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e, shift,
+        global_lists ? (double*)lists : nullptr, (const double*)dB, (const double*)dA,
+        (const double*)dC);
 }
 
 // How many clusters of `cluster` blocks of the batched backward kernel
@@ -1121,13 +1531,25 @@ int hank_sweep2_f64_max_clusters(int which, int n_b, int n_a, int n_e, int clust
 // where the room is), of the forward kernel (which = 1; at the least shift
 // that fits, or at its largest), of the global-list forward kernel (which =
 // 2; as 1) or of the backward kernel untabled (which = 3) on a cluster of
-// `cluster` blocks.
+// `cluster` blocks; and of the tangent pair: the backward kernel with its
+// tangent state in shared memory (4; tabled where the room is), the
+// forward kernel with shared lists (5) and global lists (6; as 1), the
+// backward kernel of 4 untabled (7), with dW and dimp in the workspace
+// (8; tabled where the room is) and that one untabled (9).
 size_t hank_sweep2_f64_smem_bytes(int which, int n_b, int n_a, int n_e, int cluster) {
     switch (which) {
     case 0: return bwd_smem_bytes(n_b, n_a, n_e, cluster);
     case 1: return fwd_smem_bytes(n_b, n_a, n_e, cluster, fwd_shift(n_b, n_a, n_e, cluster));
     case 2: return fwd_smem_bytes(n_b, n_a, n_e, cluster,
                                   fwd_shift(n_b, n_a, n_e, cluster, true), true);
+    case 4: return bwd_smem_bytes(n_b, n_a, n_e, cluster, kTangentShared);
+    case 5: return fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                                  fwd_shift(n_b, n_a, n_e, cluster, false, true), false, true);
+    case 6: return fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                                  fwd_shift(n_b, n_a, n_e, cluster, true, true), true, true);
+    case 7: return bwd_smem(n_b, n_a, n_e, cluster, false, kTangentShared);
+    case 8: return bwd_smem_bytes(n_b, n_a, n_e, cluster, kTangentGlobal);
+    case 9: return bwd_smem(n_b, n_a, n_e, cluster, false, kTangentGlobal);
     default: return bwd_smem(n_b, n_a, n_e, cluster, false);
     }
 }

@@ -13,7 +13,8 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
     they are held to);
   - `household_sweep2_f64.cu`: the two-asset full-precision residual
     (kernels 5-6's designs in FP64, values only, single-path and
-    path-batched), built with
+    path-batched) and the same kernels' tangent instantiations (the f64
+    directions, single path), built with
     `-fmad=false` (`EXTRA_FLAGS`): each product and sum rounds on its own,
     as the plain f64 pipeline's elementwise operations do;
   - `household_sweep_cluster.cu`: the one-asset sweeps on one thread-block
@@ -188,6 +189,8 @@ _SIGNATURES = {
         "hank_sweep2_forward_f64_global": (11, 5, 0),
         "hank_sweep2_forward_f64_global_batch": (9, 6, 0),
         "hank_sweep2_policies_f64_untabled": (10, 5, 4),
+        "hank_sweep2_policies_jvp_f64": (15, 7, 4),
+        "hank_sweep2_forward_jvp_f64": (14, 6, 0),
     },
     "household_sweep_cluster": {
         "hank_sweep_jvp_f32_cluster": (16, 3, 3),
@@ -358,10 +361,18 @@ def check_shared_memory2_f64(lib: ctypes.CDLL, which: int, n_b: int, n_a: int, n
     """At an n_b×n_a×n_e×2 grid, on a cluster of `cluster` blocks: the f64
     backward recursion (which = 0), the f64 forward push (which = 1), the
     forward push with global lists (which = 2) or the backward recursion
-    untabled (which = 3)."""
+    untabled (which = 3); the tangent pair's backward recursion (4), forward
+    push (5), forward push with global lists (6), backward recursion
+    untabled (7), with its tangent state in the workspace (8) and that one
+    untabled (9)."""
     what = ("the f64 backward recursion", "the f64 forward push",
             "the f64 forward push with global lists",
-            "the f64 backward recursion untabled")[which]
+            "the f64 backward recursion untabled",
+            "the f64 tangent backward recursion", "the f64 tangent forward push",
+            "the f64 tangent forward push with global lists",
+            "the f64 tangent backward recursion untabled",
+            "the f64 tangent backward recursion with global tangent state",
+            "the f64 tangent backward recursion with global tangent state, untabled")[which]
     check_fit(lib.hank_sweep2_f64_smem_bytes(which, n_b, n_a, n_e, cluster),
               f"{what} on a cluster of {cluster} at grid {n_b}x{n_a}x{n_e}x2")
 

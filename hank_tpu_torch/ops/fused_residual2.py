@@ -37,6 +37,23 @@ launch the pair over B paths, one cluster per path (plain versions
 launch on row b, and `make_fused2_residual_fn_f64_batch` is F_b through
 them. The reference's ensemble F for this family is its vmapped XLA
 pipeline (`hank_tpu/parallel/ensemble.py:76-95`).
+
+The same library holds the pair's TANGENT instantiations, the f64
+directions of this family on the card (wrappers
+`fused_sweep2.fused2_policies_jvp_f64` and `fused2_forward_jvp_f64`, map
+`fused_sweep2.make_fused2_jvp_dir_f64`): kernels 5-6's tangent formulas in
+double, every primal expression this pair's, so their B/A/C policies and
+aggregates are this pair's bits. Each primal array has its tangent beside
+it. The backward kernel's block holds 10n doubles of state (n = the
+⌈n_e / C⌉·n_b·n_a states it has room for) where the values kernel holds
+5n: (vm, dvm) 4n, W and dW 4n, the EGM's knots and their tangents 2n.
+Where that has no room (50×70×5×2), dW and the knots' tangents (3n) go to
+a (C, 3n) global workspace, and the block keeps 7n. The forward push
+doubles its list entries (a term and its tangent), H and D; past 2048
+asset states, or where the shared lists have no room, its lists go to a
+(C, 4·n_b·n_a, 2) workspace. The map decides both by the library's counts
+when it is built (`fused_sweep2.check_fit_jvp_f64`, which raises past
+4096 states or a block's shared memory, naming direction_mode='xla').
 """
 
 from __future__ import annotations
@@ -47,8 +64,8 @@ from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import check_tensors
-from hank_tpu_torch.ops.fused_sweep2 import (FORWARD_KERNELS, KEYS, _batch_inputs, _dims,
-                                             _forward_batch_inputs, _fused2_price_hook,
+from hank_tpu_torch.ops.fused_sweep2 import (F64_PUSH, FORWARD_KERNELS, KEYS, _batch_inputs,
+                                             _dims, _forward_batch_inputs, _fused2_price_hook,
                                              _policies_inputs, _state, backward_policies,
                                              batch_cluster_of, check_fit_forward,
                                              count_forward, default_bwd_cluster,
@@ -60,7 +77,7 @@ f64 = torch.float64
 LIBRARY = "household_sweep2_f64"
 # The forward push's instantiations by `which` of the library's count: its
 # lists in shared memory, or in a global workspace.
-SHARED_LISTS, GLOBAL_LISTS = FORWARD_KERNELS[LIBRARY]
+SHARED_LISTS, GLOBAL_LISTS = FORWARD_KERNELS[F64_PUSH]
 # What the card's check names when the pair does not take a grid.
 PLAIN_ROUTE = "; on the card only the plain residual takes this grid (residual_mode='f64')"
 
@@ -145,9 +162,9 @@ def fused2_forward_f64(policies, D0, model):
     tensors, Tm1 = _forward_f64_inputs("fused2_forward_f64", policies, D0, model)
     if D0.device.type == "cpu":
         return fused2_forward_f64_reference(policies, D0, model)
-    which = forward_kernel(LIBRARY, *_state(model)[:3])
+    which = forward_kernel(F64_PUSH, *_state(model)[:3])
     out = _launch_forward(tensors, Tm1, model, which, default_cluster(_state(model)[2]))
-    count_forward(fused2_forward_f64, LIBRARY, which)
+    count_forward(fused2_forward_f64, F64_PUSH, which)
     return out
 
 
@@ -176,7 +193,7 @@ def _launch_forward(tensors, Tm1, model, which: int, cluster: int):
     # Scratch: each period's D, which the aggregates read after the
     # recursion, and the global-list instantiation's lists.
     scratch = [torch.empty(shape, dtype=f64, device=dev) for shape in
-               [(Tm1, tensors[-1].numel()), *lists_scratch(which, LIBRARY, cluster, state)]]
+               [(Tm1, tensors[-1].numel()), *lists_scratch(which, F64_PUSH, cluster, state)]]
     out = torch.empty((3, Tm1), dtype=f64, device=dev)
     _launch("hank_sweep2_forward_f64" if which == SHARED_LISTS else
             "hank_sweep2_forward_f64_global",
@@ -253,10 +270,10 @@ def fused2_forward_f64_batch(policies, D0, model):
     if D0.device.type == "cpu":
         return fused2_forward_f64_batch_reference(policies, D0, model)
     grid = _state(model)[:3]
-    which = forward_kernel(LIBRARY, *grid)
+    which = forward_kernel(F64_PUSH, *grid)
     out = _launch_forward_batch(tensors, B, Tm1, D0, model, which,
                                 batch_cluster_of(LIBRARY, which, B, grid))
-    count_forward(fused2_forward_f64_batch, LIBRARY, which)
+    count_forward(fused2_forward_f64_batch, F64_PUSH, which)
     return out
 
 
@@ -274,7 +291,7 @@ def _launch_forward_batch(tensors, B, Tm1, D0, model, which: int, cluster: int):
     # Scratch: each path's D of every period, which the aggregates read
     # after the recursion, and the global-list instantiation's lists.
     scratch = [torch.empty(shape, dtype=f64, device=dev) for shape in
-               [(B, Tm1, D0.numel()), *lists_scratch(which, LIBRARY, cluster, state, (B,))]]
+               [(B, Tm1, D0.numel()), *lists_scratch(which, F64_PUSH, cluster, state, (B,))]]
     out = torch.empty((B, 3, Tm1), dtype=f64, device=dev)
     _launch("hank_sweep2_forward_f64_batch" if which == SHARED_LISTS else
             "hank_sweep2_forward_f64_global_batch",
@@ -303,7 +320,7 @@ def check_fit_f64(model) -> int:
     memory by the library's count of the backward kernel and of the forward
     instantiation `fused_sweep2.forward_kernel` picks, on their default
     clusters. Returns that instantiation (SHARED_LISTS or GLOBAL_LISTS)."""
-    return check_fit_forward(LIBRARY, _state(model)[:3], 0, "the f64 residual pair",
+    return check_fit_forward(F64_PUSH, _state(model)[:3], 0, "the f64 residual pair",
                              PLAIN_ROUTE)
 
 

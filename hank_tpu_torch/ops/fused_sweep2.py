@@ -44,6 +44,18 @@ tensors it launches the kernel, and a build or launch error raises.
 `<wrapper>.launches` counts kernel launches and `<plain>.calls` plain
 calls.
 
+The same computation in FP64, the f64 directions of this family on the
+card: `fused2_policies_jvp_f64` and `fused2_forward_jvp_f64` launch the
+TANGENT instantiations of the f64 pair's kernels
+(`csrc/household_sweep2_f64.cu`; their layouts in
+`ops/fused_residual2.py`), plain versions the same
+`fused2_*_jvp_reference` in f64; `make_fused2_jvp_dir_f64` is the f64
+direction map through them, which `solvers/newton.f64_direction_route`
+takes on the card under "auto" and on any device under "pallas". The
+reference's f64 directions are `jax.jvp` of its f64 pipeline under XLA
+(`hank_tpu/solvers/newton.py:389`); its kernels 5-6 compute the same
+primal and tangent in f32.
+
 A model opts in by defining `fused2_prices(xp, exog_paths, model) ->
 (r, ra, w, tau)` next to its `ValueFunction` (the reference's hook).
 """
@@ -60,7 +72,7 @@ from hank_tpu_torch.ops import cuda_build
 from hank_tpu_torch.ops.fused_sweep import PLAIN_ROUTES, check_tensors
 from hank_tpu_torch.ops.precision import cast_model
 
-f32 = torch.float32
+f32, f64 = torch.float32, torch.float64
 KEYS = ("B", "A", "C")
 
 
@@ -226,8 +238,14 @@ def batch_cluster(B: int, units: int, default: int, fits, clusters) -> int:
 
 
 def _smem_count(library: str):
-    return (cuda_build.sweep2_smem_bytes if library == "household_sweep2"
-            else cuda_build.sweep2_f64_smem_bytes)
+    """The library's shared-memory count by `which`; ValueError for a name
+    that is not one of the two two-asset libraries."""
+    counts = {"household_sweep2": cuda_build.sweep2_smem_bytes,
+              "household_sweep2_f64": cuda_build.sweep2_f64_smem_bytes}
+    if library not in counts:
+        raise ValueError(f"no two-asset kernel library {library!r} (expected one of "
+                         f"{sorted(counts)})")
+    return counts[library]
 
 
 def batch_cluster_of(library: str, which: int, B: int, grid) -> int:
@@ -238,7 +256,7 @@ def batch_cluster_of(library: str, which: int, B: int, grid) -> int:
     forward kernels 2·n_e groups over up to `default_cluster(n_e)`; sizes
     held to that instantiation's shared-memory count."""
     n_e = grid[2]
-    forward = which in FORWARD_KERNELS[library]
+    forward = any(which in pair for (lib, _), pair in FORWARD_KERNELS.items() if lib == library)
     units, default = ((2 * n_e, default_cluster(n_e)) if forward
                       else (n_e, default_bwd_cluster(n_e)))
     count = _smem_count(library)
@@ -247,31 +265,38 @@ def batch_cluster_of(library: str, which: int, B: int, grid) -> int:
                          lambda C: cuda_build.max_clusters(library, which, *grid, C))
 
 
-# The two instantiations of each forward kernel (kernel 6 in
-# `household_sweep2`, the f64 forward push in `household_sweep2_f64`), by
-# `which` of the library's shared-memory count and max-clusters query: the
-# lottery lists in each block's shared memory (two sources a thread of 1024),
-# or in a global workspace the wrapper allocates (GLOBAL_LISTS; four sources a
-# thread), and the asset states (n_b·n_a) each takes.
-FORWARD_KERNELS = {"household_sweep2": (2, 4), "household_sweep2_f64": (1, 2)}
+# The forward kernels, each by (library, tangent): kernel 6 in
+# `household_sweep2`, the f64 forward push in `household_sweep2_f64` and that
+# push with tangents in the same library.
+KERNEL6 = ("household_sweep2", True)
+F64_PUSH, F64_PUSH_JVP = ("household_sweep2_f64", False), ("household_sweep2_f64", True)
+# The two instantiations of each, by `which` of its library's shared-memory
+# count and max-clusters query: the lottery lists in each block's shared
+# memory (two sources a thread of 1024), or in a global workspace the
+# wrapper allocates (GLOBAL_LISTS; four sources a thread), and the asset
+# states (n_b·n_a) each takes; an entry of the global lists, in the
+# library's dtype (a float4 in f32; with tangents in f64 a term and its
+# tangent).
+FORWARD_KERNELS = {KERNEL6: (2, 4), F64_PUSH: (1, 2), F64_PUSH_JVP: (5, 6)}
+LIST_ENTRY = {KERNEL6: (4,), F64_PUSH: (), F64_PUSH_JVP: (2,)}
 FORWARD_MAX_STATES = (2048, 4096)
 
 
-def forward_kernel(library: str, n_b: int, n_a: int, n_e: int) -> int:
-    """The forward kernel's instantiation (`FORWARD_KERNELS[library]`) a map
+def forward_kernel(kernel: tuple, n_b: int, n_a: int, n_e: int) -> int:
+    """The forward kernel's instantiation (`FORWARD_KERNELS[kernel]`) a map
     launches at an n_b×n_a×n_e×2 grid, decided by the library's count on the
     default cluster before any launch: the shared-list one where it takes
     the grid (n_b·n_a ≤ 2048 and its count fits a block), else the
     global-list one. Whether that one fits is the builds' check
     (`check_fit_forward`), which raises past it; a launch past it raises."""
-    return _forward_choice(library, (n_b, n_a, n_e))[0]
+    return _forward_choice(kernel, (n_b, n_a, n_e))[0]
 
 
-def _forward_choice(library: str, grid) -> tuple:
+def _forward_choice(kernel: tuple, grid) -> tuple:
     """(`forward_kernel`'s instantiation, its count on the default cluster),
     each count asked once."""
-    shared, global_lists = FORWARD_KERNELS[library]
-    count, C = _smem_count(library), default_cluster(grid[2])
+    shared, global_lists = FORWARD_KERNELS[kernel]
+    count, C = _smem_count(kernel[0]), default_cluster(grid[2])
     if grid[0] * grid[1] <= FORWARD_MAX_STATES[0]:
         need = count(shared, *grid, C)
         if need <= cuda_build.MAX_SMEM_BYTES:
@@ -279,9 +304,10 @@ def _forward_choice(library: str, grid) -> tuple:
     return global_lists, count(global_lists, *grid, C)
 
 
-def check_fit_forward(library: str, grid, backward: int, what: str, hint: str) -> int:
-    """ValueError (ending in `hint`) where a backward kernel (`backward`, on
-    its default cluster) and the forward kernel's instantiation
+def check_fit_forward(kernel: tuple, grid, backward: int, what: str, hint: str) -> int:
+    """ValueError (ending in `hint`) where a backward kernel of the same
+    library (`backward`, on its default cluster) and the forward kernel's
+    instantiation
     `forward_kernel` picks do not take an n_b×n_a×n_e grid: past the
     global-list one's asset states (before any count is asked), or past a
     block's shared memory by the library's count. Returns that
@@ -291,8 +317,8 @@ def check_fit_forward(library: str, grid, backward: int, what: str, hint: str) -
     if n_b * n_a > FORWARD_MAX_STATES[1]:
         raise ValueError(f"{what} has {n_b * n_a} asset states; the forward kernel takes "
                          f"{FORWARD_MAX_STATES[1]}{hint}")
-    which, need = _forward_choice(library, grid)
-    cuda_build.check_fit(max(_smem_count(library)(backward, *grid, default_bwd_cluster(n_e)),
+    which, need = _forward_choice(kernel, grid)
+    cuda_build.check_fit(max(_smem_count(kernel[0])(backward, *grid, default_bwd_cluster(n_e)),
                              need), what, hint)
     return which
 
@@ -361,9 +387,9 @@ def default_cluster(n_e: int) -> int:
     return min(2 * n_e, 16)
 
 
-def _forward_inputs(name, policies, dpolicies, D0, model):
+def _forward_inputs(name, policies, dpolicies, D0, model, dtype=f32):
     tensors = [*(policies[k] for k in KEYS), *(dpolicies[k] for k in KEYS), D0]
-    check_tensors(name, tensors, f32)
+    check_tensors(name, tensors, dtype)
     liquid, illiq, income, _ = _dims(model)
     state = (liquid.n, illiq.n, income.n, 2)
     Tm1 = policies["B"].shape[0]
@@ -412,32 +438,31 @@ def fused2_forward_jvp(policies, dpolicies, D0, model):
     if D0.device.type == "cpu":
         return fused2_forward_jvp_reference(policies, dpolicies, D0, model)
     liquid, illiq, income, _ = _dims(model)
-    which = forward_kernel("household_sweep2", liquid.n, illiq.n, income.n)
+    which = forward_kernel(KERNEL6, liquid.n, illiq.n, income.n)
     out = _launch_cluster(tensors, Tm1, model, default_cluster(income.n), which)
-    count_forward(fused2_forward_jvp, "household_sweep2", which)
+    count_forward(fused2_forward_jvp, KERNEL6, which)
     return out
 
 
 fused2_forward_jvp.launches = fused2_forward_jvp.launches_global = 0
 
 
-def count_forward(wrapper, library: str, which: int) -> None:
+def count_forward(wrapper, kernel: tuple, which: int) -> None:
     """One launch of a forward kernel's instantiation `which`: `.launches`
     counts the shared-list one, `.launches_global` the global-list one."""
-    if which == FORWARD_KERNELS[library][0]:
+    if which == FORWARD_KERNELS[kernel][0]:
         wrapper.launches += 1
     else:
         wrapper.launches_global += 1
 
 
-def lists_scratch(which: int, library: str, cluster: int, state, lead=()) -> list:
+def lists_scratch(which: int, kernel: tuple, cluster: int, state, lead=()) -> list:
     """The global-list instantiation's workspace shape, (*lead, cluster,
-    4·n_b·n_a, entry) of the library's dtype (an f32 entry is a float4),
-    or none for the shared-list one."""
-    if which == FORWARD_KERNELS[library][0]:
+    4·n_b·n_a, *LIST_ENTRY[kernel]) of the library's dtype, or none for the
+    shared-list one."""
+    if which == FORWARD_KERNELS[kernel][0]:
         return []
-    entry = (4,) if library == "household_sweep2" else ()
-    return [(*lead, cluster, 4 * state[0] * state[1], *entry)]
+    return [(*lead, cluster, 4 * state[0] * state[1], *LIST_ENTRY[kernel])]
 
 
 def _launch_cluster(tensors, Tm1, model, cluster: int, which: int = 2):
@@ -455,7 +480,7 @@ def _launch_cluster(tensors, Tm1, model, cluster: int, which: int = 2):
     # recursion, and the global-list instantiation's lists.
     return _launch_forward(entry, tensors, Tm1, model,
                            scratch=[(Tm1, 2, tensors[-1].numel()),
-                                    *lists_scratch(which, "household_sweep2", cluster,
+                                    *lists_scratch(which, KERNEL6, cluster,
                                                    (liquid.n, illiq.n))],
                            extra=(cluster,))
 
@@ -541,10 +566,10 @@ def fused2_forward_jvp_batch(policies, dpolicies, D0, model):
     if D0.device.type == "cpu":
         return fused2_forward_jvp_batch_reference(policies, dpolicies, D0, model)
     grid = _state(model)[:3]
-    which = forward_kernel("household_sweep2", *grid)
+    which = forward_kernel(KERNEL6, *grid)
     out = _launch_forward_batch(tensors, B, Tm1, D0, model, which,
                                 batch_cluster_of("household_sweep2", which, B, grid))
-    count_forward(fused2_forward_jvp_batch, "household_sweep2", which)
+    count_forward(fused2_forward_jvp_batch, KERNEL6, which)
     return out
 
 
@@ -568,7 +593,7 @@ def _launch_forward_batch(tensors, B, Tm1, D0, model, which: int, cluster: int):
         # instantiation's lists.
         scratch = [torch.empty(shape, dtype=f32, device=dev) for shape in
                    [(B, Tm1, 2, D0.numel()),
-                    *lists_scratch(which, "household_sweep2", cluster, grid, (B,))]]
+                    *lists_scratch(which, KERNEL6, cluster, grid, (B,))]]
         out = torch.empty((B, 6, Tm1), dtype=f32, device=dev)
         args = [path_block(tensors), D0, *(t.to(device=dev, dtype=f32).contiguous() for t in
                              (liquid.grid, illiq.grid, income.transition, access.transition)),
@@ -622,7 +647,7 @@ def check_fit_kernels(model) -> int:
     memory by the library's count of kernel 5 and of the kernel 6
     `forward_kernel` picks. A path axis adds nothing to a block. Returns
     that kernel 6 (2 shared lists, 4 global lists)."""
-    return check_fit_forward("household_sweep2", _state(model)[:3], 3, "kernels 5-6",
+    return check_fit_forward(KERNEL6, _state(model)[:3], 3, "kernels 5-6",
                              PLAIN_ROUTES)
 
 
@@ -742,3 +767,194 @@ def make_fused2_jvp_batch(model, ss_initial, ss_ending):
 
     jvp_batch.forward_kernel = forward
     return jvp_batch
+
+
+# ── The f64 tangent pair (f64 directions on the card) ─────────────────────
+# `which` of `cuda_build.sweep2_f64_smem_bytes` for the TANGENT
+# instantiations of `csrc/household_sweep2_f64.cu`: the backward recursion
+# with its tangent state in shared memory, untabled, with dW and the knots'
+# tangents in a global workspace, and that one untabled (the forward push's
+# two are FORWARD_KERNELS[F64_PUSH_JVP]).
+JVP_F64_BWD, JVP_F64_BWD_UNTABLED, JVP_F64_BWD_GLOBAL, JVP_F64_BWD_GLOBAL_UNTABLED = 4, 7, 8, 9
+# What the builds name when the pair does not take a grid.
+F64_DIRECTIONS_HINT = ("; direction_mode='xla' takes this grid (torch.func.jvp of the plain "
+                       "f64 pipeline)")
+
+
+def jvp_f64_backward(grid) -> int:
+    """The tangent backward instantiation a map launches at an n_b×n_a×n_e
+    grid, by the library's count on the default cluster before any launch:
+    JVP_F64_BWD where its tangent state fits a block, else
+    JVP_F64_BWD_GLOBAL (whether that one fits is `check_fit_jvp_f64`'s)."""
+    count = cuda_build.sweep2_f64_smem_bytes(JVP_F64_BWD, *grid, default_bwd_cluster(grid[2]))
+    return JVP_F64_BWD if count <= cuda_build.MAX_SMEM_BYTES else JVP_F64_BWD_GLOBAL
+
+
+def check_fit_jvp_f64(model) -> tuple:
+    """ValueError (naming direction_mode='xla') where the tangent pair does
+    not take the model's grid: past the forward push's 4096 asset states
+    (before any count is asked), or past a block's shared memory by the
+    library's count of the backward instantiation `jvp_f64_backward` picks
+    and of the forward one `forward_kernel` picks, on their default
+    clusters. Returns those two (backward, forward) `which`."""
+    grid = _state(model)[:3]
+    backward = (jvp_f64_backward(grid) if grid[0] * grid[1] <= FORWARD_MAX_STATES[1]
+                else JVP_F64_BWD_GLOBAL)
+    return backward, check_fit_forward(F64_PUSH_JVP, grid, backward, "the f64 tangent pair",
+                                       F64_DIRECTIONS_HINT)
+
+
+def fused2_policies_jvp_f64(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, value_T, model):
+    """Backward dual sweep in FP64: (T-1,) f64 price paths and their
+    tangents, value_T (2, n_b, n_a, n_e, 2) f64 without tangent ↦
+    (policies, dpolicies), {B, A, C} dicts of (T-1, n_b, n_a, n_e, 2) f64
+    paths. What kernel 5 computes in f32, in double.
+
+    On the card: `two_asset_bwd_f64_cluster_kernel<false, true, *>` on one
+    cluster of `default_bwd_cluster(n_e)` blocks, its tangent state in
+    shared memory (counted in `.launches`) or, where that has no room
+    (`jvp_f64_backward`), dW and the knots' tangents in a global workspace
+    (`.launches_global`); the policies are the values kernel's
+    (`fused_residual2.fused2_policies_f64`) bit for bit. On CPU tensors the
+    plain version, `fused2_policies_jvp_reference` in f64."""
+    paths = (r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p)
+    _, state = _policies_inputs("fused2_policies_jvp_f64", paths, value_T, model, f64)
+    if value_T.device.type == "cpu":
+        return fused2_policies_jvp_reference(*paths, value_T, model)
+    which = jvp_f64_backward(state[:3])
+    out = _launch_bwd_jvp_f64(paths, value_T, model, which)
+    if which == JVP_F64_BWD:
+        fused2_policies_jvp_f64.launches += 1
+    else:
+        fused2_policies_jvp_f64.launches_global += 1
+    return out
+
+
+fused2_policies_jvp_f64.launches = fused2_policies_jvp_f64.launches_global = 0
+
+
+def _launch_bwd_jvp_f64(paths, value_T, model, which: int):
+    """The tangent backward instantiation `which` (JVP_F64_BWD,
+    JVP_F64_BWD_GLOBAL or their untabled branches, which no route asks: the
+    card's checks hold them to the tabled ones) on one cluster of
+    `default_bwd_cluster(n_e)` blocks, on CUDA tensors."""
+    liquid, illiq, income, access = _dims(model)
+    state = _state(model)
+    Tm1 = paths[0].shape[0]
+    cluster = default_bwd_cluster(income.n)
+    lib = cuda_build.load_library("household_sweep2_f64")
+    cuda_build.check_shared_memory2_f64(lib, which, *state[:3], cluster)
+    dev, p = value_T.device, model.params
+    global_state = which in (JVP_F64_BWD_GLOBAL, JVP_F64_BWD_GLOBAL_UNTABLED)
+    untabled = which in (JVP_F64_BWD_UNTABLED, JVP_F64_BWD_GLOBAL_UNTABLED)
+    with torch.cuda.device(dev):
+        # The workspace of dW and the knots' tangents: 3 n a block, n the
+        # ⌈n_e / cluster⌉·n_b·n_a states it holds room for.
+        n = -(-income.n // cluster) * liquid.n * illiq.n
+        tws = torch.empty((cluster, 3 * n), dtype=f64, device=dev) if global_state else None
+        out = torch.empty((6, Tm1, *state), dtype=f64, device=dev)
+        grids = [t.to(device=dev, dtype=f64).contiguous() for t in
+                 (liquid.grid, illiq.grid, income.grid, income.transition)]
+        err = lib.hank_sweep2_policies_jvp_f64(
+            *(t.data_ptr() for t in (*paths, value_T, *grids)),
+            None if tws is None else tws.data_ptr(), out.data_ptr(), Tm1, *state[:3], cluster,
+            int(global_state), int(untabled), float(p["β"]), float(access.transition[0, 1]),
+            float(p.get("portfolio_reg", 0.0)), float(p["borrow_cons"]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, "hank_sweep2_policies_jvp_f64")
+    return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
+
+
+def fused2_forward_jvp_f64(policies, dpolicies, D0, model):
+    """Forward dual push in FP64: {B, A, C} (T-1, n_b, n_a, n_e, 2) f64
+    policy paths and tangents, D0 (n_b, n_a, n_e, 2) f64 ↦ (aggs, daggs),
+    {B, A, C} dicts of (T-1,) f64 paths. What kernel 6 computes in f32, in
+    double.
+
+    On the card: `two_asset_fwd_f64_cluster_kernel<false, *, true>` on one
+    cluster of `default_cluster(n_e)` blocks, its lists in shared memory
+    (counted in `.launches`) or, where the grid decides so
+    (`forward_kernel(F64_PUSH_JVP, ...)`), in a global workspace
+    (`.launches_global`); the aggregates are the values kernel's
+    (`fused_residual2.fused2_forward_f64`) bit for bit. On CPU tensors the
+    plain version, `fused2_forward_jvp_reference` in f64."""
+    tensors, Tm1 = _forward_inputs("fused2_forward_jvp_f64", policies, dpolicies, D0, model, f64)
+    if D0.device.type == "cpu":
+        return fused2_forward_jvp_reference(policies, dpolicies, D0, model)
+    grid = _state(model)[:3]
+    which = forward_kernel(F64_PUSH_JVP, *grid)
+    out = _launch_fwd_jvp_f64(tensors, Tm1, model, which, default_cluster(grid[2]))
+    count_forward(fused2_forward_jvp_f64, F64_PUSH_JVP, which)
+    return out
+
+
+fused2_forward_jvp_f64.launches = fused2_forward_jvp_f64.launches_global = 0
+
+
+def _launch_fwd_jvp_f64(tensors, Tm1, model, which: int, cluster: int):
+    """The forward push with tangents, instantiation `which`
+    (FORWARD_KERNELS[F64_PUSH_JVP]: shared or global lists), on one cluster of
+    `cluster` blocks, on `_forward_inputs`' CUDA tensors (B, A, C, dB, dA,
+    dC, D0)."""
+    liquid, illiq, income, access = _dims(model)
+    state = _state(model)
+    lib = cuda_build.load_library("household_sweep2_f64")
+    cuda_build.check_shared_memory2_f64(lib, which, *state[:3], cluster)
+    dev = tensors[-1].device
+    global_lists = which == FORWARD_KERNELS[F64_PUSH_JVP][1]
+    with torch.cuda.device(dev):
+        # Scratch: each period's D and dD, which the aggregates read after
+        # the recursion, and the global-list instantiation's lists.
+        Dpath = torch.empty((2, Tm1, tensors[-1].numel()), dtype=f64, device=dev)
+        lists = [torch.empty(shape, dtype=f64, device=dev)
+                 for shape in lists_scratch(which, F64_PUSH_JVP, cluster, state)]
+        out = torch.empty((6, Tm1), dtype=f64, device=dev)
+        grids = [t.to(device=dev, dtype=f64).contiguous() for t in
+                 (liquid.grid, illiq.grid, income.transition, access.transition)]
+        err = lib.hank_sweep2_forward_jvp_f64(
+            *(t.data_ptr() for t in (*tensors, *grids, Dpath)),
+            lists[0].data_ptr() if lists else None, out.data_ptr(), Tm1, *state[:3], cluster,
+            int(global_lists), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, "hank_sweep2_forward_jvp_f64")
+    return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
+
+
+def make_fused2_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths):
+    """jvp_dir(x, v) -> f64 directional derivative of F at x along v, through
+    the tangent pair: the `fused2_prices` price map by `torch.func.jvp` in
+    f64, the household JVP in `fused2_policies_jvp_f64` and
+    `fused2_forward_jvp_f64`, the f64 tail (`assemble_full_xmat` +
+    `residuals`) by `torch.func.jvp`; the f64 mirror of `_build_fused2`'s
+    jvp_dir. On CPU tensors the wrappers run their plain versions (the same
+    function as `torch.func.jvp` of the plain f64 F). On the card the grid
+    is held to the pair's counts here (`check_fit_jvp_f64`), before any
+    launch, and the instantiations it launches are recorded as
+    `jvp_dir.backward_kernel` and `jvp_dir.forward_kernel` (None off the
+    card)."""
+    if not supports_fused_sweep2(model):
+        raise ValueError("model does not declare the two-asset price hook "
+                         "(fused2_prices) and structure the kernels need")
+    hook = _fused2_price_hook(model)
+    cs = model.compspec
+    Tm1 = cs.T - 1
+    value_T = ss_ending.value.to(f64).contiguous()
+    D0 = ss_initial.D.to(f64).contiguous()
+    kernels = check_fit_jvp_f64(model) if value_T.is_cuda else (None, None)
+
+    def price_map(xx):
+        return tuple(q.to(f64) for q in hook(xx.reshape(Tm1, cs.n_endog), exog_paths, model))
+
+    def tail(xx, aggs):
+        x_mat = assemble_full_xmat(xx, aggs, exog_paths, model, ss_initial.vars, ss_ending.vars)
+        return residuals(x_mat, model)
+
+    def jvp_dir(x, v):
+        x64, v64 = x.to(f64), v.to(f64)
+        prices, dprices = torch.func.jvp(price_map, (x64,), (v64,))
+        pol, dpol = fused2_policies_jvp_f64(*(q.contiguous() for q in (*prices, *dprices)),
+                                            value_T, model)
+        aggs, daggs = fused2_forward_jvp_f64(pol, dpol, D0, model)
+        return torch.func.jvp(tail, (x64, aggs), (v64, daggs))[1]
+
+    jvp_dir.backward_kernel, jvp_dir.forward_kernel = kernels
+    return jvp_dir

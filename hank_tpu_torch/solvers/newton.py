@@ -17,16 +17,24 @@ in f64 by default (`direction_dtype=None`) or in f32
 With f64 directions (`f64_direction_route`), a departure from the
 reference, whose f64 directions ignore `direction_mode` and are always XLA
 AD of the f64 pipeline (`:389`):
-  - "auto": the f64 sweep kernel (`ops/fused_sweep.fused_sweep_jvp_f64`,
-    `household_sweep_ranged_kernel<double, true, false>`) for the one-asset
-    family on the card, else `torch.func.jvp` of the plain f64 pipeline
-    (always on CPU tensors);
+  - "auto": on the card the f64 sweep kernel
+    (`ops/fused_sweep.fused_sweep_jvp_f64`, `household_sweep_ranged_kernel
+    <double, true, false>`) for the one-asset family and the f64 tangent
+    pair (`ops/fused_sweep2.make_fused2_jvp_dir_f64`, kernels 5-6's TANGENT
+    instantiations in `csrc/household_sweep2_f64.cu`) for the two-asset
+    family, else `torch.func.jvp` of the plain f64 pipeline (always on CPU
+    tensors);
   - "xla": `torch.func.jvp` of the plain f64 pipeline;
-  - "pallas": the f64 sweep kernel, its plain version on CPU tensors;
-    ValueError for a model outside the one-asset family.
-The boehl endgame's "f64-ad" rung is the f64 direction route under f64
-directions and AD of the plain f64 pipeline under f32 ones. Residuals
-(`residual_route`) come from the native-f64 kernel 2
+  - "pallas": the same kernels, their plain versions on CPU tensors;
+    ValueError for a model outside both families.
+The boehl endgame's "f64-ad" rung (with f32 directions) is the f64
+direction route `direction_mode` picks: under "auto" a kernel on the card
+(the one-asset f64 tangent sweep or the two-asset f64 tangent pair), AD on
+CPU tensors; AD under "xla". The solver builds it where its ladder has
+that rung, and a mixed Newton-Krylov solver where its stall rescue (a
+boehl solve with that ladder) may need it, so that a grid past the f64
+kernels' counts raises when the solver is built, never mid-solve.
+Residuals (`residual_route`) come from the native-f64 kernel 2
 (`ops/fused_residual.py`) for the one-asset family unless
 `residual_mode="f64"`; for the two-asset family from the f64 kernel pair
 (`ops/fused_residual2.py`) on the card ("auto") or on any device ("ds"),
@@ -39,8 +47,10 @@ takes the grid, else its global-state instantiation
 (`household_sweep_ranged_kernel<S, TANGENT, BATCHED, true>`, the state in
 a global workspace; at n_e = 7 it takes n_a ≤ 4980 for the f64 tangent
 sweep, ≤ 5390 for kernel 2, ≤ 10792 in kernel 1's place). Past that
-one's count, and past kernels 5-6's or the f64 pair's for the two-asset
-family (`fused_sweep2._build_fused2`), the route raises ValueError when
+one's count, and past kernels 5-6's, the f64 pair's or the f64 tangent
+pair's for the two-asset family (`fused_sweep2._build_fused2`,
+`fused_residual2.check_fit_f64`, `fused_sweep2.check_fit_jvp_f64`: 4096
+asset states, or a block's shared memory), the route raises ValueError when
 the solver is built, naming the plain routes ("xla", "f64") that take the
 grid: a departure from the reference, which probes its kernel and
 degrades to XLA with a warning (`:356-376, 431-450`).
@@ -87,8 +97,8 @@ from hank_tpu_torch.ops.fused_residual import make_sweep_residual_fn
 from hank_tpu_torch.ops.fused_residual2 import make_fused2_residual_fn_f64
 from hank_tpu_torch.ops.fused_sweep import (make_fused_jvp_dir, make_fused_jvp_dir_f64,
                                             make_fused_residual_fn, supports_fused_sweep)
-from hank_tpu_torch.ops.fused_sweep2 import (make_fused2_jvp_dir, make_fused2_residual_fn,
-                                             supports_fused_sweep2)
+from hank_tpu_torch.ops.fused_sweep2 import (make_fused2_jvp_dir, make_fused2_jvp_dir_f64,
+                                             make_fused2_residual_fn, supports_fused_sweep2)
 from hank_tpu_torch.ops.precision import cast_model, cast_paths, cast_ss
 from hank_tpu_torch.ops.linalg import (dense_solve, gmres_matfree, make_reusable_solver,
                                        rayleigh_quotient)
@@ -324,23 +334,45 @@ def f64_direction_route(model, ss_initial, ss_ending, exog_paths,
 
     A departure from the reference, whose f64 directions are XLA AD of the
     f64 pipeline whatever `direction_mode` says (`:389`): on the card "auto"
-    takes the f64 sweep kernel (`household_sweep_ranged_kernel<double,
-    true, false>`) for the one-asset family, because AD through the eager
-    plain pipeline took 65.1 s for the one-asset HANK 50×7, T=300 solve
-    (one outer) where the f64 tangent sweep takes 0.110 s, on an H100 80GB
-    HBM3 at 700 W (PERF.md §5). Past that kernel's shared memory (n_a > 529
-    at n_e = 7) its global-state instantiation `<double, true, false,
-    true>` takes the grid, and past that one's count (n_a > 4980) the
-    build raises. On CPU tensors "auto" is AD, as in the reference."""
-    sweep = supports_fused_sweep(model)
-    if direction_mode == "pallas" and not sweep:
-        raise ValueError("direction_mode='pallas' with f64 directions needs the one-asset "
-                         "f64 sweep kernel (supports_fused_sweep is False for this "
-                         "model); use 'auto' or 'xla'")
-    if direction_mode == "pallas" or (direction_mode == "auto" and sweep
-                                      and ss_ending.value.is_cuda):
-        return make_fused_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths)
+    takes a kernel for both families, because AD runs through the eager
+    plain pipeline there (on an H100 80GB HBM3 at 700 W, PERF.md §5-6):
+      - the one-asset family: the f64 sweep kernel
+        (`household_sweep_ranged_kernel<double, true, false>`); AD took
+        65.1 s for the HANK 50×7, T=300 solve (one outer), the kernel
+        0.110 s. Past its shared memory (n_a > 529 at n_e = 7) its cluster
+        and global-state instantiations take the grid, and past those
+        counts (n_a > 4980) the build raises;
+      - the two-asset family: the f64 tangent pair
+        (`ops/fused_sweep2.make_fused2_jvp_dir_f64`, kernels 5-6's TANGENT
+        instantiations in `csrc/household_sweep2_f64.cu`), where the plain
+        f64 blocks under AD cost ≥ 16 s a direction at 40×20×5×2, T=300.
+        The build decides its instantiations by the library's counts and
+        raises past them (4096 asset states, or a block's shared memory).
+    "pallas" takes the same kernel on any device (its plain version on CPU
+    tensors). On CPU tensors "auto" is AD, as in the reference."""
+    sweep, sweep2 = supports_fused_sweep(model), supports_fused_sweep2(model)
+    if direction_mode == "pallas" and not (sweep or sweep2):
+        raise ValueError("direction_mode='pallas' with f64 directions needs an f64 tangent "
+                         "kernel: the one-asset sweep (supports_fused_sweep) or the two-asset "
+                         "pair (supports_fused_sweep2); both are False for this model; use "
+                         "'auto' or 'xla'")
+    if direction_mode == "pallas" or (direction_mode == "auto" and ss_ending.value.is_cuda):
+        if sweep:
+            return make_fused_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths)
+        if sweep2:
+            return make_fused2_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths)
     return ad_direction(make_full_residual_fn(model, ss_initial, ss_ending, exog_paths))
+
+
+def _f64_rung(model, ss_initial, ss_ending, exog_paths, direction_mode: str, leave_out: str):
+    """The boehl endgame's "f64-ad" rung under f32 directions: the f64 route
+    `direction_mode` picks (`f64_direction_route`). Where the f64 kernels do
+    not take the grid its ValueError also names `leave_out`, the option
+    that builds the solver without the rung."""
+    try:
+        return f64_direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode)
+    except ValueError as err:
+        raise ValueError(f"{err}; or {leave_out} (the boehl endgame's f64 rung)") from err
 
 
 def _kernel_residual(model, residual_mode: str) -> bool:
@@ -431,8 +463,8 @@ def make_path_solver(
       0 skips that phase (the endgame-only route from a linear warm start).
     endgame_gmres_tol: (boehl, host_inner) relative tolerance of the
       endgame's GMRES solve, 1e-3 when not given.
-    endgame: "auto" (= "jvp" here), "jvp" (with f32 directions, the f64 AD
-      rung before fd) or "fd" (f32 then fd).
+    endgame: "auto" (= "jvp" here), "jvp" (with f32 directions, the f64
+      rung `_f64_rung` before fd) or "fd" (f32 then fd).
     stall_rescue: (newton_krylov) hand a no-descent iterate to boehl.
     records: optional list, appended one dict per outer iteration.
 
@@ -463,12 +495,6 @@ def make_path_solver(
     F_exact = make_full_residual_fn(model, ss_initial, ss_ending, exog_paths)
     solve_jbar = make_reusable_solver(Jbar)
     max_outer = config.path_newton_max_iter if max_outer is None else max_outer
-    # The f64 directions; under f32 directions, AD for the boehl endgame's
-    # "f64-ad" rung, as before the f64 sweep kernel (`direction_mode` names
-    # the f32 route there).
-    jvp_full = (ad_direction(F_exact) if mixed else
-                f64_direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode))
-
     F32 = None
     if mixed:
         jvp_dir32, F32_lo = direction_route(model, ss_initial, ss_ending, exog_paths,
@@ -480,9 +506,14 @@ def make_path_solver(
         def F32(x):
             return F32_lo(x).to(x.dtype)
     else:
-        jvp_dir = jvp_full
+        jvp_dir = f64_direction_route(model, ss_initial, ss_ending, exog_paths, direction_mode)
 
     if method == "newton_krylov":
+        if mixed and stall_rescue:
+            # The rescue's boehl endgame has the f64 rung: built here, so
+            # that a grid its kernels do not take raises now, not mid-solve.
+            _f64_rung(model, ss_initial, ss_ending, exog_paths, direction_mode,
+                      "stall_rescue=False")
         # The f32 residual phase: off where kernel 2 is F, which already
         # costs about an f32 sweep and carries f64 accuracy (`:985-992`).
         fast = F32 if not _kernel_residual(model, residual_mode) else None
@@ -561,6 +592,8 @@ def make_path_solver(
     # rung is already the f64 AD one (`:632-636`).
     ladder = [("f32" if mixed else "ad", lambda x, v: solve_jbar(jvp_dir(x, v)))]
     if mixed and endgame_mode == "jvp":
+        jvp_full = _f64_rung(model, ss_initial, ss_ending, exog_paths, direction_mode,
+                             "endgame='fd'")
         ladder.append(("f64-ad", lambda x, v: solve_jbar(jvp_full(x, v))))
     ladder.append(("fd", lambda x, v: solve_jbar(jvp_fd(x, v))))
 

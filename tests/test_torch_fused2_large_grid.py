@@ -670,13 +670,15 @@ def test_cpu_tensors_never_ask_a_count(monkeypatch):
 
 def test_lists_workspace_shapes():
     """The global-list instantiations' workspace: (B, C, 4·n_b·n_a) float4 in
-    f32 (224 KB a block at 50×70), f64 entries in f64; none for the
-    shared-list ones."""
-    assert fs2.lists_scratch(4, "household_sweep2", 10, (50, 70)) == [(10, 14000, 4)]
-    assert fs2.lists_scratch(4, "household_sweep2", 6, (50, 70), (16,)) == [(16, 6, 14000, 4)]
-    assert fs2.lists_scratch(2, "household_sweep2_f64", 10, (50, 70)) == [(10, 14000)]
-    assert fs2.lists_scratch(2, "household_sweep2", 10, (40, 20)) == []
-    assert fs2.lists_scratch(1, "household_sweep2_f64", 10, (40, 20)) == []
+    f32 (224 KB a block at 50×70), f64 entries in f64 (a term and its
+    tangent for the push with tangents); none for the shared-list ones."""
+    assert fs2.lists_scratch(4, fs2.KERNEL6, 10, (50, 70)) == [(10, 14000, 4)]
+    assert fs2.lists_scratch(4, fs2.KERNEL6, 6, (50, 70), (16,)) == [(16, 6, 14000, 4)]
+    assert fs2.lists_scratch(2, fs2.F64_PUSH, 10, (50, 70)) == [(10, 14000)]
+    assert fs2.lists_scratch(6, fs2.F64_PUSH_JVP, 10, (50, 70)) == [(10, 14000, 2)]
+    assert fs2.lists_scratch(2, fs2.KERNEL6, 10, (40, 20)) == []
+    assert fs2.lists_scratch(1, fs2.F64_PUSH, 10, (40, 20)) == []
+    assert fs2.lists_scratch(5, fs2.F64_PUSH_JVP, 10, (40, 20)) == []
     assert 14000 * 16 == 224_000
 
 

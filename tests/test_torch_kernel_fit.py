@@ -512,8 +512,11 @@ def test_ensemble_routes_raise_past_the_limits(ks, over, monkeypatch):
 @pytest.mark.parametrize("mode", ["pallas", "auto"])
 def test_f32_boehl_endgame_builds_no_f64_kernel_map(ks, count, mode):
     """f32 directions with the boehl host-PGMRES endgame at 530×7, where
-    kernels 1-2 fit and the f64 tangent sweep does not: the solver builds,
-    and its "f64-ad" rung is AD, not the f64 tangent sweep."""
+    kernels 1-2 fit one block and the f64 tangent sweep does not: with
+    endgame="fd" (no "f64-ad" rung) the solver builds no f64 kernel map;
+    with the default endgame its "f64-ad" rung is the f64 route
+    `direction_mode` picks on the card, the f64 tangent sweep on its
+    cluster instantiation."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     model = build_small_ks_torch(T=tm.compspec.T, n_a=530, n_e=7)
@@ -522,8 +525,49 @@ def test_f32_boehl_endgame_builds_no_f64_kernel_map(ks, count, mode):
         warnings.simplefilter("error", UserWarning)
         newton_mod.make_path_solver(J, exog, model, card, card, method="boehl",
                                     direction_dtype=f32, direction_mode=mode,
+                                    host_inner=True, endgame="fd")
+        assert set(count) == {cuda_build.KERNEL2, cuda_build.KERNEL1}
+        count.clear()
+        newton_mod.make_path_solver(J, exog, model, card, card, method="boehl",
+                                    direction_dtype=f32, direction_mode=mode,
                                     host_inner=True)
-    assert set(count) == {cuda_build.KERNEL2, cuda_build.KERNEL1}
+    assert set(count) == {cuda_build.KERNEL2, cuda_build.KERNEL1, cuda_build.JVP_F64,
+                          cuda_build.CLUSTER_JVP_F64}
+
+
+@pytest.mark.parametrize("method,kw,leave_out", [
+    ("boehl", {"host_inner": True}, {"endgame": "fd"}),
+    ("newton_krylov", {}, {"stall_rescue": False})])
+def test_f32_solvers_past_the_f64_sweep_build_where_the_error_says(ks, count, method, kw,
+                                                                  leave_out):
+    """At 4981×7, past the global-state f64 tangent sweep's count (4980) and
+    within kernel 2's (5390) and kernel 1's (10792): the mixed boehl
+    host-PGMRES solver and the mixed Newton-Krylov one (whose stall rescue
+    is that boehl solve) raise when they are built under "auto", naming
+    direction_mode='xla' and the option that leaves the f64 rung out; built
+    with either, they build. No count of the f64 sweep is asked under
+    "xla"."""
+    tm, tss, exog, x = ks
+    card = on_card(tss)
+    model = build_small_ks_torch(T=tm.compspec.T, n_a=4981, n_e=7)
+    J = torch.eye(x.shape[0], dtype=f64)
+
+    def build(mode, **extra):
+        count.clear()
+        return newton_mod.make_path_solver(J, exog, model, card, card, method=method,
+                                           direction_dtype=f32, direction_mode=mode,
+                                           **kw, **extra)
+
+    option = "".join(f"{k}={v!r}" for k, v in leave_out.items())
+    with pytest.raises(ValueError, match=("the global-state f64 tangent sweep at grid 4981x7 "
+                                          f"needs.*direction_mode='xla'.*or {option}")):
+        build("auto")
+    assert cuda_build.GLOBAL_JVP_F64 in count
+    build("xla")
+    assert not {cuda_build.JVP_F64, cuda_build.CLUSTER_JVP_F64,
+                cuda_build.GLOBAL_JVP_F64} & set(count)
+    build("auto", **leave_out)
+    assert cuda_build.GLOBAL_KERNEL1 in count and cuda_build.GLOBAL_JVP_F64 not in count
 
 
 def test_cpu_routes_never_ask_the_count(ks, monkeypatch):

@@ -702,8 +702,8 @@ def test_global_list_forward_kernels_on_card_are_bit_for_bit_the_shared_list_one
 
     model = two_asset_on(cuda, 40, n_a)
     m32 = fs2.cast_model(model, f32)
-    assert fs2.forward_kernel("household_sweep2", 40, n_a, 5) == 2
-    assert fs2.forward_kernel("household_sweep2_f64", 40, n_a, 5) == fr2.SHARED_LISTS
+    assert fs2.forward_kernel(fs2.KERNEL6, 40, n_a, 5) == 2
+    assert fs2.forward_kernel(fs2.F64_PUSH, 40, n_a, 5) == fr2.SHARED_LISTS
     for seed, nan in ((1, False), (2, True)):
         pol, dpol, D0 = two_asset_policies(m32, f32, seed, nan=nan)
         shared = fs2.fused2_forward_jvp(pol, dpol, D0, m32)
