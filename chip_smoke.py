@@ -58,7 +58,16 @@ exits non-zero and never prints the final `"ok": true` line:
                (the two tangent ones as their <..., false> instantiations),
                against the previous builds'
                (`hank_tpu_torch/tools/sass_reference.json`, per library,
-               compared where nvcc is the same).
+               compared where nvcc is the same), where the seven batched
+               f64 tangent instantiations are recorded as first built too.
+               Since the batched f64 directions: the ranged kernel's
+               eleven instantiations (six global-state), the cluster
+               library's six, the f64 library's eight tangent ones (the
+               backward ones not spilling) and ten batched two-asset ones;
+               the seven new ones' registers and spills reported
+               (`ptxas_of_this_pr`); the batched f64 tangent sweep's fit
+               decisions at its three tiers' limits (529/530, 1660/1661,
+               4980/4981 at n_e = 7, the last raising naming fused='xla').
   3. setup   — Krusell-Smith 200×7, T=300 on the card: both steady states
                (max|F_ss| ≤ 1e-9 each, `find_ss`'s own stopping target) and
                the steady-state Jacobian J̄.
@@ -84,7 +93,8 @@ exits non-zero and never prints the final `"ok": true` line:
                (`fused_sweep_jvp_f64_previous`), bit for bit on all four
                outputs at the same six inputs in f64, within
                1e-10·max(scale, 1) of its plain version in f64 at the three
-               points, and a zero tangent exactly zero. Median ms per
+               points (on their last CHECK_PERIODS = 100 periods, a depth
+               cut for the time limit), and a zero tangent exactly zero. Median ms per
                sweep of kernel 1, the previous kernel 1, kernel 2 and the
                previous kernel 2, the f64 tangent sweep and its yardstick
                (in turns: previous, new, new, previous) and kernel 2's
@@ -115,7 +125,7 @@ exits non-zero and never prints the final `"ok": true` line:
                One warm-up Newton-Krylov solve, then: the batched kernel 1
                (kernels 3-4) at x_ss and at the warm-up's rows (smooth
                seeded v), every row bit-identical to a single kernel-1
-               launch, rows {0, 21, 42, 63} within 3e-5·max(scale, 1) of the
+               launch, rows {0, 63} within 3e-5·max(scale, 1) of the
                plain version run in float64 on the same input values, a
                zero tangent exactly zero; the batched kernel 2 at
                the warm-up's rows, every row bit-identical to a single
@@ -144,6 +154,21 @@ exits non-zero and never prints the final `"ok": true` line:
                Richardson solve to the same bounds, and the ms per launch of
                kernels 3-4 and of the previous kernels, in turns, at
                B ∈ {1, 64, 132, 256, 1024}, with the plain version's at B=4.
+               Then f64 directions: the batched f64 tangent sweep
+               (`<double,true,true>`) at the warm-up's rows along smooth
+               seeded f64 directions at B = 1, 16, 64 (and on the swapped
+               grid at 16), every row and fallback count bit for bit a
+               single `fused_sweep_jvp_f64` launch, every output bit for
+               bit the template's `<double,true,true>`, the two timed in
+               turns; row 0 within 1e-10·max(scale, 1) of its plain
+               version; and the ensemble with f64 directions
+               (`direction_dtype=None`, GMRES to 1e-12): a warm-up and 3
+               timed solves, only the batched f64 tangent sweep and the
+               batched kernel 2 launched (no plain version, single-path or
+               f32 kernel, previous kernel, or plain F or AD direction),
+               bit-identical, every row ‖F‖ ≤ 1e-8, re-checked by the plain
+               f64 pipeline on rows 0 and 63 and by the batched kernel 2
+               on every row, and within 1e-7 of the f32 ensemble's row.
   7. two-asset — `hank_two_asset` at its published width (40×20×5×2,
                `hank_tpu/models/hank_two_asset.yaml`), T=300, fiscal shock G
                from `generate_exog_paths`. Setup: the one steady state of the
@@ -301,6 +326,16 @@ exits non-zero and never prints the final `"ok": true` line:
                takes, and at B = 16 and 64 on clusters of 7, 6, 5 and 4 in
                turns (every such launch first held bit for bit to the
                B=16 rows), beside the card's max active clusters per size.
+               f64 directions at 1200×7, as phase 6 holds them, on the
+               cluster tier (`household_sweep_cluster_kernel<double,true,
+               true>`, which the map must decide): rows bit for bit single
+               launches at B = 1, 16, 64 (the warm-up's 16 rows cycled),
+               the global-state `<double,true,true,true>` bit for bit it
+               through its `_global` entry point (also at 500×7, against
+               the cluster and the one-block kernel, timed in turns), row
+               0 against the plain version, and the B=16 ensemble with f64
+               directions (a warm-up and 3 timed solves, the same bounds
+               and counters as phase 6's).
   9. forward scan — kernel 7 on the f32 savings policies of the plain
                backward block at phase 4's warm-up solution (KS 200×7, 299
                periods, from ss0.D) and at phase 8's large-grid solution
@@ -337,9 +372,13 @@ exits non-zero and never prints the final `"ok": true` line:
                the last period's n_endog columns at the initial steady state
                within 1e-9 of the meshed J̄ there (`tests/test_jacobian.py:84`),
                with the fd columns' gap, the gap at the ending steady state
-               to phase 3's J̄ and `single_run`'s ‖F‖ reported; and the
-               port's `dryrun_multichip(1)` (one spawned NCCL rank: SP, TP
-               and DP on a 16×2 Krusell-Smith). The `kernels` line's rows of
+               to J̄ there and `single_run`'s ‖F‖ reported, the AD tools and
+               their J̄ on the KS model cut to T = AD_TOOLS_T = 150 (a depth
+               cut for the time limit); and the port's `dryrun_multichip(1)`
+               (one spawned NCCL rank: SP, TP and DP on a 16×2
+               Krusell-Smith), which runs beside phase 7's host-bound setup
+               (started before it; phase 7 waits for it before its first
+               timed check) and is reported here. The `kernels` line's rows of
                kernels 3-4 and of the batched kernel 2 gain `launches_mesh`.
  11. two-asset ensemble — run right after phase 7, on its model, steady
                states and J̄: B=16 fiscal shocks G_b,t = s_b·ρ_bᵗ, s_b = 0.005
@@ -370,7 +409,21 @@ exits non-zero and never prints the final `"ok": true` line:
                gap reported for it and for row B−1; the plain f64 ‖F‖ of rows
                0, B−1 and the worst row the solver's within 1e-12 + 1e-6
                relative, and < EPS on converged rows), and one lockstep boehl
-               solve, capped at 10 outers of 200 sweeps (reported).
+               solve, capped at 10 outers of 200 sweeps (reported). Then f64
+               directions: the batched tangent pair
+               (`fused2_policies_jvp_f64_batch`, `<true,true,false>`;
+               `fused2_forward_jvp_f64_batch`, `<true,false,true>`) at the
+               warm-up's rows along smooth seeded directions at B = 1, 16,
+               64 (rows cycled), every row bit for bit a single launch of
+               the single-path pair, each timed in turns with the values
+               pair's batched kernel at the same width, beside the cluster
+               taken and the card's max active clusters; and the ensemble
+               with f64 directions (a warm-up and one timed solve; only the
+               batched tangent pair and f64 pair launched, no plain
+               version, single-path or f32 kernel, AD or plain F;
+               bit-identical; every row the f32 solve brings to EPS at EPS
+               and within 1e-7 of it; its stalled rows beside the f32
+               solve's).
  12. two-asset large grid — `hank_two_asset` at 50×70×5×2, T=150
                (LARGE_TWO_ASSET: the yaml's bounds, income and access, 50
                liquid and 70 illiquid knots, the published two-asset width
@@ -431,7 +484,10 @@ exits non-zero and never prints the final `"ok": true` line:
                spill) and requires, by the library's counts, the
                decisions at 40×20 (shared state, tabled; shared lists) and
                50×70 (global state, untabled; global lists), and the build
-               to raise at 64×64.
+               to raise at 64×64. Then the batched tangent pair's global
+               instantiations (`<true,true,true>` both) at B = 4 on x_ss,
+               the solution and the smooth point, every row bit for bit a
+               single launch, timed in turns with the values pair's.
 
 Every entry of the `kernels` line carries the least time the card could
 take for its timed call (`bound_ms`, `bound_by`: bytes over 3.35 TB/s
@@ -458,7 +514,15 @@ global-state rows give `ms`, `plain_ms`, the error and the bound at
 1200×7 (the batched ones at B=16), their launches in phase 8's three
 timed solves of their route (0: every one of them takes 1200×7 on its
 cluster instantiation; `main_path` says so), and their ms at 500×7
-beside the one-block kernel's (`ms_500x7`, `ms_one_block_500x7`).
+beside the one-block kernel's (`ms_500x7`, `ms_one_block_500x7`). The
+batched f64 direction rows (phase 6's `<double,true,true>` at B=64,
+phase 8's cluster and global-state tiers at 1200×7, B=16, phase 11's
+tangent pair at B=16 and phase 12's at B=4) give `ms` at that width with
+their ms at the other widths, the template's or the values pair's beside
+them, their plain version's time at B = 1 (the tangent pair's: its
+single-path plain version, which its B = 1 loop is, timed in phases 7 and
+12), and their launches per f64 ensemble solve (0 where no solver takes
+them; `main_path` says so).
 The last three lines
 are the kernel summary JSON, the nvidia-smi line and `{"ok": true,
 "device": {...}}`. There is no CPU path:
@@ -479,6 +543,46 @@ import time
 
 # The two-asset route's target, and the bound its result is checked at.
 EPS = 1e-8
+
+# The depth (periods) of phase 4's check of the f64 tangent sweep against
+# its plain version in f64: the last CHECK_PERIODS periods of each input
+# path (of 299 at T=300), cut for the script's time limit; its bit-for-bit
+# checks, its timings and the plain version's timed run keep the full depth.
+CHECK_PERIODS = 100
+
+# Phase 10's horizon for the AD validation tools (the direct JVP and
+# finite-difference columns of the last period against J̄ of the same
+# horizon): the KS model cut from T = 300 to this, for the time limit.
+AD_TOOLS_T = 150
+
+
+class Background:
+    """`fn(*args, **kw)` on a thread, started at once, beside the caller's
+    work; `wait()` joins it, re-raises its error and returns its result
+    (`seconds`: its wall-clock)."""
+
+    def __init__(self, fn, *args, **kw):
+        import threading
+
+        self.result = self.error = None
+        self.seconds = 0.0
+        t0 = time.perf_counter()
+
+        def run():
+            try:
+                self.result = fn(*args, **kw)
+            except BaseException as exc:       # re-raised by wait()
+                self.error = exc
+            self.seconds = time.perf_counter() - t0
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def wait(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.result
 
 # Phase 8's models and horizons: BASELINE.json configs 2 and 4, solved as
 # `scripts/measure_configs.py:36-63` solves them.
@@ -750,12 +854,14 @@ def previous_wrappers() -> dict:
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep_batch_previous,
                                                    fused_residual_sweep_previous)
     from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp_f64_previous
-    from hank_tpu_torch.ops.fused_sweep_batch import fused_sweep_jvp_batch_previous
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch_previous,
+                                                      fused_sweep_jvp_f64_batch_previous)
 
     return {"k2_previous": fused_residual_sweep_previous,
             "k2_batch_previous": fused_residual_sweep_batch_previous,
             "k3_4_previous": fused_sweep_jvp_batch_previous,
             "jvp_f64_previous": fused_sweep_jvp_f64_previous,
+            "jvp_f64_batch_previous": fused_sweep_jvp_f64_batch_previous,
             "k7_previous": forward_scan_previous}
 
 
@@ -847,8 +953,9 @@ def fit_decisions() -> dict:
     last n_a it takes and the first it refuses; then its cluster
     instantiation's limit (per block, on a cluster of 7 the card holds:
     `cuda_build.max_clusters`) between the one-block and the global-state
-    ones. Fails if the libraries' counts disagree with those limits or the
-    decision with the tiers."""
+    ones. The batched f64 tangent sweep's three tiers end where the single
+    path's do. Fails if the libraries' counts disagree with those limits or
+    the decision with the tiers."""
     from hank_tpu_torch.ops import cuda_build as cb
 
     def fits(need):
@@ -860,10 +967,15 @@ def fit_decisions() -> dict:
 
     from hank_tpu_torch.ops.fused_sweep import KERNEL_NAMES, sweep_kernel
 
+    from hank_tpu_torch.ops.fused_sweep import ENSEMBLE_ROUTE
+
     limits = {"kernel2": (cb.KERNEL2, 1036), "kernel1": (cb.KERNEL1, 1147),
-              "kernels3_4": (cb.KERNELS3_4, 1148), "jvp_f64": (cb.JVP_F64, 529)}
-    global_limits = {"kernel2": 5390, "kernel1": 10792, "kernels3_4": 10792, "jvp_f64": 4980}
-    cluster_limits = {"kernel2": 2694, "kernel1": 3597, "kernels3_4": 3597, "jvp_f64": 1660}
+              "kernels3_4": (cb.KERNELS3_4, 1148), "jvp_f64": (cb.JVP_F64, 529),
+              "jvp_f64_batch": (cb.JVP_F64_BATCH, 529)}
+    global_limits = {"kernel2": 5390, "kernel1": 10792, "kernels3_4": 10792, "jvp_f64": 4980,
+                     "jvp_f64_batch": 4980}
+    cluster_limits = {"kernel2": 2694, "kernel1": 3597, "kernels3_4": 3597, "jvp_f64": 1660,
+                      "jvp_f64_batch": 1660}
     report = {}
     for name, (which, last) in limits.items():
         taken = {n_a: fits(cb.sweep_smem_bytes(which, n_a, 7)) for n_a in (last, last + 1)}
@@ -889,12 +1001,16 @@ def fit_decisions() -> dict:
         taken = {n_a: fits(cb.sweep_smem_bytes(glob, n_a, 7)) for n_a in (g_last, g_last + 1)}
         require(taken == {g_last: True, g_last + 1: False},
                 f"{name} on global state: the fit at n_e = 7 is {taken}, not a limit at {g_last}")
+        # The batched f64 tangent sweep's map names the ensemble's plain
+        # route (`make_fused_jvp_batch` passes ENSEMBLE_ROUTE).
+        ensemble = which == cb.JVP_F64_BATCH
         try:
-            sweep_kernel(which, g_last + 1, 7)
+            sweep_kernel(which, g_last + 1, 7, *((ENSEMBLE_ROUTE,) if ensemble else ()))
             error = None
         except ValueError as exc:
             error = str(exc)
-        require(error is not None and "direction_mode='xla'" in error,
+        named = "fused='xla'" if ensemble else "direction_mode='xla'"
+        require(error is not None and named in error,
                 f"{name}: past the global-state count the decision did not raise: {error}")
         report[name] = {"last_n_a_taken": last, "bytes": [cb.sweep_smem_bytes(which, n_a, 7)
                                                            for n_a in (last, last + 1)],
@@ -942,7 +1058,7 @@ def state_loads_coherent(job) -> dict:
             require(twins == {n}, f"<{S},{tangent},{batched},G>: {n} ld.global.nc against the "
                                   f"shared-state instantiations' {twins}")
             report[f"<{S},{tangent},{batched},G>"] = n
-    require(len(report) == 5, f"the five global-state instantiations were not found: {report}")
+    require(len(report) == 6, f"the six global-state instantiations were not found: {report}")
     return report
 
 
@@ -1333,10 +1449,12 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
             single = fused_sweep_jvp(*(q[b].contiguous() for q in paths), *c32, **kw)
             require(all(torch.equal(o[b], s_) for o, s_ in zip(out, single)),
                     f"batched kernel 1: row {b} differs from its single launch")
+        # Held on the first and last check rows (all four before the batched
+        # f64 directions' checks, cut for the script's time limit).
         ref = fused_sweep_jvp_batch_reference(
-            *(q.double() for q in rows_of(paths, check_rows)), *c32_as64, **kw)
+            *(q.double() for q in rows_of(paths, check_rows[::3])), *c32_as64, **kw)
         for o, r_ in zip(out, ref):
-            err = max_abs(o[check_rows].double(), r_)
+            err = max_abs(o[check_rows[::3]].double(), r_)
             scale = float(r_.abs().max())
             require(err <= 3e-5 * max(scale, 1.0),
                     f"batched kernel 1 off its plain version by {err:.3e} (scale {scale:.3e})")
@@ -1542,6 +1660,11 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          sweeps_per_s={Bw: Bw / (ms / 1e3) for Bw, ms in width_ms.items()},
          ms_per_launch_previous=width_ms_previous)
 
+    # f64 directions: the batched f64 tangent sweep and the f64-direction
+    # Newton-Krylov solve, held to the f32 solve's rows.
+    f64_entry, f64_solved = ensemble_f64_phase(model, ss0, ssT, Jbar, x_ss, exog_b, x_warm,
+                                               xs[0], c64, kw)
+
     # Bounds of the timed calls: the batched kernel 1 on the 4 check rows,
     # the batched kernel 2 on rows {0, B-1}.
     n_a, n_e = wealth.n, prod.n
@@ -1559,7 +1682,7 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
              f"ms_B{B}": k34_turns[f"B{B}"]["new"],
              f"ms_previous_B{B}": k34_turns[f"B{B}"]["previous"]}
     solved = {"exog_b": exog_b, "x": xs[0], "info": info, "median_s": statistics.median(runs),
-              "cluster_200": cluster_200}
+              "cluster_200": cluster_200, "f64": f64_solved}
     return [
         {"name": "fused_sweep_jvp_batch (backward EGM)",
          "replaces": "hank_tpu/ops/fused_sweep_batch.py:87", **entry},
@@ -1571,20 +1694,284 @@ def ensemble_phase(model, ss0, ssT, Jbar, x_ss, B: int = 64,
          "max_abs_err": k2b_err, "ms": k2b_ms, "plain_ms": plain2_ms, **k2b_bound,
          "library_ms": None, "ms_previous": k2b_turns["B2"]["previous"],
          "fallback_rows": fallback_sum(k2b_bits, solver_points),
-         f"ms_B{B}": k2b_ms_full, f"ms_previous_B{B}": k2b_turns[f"B{B}"]["previous"]},
+         f"ms_B{B}": k2b_ms_full, f"ms_previous_B{B}": k2b_turns[f"B{B}"]["previous"],
+         "launches_f64_ensemble": f64_solved["launches_per_solve"]["k2_batch"]["launches"]},
+        f64_entry,
     ], solved
 
 
-def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict) -> dict:
+def f64_sweep_batch_rows(args, consts, kw, widths, template: bool) -> dict:
+    """The batched f64 tangent sweep (`fused_sweep_jvp_f64_batch`, the tier
+    its wrapper decides) on the first Bw rows of `args` ((B, T-1) f64 r, w,
+    dr, dw) for each width Bw in `widths`: every output row and fallback
+    count bit for bit a single `fused_sweep_jvp_f64` launch on its row.
+    With `template`, every output bit for bit the counting template's
+    `<double, true, true>` (`fused_sweep_jvp_f64_batch_previous`), the two
+    timed in turns (template, batched, batched, template); else the batched
+    one timed alone. Returns {Bw: report}."""
+    import torch
+
+    from hank_tpu_torch.ops.fused_sweep import fused_sweep_jvp_f64
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_f64_batch,
+                                                      fused_sweep_jvp_f64_batch_previous)
+
+    report = {}
+    for Bw in widths:
+        rows = [a[:Bw].contiguous() for a in args]
+        fb, fb_single = (torch.zeros((Bw, 2), dtype=torch.int32, device=rows[0].device)
+                         for _ in range(2))
+        out = fused_sweep_jvp_f64_batch(*rows, *consts, **kw, fallback_rows=fb)
+        for b in range(Bw):
+            single = fused_sweep_jvp_f64(*(q[b].contiguous() for q in rows), *consts, **kw,
+                                         fallback_rows=fb_single[b])
+            require(all(same_bits(o[b], s_) for o, s_ in zip(out, single)),
+                    f"batched f64 tangent sweep at B={Bw}: row {b} differs from its single "
+                    f"launch")
+        require(torch.equal(fb, fb_single),
+                f"batched f64 tangent sweep at B={Bw}: fallback counts differ")
+        entry = {"rows_bit_identical": True, "fallback_rows": fb.sum(0).tolist(),
+                 "finite": all(bool(torch.isfinite(o).all()) for o in out)}
+        if template:
+            previous = fused_sweep_jvp_f64_batch_previous(*rows, *consts, **kw)
+            require(all(same_bits(a, b) for a, b in zip(out, previous)),
+                    f"batched f64 tangent sweep at B={Bw} differs from the template's "
+                    f"<double, true, true>")
+            turns = in_turns({
+                "template": lambda: fused_sweep_jvp_f64_batch_previous(*rows, *consts, **kw),
+                "batched": lambda: fused_sweep_jvp_f64_batch(*rows, *consts, **kw)}, 5)
+            entry.update(template_bit_identical=True, ms=turns["batched"],
+                         ms_template=turns["template"])
+        else:
+            entry["ms"] = cuda_ms(lambda: fused_sweep_jvp_f64_batch(*rows, *consts, **kw), 5)
+        report[Bw] = entry
+    return report
+
+
+def counter_total(fn) -> int:
+    """A wrapper's launches on every tier, or a plain version's calls."""
+    return sum(getattr(fn, a, 0) for a in ("launches", "launches_cluster", "launches_global",
+                                           "calls"))
+
+
+def zero_counter(fn) -> None:
+    for a in ("launches", "launches_cluster", "launches_global", "calls"):
+        if hasattr(fn, a):
+            setattr(fn, a, 0)
+
+
+@contextlib.contextmanager
+def plain_F_counter():
+    """Within the block, the plain f64 F's evaluations by the ensemble's
+    routes (taken by `parallel.ensemble.make_full_residual_fn`, vmapped for
+    F_b or under `torch.func.jvp` for the AD directions); yields [count]."""
+    import hank_tpu_torch.parallel.ensemble as ens
+
+    calls, plain = [0], ens.make_full_residual_fn
+
+    def counted_residual(*a):
+        F = plain(*a)
+
+        def counted(x):
+            calls[0] += 1
+            return F(x)
+
+        return counted
+
+    ens.make_full_residual_fn = counted_residual
+    try:
+        yield calls
+    finally:
+        ens.make_full_residual_fn = plain
+
+
+def f64_ensemble_solve(path: str, solve, launched: dict, quiet: dict, timed: int) -> dict:
+    """The f64-direction ensemble solve `solve()` (-> x, info): one warm-up,
+    then `timed` runs with every counter zeroed right before: each wrapper
+    of `launched` ({key: wrapper}) launched on some tier, each of `quiet`
+    (wrappers, plain versions) and the plain f64 F (`plain_F_counter`: the
+    vmapped F and the AD directions) not at all, no previous kernel, and
+    the runs bit-identical to the warm-up. Returns the path, info, seconds
+    and counts."""
+    import torch
+
+    x_warm, _ = solve()
+    for fn in (*launched.values(), *quiet.values()):
+        zero_counter(fn)
+    zero_previous_launches()
+    runs, xs = [], []
+    with plain_F_counter() as plain_F:
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            x, info = solve()
+            runs.append(time.perf_counter() - t0)
+            xs.append(x)
+    launches = {k: {a: getattr(fn, a) for a in ("launches", "launches_cluster",
+                                               "launches_global") if hasattr(fn, a)}
+                for k, fn in launched.items()}
+    others = {k: counter_total(fn) for k, fn in quiet.items()}
+    previous = previous_launches()
+    require(all(sum(n.values()) > 0 for n in launches.values()),
+            f"{path}: a kernel of the route never launched: {launches}")
+    require(not any(others.values()) and plain_F[0] == 0 and not any(previous.values()),
+            f"{path}: a plain version, another kernel, the plain F or AD ran: {others}, "
+            f"plain F {plain_F[0]}, previous {previous}")
+    require(all(torch.equal(x_warm, xi) for xi in xs),
+            f"{path}: repeated solves returned different paths")
+    return {"x": xs[0], "info": info, "runs": runs, "launches": launches, "others": others,
+            "plain_F_calls": plain_F[0]}
+
+
+def one_asset_f64_ensemble(path: str, model, ss0, ssT, Jbar, x0, exog_b, x_f32,
+                           timed: int = 3) -> dict:
+    """Phases 6 and 8: the one-asset ensemble with f64 directions
+    (`solve_ensemble_host(direction_dtype=None)`, Newton-Krylov, eps 1e-8,
+    GMRES to 1e-12) through `f64_ensemble_solve`: the batched f64 tangent
+    sweep and the batched kernel 2 launched, no plain version, AD or other
+    kernel; every row ‖F‖ ≤ 1e-8, re-checked by the plain f64 pipeline on
+    the first and last rows and by the batched kernel 2 on all rows
+    (`residual_ensemble`), and within 1e-7 of the f32 ensemble's row
+    (`x_f32`). Emits its JSON line and returns the measurements."""
+    import torch
+
+    from hank_tpu_torch.ops import fused_residual as fr
+    from hank_tpu_torch.ops import fused_sweep as fs
+    from hank_tpu_torch.ops import fused_sweep_batch as fsb
+    from hank_tpu_torch.parallel.ensemble import residual_ensemble, solve_ensemble_host
+    from hank_tpu_torch.solvers.newton import make_full_residual_fn
+
+    def solve():
+        x, info = solve_ensemble_host(x0, Jbar, exog_b, model, ss0, ssT, eps=1e-8,
+                                      method="newton_krylov", direction_dtype=None)
+        torch.cuda.synchronize()
+        return x, info
+
+    got = f64_ensemble_solve(
+        path, solve, {"jvp_f64_batch": fsb.fused_sweep_jvp_f64_batch,
+                      "k2_batch": fr.fused_residual_sweep_batch},
+        {"jvp_f64_batch_plain": fsb.fused_sweep_jvp_f64_batch_reference,
+         "k2_batch_plain": fr.fused_residual_sweep_batch_reference,
+         "k3_4": fsb.fused_sweep_jvp_batch, "k3_4_plain": fsb.fused_sweep_jvp_batch_reference,
+         "jvp_f64": fs.fused_sweep_jvp_f64, "jvp_f64_plain": fs.fused_sweep_jvp_reference,
+         "k2": fr.fused_residual_sweep, "k2_plain": fr.fused_residual_sweep_reference},
+        timed)
+    x, info = got["x"], got["info"]
+    B = x.shape[0]
+    fn = info["residual_norm"]
+    require(bool(torch.isfinite(x).all()) and x.shape == x_f32.shape,
+            f"{path}: not finite paths of the expected shape")
+    require(bool((fn <= 1e-8).all()) and info["stalled_paths"] == 0,
+            f"{path}: max ‖F‖ {float(fn.max()):.3e}, {info['stalled_paths']} stalled paths")
+    plain_fn = {}
+    for b in (0, B - 1):
+        F_plain = make_full_residual_fn(model, ss0, ssT, {k: v[b] for k, v in exog_b.items()})
+        plain_fn[b] = float(torch.linalg.norm(F_plain(x[b])))
+        require(plain_fn[b] <= 1e-8, f"{path}: plain f64 ‖F‖ of row {b} is {plain_fn[b]:.3e}")
+    kernel2_fn = torch.linalg.vector_norm(residual_ensemble(x, exog_b, model, ss0, ssT), dim=1)
+    require(bool((kernel2_fn <= 1e-8).all()),
+            f"{path}: batched kernel 2's ‖F‖ up to {float(kernel2_fn.max()):.3e}")
+    vs_f32 = float((x - x_f32).abs().amax(dim=1).max())
+    require(vs_f32 <= 1e-7, f"{path}: a row is {vs_f32:.3e} off the f32 ensemble's")
+    n = len(got["runs"])
+    per_solve = {k: {a: c // n for a, c in v.items()} for k, v in got["launches"].items()}
+    report = {"B": B, "median_s": statistics.median(got["runs"]), "runs_s": got["runs"],
+              "outer_iterations": info["iterations"], "directions": info["inner_iterations"],
+              "F_b_per_solve": sum(per_solve["k2_batch"].values()),
+              "residual_norm_max": float(fn.max()), "residual_norm_plain_f64": plain_fn,
+              "residual_norm_kernel2_max": float(kernel2_fn.max()),
+              "max_abs_vs_f32_ensemble": vs_f32, "launches_per_solve": per_solve,
+              "others": got["others"], "plain_F_calls": got["plain_F_calls"],
+              "host_ls_s": info["host_ls_seconds"], "bit_identical": True}
+    emit(path, **report)
+    return {**report, "launches_total": got["launches"]}
+
+
+def ensemble_f64_entry(name: str, launches: int, err: float, ms: float, plain_ms: float,
+                       bound: dict, **extra) -> dict:
+    """A `kernels` entry of the batched f64 tangent sweep (one of its three
+    tiers)."""
+    return {"name": name, "route": "cuda",
+            "source": ("hank_tpu_torch/csrc/household_sweep_cluster.cu" if "cluster" in name
+                       else "hank_tpu_torch/csrc/household_sweep.cu"),
+            "replaces": "hank_tpu/parallel/ensemble.py:247-279 (f64 ensemble directions by "
+                        "vmapped jax.jvp under XLA; no TPU kernel)",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound, "library_ms": None, **extra}
+
+
+def ensemble_f64_phase(model, ss0, ssT, Jbar, x_ss, exog_b, x_rows, x_f32, c64, kw) -> tuple:
+    """Phase 6's f64 directions (KS 200×7, T=300, B rows): the batched f64
+    tangent sweep on the warm-up's rows along smooth seeded f64 directions,
+    at B = 1, 16 and 64, rows bit for bit single launches and the whole bit
+    for bit the counting template's `<double, true, true>`, timed in turns
+    with it; on the grid with two knots swapped (its fallback branches) at
+    B = 16; row 0 within 1e-10·max(scale, 1) of its plain version; then the
+    f64-direction ensemble solve (`one_asset_f64_ensemble`). Returns its
+    `kernels` entry and the solve's report."""
+    import torch
+
+    from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_f64_batch,
+                                                      fused_sweep_jvp_f64_batch_reference)
+
+    f64 = torch.float64
+    B, n = x_rows.shape
+    cs = model.compspec
+    Tm1, nE = cs.T - 1, cs.n_endog
+    endog = model.vars_of_type("endogenous")
+    i_r, i_w = endog.index("r"), endog.index("w")
+
+    def prices(x_b):
+        xp = x_b.reshape(B, Tm1, nE)
+        return [xp[:, :, i].to(f64).contiguous() for i in (i_r, i_w)]
+
+    gen = torch.Generator().manual_seed(23)
+    decay = (0.9 ** torch.arange(Tm1, dtype=f64))[None, :, None]
+    v_b = (torch.randn((B, 1, nE), generator=gen, dtype=f64) * decay).reshape(B, -1).to(
+        x_rows.device)
+    args = [*prices(x_rows), *prices(v_b)]
+    rows = f64_sweep_batch_rows(args, c64, kw, (1, 16, B), template=True)
+    k = int(model.endog_dims()[0].n) // 2
+    swapped = c64[2].clone()
+    swapped[[k, k + 1]] = swapped[[k + 1, k]]
+    rows_swapped = f64_sweep_batch_rows(args, (*c64[:2], swapped, *c64[3:]), kw, (16,),
+                                        template=True)
+    require(rows_swapped[16]["fallback_rows"][1] > 0,
+            f"the swapped grid took no fallback branch: {rows_swapped}")
+    one = [a[:1].contiguous() for a in args]
+    out = fused_sweep_jvp_f64_batch(*one, *c64, **kw)
+    ref, plain_ms = cuda_once(lambda: fused_sweep_jvp_f64_batch_reference(*one, *c64, **kw))
+    err = max(max_abs(o, r_) for o, r_ in zip(out, ref))
+    scale = max(float(r_.abs().max()) for r_ in ref)
+    require(err <= 1e-10 * max(scale, 1.0),
+            f"batched f64 tangent sweep off its plain version by {err:.3e} (scale {scale:.3e})")
+    emit("ensemble_f64_kernels", B=B, rows=rows, rows_grid_swapped=rows_swapped,
+         max_abs_err_vs_plain_row0=err, plain_ms_B1=plain_ms)
+    solved = one_asset_f64_ensemble("ensemble_f64_nk", model, ss0, ssT, Jbar, x_ss, exog_b,
+                                    x_f32)
+    n_a, n_e = model.endog_dims()[0].n, model.exog_dims()[0].n
+    bound = least_time(nbytes(*args, *c64) + 4 * nbytes(args[0]),
+                       one_asset_sweep_ops(Tm1, n_a, n_e, True, B), "f64")
+    entry = ensemble_f64_entry(
+        "fused_sweep_jvp_f64_batch <double,true,true>",
+        solved["launches_per_solve"]["jvp_f64_batch"]["launches"], err, rows[B]["ms"], plain_ms,
+        bound, B=B, plain_ms_at="B=1", ms_template=rows[B]["ms_template"],
+        **{f"ms_B{Bw}": r["ms"] for Bw, r in rows.items()},
+        **{f"ms_template_B{Bw}": r["ms_template"] for Bw, r in rows.items()},
+        grid="200x7, T=300")
+    return entry, solved
+
+
+def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict, dryrun) -> dict:
     """Phase 10: the meshed paths in a one-rank group on the card (see the
-    module docstring). Emits its JSON line and returns the batched kernels'
-    launches in the meshed solves."""
+    module docstring); `dryrun` the `Background` job of
+    `dryrun_multichip(1)`, run beside phase 7's setup. Emits its JSON line
+    and returns the batched kernels' launches in the meshed solves."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
 
     from hank_tpu_torch.blocks.backward import backward_iteration
     from hank_tpu_torch.blocks.forward import forward_iteration
-    from hank_tpu_torch.parallel.dryrun import dryrun_multichip
     from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
     from hank_tpu_torch.parallel.mesh import destroy_distributed, init_distributed, make_mesh
     from hank_tpu_torch.parallel.state_sharding import (backward_iteration_sharded,
@@ -1624,7 +2011,9 @@ def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict) -> dic
         require(torch.equal(J_det_mesh, J_det), "under deterministic algorithms the meshed "
                 f"J̄ differs from the unmeshed one (max abs {max_abs(J_det_mesh, J_det):.3e})")
         out["jacobian_deterministic_bits_equal"] = True
-        J0_mesh = get_steady_state_jacobian(ss0, model, mesh=mesh)
+        # J̄ of the AD tools' horizon (below), on the mesh.
+        ad_model = dataclasses.replace(model, compspec=dataclasses.replace(cs, T=AD_TOOLS_T))
+        J0_mesh = get_steady_state_jacobian(ss0, ad_model, mesh=mesh)
 
         # Phase 6's Newton-Krylov ensemble on the mesh: its path bit for bit,
         # its outers and matvecs, through kernels 3-4 and the batched kernel 2.
@@ -1678,38 +2067,42 @@ def mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble: dict) -> dic
 
     # The AD validation tools on the last period's n_endog columns, held to
     # J̄ at the initial steady state (Z = 1, the point `tests/test_jacobian.py`
-    # checks at); at the ending steady state the difference is reported.
-    cols = [(Tm1 - 1) * nE + i for i in range(nE)]
+    # checks at); at the ending steady state the difference is reported. On
+    # the model cut to T = AD_TOOLS_T (the steady states do not depend on T).
+    cols = [(AD_TOOLS_T - 2) * nE + i for i in range(nE)]
     t0 = time.perf_counter()
-    jvp_cols = direct_jacobian_columns(ss0, ss0, model, cols)
+    jvp_cols = direct_jacobian_columns(ss0, ss0, ad_model, cols)
     torch.cuda.synchronize()
     out["jvp_columns_s"] = time.perf_counter() - t0
+    out["ad_tools_T"] = AD_TOOLS_T
     out["jvp_columns_vs_jbar_ss0_max_abs"] = max_abs(jvp_cols, J0_mesh[:, cols])
     require(out["jvp_columns_vs_jbar_ss0_max_abs"] <= 1e-9,
             f"direct JVP columns off J̄'s by {out['jvp_columns_vs_jbar_ss0_max_abs']:.3e}")
     out["fd_columns_vs_jvp_max_abs"] = max_abs(
-        direct_jacobian_columns(ss0, ss0, model, cols, mode="fd"), jvp_cols)
+        direct_jacobian_columns(ss0, ss0, ad_model, cols, mode="fd"), jvp_cols)
     out["fd_step"] = cs.dx
     out["jvp_columns_vs_jbar_ssT_max_abs"] = max_abs(
-        direct_jacobian_columns(ssT, ssT, model, cols), Jbar[:, cols])
+        direct_jacobian_columns(ssT, ssT, ad_model, cols),
+        get_steady_state_jacobian(ssT, ad_model)[:, cols])
     out["single_run_norm"] = float(torch.linalg.norm(single_run(ss0, ssT, model, exog)))
 
-    # The dry run of the SP, TP and DP paths, one spawned NCCL rank.
-    t0 = time.perf_counter()
-    out["dryrun"] = dryrun_multichip(1, device=x_ss.device.type)
-    out["dryrun_s"] = time.perf_counter() - t0
+    # The dry run of the SP, TP and DP paths, one spawned NCCL rank, which
+    # ran beside phase 7's setup (its seconds are its own wall-clock there).
+    out["dryrun"] = dryrun.wait()
+    out["dryrun_s"] = dryrun.seconds
     emit("mesh", **out)
     return launches
 
 
-def two_asset_phase(dev, ptxas, cache: str) -> tuple:
+def two_asset_phase(dev, ptxas, cache: str, beside=None) -> tuple:
     """Phase 7: the two-asset production route at full width (see the
     module docstring). Emits its JSON lines and returns the `kernels`
     entries of kernels 5 and 6, of the f64 pair and of the f64 tangent
     pair, and what phase 11 reuses: the model, both steady states, J̄ and
     x_ss. `ptxas` is phase 2's per-kernel report; the steady state and J̄
     go to `cache` (a `HANK_TPU_TORCH_CACHE` directory), where the CLI's
-    default run reads them."""
+    default run reads them. `beside`, a `Background` job started before
+    this phase, is waited for after the setup, before any timed check."""
     import numpy as np
     import torch
 
@@ -1738,6 +2131,8 @@ def two_asset_phase(dev, ptxas, cache: str) -> tuple:
     ss0, ssT, Jbar = get_or_solve(model, cache_dir=artifacts)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    if beside is not None:
+        beside.wait()          # a `Background` job, done before any timed check
     col = torch.stack([torch.as_tensor(ssT.vars[k]) for k in model.var_names()])
     F_ss = float(eval_residuals(col[:, None].expand(cs.n_v, 1 + cs.max_lag + cs.max_lead),
                                 model).abs().max())
@@ -2063,7 +2458,8 @@ def two_asset_phase(dev, ptxas, cache: str) -> tuple:
                           two_asset_ops(Tm1, n_b, n_a, n_e, 1), "f32")
     replaces_f64 = ("hank_tpu/solvers/newton.py:352-376 (the two-asset F in f64 under XLA; "
                     "no TPU kernel)")
-    setup = {"model": model, "ss0": ss0, "ssT": ssT, "Jbar": Jbar, "x_ss": x_ss}
+    setup = {"model": model, "ss0": ss0, "ssT": ssT, "Jbar": Jbar, "x_ss": x_ss,
+             "tangent": tangent}
     return [*({**entry, "launches": launches[key], "replaces": replaces_f64}
               for key, entry in pair.items()),
         *tangent_pair_entries(tangent, model, default_counts, "40x20x5x2, T=300"),
@@ -2505,6 +2901,192 @@ F_B_REPLACES = ("hank_tpu/parallel/ensemble.py:76-95 (the ensemble's F, vmapped 
                 "f64; no TPU kernel)")
 
 
+def tangent_pair_batch_rows(model, ss0, ssT, paths, widths, reps: int = 5) -> dict:
+    """The batched f64 tangent pair (`fused2_policies_jvp_f64_batch`,
+    `fused2_forward_jvp_f64_batch`, the instantiations their wrappers
+    decide) on `paths` (the eight (R, T-1) f64 price and tangent paths of R
+    source rows), at each width Bw of `widths` on rows i % R: every row of
+    each bit for bit a single launch of `fused2_policies_jvp_f64` /
+    `fused2_forward_jvp_f64` on its source row; then ms per launch of each
+    at each width in turns with the values pair's batched kernel
+    (`fused_residual2.fused2_*_f64_batch`) on the same rows (values,
+    tangent, tangent, values), the cluster each takes and the bytes each
+    launch reads and writes. Returns {"widths": {Bw: ...}, ...}."""
+    import torch
+
+    from hank_tpu_torch.ops import cuda_build
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+
+    f64 = torch.float64
+    VT, D0 = ssT.value.to(f64).contiguous(), ss0.D.to(f64).contiguous()
+    grid = tuple(model.state_shape()[:3])
+    R = paths[0].shape[0]
+    single = {}
+    for r in range(R):
+        sp, sd = fs2.fused2_policies_jvp_f64(*(q[r].contiguous() for q in paths), VT, model)
+        single[r] = (sp, sd, *fs2.fused2_forward_jvp_f64(sp, sd, D0, model))
+    backward = fs2.jvp_f64_backward(grid)
+    forward = fs2.forward_kernel(fs2.F64_PUSH_JVP, *grid)
+    report = {}
+    for Bw in widths:
+        idx = [i % R for i in range(Bw)]
+        rows = [q[idx].contiguous() for q in paths]
+        pol, dpol = fs2.fused2_policies_jvp_f64_batch(*rows, VT, model)
+        aggs, daggs = fs2.fused2_forward_jvp_f64_batch(pol, dpol, D0, model)
+        for i, r in enumerate(idx):
+            for got, ref in zip((pol, dpol, aggs, daggs), single[r]):
+                require(all(same_bits(got[k][i], ref[k]) for k in fs2.KEYS),
+                        f"the batched tangent pair at B={Bw}: row {i} differs from the "
+                        f"single-path launch")
+        pol64 = fr2.fused2_policies_f64_batch(*rows[:4], VT, model)
+        bwd = in_turns({"values": lambda: fr2.fused2_policies_f64_batch(*rows[:4], VT, model),
+                        "tangent": lambda: fs2.fused2_policies_jvp_f64_batch(*rows, VT, model)},
+                       reps)
+        fwd = in_turns({"values": lambda: fr2.fused2_forward_f64_batch(pol64, D0, model),
+                        "tangent": lambda: fs2.fused2_forward_jvp_f64_batch(pol, dpol, D0,
+                                                                            model)}, reps)
+        report[Bw] = {"rows_bit_identical": True,
+                      "bwd_ms": bwd["tangent"], "bwd_values_ms": bwd["values"],
+                      "fwd_ms": fwd["tangent"], "fwd_values_ms": fwd["values"],
+                      "bwd_cluster": fs2.batch_cluster_of(fr2.LIBRARY, backward, Bw, grid),
+                      "fwd_cluster": fs2.batch_cluster_of(fr2.LIBRARY, forward, Bw, grid),
+                      "finite": all(bool(torch.isfinite(t[k]).all())
+                                    for t in (aggs, daggs) for k in fs2.KEYS),
+                      "bwd_bytes": nbytes(*rows, VT, *pol.values(), *dpol.values()),
+                      "fwd_bytes": nbytes(*pol.values(), *dpol.values(), D0, *aggs.values(),
+                                          *daggs.values())}
+        torch.cuda.empty_cache()
+    def held(which, default):
+        """The card's max active clusters of each size whose blocks fit."""
+        return {C: cuda_build.max_clusters(fr2.LIBRARY, which, *grid, C)
+                for C in range(1, default + 1)
+                if cuda_build.sweep2_f64_smem_bytes(which, *grid, C) <= cuda_build.MAX_SMEM_BYTES}
+
+    return {"widths": report, "backward": backward, "forward": forward,
+            "max_active_clusters": {"bwd": held(backward, fs2.default_bwd_cluster(grid[2])),
+                                    "fwd": held(forward, fs2.default_cluster(grid[2]))}}
+
+
+def tangent_pair_batch_entries(rows: dict, pair: dict, model, launches: dict, B: int,
+                               grid_label: str, **extra) -> list:
+    """The `kernels` entries of the batched tangent pair's two
+    instantiations that `tangent_pair_batch_rows` measured (`rows`) at the
+    ensemble's width B. Every row is bit for bit the single-path kernel, so
+    the error against the plain version and the plain version's ms (its
+    B = 1 loop is the single-path plain version) are the single-path
+    checks' of this run (`pair`, `tangent_pair_checks`)."""
+    Tm1 = model.compspec.T - 1
+    n_b, n_a, n_e = model.state_shape()[:3]
+    at = rows["widths"][B]
+    back = ("<true, true, false> (tangent state in shared memory)" if rows["backward"] == 4
+            else "<true, true, true> (dW and the knots' tangents in a global workspace)")
+    fwd = ("<true, false, true> (shared lists)" if rows["forward"] == 5
+           else "<true, true, true> (global lists)")
+    common = {"route": "cuda", "source": "hank_tpu_torch/csrc/household_sweep2_f64.cu",
+              "library_ms": None, "grid": grid_label, "B": B, "plain_ms_at": "B=1",
+              "max_abs_err_of": "the single-path kernel (every row bit for bit), against its "
+                                "plain version in this run", **extra}
+    return [
+        {**common, "name": f"fused2_policies_jvp_f64_batch {back}",
+         "replaces": "hank_tpu/ops/fused_sweep2.py:673 over B paths, in FP64 (the reference "
+                     "vmaps jax.jvp of its f64 F: hank_tpu/parallel/ensemble.py:247-279)",
+         "launches": launches["bwd"], "max_abs_err": pair["err_bwd"], "ms": at["bwd_ms"],
+         "plain_ms": pair["timing"]["bwd_plain_ms"], "ms_values_kernel": at["bwd_values_ms"],
+         "cluster": at["bwd_cluster"],
+         **{f"ms_B{Bw}": r["bwd_ms"] for Bw, r in rows["widths"].items()},
+         **{f"ms_values_B{Bw}": r["bwd_values_ms"] for Bw, r in rows["widths"].items()},
+         **least_time(at["bwd_bytes"], B * two_asset_ops(Tm1, n_b, n_a, n_e, 0), "f64")},
+        {**common, "name": f"fused2_forward_jvp_f64_batch {fwd}",
+         "replaces": "hank_tpu/ops/fused_sweep2.py:984 over B paths, in FP64 (as above)",
+         "launches": launches["fwd"], "max_abs_err": pair["err_fwd"], "ms": at["fwd_ms"],
+         "plain_ms": pair["timing"]["fwd_plain_ms"], "ms_values_kernel": at["fwd_values_ms"],
+         "cluster": at["fwd_cluster"],
+         **{f"ms_B{Bw}": r["fwd_ms"] for Bw, r in rows["widths"].items()},
+         **{f"ms_values_B{Bw}": r["fwd_values_ms"] for Bw, r in rows["widths"].items()},
+         **least_time(at["fwd_bytes"], B * two_asset_ops(Tm1, n_b, n_a, n_e, 1), "f64")},
+    ]
+
+
+def two_asset_f64_ensemble(two: dict, exog_b, x_f32, f32_norms, paths, widths) -> list:
+    """Phase 11's f64 directions: the batched tangent pair at `widths`
+    (`tangent_pair_batch_rows` on `paths`, the warm-up's rows along smooth
+    directions), then the f64-direction Newton-Krylov ensemble solve of
+    the same shocks (a warm-up and one timed run, `f64_ensemble_solve`):
+    the batched tangent pair and the batched f64 pair launched, no plain
+    version, AD, single-path or f32 kernel; every row the f32 ensemble
+    solves to EPS (`f32_norms`) at EPS and within 1e-7 of its row
+    (`x_f32`); the stalled rows reported beside the f32 solve's. Returns
+    the pair's `kernels` entries."""
+    import torch
+
+    from hank_tpu_torch.ops import fused_residual2 as fr2
+    from hank_tpu_torch.ops import fused_sweep2 as fs2
+    from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
+    from hank_tpu_torch.solvers.newton import ad_direction, make_full_residual_fn
+
+    model, ss0, ssT, Jbar, x_ss = (two[k] for k in ("model", "ss0", "ssT", "Jbar", "x_ss"))
+    B = x_f32.shape[0]
+    rows = tangent_pair_batch_rows(model, ss0, ssT, paths, widths)
+    emit("two_asset_ensemble_f64_kernels", B=B,
+         **{k: v for k, v in rows.items() if not k.endswith("_bytes")})
+
+    def solve():
+        x, info = solve_ensemble_host(x_ss, Jbar, exog_b, model, ss0, ssT, eps=EPS,
+                                      method="newton_krylov", direction_dtype=None)
+        torch.cuda.synchronize()
+        return x, info
+
+    quiet = {f"{k}{'_plain' if i else ''}": fn
+             for group in (two_asset_single_wrappers(),
+                           {k: v for k, v in two_asset_batch_wrappers().items()
+                            if k in ("k5_batch", "k6_batch")})
+             for k, pair_ in group.items() for i, fn in enumerate(pair_) if fn is not None}
+    quiet.update(bwd_plain=fs2.fused2_policies_jvp_f64_batch_reference,
+                 fwd_plain=fs2.fused2_forward_jvp_f64_batch_reference,
+                 k5_f64_batch_plain=fr2.fused2_policies_f64_batch_reference,
+                 k6_f64_batch_plain=fr2.fused2_forward_f64_batch_reference,
+                 ad_directions=ad_direction)
+    got = f64_ensemble_solve("two-asset f64 ensemble", solve,
+                             {"bwd": fs2.fused2_policies_jvp_f64_batch,
+                              "fwd": fs2.fused2_forward_jvp_f64_batch,
+                              "k5_f64_batch": fr2.fused2_policies_f64_batch,
+                              "k6_f64_batch": fr2.fused2_forward_f64_batch}, quiet, 1)
+    x, info = got["x"], got["info"]
+    fn = info["residual_norm"]
+    require(bool(torch.isfinite(x).all()) and x.shape == x_f32.shape,
+            "two-asset f64 ensemble: not finite paths of the expected shape")
+    solved_f32 = [r for r in range(B) if float(f32_norms[r]) <= EPS]
+    stalled = [r for r in range(B) if float(fn[r]) > EPS]
+    require(not set(stalled) & set(solved_f32),
+            f"two-asset f64 ensemble: rows {sorted(set(stalled) & set(solved_f32))} that f32 "
+            f"directions solve stay above EPS")
+    require(len(stalled) == info["stalled_paths"],
+            f"two-asset f64 ensemble: rows {stalled} above EPS but {info['stalled_paths']} "
+            f"stalled paths")
+    vs_f32 = max(max_abs(x[r], x_f32[r]) for r in solved_f32)
+    require(vs_f32 <= 1e-7, f"two-asset f64 ensemble: a row is {vs_f32:.3e} off the f32 row")
+    plain_fn = {}
+    for r in sorted({solved_f32[0], solved_f32[-1]}):
+        F_plain = make_full_residual_fn(model, ss0, ssT, {"G": exog_b["G"][r]})
+        plain_fn[r] = float(torch.linalg.norm(F_plain(x[r])))
+        require(plain_fn[r] <= EPS, f"two-asset f64 ensemble: plain f64 ‖F‖ of row {r} is "
+                                    f"{plain_fn[r]:.3e}")
+    per_solve = {k: sum(v.values()) for k, v in got["launches"].items()}
+    emit("two_asset_ensemble_f64_nk", B=B, seconds=got["runs"][0],
+         per_path_s=got["runs"][0] / B, outer_iterations=info["iterations"],
+         directions=info["inner_iterations"], F_b_per_solve=per_solve["k5_f64_batch"],
+         residual_norm_max=float(fn.max()), rows_within_eps=B - len(stalled),
+         stalled_rows=stalled, stalled_rows_f32=[r for r in range(B) if r not in solved_f32],
+         max_abs_vs_f32_rows=vs_f32, residual_norm_plain_f64=plain_fn,
+         launches_per_solve=got["launches"], others=got["others"],
+         plain_F_calls=got["plain_F_calls"], host_ls_s=info["host_ls_seconds"],
+         bit_identical=True)
+    return tangent_pair_batch_entries(rows, two["tangent"], model,
+                                      {"bwd": per_solve["bwd"], "fwd": per_solve["fwd"]}, B,
+                                      "40x20x5x2, T=300")
+
+
 def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) -> list:
     """Phase 11: a B-path two-asset ensemble through `solve_ensemble_host`
     and the path-batched kernels 5-6 and f64 pair, on phase 7's model,
@@ -2713,20 +3295,7 @@ def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) 
     # every batched kernel launched, no plain version and no single-path
     # two-asset kernel, no plain f64 F (counted through the name the
     # ensemble takes it by).
-    plain_F_calls = [0]
-    plain_residual = ens.make_full_residual_fn
-
-    def counted_residual(*a):
-        F = plain_residual(*a)
-
-        def counted(x):
-            plain_F_calls[0] += 1
-            return F(x)
-
-        return counted
-
-    ens.make_full_residual_fn = counted_residual
-    try:
+    with plain_F_counter() as plain_F_calls:
         zero_two_asset_counts()
         runs, xs, infos = [], [], []
         for _ in range(3):
@@ -2736,8 +3305,6 @@ def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) 
             xs.append(x_sol)
             infos.append(info)
         launches, plain_calls, single = read_two_asset_counts()
-    finally:
-        ens.make_full_residual_fn = plain_residual
     require(all(n > 0 for n in launches.values()),
             f"a batched two-asset kernel never launched: {launches}")
     require(not any(plain_calls.values()) and plain_F_calls[0] == 0 and not any(single.values()),
@@ -2800,6 +3367,13 @@ def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) 
          rows_within_eps=int((fr <= EPS).sum()), stalled_paths=info_r["stalled_paths"],
          launches=read_two_asset_counts()[0], max_abs_vs_nk=max_abs(x_rich, xs[0]))
 
+    # f64 directions: the batched tangent pair, then the f64-direction
+    # Newton-Krylov solve of the same shocks, held to the f32 solve's rows.
+    gen64 = torch.Generator().manual_seed(29)
+    v64 = (torch.randn((B, 1, nE), generator=gen64, dtype=f64) * decay).reshape(B, -1).to(dev)
+    f64_entries = two_asset_f64_ensemble(two, exog_b, xs[0], fn,
+                                         [*prices(x_warm, f64), *prices(v64, f64)], widths)
+
     # The `kernels` entries: launches per ensemble solve, the ms of the
     # ensemble's width B, the bound of that launch from two_asset_ops × B.
     per_solve = {k: n // len(runs) for k, n in launches.items()}
@@ -2833,13 +3407,14 @@ def two_asset_ensemble_phase(two: dict, ptxas, B: int = 16, widths=(1, 16, 64)) 
                          "hank_tpu_torch/csrc/household_sweep2_f64.cu",
                          F_B_REPLACES, k6_f64_err,
                          width_ms["k6_f64_batch"], k6_f64_plain_ms)}
-    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": per_solve[k], "max_abs_err": err, "ms": ms[B]["ms"],
-             "plain_ms": plain_ms, **bounds[k], "library_ms": None, "B": B,
-             "plain_ms_at": "B=1", "cluster": ms[B]["cluster"],
-             **{f"ms_B{Bw}": ms[Bw]["ms"] for Bw in widths},
-             **{f"single_ms_B{Bw}": ms[Bw]["single_ms"] for Bw in widths}}
-            for k, (name, source, replaces, err, ms, plain_ms) in meta.items()]
+    return [*({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": per_solve[k], "max_abs_err": err, "ms": ms[B]["ms"],
+               "plain_ms": plain_ms, **bounds[k], "library_ms": None, "B": B,
+               "plain_ms_at": "B=1", "cluster": ms[B]["cluster"],
+               **{f"ms_B{Bw}": ms[Bw]["ms"] for Bw in widths},
+               **{f"single_ms_B{Bw}": ms[Bw]["single_ms"] for Bw in widths}}
+              for k, (name, source, replaces, err, ms, plain_ms) in meta.items()),
+            *f64_entries]
 
 
 # Phase 12's model: the shipped two-asset calibration at the published
@@ -3313,6 +3888,22 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
          F_calls_per_solve=nk_counts["values_bwd"] // 2, residual_norm=info_nk["residual_norm"],
          residual_norm_plain_f64=fnorm_nk, max_abs_vs_jax=nk_vs_jax, launches=nk_counts)
 
+    # The batched tangent pair at 50x70 (its global-state backward and
+    # global-list push, on no solver's path: no ensemble at this grid here)
+    # at B = 4 on x_ss, the solution, the smooth point and x_ss again along
+    # v, every row bit for bit a single launch.
+    rows4 = [torch.stack(q) for q in zip(*(
+        [q_.contiguous() for q_ in (*fused2_prices(x_.reshape(Tm1, nE), exog, model),
+                                   *fused2_prices(v.reshape(Tm1, nE), exog, model))]
+        for x_ in (x_ss, x_nk, smooth_x)))]
+    batch4 = tangent_pair_batch_rows(model, ss0, ssT, [q.to(f64).contiguous() for q in rows4],
+                                     (4,), reps=3)
+    require((batch4["backward"], batch4["forward"]) == (fs2.JVP_F64_BWD_GLOBAL, 6),
+            f"at 50x70 the batched tangent pair did not take its global instantiations: "
+            f"{batch4}")
+    emit("two_asset_large_f64_batch", **{k: v for k, v in batch4.items()
+                                         if not k.endswith("_bytes")})
+
     # The `kernels` entries at 50x70: launches per route solve, bounds from
     # the timed calls' inputs.
     s2, s64 = "hank_tpu_torch/csrc/household_sweep2.cu", "hank_tpu_torch/csrc/household_sweep2_f64.cu"
@@ -3364,6 +3955,9 @@ def two_asset_large_grid_phase(dev, ptxas) -> list:
     out += tangent_pair_entries(pair, model, {"bwd": nk_counts["bwd_global"] // 2,
                                                  "fwd": nk_counts["fwd_global"] // 2},
                                 "50x70x5x2, T=150")
+    out += tangent_pair_batch_entries(batch4, pair, model, {"bwd": 0, "fwd": 0}, 4,
+                                      "50x70x5x2, T=150",
+                                      main_path="no ensemble at 50x70 on this script's path")
     return out
 
 
@@ -3611,8 +4205,10 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
     The five cluster instantiations the same way against kernel 1, the f64
     tangent sweep, kernel 2 and the batched kernels (keys "k1_cluster",
     "jvp_f64_cluster", "k2_cluster", "k3_4_cluster_B16",
-    "k2_batch_cluster_B16"). Returns {kernel: {"ms": ..., "ms_one_block":
-    ...}}."""
+    "k2_batch_cluster_B16"); the batched f64 tangent sweep's global-state
+    instantiation against its cluster one and that one against its
+    one-block kernel ("jvp_f64_batch_B16", "jvp_f64_batch_cluster_B16").
+    Returns {kernel: {"ms": ..., "ms_one_block": ...}}."""
     import torch
 
     from hank_tpu_torch.ops.fused_residual import (fused_residual_sweep,
@@ -3627,7 +4223,10 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
                                                 fused_sweep_jvp_global)
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
                                                       fused_sweep_jvp_batch_cluster,
-                                                      fused_sweep_jvp_batch_global)
+                                                      fused_sweep_jvp_batch_global,
+                                                      fused_sweep_jvp_f64_batch,
+                                                      fused_sweep_jvp_f64_batch_cluster,
+                                                      fused_sweep_jvp_f64_batch_global)
 
     f32, f64 = torch.float32, torch.float64
     jvp64_inputs = {label: (*sweep_args(x, v, f64), *c64) for label, x in
@@ -3677,6 +4276,20 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
         "batched kernel 2 on a cluster", fused_residual_sweep_batch_cluster,
         fused_residual_sweep_batch,
         {"points": b64, "grid_swapped": (*r64, *c64[:2], swapped, *c64[3:])}, kw, batch=16)
+    # The batched f64 tangent sweep's global-state instantiation, on no
+    # solver's path at this grid or at 1200×7, bit for bit its cluster one;
+    # the cluster one bit for bit the one-block kernel.
+    r64j = [torch.stack(p) for p in zip(*(sweep_args(x, v, f64) for x in rows))]
+    b64j = (*r64j, *c64)
+    f64_inputs = {"points": b64j, "grid_swapped": (*r64j, *c64[:2], swapped, *c64[3:])}
+    bits["jvp_f64_batch_B16"] = bits_vs(
+        "batched f64 tangent sweep on global state", fused_sweep_jvp_f64_batch_global,
+        fused_sweep_jvp_f64_batch_cluster, f64_inputs, kw, batch=16)
+    bits["jvp_f64_batch_cluster_B16"] = bits_vs(
+        "batched f64 tangent sweep on a cluster", fused_sweep_jvp_f64_batch_cluster,
+        fused_sweep_jvp_f64_batch, f64_inputs, kw, batch=16)
+    require(sum(fallback_sum(bits["jvp_f64_batch_B16"], ["grid_swapped"])) > 0,
+            f"500x7: the swapped grid took no fallback branch: {bits['jvp_f64_batch_B16']}")
     pairs = {
         "k1": (lambda: fused_sweep_jvp(*a32, **kw),
                lambda: fused_sweep_jvp_global(*a32, **kw)),
@@ -3697,7 +4310,11 @@ def global_state_at_500(bit_inputs, bit_inputs64, sweep_args, x_ss, x_sol, smoot
         "k3_4_cluster_B16": (lambda: fused_sweep_jvp_batch(*b32, **kw),
                              lambda: fused_sweep_jvp_batch_cluster(*b32, **kw)),
         "k2_batch_cluster_B16": (lambda: fused_residual_sweep_batch(*b64, **kw),
-                                 lambda: fused_residual_sweep_batch_cluster(*b64, **kw))}
+                                 lambda: fused_residual_sweep_batch_cluster(*b64, **kw)),
+        "jvp_f64_batch_B16": (lambda: fused_sweep_jvp_f64_batch(*b64j, **kw),
+                              lambda: fused_sweep_jvp_f64_batch_global(*b64j, **kw)),
+        "jvp_f64_batch_cluster_B16": (lambda: fused_sweep_jvp_f64_batch(*b64j, **kw),
+                                      lambda: fused_sweep_jvp_f64_batch_cluster(*b64j, **kw))}
     timing = {}
     for key, (one_block, glob) in pairs.items():
         turns = in_turns({"one_block": one_block, "global": glob}, 10)
@@ -3834,7 +4451,11 @@ def large_grid_case(dev) -> dict:
     from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
                                                       fused_sweep_jvp_batch_cluster,
                                                       fused_sweep_jvp_batch_global,
-                                                      fused_sweep_jvp_batch_reference)
+                                                      fused_sweep_jvp_batch_reference,
+                                                      fused_sweep_jvp_f64_batch,
+                                                      fused_sweep_jvp_f64_batch_cluster,
+                                                      fused_sweep_jvp_f64_batch_global,
+                                                      fused_sweep_jvp_f64_batch_reference)
     from hank_tpu_torch.parallel.ensemble import solve_ensemble_host
     from hank_tpu_torch.solvers.newton import make_full_residual_fn, make_path_solver
     from hank_tpu_torch.utils.checkpoint import get_or_solve
@@ -3865,7 +4486,7 @@ def large_grid_case(dev) -> dict:
     require(ss_gap <= 1e-8, f"{n_a}x{n_e}: steady state {ss_gap:.3e} off the JAX reference")
     decided = {KERNEL_NAMES[w]: sweep_setup(model, ss0, ssT, dtype, w).kernel
                for w, dtype in ((cb.KERNEL1, f32), (cb.KERNELS3_4, f32), (cb.KERNEL2, f64),
-                                (cb.JVP_F64, f64))}
+                                (cb.JVP_F64, f64), (cb.JVP_F64_BATCH, f64))}
     require(set(decided.values()) == set(cb.CLUSTER.values()),
             f"{n_a}x{n_e}: the maps decided on {decided}")
     emit("large_grid_setup", model=name, grid=[n_a, n_e], T=T, seconds=setup_s,
@@ -4127,6 +4748,42 @@ def large_grid_case(dev) -> dict:
          stalled_rows=stalled, single_path_route=single_route, launches=counts_b,
          host_ls_s=[r[1]["host_ls_seconds"] for r in runs_b], bit_identical=True)
 
+    # f64 directions on the cluster tier: the batched f64 tangent sweep (its
+    # cluster instantiation here, as the setup's decisions require) at the
+    # warm-up's rows along the smooth
+    # directions, cycled to B = 64, every row bit for bit a single launch
+    # (the single-path f64 tangent sweep's cluster kernel) at B = 1, 16 and
+    # 64; its global-state instantiation bit for bit the cluster one at B
+    # and on the swapped grid; row 0 within 1e-10·max(scale, 1) of the
+    # plain version; then the f64-direction ensemble solve of the same
+    # shocks, held to the f32 ensemble's rows.
+    args_j = [*paths64, *prices(v_b.to(dev), f64)]
+    idx64 = torch.arange(64, device=dev) % B
+    f64_rows = f64_sweep_batch_rows([q[idx64].contiguous() for q in args_j], c64, kw,
+                                    (1, 16, 64), template=False)
+    f64_global = bits_vs("the batched f64 tangent sweep on global state",
+                         fused_sweep_jvp_f64_batch_global, fused_sweep_jvp_f64_batch_cluster,
+                         {"warm_rows": (*args_j, *c64),
+                          "grid_swapped": (*args_j, *c64[:2], swapped, *c64[3:])}, kw, batch=B)
+    require(sum(fallback_sum(f64_global, ["grid_swapped"])) > 0,
+            f"{n_a}x{n_e}: the swapped grid took no fallback branch: {f64_global}")
+    one = [q[:1].contiguous() for q in args_j]
+    ref, plain_ms["jvp_f64_batch"] = cuda_once(lambda: fused_sweep_jvp_f64_batch_reference(
+        *one, *c64, **kw))
+    plain_ms["jvp_f64_batch_global"] = plain_ms["jvp_f64_batch"]
+    for key, fn in (("jvp_f64_batch", fused_sweep_jvp_f64_batch),
+                    ("jvp_f64_batch_global", fused_sweep_jvp_f64_batch_global)):
+        out = fn(*one, *c64, **kw)
+        err[key] = max(max_abs(o, r_) for o, r_ in zip(out, ref))
+        scale = max(float(r_.abs().max()) for r_ in ref)
+        require(err[key] <= 1e-10 * max(scale, 1.0),
+                f"{n_a}x{n_e}: {key} off its plain version by {err[key]:.3e}")
+    emit("large_grid_f64_kernels", B=B, rows=f64_rows, global_state_bit_identical=f64_global,
+         max_abs_err_vs_plain_row0=err["jvp_f64_batch"], plain_ms_B1=plain_ms["jvp_f64_batch"],
+         cluster=sweep_batch_cluster(cb.CLUSTER_JVP_F64_BATCH, B, n_a, n_e))
+    f64_solved = one_asset_f64_ensemble("large_grid_f64_ensemble", model, ss0, ssT, Jbar, x_ss,
+                                        exog_b, x_warm_b)
+
     # ms per launch of each instantiation at 1200×7 (the solution; B=16 for
     # the batched ones) and its bound from the timed call's inputs; the
     # cluster ones (the wrappers' route) in turns with the global-state ones
@@ -4140,9 +4797,14 @@ def large_grid_case(dev) -> dict:
                     False, "f64", 1),
              "k3_4": (fused_sweep_jvp_batch_global, fused_sweep_jvp_batch, b32, 4, True, "f32", B),
              "k2_batch": (fused_residual_sweep_batch_global, fused_residual_sweep_batch, b64, 2,
-                          False, "f64", B)}
+                          False, "f64", B),
+             "jvp_f64_batch": (fused_sweep_jvp_f64_batch_global, fused_sweep_jvp_f64_batch,
+                               (*args_j, *c64), 4, True, "f64", B)}
+    f64_launches = f64_solved["launches_total"]["jvp_f64_batch"]
     launched = {"k1": solves["mixed"]["launches"], "jvp_f64": solves["default"]["launches"],
-                "k3_4": counts_b, "k2_batch": counts_b}
+                "k3_4": counts_b, "k2_batch": counts_b,
+                "jvp_f64_batch": {"jvp_f64_batch_cluster": f64_launches["launches_cluster"],
+                                  "jvp_f64_batch_global": f64_launches["launches_global"]}}
     rows, launches = {}, {}
     for key, (glob, wrapper, args, n_out, tangent, kind, paths) in pairs.items():
         turns = in_turns({"global": lambda g=glob, a=args: g(*a, **kw),
@@ -4191,7 +4853,24 @@ def large_grid_case(dev) -> dict:
          workspace_mb={k: state_workspace_bytes(f32 if kind == "f32" else f64, t, n_a, n_e,
                                                 p_) / 1e6
                        for k, (_, _, _, _, t, kind, p_) in pairs.items()})
-    return {"rows": rows, "launches": launches, "batched": batched}
+    f64_entries = [
+        ensemble_f64_entry(
+            f"fused_sweep_jvp_f64_batch ({tier}: {inst})", launches[row], rows[row]["max_abs_err"],
+            rows[row]["ms"], rows[row]["plain_ms"],
+            {k: rows[row][k] for k in ("bound_ms", "bound_by")}, B=B, plain_ms_at="B=1",
+            grid="1200x7, T=150", launches_per_solve=rows[row]["launches_per_solve"],
+            **({"cluster": sweep_batch_cluster(cb.CLUSTER_JVP_F64_BATCH, B, n_a, n_e),
+                "ms_global": rows["jvp_f64_batch_global"]["ms"],
+                **{f"ms_B{Bw}": r["ms"] for Bw, r in f64_rows.items()}} if tier == "cluster"
+               else {"main_path": "past the cluster instantiation's count only (at n_e = 7: "
+                                  "n_a > 1660), or on a card that holds no such cluster: held "
+                                  "through its _global entry point here"}))
+        for row, tier, inst in (("jvp_f64_batch", "cluster",
+                                 "household_sweep_cluster_kernel<double,true,true>"),
+                                ("jvp_f64_batch_global", "global state",
+                                 "household_sweep_ranged_kernel<double,true,true,true>"))]
+    return {"rows": rows, "launches": launches, "batched": batched, "f64": f64_solved,
+            "f64_entries": f64_entries}
 
 
 def driver_phase(dev) -> dict:
@@ -4469,9 +5148,9 @@ def main() -> int:
     for name in cuda_build.LIBRARIES:
         cuda_build.load_library(name)
     ptxas = cuda_build.ptxas_report(built.log)
-    # The f64 library's values pair (six kernels) and tangent pair (four):
-    # the backward kernel's second template flag and the forward's third
-    # are TANGENT.
+    # The f64 library's values pair (six kernels) and tangent pair (eight:
+    # four single-path, four over B paths): the backward kernel's second
+    # template flag and the forward's third are TANGENT, the first BATCHED.
     tangent_re = r"(bwd_f64_cluster_kernelILb[01]ELb1E|fwd_f64_cluster_kernelILb[01]ELb[01]ELb1E)"
     f64_kernels = [k for k in ptxas if "f64_cluster" in k["kernel"]
                    and not re.search(tangent_re, k["kernel"])]
@@ -4480,12 +5159,20 @@ def main() -> int:
             f"the f64 residual pair spills (or was not built): {f64_kernels}")
     tangent_kernels = [k for k in ptxas if re.search(tangent_re, k["kernel"])]
     tangent_bwd = [k for k in tangent_kernels if "bwd_" in k["kernel"]]
-    require(len(tangent_kernels) == 4 and len(tangent_bwd) == 2
+    require(len(tangent_kernels) == 8 and len(tangent_bwd) == 4
             and not any(k.get("spill_stores") or k.get("spill_loads") for k in tangent_bwd),
-            f"the f64 tangent pair's four instantiations were not built, or a backward one "
+            f"the f64 tangent pair's eight instantiations were not built, or a backward one "
             f"spills: {tangent_kernels}")
     batched = [k for k in ptxas if "cluster_kernelILb1E" in k["kernel"]]
-    require(len(batched) == 6, f"the six batched two-asset kernels were not built: {batched}")
+    require(len(batched) == 10, f"the ten batched two-asset kernels were not built: {batched}")
+    # The instantiations of the batched f64 directions: the one-asset f64
+    # tangent sweep over B paths in its three tiers, the tangent pair's
+    # four over B paths.
+    f64_directions_re = (r"ranged_kernelIdLb1ELb1E|cluster_kernelIdLb1ELb1E|"
+                         r"bwd_f64_cluster_kernelILb1ELb1E|fwd_f64_cluster_kernelILb1ELb[01]ELb1E")
+    ensemble_f64 = [k for k in ptxas if re.search(f64_directions_re, k["kernel"])]
+    require(len(ensemble_f64) == 7,
+            f"the seven batched f64 tangent instantiations were not built: {ensemble_f64}")
     global_lists = [k for k in ptxas if re.search(r"fwd_cluster_kernelILb[01]ELb1E|"
                                                   r"fwd_f64_cluster_kernelILb[01]ELb1ELb0E",
                                                   k["kernel"])]
@@ -4493,18 +5180,20 @@ def main() -> int:
             f"the four global-list forward kernels were not built: {global_lists}")
     ranged = [k for k in ptxas if "household_sweep_ranged_kernel" in k["kernel"]]
     global_state = [k for k in ranged if "ELb1EEEv" in k["kernel"]]
-    require(len(ranged) == 9 and len(global_state) == 5,
-            f"the ranged kernel's nine instantiations were not built: {ranged}")
+    require(len(ranged) == 11 and len(global_state) == 6,
+            f"the ranged kernel's eleven instantiations were not built: {ranged}")
     cluster_ptxas = [k for k in ptxas if "household_sweep_cluster_kernel" in k["kernel"]]
-    added = [k for k in cluster_ptxas if re.search(r"kernelI(dLb0|fLb1ELb1)", k["kernel"])]
-    require(len(cluster_ptxas) == 5 and len(added) == 3
+    added = [k for k in cluster_ptxas if re.search(r"kernelI(dLb0|fLb1ELb1|dLb1ELb1)",
+                                                   k["kernel"])]
+    require(len(cluster_ptxas) == 6 and len(added) == 4
             and not any(k.get("spill_stores") or k.get("spill_loads") for k in added),
-            f"the five cluster instantiations were not built, or one added here spills: "
-            f"{cluster_ptxas}")
+            f"the six cluster instantiations were not built, or one added since the path "
+            f"axis spills: {cluster_ptxas}")
     emit("build", seconds=built.seconds, libraries=built.paths, ptxas=ptxas,
          ptxas_two_asset_batched=batched, ptxas_ranged=ranged, ptxas_global_state=global_state,
          ptxas_cluster=cluster_ptxas, ptxas_global_lists=global_lists,
-         ptxas_of_this_pr=tangent_kernels, tangent_pair_fit=tangent_pair_grids(),
+         ptxas_tangent_pair=tangent_kernels, ptxas_of_this_pr=ensemble_f64,
+         tangent_pair_fit=tangent_pair_grids(),
          f64_pair_fit=f64_pair_grids(), global_list_fit=global_list_grids(),
          one_asset_grids=one_asset_grids(), fit_decisions=fit_decisions(),
          sass_vs_previous_build=sass_vs_reference(built.paths),
@@ -4646,7 +5335,8 @@ def main() -> int:
                     for label, x in (("x_ss", x_ss), ("solution", x_warm), ("smooth", smooth))}
     jvp64_err = 0.0
     for label, args in jvp64_inputs.items():
-        for o, r_ in zip(fused_sweep_jvp_f64(*args, **kw), fused_sweep_jvp_reference(*args, **kw)):
+        tail = (*(a[-CHECK_PERIODS:].contiguous() for a in args[:4]), *c64)
+        for o, r_ in zip(fused_sweep_jvp_f64(*tail, **kw), fused_sweep_jvp_reference(*tail, **kw)):
             err, scale = max_abs(o, r_), float(r_.abs().max())
             require(err <= 1e-10 * max(scale, 1.0),
                     f"f64 tangent sweep at {label} off its plain version by {err:.3e} "
@@ -4769,8 +5459,13 @@ def main() -> int:
     ensemble_kernels, ensemble = ensemble_phase(model, ss0, ssT, Jbar, x_ss)
 
     # ── 7. two-asset ───────────────────────────────────────────────────────
+    # Phase 10's dry run (a spawned NCCL rank of its own) runs beside phase
+    # 7's host-bound setup, which waits for it before its first timed check.
+    from hank_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun = Background(dryrun_multichip, 1, device=dev.type)
     with tempfile.TemporaryDirectory() as cache:
-        two_asset_kernels, two = two_asset_phase(dev, ptxas, cache)
+        two_asset_kernels, two = two_asset_phase(dev, ptxas, cache, dryrun)
 
     # ── 11. two-asset ensemble (on phase 7's setup) ────────────────────────
     two_asset_kernels += two_asset_ensemble_phase(two, ptxas)
@@ -4793,7 +5488,7 @@ def main() -> int:
                                                 lg["exog"], lg["x"])})
 
     # ── 10. mesh ───────────────────────────────────────────────────────────
-    mesh_launches = mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble)
+    mesh_launches = mesh_phase(model, ss0, ssT, Jbar, x_ss, x_warm, exog, ensemble, dryrun)
     for entry, key in zip(ensemble_kernels, ("k3_4", "k3_4", "k2_batch")):
         entry["launches_mesh"] = mesh_launches[key]
 
@@ -4835,6 +5530,7 @@ def main() -> int:
         *cluster_kernels(phase8["large_grid"], lg["global_500"],
                          {**cluster_200, **ensemble["cluster_200"]}),
         *global_state_kernels(phase8["large_grid"], lg["global_500"]),
+        *phase8["large_grid"]["f64_entries"],
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

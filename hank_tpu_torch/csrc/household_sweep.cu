@@ -1699,6 +1699,22 @@ int hank_sweep_jvp_f64(const void* r, const void* w, const void* dr, const void*
                                               stream);
 }
 
+// The f64 tangent sweep over B paths: hank_sweep_jvp_f32_batch's arguments
+// in double, household_sweep_ranged_kernel<double, true, true>; row b is a
+// single hank_sweep_jvp_f64 launch on row b, bit for bit.
+int hank_sweep_jvp_f64_batch(const void* r, const void* w, const void* dr,
+                             const void* dw, const void* V_T, const void* D0,
+                             const void* grid, const void* egrid, const void* Pi,
+                             void* pol, void* dpol, void* agg, void* dagg,
+                             void* aggc, void* daggc, void* fallback, int B, int Tm1,
+                             int n_a, int n_e, double beta, double gamma,
+                             double borrow_cons, void* stream) {
+    return launch_ranged<double, true, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol,
+                                             dpol, agg, dagg, aggc, daggc, fallback, B,
+                                             Tm1, n_a, n_e, beta, gamma, borrow_cons,
+                                             stream);
+}
+
 // The global-state instantiations: the same arguments with `state`, the
 // (B, 6n) workspace (3n for the residual sweeps) in the inputs' type, after
 // `fallback`.
@@ -1766,6 +1782,19 @@ int hank_sweep_jvp_f64_global(const void* r, const void* w, const void* dr, cons
                                                     borrow_cons, stream, state);
 }
 
+int hank_sweep_jvp_f64_batch_global(const void* r, const void* w, const void* dr,
+                                    const void* dw, const void* V_T, const void* D0,
+                                    const void* grid, const void* egrid, const void* Pi,
+                                    void* pol, void* dpol, void* agg, void* dagg,
+                                    void* aggc, void* daggc, void* fallback, void* state,
+                                    int B, int Tm1, int n_a, int n_e, double beta,
+                                    double gamma, double borrow_cons, void* stream) {
+    return launch_ranged<double, true, true, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi,
+                                                   pol, dpol, agg, dagg, aggc, daggc,
+                                                   fallback, B, Tm1, n_a, n_e, beta, gamma,
+                                                   borrow_cons, stream, state);
+}
+
 int hank_sweep_jvp_f64_previous(const void* r, const void* w, const void* dr,
                                 const void* dw, const void* V_T, const void* D0,
                                 const void* grid, const void* egrid, const void* Pi,
@@ -1787,6 +1816,20 @@ int hank_sweep_jvp_f32_batch_previous(const void* r, const void* w, const void* 
     return launch<float, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
                                agg, dagg, aggc, daggc, B, Tm1, n_a, n_e, beta,
                                gamma, borrow_cons, stream);
+}
+
+// The counting template's f64 dual build over B paths (<double, true, true>
+// at B > 1): the yardstick of hank_sweep_jvp_f64_batch.
+int hank_sweep_jvp_f64_batch_previous(const void* r, const void* w, const void* dr,
+                                      const void* dw, const void* V_T, const void* D0,
+                                      const void* grid, const void* egrid,
+                                      const void* Pi, void* pol, void* dpol, void* agg,
+                                      void* dagg, void* aggc, void* daggc, int B,
+                                      int Tm1, int n_a, int n_e, double beta,
+                                      double gamma, double borrow_cons, void* stream) {
+    return launch<double, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
+                                agg, dagg, aggc, daggc, B, Tm1, n_a, n_e, beta,
+                                gamma, borrow_cons, stream);
 }
 
 int hank_sweep_residual_f64_batch_previous(const void* r, const void* w, const void* V_T,
@@ -1864,13 +1907,17 @@ size_t hank_forward_scan_smem_bytes(int which, int n_a, int n_e) {
 // 5 household_sweep_ranged_kernel <double, true>, 6 the template
 // <double, true>; the global-state instantiations 7 <float, true, false>
 // (kernel 1's place), 8 <float, true, true>, 9 <double, false, *>,
-// 10 <double, true, false>.
+// 10 <double, true, false>; the f64 tangent sweep over B paths, 15
+// household_sweep_ranged_kernel <double, true, true> and 16 its global-state
+// instantiation (the bytes of 5 and 10: a path axis adds nothing to a block).
 size_t hank_sweep_smem_bytes(int which, int n_a, int n_e) {
     switch (which) {
         case 7:
         case 8: return global_smem_bytes<float, true>(n_a, n_e);
         case 9: return global_smem_bytes<double, false>(n_a, n_e);
-        case 10: return global_smem_bytes<double, true>(n_a, n_e);
+        case 10:
+        case 16: return global_smem_bytes<double, true>(n_a, n_e);
+        case 15: return smem_bytes<double, true>(n_a, n_e);
         case 1: return smem_bytes<float, true>(n_a, n_e);
         case 2: return jvp_smem_bytes(n_a, n_e);
         case 3: return smem_bytes<float, true>(n_a, n_e);      // the template's bytes

@@ -22,7 +22,8 @@
 // GLOBAL_LISTS flag past 2048 (b, a) states (the `_global` entry points, to
 // 4096).
 //
-// The tangent pair: each kernel's TANGENT instantiations (single path) add
+// The tangent pair: each kernel's TANGENT instantiations (single path, and
+// over B paths for ensembles as the values pair's BATCHED ones) add
 // kernel 5's and kernel 6's tangent formulas in double, so they compute
 // what the TPU kernels hank_tpu/ops/fused_sweep2.py: fused2_policies_jvp
 // (body :172, call :599) and fused2_forward_jvp (body :835, call :971)
@@ -879,8 +880,9 @@ __device__ __forceinline__ double lottery_weight_t(const double* g, int jc, doub
 
 // BATCHED: a grid of (C, B) blocks, one cluster per path b = blockIdx.y. The
 // three policy inputs are the rows of one (B, 3, Tm1, N4) tensor (as the
-// batched backward kernel writes them), so path b's start b * 3 * Tm1 * N4
-// elements on; it keeps its own Dpath (B, Tm1, N4) and writes its own row of
+// batched backward kernel writes them; TANGENT: the six policy and tangent
+// inputs of one (B, 6, Tm1, N4) tensor), so path b's start b * 3 * Tm1 * N4
+// (6 * Tm1 * N4) elements on; it keeps its own Dpath (B, Tm1, N4) and writes its own row of
 // out (B, 3, Tm1); D0, the grids, Pi and Pacc are shared. Without it (the
 // single-path entry point) the offset compiles out.
 //
@@ -921,6 +923,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     constexpr bool kRead = GLOBAL_LISTS || TANGENT;   // policies read where needed
     constexpr int kE = TANGENT ? 2 : 1;               // doubles a list entry, H and D
     constexpr int kQ = TANGENT ? 6 : 3;               // aggregates
+    constexpr size_t kP = TANGENT ? 6 : 3;            // policy rows of a path (BATCHED)
     extern __shared__ __align__(16) unsigned char smem_fwd[];
     cg::cluster_group cluster = cg::this_cluster();
     const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -964,7 +967,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     // registers (where the policies are read where needed, into L2 only).
     double npb[kFwdSources], npa[kFwdSources];
     auto prefetch = [&](int t, int gi) {
-        const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + rank + gi * C;
+        const size_t off = path_offset<BATCHED>(kP * TN) + (size_t)t * N4 + rank + gi * C;
 #pragma unroll
         for (int i = 0; i < kSrc; ++i) {
             const int s = tid + i * kFwdThreads;
@@ -986,7 +989,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     // Where the policies are read where needed: the policy of source s of
     // group g in period t.
     auto policy = [&](const double* __restrict__ p, int t, int g, int s) {
-        return p[path_offset<BATCHED>(3 * TN) + (size_t)t * N4 + g + (size_t)s * NG];
+        return p[path_offset<BATCHED>(kP * TN) + (size_t)t * N4 + g + (size_t)s * NG];
     };
     prefetch(0, 0);
 
@@ -1199,7 +1202,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) two_asset_fwd_f64_cluster_kern
     // Dpath visible), block r taking the periods t = r (mod C): thread tid
     // sums k = tid + kFwdThreads * i, then warp butterflies and warp 0's tree.
     for (int t = rank; t < Tm1; t += C) {
-        const size_t off = path_offset<BATCHED>(3 * TN) + (size_t)t * N4;
+        const size_t off = path_offset<BATCHED>(kP * TN) + (size_t)t * N4;
         const double* Dt = Dpath + path_offset<BATCHED>(kE * TN) + (size_t)t * N4;
         double v[kQ] = {0.0, 0.0, 0.0};
         for (int k = tid; k < N4; k += kFwdThreads) {
@@ -1501,14 +1504,95 @@ int hank_sweep2_forward_jvp_f64(const void* pB, const void* pA, const void* pC,
         (const double*)dC);
 }
 
+// The tangent pair over B paths, one cluster of `cluster` blocks per path
+// (<true, true, *>, <true, *, true>); row b of each is the single-path
+// launch on row b, bit for bit, at any cluster size. cudaErrorInvalidValue
+// also for B outside [1, 65535]. The backward recursion: (B, T-1) price paths
+// and their tangents -> out (B, 6, T-1, n_b, n_a, n_e, 2); global_state 1
+// keeps dW and dimp in `tws`, (B, cluster, 3 * G * n_b * n_a) f64.
+int hank_sweep2_policies_jvp_f64_batch(const void* r, const void* ra, const void* w,
+                                       const void* tau, const void* dr, const void* dra,
+                                       const void* dw, const void* dtau, const void* V_T,
+                                       const void* bgrid, const void* agrid, const void* egrid,
+                                       const void* Pi, void* tws, void* out, int Tm1, int n_b,
+                                       int n_a, int n_e, int cluster, int B, int global_state,
+                                       double beta, double lam, double chi, double borrow_cons,
+                                       void* stream) {
+    if (cluster < 1 || cluster > n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || B < 1 || B > 65535 || (global_state != 0 && global_state != 1)
+        || (global_state == 1 && tws == nullptr))
+        return (int)cudaErrorInvalidValue;
+    const int state = global_state ? kTangentGlobal : kTangentShared;
+    const bool tabled = bwd_tabled(n_b, n_a, n_e, cluster, state);
+    auto kernel = global_state ? two_asset_bwd_f64_cluster_kernel<true, true, true>
+                               : two_asset_bwd_f64_cluster_kernel<true, true, false>;
+    return (int)launch_cluster(
+        kernel, cluster, B, kBwdThreadsTangent, bwd_smem(n_b, n_a, n_e, cluster, tabled, state),
+        stream, (const double*)r, (const double*)ra, (const double*)w, (const double*)tau,
+        (const double*)V_T, (const double*)bgrid, (const double*)agrid, (const double*)egrid,
+        (const double*)Pi, (double*)out, Tm1, n_b, n_a, n_e, beta, lam, chi, borrow_cons,
+        tabled ? 1 : 0, (const double*)dr, (const double*)dra, (const double*)dw,
+        (const double*)dtau, global_state ? (double*)tws : nullptr);
+}
+
+// The forward push with tangents over B paths: pol is the (B, 6, T-1, n_b,
+// n_a, n_e, 2) output of hank_sweep2_policies_jvp_f64_batch, Dpath (B, 2,
+// T-1, N4) f64 of global scratch -> out (B, 6, T-1); global_lists 1 keeps
+// the lists in `lists`, (B, cluster, 4 * n_b * n_a, 2) f64.
+int hank_sweep2_forward_jvp_f64_batch(const void* pol, const void* D0, const void* bgrid,
+                                      const void* agrid, const void* Pi, const void* Pacc,
+                                      void* Dpath, void* lists, void* out, int Tm1, int n_b,
+                                      int n_a, int n_e, int cluster, int B, int global_lists,
+                                      void* stream) {
+    if (cluster < 1 || cluster > 2 * n_e || cluster > 16 || n_b < 2 || n_a < 2 || Tm1 < 1
+        || B < 1 || B > 65535 || (global_lists != 0 && global_lists != 1)
+        || (global_lists == 1 && lists == nullptr)
+        || n_b * n_a > (global_lists ? kFwdSourcesGlobal : kFwdSources) * kFwdThreads)
+        return (int)cudaErrorInvalidValue;
+    const int shift = fwd_shift(n_b, n_a, n_e, cluster, global_lists, true);
+    auto kernel = global_lists ? two_asset_fwd_f64_cluster_kernel<true, true, true>
+                               : two_asset_fwd_f64_cluster_kernel<true, false, true>;
+    const double* p = static_cast<const double*>(pol);
+    const size_t TN = (size_t)Tm1 * (2 * (size_t)n_b * n_a * n_e);
+    return (int)launch_cluster(
+        kernel, cluster, B, kFwdThreads,
+        fwd_smem_bytes(n_b, n_a, n_e, cluster, shift, global_lists, true), stream, p, p + TN,
+        p + 2 * TN, (const double*)D0, (const double*)bgrid, (const double*)agrid,
+        (const double*)Pi, (const double*)Pacc, (double*)Dpath, (double*)out, Tm1, n_b, n_a, n_e,
+        shift, global_lists ? (double*)lists : nullptr, p + 3 * TN, p + 4 * TN, p + 5 * TN);
+}
+
 // How many clusters of `cluster` blocks of the batched backward kernel
 // (which = 0), forward kernel (which = 1) or global-list forward kernel
-// (which = 2) the card holds at once, at an n_b x n_a x n_e x 2 grid
-// (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+// (which = 2), or of the batched tangent pair's (which as
+// hank_sweep2_f64_smem_bytes numbers them: 4 and 8 the backward kernel, 5
+// and 6 the forward push), the card holds at once, at an n_b x n_a x n_e x 2
+// grid (cudaOccupancyMaxActiveClusters), or -cudaError_t.
 int hank_sweep2_f64_max_clusters(int which, int n_b, int n_a, int n_e, int cluster) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr[1];
     int clusters = 0;
+    if (which == 4 || which == 8) {
+        const int state = which == 8 ? kTangentGlobal : kTangentShared;
+        const cudaError_t err = cluster_config(
+            which == 8 ? two_asset_bwd_f64_cluster_kernel<true, true, true>
+                       : two_asset_bwd_f64_cluster_kernel<true, true, false>,
+            cluster, 1, kBwdThreadsTangent, bwd_smem_bytes(n_b, n_a, n_e, cluster, state), nullptr,
+            cfg, attr, clusters);
+        return err != cudaSuccess ? -(int)err : clusters;
+    }
+    if (which == 5 || which == 6) {
+        const bool global_lists = which == 6;
+        const cudaError_t err = cluster_config(
+            global_lists ? two_asset_fwd_f64_cluster_kernel<true, true, true>
+                         : two_asset_fwd_f64_cluster_kernel<true, false, true>,
+            cluster, 1, kFwdThreads,
+            fwd_smem_bytes(n_b, n_a, n_e, cluster,
+                           fwd_shift(n_b, n_a, n_e, cluster, global_lists, true), global_lists,
+                           true),
+            nullptr, cfg, attr, clusters);
+        return err != cudaSuccess ? -(int)err : clusters;
+    }
     const cudaError_t err =
         which == 0 ? cluster_config(two_asset_bwd_f64_cluster_kernel<true>, cluster, 1,
                                     kBwdThreads, bwd_smem_bytes(n_b, n_a, n_e, cluster),

@@ -613,9 +613,10 @@ int launch_cluster(const void* r, const void* w, const void* dr, const void* dw,
 
 // `which` as ops/cuda_build.py numbers the one-asset kernels: the cluster
 // instantiations in kernel 1's place, in the f64 tangent sweep's, in kernels
-// 3-4's and in kernel 2's (single path and batched).
+// 3-4's, in kernel 2's (single path and batched) and in the batched f64
+// tangent sweep's.
 constexpr int kClusterKernel1 = 11, kClusterJvpF64 = 12, kClusterKernels3_4 = 13,
-              kClusterKernel2 = 14;
+              kClusterKernel2 = 14, kClusterJvpF64Batch = 17;
 
 }  // namespace
 
@@ -662,6 +663,18 @@ int hank_sweep_jvp_f32_batch_cluster(const void* r, const void* w, const void* d
                                              cluster, beta, gamma, borrow_cons, stream);
 }
 
+int hank_sweep_jvp_f64_batch_cluster(const void* r, const void* w, const void* dr,
+                                     const void* dw, const void* V_T, const void* D0,
+                                     const void* grid, const void* egrid, const void* Pi,
+                                     void* pol, void* dpol, void* agg, void* dagg, void* aggc,
+                                     void* daggc, void* fallback, int B, int Tm1, int n_a,
+                                     int n_e, int cluster, double beta, double gamma,
+                                     double borrow_cons, void* stream) {
+    return launch_cluster<double, true, true>(r, w, dr, dw, V_T, D0, grid, egrid, Pi, pol, dpol,
+                                              agg, dagg, aggc, daggc, fallback, B, Tm1, n_a, n_e,
+                                              cluster, beta, gamma, borrow_cons, stream);
+}
+
 int hank_sweep_residual_f64_cluster(const void* r, const void* w, const void* V_T,
                                     const void* D0, const void* grid, const void* egrid,
                                     const void* Pi, void* pol, void* agg, void* aggc,
@@ -687,18 +700,20 @@ int hank_sweep_residual_f64_batch_cluster(const void* r, const void* w, const vo
 
 // Shared memory of each block of the cluster instantiation `which` (11:
 // <float, true, *>, 12: <double, true, *>, 13: <float, true, *> in kernels
-// 3-4's place, 14: <double, false, *>) at an n_a x n_e grid on a cluster of
-// `cluster` blocks; 0 for another `which`.
+// 3-4's place, 14: <double, false, *>, 17: <double, true, *> in the batched
+// f64 tangent sweep's) at an n_a x n_e grid on a cluster of `cluster`
+// blocks; 0 for another `which`.
 size_t hank_sweep_cluster_smem_bytes(int which, int n_a, int n_e, int cluster) {
     if (cluster < 1) return 0;
     return which == kClusterKernel1 || which == kClusterKernels3_4
                ? cluster_smem_bytes<float, true>(n_a, n_e, cluster)
-         : which == kClusterJvpF64 ? cluster_smem_bytes<double, true>(n_a, n_e, cluster)
+         : which == kClusterJvpF64 || which == kClusterJvpF64Batch
+               ? cluster_smem_bytes<double, true>(n_a, n_e, cluster)
          : which == kClusterKernel2 ? cluster_smem_bytes<double, false>(n_a, n_e, cluster) : 0;
 }
 
 // How many clusters of `cluster` blocks of the instantiation `which` (the
-// batched one for 13 and 14) the card holds at once at an n_a x n_e grid
+// batched one for 13, 14 and 17) the card holds at once at an n_a x n_e grid
 // (cudaOccupancyMaxActiveClusters), or -cudaError_t.
 int hank_sweep_cluster_max_clusters(int which, int n_a, int n_e, int cluster) {
     cudaLaunchConfig_t cfg;
@@ -716,6 +731,9 @@ int hank_sweep_cluster_max_clusters(int which, int n_a, int n_e, int cluster) {
                              kThreads, smem, nullptr, cfg, attr, clusters);
     else if (which == kClusterKernels3_4)
         err = cluster_config(household_sweep_cluster_kernel<float, true, true>, cluster, 1,
+                             kThreads, smem, nullptr, cfg, attr, clusters);
+    else if (which == kClusterJvpF64Batch)
+        err = cluster_config(household_sweep_cluster_kernel<double, true, true>, cluster, 1,
                              kThreads, smem, nullptr, cfg, attr, clusters);
     else
         err = cluster_config(household_sweep_cluster_kernel<double, false, true>, cluster, 1,

@@ -14,7 +14,7 @@ shared library with a plain C interface, under `hank_tpu_torch/_build/`
   - `household_sweep2_f64.cu`: the two-asset full-precision residual
     (kernels 5-6's designs in FP64, values only, single-path and
     path-batched) and the same kernels' tangent instantiations (the f64
-    directions, single path), built with
+    directions, single-path and path-batched), built with
     `-fmad=false` (`EXTRA_FLAGS`): each product and sum rounds on its own,
     as the plain f64 pipeline's elementwise operations do;
   - `household_sweep_cluster.cu`: the one-asset sweeps on one thread-block
@@ -167,6 +167,9 @@ _SIGNATURES = {
         "hank_sweep_residual_f64_global": (12, 3, 3),
         "hank_sweep_residual_f64_batch_global": (12, 4, 3),
         "hank_sweep_jvp_f64_global": (17, 3, 3),
+        "hank_sweep_jvp_f64_batch": (16, 4, 3),
+        "hank_sweep_jvp_f64_batch_global": (17, 4, 3),
+        "hank_sweep_jvp_f64_batch_previous": (15, 4, 3),
         "hank_forward_scan_f32": (10, 3, 0),
         "hank_forward_scan_f32_previous": (6, 3, 0),
     },
@@ -191,11 +194,14 @@ _SIGNATURES = {
         "hank_sweep2_policies_f64_untabled": (10, 5, 4),
         "hank_sweep2_policies_jvp_f64": (15, 7, 4),
         "hank_sweep2_forward_jvp_f64": (14, 6, 0),
+        "hank_sweep2_policies_jvp_f64_batch": (15, 7, 4),
+        "hank_sweep2_forward_jvp_f64_batch": (9, 7, 0),
     },
     "household_sweep_cluster": {
         "hank_sweep_jvp_f32_cluster": (16, 3, 3),
         "hank_sweep_jvp_f64_cluster": (16, 3, 3),
         "hank_sweep_jvp_f32_batch_cluster": (16, 5, 3),
+        "hank_sweep_jvp_f64_batch_cluster": (16, 5, 3),
         "hank_sweep_residual_f64_cluster": (11, 3, 3),
         "hank_sweep_residual_f64_batch_cluster": (11, 5, 3),
     },
@@ -264,18 +270,23 @@ def check_fit(need: int, what: str, hint: str = "") -> None:
 # CLUSTER_*), per block of household_sweep_cluster_kernel's cluster: 11
 # <float, true, false>, 12 <double, true, false>, 13 <float, true, true>
 # (kernels 3-4's place), 14 <double, false, *> (kernel 2's, single path and
-# batched).
+# batched). The f64 tangent sweep over B paths: 15 the ranged kernel's
+# <double, true, true>, 16 its global-state instantiation and (cluster
+# library) 17 <double, true, true>; the same bytes a block as 5, 10 and 12.
 PREVIOUS_KERNEL2, PREVIOUS_KERNELS3_4, KERNEL1, KERNELS3_4, KERNEL2 = 0, 1, 2, 3, 4
 JVP_F64, PREVIOUS_JVP_F64 = 5, 6
 GLOBAL_KERNEL1, GLOBAL_KERNELS3_4, GLOBAL_KERNEL2, GLOBAL_JVP_F64 = 7, 8, 9, 10
 CLUSTER_KERNEL1, CLUSTER_JVP_F64, CLUSTER_KERNELS3_4, CLUSTER_KERNEL2 = 11, 12, 13, 14
+JVP_F64_BATCH, GLOBAL_JVP_F64_BATCH, CLUSTER_JVP_F64_BATCH = 15, 16, 17
 # The global-state instantiation that takes a one-block kernel's place on
 # the grids past its shared memory.
 GLOBAL_STATE = {KERNEL1: GLOBAL_KERNEL1, KERNELS3_4: GLOBAL_KERNELS3_4,
-                KERNEL2: GLOBAL_KERNEL2, JVP_F64: GLOBAL_JVP_F64}
+                KERNEL2: GLOBAL_KERNEL2, JVP_F64: GLOBAL_JVP_F64,
+                JVP_F64_BATCH: GLOBAL_JVP_F64_BATCH}
 # The cluster instantiation that takes it first.
 CLUSTER = {KERNEL1: CLUSTER_KERNEL1, JVP_F64: CLUSTER_JVP_F64,
-           KERNELS3_4: CLUSTER_KERNELS3_4, KERNEL2: CLUSTER_KERNEL2}
+           KERNELS3_4: CLUSTER_KERNELS3_4, KERNEL2: CLUSTER_KERNEL2,
+           JVP_F64_BATCH: CLUSTER_JVP_F64_BATCH}
 # The largest cluster a path takes (the portable size).
 MAX_CLUSTER = 8
 

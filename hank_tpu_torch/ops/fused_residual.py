@@ -48,9 +48,10 @@ import torch
 
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import (_check_inputs, count_launch, fallback_pointer,
-                                            household_aggregates, launch_sweep,
-                                            require_card, sweep_kernel, sweep_setup)
+from hank_tpu_torch.ops.fused_sweep import (ENSEMBLE_ROUTE, _check_inputs, count_launch,
+                                            fallback_pointer, household_aggregates,
+                                            launch_sweep, require_card, sweep_kernel,
+                                            sweep_setup)
 
 f64 = torch.float64
 
@@ -280,9 +281,10 @@ def make_sweep_residual_fn_batch(model, ss_initial, ss_ending):
     is F(x_b[b]) under the shock paths {k: exog_batch[k][b]}, (B, T-1) each.
     The household block of every row runs in one batched kernel-2 launch;
     the price map and the residual tail run per row under
-    `torch.func.vmap` in f64 torch ops."""
+    `torch.func.vmap` in f64 torch ops. Past every tier's count the build
+    raises naming the ensemble's plain route (`fused='xla'`)."""
     hook, consts, kw, to_aggs, _ = sweep_setup(model, ss_initial, ss_ending, f64,
-                                               cuda_build.KERNEL2)
+                                               cuda_build.KERNEL2, ENSEMBLE_ROUTE)
     cs = model.compspec
 
     def prices(xx, ex):

@@ -63,7 +63,7 @@ import torch
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import check_tensors
+from hank_tpu_torch.ops.fused_sweep import ENSEMBLE_ROUTE, check_tensors
 from hank_tpu_torch.ops.fused_sweep2 import (F64_PUSH, FORWARD_KERNELS, KEYS, _batch_inputs,
                                              _dims, _forward_batch_inputs, _fused2_price_hook,
                                              _policies_inputs, _state, backward_policies,
@@ -313,15 +313,15 @@ def fused2_forward_f64_batch_reference(policies, D0, model):
 fused2_forward_f64_batch_reference.calls = 0
 
 
-def check_fit_f64(model) -> int:
-    """ValueError (naming the plain route, residual_mode='f64') where the
-    pair does not take the model's grid: past the forward kernel's
-    global-list instantiation's 4096 asset states, or past a block's shared
-    memory by the library's count of the backward kernel and of the forward
-    instantiation `fused_sweep2.forward_kernel` picks, on their default
-    clusters. Returns that instantiation (SHARED_LISTS or GLOBAL_LISTS)."""
-    return check_fit_forward(F64_PUSH, _state(model)[:3], 0, "the f64 residual pair",
-                             PLAIN_ROUTE)
+def check_fit_f64(model, hint: str = PLAIN_ROUTE) -> int:
+    """ValueError (ending in `hint`: residual_mode='f64' for a single path's
+    F, fused='xla' for an ensemble's) where the pair does not take the
+    model's grid: past the forward kernel's global-list instantiation's
+    4096 asset states, or past a block's shared memory by the library's
+    count of the backward kernel and of the forward instantiation
+    `fused_sweep2.forward_kernel` picks, on their default clusters. Returns
+    that instantiation (SHARED_LISTS or GLOBAL_LISTS)."""
+    return check_fit_forward(F64_PUSH, _state(model)[:3], 0, "the f64 residual pair", hint)
 
 
 def make_fused2_residual_fn_f64(model, ss_initial, ss_ending, exog_paths):
@@ -358,7 +358,7 @@ def make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending):
     hook and the f64 tail run per row under `torch.func.vmap`; every row's
     household block is one launch each of the batched pair. On the card
     the pair is held to the model's grid here (`check_fit_f64`), before any
-    launch."""
+    launch, naming the ensemble's plain route (`fused='xla'`) past it."""
     if not supports_fused_sweep2(model):
         raise ValueError("model does not declare the two-asset price hook "
                          "(fused2_prices) and structure the kernels need")
@@ -366,7 +366,7 @@ def make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending):
     cs = model.compspec
     value_T = ss_ending.value.to(f64).contiguous()
     D0 = ss_initial.D.to(f64).contiguous()
-    forward = check_fit_f64(model) if value_T.is_cuda else None
+    forward = check_fit_f64(model, ENSEMBLE_ROUTE) if value_T.is_cuda else None
 
     def prices(xx, ex):
         return tuple(q.to(f64) for q in hook(xx.reshape(cs.T - 1, cs.n_endog), ex, model))

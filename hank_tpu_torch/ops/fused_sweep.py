@@ -463,12 +463,18 @@ KERNEL_NAMES = {cuda_build.KERNEL1: "kernel 1 (the f32 tangent sweep)",
                 cuda_build.CLUSTER_KERNEL1: "the cluster f32 tangent sweep",
                 cuda_build.CLUSTER_JVP_F64: "the cluster f64 tangent sweep",
                 cuda_build.CLUSTER_KERNELS3_4: "the cluster batched f32 tangent sweep",
-                cuda_build.CLUSTER_KERNEL2: "the cluster f64 residual sweep"}
+                cuda_build.CLUSTER_KERNEL2: "the cluster f64 residual sweep",
+                cuda_build.JVP_F64_BATCH: "the batched f64 tangent sweep",
+                cuda_build.GLOBAL_JVP_F64_BATCH: "the global-state batched f64 tangent sweep",
+                cuda_build.CLUSTER_JVP_F64_BATCH: "the cluster batched f64 tangent sweep"}
 PLAIN_ROUTES = ("; on the card only the plain routes take this grid "
                 "(direction_mode='xla', residual_mode='f64')")
+# What the ensemble's kernel maps name instead (`parallel/ensemble.py`).
+ENSEMBLE_ROUTE = ("; on the card only the plain route takes this grid "
+                  "(solve_ensemble_host(..., fused='xla'))")
 
 
-def sweep_kernel(which: int, n_a: int, n_e: int) -> int:
+def sweep_kernel(which: int, n_a: int, n_e: int, hint: str = PLAIN_ROUTES) -> int:
     """The kernel a map over one-block kernel `which` launches at an n_a×n_e
     grid, decided by the libraries' shared-memory counts before any launch:
     `which` where one block holds it; else its cluster instantiation
@@ -476,8 +482,8 @@ def sweep_kernel(which: int, n_a: int, n_e: int) -> int:
     at least one such cluster (`cuda_build.max_clusters`), both at a single
     path's cluster size, so a batched map's tier does not depend on B; else
     its global-state instantiation (`cuda_build.GLOBAL_STATE`), and
-    ValueError, naming that one and the plain routes, where its count does
-    not fit either."""
+    ValueError, naming that one and the plain routes (`hint`), where its
+    count does not fit either."""
     if cuda_build.sweep_smem_bytes(which, n_a, n_e) <= cuda_build.MAX_SMEM_BYTES:
         return which
     cluster = cuda_build.CLUSTER[which]
@@ -486,13 +492,14 @@ def sweep_kernel(which: int, n_a: int, n_e: int) -> int:
         return cluster
     kernel = cuda_build.GLOBAL_STATE[which]
     cuda_build.check_fit(cuda_build.sweep_smem_bytes(kernel, n_a, n_e),
-                         f"{KERNEL_NAMES[kernel]} at grid {n_a}x{n_e}", PLAIN_ROUTES)
+                         f"{KERNEL_NAMES[kernel]} at grid {n_a}x{n_e}", hint)
     return kernel
 
 
 def sweep_batch_cluster(kind: int, B: int, n_a: int, n_e: int) -> int:
     """The cluster size of a batched launch of the cluster instantiation
-    `kind` (`cuda_build.CLUSTER_KERNELS3_4` or `CLUSTER_KERNEL2`) over B
+    `kind` (`cuda_build.CLUSTER_KERNELS3_4`, `CLUSTER_KERNEL2` or
+    `CLUSTER_JVP_F64_BATCH`) over B
     paths at an n_a×n_e grid: `fused_sweep2.batch_cluster`'s rule, the n_e
     income rows shared by C = `cuda_build.cluster_of(n_e)`, ..., 1 blocks,
     held to the library's count per block and the card's max active
@@ -521,14 +528,15 @@ class SweepSetup(NamedTuple):
     kernel: int | None
 
 
-def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None) -> SweepSetup:
+def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None,
+                hint: str = PLAIN_ROUTES) -> SweepSetup:
     """What `_build_fused` and the `make_*` functions over the household
     sweep take from a supported model, with the steady-state arrays in
     `dtype`. With `which` (the one-block kernel the map launches,
     `cuda_build`'s numbering) and the arrays on the card, the kernel it
     launches at the model's grid (`sweep_kernel`: `which`, its cluster or
-    its global-state instantiation), and ValueError where none of their
-    shared memory takes the grid.
+    its global-state instantiation), and ValueError (ending in `hint`, the
+    routes that take the grid) where none of their shared memory takes it.
     """
     if not supports_fused_sweep(model):
         raise ValueError("model does not declare the canonical one-asset EGM "
@@ -541,7 +549,7 @@ def sweep_setup(model, ss_initial, ss_ending, dtype, which: int | None = None) -
     kw = dict(beta=float(p["β"]), gamma=float(p["γ"]), borrow_cons=float(p["borrow_cons"]))
     kernel = None
     if which is not None and consts[0].is_cuda:
-        kernel = sweep_kernel(which, wealth.n, prod.n)
+        kernel = sweep_kernel(which, wealth.n, prod.n, hint)
 
     def to_aggs(agg, aggc):
         return {policy_var: agg} if c_key is None else {policy_var: agg, c_key: aggc}

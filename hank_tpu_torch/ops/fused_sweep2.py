@@ -32,9 +32,11 @@ launchers: `_launch_cluster` and `_launch_forward_batch` take `which`, and
 For ensembles, `fused2_policies_jvp_batch` and `fused2_forward_jvp_batch`
 launch the same kernels over B paths, one cluster per path (plain versions
 `*_batch_reference`, loops over rows), row b bit for bit the single-path
-launch on row b; `make_fused2_jvp_batch` is the ensemble's direction map
-through them. The reference has no such pair for this family: it vmaps its
-XLA pipeline (`hank_tpu/parallel/ensemble.py:283-292`).
+launch on row b, and `fused2_policies_jvp_f64_batch` and
+`fused2_forward_jvp_f64_batch` the f64 tangent pair (below) the same way;
+`make_fused2_jvp_batch` is the ensemble's direction map through either
+pair (`dtype`). The reference has no such kernels for this family: it
+vmaps its XLA pipeline (`hank_tpu/parallel/ensemble.py:247-292`).
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (`fused2_policies_jvp_reference`: `torch.func.jvp` of the backward scan
@@ -69,7 +71,7 @@ import torch
 from hank_tpu_torch.blocks.assemble import assemble_full_xmat, residuals
 from hank_tpu_torch.blocks.forward import forward_iteration
 from hank_tpu_torch.ops import cuda_build
-from hank_tpu_torch.ops.fused_sweep import PLAIN_ROUTES, check_tensors
+from hank_tpu_torch.ops.fused_sweep import ENSEMBLE_ROUTE, PLAIN_ROUTES, check_tensors
 from hank_tpu_torch.ops.precision import cast_model
 
 f32, f64 = torch.float32, torch.float64
@@ -640,15 +642,14 @@ def supports_fused_sweep2(model) -> bool:
     return set(model.vars_of_type("heterogeneous")) == set(KEYS)
 
 
-def check_fit_kernels(model) -> int:
-    """ValueError (naming the plain routes) where kernels 5-6 on their
-    default clusters do not take the model's grid: past kernel 6's
-    global-list instantiation's 4096 asset states, or past a block's shared
-    memory by the library's count of kernel 5 and of the kernel 6
-    `forward_kernel` picks. A path axis adds nothing to a block. Returns
-    that kernel 6 (2 shared lists, 4 global lists)."""
-    return check_fit_forward(KERNEL6, _state(model)[:3], 3, "kernels 5-6",
-                             PLAIN_ROUTES)
+def check_fit_kernels(model, hint: str = PLAIN_ROUTES) -> int:
+    """ValueError (ending in `hint`, the routes that take the grid) where
+    kernels 5-6 on their default clusters do not take the model's grid:
+    past kernel 6's global-list instantiation's 4096 asset states, or past
+    a block's shared memory by the library's count of kernel 5 and of the
+    kernel 6 `forward_kernel` picks. A path axis adds nothing to a block.
+    Returns that kernel 6 (2 shared lists, 4 global lists)."""
+    return check_fit_forward(KERNEL6, _state(model)[:3], 3, "kernels 5-6", hint)
 
 
 def _build_fused2(model, ss_initial, ss_ending, exog_paths, plain: bool = False):
@@ -718,54 +719,64 @@ def make_fused2_residual_fn(model, ss_initial, ss_ending, exog_paths):
     return _build_fused2(model, ss_initial, ss_ending, exog_paths)[1]
 
 
-def make_fused2_jvp_batch(model, ss_initial, ss_ending):
-    """The direction map of a two-asset ensemble, `_build_fused2`'s jvp_dir
-    over B paths (as `ops/fused_sweep_batch.make_fused_jvp_batch` is for
-    the one-asset family).
+def make_fused2_jvp_batch(model, ss_initial, ss_ending, dtype=f32):
+    """The direction map of a two-asset ensemble in `dtype`: `_build_fused2`'s
+    jvp_dir over B paths in f32, `make_fused2_jvp_dir_f64`'s in f64 (as
+    `ops/fused_sweep_batch.make_fused_jvp_batch` is for the one-asset
+    family).
 
-    Returns jvp_batch(x_b, v_b, exog_batch) -> f32 (B, n): row b is the
+    Returns jvp_batch(x_b, v_b, exog_batch) -> `dtype` (B, n): row b is the
     directional derivative of F at x_b[b] along v_b[b] under the shock
     paths {k: exog_batch[k][b]}, (B, T-1) each. The price map's JVP per row
-    under `torch.func.vmap`, one launch each of the batched kernels 5 and
-    6, then the f32 assembly and residual tail's JVP per row under
-    `torch.func.vmap`. On the card the grid is held to the kernels' shared
-    memory here (`check_fit_kernels`), before any launch, and the kernel 6
-    it launches is recorded as `jvp_batch.forward_kernel` (None off the
-    card).
+    under `torch.func.vmap`, one launch each of the batched kernels 5 and 6
+    (f32) or of the batched tangent pair (f64, `fused2_policies_jvp_f64_batch`
+    and `fused2_forward_jvp_f64_batch`), then the assembly and residual
+    tail's JVP per row under `torch.func.vmap`, in `dtype`. On the card the
+    grid is held to the kernels' shared memory here (`check_fit_kernels`,
+    `check_fit_jvp_f64`), before any launch, naming the ensemble's plain
+    route (`fused='xla'`) past it, and the instantiations it launches are
+    recorded as `jvp_batch.backward_kernel` (f64 only) and
+    `jvp_batch.forward_kernel` (None off the card).
     """
     if not supports_fused_sweep2(model):
         raise ValueError("model does not declare the two-asset price hook "
                          "(fused2_prices) and structure the kernels need")
     hook = _fused2_price_hook(model)
-    model32 = cast_model(model, f32)
+    m = cast_model(model, dtype)
     cs = model.compspec
     Tm1 = cs.T - 1
-    vars0 = {k: torch.as_tensor(v).to(f32) for k, v in ss_initial.vars.items()}
-    varsT = {k: torch.as_tensor(v).to(f32) for k, v in ss_ending.vars.items()}
-    value_T = ss_ending.value.to(f32).contiguous()
-    D0 = ss_initial.D.to(f32).contiguous()
-    forward = check_fit_kernels(model) if value_T.is_cuda else None
+    vars0 = {k: torch.as_tensor(v).to(dtype) for k, v in ss_initial.vars.items()}
+    varsT = {k: torch.as_tensor(v).to(dtype) for k, v in ss_ending.vars.items()}
+    value_T = ss_ending.value.to(dtype).contiguous()
+    D0 = ss_initial.D.to(dtype).contiguous()
+    if not value_T.is_cuda:
+        kernels = (None, None)
+    elif dtype == f32:
+        kernels = (None, check_fit_kernels(model, ENSEMBLE_ROUTE))
+    else:
+        kernels = check_fit_jvp_f64(model, ENSEMBLE_ROUTE)
+    backward, forward = ((fused2_policies_jvp_batch, fused2_forward_jvp_batch) if dtype == f32
+                         else (fused2_policies_jvp_f64_batch, fused2_forward_jvp_f64_batch))
 
     def price_jvp(xx, vv, ex):
         def price_map(z):
-            return tuple(q.to(f32) for q in hook(z.reshape(Tm1, cs.n_endog), ex, model32))
+            return tuple(q.to(dtype) for q in hook(z.reshape(Tm1, cs.n_endog), ex, m))
         return torch.func.jvp(price_map, (xx,), (vv,))
 
     def tail_jvp(xx, vv, aggs, daggs, ex):
         def tail(z, a):
-            return residuals(assemble_full_xmat(z, a, ex, model32, vars0, varsT), model32)
+            return residuals(assemble_full_xmat(z, a, ex, m, vars0, varsT), m)
         return torch.func.jvp(tail, (xx, aggs), (vv, daggs))[1]
 
     def jvp_batch(x_b, v_b, exog_batch):
-        x32, v32 = x_b.to(f32), v_b.to(f32)
-        ex32 = {k: p.to(f32) for k, p in exog_batch.items()}
-        prices, dprices = torch.func.vmap(price_jvp)(x32, v32, ex32)
-        pol, dpol = fused2_policies_jvp_batch(*(q.contiguous() for q in (*prices, *dprices)),
-                                              value_T, model32)
-        aggs, daggs = fused2_forward_jvp_batch(pol, dpol, D0, model32)
-        return torch.func.vmap(tail_jvp)(x32, v32, aggs, daggs, ex32)
+        xd, vd = x_b.to(dtype), v_b.to(dtype)
+        exd = {k: p.to(dtype) for k, p in exog_batch.items()}
+        prices, dprices = torch.func.vmap(price_jvp)(xd, vd, exd)
+        pol, dpol = backward(*(q.contiguous() for q in (*prices, *dprices)), value_T, m)
+        aggs, daggs = forward(pol, dpol, D0, m)
+        return torch.func.vmap(tail_jvp)(xd, vd, aggs, daggs, exd)
 
-    jvp_batch.forward_kernel = forward
+    jvp_batch.backward_kernel, jvp_batch.forward_kernel = kernels
     return jvp_batch
 
 
@@ -790,18 +801,21 @@ def jvp_f64_backward(grid) -> int:
     return JVP_F64_BWD if count <= cuda_build.MAX_SMEM_BYTES else JVP_F64_BWD_GLOBAL
 
 
-def check_fit_jvp_f64(model) -> tuple:
-    """ValueError (naming direction_mode='xla') where the tangent pair does
+def check_fit_jvp_f64(model, hint: str = F64_DIRECTIONS_HINT) -> tuple:
+    """ValueError (ending in `hint`: direction_mode='xla' for the single
+    path's map, fused='xla' for the ensemble's) where the tangent pair does
     not take the model's grid: past the forward push's 4096 asset states
     (before any count is asked), or past a block's shared memory by the
     library's count of the backward instantiation `jvp_f64_backward` picks
     and of the forward one `forward_kernel` picks, on their default
-    clusters. Returns those two (backward, forward) `which`."""
+    clusters. A path axis adds nothing to a block, so the batched pair's
+    builds hold the same counts. Returns those two (backward, forward)
+    `which`."""
     grid = _state(model)[:3]
     backward = (jvp_f64_backward(grid) if grid[0] * grid[1] <= FORWARD_MAX_STATES[1]
                 else JVP_F64_BWD_GLOBAL)
     return backward, check_fit_forward(F64_PUSH_JVP, grid, backward, "the f64 tangent pair",
-                                       F64_DIRECTIONS_HINT)
+                                       hint)
 
 
 def fused2_policies_jvp_f64(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, value_T, model):
@@ -833,36 +847,52 @@ def fused2_policies_jvp_f64(r_p, ra_p, w_p, tau_p, dr_p, dra_p, dw_p, dtau_p, va
 fused2_policies_jvp_f64.launches = fused2_policies_jvp_f64.launches_global = 0
 
 
-def _launch_bwd_jvp_f64(paths, value_T, model, which: int):
+def _launch_bwd_jvp_f64(paths, value_T, model, which: int, batch: int | None = None,
+                        cluster: int | None = None):
     """The tangent backward instantiation `which` (JVP_F64_BWD,
     JVP_F64_BWD_GLOBAL or their untabled branches, which no route asks: the
     card's checks hold them to the tabled ones) on one cluster of
-    `default_bwd_cluster(n_e)` blocks, on CUDA tensors."""
+    `default_bwd_cluster(n_e)` blocks, on CUDA tensors; with `batch` paths
+    ((B, T-1) paths; the tabled ones only) on B clusters of `cluster`
+    blocks, as `fused2_policies_jvp_f64_batch` returns them (views of one
+    (B, 6, T-1, ...) output)."""
     liquid, illiq, income, access = _dims(model)
     state = _state(model)
-    Tm1 = paths[0].shape[0]
-    cluster = default_bwd_cluster(income.n)
+    Tm1 = paths[0].shape[-1]
+    cluster = default_bwd_cluster(income.n) if cluster is None else cluster
     lib = cuda_build.load_library("household_sweep2_f64")
     cuda_build.check_shared_memory2_f64(lib, which, *state[:3], cluster)
     dev, p = value_T.device, model.params
     global_state = which in (JVP_F64_BWD_GLOBAL, JVP_F64_BWD_GLOBAL_UNTABLED)
     untabled = which in (JVP_F64_BWD_UNTABLED, JVP_F64_BWD_GLOBAL_UNTABLED)
+    lead = () if batch is None else (batch,)
     with torch.cuda.device(dev):
         # The workspace of dW and the knots' tangents: 3 n a block, n the
         # ⌈n_e / cluster⌉·n_b·n_a states it holds room for.
         n = -(-income.n // cluster) * liquid.n * illiq.n
-        tws = torch.empty((cluster, 3 * n), dtype=f64, device=dev) if global_state else None
-        out = torch.empty((6, Tm1, *state), dtype=f64, device=dev)
+        tws = (torch.empty((*lead, cluster, 3 * n), dtype=f64, device=dev) if global_state
+               else None)
+        out = torch.empty((*lead, 6, Tm1, *state), dtype=f64, device=dev)
         grids = [t.to(device=dev, dtype=f64).contiguous() for t in
                  (liquid.grid, illiq.grid, income.grid, income.transition)]
-        err = lib.hank_sweep2_policies_jvp_f64(
-            *(t.data_ptr() for t in (*paths, value_T, *grids)),
-            None if tws is None else tws.data_ptr(), out.data_ptr(), Tm1, *state[:3], cluster,
-            int(global_state), int(untabled), float(p["β"]), float(access.transition[0, 1]),
-            float(p.get("portfolio_reg", 0.0)), float(p["borrow_cons"]),
-            torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, err, "hank_sweep2_policies_jvp_f64")
-    return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
+        ptrs = [*(t.data_ptr() for t in (*paths, value_T, *grids)),
+                None if tws is None else tws.data_ptr(), out.data_ptr(), Tm1, *state[:3], cluster]
+        doubles = (float(p["β"]), float(access.transition[0, 1]),
+                   float(p.get("portfolio_reg", 0.0)), float(p["borrow_cons"]),
+                   torch.cuda.current_stream(dev).cuda_stream)
+        if batch is None:
+            entry = "hank_sweep2_policies_jvp_f64"
+            err = lib.hank_sweep2_policies_jvp_f64(*ptrs, int(global_state), int(untabled),
+                                                   *doubles)
+        else:
+            if untabled:
+                raise ValueError("the batched tangent backward has no untabled entry point")
+            entry = "hank_sweep2_policies_jvp_f64_batch"
+            err = lib.hank_sweep2_policies_jvp_f64_batch(*ptrs, batch, int(global_state),
+                                                         *doubles)
+    cuda_build.check_launch(lib, err, entry)
+    rows = out if batch is None else out.transpose(0, 1)
+    return dict(zip(KEYS, rows[:3])), dict(zip(KEYS, rows[3:]))
 
 
 def fused2_forward_jvp_f64(policies, dpolicies, D0, model):
@@ -917,6 +947,118 @@ def _launch_fwd_jvp_f64(tensors, Tm1, model, which: int, cluster: int):
             int(global_lists), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check_launch(lib, err, "hank_sweep2_forward_jvp_f64")
     return dict(zip(KEYS, out[:3])), dict(zip(KEYS, out[3:]))
+
+
+def fused2_policies_jvp_f64_batch(r_b, ra_b, w_b, tau_b, dr_b, dra_b, dw_b, dtau_b, value_T,
+                                  model):
+    """`fused2_policies_jvp_f64` over an ensemble: (B, T-1) f64 price paths
+    and their tangents, value_T shared ↦ (policies, dpolicies), {B, A, C}
+    dicts of (B, T-1, n_b, n_a, n_e, 2) f64 paths, views of one (B, 6, T-1,
+    ...) tensor.
+
+    On the card: one launch of `two_asset_bwd_f64_cluster_kernel<true, true,
+    *>`, one cluster per path of `batch_cluster_of`'s size, its tangent
+    state in shared memory (`.launches`) or, as `jvp_f64_backward` decides,
+    dW and the knots' tangents in a (B, C, 3n) workspace
+    (`.launches_global`); row b is bit for bit `fused2_policies_jvp_f64` on
+    row b. On CPU tensors the plain version."""
+    paths = (r_b, ra_b, w_b, tau_b, dr_b, dra_b, dw_b, dtau_b)
+    B, _, state = _batch_inputs("fused2_policies_jvp_f64_batch", paths, value_T, model, f64)
+    if value_T.device.type == "cpu":
+        return fused2_policies_jvp_f64_batch_reference(*paths, value_T, model)
+    which = jvp_f64_backward(state[:3])
+    out = _launch_bwd_jvp_f64(paths, value_T, model, which, B,
+                              batch_cluster_of("household_sweep2_f64", which, B, state[:3]))
+    if which == JVP_F64_BWD:
+        fused2_policies_jvp_f64_batch.launches += 1
+    else:
+        fused2_policies_jvp_f64_batch.launches_global += 1
+    return out
+
+
+fused2_policies_jvp_f64_batch.launches = fused2_policies_jvp_f64_batch.launches_global = 0
+
+
+def fused2_policies_jvp_f64_batch_reference(r_b, ra_b, w_b, tau_b, dr_b, dra_b, dw_b, dtau_b,
+                                            value_T, model):
+    """Plain version of the batched tangent backward: a loop over rows of
+    `fused2_policies_jvp_reference` in f64."""
+    fused2_policies_jvp_f64_batch_reference.calls += 1
+    paths = (r_b, ra_b, w_b, tau_b, dr_b, dra_b, dw_b, dtau_b)
+    return _stack_rows([fused2_policies_jvp_reference(*(q[b] for q in paths), value_T, model)
+                        for b in range(r_b.shape[0])])
+
+
+fused2_policies_jvp_f64_batch_reference.calls = 0
+
+
+def fused2_forward_jvp_f64_batch(policies, dpolicies, D0, model):
+    """`fused2_forward_jvp_f64` over an ensemble: {B, A, C} (B, T-1, n_b,
+    n_a, n_e, 2) f64 policy paths and tangents, D0 shared ↦ (aggs, daggs),
+    {B, A, C} dicts of (B, T-1) f64 paths.
+
+    On the card: one launch of `two_asset_fwd_f64_cluster_kernel<true, *,
+    true>`, one cluster per path of `batch_cluster_of`'s size, on the
+    policies as `fused2_policies_jvp_f64_batch` returns them (other layouts
+    are stacked into that one first), its lists in shared memory
+    (`.launches`) or, as `forward_kernel` decides, in a (B, C,
+    4·n_b·n_a, 2) workspace (`.launches_global`); row b is bit for bit
+    `fused2_forward_jvp_f64` on row b. On CPU tensors the plain version."""
+    tensors, B, Tm1 = _forward_batch_inputs("fused2_forward_jvp_f64_batch",
+                                            (policies, dpolicies), D0, model, f64, KEYS)
+    if D0.device.type == "cpu":
+        return fused2_forward_jvp_f64_batch_reference(policies, dpolicies, D0, model)
+    grid = _state(model)[:3]
+    which = forward_kernel(F64_PUSH_JVP, *grid)
+    out = _launch_fwd_jvp_f64_batch(tensors, B, Tm1, D0, model, which,
+                                    batch_cluster_of("household_sweep2_f64", which, B, grid))
+    count_forward(fused2_forward_jvp_f64_batch, F64_PUSH_JVP, which)
+    return out
+
+
+fused2_forward_jvp_f64_batch.launches = fused2_forward_jvp_f64_batch.launches_global = 0
+
+
+def _launch_fwd_jvp_f64_batch(tensors, B, Tm1, D0, model, which: int, cluster: int):
+    """The batched forward push with tangents, instantiation `which`, on B
+    clusters of `cluster` blocks, on `_forward_batch_inputs`' CUDA tensors:
+    (aggs, daggs) as `fused2_forward_jvp_f64_batch` returns them."""
+    liquid, illiq, income, access = _dims(model)
+    state = _state(model)
+    lib = cuda_build.load_library("household_sweep2_f64")
+    cuda_build.check_shared_memory2_f64(lib, which, *state[:3], cluster)
+    dev = D0.device
+    with torch.cuda.device(dev):
+        # Scratch: each path's D and dD of every period, which the
+        # aggregates read after the recursion, and the global-list
+        # instantiation's lists.
+        Dpath = torch.empty((B, 2, Tm1, D0.numel()), dtype=f64, device=dev)
+        lists = [torch.empty(shape, dtype=f64, device=dev)
+                 for shape in lists_scratch(which, F64_PUSH_JVP, cluster, state, (B,))]
+        out = torch.empty((B, 6, Tm1), dtype=f64, device=dev)
+        grids = [t.to(device=dev, dtype=f64).contiguous() for t in
+                 (liquid.grid, illiq.grid, income.transition, access.transition)]
+        err = lib.hank_sweep2_forward_jvp_f64_batch(
+            *(t.data_ptr() for t in (path_block(tensors), D0, *grids, Dpath)),
+            lists[0].data_ptr() if lists else None, out.data_ptr(), Tm1, *state[:3], cluster, B,
+            int(which == FORWARD_KERNELS[F64_PUSH_JVP][1]),
+            torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, err, "hank_sweep2_forward_jvp_f64_batch")
+    rows = out.transpose(0, 1)
+    return dict(zip(KEYS, rows[:3])), dict(zip(KEYS, rows[3:]))
+
+
+def fused2_forward_jvp_f64_batch_reference(policies, dpolicies, D0, model):
+    """Plain version of the batched tangent push: a loop over rows of
+    `fused2_forward_jvp_reference` in f64."""
+    fused2_forward_jvp_f64_batch_reference.calls += 1
+    return _stack_rows([fused2_forward_jvp_reference({k: policies[k][b] for k in KEYS},
+                                                     {k: dpolicies[k][b] for k in KEYS},
+                                                     D0, model)
+                        for b in range(policies["B"].shape[0])])
+
+
+fused2_forward_jvp_f64_batch_reference.calls = 0
 
 
 def make_fused2_jvp_dir_f64(model, ss_initial, ss_ending, exog_paths):

@@ -4,44 +4,50 @@ An ensemble is B perfect-foresight problems that share the model, both
 steady states and J̄, and differ in their shock paths: x is (B, n) and each
 exogenous path (B, T-1). The batch is a leading dimension, not a vmap of the
 single-path solver. A host loop drives every path in lockstep through three
-batched operations, by one of three routes:
+batched operations, by one of two routes, which `solve_ensemble_host`'s
+`fused` picks:
   - the kernel route, for the one-asset CRRA EGM family
-    (`supports_fused_sweep`) with f32 directions: F_b, the f64 residual of
-    every row, has its household block in one launch of the batched kernel
-    2 (`ops/fused_residual.make_sweep_residual_fn_batch`), and the direction
-    map every row's f32 JVP in one launch of the batched kernel 1
-    (`ops/fused_sweep_batch.make_fused_jvp_batch`, kernels 3-4); on CPU
-    tensors the two kernels run their plain versions. On the card each
-    map decides by the grid between the one-block kernel and its
-    global-state instantiation (`<float, true, true, true>`, `<double,
-    false, true, true>`, whose state lives in a global workspace): at n_e =
-    7 past n_a = 1148 and 1036 the global-state ones launch, and past their
-    own counts (10792 and 5390) the route raises ValueError when built;
-  - the two-asset route, for the Calvo-access family
-    (`supports_fused_sweep2`) with the state on the card
-    (`ss_ending.value.is_cuda`, the rule "auto" follows in
-    `solvers/newton.direction_route` and `residual_route`): F_b has every
-    row's household block in one launch each of the batched f64 residual
-    pair (`ops/fused_residual2.make_fused2_residual_fn_f64_batch`), for
-    either direction dtype, and f32 directions every row's JVP in one
-    launch each of the batched kernels 5 and 6
-    (`ops/fused_sweep2.make_fused2_jvp_batch`: the f32 tail of the
-    single-path kernel map). A grid past the kernels' shared memory raises
-    ValueError when the route is built;
-  - the plain route, for every other model or f64 directions
-    (`hank_tpu/parallel/ensemble.py:76-95, 242-279`): F_b is
-    `torch.func.vmap` of the plain f64 F, the direction map that of
-    `torch.func.jvp` of F (f64) or of the single path's mixed-tail map
-    (`solvers/newton.mixed_tail_map`, f32); on CPU tensors the two-asset
-    family takes it too;
+    (`supports_fused_sweep`) and the Calvo-access two-asset family
+    (`supports_fused_sweep2`). F_b, the f64 residual of every row, has its
+    household block in one launch of the batched kernel 2
+    (`ops/fused_residual.make_sweep_residual_fn_batch`) or of each of the
+    batched f64 residual pair (`ops/fused_residual2.make_fused2_residual_fn_f64_batch`),
+    for either direction dtype. The direction map has every row's JVP in
+    one launch of the family's batched tangent kernels, in the direction
+    dtype: f32 through kernels 3-4 (`ops/fused_sweep_batch.make_fused_jvp_batch`)
+    or the batched kernels 5-6 (`ops/fused_sweep2.make_fused2_jvp_batch`),
+    f64 through the batched f64 tangent sweep (the same map in f64,
+    `fused_sweep_batch.fused_sweep_jvp_f64_batch`) or the batched f64
+    tangent pair (`fused_sweep2.fused2_*_jvp_f64_batch`). On CPU tensors
+    every kernel runs its plain version. On the card each one-asset map
+    decides by the grid, when it is built, between the one-block kernel,
+    its cluster instantiation and its global-state one (at n_e = 7 kernels
+    3-4 to n_a = 1148 / 3597 / 10792, kernel 2 to 1036 / 2694 / 5390, the
+    f64 tangent sweep to 529 / 1660 / 4980), each two-asset map between
+    its shared and global workspaces; past the last count the build raises
+    ValueError naming `fused='xla'`;
+  - the plain route (`hank_tpu/parallel/ensemble.py:76-95, 242-279`): F_b
+    is `torch.func.vmap` of the plain f64 F, the direction map that of the
+    single path's mixed-tail map (`solvers/newton.mixed_tail_map`, f32) or
+    of `torch.func.jvp` of the plain f64 F (f64 directions, as the
+    reference takes them);
 and J̄⁻¹ is applied to every row by one (B, n) × (n, n) f64 `torch.matmul`.
+`fused` has the meanings of the single path's `direction_mode`: "auto"
+takes the kernel route for both families on the card, and on CPU tensors
+the routes the reference takes there (the one-asset family's f32
+directions through the kernels' plain versions, everything else the plain
+route); "pallas" the kernel route on any device (its plain versions on
+CPU tensors), and ValueError for another model; "xla" the plain route.
+`residual_ensemble` takes "auto"'s F_b.
 
-The two-asset route departs from the reference, which vmaps its XLA
-pipeline for this family (`hank_tpu/parallel/ensemble.py:283-292`: its
-batched Pallas pair takes the one-asset family only): on the card the
-vmapped plain F took ~2.9 s a path and the plain f32 direction 15-27 s a
-path (PERF.md §6). Its f64 directions stay vmapped AD of the plain F, as in
-the reference: neither package has a kernel for them.
+The kernel route departs from the reference in two places. The reference
+vmaps its XLA pipeline for the two-asset family
+(`hank_tpu/parallel/ensemble.py:283-292`: its batched Pallas pair takes
+the one-asset family only); on the card the vmapped plain F took ~2.9 s a
+path and the plain f32 direction 15-27 s a path (PERF.md §6). And it raises
+under "pallas" with f64 directions (`:301-307`), its Pallas pair computing
+f32 only; the port takes its f64 kernels there, as
+`solvers/newton.f64_direction_route` does for a single path.
 
 With `mesh=` (`parallel/mesh.py`), each rank of the mesh's "dp" axis takes
 its contiguous block of B/size rows and runs them through the route the
@@ -57,8 +63,7 @@ gather every chunk to one device; that is a compile form, and the port
 keeps its kernels under the mesh.
 
 The reference's v5e width guard (`chunk`, `_probe_width_consistency` and the
-row padding helpers) and its `fused` switch are not ported: they are TPU
-workarounds.
+row padding helpers) is not ported: it is a TPU workaround.
 """
 
 from __future__ import annotations
@@ -128,18 +133,41 @@ def _plain_residual_batch(model, ss_initial, ss_ending):
     return torch.func.vmap(F_one)
 
 
-def _two_asset_on_card(model, ss_ending) -> bool:
-    """Whether the ensemble takes the two-asset route (module docstring)."""
-    return supports_fused_sweep2(model) and ss_ending.value.is_cuda
+def _kernel_residual_batch(model, ss_initial, ss_ending):
+    """F_b of the kernel route: the batched kernel 2 (one-asset family) or
+    the batched f64 residual pair (two-asset family)."""
+    if supports_fused_sweep(model):
+        return make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
+    return make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending)
 
 
 def _residual_batch(model, ss_initial, ss_ending):
-    """F_b(x_b, exog_batch) of the route the model and state take."""
-    if supports_fused_sweep(model):
-        return make_sweep_residual_fn_batch(model, ss_initial, ss_ending)
-    if _two_asset_on_card(model, ss_ending):
-        return make_fused2_residual_fn_f64_batch(model, ss_initial, ss_ending)
+    """F_b(x_b, exog_batch) of "auto"'s route with f32 directions for the
+    model and state: the kernel route's for the one-asset family, and for
+    the two-asset family on the card; else the plain route's."""
+    if _kernel_route(model, ss_ending, True, "auto"):
+        return _kernel_residual_batch(model, ss_initial, ss_ending)
     return _plain_residual_batch(model, ss_initial, ss_ending)
+
+
+def _kernel_route(model, ss_ending, mixed: bool, fused: str) -> bool:
+    """Whether an ensemble with f32 (`mixed`) or f64 directions takes the
+    kernel route under `fused` (module docstring): "auto" on the card for
+    both families, on CPU tensors for the one-asset family's f32 directions
+    only; "pallas" always (ValueError for a model without the kernels);
+    "xla" never."""
+    if fused not in ("auto", "pallas", "xla"):
+        raise ValueError(f"fused={fused!r}: expected 'auto'|'pallas'|'xla'")
+    one_asset, two_asset = supports_fused_sweep(model), supports_fused_sweep2(model)
+    if fused == "pallas" and not (one_asset or two_asset):
+        raise ValueError("fused='pallas' needs the one-asset EGM hook (fused_prices) or the "
+                         "two-asset one (fused2_prices) of the batched kernels; "
+                         "fused='xla' takes this model")
+    if fused != "auto":
+        return fused == "pallas"
+    if ss_ending.value.is_cuda:
+        return one_asset or two_asset
+    return one_asset and mixed
 
 
 def residual_ensemble(x_batch: torch.Tensor,
@@ -190,6 +218,7 @@ def solve_ensemble_host(x0: torch.Tensor,
                         max_inner: int = 500,
                         inner_eta: float = 1e-5,
                         direction_dtype=torch.float32,
+                        fused: str = "auto",
                         method: str = "boehl",
                         gmres_m: int = 30,
                         verbose: bool = False,
@@ -203,10 +232,14 @@ def solve_ensemble_host(x0: torch.Tensor,
     non-finite rows, freeze rows that stalled. "newton_krylov" runs the
     lockstep inexact Newton with a host-driven batched GMRES
     (`_run_ensemble_nk`, `:522-702`); gmres_m is its Arnoldi length.
-    direction_dtype: torch.float32 (default) or None / torch.float64; the
-    kernel route with f32 directions for the one-asset family, the
-    two-asset route for that family on the card, the plain route otherwise
-    (module docstring).
+    direction_dtype: torch.float32 (default) or None / torch.float64: the
+    direction map's dtype (its GMRES tolerance 3e-7 or 1e-12).
+    fused: "auto" (default), "pallas" or "xla", the route (module
+    docstring). "auto" takes the kernels on the card for both families
+    and either direction dtype; "pallas" on any device (their plain
+    versions on CPU tensors), f64 directions included, where the
+    reference raises (`hank_tpu/parallel/ensemble.py:301-307`); "xla" the
+    plain route, which also takes the grids past the kernels' counts.
 
     mesh: a `parallel/mesh.py` mesh; its "dp" axis must divide B. Each rank
     solves its block of rows in lockstep with the others (module docstring).
@@ -229,13 +262,13 @@ def solve_ensemble_host(x0: torch.Tensor,
     x = x0.to(x_dtype).expand(B, n).clone() if x0.dim() == 1 else batch.rows(x0).to(x_dtype)
     max_outer = max_outer or config.path_newton_max_iter
 
-    two_asset = _two_asset_on_card(model, ss_ending)
-    kernels = mixed and (supports_fused_sweep(model) or two_asset)
-    F_b = (_residual_batch(model, ss_initial, ss_ending) if kernels or two_asset
+    kernels = _kernel_route(model, ss_ending, mixed, fused)
+    F_b = (_kernel_residual_batch(model, ss_initial, ss_ending) if kernels
            else _plain_residual_batch(model, ss_initial, ss_ending))
     if kernels:
-        jvp_kernel = (make_fused2_jvp_batch if two_asset else make_fused_jvp_batch)(
-            model, ss_initial, ss_ending)
+        jvp_kernel = (make_fused_jvp_batch if supports_fused_sweep(model)
+                      else make_fused2_jvp_batch)(
+            model, ss_initial, ss_ending, torch.float32 if mixed else torch.float64)
 
         def jvp_b(x, v):
             return jvp_kernel(x, v, exog_batch).to(x_dtype)

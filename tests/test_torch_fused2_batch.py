@@ -270,20 +270,26 @@ def test_solve_ensemble_host_on_cpu_tensors_keeps_the_plain_route(case):
 
 def test_f64_directions_on_the_card_keep_vmapped_ad(case, monkeypatch):
     """With f64 directions a state on the card takes the batched f64 pair
-    for F_b and `torch.func.vmap` of AD through the plain F for the
-    directions (no kernel computes them in either package); the batched
-    kernels 5-6 are not called (one short outer, cut for time)."""
+    for F_b and the batched f64 tangent pair for the directions
+    (`fused2_*_jvp_f64_batch`, their plain versions here); vmapped AD
+    through the plain F, which the name recalls, is left to
+    `fused="xla"`. The batched kernels 5-6 are not called (one short
+    outer, cut for time)."""
     count_on(monkeypatch, SMEM)
     card = on_card(case.tss)
     G = shocks(case, [0.005, 0.01], [0.5, 0.8])
     before, plain = batch_counts(), PLAIN_F_CALLS[0]
+    pair = (fs2.fused2_policies_jvp_f64_batch_reference.calls,
+            fs2.fused2_forward_jvp_f64_batch_reference.calls)
     ens.solve_ensemble_host(to_torch(case.x_ss), case.J, {"G": to_torch(G)}, case.tm, card,
                             card, eps=1e-10, method="newton_krylov", direction_dtype=None,
                             max_outer=1, gmres_m=2)
     calls, launches = batch_counts()
     got = [a - b for a, b in zip(calls, before[0])]
     assert got[:2] == [0, 0] and got[2] > 0 and got[3] > 0
-    assert launches == before[1] and PLAIN_F_CALLS[0] > plain
+    assert launches == before[1] and PLAIN_F_CALLS[0] == plain
+    assert (fs2.fused2_policies_jvp_f64_batch_reference.calls > pair[0]
+            and fs2.fused2_forward_jvp_f64_batch_reference.calls > pair[1])
 
 
 def test_the_fit_check_raises_when_a_route_is_built(case, monkeypatch):

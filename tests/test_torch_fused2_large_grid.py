@@ -601,19 +601,21 @@ def test_auto_on_the_card_takes_the_global_list_kernels(monkeypatch, grid, forwa
 def test_past_4096_states_the_builds_raise_naming_the_plain_routes(monkeypatch, grid):
     """Past the global-list instantiations' 4096 asset states every two-asset
     map on the card raises at its build, before asking any count, naming
-    the plain routes; the plain routes build."""
+    the plain routes (a single path's "xla" / "f64", an ensemble's
+    fused='xla'); the plain routes build."""
     model = large_model(*grid)
     ss = card_state(model)
     asked = transcribed_counts(monkeypatch)
     n = grid[0] * grid[1]
-    f32_match = f"kernels 5-6 at grid {grid[0]}x{grid[1]}x5x2 has {n} asset states.*direction_mode='xla'"
-    f64_match = (f"f64 residual pair at grid {grid[0]}x{grid[1]}x5x2 has {n} asset "
-                 "states.*residual_mode='f64'")
+    f32_states = f"kernels 5-6 at grid {grid[0]}x{grid[1]}x5x2 has {n} asset states"
+    f64_states = f"f64 residual pair at grid {grid[0]}x{grid[1]}x5x2 has {n} asset states"
     for build, match in (
-            (lambda: newton_mod.direction_route(model, ss, ss, {}, "auto"), f32_match),
-            (lambda: fs2.make_fused2_jvp_batch(model, ss, ss), f32_match),
-            (lambda: newton_mod.residual_route(model, ss, ss, {}, "auto"), f64_match),
-            (lambda: ens._residual_batch(model, ss, ss), f64_match)):
+            (lambda: newton_mod.direction_route(model, ss, ss, {}, "auto"),
+             f"{f32_states}.*direction_mode='xla'"),
+            (lambda: fs2.make_fused2_jvp_batch(model, ss, ss), f"{f32_states}.*fused='xla'"),
+            (lambda: newton_mod.residual_route(model, ss, ss, {}, "auto"),
+             f"{f64_states}.*residual_mode='f64'"),
+            (lambda: ens._residual_batch(model, ss, ss), f"{f64_states}.*fused='xla'")):
         with pytest.raises(ValueError, match=match):
             build()
     assert not asked

@@ -104,6 +104,10 @@ BYTES = {
     cuda_build.CLUSTER_JVP_F64: lambda n_a, n_e: cluster_smem_bytes(8, n_a, n_e),
     cuda_build.CLUSTER_KERNELS3_4: lambda n_a, n_e: cluster_smem_bytes(4, n_a, n_e),
     cuda_build.CLUSTER_KERNEL2: lambda n_a, n_e: cluster_smem_bytes(8, n_a, n_e, tangent=False),
+    # The batched f64 tangent sweep: the single path's bytes at each tier.
+    cuda_build.JVP_F64_BATCH: lambda n_a, n_e: smem_bytes(8, True, n_a, n_e),
+    cuda_build.GLOBAL_JVP_F64_BATCH: lambda n_a, n_e: global_smem_bytes(8, True, n_a, n_e),
+    cuda_build.CLUSTER_JVP_F64_BATCH: lambda n_a, n_e: cluster_smem_bytes(8, n_a, n_e),
 }
 
 # The last n_a each kernel takes at n_e = 7.
@@ -483,9 +487,9 @@ def test_path_solver_raises_at_the_build_past_the_limits(ks, over, monkeypatch):
 
 def test_ensemble_routes_raise_past_the_limits(ks, over, monkeypatch):
     """Past every limit the ensemble's kernel-2 residual and its batched
-    f32 direction map raise when built; f64 ensemble directions take the
-    plain route. Past the one-block and cluster limits alone both build on
-    the batched global-state instantiations."""
+    direction maps, f32 and f64, raise when built, naming fused='xla',
+    which then takes the plain route. Past the one-block and cluster limits
+    alone they build on the batched global-state instantiations."""
     tm, tss, exog, x = ks
     card = on_card(tss)
     B = 2
@@ -494,10 +498,13 @@ def test_ensemble_routes_raise_past_the_limits(ks, over, monkeypatch):
     with pytest.raises(ValueError, match="the global-state f64 residual sweep .* needs"):
         ensemble_mod.residual_ensemble(x_b, exog_b, tm, card, card)
     J = torch.eye(x.shape[0], dtype=f64)
-    with pytest.raises(ValueError, match="the global-state f64 residual sweep .* needs"):
-        ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1)
-    ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1,
-                                     direction_dtype=None)
+    for dtype in (f32, None):
+        with pytest.raises(ValueError, match="the global-state f64 residual sweep .* needs .*"
+                                             "fused='xla'"):
+            ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1,
+                                             direction_dtype=dtype)
+        ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1,
+                                         direction_dtype=dtype, fused="xla")
     asked = []
     monkeypatch.setattr(cuda_build, "sweep_smem_bytes",
                         lambda w, n_a, n_e: asked.append(w) or one_block_over(n_a, n_e, w))
@@ -505,8 +512,11 @@ def test_ensemble_routes_raise_past_the_limits(ks, over, monkeypatch):
     assert float((F_b[0] - newton_mod.make_full_residual_fn(tm, tss, tss, exog)(x))
                  .abs().max()) <= 1e-12
     ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1)
+    ensemble_mod.solve_ensemble_host(x, J, exog_b, tm, card, card, max_outer=1,
+                                     direction_dtype=None, method="newton_krylov", gmres_m=2)
     assert {w for w in asked if w in cuda_build.GLOBAL_STATE.values()} == {
-        cuda_build.GLOBAL_KERNEL2, cuda_build.GLOBAL_KERNELS3_4}
+        cuda_build.GLOBAL_KERNEL2, cuda_build.GLOBAL_KERNELS3_4,
+        cuda_build.GLOBAL_JVP_F64_BATCH}
 
 
 @pytest.mark.parametrize("mode", ["pallas", "auto"])

@@ -56,7 +56,10 @@ from hank_tpu_torch.ops.fused_sweep import (fused_sweep_jvp, fused_sweep_jvp_clu
                                             sweep_setup)
 from hank_tpu_torch.ops.fused_sweep_batch import (fused_sweep_jvp_batch,
                                                   fused_sweep_jvp_batch_cluster,
-                                                  fused_sweep_jvp_batch_global)
+                                                  fused_sweep_jvp_batch_global,
+                                                  fused_sweep_jvp_f64_batch,
+                                                  fused_sweep_jvp_f64_batch_cluster,
+                                                  fused_sweep_jvp_f64_batch_global)
 from hank_tpu_torch.utils.checkpoint import steady_state_from_numpy
 from tests.test_torch_common import (REPO, build_small_ks_torch, ss_to_numpy, to_torch,
                                      transitory_exog)
@@ -223,7 +226,7 @@ def test_ensemble_on_the_cluster_tier(ks, to_cluster):
 
 
 @pytest.mark.parametrize("dtype,tangent,B", [(f32, True, 1), (f32, True, 64), (f64, False, 1),
-                                             (f64, False, 16), (f64, True, 1)])
+                                             (f64, False, 16), (f64, True, 1), (f64, True, 16)])
 def test_state_workspace_is_six_or_three_states_a_path(dtype, tangent, B):
     n_a, n_e = 1200, 7
     size = 4 if dtype == f32 else 8
@@ -241,7 +244,9 @@ def test_state_workspace_is_six_or_three_states_a_path(dtype, tangent, B):
     (fused_sweep_jvp_batch_global, fused_sweep_jvp_batch, f32, 4, True),
     (fused_residual_sweep_global, fused_residual_sweep, f64, 2, False),
     (fused_residual_sweep_batch_global, fused_residual_sweep_batch, f64, 2, True),
-    (fused_sweep_jvp_f64_global, fused_sweep_jvp_f64, f64, 4, False)])
+    (fused_sweep_jvp_f64_global, fused_sweep_jvp_f64, f64, 4, False),
+    (fused_sweep_jvp_f64_batch_cluster, fused_sweep_jvp_f64_batch, f64, 4, True),
+    (fused_sweep_jvp_f64_batch_global, fused_sweep_jvp_f64_batch, f64, 4, True)])
 def test_global_state_entry_points_refuse_cpu_tensors(entry, wrapper, dtype, n_paths, batched):
     """The `_cluster` and `_global` entry points launch their instantiation
     or raise: on CPU tensors ValueError naming the wrapper's plain version,
