@@ -1,0 +1,20 @@
+"""Kernel 1 (`household_sweep_jvp_kernel`, one path's f32 Newton direction):
+its launches' least time over their device time, in %."""
+
+from hank_bench.tracing import kernel_matcher
+from hank_bench.yardstick import (least_seconds as least, one_asset_sweep_bytes,
+                                  one_asset_sweep_ops, roofline_share, sizes)
+
+MATCH = kernel_matcher("household_sweep_jvp_kernel", None)
+
+
+def least_seconds(run):
+    """The least time of one launch at the cell's shapes."""
+    Tm1, n_a, n_e = sizes(run.config)
+    paths = 1
+    return least(one_asset_sweep_bytes(Tm1, n_a, n_e, True, "f32", paths),
+                 one_asset_sweep_ops(Tm1, n_a, n_e, True, paths), "f32")
+
+
+def read(run):
+    return roofline_share(run, MATCH, least_seconds(run))
